@@ -1,0 +1,17 @@
+"""lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
+
+Trains a binary GBDT on an NVIDIA GPU: host binning, device gradients, and
+leaf-wise tree growth in waves whose histograms come from a hand-written
+CUDA kernel (``csrc/wave_hist.cu``).  Imports nothing of JAX or of the JAX
+package.  Training runs on ``device='cuda'`` by default and raises when no
+card is present; ``device='cpu'`` takes the plain PyTorch path.
+"""
+
+from .basic import Booster, Dataset
+from .config import Config
+from .engine import train
+from .utils.log import LightGBMError
+
+__version__ = "0.1.0"
+
+__all__ = ["Booster", "Config", "Dataset", "LightGBMError", "train"]

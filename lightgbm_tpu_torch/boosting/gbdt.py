@@ -1,0 +1,338 @@
+"""GBDT: the boosting loop, record replay into trees, model text.
+
+Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` for the per-iteration
+device path: scores live on the training device as a (num_model, N) float32
+tensor, gradients come from the objective as torch ops, each iteration
+grows one tree with ``ops/grow.DeviceGrower``, and the tree's split records
+stay on the device until they are replayed into host ``Tree`` objects
+(``_flush_pending``).  Prediction walks the host trees in float64.  The
+model text is the reference's "v2" format, so it loads into the JAX
+package and back.  The fused multi-iteration scan, valid sets, bagging and
+early stopping are not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.dataset import BinnedDataset
+from ..metrics import create_metrics
+from ..objectives import create_objective
+from ..ops.grow import DeviceGrower
+from ..params import PARAM_BY_NAME
+from ..tree.tree import Tree
+from ..utils.log import LightGBMError, log_info, log_warning
+
+K_EPSILON = 1e-15
+MODEL_VERSION = "v2"
+
+
+def resolve_device(name: str) -> torch.device:
+    """The training device.  ``cuda`` without a card raises: the port never
+    carries on on the CPU unless the caller asks for ``cpu``."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise LightGBMError(
+            "device_type=cuda but torch.cuda.is_available() is False; pass "
+            "device='cpu' to train with the plain PyTorch ops on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise LightGBMError(f"unsupported device {name!r}")
+    return dev
+
+
+def _replay_records(rec_i, rec_f, nl, shrinkage, bias, dataset,
+                    config) -> Tree:
+    """Replay the host copy of one tree's split records into a ``Tree``."""
+    tree = Tree(config.num_leaves)
+    if nl > 1:
+        for s in range(nl - 1):
+            leaf, _right, f, thr, dl = (int(v) for v in rec_i[s])
+            gain, _lg, _lh, lc, _rg, _rh, rc, lout, rout = (
+                float(v) for v in rec_f[s])
+            real_f = dataset.used_features[f]
+            mapper = dataset.bin_mappers[real_f]
+            tree.split(leaf, f, real_f, thr, mapper.bin_to_value(thr), lout,
+                       rout, int(lc), int(rc), gain,
+                       dataset.f_missing_type[f], bool(dl))
+        tree.apply_shrinkage(shrinkage)
+    # a stump applied nothing to the scores, so it carries only the bias
+    if abs(bias) > K_EPSILON:
+        tree.add_bias(bias)
+    return tree
+
+
+class _PendingTree:
+    """Device-side split records of a grown tree, replayed lazily."""
+
+    __slots__ = ("rec_i", "rec_f", "nl", "shrinkage", "bias")
+
+    def __init__(self, rec_i, rec_f, nl, shrinkage, bias):
+        self.rec_i, self.rec_f, self.nl = rec_i, rec_f, nl
+        self.shrinkage, self.bias = shrinkage, bias
+
+    @property
+    def num_leaves(self) -> int:
+        return self.nl
+
+    def materialize(self, dataset, config) -> Tree:
+        return _replay_records(self.rec_i.cpu().numpy(),
+                               self.rec_f.cpu().numpy(), self.nl,
+                               self.shrinkage, self.bias, dataset, config)
+
+
+class GBDT:
+    """Gradient Boosting Decision Tree driver."""
+
+    def __init__(self, config: Config):
+        self.config = config
+        self.models: List = []
+        self.iter = 0
+        self.train_set: Optional[BinnedDataset] = None
+        self.objective = None
+        self.num_model = 1
+        self.shrinkage_rate = config.learning_rate
+        self.train_metrics = []
+        self.average_output = False
+        self.loaded_objective_str = ""
+        self.max_feature_idx = 0
+        self.feature_names: List[str] = []
+        self.feature_infos: List[str] = []
+        self._grower: Optional[DeviceGrower] = None
+        self._device_stop = False
+        #: per-tree (seconds, waves, host syncs) of the device path
+        self.tree_stats: List[Tuple[float, int, int]] = []
+
+    # ------------------------------------------------------------------
+    def init_train(self, train_set: BinnedDataset):
+        cfg = self.config
+        if cfg.boosting != "gbdt":
+            raise LightGBMError(f"boosting={cfg.boosting} is not ported to "
+                                f"lightgbm_tpu_torch yet")
+        self.device = resolve_device(cfg.device_type)
+        self.train_set = train_set
+        self.objective = create_objective(cfg)
+        n = train_set.num_data
+        md = train_set.metadata
+        self.objective.init(md, n, self.device)
+        self.num_model = self.objective.num_model_per_iteration
+        self.num_data = n
+        self.train_score = torch.zeros((self.num_model, n),
+                                       dtype=torch.float32,
+                                       device=self.device)
+        self.has_init_score = md.init_score is not None
+        if self.has_init_score:
+            init = np.asarray(md.init_score, np.float64).reshape(-1)
+            if len(init) != n * self.num_model:
+                raise LightGBMError(
+                    f"Initial score size doesn't match data size: got "
+                    f"{len(init)}, expected num_data * num_model = "
+                    f"{n} * {self.num_model}")
+            self.train_score = torch.as_tensor(
+                init.reshape(self.num_model, n), dtype=torch.float32,
+                device=self.device)
+        self.train_metrics = create_metrics(cfg)
+        for m in self.train_metrics:
+            m.init(md, n)
+        self.feature_names = list(train_set.feature_names)
+        self.max_feature_idx = train_set.num_total_features - 1
+        self.feature_infos = [m.feature_info_str() for m in
+                              train_set.bin_mappers]
+        self._grower = DeviceGrower(train_set, cfg, self.device)
+        log_info(f"Training on {self.device} ({n} rows, "
+                 f"{train_set.num_groups} feature groups)")
+
+    def boost_from_average(self, class_id: int) -> float:
+        cfg = self.config
+        if self.models or self.has_init_score:
+            return 0.0
+        if cfg.boost_from_average or self.train_set.num_features == 0:
+            init_score = self.objective.boost_from_score(class_id)
+            if abs(init_score) > K_EPSILON:
+                self.train_score[class_id] += init_score
+                log_info(f"Start training from score {init_score:f}")
+                return init_score
+        return 0.0
+
+    # ------------------------------------------------------------------
+    def train_one_iter(self) -> bool:
+        """One boosting iteration; returns True when training should stop
+        (the tree is a stump: no leaf meets the split requirements).
+
+        The stump check reads each tree's leaf count as soon as the tree
+        is grown: the wave loop has it on the host already.  (The JAX
+        package checks with a 4-iteration lag to keep its dispatch
+        pipeline full, and trims the extra stumps afterwards.)"""
+        if self._device_stop:
+            return True
+        if not self.objective.class_need_train(0):
+            # one-class labels: a fixed stump carrying the class's score
+            if not self.models:
+                tree = Tree(2)
+                tree.leaf_value[0] = self.objective.boost_from_score(0)
+                self.train_score[0] += tree.leaf_value[0]
+                self.models.append(tree)
+            self._device_stop = True
+            return True
+        t0 = time.perf_counter()
+        bias = self.boost_from_average(0)
+        grad, hess = self.objective.get_gradients(self.train_score)
+        shrink = self.shrinkage_rate
+        res = self._grower.grow_one_iter(self.train_score[0], grad, hess,
+                                         shrink)
+        self.train_score[0] = res.score
+        self.models.append(_PendingTree(res.rec_i, res.rec_f,
+                                        res.num_leaves, shrink, bias))
+        self.iter += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.tree_stats.append((time.perf_counter() - t0, res.waves,
+                                res.host_syncs))
+        if res.num_leaves <= 1:
+            self._device_stop = True
+            self._flush_pending()
+            log_warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            return True
+        return False
+
+    def _flush_pending(self):
+        """Replay every device-grown tree into a host ``Tree``, then drop
+        trailing stump iterations (the stop condition), keeping a first
+        stump that carries the boost-from-average bias."""
+        for i, m in enumerate(self.models):
+            if isinstance(m, _PendingTree):
+                self.models[i] = m.materialize(self.train_set, self.config)
+        nm = max(self.num_model, 1)
+        while (len(self.models) > nm
+               and all(t.num_leaves <= 1 for t in self.models[-nm:])):
+            del self.models[-nm:]
+            self.iter -= 1
+
+    def eval_train(self) -> List[Tuple[str, str, float, bool]]:
+        score = self.train_score.double().cpu().numpy()
+        return [("training", name, value, m.bigger_is_better)
+                for m in self.train_metrics
+                for name, value in m.eval(score, self.objective)]
+
+    def num_iterations(self) -> int:
+        return len(self.models) // max(self.num_model, 1)
+
+    # ------------------------------------------------------------------
+    def predict_raw(self, data: np.ndarray) -> np.ndarray:
+        """(num_model, N) float64 raw scores by the host tree walk."""
+        self._flush_pending()
+        data = np.ascontiguousarray(np.asarray(data, np.float64))
+        out = np.zeros((self.num_model, data.shape[0]), np.float64)
+        for i, tree in enumerate(self.models):
+            out[i % self.num_model] += tree.predict(data)
+        if self.average_output and self.models:
+            out /= self.num_iterations()
+        return out
+
+    def predict(self, data, raw_score=False):
+        raw = self.predict_raw(data)
+        if not raw_score and not self.average_output:
+            if self.objective is not None:
+                raw = self.objective.convert_output(raw)
+            elif self.loaded_objective_str:
+                raw = _convert_by_name(self.loaded_objective_str, raw)
+        return raw[0] if self.num_model == 1 else raw.T
+
+    def split_counts(self) -> np.ndarray:
+        """Splits per feature over all trees (the model text's "feature
+        importances" block)."""
+        self._flush_pending()
+        out = np.zeros(self.max_feature_idx + 1, np.int64)
+        for tree in self.models:
+            np.add.at(out, tree.split_feature[:tree.num_leaves - 1], 1)
+        return out
+
+    # ------------------------------------------------------------------
+    # model text (gbdt_model_text.cpp:243-330 format "v2")
+    def model_to_string(self) -> str:
+        self._flush_pending()
+        label_index = (int(self.config.label_column or 0)
+                       if str(self.config.label_column).isdigit() else 0)
+        lines = ["tree", f"version={MODEL_VERSION}",
+                 f"num_class={max(int(self.config.num_class), 1)}",
+                 f"num_tree_per_iteration={self.num_model}",
+                 f"label_index={label_index}",
+                 f"max_feature_idx={self.max_feature_idx}"]
+        if self.objective is not None:
+            lines.append(f"objective={self.objective.to_string()}")
+        elif self.loaded_objective_str:
+            lines.append(f"objective={self.loaded_objective_str}")
+        if self.average_output:
+            lines.append("average_output")
+        lines.append("feature_names=" + " ".join(self.feature_names))
+        lines.append("feature_infos=" + " ".join(self.feature_infos))
+
+        tree_strs = [f"Tree={i}\n" + tree.to_string()
+                     for i, tree in enumerate(self.models)]
+        lines.append("tree_sizes=" + " ".join(str(len(s) + 1)
+                                              for s in tree_strs))
+        lines.append("")
+        body = "\n".join(lines)
+        for s in tree_strs:
+            body += s + "\n"
+        body += "end of trees\n"
+        counts = self.split_counts()
+        body += "\nfeature importances:\n"
+        for i in np.argsort(-counts, kind="stable"):
+            if counts[i] > 0:
+                body += f"{self.feature_names[i]}={counts[i]}\n"
+        body += "\nparameters:\n"
+        body += self._params_string()
+        body += "\nend of parameters\n"
+        return body
+
+    def _params_string(self) -> str:
+        out = []
+        for p in PARAM_BY_NAME.values():
+            v = getattr(self.config, p.name, p.default)
+            if isinstance(v, list):
+                v = ",".join(str(x) for x in v)
+            out.append(f"[{p.name}: {v}]")
+        return "\n".join(out)
+
+    @classmethod
+    def load_model_from_string(cls, text: str, config=None) -> "GBDT":
+        config = config or Config({})
+        booster = cls(config)
+        header, _, rest = text.partition("Tree=")
+        kv: Dict[str, str] = {}
+        for line in header.splitlines():
+            if "=" in line:
+                k, v = line.split("=", 1)
+                kv[k.strip()] = v
+            elif line.strip() == "average_output":
+                booster.average_output = True
+        booster.num_model = int(kv.get("num_tree_per_iteration", 1))
+        booster.max_feature_idx = int(kv.get("max_feature_idx", 0))
+        booster.feature_names = kv.get("feature_names", "").split()
+        booster.feature_infos = kv.get("feature_infos", "").split()
+        booster.loaded_objective_str = kv.get("objective", "")
+        config.num_class = int(kv.get("num_class", 1))
+        if rest:
+            blocks = ("Tree=" + rest).split("end of trees")[0]
+            for block in blocks.split("Tree=")[1:]:
+                booster.models.append(Tree.from_string(block))
+        booster.iter = len(booster.models) // max(booster.num_model, 1)
+        return booster
+
+
+def _convert_by_name(objective_str: str, raw: np.ndarray) -> np.ndarray:
+    """Output transform for models loaded from text (no live objective);
+    the binary slice's objectives only."""
+    name = objective_str.split()[0] if objective_str else ""
+    params = dict(p.split(":", 1) for p in objective_str.split()[1:]
+                  if ":" in p)
+    if name in ("binary", "multiclassova", "cross_entropy"):
+        sigmoid = float(params.get("sigmoid", 1.0))
+        return 1.0 / (1.0 + np.exp(-sigmoid * raw))
+    return raw

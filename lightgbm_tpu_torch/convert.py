@@ -1,0 +1,79 @@
+"""Build port objects from arrays: trees and bin mappers of a model trained
+elsewhere (the JAX package, or the reference), handed over as numpy arrays.
+
+A GBDT's state is its trees and its bin mappers.  The caller extracts the
+fields to numpy; this module imports nothing of the package they came from.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+
+from .basic import Booster
+from .boosting.gbdt import GBDT
+from .config import Config
+from .data.binning import BinMapper
+from .tree.tree import Tree
+
+#: Tree fields taken from the arrays, with their dtypes
+TREE_FIELDS = {
+    "split_feature": np.int32, "split_gain": np.float64,
+    "threshold": np.float64, "threshold_in_bin": np.int32,
+    "decision_type": np.int8, "left_child": np.int32,
+    "right_child": np.int32, "leaf_value": np.float64,
+    "leaf_count": np.int64, "internal_value": np.float64,
+    "internal_count": np.int64,
+}
+
+
+def tree_from_arrays(arrays: Mapping) -> Tree:
+    """One ``Tree`` from a mapping with ``num_leaves``, the
+    :data:`TREE_FIELDS` arrays and optionally ``shrinkage``, ``num_cat``,
+    ``cat_boundaries`` and ``cat_threshold``."""
+    n = int(arrays["num_leaves"])
+    tree = Tree(max(n, 2))
+    tree.num_leaves = n
+    for name, dt in TREE_FIELDS.items():
+        if name not in arrays:
+            continue
+        src = np.asarray(arrays[name], dt)
+        dst = getattr(tree, name)
+        dst[:len(src)] = src[:len(dst)]
+    tree.split_feature_inner = tree.split_feature.copy()
+    tree.shrinkage = float(arrays.get("shrinkage", 1.0))
+    tree.num_cat = int(arrays.get("num_cat", 0))
+    if tree.num_cat:
+        tree.cat_boundaries = [int(v) for v in arrays["cat_boundaries"]]
+        tree.cat_threshold = [int(v) for v in arrays["cat_threshold"]]
+    for node in range(n - 1):
+        for child in (tree.left_child[node], tree.right_child[node]):
+            if child < 0:
+                tree.leaf_parent[~child] = node
+    return tree
+
+
+def booster_from_arrays(trees: Sequence[Mapping], params=None, *,
+                        max_feature_idx: int, feature_names=None,
+                        objective: str = "binary sigmoid:1",
+                        num_tree_per_iteration: int = 1) -> Booster:
+    """A port ``Booster`` that predicts with the given trees.  ``objective``
+    is the model text's objective line (it picks the output transform)."""
+    gbdt = GBDT(Config(dict(params or {})))
+    gbdt.models = [tree_from_arrays(t) for t in trees]
+    gbdt.num_model = int(num_tree_per_iteration)
+    gbdt.iter = len(gbdt.models) // gbdt.num_model
+    gbdt.max_feature_idx = int(max_feature_idx)
+    gbdt.feature_names = (list(feature_names) if feature_names is not None
+                          else [f"Column_{i}"
+                                for i in range(max_feature_idx + 1)])
+    gbdt.loaded_objective_str = objective
+    return Booster.from_gbdt(gbdt, params)
+
+
+def bin_mappers_from_arrays(states: Sequence[Mapping]):
+    """Port ``BinMapper``s from the mappers' state mappings (the fields of
+    ``BinMapper.to_state``: bin boundaries, default bin, missing type,
+    ...)."""
+    return [BinMapper.from_state(dict(s)) for s in states]

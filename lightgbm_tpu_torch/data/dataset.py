@@ -1,0 +1,319 @@
+"""Binned dataset construction on the host: sampling, bin finding, bundling,
+group storage.
+
+Counterpart of ``lightgbm_tpu/data/dataset.py`` for a dense float matrix
+(``construct_from_matrix``).  The binned matrix is a dense
+``(num_data, num_groups)`` uint8 array: every feature group holds <= 256
+total bins, so one byte per group cell suffices.  Slot 0 of every group
+means "all features at their default bin"; feature ``f`` with bin
+``b != default_bin(f)`` maps to ``offset(f) + b - (1 if default_bin(f) == 0
+else 0)``.  The split scan reconstructs the skipped default bin from leaf
+totals.  Bin codes, groups and offsets are the JAX package's byte for byte.
+CSR input and device-side binning are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from ..config import Config
+from ..utils.log import LightGBMError, log_warning
+from ..utils.random import make_rng
+from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper
+
+MAX_GROUP_BIN = 256
+
+
+class Metadata:
+    """Labels, weights and init scores (reference ``Metadata``)."""
+
+    def __init__(self, num_data: int):
+        self.num_data = num_data
+        self.label: Optional[np.ndarray] = None
+        self.weights: Optional[np.ndarray] = None
+        self.init_score: Optional[np.ndarray] = None
+
+    def set_label(self, label):
+        label = np.ascontiguousarray(label, dtype=np.float32).reshape(-1)
+        if len(label) != self.num_data:
+            raise LightGBMError(
+                f"label length {len(label)} != num_data {self.num_data}")
+        self.label = label
+
+    def set_weights(self, weights):
+        if weights is None:
+            self.weights = None
+            return
+        weights = np.ascontiguousarray(weights, dtype=np.float32).reshape(-1)
+        if len(weights) != self.num_data:
+            raise LightGBMError(
+                f"weight length {len(weights)} != num_data {self.num_data}")
+        self.weights = weights
+
+    def set_init_score(self, init_score):
+        if init_score is None:
+            self.init_score = None
+            return
+        self.init_score = np.ascontiguousarray(
+            init_score, dtype=np.float64).reshape(-1)
+
+
+class FeatureGroupInfo:
+    """Static description of one feature group (bundle)."""
+
+    __slots__ = ("feature_indices", "bin_offsets", "num_total_bin")
+
+    def __init__(self, feature_indices: List[int],
+                 bin_mappers: List[BinMapper]):
+        self.feature_indices = list(feature_indices)
+        # slot 0 reserved for "all defaults" (reference feature_group.h:33-45)
+        self.bin_offsets = [1]
+        total = 1
+        for m in bin_mappers:
+            total += m.num_bin - (1 if m.default_bin == 0 else 0)
+            self.bin_offsets.append(total)
+        self.num_total_bin = total
+
+
+class BinnedDataset:
+    """Host-side binned dataset; the grower uploads its transpose."""
+
+    def __init__(self):
+        self.num_data: int = 0
+        self.num_total_features: int = 0
+        self.bin_mappers: List[Optional[BinMapper]] = []
+        self.groups: List[FeatureGroupInfo] = []
+        self.binned: Optional[np.ndarray] = None       # (N, G) uint8
+        self.metadata: Optional[Metadata] = None
+        self.feature_names: List[str] = []
+        self.used_features: List[int] = []             # original idx, non-trivial
+        # per-used-feature flattened lookups (device metadata)
+        self.f_group = np.empty(0, np.int32)
+        self.f_offset = np.empty(0, np.int32)
+        self.f_num_bin = np.empty(0, np.int32)
+        self.f_default_bin = np.empty(0, np.int32)
+        self.f_missing_type = np.empty(0, np.int32)    # 0/1/2 none/zero/nan
+        self.f_is_categorical = np.empty(0, np.int32)
+        self.monotone_constraints = np.empty(0, np.int32)
+        self.feature_penalty = np.empty(0, np.float64)
+
+    @property
+    def num_groups(self) -> int:
+        return len(self.groups)
+
+    @property
+    def num_features(self) -> int:
+        return len(self.used_features)
+
+    @classmethod
+    def construct_from_matrix(
+            cls, data: np.ndarray, config: Config,
+            categorical: Sequence[int] = (),
+            feature_names: Optional[Sequence[str]] = None,
+    ) -> "BinnedDataset":
+        """Build from a dense float matrix (rows, features)."""
+        data = np.asarray(data)
+        if data.ndim != 2:
+            raise LightGBMError("data must be 2-dimensional")
+        n, num_feat = data.shape
+        ds = cls()
+        ds.num_data = n
+        ds.num_total_features = num_feat
+        ds.metadata = Metadata(n)
+        ds.feature_names = ([f"Column_{i}" for i in range(num_feat)]
+                            if feature_names is None else list(feature_names))
+        ds._find_bins(data, config, set(int(c) for c in categorical))
+        ds._bundle_features(data, config)
+        ds._build_group_matrix(data)
+        ds._build_feature_lookups(config)
+        return ds
+
+    # -- stage 1: bin mappers ---------------------------------------------
+    def _find_bins(self, data: np.ndarray, config: Config,
+                   categorical: set) -> None:
+        n = self.num_data
+        sample_cnt = min(n, int(config.bin_construct_sample_cnt))
+        rng = make_rng(config.data_random_seed)
+        if sample_cnt < n:
+            sample_idx = np.sort(rng.choice(n, size=sample_cnt,
+                                            replace=False))
+        else:
+            sample_idx = np.arange(n)
+        self._sample_idx = sample_idx
+        sampled = np.asarray(data[sample_idx], dtype=np.float64)
+
+        # filter count mirrors dataset_loader.cpp:787 scaling to the sample
+        filter_cnt = int(0.95 * config.min_data_in_leaf / max(n, 1)
+                         * sample_cnt)
+        self.bin_mappers = []
+        for f in range(self.num_total_features):
+            col = sampled[:, f]
+            bin_type = BIN_CATEGORICAL if f in categorical else BIN_NUMERICAL
+            m = BinMapper()
+            # recorded values contract: non-zero entries + NaNs, zeros are
+            # implicit (the sparse sampling path of the loader)
+            recorded = col[(col != 0.0) | np.isnan(col)]
+            m.find_bin(recorded, sample_cnt, config.max_bin,
+                       config.min_data_in_bin, filter_cnt, bin_type,
+                       config.use_missing, config.zero_as_missing)
+            self.bin_mappers.append(m)
+        self.used_features = [f for f in range(self.num_total_features)
+                              if not self.bin_mappers[f].is_trivial]
+        if not self.used_features:
+            log_warning("There are no meaningful features, as all feature "
+                        "values are constant.")
+
+    # -- stage 2: bundling -------------------------------------------------
+    def _bundle_features(self, data: np.ndarray, config: Config) -> None:
+        used = self.used_features
+        if not used:
+            self.groups = []
+            return
+        if not config.enable_bundle or len(used) == 1:
+            feature_groups = [[f] for f in used]
+        else:
+            feature_groups = self._fast_feature_bundling(data, config)
+        self.groups = [FeatureGroupInfo(g, [self.bin_mappers[f] for f in g])
+                       for g in feature_groups]
+        for g in self.groups:
+            if g.num_total_bin > MAX_GROUP_BIN:
+                raise LightGBMError(
+                    f"feature group exceeds {MAX_GROUP_BIN} bins; "
+                    f"reduce max_bin (got {g.num_total_bin})")
+
+    def _fast_feature_bundling(self, data: np.ndarray, config: Config):
+        """Greedy conflict-bounded bundling (reference dataset.cpp:66-210)
+        over the sampled rows' recorded (non-zero or NaN) masks."""
+        sampled = np.asarray(data[self._sample_idx], dtype=np.float64)
+        nz_masks, nz_counts = {}, {}
+        for f in self.used_features:
+            col = sampled[:, f]
+            mask = (col != 0.0) | np.isnan(col)
+            nz_masks[f] = mask
+            nz_counts[f] = int(mask.sum())
+        return self._bundle_from_masks(config, nz_masks, nz_counts,
+                                       len(self._sample_idx))
+
+    def _bundle_from_masks(self, config: Config, nz_masks, nz_counts,
+                           total_sample: int):
+        """Tries two orderings (original and by descending non-zero count),
+        keeps whichever yields fewer groups, then breaks small sparse groups
+        back apart.  Groups are capped at 256 total bins."""
+        used = self.used_features
+        max_error_cnt = int(total_sample * config.max_conflict_rate)
+        filter_cnt = int(0.95 * config.min_data_in_leaf
+                         / max(self.num_data, 1) * total_sample)
+
+        def extra_bins(f):
+            m = self.bin_mappers[f]
+            return m.num_bin - (1 if m.default_bin == 0 else 0)
+
+        def find_groups(order):
+            groups: List[List[int]] = []
+            marks: List[np.ndarray] = []
+            conflict_cnt: List[int] = []
+            non_zero_cnt: List[int] = []
+            num_bin: List[int] = []
+            for f in order:
+                cur_nz = nz_counts[f]
+                placed = False
+                for gid in range(len(groups)):
+                    if non_zero_cnt[gid] + cur_nz > total_sample + max_error_cnt:
+                        continue
+                    if num_bin[gid] + extra_bins(f) > MAX_GROUP_BIN:
+                        continue
+                    rest_max = max_error_cnt - conflict_cnt[gid]
+                    cnt = int((marks[gid] & nz_masks[f]).sum())
+                    if cnt <= rest_max:
+                        rest_nz = int((cur_nz - cnt) * self.num_data
+                                      / max(total_sample, 1))
+                        if rest_nz < filter_cnt:
+                            continue
+                        groups[gid].append(f)
+                        conflict_cnt[gid] += cnt
+                        non_zero_cnt[gid] += cur_nz - cnt
+                        marks[gid] |= nz_masks[f]
+                        num_bin[gid] += extra_bins(f)
+                        placed = True
+                        break
+                if not placed:
+                    groups.append([f])
+                    marks.append(nz_masks[f].copy())
+                    conflict_cnt.append(0)
+                    non_zero_cnt.append(cur_nz)
+                    num_bin.append(1 + extra_bins(f))
+            return groups
+
+        g1 = find_groups(list(used))
+        g2 = find_groups(sorted(used, key=lambda f: -nz_counts[f]))
+        groups = g2 if len(g2) < len(g1) else g1
+
+        # take small sparse groups apart (dataset.cpp:185-205)
+        out: List[List[int]] = []
+        for g in groups:
+            if len(g) <= 1 or len(g) >= 5:
+                out.append(g)
+                continue
+            cnt_nz = sum(int(self.num_data
+                             * (1.0 - self.bin_mappers[f].sparse_rate))
+                         for f in g)
+            sparse_rate = 1.0 - cnt_nz / max(self.num_data, 1)
+            if sparse_rate >= config.sparse_threshold \
+                    and config.is_enable_sparse:
+                out.extend([[f] for f in g])
+            else:
+                out.append(g)
+        return out
+
+    # -- stage 3: binned group matrix -------------------------------------
+    def _build_group_matrix(self, data: np.ndarray) -> None:
+        binned = np.zeros((self.num_data, len(self.groups)), dtype=np.uint8)
+        for gid, group in enumerate(self.groups):
+            col_out = binned[:, gid]
+            for sub, f in enumerate(group.feature_indices):
+                m = self.bin_mappers[f]
+                bins = m.values_to_bins(np.asarray(data[:, f],
+                                                   dtype=np.float64))
+                slot = bins + group.bin_offsets[sub] \
+                    - (1 if m.default_bin == 0 else 0)
+                non_default = bins != m.default_bin
+                # later features of a bundle overwrite on (rare) conflicts,
+                # same as the reference's push order
+                col_out[non_default] = slot[non_default].astype(np.uint8)
+        self.binned = binned
+
+    # -- stage 4: per-feature lookups -------------------------------------
+    def _build_feature_lookups(self, config: Optional[Config]) -> None:
+        nf = len(self.used_features)
+        self.f_group = np.zeros(nf, np.int32)
+        self.f_offset = np.zeros(nf, np.int32)
+        self.f_num_bin = np.zeros(nf, np.int32)
+        self.f_default_bin = np.zeros(nf, np.int32)
+        self.f_missing_type = np.zeros(nf, np.int32)
+        self.f_is_categorical = np.zeros(nf, np.int32)
+        pos = {f: i for i, f in enumerate(self.used_features)}
+        for gid, group in enumerate(self.groups):
+            for sub, f in enumerate(group.feature_indices):
+                i = pos[f]
+                m = self.bin_mappers[f]
+                self.f_group[i] = gid
+                self.f_offset[i] = group.bin_offsets[sub]
+                self.f_num_bin[i] = m.num_bin
+                self.f_default_bin[i] = m.default_bin
+                self.f_missing_type[i] = {"none": 0, "zero": 1,
+                                          "nan": 2}[m.missing_type]
+                self.f_is_categorical[i] = int(m.bin_type == BIN_CATEGORICAL)
+        mono = np.zeros(nf, np.int32)
+        pen = np.ones(nf, np.float64)
+        if config is not None:
+            mc = list(config.monotone_constraints or [])
+            fp = list(config.feature_contri or [])
+            for i, f in enumerate(self.used_features):
+                if f < len(mc):
+                    mono[i] = int(mc[f])
+                if f < len(fp):
+                    pen[i] = float(fp[f])
+        self.monotone_constraints = mono
+        self.feature_penalty = pen

@@ -1,0 +1,80 @@
+"""Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each source under ``lightgbm_tpu_torch/csrc/`` is compiled at first use into
+``build/lightgbm_tpu_torch/`` beside the package (a shared library with a
+plain C interface, for ``sm_90a``), under a name that carries the digest of
+the source, so an edited source is never served a stale library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC.parent.parent / "build" / "lightgbm_tpu_torch"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the package's kernels")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def nvcc_command(name: str, out: Path) -> list:
+    return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+            "-shared", "-Xcompiler", "-fPIC", "-o", str(out),
+            str(CSRC / f"{name}.cu")]
+
+
+def start_build(name: str):
+    """Start ``nvcc`` for one source; returns ``(Popen or None, path)``
+    (None when the library is already built).  Lets a caller compile
+    several sources at once."""
+    out = library_path(name)
+    if out.exists():
+        return None, out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen(nvcc_command(name, tmp), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    proc.lgbm_tmp = tmp
+    return proc, out
+
+
+def finish_build(proc, out: Path) -> str:
+    """Wait for a build from :func:`start_build`; returns nvcc's output
+    (register and shared-memory use per kernel) and raises on failure."""
+    if proc is None:
+        return ""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {out.name}:"
+                           f"\n{log}")
+    os.replace(proc.lgbm_tmp, out)
+    return log
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    proc, out = start_build(name)
+    finish_build(proc, out)
+    return ctypes.CDLL(str(out))

@@ -1,0 +1,367 @@
+"""Leaf-wise tree growth on the device, in synchronized waves.
+
+Counterpart of ``lightgbm_tpu/ops/grow.py`` (``GrowerPrograms._grow_impl``
+and ``DeviceGrower``), unsharded, numerical features, full-precision (bf16
+stat column) histograms.  The formulation is the JAX package's:
+
+* a per-row ``leaf_id`` vector stands in for a row permutation; a split
+  rewrites it with one elementwise pass over the ``(G, N)`` binned matrix;
+* each *wave* builds, in one pass over all rows, the histograms of up to W
+  pending leaves (the smaller child of each new split) with the
+  hand-written kernel (``ops/hist_cuda.wave_hist``); the larger sibling is
+  the parent minus the smaller one;
+* every new leaf's best split comes from one batched scan
+  (``ops/split.find_best_split_stack``), and the wave applies up to W of
+  the best-gain splits at once, within the ``num_leaves`` budget;
+* wave widths follow the legacy stage plan (``ops/stage_plan.py``).
+
+The JAX package runs the wave loop inside one ``lax.while_loop`` with no
+host sync.  Here it is a Python loop that reads one number per wave (the
+count of splits the wave applied) on the host; :class:`GrowResult` reports
+the waves and host syncs.  Capturing a tree as a CUDA graph is later work.
+
+Every per-leaf tensor has one junk row (index L; records: index L-1) that
+absorbs the scatters of empty lanes, so a scatter never writes a live leaf
+twice.  CUDA ``index_put_`` writes duplicate indices in no fixed order;
+only the junk row ever receives duplicates, and nothing reads it as a
+result.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..utils.log import LightGBMError
+from .hist_cuda import MAX_LEAF_BOUND, hist_scale_exponents, wave_hist
+from .histogram import bucket_size
+from .split import (F_DEFAULT_LEFT, F_FEATURE, F_GAIN, F_LEFT_C, F_LEFT_G,
+                    F_LEFT_H, F_LEFT_OUT, F_RIGHT_C, F_RIGHT_G, F_RIGHT_H,
+                    F_RIGHT_OUT, F_THRESHOLD, NEG_INF, FeatureMeta,
+                    SplitHyper, find_best_split_stack)
+from .stage_plan import legacy_stage_plan
+
+REC_I_FIELDS = 5    # leaf, right, feature, threshold, default_left
+REC_F_FIELDS = 9    # gain, lg, lh, lc, rg, rh, rc, left_out, right_out
+HIST_COLS = 3       # [g, h, 1] stat columns
+
+
+class GrowResult(NamedTuple):
+    score: torch.Tensor       # (num_data,) f32 score after this tree
+    rec_i: torch.Tensor       # (L-1, 5) int32 split records
+    rec_f: torch.Tensor       # (L-1, 9) f32 split records
+    num_leaves: int
+    root_value: torch.Tensor  # () f32 root leaf output
+    waves: int
+    host_syncs: int
+
+
+def _wave_width(num_leaves: int, hist_cols: int) -> int:
+    scale = 3.0 / hist_cols
+    wmax = max(int(128 * scale), 4)
+    return min(wmax, max(int(num_leaves) - 1, 1))
+
+
+def check_slice_config(config, dataset) -> None:
+    """Refuse, by name, the options whose code paths the port does not
+    have yet (the JAX package either supports them on its device grower
+    or falls back to its host learner; the port has neither)."""
+    todo = []
+    if int(config.grad_quant_bits or 0):
+        todo.append("grad_quant_bits=8 (quantized histograms)")
+    if config.gpu_use_dp:
+        todo.append("gpu_use_dp (K=5/6 hi/lo stat columns)")
+    if config.feature_fraction < 1.0:
+        todo.append("feature_fraction < 1")
+    if config.bagging_freq > 0 and config.bagging_fraction < 1.0:
+        todo.append("bagging")
+    if str(config.wave_plan) == "profiled":
+        todo.append("wave_plan=profiled")
+    if config.boosting != "gbdt":
+        todo.append(f"boosting={config.boosting}")
+    if np.asarray(dataset.f_is_categorical).any():
+        todo.append("categorical features")
+    if np.asarray(dataset.monotone_constraints).any():
+        todo.append("monotone_constraints")
+    if getattr(config, "forcedsplits_filename", ""):
+        todo.append("forced splits")
+    if int(config.num_leaves) > MAX_LEAF_BOUND:
+        todo.append(f"num_leaves > {MAX_LEAF_BOUND}")
+    if todo:
+        raise LightGBMError("not ported to lightgbm_tpu_torch yet: "
+                            + ", ".join(todo))
+
+
+class DeviceGrower:
+    """Grows one tree per call on ``device``.  Owns the ``(G, n_pad)``
+    uint8 binned matrix (the transpose of the dataset's ``(N, G)`` one;
+    the histogram kernel and the split application both read it per
+    group) and the per-feature metadata."""
+
+    def __init__(self, dataset, config, device: torch.device):
+        check_slice_config(config, dataset)
+        if dataset.num_groups == 0:
+            raise LightGBMError("no usable features: every feature is "
+                                "constant")
+        self.config = config
+        self.device = device
+        self.num_data = int(dataset.num_data)
+        self.num_groups = int(dataset.num_groups)
+        self.num_leaves = int(config.num_leaves)
+        # per-group slot pitch: smallest power of two covering every group
+        nb = 64
+        for grp in dataset.groups:
+            while grp.num_total_bin > nb:
+                nb *= 2
+        self.nb = nb
+        self.num_slots = self.num_groups * nb
+        # pow2 row bucket: one set of buffer shapes per bucket (the shapes
+        # a later CUDA-graph capture keys on); pad rows carry leaf id -1
+        # and zero stats
+        self.n_pad = bucket_size(max(self.num_data, 1)) \
+            if config.train_row_bucketing \
+            else self.num_data
+        binned_t = np.zeros((self.num_groups, self.n_pad), np.uint8)
+        binned_t[:, :self.num_data] = np.asarray(dataset.binned).T
+        self.binned_t = torch.from_numpy(binned_t).to(device)
+        self.meta = FeatureMeta.from_dataset(dataset, slot_stride=nb,
+                                             device=device)
+        self.hyper = SplitHyper.from_config(config)
+        i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64),
+                                        device=device)
+        nbins = np.asarray(dataset.f_num_bin, np.int64)
+        dbins = np.asarray(dataset.f_default_bin, np.int64)
+        self.f_group = i64(dataset.f_group)
+        self.f_offset = i64(dataset.f_offset)
+        self.f_width = i64(nbins - (dbins == 0))
+        self.wave_width = _wave_width(self.num_leaves, HIST_COLS)
+        self.stage_plan = legacy_stage_plan(self.num_leaves, self.wave_width,
+                                            HIST_COLS)
+        self.lr = float(config.learning_rate)
+        self._valid = torch.arange(self.n_pad, device=device) < self.num_data
+
+    # ------------------------------------------------------------------
+    def _leaf_output(self, g, h):
+        hp = self.hyper
+        s = torch.sign(g) * torch.clamp(g.abs() - hp.lambda_l1, min=0.0)
+        out = -s / (h + hp.lambda_l2 + 1e-35)
+        if hp.max_delta_step <= 0.0:
+            return out
+        return torch.clamp(out, -hp.max_delta_step, hp.max_delta_step)
+
+    def _splittable(self, total, depth):
+        cfg = self.config
+        ok = (total[..., 2] > 2 * cfg.min_data_in_leaf) \
+            & (total[..., 1] > 2 * cfg.min_sum_hessian_in_leaf)
+        if cfg.max_depth > 0:
+            ok = ok & (depth < cfg.max_depth)
+        return ok
+
+    def _stat_columns(self, grad, hess):
+        """(n_pad, 3) bf16 [g, h, 1] columns, pad rows zeroed.  Trouble
+        spot (lightgbm_tpu/ops/grow.py:597): g and h are rounded to bf16
+        BEFORE the histogram, on purpose; ``.to(torch.bfloat16)`` rounds to
+        nearest even like XLA's convert, so both packages see the same
+        column values."""
+        pad = self.n_pad - self.num_data
+        valid_f = self._valid.float()
+        grad = F.pad(grad, (0, pad)) * valid_f
+        hess = F.pad(hess, (0, pad)) * valid_f
+        one = valid_f.to(torch.bfloat16)
+        return torch.stack([grad.to(torch.bfloat16) * one,
+                            hess.to(torch.bfloat16) * one, one], dim=1)
+
+    def _wave_hist(self, leaf_id, gh, pending, scale_exp):
+        """(W, S, 3) f32 histograms of the pending leaves."""
+        w = pending.shape[0]
+        out = wave_hist(self.binned_t, leaf_id, gh, pending,
+                        g=self.num_groups, nb=self.nb, k=HIST_COLS, w=w,
+                        scale_exp=scale_exp, leaf_bound=self.num_leaves)
+        return out.permute(2, 0, 1)             # (G*NB, K, W) -> (W, S, K)
+
+    # ------------------------------------------------------------------
+    def grow_one_iter(self, score, grad, hess, lr=None,
+                      feature_mask=None) -> GrowResult:
+        """Grow one tree from (num_data,) f32 gradients and return the
+        updated score and the split records (device tensors)."""
+        dev = self.device
+        L, S, nb = self.num_leaves, self.num_slots, self.nb
+        lr = self.lr if lr is None else float(lr)
+        if feature_mask is None:
+            feature_mask = torch.ones(self.meta.num_bin.shape[0],
+                                      dtype=torch.bool, device=dev)
+        gh = self._stat_columns(grad, hess)
+        scale_exp = hist_scale_exponents(gh, self.n_pad)
+        i32 = dict(dtype=torch.int32, device=dev)
+
+        leaf_id = torch.where(self._valid, 0, -1).to(torch.int32)
+        hist = torch.zeros((L + 1, S, 3), dtype=torch.float32, device=dev)
+        total = torch.zeros((L + 1, 3), dtype=torch.float32, device=dev)
+        value = torch.zeros((L + 1,), dtype=torch.float32, device=dev)
+        depth = torch.zeros((L + 1,), **i32)
+        neg_row = torch.full((13,), NEG_INF, dtype=torch.float32, device=dev)
+        best = neg_row.repeat(L + 1, 1)
+        rec_i = torch.full((L, REC_I_FIELDS), -1, **i32)
+        rec_f = torch.zeros((L, REC_F_FIELDS), dtype=torch.float32,
+                            device=dev)
+        lane_of = torch.full((L + 1,), -1, dtype=torch.int64, device=dev)
+
+        W = self.wave_width
+        # first stage width: copied exactly (lightgbm_tpu/ops/grow.py:710);
+        # with the stage ladder it decides the growth order near the
+        # num_leaves budget
+        w0 = min(4, W) if (4 < W and 8 < L) else W
+        p_parent = torch.full((w0,), -1, **i32)
+        p_small = torch.full((w0,), -1, **i32)
+        p_small[0] = 0
+        p_large = torch.full((w0,), -1, **i32)
+        nl, waves, syncs, done = 1, 0, 0, False
+
+        for ws, cap in self.stage_plan:
+            grow_by = ws - p_parent.shape[0]
+            if grow_by > 0:
+                p_parent, p_small, p_large = (
+                    F.pad(p, (0, grow_by), value=-1)
+                    for p in (p_parent, p_small, p_large))
+            limit = L if cap is None else min(cap, L)
+            while not done and nl < limit:
+                # 1. fresh histograms of the pending smaller children
+                fresh = self._wave_hist(leaf_id, gh, p_small, scale_exp)
+                if waves == 0:
+                    # root: totals from group 0's slots (every row hits one)
+                    total[0] = fresh[0, :nb, :].sum(0)
+                    value[0] = self._leaf_output(total[0, 0], total[0, 1])
+                # 2. larger sibling = parent - smaller (read the parents
+                # before the fresh histograms overwrite their slots)
+                par = torch.where(p_parent >= 0, p_parent, L).long()
+                large = hist[par] - fresh
+                sm_ok, lg_ok = p_small >= 0, p_large >= 0
+                sm_idx = torch.where(sm_ok, p_small, L).long()
+                lg_idx = torch.where(lg_ok, p_large, L).long()
+                hist[sm_idx] = torch.where(sm_ok[:, None, None], fresh,
+                                           hist[sm_idx])
+                hist[lg_idx] = torch.where(lg_ok[:, None, None], large,
+                                           hist[lg_idx])
+
+                # 3. find-best for both siblings of every new split, one
+                # batched scan over the (2*Ws, S, 3) stack
+                ids = torch.cat([torch.where(sm_ok, p_small, -1),
+                                 torch.where(lg_ok, p_large, -1)]).long()
+                idc = ids.clamp(0, L - 1)
+                packed = find_best_split_stack(
+                    torch.cat([fresh, large]), total[idc], feature_mask,
+                    self.meta, self.hyper)
+                ok = self._splittable(total[idc], depth[idc]) & (ids >= 0)
+                packed[:, F_GAIN] = torch.where(
+                    ok, packed[:, F_GAIN],
+                    torch.full_like(packed[:, F_GAIN], NEG_INF))
+                safe = torch.where(ids >= 0, ids, L)
+                best[safe] = torch.where((ids >= 0)[:, None], packed,
+                                         best[safe])
+
+                # 4. select up to Ws best-gain splits within the budget.
+                # Trouble spot (lightgbm_tpu/ops/grow.py:846): lax.top_k
+                # breaks ties toward the lower index; torch.topk promises
+                # no order on ties, a stable descending sort does.
+                top_vals, top_idx = torch.sort(best[:L, F_GAIN],
+                                               descending=True, stable=True)
+                top_vals, lsel = top_vals[:ws], top_idx[:ws]
+                lanes = torch.arange(ws, device=dev)
+                sel = (top_vals > 0.0) & (lanes < L - nl)
+                napply = int(sel.sum())               # the wave's host sync
+                syncs += 1
+                waves += 1
+                if napply == 0:
+                    done = True
+                    break
+                rank = torch.cumsum(sel.long(), 0) - 1
+                vecs = best[lsel]                     # (Ws, 13)
+                r_ids = nl + rank
+                f = vecs[:, F_FEATURE].long()
+                thr = vecs[:, F_THRESHOLD].long()
+                dl = vecs[:, F_DEFAULT_LEFT] > 0.5
+
+                # 5. apply the selected splits to leaf_id: each row looks up
+                # its leaf's lane (a row belongs to at most one selected
+                # leaf), reads that split's feature group and decides
+                # left or right as lightgbm_tpu/ops/grow.py:869-916 does
+                lane_of.fill_(-1)
+                lane_of[torch.where(sel, lsel, L)] = lanes
+                lane_of[L] = -1
+                row_lane = lane_of[torch.where(leaf_id >= 0, leaf_id,
+                                               L).long()]
+                lane = row_lane.clamp(min=0)
+                fl = f[lane]
+                cols = self.binned_t.gather(
+                    0, self.f_group[fl][None, :])[0].long()
+                off, wid = self.f_offset[fl], self.f_width[fl]
+                db = self.meta.default_bin[fl].long()
+                nbin = self.meta.num_bin[fl].long()
+                miss = self.meta.missing[fl]
+                dl_r, thr_r = dl[lane], thr[lane]
+                def_left = torch.where(miss == 1, dl_r, db <= thr_r)
+                shift = (db == 0).long()
+                in_range = (cols >= off) & (cols < off + wid)
+                bin_ = torch.where(in_range, cols - off + shift, db)
+                is_na = (miss == 2) & (bin_ == nbin - 1)
+                goes_left = torch.where(bin_ == db, def_left,
+                                        torch.where(is_na, dl_r,
+                                                    bin_ <= thr_r))
+                move = (row_lane >= 0) & ~goes_left
+                leaf_id = torch.where(move, r_ids[lane].to(torch.int32),
+                                      leaf_id)
+
+                # 6. bookkeeping: scatter into the L-padded state
+                safe_l = torch.where(sel, lsel, L)
+                safe_r = torch.where(sel, r_ids, L)
+                sel2 = sel[:, None]
+                lsum = vecs[:, [F_LEFT_G, F_LEFT_H, F_LEFT_C]]
+                rsum = vecs[:, [F_RIGHT_G, F_RIGHT_H, F_RIGHT_C]]
+                total[safe_l] = torch.where(sel2, lsum, total[safe_l])
+                total[safe_r] = torch.where(sel2, rsum, total[safe_r])
+                value[safe_l] = torch.where(sel, vecs[:, F_LEFT_OUT],
+                                            value[safe_l])
+                value[safe_r] = torch.where(sel, vecs[:, F_RIGHT_OUT],
+                                            value[safe_r])
+                child_d = depth[lsel] + 1
+                depth[safe_l] = torch.where(sel, child_d, depth[safe_l])
+                depth[safe_r] = torch.where(sel, child_d, depth[safe_r])
+                best[safe_l] = torch.where(sel2, neg_row, best[safe_l])
+                best[safe_r] = torch.where(sel2, neg_row, best[safe_r])
+                ridx = torch.where(sel, nl - 1 + rank, L - 1)
+                new_ri = torch.stack([lsel, r_ids, f, thr, dl.long()],
+                                     dim=1).to(torch.int32)
+                new_rf = vecs[:, [F_GAIN, F_LEFT_G, F_LEFT_H, F_LEFT_C,
+                                  F_RIGHT_G, F_RIGHT_H, F_RIGHT_C,
+                                  F_LEFT_OUT, F_RIGHT_OUT]]
+                rec_i[ridx] = torch.where(sel2, new_ri, rec_i[ridx])
+                rec_f[ridx] = torch.where(sel2, new_rf, rec_f[ridx])
+                # pending for the next wave: the smaller child gets the
+                # fresh histogram
+                small_left = vecs[:, F_LEFT_C] <= vecs[:, F_RIGHT_C]
+                lsel32, r32 = lsel.to(torch.int32), r_ids.to(torch.int32)
+                p_parent = torch.where(sel, lsel32, -1)
+                p_small = torch.where(
+                    sel, torch.where(small_left, lsel32, r32), -1)
+                p_large = torch.where(
+                    sel, torch.where(small_left, r32, lsel32), -1)
+                nl += napply
+
+        # score update.  Trouble spot (lightgbm_tpu/ops/grow.py:1109-1116):
+        # the JAX package adds float32(bf16(v)) + float32(bf16(v - hi)) per
+        # row through a one-hot einsum with one nonzero per row, which is
+        # exactly this gather; a direct score += lr * value[leaf_id] is
+        # more accurate but diverges from the JAX package from tree 2 on.
+        # A stump (root never split) applies nothing.
+        lr32 = float(np.float32(lr))
+        scaled = value[:L] * lr32 * (1.0 if nl > 1 else 0.0)
+        vhi = scaled.to(torch.bfloat16)
+        vlo = (scaled - vhi.float()).to(torch.bfloat16)
+        lid = leaf_id[:self.num_data].long()
+        new_score = score + (vhi.float()[lid] + vlo.float()[lid])
+        keep = max(L - 1, 1)
+        return GrowResult(new_score, rec_i[:keep], rec_f[:keep], nl,
+                          value[0], waves, syncs)

@@ -1,0 +1,255 @@
+"""Best-split scan over all features of a stack of leaves, as torch ops.
+
+Counterpart of ``lightgbm_tpu/ops/split.py`` for numerical features (the
+port has no categorical splits and no quantized scan yet).  Every
+(feature, direction, threshold) candidate is evaluated at once with prefix
+sums over the 256-bin axis, and argmaxes pick the winners:
+
+* default-bin reconstruction from leaf totals (``FixHistogram``,
+  ``src/io/dataset.cpp:802-822``): the grouped storage never records the
+  default bin, so ``hist[default] = leaf_total - sum(others)``;
+* missing handling: the two scan directions are two candidate variants,
+  missing stats placed left (``default_left=True``) or right, with the
+  reference's skipped-threshold rules for MissingType::Zero and NaN;
+* L1/L2-regularized leaf outputs with ``max_delta_step`` clamping and
+  monotone-constraint zeroing (``GetSplitGains``).
+
+The JAX package ``vmap``s the single-leaf scan over a histogram stack; here
+the stack is a written-out leading batch dimension B.  Ties break as in the
+JAX package: ``torch.argmax`` returns the first maximum, which is
+``jnp.argmax``'s rule (lower feature index, default-left variant first).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+K_EPSILON = 1e-15
+NEG_INF = -1e30
+
+# indices into the packed best-split vector
+(F_GAIN, F_FEATURE, F_THRESHOLD, F_DEFAULT_LEFT, F_IS_CAT,
+ F_LEFT_G, F_LEFT_H, F_LEFT_C, F_RIGHT_G, F_RIGHT_H, F_RIGHT_C,
+ F_LEFT_OUT, F_RIGHT_OUT) = range(13)
+
+
+class SplitHyper(NamedTuple):
+    """Split hyper-parameters (host floats)."""
+    lambda_l1: float
+    lambda_l2: float
+    min_data_in_leaf: float
+    min_sum_hessian_in_leaf: float
+    min_gain_to_split: float
+    max_delta_step: float
+
+    @classmethod
+    def from_config(cls, c) -> "SplitHyper":
+        # rounded through float32: the JAX package carries these as f32
+        f = lambda v: float(np.float32(v))
+        return cls(f(c.lambda_l1), f(c.lambda_l2), f(c.min_data_in_leaf),
+                   f(c.min_sum_hessian_in_leaf), f(c.min_gain_to_split),
+                   f(c.max_delta_step))
+
+
+class FeatureMeta(NamedTuple):
+    """Per-feature metadata as tensors on the training device."""
+    slot_idx: torch.Tensor          # (F, 256) int64 flat index into the hist
+    valid_nondefault: torch.Tensor  # (F, 256) bool
+    num_bin: torch.Tensor           # (F,) int32
+    default_bin: torch.Tensor       # (F,) int32
+    missing: torch.Tensor           # (F,) int32 0/1/2 none/zero/nan
+    mono: torch.Tensor              # (F,) int32
+    penalty: torch.Tensor           # (F,) float32
+    global_id: torch.Tensor         # (F,) int32
+
+    @classmethod
+    def from_dataset(cls, dataset, slot_stride: int,
+                     device: torch.device) -> "FeatureMeta":
+        """``slot_stride`` is the per-group slot pitch of the flat
+        histogram (the smallest power of two covering every group)."""
+        nb = dataset.f_num_bin.astype(np.int32)
+        db = dataset.f_default_bin.astype(np.int32)
+        off = dataset.f_offset.astype(np.int64)
+        grp = dataset.f_group.astype(np.int64)
+        b = np.arange(256, dtype=np.int64)[None, :]
+        shift = (db == 0).astype(np.int64)
+        slot = grp[:, None] * int(slot_stride) + off[:, None] + b \
+            - shift[:, None]
+        valid = (b < nb[:, None]) & (b != db[:, None])
+        slot = np.where(valid, slot, 0)
+        t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,
+                                          device=device)
+        return cls(t(slot, torch.int64), t(valid, torch.bool),
+                   t(nb, torch.int32), t(db, torch.int32),
+                   t(dataset.f_missing_type, torch.int32),
+                   t(dataset.monotone_constraints, torch.int32),
+                   t(dataset.feature_penalty, torch.float32),
+                   t(np.arange(len(nb)), torch.int32))
+
+
+def _threshold_l1(s, l1):
+    return torch.sign(s) * torch.clamp(s.abs() - l1, min=0.0)
+
+
+def _calc_output(g, h, l1, l2, max_delta_step):
+    """CalculateSplittedLeafOutput (feature_histogram.hpp:447-455)."""
+    out = -_threshold_l1(g, l1) / (h + l2)
+    if max_delta_step <= 0.0:
+        return out
+    return torch.clamp(out, -max_delta_step, max_delta_step)
+
+
+def _gain_given_output(g, h, l1, l2, out):
+    """GetLeafSplitGainGivenOutput (feature_histogram.hpp:495-498)."""
+    sg = _threshold_l1(g, l1)
+    return -(2.0 * sg * out + (h + l2) * out * out)
+
+
+def _split_gain(gl, hl, gr, hr, hp: SplitHyper, cmin, cmax, mono):
+    """GetSplitGains: child-gain sum with monotone violation -> 0."""
+    l1, l2, mds = hp.lambda_l1, hp.lambda_l2, hp.max_delta_step
+    ol = torch.clamp(_calc_output(gl, hl, l1, l2, mds), cmin, cmax)
+    orr = torch.clamp(_calc_output(gr, hr, l1, l2, mds), cmin, cmax)
+    gain = (_gain_given_output(gl, hl, l1, l2, ol)
+            + _gain_given_output(gr, hr, l1, l2, orr))
+    violates = ((mono > 0) & (ol > orr)) | ((mono < 0) & (ol < orr))
+    return torch.where(violates, torch.zeros_like(gain), gain)
+
+
+def feature_histograms(hists, totals, meta: FeatureMeta):
+    """(B, S, 3) flat slots -> (B, F, 256, 3) per-feature histograms with
+    the default bin reconstructed from the leaf totals (B, 3)."""
+    fh = hists[:, meta.slot_idx] * meta.valid_nondefault[..., None]
+    b = torch.arange(256, device=hists.device)[None, :]
+    default_vals = totals[:, None, :] - fh.sum(dim=2)          # (B, F, 3)
+    default_vals[..., 2] = torch.clamp(default_vals[..., 2], min=0)
+    is_default = (b == meta.default_bin[:, None]) \
+        & (b < meta.num_bin[:, None])                          # (F, 256)
+    return torch.where(is_default[None, ..., None],
+                       default_vals[:, :, None, :], fh)
+
+
+class PerFeatureBest(NamedTuple):
+    gain: torch.Tensor          # (B, F) raw child-gain sum, NEG_INF if none
+    threshold: torch.Tensor     # (B, F) int64 threshold bin
+    default_left: torch.Tensor  # (B, F) bool
+    left: torch.Tensor          # (B, F, 3) left-child (g, h, c)
+
+
+def per_feature_best(fh, totals, meta: FeatureMeta, hp: SplitHyper,
+                     min_gain_shift, cmin=-np.inf,
+                     cmax=np.inf) -> PerFeatureBest:
+    """The numerical threshold scan: each feature's best candidate of
+    every leaf in the stack (no argmax over features)."""
+    tg = totals[:, 0, None, None, None]
+    th = totals[:, 1, None, None, None] + 2.0 * K_EPSILON
+    tc = totals[:, 2, None, None, None]
+    nbin = meta.num_bin[:, None]                               # (F, 1)
+    nb = nbin.float()
+    db = meta.default_bin[:, None]
+    miss = meta.missing[:, None]
+    b = torch.arange(256, device=fh.device)[None, :]           # (1, 256)
+    bsz, nf = fh.shape[0], fh.shape[1]
+
+    in_feat = b < nbin
+    na_mask = (miss == 2) & (b == nbin - 1)
+    zero_sep = (miss == 1) & (nb > 2)                          # zero-as-missing
+    zero_mask = zero_sep & (b == db)
+    miss_mask = (na_mask | zero_mask) & in_feat
+    base = fh * (in_feat & ~miss_mask)[..., None]
+    prefix = torch.cumsum(base, dim=2)                         # (B, F, 256, 3)
+    miss_stats = (fh * miss_mask[..., None]).sum(dim=2)        # (B, F, 3)
+
+    # variant 0 = missing left (default_left=True, reference dir=-1 scan)
+    # variant 1 = missing right (default_left=False, dir=+1)
+    lefts = torch.stack([prefix + miss_stats[:, :, None, :], prefix],
+                        dim=2)                                 # (B, F, 2, 256, 3)
+
+    t_ok = b < nbin - 1                                        # right side real bins
+    two_dir = ((miss == 2) & (nb > 2)) | zero_sep
+    na_small = (miss == 2) & (nb <= 2)                         # forced dl=False
+    v0_ok = t_ok & ~na_small & ~((miss == 2) & (b >= nbin - 2))
+    v0_ok = v0_ok & ~(zero_sep & (b == db - 1))
+    v0_ok = v0_ok | (t_ok & (miss == 0))                       # plain scan -> v0
+    v1_ok = t_ok & (two_dir | na_small)
+    v1_ok = v1_ok & ~(zero_sep & (b == db))
+    var_ok = torch.stack([v0_ok, v1_ok], dim=1)                # (F, 2, 256)
+
+    gl = lefts[..., 0]
+    hl = lefts[..., 1] + K_EPSILON
+    cl = lefts[..., 2]
+    gr, hr, cr = tg - gl, th - hl, tc - cl
+    data_ok = ((cl >= hp.min_data_in_leaf) & (cr >= hp.min_data_in_leaf)
+               & (hl >= hp.min_sum_hessian_in_leaf)
+               & (hr >= hp.min_sum_hessian_in_leaf))
+    mono = meta.mono[:, None, None]
+    gains = _split_gain(gl, hl, gr, hr, hp, cmin, cmax, mono)
+    ok = var_ok & data_ok & (gains > min_gain_shift[:, None, None, None])
+    num_gains = torch.where(ok, gains, torch.full_like(gains, NEG_INF))
+
+    flat = num_gains.reshape(bsz, nf, 512)
+    arg = torch.argmax(flat, dim=2)                            # first max: dir=-1
+    best_gain = torch.gather(flat, 2, arg[..., None])[..., 0]
+    left = torch.gather(lefts.reshape(bsz, nf, 512, 3), 2,
+                        arg[..., None, None].expand(bsz, nf, 1, 3))[:, :, 0]
+    return PerFeatureBest(best_gain, arg % 256, arg < 256, left)
+
+
+def masked_feature_gain(pf: PerFeatureBest, meta: FeatureMeta, feature_mask,
+                        min_gain_shift):
+    """(B, F) shifted gains with penalty and masking applied; NEG_INF for
+    excluded features."""
+    g = (pf.gain - min_gain_shift[:, None]) * meta.penalty
+    ok = feature_mask & (meta.num_bin > 1) & (meta.global_id >= 0)
+    return torch.where(ok, g, torch.full_like(g, NEG_INF))
+
+
+def pack_best(best_f, feat_gain, pf: PerFeatureBest, totals,
+              meta: FeatureMeta, hp: SplitHyper, cmin=-np.inf, cmax=np.inf):
+    """(B, 13) float32 records of each leaf's winning split (F_* fields)."""
+    tg, th, tc = totals[:, 0], totals[:, 1] + 2.0 * K_EPSILON, totals[:, 2]
+    l1, l2, mds = hp.lambda_l1, hp.lambda_l2, hp.max_delta_step
+    rows = torch.arange(best_f.shape[0], device=best_f.device)
+    left = pf.left[rows, best_f]                               # (B, 3)
+    lg, lh, lc = left[:, 0], left[:, 1] + K_EPSILON, left[:, 2]
+    rg = tg - lg
+    left_out = torch.clamp(_calc_output(lg, lh, l1, l2, mds), cmin, cmax)
+    rh = th - lh
+    right_out = torch.clamp(_calc_output(rg, rh, l1, l2, mds), cmin, cmax)
+    f32 = lambda t: t.to(torch.float32)
+    return torch.stack([
+        feat_gain[rows, best_f],
+        f32(meta.global_id[best_f]),
+        f32(pf.threshold[rows, best_f]),
+        f32(pf.default_left[rows, best_f]),
+        torch.zeros_like(lg),                                  # F_IS_CAT
+        lg, left[:, 1], lc,
+        rg, th - 2.0 * K_EPSILON - left[:, 1], tc - lc,
+        left_out, right_out,
+    ], dim=1)
+
+
+def min_gain_shift_of(totals, hp: SplitHyper):
+    """Parent gain + min_gain_to_split: the bar every candidate must clear
+    (GetLeafSplitGain on the leaf totals), (B,)."""
+    tg, th = totals[:, 0], totals[:, 1] + 2.0 * K_EPSILON
+    l1, l2, mds = hp.lambda_l1, hp.lambda_l2, hp.max_delta_step
+    parent_out = _calc_output(tg, th, l1, l2, mds)
+    return (_gain_given_output(tg, th, l1, l2, parent_out)
+            + hp.min_gain_to_split)
+
+
+def find_best_split_stack(hists, totals, feature_mask, meta: FeatureMeta,
+                          hp: SplitHyper):
+    """Best split of every leaf of a (B, S, 3) histogram stack with (B, 3)
+    totals: (B, 13) float32 packed records (the gain is NEG_INF where no
+    candidate clears the bar)."""
+    shift = min_gain_shift_of(totals, hp)
+    fh = feature_histograms(hists, totals, meta)
+    pf = per_feature_best(fh, totals, meta, hp, shift)
+    feat_gain = masked_feature_gain(pf, meta, feature_mask, shift)
+    best_f = torch.argmax(feat_gain, dim=1)
+    return pack_best(best_f, feat_gain, pf, totals, meta, hp)

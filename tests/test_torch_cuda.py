@@ -1,0 +1,107 @@
+"""lightgbm_tpu_torch on the card: the CUDA kernel against its plain
+version, and training on cuda against training on the CPU path.
+
+Every test here needs an NVIDIA GPU and nvcc; without them they skip.
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.ops import hist_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(dev, n, g, nb, k, w, quant, seed=0):
+    rng = np.random.default_rng(seed)
+    bins = torch.from_numpy(rng.integers(0, nb, (g, n)).astype(np.uint8))
+    leaf = torch.from_numpy(rng.integers(-1, w + 1, n).astype(np.int32))
+    if quant:
+        ghk = torch.from_numpy(rng.integers(-127, 128, (n, k))
+                               .astype(np.int8))
+    else:
+        ghk = torch.from_numpy(rng.standard_normal((n, k))
+                               .astype(np.float32)).to(torch.bfloat16)
+    pending = torch.arange(w, dtype=torch.int32)
+    pending[-1] = -1                                   # an empty slot
+    return [t.to(dev) for t in (bins, leaf, ghk, pending)]
+
+
+@pytest.mark.parametrize("n,g,nb,k,w,quant", [
+    (50_000, 5, 256, 3, 37, False),
+    (50_000, 5, 256, 3, 37, True),
+    (40_003, 3, 64, 6, 130, True),      # odd n: the scalar-load path
+    (40_003, 4, 128, 5, 9, False),
+])
+def test_kernel_matches_plain_on_card(cuda_device, n, g, nb, k, w, quant):
+    """int8 byte-equal to the plain version; bf16 within 1e-4 of each
+    cell's sum of |stats| (the plain version's f32 atomics sum in any
+    order) and bit-identical across runs."""
+    bins, leaf, ghk, pending = _inputs(cuda_device, n, g, nb, k, w, quant)
+    kw = dict(g=g, nb=nb, k=k, w=w)
+    before = hist_cuda.wave_hist.launches
+    a = hist_cuda.wave_hist(bins, leaf, ghk, pending, **kw)
+    b = hist_cuda.wave_hist(bins, leaf, ghk, pending, **kw)
+    assert hist_cuda.wave_hist.launches == before + 2
+    ref = hist_cuda.wave_hist_reference(bins, leaf, ghk, pending, **kw)
+    assert torch.equal(a, b)
+    assert not a[..., -1].any()
+    if quant:
+        assert torch.equal(a, ref)
+    else:
+        mag = hist_cuda.wave_hist_reference(bins, leaf, ghk.abs(), pending,
+                                            **kw)
+        assert ((a - ref).abs() <= 1e-4 * mag + 1e-6).all()
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    bins, leaf, ghk, pending = _inputs(cuda_device, 4096, 2, 64, 3, 4,
+                                       False)
+    kw = dict(g=2, nb=64, k=3, w=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        hist_cuda.wave_hist(bins.t().contiguous().t(), leaf, ghk, pending,
+                            **kw)
+    with pytest.raises(ValueError, match="different devices"):
+        hist_cuda.wave_hist(bins, leaf.cpu(), ghk, pending, **kw)
+
+
+def test_training_on_card_matches_cpu_path(cuda_device):
+    """Same data, same params: the cuda run (kernel histograms) and the
+    CPU run (plain histograms) grow the same first tree and predict
+    within 1e-4; every wave's histogram came from the kernel."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((20_000, 6))
+    x[rng.random(x.shape) < 0.05] = np.nan
+    y = (np.nan_to_num(x[:, 0]) + 0.5 * np.nan_to_num(x[:, 1]) ** 2
+         + 0.3 * rng.standard_normal(len(x)) > 0.4).astype(float)
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "verbose": -1}
+    hist_cuda.wave_hist.launches = 0
+    on_card = lt.train(params, lt.Dataset(x, y), 5)
+    gb = on_card._gbdt
+    assert gb.device.type == "cuda"
+    assert hist_cuda.wave_hist.launches == sum(s[1] for s in gb.tree_stats)
+    on_cpu = lt.train({**params, "device": "cpu"}, lt.Dataset(x, y), 5)
+    assert on_card.num_trees() == on_cpu.num_trees() == 5
+    t_card, t_cpu = gb.models[0], on_cpu._gbdt.models[0]
+    n = t_card.num_leaves
+    assert n == t_cpu.num_leaves
+    np.testing.assert_array_equal(t_card.split_feature[:n - 1],
+                                  t_cpu.split_feature[:n - 1])
+    np.testing.assert_array_equal(t_card.threshold_in_bin[:n - 1],
+                                  t_cpu.threshold_in_bin[:n - 1])
+    np.testing.assert_allclose(on_card.predict(x, raw_score=True),
+                               on_cpu.predict(x, raw_score=True), atol=1e-4)
