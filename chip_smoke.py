@@ -7,19 +7,33 @@ Phases, one line each:
 
 1. build   -- compile every CUDA source of the package with nvcc (sm_90a),
               all sources at once;
-2. kernel  -- call each kernel's wrapper on card tensors at the shapes the
-              training path gives it and hold the result against the
-              plain PyTorch version: int8 byte-equal, bf16 within
-              1e-4 x (histogram of |stats|) + 1e-6 of it (f32 atomics in
-              the plain version sum in any order) and bit-identical
+2. kernel  -- call each kernel's wrapper on card tensors at the shapes its
+              path gives it (2M rows; wave_hist_v2 also at the ubench's
+              10.5M) and hold the result against the plain PyTorch
+              version: int8 byte-equal, bf16 within 1e-4 x (histogram of
+              |stats|) + 1e-6 of it (the plain version's f32 atomics and
+              the tensor cores sum in other orders) and bit-identical
               across two runs; time kernel, plain version and one PyTorch
               library call (index_put_ with accumulate) with CUDA events;
-3. train   -- the HIGGS shape (28 dense features, max_bin 255, 255
-              leaves, learning rate 0.1) on 2,000,000 synthetic rows made
-              from --seed, 10 rounds; every wave's histogram must come
-              from the kernel (launch count == waves); checks training
-              AUC, the model-text round trip and host predict against the
-              device training score.
+              the bound is the function's (bytes or adds), and
+              wave_hist_v2's one-hot product at the tensor-core peak is
+              reported beside it as tc_ms;
+3. ubench  -- scripts/ubench_hist_cuda.py's hist3_w42 and pallas2_*
+              cases at its default 10.5M rows: the entry point of the
+              tensor-core kernel wave_hist_v2, whose launches are counted
+              here;
+4. train   -- the HIGGS shape (28 features, max_bin 255, learning rate
+              0.1) on 2,000,000 synthetic rows made from --seed, binned
+              once from the dense matrix and once from a scipy CSR matrix
+              (the codes must be equal), then three configurations of
+              10 rounds: (a) 255 leaves, from the dense binning; from the
+              CSR binning (b) the fork harness's config, 31 leaves,
+              feature_fraction 0.8, bagging every 5 rounds at 0.8; (c)
+              grad_quant_bits=8 at 255 leaves, run twice.  Every
+              wave's histogram must come from wave_hist (launch count ==
+              waves); each run checks training AUC and host predict
+              against the device training score; (a) the model-text
+              round trip; (c) byte-identical model text across its runs.
 
 Prints the card's name and power limit, a JSON line of kernel
 measurements, and last {"ok": true, "device": {...}}.  Full results go to
@@ -47,6 +61,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 # H100 SXM float32 rate outside the tensor cores; the kernel's adds (int64
 # fixed point, int32 for int8 stats) are counted against it
 F32_OPS_PER_S = 67e12
+# H100 SXM dense bf16 tensor-core rate: wave_hist_v2's one-hot product
+BF16_TC_OPS_PER_S = 989e12
+UBENCH_CASES = ("hist3_w42", "pallas2_w42_ch4096", "pallas2_w128_ch4096",
+                "pallas2_w4_ch4096")
+UBENCH_ROWS = 10_518_528    # the ubench's default 10.5M rows, padded
 
 
 def fail(msg: str) -> None:
@@ -126,10 +145,11 @@ def phase_build():
     return secs
 
 
-def kernel_case(dev, *, nb, k, w, quant, seed, n=N_ROWS, g=N_FEATURES):
+def kernel_case(dev, *, nb, k, w, quant, seed, n=N_ROWS, g=N_FEATURES,
+                dup=False):
     """Inputs at a training-path shape: w pending leaves out of 2w+1 live
     ones (the root wave: every row in leaf 0), bf16 [g, h, 1] stats or
-    int8 quantized ones."""
+    int8 quantized ones; ``dup`` draws the pending ids with repeats."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
     bins = torch.randint(0, nb, (g, n), generator=gen, device=dev,
@@ -137,8 +157,12 @@ def kernel_case(dev, *, nb, k, w, quant, seed, n=N_ROWS, g=N_FEATURES):
     live = 1 if w == 1 else 2 * w + 1
     leaf = torch.randint(0, live, (n,), generator=gen, device=dev,
                          dtype=torch.int32)
-    pending = torch.randperm(live, generator=gen, device=dev)[:w] \
-        .to(torch.int32).contiguous()
+    if dup:
+        pending = torch.randint(0, w // 2, (w,), generator=gen, device=dev,
+                                dtype=torch.int32)
+    else:
+        pending = torch.randperm(live, generator=gen, device=dev)[:w] \
+            .to(torch.int32).contiguous()
     if quant:
         ghk = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                             dtype=torch.int32).to(torch.int8)
@@ -154,15 +178,12 @@ def kernel_case(dev, *, nb, k, w, quant, seed, n=N_ROWS, g=N_FEATURES):
 def library_hist(bins, leaf, ghk, pending, *, g, nb, k, w):
     """Yardstick only (never called by the port): the same histogram as
     one PyTorch call, index_put_ with accumulate on the flattened
-    (group, bin, stat, slot) index.  Returns (thunk, out)."""
+    (group, bin, stat, slot) index of every (row, slot) pair whose leaf
+    the slot holds.  Returns (thunk, out, rows in the wave)."""
     import torch
     dev = bins.device
-    size = max(int(leaf.max()), int(pending.max())) + 1
-    slot_of = torch.full((size,), -1, dtype=torch.int64, device=dev)
-    slot_of[pending.long()] = torch.arange(w, device=dev)
-    slot = slot_of[leaf.long()]
-    rows = torch.nonzero(slot >= 0).squeeze(1)
-    s = slot[rows]
+    rows, s = torch.nonzero((leaf[:, None] == pending[None, :])
+                            & (pending[None, :] >= 0), as_tuple=True)
     b = bins[:, rows].long()                                   # (G, m)
     gi = torch.arange(g, device=dev)[:, None]
     kk = torch.arange(k, device=dev)
@@ -176,168 +197,281 @@ def library_hist(bins, leaf, ghk, pending, *, g, nb, k, w):
     def run():
         out.zero_()
         out.index_put_((flat,), vals, accumulate=True)
-    return run, out, int(rows.numel())
+    return run, out, int(torch.unique(rows).numel())
 
 
-def phase_kernels(dev):
+def measure_case(name, kernel, dev, c, *, tensor_core=False):
+    """Hold ``kernel`` (a wave-histogram wrapper) against the plain version
+    at case ``c`` and time kernel, plain version and library call."""
     import torch
     from lightgbm_tpu_torch.ops import hist_cuda
     g = N_FEATURES
-    cases = [dict(nb=256, k=3, w=128, quant=False),
-             dict(nb=256, k=3, w=16, quant=False),
-             dict(nb=256, k=3, w=1, quant=False),
-             dict(nb=64, k=3, w=128, quant=False),
-             dict(nb=64, k=3, w=16, quant=False),
-             dict(nb=64, k=3, w=1, quant=False),
-             dict(nb=256, k=3, w=128, quant=True),
-             dict(nb=256, k=6, w=64, quant=True)]
-    results = []
-    for i, c in enumerate(cases):
-        nb, k, w, quant = c["nb"], c["k"], c["w"], c["quant"]
-        bins, leaf, ghk, pending, live = kernel_case(dev, seed=i, **c)
-        kw = dict(g=g, nb=nb, k=k, w=w)
-        kern = lambda: hist_cuda.wave_hist(bins, leaf, ghk, pending,
-                                           leaf_bound=live, **kw)
-        a, b = kern(), kern()
-        torch.cuda.synchronize()
-        ref = hist_cuda.wave_hist_reference(bins, leaf, ghk, pending, **kw)
-        repro = bool(torch.equal(a, b))
-        err = float((a.double() - ref.double()).abs().max())
-        if quant:
-            ok = repro and torch.equal(a, ref)
-            tol = "byte-equal"
-        else:
-            mag = hist_cuda.wave_hist_reference(bins, leaf, ghk.abs(),
-                                                pending, **kw)
-            ok = repro and bool(((a - ref).abs()
-                                 <= 1e-4 * mag + 1e-6).all())
-            tol = "1e-4*|hist| + 1e-6"
-        ms = time_ms(kern, reps=20)
-        plain_ms = time_ms(lambda: hist_cuda.wave_hist_reference(
-            bins, leaf, ghk, pending, **kw), reps=2, warmup=1)
-        lib_run, lib_out, m = library_hist(bins, leaf, ghk, pending, **kw)
-        library_ms = time_ms(lib_run, reps=3, warmup=1)
-        lib_err = float((lib_out.view(ref.shape).double()
-                         - ref.double()).abs().max())
-        del lib_run, lib_out
-        n = bins.shape[1]
-        stat_bytes = ghk.element_size() * k
-        bytes_ = n * (g + 4) + m * stat_bytes + g * nb * k * w * 4
-        ops = m * g * k
-        bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-        bound_ops_ms = ops / F32_OPS_PER_S * 1e3
-        r = dict(case=c, rows=n, rows_in_wave=m, repro=repro, ok=ok,
-                 tolerance=tol, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                 library_ms=library_ms, library_max_abs_err=lib_err,
-                 bound_ms=max(bound_bytes_ms, bound_ops_ms),
-                 bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
-                 else "operations")
-        results.append(r)
-        print(f"  kernel wave_hist {'int8' if quant else 'bf16'} NB={nb} "
-              f"K={k} W={w}: ok={ok} repro={repro} max_abs_err={err:.3g} "
-              f"kernel {ms:.3f} ms, bound {r['bound_ms'] * 1e3:.1f} us "
-              f"({r['bound_by']}), plain {plain_ms:.2f} ms, library "
-              f"{library_ms:.2f} ms", flush=True)
-        del bins, leaf, ghk, pending, a, b, ref
-        torch.cuda.empty_cache()
-        if not ok:
-            fail(f"wave_hist disagrees with its plain version at {c}")
-    print(f"phase kernel: ok {len(results)} shapes", flush=True)
+    nb, k, w, quant = c["nb"], c["k"], c["w"], c["quant"]
+    bins, leaf, ghk, pending, live = kernel_case(dev, **c)
+    kw = dict(g=g, nb=nb, k=k, w=w)
+    run = lambda: kernel(bins, leaf, ghk, pending, **kw)
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    ref = hist_cuda.wave_hist_reference(bins, leaf, ghk, pending, **kw)
+    repro = bool(torch.equal(a, b))
+    err = float((a.double() - ref.double()).abs().max())
+    if quant:
+        ok = repro and torch.equal(a, ref)
+        tol = "byte-equal"
+    else:
+        mag = hist_cuda.wave_hist_reference(bins, leaf, ghk.abs(), pending,
+                                            **kw)
+        ok = repro and bool(((a - ref).abs() <= 1e-4 * mag + 1e-6).all())
+        tol = "1e-4*|hist| + 1e-6"
+    ms = time_ms(run, reps=20)
+    plain_ms = time_ms(lambda: hist_cuda.wave_hist_reference(
+        bins, leaf, ghk, pending, **kw), reps=2, warmup=1)
+    lib_run, lib_out, m = library_hist(bins, leaf, ghk, pending, **kw)
+    library_ms = time_ms(lib_run, reps=3, warmup=1)
+    lib_err = float((lib_out.view(ref.shape).double()
+                     - ref.double()).abs().max())
+    del lib_run, lib_out
+    n = bins.shape[1]
+    # the bound is the function's, the same for both kernels: its bytes
+    # (bins and leaf ids of every row, the stats of the rows in the wave,
+    # the histogram out) and its operations (one add per row in the wave,
+    # group and stat)
+    bytes_ = n * (g + 4) + m * ghk.element_size() * k + g * nb * k * w * 4
+    bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = m * g * k / F32_OPS_PER_S * 1e3
+    # wave_hist_v2's formulation does more work than the function: the
+    # dense one-hot product over B columns on the tensor cores
+    tc_ms = 2 * n * g * nb * (-(-(k * w) // 8) * 8) / BF16_TC_OPS_PER_S \
+        * 1e3 if tensor_core else None
+    r = dict(kernel=name, case=c, rows=n, rows_in_wave=m, repro=repro,
+             ok=ok, tolerance=tol, max_abs_err=err, ms=ms,
+             plain_ms=plain_ms, library_ms=library_ms,
+             library_max_abs_err=lib_err, bytes_bound_ms=bound_bytes_ms,
+             ops_bound_ms=ops_ms, bound_ms=max(bound_bytes_ms, ops_ms),
+             bound_by="bytes" if bound_bytes_ms >= ops_ms else "operations",
+             tc_ms=tc_ms)
+    tc = f", one-hot product at the tensor-core peak {tc_ms:.3f} ms" \
+        if tensor_core else ""
+    print(f"  kernel {name} {'int8' if quant else 'bf16'} n={n} NB={nb} "
+          f"K={k} W={w}{' dup' if c.get('dup') else ''}: ok={ok} "
+          f"repro={repro} max_abs_err={err:.3g} kernel {ms:.3f} ms, bound "
+          f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}){tc}, plain "
+          f"{plain_ms:.2f} ms, library {library_ms:.2f} ms", flush=True)
+    del bins, leaf, ghk, pending, a, b, ref
+    torch.cuda.empty_cache()
+    if not ok:
+        fail(f"{name} disagrees with its plain version at {c}")
+    return r
+
+
+def phase_kernels(dev):
+    from lightgbm_tpu_torch.ops import hist_cuda
+    v1 = [dict(nb=256, k=3, w=128, quant=False),
+          dict(nb=256, k=3, w=16, quant=False),
+          dict(nb=256, k=3, w=1, quant=False),
+          dict(nb=64, k=3, w=128, quant=False),
+          dict(nb=64, k=3, w=16, quant=False),
+          dict(nb=64, k=3, w=1, quant=False),
+          dict(nb=256, k=3, w=128, quant=True),
+          dict(nb=256, k=6, w=64, quant=True)]
+    v2 = [dict(nb=64, k=3, w=128, quant=False),
+          dict(nb=256, k=3, w=128, quant=False),
+          dict(nb=64, k=3, w=42, quant=False),
+          dict(nb=64, k=3, w=4, quant=False),
+          dict(nb=64, k=3, w=50, quant=False, dup=True),
+          # the ubench's own row count (10.5M padded to 32768 rows) and
+          # ch=4096: ~1.5M rows a split accumulated in mma registers
+          dict(nb=64, k=3, w=128, quant=False, n=UBENCH_ROWS)]
+    results = {"wave_hist": [], "wave_hist_v2": []}
+    for i, c in enumerate(v1):
+        results["wave_hist"].append(measure_case(
+            "wave_hist", lambda *a, live=2 * c["w"] + 1, **kw:
+            hist_cuda.wave_hist(*a, leaf_bound=live, **kw), dev,
+            dict(c, seed=i)))
+    for i, c in enumerate(v2):
+        results["wave_hist_v2"].append(measure_case(
+            "wave_hist_v2", hist_cuda.wave_hist_v2, dev,
+            dict(c, seed=100 + i), tensor_core=True))
+    print(f"phase kernel: ok {len(v1)} + {len(v2)} shapes", flush=True)
     return results
 
 
-def phase_train(dev, seed: int, profile: bool):
+def phase_ubench():
+    """scripts/ubench_hist_cuda.py's cases that launch wave_hist_v2, at
+    the script's default size, through its own entry point."""
+    import importlib.util
+    from lightgbm_tpu_torch.ops import hist_cuda
+    spec = importlib.util.spec_from_file_location(
+        "ubench_hist_cuda", ROOT / "scripts" / "ubench_hist_cuda.py")
+    ubench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ubench)
+    hist_cuda.wave_hist_v2.launches = 0
+    lines = ubench.main(["--cases", ",".join(UBENCH_CASES)])
+    launches = hist_cuda.wave_hist_v2.launches
+    if launches <= 0 or sorted(r["case"] for r in lines) \
+            != sorted(UBENCH_CASES):
+        fail(f"ubench ran {[r['case'] for r in lines]} with "
+             f"{launches} wave_hist_v2 launches")
+    for r in lines:
+        if not (r["ms"] > 0):
+            fail(f"ubench case {r['case']} timed {r['ms']} ms")
+    print(f"phase ubench: ok {len(lines)} cases, wave_hist_v2 launches "
+          f"{launches}", flush=True)
+    return dict(lines=lines, v2_launches=launches)
+
+
+TRAIN_BASE = {"objective": "binary", "max_bin": 255, "learning_rate": 0.1,
+              "wave_plan": "fixed", "verbose": -1}
+TRAIN_RUNS = {
+    "higgs": {"num_leaves": 255},
+    "harness": {"num_leaves": 31, "feature_fraction": 0.8,
+                "bagging_freq": 5, "bagging_fraction": 0.8},
+    "int8": {"num_leaves": 255, "grad_quant_bits": 8},
+}
+
+
+def auc_of(y, score) -> float:
+    from lightgbm_tpu_torch.metrics import AUCMetric
+
+    class _Md:
+        label, weights = y, None
+    m = AUCMetric(None)
+    m.init(_Md, len(y))
+    return m.eval(score[None, :], None)[0][1]
+
+
+def train_run(name, ds, x, y, dev, profile=False):
+    """10 rounds of one configuration on the binned Dataset ``ds``; every
+    wave's histogram must come from the wave_hist kernel.  ``profile``
+    adds a device-time breakdown of one more tree."""
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lt
-    from lightgbm_tpu_torch.metrics import AUCMetric
     from lightgbm_tpu_torch.ops import hist_cuda
-
-    t0 = time.perf_counter()
-    x, y = higgs_shape(N_ROWS, seed)
-    gen_s = time.perf_counter() - t0
-    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
-              "learning_rate": 0.1, "wave_plan": "fixed",
-              "device": dev.type, "verbose": -1}
-    t0 = time.perf_counter()
-    ds = lt.Dataset(x, y, params=params).construct()
-    bin_s = time.perf_counter() - t0
-
-    hist_cuda.wave_hist.launches = 0          # count the main path only
+    params = {**TRAIN_BASE, **TRAIN_RUNS[name], "device": dev.type}
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist_cuda.wave_hist.launches = 0          # count this run only
     t0 = time.perf_counter()
     booster = lt.train(params, ds, num_boost_round=ROUNDS)
     train_s = time.perf_counter() - t0
     launches = hist_cuda.wave_hist.launches
-
     gb = booster._gbdt
     stats = gb.tree_stats
     waves = sum(s[1] for s in stats)
     syncs = sum(s[2] for s in stats)
     if launches <= 0 or launches != waves:
-        fail(f"kernel launches {launches} != waves {waves}")
+        fail(f"{name}: kernel launches {launches} != waves {waves}")
     trees = booster.num_trees()
     if trees != ROUNDS:
-        fail(f"expected {ROUNDS} trees, got {trees}")
-
+        fail(f"{name}: expected {ROUNDS} trees, got {trees}")
     score = gb.train_score[0].double().cpu().numpy()
     if not np.isfinite(score).all():
-        fail("non-finite training scores")
-
-    class _Md:
-        label, weights = y, None
-    auc_m = AUCMetric(None)
-    auc_m.init(_Md, len(y))
-    auc = auc_m.eval(score[None, :], None)[0][1]
+        fail(f"{name}: non-finite training scores")
+    auc = auc_of(y, score)
     if auc < AUC_FLOOR:
-        fail(f"training AUC {auc:.4f} below the floor {AUC_FLOOR}")
-
+        fail(f"{name}: training AUC {auc:.4f} below the floor {AUC_FLOOR}")
     t0 = time.perf_counter()
     raw = booster.predict(x, raw_score=True)
     predict_s = time.perf_counter() - t0
     pred_err = float(np.abs(raw - score).max())
     if pred_err > 1e-5:
-        fail(f"host predict_raw vs device training score: {pred_err:.3g}")
-    sub = x[:200_000]
-    text = booster.model_to_string()
-    again = lt.Booster(model_str=text)
-    rt_err = float(np.abs(again.predict(sub) - booster.predict(sub)).max())
-    if rt_err > 1e-12:
-        fail(f"model text round trip moved predictions by {rt_err:.3g}")
-
+        fail(f"{name}: host predict_raw vs device training score: "
+             f"{pred_err:.3g}")
     per_tree = [s[0] for s in stats]
-    result = dict(rows=N_ROWS, features=N_FEATURES, rounds=ROUNDS,
-                  trees=trees, leaves=[t.num_leaves for t in gb.models],
-                  data_s=gen_s, binning_s=bin_s, train_s=train_s,
+    result = dict(params=params, trees=trees,
+                  leaves=[t.num_leaves for t in gb.models], train_s=train_s,
                   s_per_tree=per_tree, waves_per_tree=[s[1] for s in stats],
                   host_syncs_per_tree=[s[2] for s in stats],
                   launches=launches, waves=waves, host_syncs=syncs,
                   auc=auc, predict_s=predict_s,
                   predict_vs_score_max_abs=pred_err,
-                  roundtrip_max_abs=rt_err,
-                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9
-                  if dev.type == "cuda" else None)
-    print(f"phase train: ok {trees} trees, {train_s:.2f} s "
-          f"({np.mean(per_tree[1:]):.3f} s/tree after the first, first "
+                  peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print(f"  train {name}: {trees} trees, {train_s:.2f} s "
+          f"({np.mean(per_tree[1:]):.4f} s/tree after the first, first "
           f"{per_tree[0]:.3f} s), {waves / trees:.1f} waves/tree, "
           f"{syncs / trees:.1f} host syncs/tree, kernel launches "
           f"{launches} == waves, AUC {auc:.4f}, predict-vs-score "
-          f"{pred_err:.2g}, binning {bin_s:.1f} s", flush=True)
+          f"{pred_err:.2g}", flush=True)
     if profile:
         result["profile"] = profile_tree(gb)
+    return booster, result
+
+
+def phase_train(dev, seed: int, profile: bool):
+    import numpy as np
+    import scipy.sparse
+    import lightgbm_tpu_torch as lt
+
+    t0 = time.perf_counter()
+    x, y = higgs_shape(N_ROWS, seed)
+    gen_s = time.perf_counter() - t0
+    # binned once from the dense matrix (the HIGGS input) and once from
+    # CSR (the harness's input); the two must give the same bin codes
+    t0 = time.perf_counter()
+    dense = lt.Dataset(x, y, params=dict(TRAIN_BASE)).construct()
+    bin_dense_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lt.Dataset(scipy.sparse.csr_matrix(x), y,
+                    params=dict(TRAIN_BASE)).construct()
+    bin_s = time.perf_counter() - t0
+    codes_d, codes_c = dense._handle.binned, ds._handle.binned
+    if codes_d.shape != codes_c.shape or codes_d.dtype != codes_c.dtype \
+            or not np.array_equal(codes_d, codes_c):
+        fail("CSR bin codes differ from the dense matrix's")
+    runs = {}
+
+    booster, runs["higgs"] = train_run("higgs", dense, x, y, dev, profile)
+    runs["higgs"]["input"] = "dense"
+    del dense, codes_d, codes_c
+    sub = x[:200_000]
+    again = lt.Booster(model_str=booster.model_to_string())
+    rt_err = float(np.abs(again.predict(sub) - booster.predict(sub)).max())
+    if rt_err > 1e-12:
+        fail(f"model text round trip moved predictions by {rt_err:.3g}")
+    runs["higgs"]["roundtrip_max_abs"] = rt_err
+    del booster, again
+
+    booster, runs["harness"] = train_run("harness", ds, x, y, dev, profile)
+    gb = booster._gbdt
+    runs["harness"]["in_bag_rows"] = int(gb.row_mask.sum())
+    runs["harness"]["features_per_tree"] = gb._grower._ff_k
+    del booster, gb
+
+    texts = []
+    for rep in range(2):
+        booster, res = train_run("int8", ds, x, y, dev,
+                                 profile and rep == 0)
+        texts.append(booster.model_to_string())
+        runs[f"int8_run{rep + 1}"] = res
+        del booster
+    if texts[0] != texts[1]:
+        fail("grad_quant_bits=8: two runs gave different model text")
+    runs["int8_run2"]["model_text_identical"] = True
+    result = dict(rows=N_ROWS, features=N_FEATURES, rounds=ROUNDS,
+                  data_s=gen_s, binning_dense_s=bin_dense_s,
+                  binning_csr_s=bin_s, runs=runs)
+    print(f"phase train: ok {len(runs)} runs (higgs from the dense "
+          f"matrix; harness, int8 x2 from CSR; int8 model text "
+          f"byte-identical across runs), binning dense {bin_dense_s:.1f} s, "
+          f"CSR {bin_s:.1f} s (same codes)", flush=True)
     return result
 
 
 def profile_tree(gb):
-    """Device time by kernel over one more tree (torch.profiler)."""
+    """Device time by kernel over one more tree (torch.profiler), with the
+    run's bagging mask, feature mask and quantization key."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     grower = gb._grower
     grad, hess = gb.objective.get_gradients(gb.train_score)
+    gb.bagging(gb.iter)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        grower.grow_one_iter(gb.train_score[0].clone(), grad, hess)
+        grower.grow_one_iter(gb.train_score[0].clone(), grad, hess,
+                             feature_mask=grower.feature_mask_for(gb.iter),
+                             row_mask=gb.row_mask, tree_idx=gb.iter)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
@@ -359,7 +493,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one tree's device time by kernel")
+                    help="also profile one more tree of each run by kernel")
     args = ap.parse_args()
 
     if not (ROOT / "lightgbm_tpu_torch" / "csrc").is_dir():
@@ -377,26 +511,30 @@ def main() -> int:
 
     build_s = phase_build()
     kernels = phase_kernels(dev)
+    ubench = phase_ubench()
     train = phase_train(dev, args.seed, args.profile)
 
-    main_case = kernels[0]                    # full-width bf16 wave, NB=256
+    # wave_hist's path is training: its launches are those of every run;
+    # wave_hist_v2's path is the ubench entry point
+    v1_launches = sum(r["launches"] for r in train["runs"].values())
+    picks = [("wave_hist", kernels["wave_hist"][0], v1_launches,
+              "lightgbm_tpu_torch/csrc/wave_hist.cu",
+              "lightgbm_tpu/ops/hist_pallas.py:218"),
+             ("wave_hist_v2", kernels["wave_hist_v2"][0],
+              ubench["v2_launches"], "lightgbm_tpu_torch/csrc/wave_hist_v2.cu",
+              "lightgbm_tpu/ops/hist_pallas.py:162")]
     line = {"kernels": [{
-        "name": "wave_hist",
-        "route": "cuda",
-        "source": "lightgbm_tpu_torch/csrc/wave_hist.cu",
-        "replaces": "lightgbm_tpu/ops/hist_pallas.py:218",
-        "launches": train["launches"],
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }]}
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        "tc_ms": c["tc_ms"],
+    } for name, c, launches, source, replaces in picks]}
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke.json", "w") as fh:
         json.dump(dict(card=card, kind=kind, build_s=build_s,
-                       kernels=kernels, train=train,
+                       kernels=kernels, ubench=ubench, train=train,
                        torch=torch.__version__, cuda=torch.version.cuda),
                   fh, indent=1)
     print(card)

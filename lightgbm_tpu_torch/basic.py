@@ -1,6 +1,7 @@
 """User-facing ``Dataset`` and ``Booster`` (counterpart of
-``lightgbm_tpu/basic.py`` for dense matrices; no callbacks, valid sets or
-refit yet)."""
+``lightgbm_tpu/basic.py`` for dense matrices and scipy sparse ones, which
+bin from CSR without densifying; no callbacks, valid sets or refit
+yet)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,15 @@ from .config import Config
 from .data.dataset import BinnedDataset
 
 
+def _is_sparse(data) -> bool:
+    return hasattr(data, "tocsr") and hasattr(data, "nnz")
+
+
 def _to_2d_float(data):
+    """A dense float64 matrix of a prediction batch (sparse input is
+    densified here; training data bins from CSR instead)."""
+    if _is_sparse(data):
+        data = data.toarray()
     arr = np.asarray(data)
     if arr.ndim == 1:
         arr = arr.reshape(1, -1)
@@ -23,8 +32,8 @@ def _to_2d_float(data):
 
 
 class Dataset:
-    """Training data: a dense float matrix and its labels, binned on the
-    host at first use (``construct``)."""
+    """Training data: a dense float matrix or a scipy sparse matrix and its
+    labels, binned on the host at first use (``construct``)."""
 
     def __init__(self, data, label=None, weight=None, init_score=None,
                  feature_name=None, categorical_feature=(), params=None):
@@ -40,9 +49,16 @@ class Dataset:
     def construct(self) -> "Dataset":
         if self._handle is not None:
             return self
-        self._handle = BinnedDataset.construct_from_matrix(
-            _to_2d_float(self.data), Config(self.params),
-            self.categorical_feature, feature_names=self.feature_name)
+        config = Config(self.params)
+        if _is_sparse(self.data):
+            csr = self.data.tocsr()
+            self._handle = BinnedDataset.construct_from_csr(
+                csr.indptr, csr.indices, csr.data, csr.shape[1], config,
+                self.categorical_feature, feature_names=self.feature_name)
+        else:
+            self._handle = BinnedDataset.construct_from_matrix(
+                _to_2d_float(self.data), config, self.categorical_feature,
+                feature_names=self.feature_name)
         md = self._handle.metadata
         if self.label is not None:
             md.set_label(np.asarray(self.label))

@@ -7,8 +7,10 @@ grows one tree with ``ops/grow.DeviceGrower``, and the tree's split records
 stay on the device until they are replayed into host ``Tree`` objects
 (``_flush_pending``).  Prediction walks the host trees in float64.  The
 model text is the reference's "v2" format, so it loads into the JAX
-package and back.  The fused multi-iteration scan, valid sets, bagging and
-early stopping are not ported yet.
+package and back.  Bagging redraws its row mask every ``bagging_freq``
+iterations and feature_fraction draws a mask per tree, both from the
+JAX package's Threefry keys, so the draws are its draws.  The fused
+multi-iteration scan, valid sets and early stopping are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ from ..config import Config
 from ..data.dataset import BinnedDataset
 from ..metrics import create_metrics
 from ..objectives import create_objective
+from ..ops.bagging import bagging_row_mask
 from ..ops.grow import DeviceGrower
+from ..ops.histogram import bucket_size
 from ..params import PARAM_BY_NAME
 from ..tree.tree import Tree
 from ..utils.log import LightGBMError, log_info, log_warning
@@ -143,6 +147,11 @@ class GBDT:
         self.feature_infos = [m.feature_info_str() for m in
                               train_set.bin_mappers]
         self._grower = DeviceGrower(train_set, cfg, self.device)
+        self.bag_fraction = float(cfg.bagging_fraction)
+        self.bag_freq = int(cfg.bagging_freq)
+        self.need_bagging = self.bag_fraction < 1.0 and self.bag_freq > 0
+        # (num_data,) f32 in-bag mask of the current bagging round
+        self.row_mask: Optional[torch.Tensor] = None
         log_info(f"Training on {self.device} ({n} rows, "
                  f"{train_set.num_groups} feature groups)")
 
@@ -157,6 +166,18 @@ class GBDT:
                 log_info(f"Start training from score {init_score:f}")
                 return init_score
         return 0.0
+
+    def bagging(self, it: int) -> None:
+        """Redraw the in-bag row mask when ``it`` starts a bagging round
+        (lightgbm_tpu/boosting/gbdt.py:454-463): seed ``(bagging_seed +
+        it) & 0x7FFFFFFF``, uniforms over the host learner's bagging pad
+        ``bucket_size(num_data)``."""
+        if not self.need_bagging or it % self.bag_freq != 0:
+            return
+        seed = (int(self.config.bagging_seed) + it) & 0x7FFFFFFF
+        self.row_mask = bagging_row_mask(seed, bucket_size(max(
+            self.num_data, 1)), self.num_data, self.bag_fraction,
+            self.device)
 
     # ------------------------------------------------------------------
     def train_one_iter(self) -> bool:
@@ -181,9 +202,13 @@ class GBDT:
         t0 = time.perf_counter()
         bias = self.boost_from_average(0)
         grad, hess = self.objective.get_gradients(self.train_score)
+        self.bagging(self.iter)
         shrink = self.shrinkage_rate
-        res = self._grower.grow_one_iter(self.train_score[0], grad, hess,
-                                         shrink)
+        tree_idx = self.iter * self.num_model
+        res = self._grower.grow_one_iter(
+            self.train_score[0], grad, hess, shrink,
+            feature_mask=self._grower.feature_mask_for(tree_idx),
+            row_mask=self.row_mask, tree_idx=tree_idx)
         self.train_score[0] = res.score
         self.models.append(_PendingTree(res.rec_i, res.rec_f,
                                         res.num_leaves, shrink, bias))

@@ -2,19 +2,20 @@
 group storage.
 
 Counterpart of ``lightgbm_tpu/data/dataset.py`` for a dense float matrix
-(``construct_from_matrix``).  The binned matrix is a dense
+(``construct_from_matrix``) and CSR triplets (``construct_from_csr``, which
+bins without densifying).  The binned matrix is a dense
 ``(num_data, num_groups)`` uint8 array: every feature group holds <= 256
 total bins, so one byte per group cell suffices.  Slot 0 of every group
 means "all features at their default bin"; feature ``f`` with bin
 ``b != default_bin(f)`` maps to ``offset(f) + b - (1 if default_bin(f) == 0
 else 0)``.  The split scan reconstructs the skipped default bin from leaf
 totals.  Bin codes, groups and offsets are the JAX package's byte for byte.
-CSR input and device-side binning are not ported yet.
+Device-side binning is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -130,6 +131,90 @@ class BinnedDataset:
         ds._build_feature_lookups(config)
         return ds
 
+    @classmethod
+    def construct_from_csr(
+            cls, indptr, indices, values, num_col: int, config: Config,
+            categorical: Sequence[int] = (),
+            feature_names: Optional[Sequence[str]] = None,
+    ) -> "BinnedDataset":
+        """Build from CSR triplets without densifying: host memory stays
+        proportional to nnz plus the (N, G) uint8 matrix (the analog of
+        the reference's ``LGBM_DatasetCreateFromCSR``, which the fork's
+        cache-admission harness calls every window)."""
+        indptr = np.asarray(indptr, np.int64)
+        indices = np.asarray(indices, np.int64)
+        values = np.asarray(values, np.float64)
+        n = len(indptr) - 1
+        num_col = int(num_col)
+        ds = cls()
+        ds.num_data = n
+        ds.num_total_features = num_col
+        ds.metadata = Metadata(n)
+        ds.feature_names = ([f"Column_{i}" for i in range(num_col)]
+                            if feature_names is None else list(feature_names))
+
+        # column-major view of the nonzeros (one stable sort, O(nnz))
+        row_ids = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+        order = np.argsort(indices, kind="stable")
+        col_sorted = indices[order]
+        rows_by_col = row_ids[order]
+        vals_by_col = values[order]
+        col_bounds = np.searchsorted(col_sorted,
+                                     np.arange(num_col + 1, dtype=np.int64))
+
+        # stage 1: sampled bin finding (recorded = nonzero or NaN values of
+        # the sampled rows; zeros implicit, as in the dense path)
+        sample_cnt = min(n, int(config.bin_construct_sample_cnt))
+        rng = make_rng(config.data_random_seed)
+        if sample_cnt < n:
+            sample_idx = np.sort(rng.choice(n, size=sample_cnt,
+                                            replace=False))
+        else:
+            sample_idx = np.arange(n)
+        in_sample = np.zeros(n, bool)
+        in_sample[sample_idx] = True
+        sample_pos = np.full(n, -1, np.int64)
+        sample_pos[sample_idx] = np.arange(sample_cnt)
+        filter_cnt = int(0.95 * config.min_data_in_leaf / max(n, 1)
+                         * sample_cnt)
+        cat = set(int(c) for c in categorical)
+        ds.bin_mappers = []
+        nz_masks: Dict[int, np.ndarray] = {}
+        nz_counts: Dict[int, int] = {}
+        for f in range(num_col):
+            s, e = col_bounds[f], col_bounds[f + 1]
+            rs, vs = rows_by_col[s:e], vals_by_col[s:e]
+            keep = in_sample[rs]
+            vs_s = vs[keep]
+            rec_mask = (vs_s != 0.0) | np.isnan(vs_s)
+            m = BinMapper()
+            m.find_bin(vs_s[rec_mask], sample_cnt, config.max_bin,
+                       config.min_data_in_bin, filter_cnt,
+                       BIN_CATEGORICAL if f in cat else BIN_NUMERICAL,
+                       config.use_missing, config.zero_as_missing)
+            ds.bin_mappers.append(m)
+            mask = np.zeros(sample_cnt, bool)
+            mask[sample_pos[rs[keep][rec_mask]]] = True
+            nz_masks[f] = mask
+            nz_counts[f] = int(mask.sum())
+        ds.used_features = [f for f in range(num_col)
+                            if not ds.bin_mappers[f].is_trivial]
+        if not ds.used_features:
+            log_warning("There are no meaningful features, as all feature "
+                        "values are constant.")
+
+        # stage 2: bundling on the sampled masks
+        if not ds.used_features:
+            ds.groups = []
+        elif not config.enable_bundle or len(ds.used_features) == 1:
+            ds._set_groups([[f] for f in ds.used_features])
+        else:
+            ds._set_groups(ds._bundle_from_masks(config, nz_masks, nz_counts,
+                                                 sample_cnt))
+        ds._build_group_matrix_csr(col_bounds, rows_by_col, vals_by_col)
+        ds._build_feature_lookups(config)
+        return ds
+
     # -- stage 1: bin mappers ---------------------------------------------
     def _find_bins(self, data: np.ndarray, config: Config,
                    categorical: set) -> None:
@@ -175,6 +260,9 @@ class BinnedDataset:
             feature_groups = [[f] for f in used]
         else:
             feature_groups = self._fast_feature_bundling(data, config)
+        self._set_groups(feature_groups)
+
+    def _set_groups(self, feature_groups) -> None:
         self.groups = [FeatureGroupInfo(g, [self.bin_mappers[f] for f in g])
                        for g in feature_groups]
         for g in self.groups:
@@ -282,6 +370,25 @@ class BinnedDataset:
                 # later features of a bundle overwrite on (rare) conflicts,
                 # same as the reference's push order
                 col_out[non_default] = slot[non_default].astype(np.uint8)
+        self.binned = binned
+
+    def _build_group_matrix_csr(self, col_bounds, rows_by_col,
+                                vals_by_col) -> None:
+        """(N, G) uint8 matrix straight from the column-sorted nonzeros:
+        rows a feature does not record stay at the group's default slot
+        0, as the dense path's non-default masking leaves them."""
+        binned = np.zeros((self.num_data, len(self.groups)), dtype=np.uint8)
+        for gid, group in enumerate(self.groups):
+            col_out = binned[:, gid]
+            for sub, f in enumerate(group.feature_indices):
+                m = self.bin_mappers[f]
+                s, e = col_bounds[f], col_bounds[f + 1]
+                bins = m.values_to_bins(vals_by_col[s:e])
+                slot = bins + group.bin_offsets[sub] \
+                    - (1 if m.default_bin == 0 else 0)
+                non_default = bins != m.default_bin
+                col_out[rows_by_col[s:e][non_default]] = \
+                    slot[non_default].astype(np.uint8)
         self.binned = binned
 
     # -- stage 4: per-feature lookups -------------------------------------

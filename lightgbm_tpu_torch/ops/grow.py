@@ -1,8 +1,10 @@
 """Leaf-wise tree growth on the device, in synchronized waves.
 
 Counterpart of ``lightgbm_tpu/ops/grow.py`` (``GrowerPrograms._grow_impl``
-and ``DeviceGrower``), unsharded, numerical features, full-precision (bf16
-stat column) histograms.  The formulation is the JAX package's:
+and ``DeviceGrower``), unsharded, numerical features, with bf16 stat
+columns or, under ``grad_quant_bits=8``, int8 quantized ones, and with the
+per-tree bagging row mask and feature_fraction mask.  The formulation is
+the JAX package's:
 
 * a per-row ``leaf_id`` vector stands in for a row permutation; a split
   rewrites it with one elementwise pass over the ``(G, N)`` binned matrix;
@@ -14,6 +16,13 @@ stat column) histograms.  The formulation is the JAX package's:
   (``ops/split.find_best_split_stack``), and the wave applies up to W of
   the best-gain splits at once, within the ``num_leaves`` budget;
 * wave widths follow the legacy stage plan (``ops/stage_plan.py``).
+
+Under ``grad_quant_bits=8`` the histograms, leaf totals and the split
+scan stay int32 in quantized units (``ops/split.find_best_split_quant``),
+so the parent-minus-sibling subtraction and every count are exact; after
+growth each leaf's value is refit from the full-precision gradients with
+an exact base-128 digit sum and written back into the split record that
+created the leaf.
 
 The JAX package runs the wave loop inside one ``lax.while_loop`` with no
 host sync.  Here it is a Python loop that reads one number per wave (the
@@ -35,18 +44,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import random as trandom
 from ..utils.log import LightGBMError
 from .hist_cuda import MAX_LEAF_BOUND, hist_scale_exponents, wave_hist
-from .histogram import bucket_size
+from .histogram import QUANT_MAX, bucket_size, quantize_gh
 from .split import (F_DEFAULT_LEFT, F_FEATURE, F_GAIN, F_LEFT_C, F_LEFT_G,
                     F_LEFT_H, F_LEFT_OUT, F_RIGHT_C, F_RIGHT_G, F_RIGHT_H,
                     F_RIGHT_OUT, F_THRESHOLD, NEG_INF, FeatureMeta,
-                    SplitHyper, find_best_split_stack)
+                    SplitHyper, find_best_split_quant, find_best_split_stack)
 from .stage_plan import legacy_stage_plan
 
 REC_I_FIELDS = 5    # leaf, right, feature, threshold, default_left
 REC_F_FIELDS = 9    # gain, lg, lh, lc, rg, rh, rc, left_out, right_out
-HIST_COLS = 3       # [g, h, 1] stat columns
+REC_F_LEFT_OUT, REC_F_RIGHT_OUT = 7, 8
+# at or above this many rows the JAX package stripes its stat columns
+# (two count columns; under quantization two g and h columns too) to keep
+# every accumulator exact; the port has no striped layout yet.  Its
+# quantized f32 fallback scan starts higher still, past (2^31 - 1) // 127
+# rows (where int32 sums of |q| <= 127 could overflow), so refusing the
+# striped layouts refuses that too.
+COUNT_SPLIT_ROWS = 1 << 24
+HIST_COLS = 3       # [g, h, 1] stat columns, bf16 or int8
 
 
 class GrowResult(NamedTuple):
@@ -65,19 +83,41 @@ def _wave_width(num_leaves: int, hist_cols: int) -> int:
     return min(wmax, max(int(num_leaves) - 1, 1))
 
 
+def _hist_layout(num_data: int, config):
+    """(quant_bits, striped) for this row count and config
+    (``lightgbm_tpu/ops/grow.py::_hist_layout``).  The port runs only the
+    layouts with :data:`HIST_COLS` columns: ``check_slice_config``
+    refuses the striped and gpu_use_dp ones."""
+    quant_bits = int(getattr(config, "grad_quant_bits", 0) or 0)
+    return quant_bits, int(num_data) >= COUNT_SPLIT_ROWS
+
+
+def feature_fraction_mask(seed: int, tree_idx: int, nf: int, k: int,
+                          device=None) -> torch.Tensor:
+    """(nf,) bool mask of ``k`` features drawn without replacement: the
+    ``k`` smallest of ``nf`` uniforms under ``fold_in(PRNGKey(seed),
+    tree_idx)`` (``lightgbm_tpu/ops/grow.py::feature_fraction_mask``)."""
+    key = trandom.fold_in(trandom.PRNGKey(seed), tree_idx)
+    u = trandom.uniform(key, (nf,), device=device)
+    thr = torch.sort(u).values[k - 1]
+    return u <= thr
+
+
 def check_slice_config(config, dataset) -> None:
     """Refuse, by name, the options whose code paths the port does not
     have yet (the JAX package either supports them on its device grower
     or falls back to its host learner; the port has neither)."""
     todo = []
-    if int(config.grad_quant_bits or 0):
-        todo.append("grad_quant_bits=8 (quantized histograms)")
+    n = int(dataset.num_data)
+    quant_bits, striped = _hist_layout(n, config)
+    if quant_bits not in (0, 8):
+        todo.append(f"grad_quant_bits={quant_bits}")
+    if striped:
+        todo.append(f"{n} rows >= {COUNT_SPLIT_ROWS} (striped stat columns"
+                    + (" and the f32 quantized scan" if quant_bits else "")
+                    + ")")
     if config.gpu_use_dp:
         todo.append("gpu_use_dp (K=5/6 hi/lo stat columns)")
-    if config.feature_fraction < 1.0:
-        todo.append("feature_fraction < 1")
-    if config.bagging_freq > 0 and config.bagging_fraction < 1.0:
-        todo.append("bagging")
     if str(config.wave_plan) == "profiled":
         todo.append("wave_plan=profiled")
     if config.boosting != "gbdt":
@@ -137,13 +177,33 @@ class DeviceGrower:
         self.f_group = i64(dataset.f_group)
         self.f_offset = i64(dataset.f_offset)
         self.f_width = i64(nbins - (dbins == 0))
+        self.quant_bits, _ = _hist_layout(self.num_data, config)
         self.wave_width = _wave_width(self.num_leaves, HIST_COLS)
         self.stage_plan = legacy_stage_plan(self.num_leaves, self.wave_width,
                                             HIST_COLS)
         self.lr = float(config.learning_rate)
         self._valid = torch.arange(self.n_pad, device=device) < self.num_data
+        # sampling seeds (lightgbm_tpu/ops/grow.py:364-379)
+        nf = int(self.meta.num_bin.shape[0])
+        self._ff_frac = float(config.feature_fraction)
+        self._ff_nf = nf
+        self._ff_k = max(1, int(np.ceil(nf * self._ff_frac)))
+        self._ff_seed = int(config.feature_fraction_seed
+                            if config.feature_fraction_seed
+                            else config.seed + 2) & 0x7FFFFFFF
+        self._quant_seed = (int(config.seed) + 5) & 0x7FFFFFFF
 
     # ------------------------------------------------------------------
+    def feature_mask_for(self, tree_idx: int) -> torch.Tensor:
+        """The feature_fraction mask of global tree ``tree_idx``
+        (``iter * num_model + class``); all features when the fraction
+        is 1."""
+        if self._ff_frac >= 1.0 or self._ff_nf <= 1:
+            return torch.ones(self._ff_nf, dtype=torch.bool,
+                              device=self.device)
+        return feature_fraction_mask(self._ff_seed, tree_idx, self._ff_nf,
+                                     self._ff_k, self.device)
+
     def _leaf_output(self, g, h):
         hp = self.hyper
         s = torch.sign(g) * torch.clamp(g.abs() - hp.lambda_l1, min=0.0)
@@ -152,54 +212,115 @@ class DeviceGrower:
             return out
         return torch.clamp(out, -hp.max_delta_step, hp.max_delta_step)
 
-    def _splittable(self, total, depth):
+    def _splittable(self, total, depth, hess_scale=None):
+        """``hess_scale`` dequantizes the hessian column of int32 totals
+        (the quantized scan); counts compare directly either way."""
         cfg = self.config
+        hess = total[..., 1]
+        if hess_scale is not None:
+            hess = hess.float() * hess_scale
         ok = (total[..., 2] > 2 * cfg.min_data_in_leaf) \
-            & (total[..., 1] > 2 * cfg.min_sum_hessian_in_leaf)
+            & (hess > 2 * cfg.min_sum_hessian_in_leaf)
         if cfg.max_depth > 0:
             ok = ok & (depth < cfg.max_depth)
         return ok
 
-    def _stat_columns(self, grad, hess):
-        """(n_pad, 3) bf16 [g, h, 1] columns, pad rows zeroed.  Trouble
-        spot (lightgbm_tpu/ops/grow.py:597): g and h are rounded to bf16
-        BEFORE the histogram, on purpose; ``.to(torch.bfloat16)`` rounds to
-        nearest even like XLA's convert, so both packages see the same
+    def _stat_columns(self, grad, hess, one_f, tree_idx):
+        """(n_pad, 3) stat columns and the (2,) f32 dequantization scales
+        (None without quantization).  ``one_f`` is the f32 0/1 row
+        indicator (real row x in-bag); ``grad``/``hess`` are zero past
+        the real rows but NOT bag-masked: the quantization scale is taken
+        over every real row, out-of-bag ones included, as the JAX package
+        takes it.
+
+        int8: ``[g_q, h_q, 1]`` masked by ``one_f``, the rounding noise
+        keyed ``fold_in(PRNGKey((seed + 5) & 0x7FFFFFFF), tree_idx)``.
+        bf16 (lightgbm_tpu/ops/grow.py:597): g and h are rounded to bf16
+        BEFORE the histogram, on purpose; ``.to(torch.bfloat16)`` rounds
+        to nearest even like XLA's convert, so both packages see the same
         column values."""
-        pad = self.n_pad - self.num_data
-        valid_f = self._valid.float()
-        grad = F.pad(grad, (0, pad)) * valid_f
-        hess = F.pad(hess, (0, pad)) * valid_f
-        one = valid_f.to(torch.bfloat16)
+        if self.quant_bits:
+            key = trandom.fold_in(trandom.PRNGKey(self._quant_seed),
+                                  tree_idx)
+            sg, sh, gq, hq = quantize_gh(grad, hess, key)
+            m8 = one_f.to(torch.int8)
+            return torch.stack([gq * m8, hq * m8, m8], 1), torch.stack([sg,
+                                                                       sh])
+        one = one_f.to(torch.bfloat16)
         return torch.stack([grad.to(torch.bfloat16) * one,
-                            hess.to(torch.bfloat16) * one, one], dim=1)
+                            hess.to(torch.bfloat16) * one, one], 1), None
 
     def _wave_hist(self, leaf_id, gh, pending, scale_exp):
-        """(W, S, 3) f32 histograms of the pending leaves."""
+        """(W, S, 3) histograms of the pending leaves: f32, or int32 in
+        quantized units."""
         w = pending.shape[0]
         out = wave_hist(self.binned_t, leaf_id, gh, pending,
                         g=self.num_groups, nb=self.nb, k=HIST_COLS, w=w,
                         scale_exp=scale_exp, leaf_bound=self.num_leaves)
         return out.permute(2, 0, 1)             # (G*NB, K, W) -> (W, S, K)
 
+    def _refit(self, grad, hess, one_f, leaf_id, scales):
+        """(L,) leaf values refit from the full-precision gradients
+        (lightgbm_tpu/ops/grow.py:1036-1058): each masked gradient is
+        split into three base-128 int8 digits against the quantization
+        scale (round to nearest, no noise) and the digits are summed per
+        leaf in integers, so the sums are exact in any order."""
+        L = self.num_leaves
+
+        def digits(x, s):
+            cols, r, sd = [], x, s
+            for _ in range(3):
+                d = torch.clamp(torch.round(r / sd), -QUANT_MAX, QUANT_MAX)
+                r = r - d * sd
+                cols.append(d.to(torch.int32))
+                sd = sd / 128.0
+            return cols
+
+        dcols = torch.stack(digits(grad * one_f, scales[0])
+                            + digits(hess * one_f, scales[1]), 1)
+        idx = torch.where(leaf_id >= 0, leaf_id, L).long()
+        sums6 = torch.zeros((L + 1, 6), dtype=torch.int32,
+                            device=self.device).index_add_(0, idx, dcols)
+        s = sums6[:L].float()
+        gsum = (s[:, 0] + s[:, 1] * (1 / 128.0)
+                + s[:, 2] * (1 / 16384.0)) * scales[0]
+        hsum = (s[:, 3] + s[:, 4] * (1 / 128.0)
+                + s[:, 5] * (1 / 16384.0)) * scales[1]
+        return self._leaf_output(gsum, hsum)
+
     # ------------------------------------------------------------------
-    def grow_one_iter(self, score, grad, hess, lr=None,
-                      feature_mask=None) -> GrowResult:
+    def grow_one_iter(self, score, grad, hess, lr=None, feature_mask=None,
+                      row_mask=None, tree_idx: int = 0) -> GrowResult:
         """Grow one tree from (num_data,) f32 gradients and return the
-        updated score and the split records (device tensors)."""
+        updated score and the split records (device tensors).
+        ``row_mask`` is the (num_data,) f32 0/1 in-bag indicator of
+        bagging: out-of-bag rows drop out of the histograms and counts but
+        are still routed to leaves, so the score update reaches them.
+        ``tree_idx`` is the global tree index keying the quantization
+        noise."""
         dev = self.device
         L, S, nb = self.num_leaves, self.num_slots, self.nb
         lr = self.lr if lr is None else float(lr)
         if feature_mask is None:
             feature_mask = torch.ones(self.meta.num_bin.shape[0],
                                       dtype=torch.bool, device=dev)
-        gh = self._stat_columns(grad, hess)
-        scale_exp = hist_scale_exponents(gh, self.n_pad)
+        pad = self.n_pad - self.num_data
+        valid_f = self._valid.float()
+        grad = F.pad(grad, (0, pad)) * valid_f
+        hess = F.pad(hess, (0, pad)) * valid_f
+        one_f = valid_f if row_mask is None \
+            else valid_f * F.pad(row_mask, (0, pad))
+        gh, qscales = self._stat_columns(grad, hess, one_f, tree_idx)
+        quant = qscales is not None
+        scale_exp = None if quant else hist_scale_exponents(gh, self.n_pad)
         i32 = dict(dtype=torch.int32, device=dev)
+        hdtype = torch.int32 if quant else torch.float32
 
         leaf_id = torch.where(self._valid, 0, -1).to(torch.int32)
-        hist = torch.zeros((L + 1, S, 3), dtype=torch.float32, device=dev)
-        total = torch.zeros((L + 1, 3), dtype=torch.float32, device=dev)
+        hist = torch.zeros((L + 1, S, 3), dtype=hdtype, device=dev)
+        total = torch.zeros((L + 1, 3), dtype=hdtype, device=dev)
+        # the winner's exact int32 left totals (quantized scan only)
+        bestl = torch.zeros((L + 1, 3), **i32) if quant else None
         value = torch.zeros((L + 1,), dtype=torch.float32, device=dev)
         depth = torch.zeros((L + 1,), **i32)
         neg_row = torch.full((13,), NEG_INF, dtype=torch.float32, device=dev)
@@ -233,7 +354,10 @@ class DeviceGrower:
                 if waves == 0:
                     # root: totals from group 0's slots (every row hits one)
                     total[0] = fresh[0, :nb, :].sum(0)
-                    value[0] = self._leaf_output(total[0, 0], total[0, 1])
+                    rt = total[0].float()
+                    if quant:
+                        rt = rt[:2] * qscales
+                    value[0] = self._leaf_output(rt[0], rt[1])
                 # 2. larger sibling = parent - smaller (read the parents
                 # before the fresh histograms overwrite their slots)
                 par = torch.where(p_parent >= 0, p_parent, L).long()
@@ -251,16 +375,28 @@ class DeviceGrower:
                 ids = torch.cat([torch.where(sm_ok, p_small, -1),
                                  torch.where(lg_ok, p_large, -1)]).long()
                 idc = ids.clamp(0, L - 1)
-                packed = find_best_split_stack(
-                    torch.cat([fresh, large]), total[idc], feature_mask,
-                    self.meta, self.hyper)
-                ok = self._splittable(total[idc], depth[idc]) & (ids >= 0)
+                stack = torch.cat([fresh, large])
+                if quant:
+                    packed, lint = find_best_split_quant(
+                        stack, total[idc], qscales, feature_mask, self.meta,
+                        self.hyper)
+                    ok = self._splittable(total[idc], depth[idc],
+                                          hess_scale=qscales[1])
+                else:
+                    packed = find_best_split_stack(
+                        stack, total[idc], feature_mask, self.meta,
+                        self.hyper)
+                    ok = self._splittable(total[idc], depth[idc])
+                ok = ok & (ids >= 0)
                 packed[:, F_GAIN] = torch.where(
                     ok, packed[:, F_GAIN],
                     torch.full_like(packed[:, F_GAIN], NEG_INF))
                 safe = torch.where(ids >= 0, ids, L)
                 best[safe] = torch.where((ids >= 0)[:, None], packed,
                                          best[safe])
+                if quant:
+                    bestl[safe] = torch.where((ids >= 0)[:, None], lint,
+                                              bestl[safe])
 
                 # 4. select up to Ws best-gain splits within the budget.
                 # Trouble spot (lightgbm_tpu/ops/grow.py:846): lax.top_k
@@ -318,8 +454,17 @@ class DeviceGrower:
                 safe_l = torch.where(sel, lsel, L)
                 safe_r = torch.where(sel, r_ids, L)
                 sel2 = sel[:, None]
-                lsum = vecs[:, [F_LEFT_G, F_LEFT_H, F_LEFT_C]]
-                rsum = vecs[:, [F_RIGHT_G, F_RIGHT_H, F_RIGHT_C]]
+                if quant:
+                    # exact integer child totals: the winner's left sums
+                    # from the scan, the right child by subtraction (read
+                    # the parent before the scatter overwrites its slot)
+                    lsum = bestl[lsel]
+                    rsum = total[lsel] - lsum
+                    small_left = lsum[:, 2] <= rsum[:, 2]
+                else:
+                    lsum = vecs[:, [F_LEFT_G, F_LEFT_H, F_LEFT_C]]
+                    rsum = vecs[:, [F_RIGHT_G, F_RIGHT_H, F_RIGHT_C]]
+                    small_left = vecs[:, F_LEFT_C] <= vecs[:, F_RIGHT_C]
                 total[safe_l] = torch.where(sel2, lsum, total[safe_l])
                 total[safe_r] = torch.where(sel2, rsum, total[safe_r])
                 value[safe_l] = torch.where(sel, vecs[:, F_LEFT_OUT],
@@ -341,7 +486,6 @@ class DeviceGrower:
                 rec_f[ridx] = torch.where(sel2, new_rf, rec_f[ridx])
                 # pending for the next wave: the smaller child gets the
                 # fresh histogram
-                small_left = vecs[:, F_LEFT_C] <= vecs[:, F_RIGHT_C]
                 lsel32, r32 = lsel.to(torch.int32), r_ids.to(torch.int32)
                 p_parent = torch.where(sel, lsel32, -1)
                 p_small = torch.where(
@@ -350,6 +494,12 @@ class DeviceGrower:
                     sel, torch.where(small_left, r32, lsel32), -1)
                 nl += napply
 
+        leaf_vals = value[:L]
+        if quant:
+            leaf_vals = self._refit_into_records(
+                self._refit(grad, hess, one_f, leaf_id, qscales), rec_i,
+                rec_f, nl)
+
         # score update.  Trouble spot (lightgbm_tpu/ops/grow.py:1109-1116):
         # the JAX package adds float32(bf16(v)) + float32(bf16(v - hi)) per
         # row through a one-hot einsum with one nonzero per row, which is
@@ -357,7 +507,7 @@ class DeviceGrower:
         # more accurate but diverges from the JAX package from tree 2 on.
         # A stump (root never split) applies nothing.
         lr32 = float(np.float32(lr))
-        scaled = value[:L] * lr32 * (1.0 if nl > 1 else 0.0)
+        scaled = leaf_vals * lr32 * (1.0 if nl > 1 else 0.0)
         vhi = scaled.to(torch.bfloat16)
         vlo = (scaled - vhi.float()).to(torch.bfloat16)
         lid = leaf_id[:self.num_data].long()
@@ -365,3 +515,27 @@ class DeviceGrower:
         keep = max(L - 1, 1)
         return GrowResult(new_score, rec_i[:keep], rec_f[:keep], nl,
                           value[0], waves, syncs)
+
+    def _refit_into_records(self, refit, rec_i, rec_f, nl):
+        """Write each existing leaf's refit value into the record that
+        created it (the last record naming the leaf: a left child keeps
+        its parent's id, a right id is fresh), in place; returns the (L,)
+        leaf values (0 past the last leaf)."""
+        L = self.num_leaves
+        dev = self.device
+        exists = torch.arange(L, device=dev) < nl
+        recs = torch.arange(L, dtype=torch.int64, device=dev)
+        lid, rid = rec_i[:, 0].long(), rec_i[:, 1].long()
+        base = torch.full((L + 1,), -1, dtype=torch.int64, device=dev)
+        last_l = base.scatter_reduce(0, torch.where(lid >= 0, lid, L), recs,
+                                     reduce="amax")
+        last_r = base.scatter_reduce(0, torch.where(rid >= 0, rid, L), recs,
+                                     reduce="amax")
+        crec = torch.maximum(last_l[:L], last_r[:L])
+        is_left = last_l[:L] >= last_r[:L]
+        do = exists & (crec >= 0)
+        leaf_vals = torch.where(exists, refit, torch.zeros_like(refit))
+        rows = torch.where(do, crec, L - 1)          # junk record row
+        cols = torch.where(is_left, REC_F_LEFT_OUT, REC_F_RIGHT_OUT)
+        rec_f[rows, cols] = torch.where(do, leaf_vals, rec_f[rows, cols])
+        return leaf_vals

@@ -1,7 +1,9 @@
-"""The wave histogram: a hand-written Hopper kernel and its plain version.
+"""The wave histogram: two hand-written Hopper kernels and their plain
+version.
 
-Counterpart of ``lightgbm_tpu/ops/hist_pallas.py`` (``wave_hist_pallas``).
-Both compute, for a wave of up to W pending leaves::
+Counterpart of ``lightgbm_tpu/ops/hist_pallas.py`` (``wave_hist_pallas``
+and ``wave_hist_pallas_v2``).  All compute, for a wave of W pending
+leaves::
 
     out[g*NB + b, k, w] = sum of ghk[r, k] over rows r with
                           binned_t[g, r] == b and leaf_id[r] == pending[w]
@@ -19,6 +21,13 @@ per stat column, :func:`hist_scale_exponents`), so its f32 result is the
 exactly rounded sum, bit-identical run to run; the plain version sums in
 f32 in ``index_add_`` order.  The two therefore agree to f32 summation
 error, not bit for bit; int8 stats agree exactly.
+
+:func:`wave_hist_v2` launches ``csrc/wave_hist_v2.cu``, the TPU v2 kernel's
+formulation: the histogram as the one-hot matrix product on the tensor
+cores, bf16 only, any W, duplicate pending ids allowed (each slot its own
+column).  Its plain version is the same :func:`wave_hist_reference`.  The
+grower does not route to it (nor does the JAX grower to its v2); it runs
+from ``scripts/ubench_hist_cuda.py``.
 """
 
 from __future__ import annotations
@@ -136,6 +145,16 @@ def _kernel_lib():
     return fn
 
 
+def _inputs_on_card(binned_t, leaf_id, ghk, pending, name: str) -> None:
+    dev = binned_t.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
+    for arg, t in (("binned_t", binned_t), ("leaf_id", leaf_id),
+                   ("ghk", ghk), ("pending", pending)):
+        if not t.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+
+
 def wave_hist(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
               w: int, scale_exp=None, leaf_bound=None) -> torch.Tensor:
     """Wave histogram ``(G*NB, K, W)``; see the module docstring.
@@ -151,12 +170,7 @@ def wave_hist(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
     if dev.type == "cpu":
         return wave_hist_reference(binned_t, leaf_id, ghk, pending, g=g,
                                    nb=nb, k=k, w=w)
-    if dev.type != "cuda":
-        raise ValueError(f"wave_hist runs on cuda or cpu tensors, got {dev}")
-    for name, t in (("binned_t", binned_t), ("leaf_id", leaf_id),
-                    ("ghk", ghk), ("pending", pending)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _inputs_on_card(binned_t, leaf_id, ghk, pending, "wave_hist")
     if w > MAX_WAVE:
         raise ValueError(f"W must be at most {MAX_WAVE}, got {w}")
     quant = ghk.dtype == torch.int8
@@ -195,3 +209,75 @@ def wave_hist(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
 
 #: kernel launches made through :func:`wave_hist` (read by chip_smoke.py)
 wave_hist.launches = 0
+
+#: csrc/wave_hist_v2.cu tiles: output rows and columns per block, rows
+#: staged per step (a row split is a multiple of it)
+_V2_BM, _V2_BN, _V2_STAGE = 128, 64, 128
+
+
+def _v2_geometry(n, g, nb, k, w, ch, sm_count):
+    """(b_pad, row splits, rows per split): columns padded to the block
+    width; the rows cut into whole blocks of ``ch`` rows, as few per
+    split as give every SM about four blocks."""
+    b_pad = -(-(k * w) // _V2_BN) * _V2_BN
+    tiles = -(-(g * nb) // _V2_BM) * (b_pad // _V2_BN)
+    row_blocks = -(-max(n, 1) // ch)
+    splits = max(1, min(row_blocks, -(-4 * sm_count // tiles)))
+    rows_per_split = -(-row_blocks // splits) * ch
+    return b_pad, -(-max(n, 1) // rows_per_split), rows_per_split
+
+
+def wave_hist_v2(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
+                 w: int, ch: int = 4096) -> torch.Tensor:
+    """Wave histogram ``(G*NB, K, W)`` f32 by the tensor-core one-hot
+    product (``csrc/wave_hist_v2.cu``); bf16 stat columns only.
+
+    ``ch`` is the row block (the TPU kernel's grid step): each CUDA block
+    reduces a run of whole blocks of ``ch`` rows, and the partial sums of
+    the runs are added in a fixed order, so the result is bit-identical
+    from run to run.  It must be a multiple of 128; NB a multiple of 32.
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`wave_hist_reference`."""
+    n = _check(binned_t, leaf_id, ghk, pending, g, nb, k, w)
+    if ghk.dtype != torch.bfloat16:
+        raise ValueError(f"wave_hist_v2 takes bf16 stat columns only (as "
+                         f"the TPU kernel it ports), got {ghk.dtype}; int8 "
+                         f"columns go to wave_hist")
+    if nb % 32:
+        raise ValueError(f"wave_hist_v2 needs NB a multiple of 32, got {nb}")
+    if ch <= 0 or ch % _V2_STAGE:
+        raise ValueError(f"ch must be a positive multiple of {_V2_STAGE}, "
+                         f"got {ch}")
+    dev = binned_t.device
+    if dev.type == "cpu":
+        return wave_hist_reference(binned_t, leaf_id, ghk, pending, g=g,
+                                   nb=nb, k=k, w=w)
+    _inputs_on_card(binned_t, leaf_id, ghk, pending, "wave_hist_v2")
+    fn = _kernel_v2_lib()
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    b_pad, splits, rps = _v2_geometry(n, g, nb, k, w, ch, sm_count)
+    partial = torch.empty((splits, g * nb, b_pad), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((g * nb, k, w), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(binned_t.data_ptr(), leaf_id.data_ptr(), ghk.data_ptr(),
+            pending.data_ptr(), partial.data_ptr(), out.data_ptr(), n, g, nb,
+            k, w, b_pad, splits, rps, stream)
+    if rc != 0:
+        raise RuntimeError(f"wave_hist_v2 kernel launch failed: CUDA error "
+                           f"{rc}")
+    wave_hist_v2.launches += 1
+    return out
+
+
+def _kernel_v2_lib():
+    fn = load_library("wave_hist_v2").wave_hist_v2_launch
+    if fn.argtypes is None:
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, ll, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+#: kernel launches made through :func:`wave_hist_v2` (read by chip_smoke.py)
+wave_hist_v2.launches = 0

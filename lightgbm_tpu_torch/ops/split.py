@@ -1,7 +1,7 @@
 """Best-split scan over all features of a stack of leaves, as torch ops.
 
 Counterpart of ``lightgbm_tpu/ops/split.py`` for numerical features (the
-port has no categorical splits and no quantized scan yet).  Every
+port has no categorical splits yet).  Every
 (feature, direction, threshold) candidate is evaluated at once with prefix
 sums over the 256-bin axis, and argmaxes pick the winners:
 
@@ -15,7 +15,12 @@ sums over the 256-bin axis, and argmaxes pick the winners:
   monotone-constraint zeroing (``GetSplitGains``).
 
 The JAX package ``vmap``s the single-leaf scan over a histogram stack; here
-the stack is a written-out leading batch dimension B.  Ties break as in the
+the stack is a written-out leading batch dimension B.
+
+:func:`find_best_split_quant` is the int32 scan of ``grad_quant_bits=8``:
+the quantized histograms stay integer through default-bin reconstruction
+and every prefix sum, so both are exact, and are dequantized only where
+the gain and leaf-output math needs real units.  Ties break as in the
 JAX package: ``torch.argmax`` returns the first maximum, which is
 ``jnp.argmax``'s rule (lower feature index, default-left variant first).
 """
@@ -121,10 +126,11 @@ def _split_gain(gl, hl, gr, hr, hp: SplitHyper, cmin, cmax, mono):
 
 def feature_histograms(hists, totals, meta: FeatureMeta):
     """(B, S, 3) flat slots -> (B, F, 256, 3) per-feature histograms with
-    the default bin reconstructed from the leaf totals (B, 3)."""
+    the default bin reconstructed from the leaf totals (B, 3).  f32, or
+    int32 for the quantized scan (then the reconstruction is exact)."""
     fh = hists[:, meta.slot_idx] * meta.valid_nondefault[..., None]
     b = torch.arange(256, device=hists.device)[None, :]
-    default_vals = totals[:, None, :] - fh.sum(dim=2)          # (B, F, 3)
+    default_vals = totals[:, None, :] - fh.sum(dim=2, dtype=fh.dtype)
     default_vals[..., 2] = torch.clamp(default_vals[..., 2], min=0)
     is_default = (b == meta.default_bin[:, None]) \
         & (b < meta.num_bin[:, None])                          # (F, 256)
@@ -136,14 +142,18 @@ class PerFeatureBest(NamedTuple):
     gain: torch.Tensor          # (B, F) raw child-gain sum, NEG_INF if none
     threshold: torch.Tensor     # (B, F) int64 threshold bin
     default_left: torch.Tensor  # (B, F) bool
-    left: torch.Tensor          # (B, F, 3) left-child (g, h, c)
+    left: torch.Tensor          # (B, F, 3) left-child (g, h, c); int32
+    #                             quantized units under the int32 scan
 
 
 def per_feature_best(fh, totals, meta: FeatureMeta, hp: SplitHyper,
-                     min_gain_shift, cmin=-np.inf,
-                     cmax=np.inf) -> PerFeatureBest:
+                     min_gain_shift, cmin=-np.inf, cmax=np.inf,
+                     scales=None) -> PerFeatureBest:
     """The numerical threshold scan: each feature's best candidate of
-    every leaf in the stack (no argmax over features)."""
+    every leaf in the stack (no argmax over features).  ``scales`` (3,)
+    f32 ``[scale_g, scale_h, 1]`` switches on the int32 scan: ``fh`` is
+    then int32 and ``totals`` real units; the prefix sums stay integer
+    and the candidates are dequantized once, after them."""
     tg = totals[:, 0, None, None, None]
     th = totals[:, 1, None, None, None] + 2.0 * K_EPSILON
     tc = totals[:, 2, None, None, None]
@@ -160,13 +170,14 @@ def per_feature_best(fh, totals, meta: FeatureMeta, hp: SplitHyper,
     zero_mask = zero_sep & (b == db)
     miss_mask = (na_mask | zero_mask) & in_feat
     base = fh * (in_feat & ~miss_mask)[..., None]
-    prefix = torch.cumsum(base, dim=2)                         # (B, F, 256, 3)
-    miss_stats = (fh * miss_mask[..., None]).sum(dim=2)        # (B, F, 3)
+    prefix = torch.cumsum(base, dim=2, dtype=fh.dtype)         # (B, F, 256, 3)
+    miss_stats = (fh * miss_mask[..., None]).sum(dim=2, dtype=fh.dtype)
 
     # variant 0 = missing left (default_left=True, reference dir=-1 scan)
     # variant 1 = missing right (default_left=False, dir=+1)
     lefts = torch.stack([prefix + miss_stats[:, :, None, :], prefix],
                         dim=2)                                 # (B, F, 2, 256, 3)
+    lefts_f = lefts if scales is None else lefts.float() * scales
 
     t_ok = b < nbin - 1                                        # right side real bins
     two_dir = ((miss == 2) & (nb > 2)) | zero_sep
@@ -178,9 +189,9 @@ def per_feature_best(fh, totals, meta: FeatureMeta, hp: SplitHyper,
     v1_ok = v1_ok & ~(zero_sep & (b == db))
     var_ok = torch.stack([v0_ok, v1_ok], dim=1)                # (F, 2, 256)
 
-    gl = lefts[..., 0]
-    hl = lefts[..., 1] + K_EPSILON
-    cl = lefts[..., 2]
+    gl = lefts_f[..., 0]
+    hl = lefts_f[..., 1] + K_EPSILON
+    cl = lefts_f[..., 2]
     gr, hr, cr = tg - gl, th - hl, tc - cl
     data_ok = ((cl >= hp.min_data_in_leaf) & (cr >= hp.min_data_in_leaf)
                & (hl >= hp.min_sum_hessian_in_leaf)
@@ -208,12 +219,16 @@ def masked_feature_gain(pf: PerFeatureBest, meta: FeatureMeta, feature_mask,
 
 
 def pack_best(best_f, feat_gain, pf: PerFeatureBest, totals,
-              meta: FeatureMeta, hp: SplitHyper, cmin=-np.inf, cmax=np.inf):
-    """(B, 13) float32 records of each leaf's winning split (F_* fields)."""
+              meta: FeatureMeta, hp: SplitHyper, cmin=-np.inf, cmax=np.inf,
+              scales=None):
+    """(B, 13) float32 records of each leaf's winning split (F_* fields),
+    in real units (``scales`` dequantizes the int32 scan's left sums)."""
     tg, th, tc = totals[:, 0], totals[:, 1] + 2.0 * K_EPSILON, totals[:, 2]
     l1, l2, mds = hp.lambda_l1, hp.lambda_l2, hp.max_delta_step
     rows = torch.arange(best_f.shape[0], device=best_f.device)
     left = pf.left[rows, best_f]                               # (B, 3)
+    if scales is not None:
+        left = left.float() * scales
     lg, lh, lc = left[:, 0], left[:, 1] + K_EPSILON, left[:, 2]
     rg = tg - lg
     left_out = torch.clamp(_calc_output(lg, lh, l1, l2, mds), cmin, cmax)
@@ -253,3 +268,25 @@ def find_best_split_stack(hists, totals, feature_mask, meta: FeatureMeta,
     feat_gain = masked_feature_gain(pf, meta, feature_mask, shift)
     best_f = torch.argmax(feat_gain, dim=1)
     return pack_best(best_f, feat_gain, pf, totals, meta, hp)
+
+
+def find_best_split_quant(hists, totals, scales, feature_mask,
+                          meta: FeatureMeta, hp: SplitHyper):
+    """The int32 scan of ``grad_quant_bits=8`` over a stack: ``hists``
+    (B, S, 3) and ``totals`` (B, 3) int32 in quantized units, ``scales``
+    (2,) f32 ``[scale_g, scale_h]``.  Returns (packed (B, 13) f32 records
+    in real units, left (B, 3) int32: the winner's exact quantized left
+    totals; the caller takes the right child as total - left)."""
+    svec = torch.cat([scales.float(),
+                      torch.ones(1, dtype=torch.float32,
+                                 device=scales.device)])
+    totals_f = totals.float() * svec
+    shift = min_gain_shift_of(totals_f, hp)
+    fh = feature_histograms(hists, totals, meta)
+    pf = per_feature_best(fh, totals_f, meta, hp, shift, scales=svec)
+    feat_gain = masked_feature_gain(pf, meta, feature_mask, shift)
+    best_f = torch.argmax(feat_gain, dim=1)
+    packed = pack_best(best_f, feat_gain, pf, totals_f, meta, hp,
+                       scales=svec)
+    rows = torch.arange(best_f.shape[0], device=best_f.device)
+    return packed, pf.left[rows, best_f].to(torch.int32)

@@ -87,3 +87,30 @@ def test_bin_mappers_from_jax_states():
         _assert_mappers_equal(a, b)
         np.testing.assert_array_equal(a.values_to_bins(x[:, f]),
                                       b.values_to_bins(x[:, f]))
+
+
+@pytest.mark.parametrize("max_bin", [63, 255])
+def test_csr_binned_dataset_byte_equal(max_bin):
+    """A scipy CSR matrix bins without being densified; codes, groups and
+    lookups are the JAX package's construct_from_csr byte for byte (and
+    the dense path's)."""
+    import scipy.sparse as sp
+    x = _features_with_bundles()
+    x[np.abs(x) < 0.3] = 0.0                  # real sparsity in every column
+    csr = sp.csr_matrix(x)
+    params = {"objective": "binary", "max_bin": max_bin, "verbose": -1}
+    args = (csr.indptr, csr.indices, csr.data, csr.shape[1])
+    jd = JDataset.construct_from_csr(*args, JConfig(params))
+    td = TDataset.construct_from_csr(*args, TConfig(params))
+    assert [g.feature_indices for g in td.groups] == \
+        [g.feature_indices for g in jd.groups]
+    assert td.num_groups < td.num_features
+    np.testing.assert_array_equal(td.binned, jd.binned)
+    for name in ("f_group", "f_offset", "f_num_bin", "f_default_bin",
+                 "f_missing_type"):
+        np.testing.assert_array_equal(getattr(td, name), getattr(jd, name),
+                                      err_msg=name)
+    for a, b in zip(td.bin_mappers, jd.bin_mappers):
+        _assert_mappers_equal(a, b)
+    dense = TDataset.construct_from_matrix(x, TConfig(params))
+    np.testing.assert_array_equal(td.binned, dense.binned)

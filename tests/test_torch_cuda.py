@@ -1,5 +1,6 @@
-"""lightgbm_tpu_torch on the card: the CUDA kernel against its plain
-version, and training on cuda against training on the CPU path.
+"""lightgbm_tpu_torch on the card: the CUDA kernels against their plain
+version, Threefry on the card against the CPU, and training on cuda
+against training on the CPU path.
 
 Every test here needs an NVIDIA GPU and nvcc; without them they skip.
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -105,3 +106,74 @@ def test_training_on_card_matches_cpu_path(cuda_device):
                                   t_cpu.threshold_in_bin[:n - 1])
     np.testing.assert_allclose(on_card.predict(x, raw_score=True),
                                on_cpu.predict(x, raw_score=True), atol=1e-4)
+
+
+@pytest.mark.parametrize("n,g,nb,w,dup", [
+    (50_000, 5, 256, 37, False),
+    (40_003, 3, 64, 50, True),          # odd n, W*K > 128, duplicate ids
+    (70_000, 4, 128, 4, False),
+])
+def test_v2_kernel_matches_plain_on_card(cuda_device, n, g, nb, w, dup):
+    """wave_hist_v2 (tensor-core one-hot product) within 1e-4 of each
+    cell's sum of |stats| plus 1e-6 of the plain version, bit-identical
+    across runs, empty slot zero, duplicate slots equal."""
+    bins, leaf, ghk, pending = _inputs(cuda_device, n, g, nb, 3, w, False)
+    if dup:
+        pending[: w // 2] = pending[w // 2: 2 * (w // 2)]
+    kw = dict(g=g, nb=nb, k=3, w=w)
+    before = hist_cuda.wave_hist_v2.launches
+    a = hist_cuda.wave_hist_v2(bins, leaf, ghk, pending, ch=2048, **kw)
+    b = hist_cuda.wave_hist_v2(bins, leaf, ghk, pending, ch=2048, **kw)
+    assert hist_cuda.wave_hist_v2.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    ref = hist_cuda.wave_hist_reference(bins, leaf, ghk, pending, **kw)
+    mag = hist_cuda.wave_hist_reference(bins, leaf, ghk.abs(), pending, **kw)
+    assert ((a - ref).abs() <= 1e-4 * mag + 1e-6).all()
+    assert not a[..., -1].any()
+    if dup:
+        assert torch.equal(a[..., : w // 2], a[..., w // 2: 2 * (w // 2)])
+
+
+def test_threefry_on_card_equals_cpu(cuda_device):
+    from lightgbm_tpu_torch.utils import random as trandom
+    key = trandom.fold_in(trandom.PRNGKey(12345), 7)
+    for shape in (1, 28, 4097, (3, 1000)):
+        on_card = trandom.uniform(key, shape, device=cuda_device)
+        on_cpu = trandom.uniform(key, shape)
+        assert on_card.device.type == "cuda"
+        assert torch.equal(on_card.cpu().view(torch.int32),
+                           on_cpu.view(torch.int32))
+
+
+def test_bagged_quantized_tree_on_card_equals_cpu(cuda_device):
+    """grad_quant_bits=8 with bagging and feature_fraction: integer
+    histograms and scan, so the tree grown on the card (kernel
+    histograms) has the CPU path's records byte for byte."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import BinnedDataset
+    from lightgbm_tpu_torch.ops.bagging import bagging_row_mask
+    from lightgbm_tpu_torch.ops.grow import DeviceGrower
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((30_000, 8))
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "grad_quant_bits": 8, "feature_fraction": 0.8, "seed": 4,
+              "verbose": -1}
+    cfg = Config(params)
+    ds = BinnedDataset.construct_from_matrix(x, cfg)
+    grad = rng.standard_normal(len(x)).astype(np.float32)
+    hess = (0.05 + rng.random(len(x))).astype(np.float32)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        grower = DeviceGrower(ds, cfg, dev)
+        mask = bagging_row_mask(9, 32768, len(x), 0.8, device=dev)
+        t = lambda a: torch.from_numpy(a).to(dev)
+        res = grower.grow_one_iter(t(np.zeros(len(x), np.float32)),
+                                   t(grad), t(hess),
+                                   feature_mask=grower.feature_mask_for(3),
+                                   row_mask=mask, tree_idx=3)
+        out.append([r.cpu() for r in (res.rec_i, res.rec_f, res.score)]
+                   + [res.num_leaves])
+    assert out[0][3] == out[1][3] == 31
+    for a, b in zip(out[0][:3], out[1][:3]):
+        assert torch.equal(a, b)

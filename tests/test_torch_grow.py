@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 import parity_data as pd
 from lightgbm_tpu.config import Config as JConfig
@@ -87,3 +88,136 @@ def test_stump_leaves_score_unchanged():
         torch.from_numpy(hess))
     assert res.num_leaves == 1
     np.testing.assert_array_equal(res.score.numpy(), score)
+
+
+def _pair(p, seed):
+    """Both growers on the parity features with the same params, and
+    injected gradients."""
+    x = pd.make_features()
+    score, grad, hess = _grads(len(x), seed=seed)
+    jc, tc = JConfig(p), TConfig({**p, "device": "cpu"})
+    jg = JGrower(JDataset.construct_from_matrix(x, jc), jc)
+    tg = TGrower(TDataset.construct_from_matrix(x, tc), tc,
+                 torch.device("cpu"))
+    return jg, tg, (score, grad, hess)
+
+
+def _masks(jg, tg, tree_idx, bag_seed):
+    """The per-tree feature_fraction mask of each grower and, with a bag
+    seed, the JAX package's bagging row mask for both."""
+    from lightgbm_tpu.ops.bagging import bagging_row_mask
+    from lightgbm_tpu_torch.ops.histogram import bucket_size
+    jm, tm = jg.feature_mask_for(tree_idx), tg.feature_mask_for(tree_idx)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    if bag_seed is None:
+        return jm, tm, None, None
+    n = tg.num_data
+    rm = np.array(bagging_row_mask(bag_seed, bucket_size(n), n, 0.8))
+    assert 0 < rm.sum() < n
+    return jm, tm, jnp.asarray(rm), torch.from_numpy(rm)
+
+
+QUANT = {"objective": "binary", "max_bin": 63, "verbose": -1,
+         "device_growth": "on", "hist_kernel": "interpret",
+         "learning_rate": 0.1, "grad_quant_bits": 8, "seed": 3}
+# rec_f fields computed without a multiply-add: the left sums (one int32
+# sum times the scale) and the counts
+EXACT_F = [1, 2, 3, 6]
+
+
+def _grow_quant(params, bag_seed, tree_idx):
+    jg, tg, (score, grad, hess) = _pair({**QUANT, **params},
+                                        seed=tree_idx + 20)
+    jm, tm, jrm, trm = _masks(jg, tg, tree_idx, bag_seed)
+    out = jg.grow_one_iter(jnp.asarray(score), jnp.asarray(grad),
+                           jnp.asarray(hess), jm, row_mask=jrm,
+                           tree_idx=tree_idx)
+    res = tg.grow_one_iter(torch.from_numpy(score), torch.from_numpy(grad),
+                           torch.from_numpy(hess), feature_mask=tm,
+                           row_mask=trm, tree_idx=tree_idx)
+    j_nl = int(out[4])
+    assert res.num_leaves == j_nl >= 3
+    assert res.waves == int(out[6])
+    nrec = j_nl - 1
+    np.testing.assert_array_equal(res.rec_i.numpy()[:nrec],
+                                  np.asarray(out[1])[:nrec])
+    return (res.rec_f.numpy()[:nrec], np.asarray(out[2])[:nrec], res,
+            out)
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("params,bag_seed,tree_idx", [
+    ({"num_leaves": 15}, None, 0),
+    ({"num_leaves": 31, "min_data_in_leaf": 5, "lambda_l2": 1.0}, None, 3),
+    ({"num_leaves": 31, "feature_fraction": 0.8}, 8, 5),
+    ({"num_leaves": 7, "feature_fraction": 0.5, "max_depth": 3}, 13, 2),
+], ids=["leaves15", "leaves31_l2", "bag_ff", "bag_ff_depth3"])
+def test_quantized_tree_matches_jax(params, bag_seed, tree_idx):
+    """grad_quant_bits=8 against the jitted JAX grower: int8 stat columns,
+    int32 histograms and scan, refit leaf values.  The split records and
+    every integer-derived field are byte-equal.  Inside a jit, XLA's CPU
+    backend contracts a*b+c into fused multiply-adds (one rounding), so
+    the gain, right-child and output fields may differ from the port's
+    IEEE f32 in the last bits: 1e-6 of each field's magnitude.
+    test_quantized_tree_byte_equal_to_jax_op_by_op shows that this is the
+    only difference."""
+    got, want, res, out = _grow_quant(params, bag_seed, tree_idx)
+    np.testing.assert_array_equal(_bits(got[:, EXACT_F]),
+                                  _bits(want[:, EXACT_F]))
+    scale = np.abs(want).max(axis=0)
+    assert (np.abs(got - want) <= 1e-6 * scale).all()
+    np.testing.assert_allclose(res.score.numpy(), np.asarray(out[0]),
+                               rtol=0, atol=1e-6)
+
+
+def test_quantized_tree_byte_equal_to_jax_op_by_op():
+    """The JAX grower evaluated op by op (jax.disable_jit, so no FMA
+    contraction) grows a bagged, feature-masked quantized tree whose
+    records, root value and new score are the port's byte for byte."""
+    with jax.disable_jit():
+        got, want, res, out = _grow_quant(
+            {"num_leaves": 7, "feature_fraction": 0.8,
+             "hist_kernel": "einsum"}, 8, 5)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert _bits(res.root_value) == _bits(out[5])
+    np.testing.assert_array_equal(_bits(res.score.numpy()), _bits(out[0]))
+
+
+@pytest.mark.parametrize("params,bag_seed,tree_idx", [
+    ({"num_leaves": 31, "feature_fraction": 0.8}, 8, 0),
+    ({"num_leaves": 15, "feature_fraction": 0.5, "min_data_in_leaf": 30},
+     21, 7),
+], ids=["harness", "ff_half"])
+def test_bagged_feature_masked_tree_matches_jax(params, bag_seed, tree_idx):
+    """bf16 stat columns with the bagging row mask and the per-tree
+    feature_fraction mask: records equal to the tolerance of
+    test_one_tree_matches_jax; out-of-bag rows are still routed, so the
+    whole score moves."""
+    p = {"objective": "binary", "max_bin": 63, "verbose": -1,
+         "device_growth": "on", "hist_kernel": "interpret",
+         "learning_rate": 0.1, "seed": 5, **params}
+    jg, tg, (score, grad, hess) = _pair(p, seed=tree_idx + 40)
+    jm, tm, jrm, trm = _masks(jg, tg, tree_idx, bag_seed)
+    out = jg.grow_one_iter(jnp.asarray(score), jnp.asarray(grad),
+                           jnp.asarray(hess), jm, row_mask=jrm,
+                           tree_idx=tree_idx)
+    res = tg.grow_one_iter(torch.from_numpy(score), torch.from_numpy(grad),
+                           torch.from_numpy(hess), feature_mask=tm,
+                           row_mask=trm, tree_idx=tree_idx)
+    j_nl = int(out[4])
+    assert res.num_leaves == j_nl >= 3
+    nrec = j_nl - 1
+    j_rec_i, j_rec_f = np.asarray(out[1])[:nrec], np.asarray(out[2])[:nrec]
+    np.testing.assert_array_equal(res.rec_i.numpy()[:nrec], j_rec_i)
+    assert not np.isin(j_rec_i[:, 2], np.flatnonzero(~tm.numpy())).any()
+    got_f = res.rec_f.numpy()[:nrec]
+    scale = np.abs(j_rec_f).max(axis=0)
+    assert (np.abs(got_f - j_rec_f) <= 1e-5 * scale).all()
+    # in-bag counts only: the root's two children hold the bag
+    assert j_rec_f[0, 3] + j_rec_f[0, 6] == trm.sum()
+    np.testing.assert_allclose(res.score.numpy(), np.asarray(out[0]),
+                               rtol=0, atol=1e-6)
+    assert (res.score.numpy() != score)[trm.numpy() == 0].all()

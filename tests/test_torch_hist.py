@@ -1,9 +1,9 @@
-"""The wave histogram of the port (ops/hist_cuda.py) against the JAX
-package's Pallas kernel, run in interpret mode on the CPU as
-tests/test_hist_pallas.py runs it.
+"""The wave histograms of the port (ops/hist_cuda.py) against the JAX
+package's Pallas kernels, run in interpret mode on the CPU as
+tests/test_hist_pallas.py runs them.
 
-On the CPU the port's wrapper takes its plain PyTorch version; the CUDA
-kernel itself is held against that plain version on the card
+On the CPU the port's wrappers take their plain PyTorch version; the CUDA
+kernels themselves are held against that plain version on the card
 (tests/test_torch_cuda.py, and chip_smoke.py at full size)."""
 
 import numpy as np
@@ -11,7 +11,8 @@ import pytest
 import torch
 
 import jax.numpy as jnp
-from lightgbm_tpu.ops.hist_pallas import wave_hist_pallas
+from lightgbm_tpu.ops.hist_pallas import (_wave_hist_pallas_v2,
+                                          wave_hist_pallas)
 from lightgbm_tpu_torch.ops import hist_cuda
 
 
@@ -131,3 +132,75 @@ def test_rejects_bad_inputs():
         hist_cuda.wave_hist(bt, torch.from_numpy(leaf).long(),
                             torch.from_numpy(ghk), torch.from_numpy(pending),
                             **kw)
+
+
+@pytest.mark.parametrize("w,pending", [
+    (5, None),
+    (4, [2, 0, 2, -1]),                 # a duplicate id and an empty slot
+    (50, "dup"),                        # W*K = 150 > 128: two lane tiles
+], ids=["w5", "w4_dup_empty", "w50_dup"])
+def test_v2_against_pallas_v2(w, pending):
+    """wave_hist_v2's plain version (the one the CPU path takes) against
+    the JAX v2 kernel in interpret mode, within 1e-4 of each cell's sum of
+    |stats| plus 1e-6 (the same f32 sums in another order).  Rows of leaf
+    -1 carry zero stats, as the grower's padding does, so an empty slot is
+    zero in both."""
+    g, nb, k, n = 3, 64, 3, 2048
+    binned, leaf, ghk, _ = _inputs(n=n, g=g, nb=nb, k=k, w=w, seed=w,
+                                   quant=False)
+    ghk[leaf < 0] = 0.0
+    if pending is None:
+        pend = np.arange(w, dtype=np.int32)
+    elif pending == "dup":
+        pend = np.random.default_rng(1).integers(0, w // 2, w) \
+            .astype(np.int32)
+        assert len(set(pend.tolist())) < w
+    else:
+        pend = np.asarray(pending, np.int32)
+    kw = dict(g=g, nb=nb, k=k, w=w)
+    bt = torch.from_numpy(np.ascontiguousarray(binned.T))
+    gh = torch.from_numpy(ghk).to(torch.bfloat16)
+    got = hist_cuda.wave_hist_v2(bt, torch.from_numpy(leaf), gh,
+                                 torch.from_numpy(pend), ch=512, **kw)
+    want = np.asarray(_wave_hist_pallas_v2(
+        jnp.asarray(binned), jnp.asarray(leaf),
+        jnp.asarray(ghk).astype(jnp.bfloat16), jnp.asarray(pend), ch=512,
+        interpret=True, **kw))
+    mag = hist_cuda.wave_hist_reference(bt, torch.from_numpy(leaf),
+                                        gh.abs(), torch.from_numpy(pend),
+                                        **kw).numpy()
+    assert got.dtype == torch.float32 and got.shape == (g * nb, k, w)
+    assert (np.abs(got.numpy() - want) <= 1e-4 * mag + 1e-6).all()
+    for a, b in zip(*np.nonzero(pend[:, None] == pend[None, :])):
+        np.testing.assert_array_equal(got[..., a], got[..., b])
+    if (pend < 0).any():
+        assert not got[..., pend < 0].any()
+
+
+def test_v2_refuses_int8_and_bad_geometry():
+    binned, leaf, ghk, pending = _inputs()
+    bt = torch.from_numpy(np.ascontiguousarray(binned.T))
+    kw = dict(g=3, nb=64, k=3, w=5)
+    args = (bt, torch.from_numpy(leaf), torch.from_numpy(ghk),
+            torch.from_numpy(pending))
+    with pytest.raises(ValueError, match="bf16"):
+        hist_cuda.wave_hist_v2(*args, **kw)
+    gh = torch.from_numpy(ghk).float().to(torch.bfloat16)
+    args = args[:2] + (gh,) + args[3:]
+    with pytest.raises(ValueError, match="multiple of 128"):
+        hist_cuda.wave_hist_v2(*args, ch=1000, **kw)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        hist_cuda.wave_hist_v2(*args, **{**kw, "nb": 48})
+
+
+@pytest.mark.parametrize("n,g,nb,k,w,ch", [
+    (2_000_000, 28, 64, 3, 128, 4096),
+    (10_518_528, 28, 64, 3, 4, 4096),
+    (2_000_000, 28, 256, 3, 128, 2048),
+    (1000, 3, 64, 3, 50, 128),
+])
+def test_v2_geometry_covers_every_row_once(n, g, nb, k, w, ch):
+    b_pad, splits, rps = hist_cuda._v2_geometry(n, g, nb, k, w, ch, 132)
+    assert b_pad % 64 == 0 and k * w <= b_pad < k * w + 64
+    assert rps % ch == 0 and rps % 128 == 0
+    assert (splits - 1) * rps < n <= splits * rps

@@ -1,7 +1,9 @@
-"""lightgbm_tpu_torch stands alone: importing it pulls in neither JAX nor
-the JAX package, and its training entry point defaults to the GPU and
+"""lightgbm_tpu_torch stands alone: importing it (or running the
+histogram microbenchmark, scripts/ubench_hist_cuda.py) pulls in neither JAX
+nor the JAX package, and its training entry point defaults to the GPU and
 raises without one instead of running on the CPU."""
 
+import json
 import os
 import subprocess
 import sys
@@ -22,6 +24,10 @@ def test_import_pulls_in_no_jax():
         "before = set(sys.modules)\n"
         "import lightgbm_tpu_torch, lightgbm_tpu_torch.convert\n"
         "import lightgbm_tpu_torch.ops.grow, lightgbm_tpu_torch.ops.hist_cuda\n"
+        "import lightgbm_tpu_torch.ops.bagging, lightgbm_tpu_torch.ops.split\n"
+        "import lightgbm_tpu_torch.ops.histogram\n"
+        "import lightgbm_tpu_torch.utils.random, runpy\n"
+        "runpy.run_path('scripts/ubench_hist_cuda.py')\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'lightgbm_tpu'))\n"
@@ -48,3 +54,25 @@ def test_default_device_raises_without_a_card():
     out = _python(code, env=env)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "device_type=cuda" in out.stdout
+
+
+def test_ubench_runs_without_jax_on_the_cpu():
+    """The microbenchmark's entry point, rehearsed on the CPU at a tiny
+    size (its timings there say nothing of the card): one JSON line a
+    case, and no JAX module loaded."""
+    code = (
+        "import json, sys, runpy\n"
+        "sys.argv = ['ubench_hist_cuda.py', '--device', 'cpu', '--rows',\n"
+        "            '4000', '--iters', '1', '--cases',\n"
+        "            'hist3_w4,pallas2_w4_ch4096,apply_fused_w25']\n"
+        "runpy.run_path('scripts/ubench_hist_cuda.py', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'lightgbm_tpu'))\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = _python(code)
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = [json.loads(l) for l in out.stdout.splitlines()]
+    assert [r["case"] for r in lines] == ["setup", "hist3_w4",
+                                          "pallas2_w4_ch4096",
+                                          "apply_fused_w25"]
+    assert lines[0]["device"] == "cpu"

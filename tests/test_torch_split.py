@@ -89,3 +89,49 @@ def test_find_best_matches_jax(params):
     flip = got[:, dl] != want[:, dl]
     # a flip is a tie: the same gain either way, to f32 summation noise
     assert (err[flip, tsplit.F_GAIN] <= 1e-5 * scale[tsplit.F_GAIN]).all()
+
+
+@pytest.mark.parametrize("params", [{}, {"lambda_l2": 1.0,
+                                         "min_data_in_leaf": 40}],
+                         ids=["plain", "l2"])
+def test_quantized_scan_byte_equal_to_jax(params):
+    """The int32 scan of grad_quant_bits=8 on int32 histograms of
+    quantized stats: the records and the exact int32 left totals equal
+    the JAX package's scan (run op by op) byte for byte."""
+    p = {"objective": "binary", "max_bin": 63, "verbose": -1, **params}
+    x = pd.make_features()
+    jc, tc = JConfig(p), TConfig(p)
+    jd = JDataset.construct_from_matrix(x, jc)
+    td = TDataset.construct_from_matrix(x, tc)
+    rng = np.random.default_rng(11)
+    n, g = jd.binned.shape
+    leaf = rng.integers(0, 5, n)
+    stats = np.stack([rng.integers(-127, 128, n), rng.integers(0, 128, n),
+                      np.ones(n, np.int64)], 1)
+    hist = np.zeros((5, g * NB, 3), np.int64)
+    for gi in range(g):
+        np.add.at(hist, (leaf, gi * NB + jd.binned[:, gi].astype(np.int64)),
+                  stats)
+    hist = hist.astype(np.int32)
+    totals = hist[:, :NB].sum(1).astype(np.int32)
+    scales = np.array([0.0123, 0.00456], np.float32)
+    mask = np.ones(jd.num_features, bool)
+    mask[2] = False
+
+    jmeta = jsplit.FeatureMeta.from_dataset(jd, slot_stride=NB)
+    want, _, want_l = jsplit.find_best_split_stack(
+        jnp.asarray(hist), jnp.asarray(totals),
+        jnp.asarray([-np.inf, np.inf], jnp.float32), jnp.asarray(mask),
+        jmeta, jsplit.SplitHyper.from_config(jc), False,
+        scales=jnp.asarray(scales))
+    tmeta = tsplit.FeatureMeta.from_dataset(td, NB, torch.device("cpu"))
+    got, got_l = tsplit.find_best_split_quant(
+        torch.from_numpy(hist), torch.from_numpy(totals),
+        torch.from_numpy(scales), torch.from_numpy(mask), tmeta,
+        tsplit.SplitHyper.from_config(tc))
+    want = np.asarray(want)
+    assert (want[:, tsplit.F_GAIN] > tsplit.NEG_INF).any()
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    assert got_l.dtype == torch.int32
+    np.testing.assert_array_equal(got_l.numpy(), np.asarray(want_l))

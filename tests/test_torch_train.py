@@ -6,10 +6,27 @@ GBDT on the parity features, both on their device growers.
 * raw predictions agree within 1e-3 and AUC within 2e-3 (from tree 2 on,
   f32 summation-order noise in the histograms may move a near-tie split);
 * each package's model text loads into the other with identical
-  predictions, and convert.booster_from_arrays rebuilds a JAX booster."""
+  predictions, and convert.booster_from_arrays rebuilds a JAX booster.
 
+Two sampled configurations go through the same checks (first 3 trees
+structurally equal, AUC within 2e-3):
+
+* the fork harness's config (31 leaves, max_bin 255, feature_fraction
+  0.8, bagging every 5 rounds at 0.8) with both Datasets built from a
+  scipy CSR matrix: the bagging and feature masks are the JAX package's
+  Threefry draws;
+* grad_quant_bits=8.  The model text is not byte-equal to the jitted JAX
+  package's: its programs run on XLA's CPU backend, which contracts a*b+c
+  into fused multiply-adds, so split gains and leaf values differ in the
+  last bits; the first trees are structurally equal with leaf values
+  within 1e-6.  Against the JAX package run op by op (jax.disable_jit)
+  the first tree's model text is byte-equal."""
+
+import jax
 import numpy as np
 import pytest
+import scipy.sparse as sp
+import torch
 
 import lightgbm_tpu as jlgb
 import lightgbm_tpu_torch as tlgb
@@ -121,3 +138,92 @@ def test_booster_from_jax_arrays(boosters, data):
                                feature_names=gb.feature_names,
                                objective=gb.objective.to_string())
     np.testing.assert_array_equal(port.predict(x), jb.predict(x))
+
+
+HARNESS = {"objective": "binary", "num_leaves": 31, "max_bin": 255,
+           "learning_rate": 0.1, "feature_fraction": 0.8,
+           "bagging_freq": 5, "bagging_fraction": 0.8, "verbose": -1}
+SAMPLED = {
+    "harness_csr": (HARNESS, True, 1e-5),
+    "int8": ({**PARAMS, "grad_quant_bits": 8}, False, 1e-6),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(SAMPLED))
+def sampled(request, data):
+    """(config name, JAX booster, port booster, leaf-value rtol)."""
+    x, y = data
+    params, csr, rtol = SAMPLED[request.param]
+    feats = sp.csr_matrix(x) if csr else x
+    jb = jlgb.train({**params, "device_growth": "on"},
+                    jlgb.Dataset(feats, y), num_boost_round=ROUNDS,
+                    verbose_eval=False)
+    tb = tlgb.train({**params, "device": "cpu"}, tlgb.Dataset(feats, y),
+                    num_boost_round=ROUNDS)
+    return request.param, jb, tb, rtol
+
+
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_sampled_first_trees_structurally_equal(sampled, i):
+    _, jb, tb, rtol = sampled
+    jt, tt = _trees(jb)[i], _trees(tb)[i]
+    assert jt.num_leaves == tt.num_leaves > 2
+    n = jt.num_leaves
+    for name in ("split_feature", "threshold_in_bin", "threshold",
+                 "decision_type", "left_child", "right_child"):
+        np.testing.assert_array_equal(getattr(tt, name)[:n - 1],
+                                      getattr(jt, name)[:n - 1], name)
+    np.testing.assert_array_equal(tt.leaf_count[:n], jt.leaf_count[:n])
+    np.testing.assert_allclose(tt.leaf_value[:n], jt.leaf_value[:n],
+                               rtol=rtol, atol=1e-7)
+
+
+def test_sampled_auc_agrees(sampled, data):
+    """AUC after all rounds within 2e-3; host predict equals the device
+    training score (out-of-bag rows included)."""
+    x, y = data
+    name, jb, tb, _ = sampled
+    assert tb.num_trees() == len(_trees(jb)) == ROUNDS
+    jp = jb.predict(x, raw_score=True)
+    tp = tb.predict(x, raw_score=True)
+    assert abs(_auc(y, tp) - _auc(y, jp)) < 2e-3, name
+    assert _auc(y, tp) > 0.9
+    score = tb._gbdt.train_score[0].double().numpy()
+    np.testing.assert_allclose(tp, score, atol=1e-5)
+
+
+def test_harness_masks_are_drawn_per_tree_and_round(sampled):
+    """Bagging redraws every bagging_freq rounds; feature_fraction masks
+    differ from tree to tree."""
+    name, _, tb, _ = sampled
+    gb = tb._gbdt
+    if name != "harness_csr":
+        assert gb.row_mask is None and not gb.need_bagging
+        return
+    masks = [gb._grower.feature_mask_for(t) for t in range(ROUNDS)]
+    assert all(int(m.sum()) == gb._grower._ff_k for m in masks)
+    assert len({tuple(m.tolist()) for m in masks}) > 1
+    last = gb.row_mask.clone()
+    gb.bagging(ROUNDS)                    # a new round: a new bag
+    assert not torch.equal(last, gb.row_mask)
+    bag = gb.row_mask
+    gb.bagging(ROUNDS + 1)                # inside the round: unchanged
+    assert gb.row_mask is bag
+
+
+def test_int8_first_tree_text_byte_equal_to_jax_op_by_op(data):
+    """grad_quant_bits=8, one round: the model text (up to the parameters)
+    equals the JAX package's evaluated op by op byte for byte: the same
+    gradients, Threefry noise, int8 columns, int32 scan and refit."""
+    x, y = data
+    params = {**PARAMS, "grad_quant_bits": 8}
+    with jax.disable_jit():
+        jb = jlgb.train({**params, "device_growth": "on",
+                         "hist_kernel": "einsum"}, jlgb.Dataset(x, y),
+                        num_boost_round=1, verbose_eval=False)
+    tb = tlgb.train({**params, "device": "cpu"}, tlgb.Dataset(x, y),
+                    num_boost_round=1)
+    want = jb.model_to_string().split("parameters:")[0]
+    got = tb.model_to_string().split("parameters:")[0]
+    assert "Tree=0" in got and "Tree=1" not in got
+    assert got == want
