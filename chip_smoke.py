@@ -13,11 +13,16 @@ Phases, one line each:
               version: int8 byte-equal, bf16 within 1e-4 x (histogram of
               |stats|) + 1e-6 of it (the plain version's f32 atomics and
               the tensor cores sum in other orders) and bit-identical
-              across two runs; time kernel, plain version and one PyTorch
-              library call (index_put_ with accumulate) with CUDA events;
-              the bound is the function's (bytes or adds), and
-              wave_hist_v2's one-hot product at the tensor-core peak is
-              reported beside it as tc_ms;
+              across two runs; wave_hist's bf16 results must also equal
+              wave_hist_fixed_reference, the exact plain version of its
+              fixed-point sums, bit for bit; time kernel, plain version
+              and one PyTorch library call (index_put_ with accumulate)
+              with CUDA events, and print beside each case's time the
+              time of the kernels before their redesign, quoted from
+              PERF.md (BEFORE_MS; not measured here); the bound is the
+              function's (bytes or adds), and wave_hist_v2's one-hot
+              product at the tensor-core peak is reported beside it as
+              tc_ms;
 3. ubench  -- scripts/ubench_hist_cuda.py's hist3_w42 and pallas2_*
               cases at its default 10.5M rows: the entry point of the
               tensor-core kernel wave_hist_v2, whose launches are counted
@@ -32,8 +37,9 @@ Phases, one line each:
               grad_quant_bits=8 at 255 leaves, run twice.  Every
               wave's histogram must come from wave_hist (launch count ==
               waves); each run checks training AUC and host predict
-              against the device training score; (a) the model-text
-              round trip; (c) byte-identical model text across its runs.
+              against the device training score and prints the sha256
+              of its model text; (a) the model-text round trip; (c)
+              byte-identical model text across its runs.
 
 Prints the card's name and power limit, a JSON line of kernel
 measurements, and last {"ok": true, "device": {...}}.  Full results go to
@@ -43,6 +49,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -66,6 +73,30 @@ BF16_TC_OPS_PER_S = 989e12
 UBENCH_CASES = ("hist3_w42", "pallas2_w42_ch4096", "pallas2_w128_ch4096",
                 "pallas2_w4_ch4096")
 UBENCH_ROWS = 10_518_528    # the ubench's default 10.5M rows, padded
+# ms of each kernel-phase case before the kernels' redesign, quoted from
+# PERF.md for the per-case lines only (chip_smoke.py's runs of that tree on
+# an H100 80GB HBM3 at 700 W; the W=200, W=33 and NB=32 cases, which that
+# tree's chip_smoke.py did not run, from scripts/compare_hist_cuda.py on
+# the same card), keyed (kernel, NB, K, W, int8, duplicate ids, rows)
+BEFORE_MS = {
+    ("wave_hist", 256, 3, 128, False, False, N_ROWS): 3.696,
+    ("wave_hist", 256, 3, 16, False, False, N_ROWS): 0.615,
+    ("wave_hist", 256, 3, 1, False, False, N_ROWS): 0.344,
+    ("wave_hist", 64, 3, 128, False, False, N_ROWS): 2.142,
+    ("wave_hist", 64, 3, 16, False, False, N_ROWS): 0.417,
+    ("wave_hist", 64, 3, 1, False, False, N_ROWS): 0.303,
+    ("wave_hist", 256, 3, 128, True, False, N_ROWS): 1.440,
+    ("wave_hist", 256, 6, 64, True, False, N_ROWS): 1.401,
+    ("wave_hist", 256, 3, 200, False, False, N_ROWS): 4.896,
+    ("wave_hist", 256, 3, 33, False, False, N_ROWS): 1.273,
+    ("wave_hist_v2", 64, 3, 128, False, False, N_ROWS): 24.06,
+    ("wave_hist_v2", 256, 3, 128, False, False, N_ROWS): 99.27,
+    ("wave_hist_v2", 64, 3, 42, False, False, N_ROWS): 8.959,
+    ("wave_hist_v2", 64, 3, 4, False, False, N_ROWS): 3.945,
+    ("wave_hist_v2", 64, 3, 50, False, True, N_ROWS): 12.00,
+    ("wave_hist_v2", 64, 3, 128, False, False, UBENCH_ROWS): 130.96,
+    ("wave_hist_v2", 32, 3, 1, False, False, N_ROWS): 2.329,
+}
 
 
 def fail(msg: str) -> None:
@@ -137,9 +168,13 @@ def phase_build():
         build.load_library(name)
     secs = time.perf_counter() - t0
     for name, log in logs.items():
+        func = ""
         for line in log.splitlines():
-            if "registers" in line:
-                print(f"  nvcc {name}: {line.strip()}")
+            if "Function properties for" in line:
+                func = line.split("Function properties for")[-1].strip()
+            elif "Used" in line or ("spill" in line
+                                    and " 0 bytes spill stores" not in line):
+                print(f"  nvcc {name} {func[-60:]}: {line.strip()}")
     print(f"phase build: ok {len(sources)} source(s) {sources} "
           f"in {secs:.1f} s", flush=True)
     return secs
@@ -172,7 +207,7 @@ def kernel_case(dev, *, nb, k, w, quant, seed, n=N_ROWS, g=N_FEATURES,
         cols = [grad, hess, torch.ones(n, device=dev)][:k]
         cols += [torch.ones(n, device=dev)] * (k - len(cols))
         ghk = torch.stack(cols, 1).to(torch.bfloat16)
-    return bins, leaf, ghk, pending, live
+    return bins, leaf, ghk, pending
 
 
 def library_hist(bins, leaf, ghk, pending, *, g, nb, k, w):
@@ -202,12 +237,15 @@ def library_hist(bins, leaf, ghk, pending, *, g, nb, k, w):
 
 def measure_case(name, kernel, dev, c, *, tensor_core=False):
     """Hold ``kernel`` (a wave-histogram wrapper) against the plain version
-    at case ``c`` and time kernel, plain version and library call."""
+    at case ``c`` and time kernel, plain version and library call;
+    wave_hist's bf16 result must also equal the fixed-point reference bit
+    for bit."""
     import torch
     from lightgbm_tpu_torch.ops import hist_cuda
     g = N_FEATURES
     nb, k, w, quant = c["nb"], c["k"], c["w"], c["quant"]
-    bins, leaf, ghk, pending, live = kernel_case(dev, **c)
+    bins, leaf, ghk, pending = kernel_case(dev, **c)
+    n = bins.shape[1]
     kw = dict(g=g, nb=nb, k=k, w=w)
     run = lambda: kernel(bins, leaf, ghk, pending, **kw)
     a, b = run(), run()
@@ -215,6 +253,7 @@ def measure_case(name, kernel, dev, c, *, tensor_core=False):
     ref = hist_cuda.wave_hist_reference(bins, leaf, ghk, pending, **kw)
     repro = bool(torch.equal(a, b))
     err = float((a.double() - ref.double()).abs().max())
+    exact = None
     if quant:
         ok = repro and torch.equal(a, ref)
         tol = "byte-equal"
@@ -223,6 +262,14 @@ def measure_case(name, kernel, dev, c, *, tensor_core=False):
                                             **kw)
         ok = repro and bool(((a - ref).abs() <= 1e-4 * mag + 1e-6).all())
         tol = "1e-4*|hist| + 1e-6"
+        if name == "wave_hist":
+            scale = hist_cuda.hist_scale_exponents(ghk, n)
+            exact = bool(torch.equal(
+                a.view(torch.int32),
+                hist_cuda.wave_hist_fixed_reference(
+                    bins, leaf, ghk, pending, scale, **kw).view(torch.int32)))
+            ok = ok and exact
+            tol += ", bit-equal to wave_hist_fixed_reference"
     ms = time_ms(run, reps=20)
     plain_ms = time_ms(lambda: hist_cuda.wave_hist_reference(
         bins, leaf, ghk, pending, **kw), reps=2, warmup=1)
@@ -231,7 +278,6 @@ def measure_case(name, kernel, dev, c, *, tensor_core=False):
     lib_err = float((lib_out.view(ref.shape).double()
                      - ref.double()).abs().max())
     del lib_run, lib_out
-    n = bins.shape[1]
     # the bound is the function's, the same for both kernels: its bytes
     # (bins and leaf ids of every row, the stats of the rows in the wave,
     # the histogram out) and its operations (one add per row in the wave,
@@ -243,18 +289,22 @@ def measure_case(name, kernel, dev, c, *, tensor_core=False):
     # dense one-hot product over B columns on the tensor cores
     tc_ms = 2 * n * g * nb * (-(-(k * w) // 8) * 8) / BF16_TC_OPS_PER_S \
         * 1e3 if tensor_core else None
+    before_ms = BEFORE_MS[(name, nb, k, w, quant, bool(c.get("dup")), n)]
     r = dict(kernel=name, case=c, rows=n, rows_in_wave=m, repro=repro,
-             ok=ok, tolerance=tol, max_abs_err=err, ms=ms,
-             plain_ms=plain_ms, library_ms=library_ms,
-             library_max_abs_err=lib_err, bytes_bound_ms=bound_bytes_ms,
-             ops_bound_ms=ops_ms, bound_ms=max(bound_bytes_ms, ops_ms),
+             ok=ok, tolerance=tol, max_abs_err=err, exact=exact, ms=ms,
+             before_ms_quoted=before_ms, plain_ms=plain_ms,
+             library_ms=library_ms, library_max_abs_err=lib_err,
+             bytes_bound_ms=bound_bytes_ms, ops_bound_ms=ops_ms,
+             bound_ms=max(bound_bytes_ms, ops_ms),
              bound_by="bytes" if bound_bytes_ms >= ops_ms else "operations",
              tc_ms=tc_ms)
     tc = f", one-hot product at the tensor-core peak {tc_ms:.3f} ms" \
         if tensor_core else ""
     print(f"  kernel {name} {'int8' if quant else 'bf16'} n={n} NB={nb} "
           f"K={k} W={w}{' dup' if c.get('dup') else ''}: ok={ok} "
-          f"repro={repro} max_abs_err={err:.3g} kernel {ms:.3f} ms, bound "
+          f"repro={repro} exact={exact} max_abs_err={err:.3g} kernel "
+          f"{ms:.3f} ms (before the redesign, quoted from PERF.md: "
+          f"{before_ms:.3f} ms), bound "
           f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}){tc}, plain "
           f"{plain_ms:.2f} ms, library {library_ms:.2f} ms", flush=True)
     del bins, leaf, ghk, pending, a, b, ref
@@ -273,15 +323,22 @@ def phase_kernels(dev):
           dict(nb=64, k=3, w=16, quant=False),
           dict(nb=64, k=3, w=1, quant=False),
           dict(nb=256, k=3, w=128, quant=True),
-          dict(nb=256, k=6, w=64, quant=True)]
+          dict(nb=256, k=6, w=64, quant=True),
+          # a wave past 255 leaves (six slot tiles), and a ragged slot
+          # range
+          dict(nb=256, k=3, w=200, quant=False),
+          dict(nb=256, k=3, w=33, quant=False)]
     v2 = [dict(nb=64, k=3, w=128, quant=False),
           dict(nb=256, k=3, w=128, quant=False),
           dict(nb=64, k=3, w=42, quant=False),
+          # 12 columns: one 16-column tile
           dict(nb=64, k=3, w=4, quant=False),
           dict(nb=64, k=3, w=50, quant=False, dup=True),
           # the ubench's own row count (10.5M padded to 32768 rows) and
-          # ch=4096: ~1.5M rows a split accumulated in mma registers
-          dict(nb=64, k=3, w=128, quant=False, n=UBENCH_ROWS)]
+          # ch=4096: ~1.75M rows a split accumulated in wgmma registers
+          dict(nb=64, k=3, w=128, quant=False, n=UBENCH_ROWS),
+          # a warpgroup's 64 output rows straddle two groups
+          dict(nb=32, k=3, w=1, quant=False)]
     results = {"wave_hist": [], "wave_hist_v2": []}
     for i, c in enumerate(v1):
         results["wave_hist"].append(measure_case(
@@ -320,6 +377,10 @@ def phase_ubench():
     return dict(lines=lines, v2_launches=launches)
 
 
+#: the kernels of csrc/wave_hist.cu, by the names the profiler reports
+HIST_KERNELS = ("wave_hist_list_kernel", "row_slots_kernel",
+                "tile_offsets_kernel", "scatter_rows_kernel",
+                "fixed_to_f32_kernel")
 TRAIN_BASE = {"objective": "binary", "max_bin": 255, "learning_rate": 0.1,
               "wave_plan": "fixed", "verbose": -1}
 TRAIN_RUNS = {
@@ -378,7 +439,8 @@ def train_run(name, ds, x, y, dev, profile=False):
         fail(f"{name}: host predict_raw vs device training score: "
              f"{pred_err:.3g}")
     per_tree = [s[0] for s in stats]
-    result = dict(params=params, trees=trees,
+    text_sha = hashlib.sha256(booster.model_to_string().encode()).hexdigest()
+    result = dict(params=params, trees=trees, model_text_sha256=text_sha,
                   leaves=[t.num_leaves for t in gb.models], train_s=train_s,
                   s_per_tree=per_tree, waves_per_tree=[s[1] for s in stats],
                   host_syncs_per_tree=[s[2] for s in stats],
@@ -391,7 +453,7 @@ def train_run(name, ds, x, y, dev, profile=False):
           f"{per_tree[0]:.3f} s), {waves / trees:.1f} waves/tree, "
           f"{syncs / trees:.1f} host syncs/tree, kernel launches "
           f"{launches} == waves, AUC {auc:.4f}, predict-vs-score "
-          f"{pred_err:.2g}", flush=True)
+          f"{pred_err:.2g}, model text sha256 {text_sha}", flush=True)
     if profile:
         result["profile"] = profile_tree(gb)
     return booster, result
@@ -481,11 +543,16 @@ def profile_tree(gb):
             and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    # the histogram layer: every kernel of csrc/wave_hist.cu
+    hist = [r for r in rows if any(name in r[0] for name in HIST_KERNELS)]
+    hist_ms = sum(r[1] for r in hist)
     print(f"  profile: one tree {wall * 1e3:.1f} ms wall, "
-          f"{busy:.1f} ms device busy")
+          f"{busy:.1f} ms device busy, {hist_ms:.3f} ms in the histogram "
+          f"kernels ({sum(r[2] for r in hist)} launches)")
     for key, ms, count in rows[:15]:
         print(f"    {ms:9.3f} ms  {count:6d}x  {key[:90]}")
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                hist_kernel_ms=hist_ms,
                 top=[dict(kernel=k, ms=m, count=c) for k, m, c in rows[:40]])
 
 
@@ -527,9 +594,9 @@ def main() -> int:
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-        "tc_ms": c["tc_ms"],
+        "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "library_ms": c["library_ms"], "tc_ms": c["tc_ms"],
     } for name, c, launches, source, replaces in picks]}
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke.json", "w") as fh:

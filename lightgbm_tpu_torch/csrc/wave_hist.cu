@@ -12,37 +12,61 @@
 // for every wave width W and K in {3,4,5,6}.  The TPU kernel built a one-hot
 // of the bins and contracted it on the MXU because the TPU has no scatter;
 // here each row adds its K values into exactly one (bin, slot) cell of a
-// block-private shared-memory histogram.
+// shared-memory histogram.
 //
-// What bounds it on this card: bytes.  A wave must read n*(G + 4 + 2K) bytes
-// (bins, leaf ids, bf16 stat columns) and write G*NB*K*W*4 bytes; at 2M rows,
-// G=28, K=3, W=128 that is ~76 MB + 11 MB, ~26 us at 3.35 TB/s.  The design:
+// What bounds it on this card: bytes.  A wave must read n*(G + 4) bytes
+// (bins, leaf ids), the stats of the rows in the wave and write
+// G*NB*K*W*4 bytes; at 2M rows, G=28, K=3, W=128 that is ~24 us at
+// 3.35 TB/s.
+//
+// The earlier design gave each CTA one 16-slot tile of the wave (the int64
+// (NB, K, 16) tile fills the shared memory at NB=256) and had every such
+// CTA read every row's slot: 8 passes over the rows at W=128, each a
+// dependent load chain with nothing in flight.  The design now:
 //   * a pre-pass maps every row's leaf id to its wave slot (int16, -1 when
-//     the leaf is not pending), so the main pass reads 2 bytes a row for
-//     membership instead of a 4-byte leaf id and a table lookup;
-//   * grid = (row tiles, group tiles, slot tiles); a block owns Gb groups'
-//     NB x Wt x K tiles in shared memory.  Narrow waves (small Wt) pack many
-//     groups into a block, so a row's slot and stats are loaded and
-//     converted once for all of them;
-//   * each thread takes 4 consecutive rows per step: one 8-byte load of
-//     their slots and one 4-byte load of their bins per group, instead of
-//     a chain of dependent scalar loads;
-//   * stat columns are read only for rows whose slot is in the block's tile;
-//     slots, bins and stats stay L2-resident across the slot tiles of a wave
-//     (4 + 2 + 12 MB at 2M rows, against a 50 MB L2).
-//   * 64-bit shared adds are two native 32-bit atomics (add_i64).
-// It is not near that bound yet: wide waves re-read the slot array and the
-// bins once per 16-slot tile (8 times at W=128); a cluster of blocks
-// sharing one wave-wide tile through distributed shared memory would read
-// them once.
+//     the leaf is not pending);
+//   * the wave's slots are cut into the fewest slot tiles whose int64 (or
+//     int32) (gb, NB, K, wt) tile fits a CTA's 225 KB: one tile up to 32
+//     slots at NB=256, K=3, bf16 and up to 128 at NB=64;
+//   * the pre-pass also counts each block's rows of each tile, and a
+//     counting sort (tile offsets, then a scatter; the order within a
+//     block of the pre-pass is arbitrary, the sums are exact integers)
+//     lists the rows of each tile, so a row's slot, stats and bins are
+//     read once per group tile, not once per slot tile, and no thread
+//     spends a step on a row outside the wave.  A one-slot wave (W=1,
+//     where every row may be in the wave) skips the sort: its list is
+//     every row;
+//   * CTA (slot tile, part, group tile) reads its part of its tile's list,
+//     four entries a thread in flight, loads all their slots, stats and
+//     bins before their atomics, and converts a row's stats once for the
+//     gb groups it holds (all 28 at W=1, NB=256);
+//   * 64-bit shared adds stay two native 32-bit atomics (the low word's old
+//     value gives the carry); a row issues all its low words first.
+// The wave's tile over a thread-block cluster's distributed shared memory
+// (each row streamed once per cluster, hits on other CTAs' slots added as
+// remote atomics) ran 2-4x slower than this partition, and a 2-stage
+// cp.async row ring for one-slot waves no faster than the unsorted list
+// (PERF.md).  Without the sort a one-tile wave of half the rows ran
+// 1.3-1.4x slower (PERF.md).
+// nvcc 12.8 (sm_90a): the row kernel is held to 64 registers by its 1024
+// threads a CTA; it then spills 16-40 bytes a thread for bf16 at K=3-5
+// (its four list entries' K int64 stats), 0-8 for int8 at K=3-5 and 76 at
+// K=6.  Its tile is 196,608 B of dynamic shared memory at NB=256, K=3,
+// W=128.
+// What still holds it back: the shared-memory atomics (two a stat for
+// int64, contended where many rows share a bin), the pre-pass and sort
+// (three more launches over the rows), and one CTA an SM of 1024 threads
+// whose list reads are gathers.
 //
 // Determinism: no float atomics anywhere.  bf16 stats are converted to
 // int64 fixed point with one power-of-two scale per stat column (chosen by
 // the caller from max|column| and the row count, so no sum can overflow),
 // accumulated with integer atomics in shared and then global memory, and
 // converted to f32 at the end.  Integer addition is associative, so the
-// result is bit-identical from run to run.  int8 stats accumulate in int32
-// exactly like the TPU kernel's int8->int32 path.
+// result is bit-identical from run to run and to any other exact order
+// (ops/hist_cuda.wave_hist_fixed_reference).  int8 stats accumulate in
+// int32 exactly like the TPU kernel's int8->int32 path.
+
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,29 +77,14 @@
 
 namespace {
 
-constexpr int ROWS = 4;       // rows per thread per step
-constexpr int THREADS = 512;  // threads per block of the main pass
-// two resident blocks per SM: caps registers at 64 a thread
-constexpr int MIN_BLOCKS = 2;
+constexpr int THREADS = 1024;  // threads per CTA, one CTA per SM
+constexpr int LIST_ROWS = 4;   // list entries a thread takes per step
+constexpr int PRE_THREADS = 1024;
 
-// Exact 64-bit add into shared memory from two native 32-bit atomics: the
-// low word's atomicAdd returns the old value, which tells whether the add
-// carried into the high word.  (A 64-bit shared atomicAdd compiles to a
-// compare-and-swap loop, measured ~3x slower at the root wave.)
-__device__ __forceinline__ void add_i64(long long* cell, long long q) {
-  unsigned* w32 = reinterpret_cast<unsigned*>(cell);
-  const unsigned lo = (unsigned)q;
-  const unsigned old = atomicAdd(w32, lo);
-  const unsigned hi = (unsigned)((unsigned long long)q >> 32) + (old + lo < old);
-  if (hi) atomicAdd(w32 + 1, hi);
-}
-
-// slot of every row: index into pending, or -1
-__global__ void row_slots_kernel(const int32_t* __restrict__ leaf_id,
-                                 const int32_t* __restrict__ pending,
-                                 int16_t* __restrict__ slot_of_row,
-                                 long long n, int w, int leaf_bound) {
-  extern __shared__ int16_t slot_of_leaf[];  // [leaf_bound]
+// leaf -> slot table in shared memory: index into pending, or -1
+__device__ void fill_slot_of_leaf(int16_t* slot_of_leaf,
+                                  const int32_t* __restrict__ pending, int w,
+                                  int leaf_bound) {
   for (int i = threadIdx.x; i < leaf_bound; i += blockDim.x)
     slot_of_leaf[i] = -1;
   __syncthreads();
@@ -85,128 +94,230 @@ __global__ void row_slots_kernel(const int32_t* __restrict__ leaf_id,
     if (leaf >= 0 && leaf < leaf_bound) slot_of_leaf[leaf] = (int16_t)j;
   }
   __syncthreads();
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += (long long)gridDim.x * blockDim.x) {
+}
+
+// Pre-pass: the slot of every row, and (tiles >= 1, when the rows are
+// sorted) how many rows of block b's row range fall in each slot tile:
+// counts[b * tiles + t].
+__global__ void row_slots_kernel(const int32_t* __restrict__ leaf_id,
+                                 const int32_t* __restrict__ pending,
+                                 int16_t* __restrict__ slot_of_row,
+                                 int* __restrict__ counts, long long n, int w,
+                                 int leaf_bound, int wt, int tiles,
+                                 long long rows_per_block) {
+  extern __shared__ int pre_smem[];
+  int* tile_count = pre_smem;  // [tiles]
+  int16_t* slot_of_leaf = reinterpret_cast<int16_t*>(pre_smem + tiles);
+  for (int t = threadIdx.x; t < tiles; t += blockDim.x) tile_count[t] = 0;
+  fill_slot_of_leaf(slot_of_leaf, pending, w, leaf_bound);
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min(n, r0 + rows_per_block);
+  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
     const int leaf = leaf_id[r];
-    slot_of_row[r] =
-        (leaf >= 0 && leaf < leaf_bound) ? slot_of_leaf[leaf] : (int16_t)-1;
+    const int s =
+        (leaf >= 0 && leaf < leaf_bound) ? slot_of_leaf[leaf] : -1;
+    slot_of_row[r] = (int16_t)s;
+    if (tiles > 0 && s >= 0) atomicAdd(&tile_count[s / wt], 1);
+  }
+  if (tiles == 0) return;
+  __syncthreads();
+  for (int t = threadIdx.x; t < tiles; t += blockDim.x)
+    counts[(long long)blockIdx.x * tiles + t] = tile_count[t];
+}
+
+// One block: tile t's rows go to list[start[t], start[t] + len[t]), and
+// block b's rows of tile t start at counts[b * tiles + t] (rewritten from
+// counts to offsets in place).
+__global__ void tile_offsets_kernel(int* __restrict__ counts,
+                                    long long* __restrict__ tile_range,
+                                    int blocks, int tiles) {
+  extern __shared__ long long total[];  // [tiles]
+  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
+    long long s = 0;
+    for (int b = 0; b < blocks; ++b) s += counts[(long long)b * tiles + t];
+    total[t] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long s = 0;
+    for (int t = 0; t < tiles; ++t) {
+      const long long len = total[t];
+      tile_range[2 * t] = s;
+      tile_range[2 * t + 1] = len;
+      total[t] = s;
+      s += len;
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
+    long long at = total[t];
+    for (int b = 0; b < blocks; ++b) {
+      const long long i = (long long)b * tiles + t;
+      const int c = counts[i];
+      counts[i] = (int)at;
+      at += c;
+    }
   }
 }
 
-template <int K, bool QUANT>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-wave_hist_kernel(const uint8_t* __restrict__ bins_t,
-                                 const int16_t* __restrict__ slot_of_row,
-                                 const void* __restrict__ ghk_raw,
-                                 const int32_t* __restrict__ scale_exp,
-                                 void* __restrict__ acc_raw, long long n,
-                                 int g_total, int nb, int w, int wt, int gb,
-                                 long long rows_per_block, int vec) {
-  using Acc = typename std::conditional<QUANT, int, long long>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Acc* cells = reinterpret_cast<Acc*>(smem_raw);  // [gb][nb][K][wt]
-  const int ncell = gb * nb * K * wt;
-
-  const int g0 = blockIdx.y * gb;
-  const int g_here = min(gb, g_total - g0);
-  const int slot0 = blockIdx.z * wt;
-  const int wt_here = min(wt, w - slot0);
-
-  for (int i = threadIdx.x; i < ncell; i += blockDim.x) cells[i] = 0;
-  int exps[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) exps[k] = QUANT ? 0 : scale_exp[k];
+// Counting sort's scatter: each row of the wave into its slot tile's list
+// (in any order within a block).
+__global__ void scatter_rows_kernel(const int16_t* __restrict__ slot_of_row,
+                                    const int* __restrict__ offsets,
+                                    int* __restrict__ list, long long n,
+                                    int wt, int tiles,
+                                    long long rows_per_block) {
+  extern __shared__ int cursor[];  // [tiles]
+  for (int t = threadIdx.x; t < tiles; t += blockDim.x)
+    cursor[t] = offsets[(long long)blockIdx.x * tiles + t];
   __syncthreads();
-
   const long long r0 = (long long)blockIdx.x * rows_per_block;
   const long long r1 = min(n, r0 + rows_per_block);
-  for (long long base = r0 + (long long)ROWS * threadIdx.x; base < r1;
-       base += (long long)ROWS * blockDim.x) {
-    const bool full = vec && base + ROWS <= r1;
-    int ls[ROWS];  // slot within this tile, -1 when the row is not in it
-    if (full) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(slot_of_row + base);
-      const int16_t* s = reinterpret_cast<const int16_t*>(&raw);
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) ls[i] = s[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-        ls[i] = base + i < r1 ? slot_of_row[base + i] : -1;
-    }
-    unsigned hit = 0;
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      ls[i] -= slot0;
-      if (ls[i] >= 0 && ls[i] < wt_here) hit |= 1u << i;
-    }
-    if (!hit) continue;
+  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+    const int s = slot_of_row[r];
+    if (s >= 0) list[atomicAdd(&cursor[s / wt], 1)] = (int)r;
+  }
+}
 
-    // stats of the rows in the tile, as 32-bit values (registers are the
-    // scarce resource here); the fixed-point conversion happens per add
-    float v[ROWS][K];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        v[i][k] = 0.0f;
-        if (!(hit >> i & 1)) continue;
-        const long long at = (base + i) * K + k;
-        if (QUANT)
-          v[i][k] = reinterpret_cast<const int8_t*>(ghk_raw)[at];
-        else
-          v[i][k] = ldexpf(__bfloat162float(reinterpret_cast<
-                               const __nv_bfloat16*>(ghk_raw)[at]),
-                           exps[k]);
-      }
-    }
+struct Geo {
+  long long n;
+  int g, nb, w, wt, gb, splits;
+};
 
-    for (int gi = 0; gi < g_here; ++gi) {
-      const uint8_t* col = bins_t + (long long)(g0 + gi) * n;
-      uint8_t b8[ROWS];
-      if (full) {
-        const unsigned raw = *reinterpret_cast<const unsigned*>(col + base);
-        const uint8_t* bb = reinterpret_cast<const uint8_t*>(&raw);
+template <bool QUANT>
+using AccT = typename std::conditional<QUANT, int, long long>::type;
+template <bool QUANT>
+using StatT = typename std::conditional<QUANT, int8_t, __nv_bfloat16>::type;
+
+// a row's K stats as fixed-point integers (bf16) or int8 values
+template <int K, bool QUANT>
+__device__ __forceinline__ void to_fixed(const StatT<QUANT>* s,
+                                         const int (&exps)[K],
+                                         AccT<QUANT> (&q)[K]) {
 #pragma unroll
-        for (int i = 0; i < ROWS; ++i) b8[i] = bb[i];
-      } else {
+  for (int k = 0; k < K; ++k) {
+    if constexpr (QUANT)
+      q[k] = s[k];
+    else
+      q[k] = __float2ll_rn(ldexpf(__bfloat162float(s[k]), exps[k]));
+  }
+}
+
+// add a row's K values into the shared-memory cells cell[0], cell[wt], ...
+template <int K, bool QUANT>
+__device__ __forceinline__ void add_row(AccT<QUANT>* cell, int wt,
+                                        const AccT<QUANT> (&q)[K]) {
+  if constexpr (QUANT) {
 #pragma unroll
-        for (int i = 0; i < ROWS; ++i)
-          b8[i] = base + i < r1 ? col[base + i] : 0;
-      }
-      Acc* tile = cells + (long long)gi * nb * K * wt;
+    for (int k = 0; k < K; ++k)
+      if (q[k]) atomicAdd(cell + k * wt, q[k]);
+  } else {
+    // exact 64-bit add from two native 32-bit atomics: the low word's old
+    // value tells whether the add carried.  All low words first, so the K
+    // round trips overlap.  (A 64-bit shared atomicAdd compiles to a
+    // compare-and-swap loop.)
+    unsigned old[K];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        if (!(hit >> i & 1) || b8[i] >= nb) continue;
-        Acc* cell = tile + (b8[i] * K) * wt + ls[i];
+    for (int k = 0; k < K; ++k)
+      old[k] = q[k] ? atomicAdd(reinterpret_cast<unsigned*>(cell + k * wt),
+                                (unsigned)q[k])
+                    : 0u;
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          if (v[i][k] == 0.0f) continue;
-          if (QUANT)
-            atomicAdd(reinterpret_cast<int*>(cell + k * wt), (int)v[i][k]);
-          else
-            add_i64(reinterpret_cast<long long*>(cell + k * wt),
-                    __float2ll_rn(v[i][k]));
-        }
-      }
+    for (int k = 0; k < K; ++k) {
+      const unsigned lo = (unsigned)q[k];
+      const unsigned hi = (unsigned)((unsigned long long)q[k] >> 32) +
+                          (old[k] + lo < old[k]);
+      if (hi) atomicAdd(reinterpret_cast<unsigned*>(cell + k * wt) + 1, hi);
     }
   }
-  __syncthreads();
+}
 
-  // flush the tiles: integer atomics into the (G*NB, K, W) accumulator
-  for (int i = threadIdx.x; i < ncell; i += blockDim.x) {
-    const int j = i % wt;
-    if (j >= wt_here) continue;
-    const Acc v = cells[i];
-    if (v == 0) continue;
-    const int gbk = i / wt;  // (gi*nb + b)*K + k
-    const long long o = ((long long)g0 * nb * K + gbk) * w + slot0 + j;
-    if (QUANT)
-      atomicAdd(reinterpret_cast<int*>(acc_raw) + o, (int)v);
+// flush a CTA's (gb, NB, K, wt) tile, slots from slot0: integer atomics
+// into the (G*NB, K, W) accumulator (row splits add into the same cells)
+template <int K, bool QUANT>
+__device__ void flush_tile(const AccT<QUANT>* cells, int ncell, int g0,
+                           int slot0, const Geo& p, void* acc_raw) {
+  for (int i = threadIdx.x; i < ncell; i += THREADS) {
+    const int j = i % p.wt;
+    const AccT<QUANT> v = cells[i];
+    if (v == 0 || slot0 + j >= p.w) continue;
+    const int gbk = i / p.wt;  // (gi*nb + b)*K + k
+    const long long o =
+        ((long long)g0 * p.nb * K + gbk) * p.w + slot0 + j;
+    if constexpr (QUANT)
+      atomicAdd(reinterpret_cast<int*>(acc_raw) + o, v);
     else
       atomicAdd(reinterpret_cast<unsigned long long*>(acc_raw) + o,
                 (unsigned long long)v);
   }
+}
+
+// Grid (slot tiles * splits, group tiles): CTA (t, s) holds the (gb
+// groups, NB, K, wt slots) tile of slot tile t and reads the s-th of
+// `splits` parts of the tile's list from the counting sort (list null: a
+// one-slot wave, whose list is every row), LIST_ROWS entries a thread per
+// step with all their loads issued before their atomics.
+template <int K, bool QUANT>
+__global__ void __launch_bounds__(THREADS, 1)
+wave_hist_list_kernel(const uint8_t* __restrict__ bins_t,
+                      const int16_t* __restrict__ slot_of_row,
+                      const void* __restrict__ ghk_raw,
+                      const int32_t* __restrict__ scale_exp,
+                      const int* __restrict__ list,
+                      const long long* __restrict__ tile_range,
+                      void* __restrict__ acc_raw, const Geo p) {
+  using Acc = AccT<QUANT>;
+  using Stat = StatT<QUANT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nb = p.nb, wt = p.wt;
+  Acc* cells = reinterpret_cast<Acc*>(smem);  // [gb][nb][K][wt]
+  const int ncell = p.gb * nb * K * wt;
+  const int tile = blockIdx.x / p.splits, part = blockIdx.x % p.splits;
+  const int slot0 = tile * wt;
+  const int g0 = blockIdx.y * p.gb;
+  const int g_here = min(p.gb, p.g - g0);
+
+  for (int i = threadIdx.x; i < ncell; i += THREADS) cells[i] = 0;
+  int exps[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) exps[k] = QUANT ? 0 : scale_exp[k];
+  const long long start = list ? tile_range[2 * tile] : 0;
+  const long long len = list ? tile_range[2 * tile + 1] : p.n;
+  const long long a = start + len * part / p.splits;
+  const long long b = start + len * (part + 1) / p.splits;
+  __syncthreads();
+
+  const Stat* ghk = reinterpret_cast<const Stat*>(ghk_raw);
+  for (long long e0 = a; e0 < b; e0 += (long long)LIST_ROWS * THREADS) {
+    int row[LIST_ROWS], j[LIST_ROWS];
+#pragma unroll
+    for (int u = 0; u < LIST_ROWS; ++u) {
+      const long long e = e0 + u * THREADS + threadIdx.x;
+      row[u] = e < b ? (list ? list[e] : (int)e) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < LIST_ROWS; ++u)
+      j[u] = row[u] >= 0 ? slot_of_row[row[u]] - slot0 : -1;
+    Acc q[LIST_ROWS][K];
+#pragma unroll
+    for (int u = 0; u < LIST_ROWS; ++u) {
+      if (j[u] >= 0)
+        to_fixed<K, QUANT>(ghk + (long long)row[u] * K, exps, q[u]);
+    }
+    for (int gi = 0; gi < g_here; ++gi) {
+      const uint8_t* col = bins_t + (long long)(g0 + gi) * p.n;
+      unsigned bin[LIST_ROWS];
+#pragma unroll
+      for (int u = 0; u < LIST_ROWS; ++u) bin[u] = j[u] >= 0 ? col[row[u]] : nb;
+#pragma unroll
+      for (int u = 0; u < LIST_ROWS; ++u)
+        if (bin[u] < (unsigned)nb)
+          add_row<K, QUANT>(cells + ((gi * nb + bin[u]) * K) * wt + j[u],
+                            wt, q[u]);
+    }
+  }
+  __syncthreads();
+  flush_tile<K, QUANT>(cells, ncell, g0, slot0, p, acc_raw);
 }
 
 // int64 fixed point -> f32 with the column's scale 2^-scale_exp[k]
@@ -220,19 +331,25 @@ __global__ void fixed_to_f32_kernel(const long long* __restrict__ acc,
   out[i] = (float)ldexp((double)acc[i], -scale_exp[kk]);
 }
 
+struct Buffers {
+  const uint8_t* bins_t;
+  const int16_t* slots;
+  const void* ghk;
+  const int32_t* scale_exp;
+  const int* list;
+  const long long* tile_range;
+  void* acc;
+};
+
 template <int K, bool QUANT>
 cudaError_t launch_k(dim3 grid, size_t smem, cudaStream_t st,
-                     const void* bins_t, const int16_t* slots,
-                     const void* ghk, const void* scale_exp, void* acc,
-                     long long n, int g, int nb, int w, int wt, int gb,
-                     long long rpb, int vec) {
-  auto kern = wave_hist_kernel<K, QUANT>;
+                     const Buffers& b, const Geo& geo) {
+  auto kern = wave_hist_list_kernel<K, QUANT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kern<<<grid, THREADS, smem, st>>>((const uint8_t*)bins_t, slots, ghk,
-                                    (const int32_t*)scale_exp, acc, n, g, nb,
-                                    w, wt, gb, rpb, vec);
+  kern<<<grid, THREADS, smem, st>>>(b.bins_t, b.slots, b.ghk, b.scale_exp,
+                                    b.list, b.tile_range, b.acc, geo);
   return cudaGetLastError();
 }
 
@@ -240,44 +357,54 @@ cudaError_t launch_k(dim3 grid, size_t smem, cudaStream_t st,
 
 // Plain C entry point (loaded with ctypes).  `acc` must be zeroed by the
 // caller: int64 (bf16 input) or int32 (int8 input) of G*NB*K*W cells.
-// `slots` is int16 scratch of n entries.  For bf16 input `out_f32`
-// receives the converted histogram; for int8 input the int32 accumulator
-// is the output.  Returns the CUDA error code of the launches (0 on
-// success).
+// `slots` is int16 scratch of n entries; for w > 1 the rows are sorted,
+// and `counts` is int32 scratch of pre_blocks * tiles entries, `list` of
+// n, `tile_range` int64 of 2 * tiles (all three unused at w = 1).  For bf16 input `out_f32` receives the converted
+// histogram; for int8 input the int32 accumulator is the output.  The
+// launch shape comes from ops/hist_cuda.py `_geometry`.  Returns the CUDA
+// error code of the launches (0 on success).
 extern "C" int wave_hist_launch(const void* bins_t, const void* leaf_id,
                                 const void* ghk, const void* pending,
                                 const void* scale_exp, void* slots,
+                                void* counts, void* list, void* tile_range,
                                 void* acc, void* out_f32, long long n, int g,
                                 int nb, int k, int w, int wt, int gb,
-                                int leaf_bound, long long row_tiles,
-                                long long rows_per_block, int quant,
-                                void* stream) {
+                                int tiles, int splits, int pre_blocks,
+                                long long pre_rows, int leaf_bound, int quant,
+                                long long smem, void* stream) {
+  if (wt < 1 || gb < 1 || splits < 1 || tiles < 1 || pre_blocks < 1 ||
+      (long long)tiles * wt < w)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const long long pre_blocks =
-      std::max<long long>(std::min<long long>((n + 1023) / 1024, 1024), 1);
-  row_slots_kernel<<<(unsigned)pre_blocks, 1024,
-                     (size_t)leaf_bound * sizeof(int16_t), st>>>(
-      (const int32_t*)leaf_id, (const int32_t*)pending, (int16_t*)slots, n,
-      w, leaf_bound);
+  const int sorted = w > 1 ? tiles : 0;  // tiles the pre-pass counts
+  const size_t pre_smem = (size_t)sorted * 4 + (size_t)leaf_bound * 2;
+  row_slots_kernel<<<pre_blocks, PRE_THREADS, pre_smem, st>>>(
+      (const int32_t*)leaf_id, (const int32_t*)pending, (int16_t*)slots,
+      (int*)counts, n, w, leaf_bound, wt, sorted, pre_rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  if (sorted) {
+    tile_offsets_kernel<<<1, PRE_THREADS, (size_t)tiles * 8, st>>>(
+        (int*)counts, (long long*)tile_range, pre_blocks, tiles);
+    scatter_rows_kernel<<<pre_blocks, PRE_THREADS, (size_t)tiles * 4, st>>>(
+        (const int16_t*)slots, (const int*)counts, (int*)list, n, wt, tiles,
+        pre_rows);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
 
-  const size_t cell_bytes = quant ? 4 : 8;
-  const size_t smem = (size_t)gb * nb * k * wt * cell_bytes;
-  dim3 grid((unsigned)row_tiles, (unsigned)((g + gb - 1) / gb),
-            (unsigned)((w + wt - 1) / wt));
-  // vector loads need aligned group columns and row tiles
-  const int vec = (n % ROWS == 0) && (rows_per_block % ROWS == 0);
-  const int16_t* sl = (const int16_t*)slots;
+  const Geo geo{n, g, nb, w, wt, gb, splits};
+  const dim3 grid((unsigned)(tiles * splits), (unsigned)((g + gb - 1) / gb),
+                  1);
+  const Buffers buf{(const uint8_t*)bins_t, (const int16_t*)slots, ghk,
+                    (const int32_t*)scale_exp,
+                    sorted ? (const int*)list : nullptr,
+                    (const long long*)tile_range, acc};
   e = cudaErrorInvalidValue;
-#define WH_CASE(KK)                                                          \
-  case KK:                                                                   \
-    e = quant ? launch_k<KK, true>(grid, smem, st, bins_t, sl, ghk,          \
-                                   scale_exp, acc, n, g, nb, w, wt, gb,      \
-                                   rows_per_block, vec)                      \
-              : launch_k<KK, false>(grid, smem, st, bins_t, sl,              \
-                                    ghk, scale_exp, acc, n, g, nb, w, wt,    \
-                                    gb, rows_per_block, vec);                \
+#define WH_CASE(KK)                                                        \
+  case KK:                                                                 \
+    e = quant ? launch_k<KK, true>(grid, (size_t)smem, st, buf, geo)      \
+              : launch_k<KK, false>(grid, (size_t)smem, st, buf, geo);    \
     break;
   switch (k) {
     WH_CASE(3)

@@ -33,13 +33,13 @@ from ``scripts/ubench_hist_cuda.py``.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .build import load_library
 
-#: shared-memory budget of one block's (Gb, NB, K, Wt) tiles
-_SMEM_BUDGET = 100 * 1024
 #: widest wave the kernel's int16 row -> slot map takes
 MAX_WAVE = (1 << 15) - 1
 #: largest leaf id bound the kernel's shared leaf -> slot table takes
@@ -116,22 +116,121 @@ def wave_hist_reference(binned_t, leaf_id, ghk, pending, *, g: int, nb: int,
     return out
 
 
-def _geometry(n, g, nb, k, w, quant, sm_count):
-    """Launch shape: (slot tile Wt, groups per block Gb, row tiles, rows
-    per block).  Wt is the widest slot tile (<= 16) whose (NB, K, Wt)
-    accumulator fits the shared-memory budget, Gb as many groups as then
-    fit beside it, and the row tiles give every SM about eight blocks
-    (two resident at a time)."""
-    cell = 4 if quant else 8
-    wt = min(w, 16)
-    while wt > 1 and nb * k * wt * cell > _SMEM_BUDGET:
-        wt //= 2
-    gb = max(1, min(g, _SMEM_BUDGET // (nb * k * wt * cell)))
-    tiles = -(-g // gb) * -(-w // wt)
-    row_tiles = max(1, min(-(-8 * sm_count // tiles), -(-n // 4096)))
-    rows_per_block = -(-max(n, 1) // row_tiles)
-    rows_per_block = -(-rows_per_block // 4) * 4
-    return wt, gb, -(-max(n, 1) // rows_per_block), rows_per_block
+def wave_hist_fixed_reference(binned_t, leaf_id, ghk, pending, scale_exp,
+                              *, g: int, nb: int, k: int,
+                              w: int) -> torch.Tensor:
+    """The exact plain version of :func:`wave_hist`'s bf16 arithmetic, in
+    torch ops on any device: each stat ``v`` of column ``k`` becomes the
+    int64 ``round_half_even(v * 2**scale_exp[k])``, the integers are
+    summed with ``index_add_`` into ``(G*NB, K, W)``, and the sums are
+    scaled back as ``(acc.double() * 2**-scale_exp).float()``.  Integer
+    sums do not depend on their order, so the kernel must equal it bit
+    for bit.  A test oracle: nothing on the training path calls it."""
+    _check(binned_t, leaf_id, ghk, pending, g, nb, k, w)
+    if ghk.dtype != torch.bfloat16:
+        raise ValueError(f"the fixed-point reference takes bf16 stat "
+                         f"columns, got {ghk.dtype}")
+    dev = binned_t.device
+    e = scale_exp.to(device=dev, dtype=torch.float64)
+    # bf16 * 2**e is exact in f64, so rounding it rounds the true product
+    q = torch.round(ghk.double() * torch.exp2(e)).to(torch.int64)
+    acc = torch.zeros((g * nb, k, w), dtype=torch.int64, device=dev)
+    base = (torch.arange(g, device=dev, dtype=torch.int64) * nb)[:, None]
+    for s in range(w):
+        rows = torch.nonzero((leaf_id == pending[s])
+                             & (pending[s] >= 0)).squeeze(1)
+        b = binned_t[:, rows].long()                      # (G, m)
+        ok = (b < nb).reshape(-1)
+        idx = (base + b).reshape(-1)[ok]
+        tile = torch.zeros((g * nb, k), dtype=torch.int64, device=dev)
+        tile.index_add_(0, idx, q[rows].repeat(g, 1)[ok])
+        acc[:, :, s] = tile
+    return (acc.double() * torch.exp2(-e)[None, :, None]).float()
+
+
+#: shared memory a CTA of csrc/wave_hist.cu may use for its slice of the
+#: wave tile (of the 227 KB an H100 CTA can have)
+_SMEM_BUDGET = 225 * 1024
+
+
+class Geometry(NamedTuple):
+    """Launch shape of ``csrc/wave_hist.cu``: ``tiles`` slot tiles of
+    ``wt`` slots, CTA (tile, part of ``splits``, group tile of ``gb``
+    groups) reads its part of its tile's rows (the rows of the wave sorted
+    by slot tile; every row at W=1) into ``smem``
+    dynamic shared-memory bytes; the pre-pass runs ``pre_blocks`` blocks
+    of ``pre_rows`` rows."""
+    wt: int
+    gb: int
+    tiles: int
+    splits: int
+    smem: int
+    pre_blocks: int
+    pre_rows: int
+
+
+def _cta_smem(nb, k, wt, gb, quant):
+    """A CTA's (gb, NB, K, wt) int64 (int32 for int8 stats) tile."""
+    return gb * nb * k * wt * (4 if quant else 8)
+
+
+def _balanced(g, gb):
+    """The same number of groups in every group tile, at most ``gb``."""
+    return -(-g // -(-g // gb))
+
+
+@functools.lru_cache(maxsize=1024)
+def _geometry(n, g, nb, k, w, quant, sm_count) -> Geometry:
+    """The fewest slot tiles whose CTA tile fits the shared-memory budget
+    (slots balanced over them), then as many groups as fit beside the
+    slots share each row's slot and stats (``gb``, balanced over the group
+    tiles), and each tile's rows are split into parts so that the CTAs
+    about fill the card's SMs (one CTA each)."""
+    n1 = max(n, 1)
+    wt = 1
+    while _cta_smem(nb, k, wt + 1, 1, quant) <= _SMEM_BUDGET:
+        wt += 1
+    tiles = -(-w // wt)
+    wt = -(-w // tiles)
+    gb = 1
+    while gb < g and _cta_smem(nb, k, wt, gb + 1, quant) <= _SMEM_BUDGET:
+        gb += 1
+    gb = _balanced(g, gb)
+    splits = max(1, sm_count // (tiles * -(-g // gb)))
+    pre_blocks = max(1, min(2 * sm_count, -(-n1 // 4096)))
+    return Geometry(wt, gb, tiles, splits, _cta_smem(nb, k, wt, gb, quant),
+                    pre_blocks, -(-n1 // pre_blocks))
+
+
+def _cta_work(geo: Geometry, slot_of_row: torch.Tensor, g: int, w: int):
+    """What each CTA of a launch reads, as the kernel computes it from the
+    pre-pass's (n,) row -> slot map (-1 outside the wave): yields ``(cta,
+    groups, own_slots, rows)`` with ``cta`` = (part, group tile, slot
+    tile), ``groups`` and ``own_slots`` (the slots whose cells it holds)
+    as ``range``s and ``rows`` the (m,) tensor of the list entries it
+    reads.  The list is the rows of the wave sorted by slot tile (the
+    kernel's counting sort orders rows within a pre-pass block
+    arbitrarily; this takes them in row order); at W=1 it is every row.
+    A part is ``len * part // splits`` onward, as the kernel splits its
+    tile's list."""
+    n = slot_of_row.numel()
+    if w > 1:
+        rows = torch.nonzero(slot_of_row >= 0).squeeze(1)
+        tile = slot_of_row[rows].long() // geo.wt
+        order = rows[torch.sort(tile, stable=True).indices]
+        lens = torch.bincount(tile, minlength=geo.tiles).tolist()
+    else:
+        order, lens = torch.arange(n), [n]
+    starts = [sum(lens[:t]) for t in range(geo.tiles)]
+    for part in range(geo.splits):
+        for gt in range(-(-g // geo.gb)):
+            groups = range(gt * geo.gb, min(g, gt * geo.gb + geo.gb))
+            for t in range(geo.tiles):
+                own = range(t * geo.wt, min(w, t * geo.wt + geo.wt))
+                s, m = starts[t], lens[t]
+                yield ((part, gt, t), groups, own,
+                       order[s + m * part // geo.splits:
+                             s + m * (part + 1) // geo.splits])
 
 
 def _kernel_lib():
@@ -139,10 +238,15 @@ def _kernel_lib():
     fn = lib.wave_hist_launch
     if fn.argtypes is None:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, ll,
-                       ll, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i,
+                       i, i, i, i, ll, i, i, ll, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _inputs_on_card(binned_t, leaf_id, ghk, pending, name: str) -> None:
@@ -187,10 +291,22 @@ def wave_hist(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
         raise ValueError(f"leaf_bound must be in [1, {MAX_LEAF_BOUND}], got "
                          f"{leaf_bound}")
     fn = _kernel_lib()
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    wt, gb, row_tiles, rpb = _geometry(n, g, nb, k, w, quant, sm_count)
+    geo = _geometry(n, g, nb, k, w, quant, _sm_count(dev))
+    if geo.tiles * 4 + leaf_bound * 2 > 48 * 1024:
+        raise ValueError(f"W={w} over {geo.tiles} slot tiles with "
+                         f"leaf_bound={leaf_bound} overflows the pre-pass's "
+                         f"shared memory")
     size = (g * nb, k, w)
     slots = torch.empty((n,), dtype=torch.int16, device=dev)
+    counts = list_ = tile_range = None
+    if w > 1:
+        # the sort's tile ranges (int64), per-block tile counts and row
+        # list, in one scratch tensor
+        scratch = torch.empty((4 * geo.tiles + geo.pre_blocks * geo.tiles
+                               + n,), dtype=torch.int32, device=dev)
+        tile_range = scratch.data_ptr()
+        counts = tile_range + 16 * geo.tiles
+        list_ = counts + 4 * geo.pre_blocks * geo.tiles
     acc = torch.zeros(size, dtype=torch.int32 if quant else torch.int64,
                       device=dev)
     out = acc if quant else torch.empty(size, dtype=torch.float32,
@@ -198,9 +314,10 @@ def wave_hist(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(binned_t.data_ptr(), leaf_id.data_ptr(), ghk.data_ptr(),
             pending.data_ptr(), None if quant else scale_exp.data_ptr(),
-            slots.data_ptr(), acc.data_ptr(),
-            None if quant else out.data_ptr(), n, g, nb, k, w, wt, gb,
-            leaf_bound, row_tiles, rpb, int(quant), stream)
+            slots.data_ptr(), counts, list_, tile_range, acc.data_ptr(),
+            None if quant else out.data_ptr(), n, g, nb, k, w, geo.wt,
+            geo.gb, geo.tiles, geo.splits, geo.pre_blocks, geo.pre_rows,
+            leaf_bound, int(quant), geo.smem, stream)
     if rc != 0:
         raise RuntimeError(f"wave_hist kernel launch failed: CUDA error {rc}")
     wave_hist.launches += 1
@@ -210,21 +327,68 @@ def wave_hist(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
 #: kernel launches made through :func:`wave_hist` (read by chip_smoke.py)
 wave_hist.launches = 0
 
-#: csrc/wave_hist_v2.cu tiles: output rows and columns per block, rows
-#: staged per step (a row split is a multiple of it)
-_V2_BM, _V2_BN, _V2_STAGE = 128, 64, 128
+#: csrc/wave_hist_v2.cu: output rows per CTA (three warpgroups of 64) and
+#: the column tile widths it is compiled for (wgmma N, multiples of 16 up
+#: to 192)
+_V2_BM = 192
+_V2_TILES = (16, 32, 48, 64, 96, 128, 160, 192)
 
 
-def _v2_geometry(n, g, nb, k, w, ch, sm_count):
-    """(b_pad, row splits, rows per split): columns padded to the block
-    width; the rows cut into whole blocks of ``ch`` rows, as few per
-    split as give every SM about four blocks."""
-    b_pad = -(-(k * w) // _V2_BN) * _V2_BN
-    tiles = -(-(g * nb) // _V2_BM) * (b_pad // _V2_BN)
+class V2Geometry(NamedTuple):
+    """Launch shape of ``csrc/wave_hist_v2.cu``: ``ctiles`` column tiles
+    of ``n_tile`` columns (``b_pad`` in all), ``splits`` row splits of
+    ``rows_per_split`` rows, and ``grid`` persistent CTAs walking the
+    ``items`` = splits x output-row blocks x column tiles work items."""
+    n_tile: int
+    ctiles: int
+    b_pad: int
+    splits: int
+    rows_per_split: int
+    items: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def _v2_geometry(n, g, nb, k, w, ch, sm_count) -> V2Geometry:
+    """Columns: K*W over as few tiles as keep a tile <= 192 wide, each
+    rounded up to the next compiled width.  Rows: whole blocks of ``ch``
+    rows a split, the fewest splits whose work items fill the card's CTA
+    slots (two a SM for tiles <= 32 columns, as the kernel's launch
+    bounds say; else one) in rounds at least 90% full (the items are
+    about equal)."""
+    b = k * w
+    ctiles = -(-b // _V2_TILES[-1])
+    n_tile = next(t for t in _V2_TILES if t * ctiles >= b)
+    slots = sm_count * (2 if n_tile <= 32 else 1)
+    units = -(-(g * nb) // _V2_BM) * ctiles
     row_blocks = -(-max(n, 1) // ch)
-    splits = max(1, min(row_blocks, -(-4 * sm_count // tiles)))
-    rows_per_split = -(-row_blocks // splits) * ch
-    return b_pad, -(-max(n, 1) // rows_per_split), rows_per_split
+    best = None
+    for s in range(1, min(row_blocks, 64) + 1):
+        items = units * s
+        fill = items / (slots * -(-items // slots))
+        if best is None or fill > best[1] + 1e-9:
+            best = (s, fill)
+        if fill >= 0.9:
+            break
+    rows_per_split = -(-row_blocks // best[0]) * ch
+    splits = -(-max(n, 1) // rows_per_split)
+    items = units * splits
+    return V2Geometry(n_tile, ctiles, n_tile * ctiles, splits,
+                      rows_per_split, items, min(items, slots))
+
+
+def _v2_items(geo: V2Geometry, n: int, g: int, nb: int):
+    """The work items as the kernel decodes them: yields ``(output rows,
+    columns, rows)`` ranges, the columns within ``b_pad``."""
+    mblocks = -(-(g * nb) // _V2_BM)
+    for item in range(geo.items):
+        ct = item % geo.ctiles
+        mb = (item // geo.ctiles) % mblocks
+        split = item // (geo.ctiles * mblocks)
+        r0 = split * geo.rows_per_split
+        yield (range(mb * _V2_BM, min(g * nb, mb * _V2_BM + _V2_BM)),
+               range(ct * geo.n_tile, ct * geo.n_tile + geo.n_tile),
+               range(r0, min(n, r0 + geo.rows_per_split)))
 
 
 def wave_hist_v2(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
@@ -232,7 +396,7 @@ def wave_hist_v2(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
     """Wave histogram ``(G*NB, K, W)`` f32 by the tensor-core one-hot
     product (``csrc/wave_hist_v2.cu``); bf16 stat columns only.
 
-    ``ch`` is the row block (the TPU kernel's grid step): each CUDA block
+    ``ch`` is the row block (the TPU kernel's grid step): each work item
     reduces a run of whole blocks of ``ch`` rows, and the partial sums of
     the runs are added in a fixed order, so the result is bit-identical
     from run to run.  It must be a multiple of 128; NB a multiple of 32.
@@ -245,24 +409,31 @@ def wave_hist_v2(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
                          f"columns go to wave_hist")
     if nb % 32:
         raise ValueError(f"wave_hist_v2 needs NB a multiple of 32, got {nb}")
-    if ch <= 0 or ch % _V2_STAGE:
-        raise ValueError(f"ch must be a positive multiple of {_V2_STAGE}, "
-                         f"got {ch}")
+    if ch <= 0 or ch % 128:
+        raise ValueError(f"ch must be a positive multiple of 128, got {ch}")
     dev = binned_t.device
     if dev.type == "cpu":
         return wave_hist_reference(binned_t, leaf_id, ghk, pending, g=g,
                                    nb=nb, k=k, w=w)
     _inputs_on_card(binned_t, leaf_id, ghk, pending, "wave_hist_v2")
+    if n % 16:
+        # the kernel's bulk copies move whole 16-row pieces: pad with rows
+        # of leaf -1, which no column selects
+        pad = 16 - n % 16
+        binned_t = torch.nn.functional.pad(binned_t, (0, pad))
+        leaf_id = torch.nn.functional.pad(leaf_id, (0, pad), value=-1)
+        ghk = torch.nn.functional.pad(ghk, (0, 0, 0, pad))
+        n += pad
     fn = _kernel_v2_lib()
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    b_pad, splits, rps = _v2_geometry(n, g, nb, k, w, ch, sm_count)
-    partial = torch.empty((splits, g * nb, b_pad), dtype=torch.float32,
-                          device=dev)
+    geo = _v2_geometry(n, g, nb, k, w, ch, _sm_count(dev))
+    partial = torch.empty((geo.splits, g * nb, geo.b_pad),
+                          dtype=torch.float32, device=dev)
     out = torch.empty((g * nb, k, w), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(binned_t.data_ptr(), leaf_id.data_ptr(), ghk.data_ptr(),
             pending.data_ptr(), partial.data_ptr(), out.data_ptr(), n, g, nb,
-            k, w, b_pad, splits, rps, stream)
+            k, w, geo.n_tile, geo.ctiles, geo.splits, geo.rows_per_split,
+            geo.grid, stream)
     if rc != 0:
         raise RuntimeError(f"wave_hist_v2 kernel launch failed: CUDA error "
                            f"{rc}")
@@ -274,7 +445,7 @@ def _kernel_v2_lib():
     fn = load_library("wave_hist_v2").wave_hist_v2_launch
     if fn.argtypes is None:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, ll, p]
+        fn.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, ll, i, p]
         fn.restype = ctypes.c_int
     return fn
 

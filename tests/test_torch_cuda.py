@@ -135,6 +135,113 @@ def test_v2_kernel_matches_plain_on_card(cuda_device, n, g, nb, w, dup):
         assert torch.equal(a[..., : w // 2], a[..., w // 2: 2 * (w // 2)])
 
 
+@pytest.mark.parametrize("w", [1, 33, 128, 200])
+@pytest.mark.parametrize("k", [3, 6])
+def test_kernel_bf16_equals_fixed_reference(cuda_device, w, k):
+    """The bf16 kernel's sums are exact integers in fixed point: it must
+    equal wave_hist_fixed_reference bit for bit, at a one-slot wave (W=1,
+    every row read unsorted), a ragged slot tile (W=33), the full-width
+    wave (W=128, four slot tiles at NB=256) and a wave past 255 leaves
+    (W=200)."""
+    n, g, nb = 30_016, 3, 256
+    bins, leaf, ghk, pending = _inputs(cuda_device, n, g, nb, k, w, False,
+                                       seed=w + k)
+    pending[0] = 0                      # W=1: the slot is not empty
+    leaf = torch.randint(0, 2 * w + 1, (n,), device=cuda_device,
+                         dtype=torch.int32)
+    kw = dict(g=g, nb=nb, k=k, w=w)
+    scale = hist_cuda.hist_scale_exponents(ghk, n)
+    a = hist_cuda.wave_hist(bins, leaf, ghk, pending, scale_exp=scale, **kw)
+    want = hist_cuda.wave_hist_fixed_reference(bins, leaf, ghk, pending,
+                                               scale, **kw)
+    assert torch.equal(a.view(torch.int32), want.view(torch.int32))
+    if w > 1:
+        assert not a[..., -1].any()
+
+
+@pytest.mark.parametrize("w,k", [(1, 3), (33, 3), (128, 3), (200, 6)])
+def test_kernel_int8_byte_equal(cuda_device, w, k):
+    n, g, nb = 30_016, 3, 256
+    bins, leaf, ghk, pending = _inputs(cuda_device, n, g, nb, k, w, True,
+                                       seed=w)
+    pending[0] = 0
+    leaf = torch.randint(-1, 2 * w + 1, (n,), device=cuda_device,
+                         dtype=torch.int32)
+    kw = dict(g=g, nb=nb, k=k, w=w)
+    a = hist_cuda.wave_hist(bins, leaf, ghk, pending, **kw)
+    assert torch.equal(a, hist_cuda.wave_hist_reference(bins, leaf, ghk,
+                                                        pending, **kw))
+
+
+def test_v2_register_fragment_layout(cuda_device):
+    """NB=32, W=1: a warpgroup's 64 output rows straddle two groups, and
+    every output row is held to its own exact value (integer stats, so
+    every sum is exact in f32): pins the wgmma register-A layout."""
+    n, g, nb = 4096, 3, 32
+    r = np.arange(n)
+    bins = np.stack([(r * (2 * gi + 1) + 5 * gi) % nb for gi in range(g)])
+    ghk = np.stack([(r % 7) - 3, r % 5, np.ones(n)], 1).astype(np.float32)
+    leaf = np.where(r % 3 == 0, 1, 0).astype(np.int32)
+    want = np.zeros((g * nb, 3))
+    for gi in range(g):
+        for kk in range(3):
+            np.add.at(want[:, kk], gi * nb + bins[gi][leaf == 0],
+                      ghk[leaf == 0, kk])
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+    out = hist_cuda.wave_hist_v2(t(bins.astype(np.uint8)), t(leaf),
+                                 t(ghk).to(torch.bfloat16),
+                                 t(np.zeros(1, np.int32)), g=g, nb=nb, k=3,
+                                 w=1, ch=128)
+    got = out[..., 0].cpu().double().numpy()
+    for row in range(g * nb):
+        np.testing.assert_array_equal(got[row], want[row],
+                                      err_msg=f"output row {row}")
+
+
+@pytest.mark.parametrize("nb,w,dup", [(64, 4, False), (64, 128, False),
+                                      (256, 128, False), (64, 50, True)])
+def test_v2_new_tiles_match_plain(cuda_device, nb, w, dup):
+    """wave_hist_v2's column tiles (16 columns at W=4, two of 192 at
+    W=128), NB=256 and duplicate ids: within 1e-4 of each cell's sum of
+    |stats| plus 1e-6 of the plain version, bit-identical across two
+    launches."""
+    n, g = 60_000, 4
+    bins, leaf, ghk, pending = _inputs(cuda_device, n, g, nb, 3, w, False,
+                                       seed=nb + w)
+    if dup:
+        pending[: w // 2] = pending[w // 2: 2 * (w // 2)]
+    kw = dict(g=g, nb=nb, k=3, w=w)
+    a = hist_cuda.wave_hist_v2(bins, leaf, ghk, pending, **kw)
+    b = hist_cuda.wave_hist_v2(bins, leaf, ghk, pending, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    ref = hist_cuda.wave_hist_reference(bins, leaf, ghk, pending, **kw)
+    mag = hist_cuda.wave_hist_reference(bins, leaf, ghk.abs(), pending, **kw)
+    assert ((a - ref).abs() <= 1e-4 * mag + 1e-6).all()
+    assert not a[..., -1].any()
+
+
+#: sha256 of the model text of test_255_leaf_model_text_unchanged's run,
+#: taken on the card with the histogram kernel before its redesign
+MODEL_TEXT_SHA256 = \
+    "b24bc0863199f28012adbeb8933dfb134acc3277541ae85fa83c36230453cb0e"
+
+
+def test_255_leaf_model_text_unchanged(cuda_device):
+    """A 255-leaf training run on the card: its model text is the same
+    byte for byte as before the histogram kernel's redesign (the sums are
+    exact integers either way)."""
+    import hashlib
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((60_000, 10))
+    y = (x[:, 0] + 0.5 * x[:, 1] * x[:, 2] + 0.3 * rng.standard_normal(len(x))
+         > 0).astype(float)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "verbose": -1}
+    text = lt.train(params, lt.Dataset(x, y), 3).model_to_string()
+    assert hashlib.sha256(text.encode()).hexdigest() == MODEL_TEXT_SHA256
+
+
 def test_threefry_on_card_equals_cpu(cuda_device):
     from lightgbm_tpu_torch.utils import random as trandom
     key = trandom.fold_in(trandom.PRNGKey(12345), 7)

@@ -198,9 +198,111 @@ def test_v2_refuses_int8_and_bad_geometry():
     (10_518_528, 28, 64, 3, 4, 4096),
     (2_000_000, 28, 256, 3, 128, 2048),
     (1000, 3, 64, 3, 50, 128),
+    (4096, 3, 32, 3, 1, 128),
 ])
 def test_v2_geometry_covers_every_row_once(n, g, nb, k, w, ch):
-    b_pad, splits, rps = hist_cuda._v2_geometry(n, g, nb, k, w, ch, 132)
-    assert b_pad % 64 == 0 and k * w <= b_pad < k * w + 64
-    assert rps % ch == 0 and rps % 128 == 0
-    assert (splits - 1) * rps < n <= splits * rps
+    """Every (output row, column, row block of ch) is covered by exactly
+    one work item; columns pad to a multiple of 16 (16 at W=4), not 64."""
+    geo = hist_cuda._v2_geometry(n, g, nb, k, w, ch, 132)
+    assert geo.b_pad % 16 == 0 and k * w <= geo.b_pad < k * w + 16 * geo.ctiles
+    assert geo.n_tile <= 192 and geo.b_pad == geo.ctiles * geo.n_tile
+    assert geo.rows_per_split % ch == 0
+    assert (geo.splits - 1) * geo.rows_per_split < n <= \
+        geo.splits * geo.rows_per_split
+    # persistent CTAs: two a SM for tiles of at most 32 columns
+    assert geo.grid == min(geo.items, 132 * (2 if geo.n_tile <= 32 else 1))
+    blocks = -(-n // ch)
+    seen = np.zeros((g * nb, geo.b_pad, blocks), np.int32)
+    for rows_out, cols, rows in hist_cuda._v2_items(geo, n, g, nb):
+        assert rows.start % ch == 0 and len(rows) > 0
+        seen[rows_out.start:rows_out.stop, cols.start:cols.stop,
+             rows.start // ch:-(-rows.stop // ch)] += 1
+    assert (seen == 1).all()
+    if w == 4:
+        assert geo.b_pad == 16
+
+
+@pytest.mark.parametrize("w", [1, 16, 33, 128, 200])
+@pytest.mark.parametrize("k", [3, 6])
+@pytest.mark.parametrize("quant", [False, True])
+def test_geometry_owns_every_cell_once(w, k, quant):
+    """wave_hist's launch shape at the training shape (28 groups, NB=256,
+    2M rows), bf16 and int8: within each part every (group, bin, stat,
+    slot) cell is held by exactly one CTA; in each group tile every row of
+    the wave is read once, by the CTA that holds its slot (at W=1 every
+    row is read once, at wider waves only the rows of the wave); the
+    shared memory fits a CTA."""
+    n, g, nb = 2_000_000, 28, 256
+    geo = hist_cuda._geometry(n, g, nb, k, w, quant, 132)
+    assert geo.smem <= 227 * 1024 and geo.tiles * geo.wt >= w
+    assert (geo.tiles == 1) == (w * nb * k * (4 if quant else 8)
+                                <= hist_cuda._SMEM_BUDGET)
+    gen = torch.Generator().manual_seed(w + k)
+    leaf = torch.randint(0, 2 * w + 1, (n,), generator=gen)
+    slot = torch.where(leaf < w, leaf, -1).to(torch.int16)
+    owned = np.zeros((geo.splits, g, w), np.int32)   # x NB x K, uniformly
+    reads = {}
+    for cta, groups, own, rows in hist_cuda._cta_work(geo, slot, g, w):
+        owned[cta[0], groups.start:groups.stop, own.start:own.stop] += 1
+        s = slot[rows].long()
+        hit = s >= 0
+        assert ((s[hit] >= own.start) & (s[hit] < own.stop)).all()
+        if w > 1:
+            assert hit.all()
+        cover = reads.setdefault(cta[1], torch.zeros(n, dtype=torch.int32))
+        cover.index_add_(0, rows, torch.ones_like(rows, dtype=torch.int32))
+    assert (owned == 1).all()
+    assert len(reads) == -(-g // geo.gb)
+    for cover in reads.values():
+        want = torch.ones(n) if w == 1 else (slot >= 0).float()
+        assert torch.equal(cover.float(), want)
+
+
+def _fixed_inputs(n=3000, g=3, nb=64, k=3, w=6, seed=0):
+    rng = np.random.default_rng(seed)
+    bt = torch.from_numpy(rng.integers(0, nb, (g, n)).astype(np.uint8))
+    leaf = torch.from_numpy(rng.integers(-1, w + 1, n).astype(np.int32))
+    ghk = torch.from_numpy((rng.standard_normal((n, k)) * 3)
+                           .astype(np.float32)).to(torch.bfloat16)
+    ghk[leaf < 0] = 0
+    pending = torch.arange(w, dtype=torch.int32)
+    return bt, leaf, ghk, pending
+
+
+@pytest.mark.parametrize("nb,k,w", [(64, 3, 6), (256, 6, 9)])
+def test_fixed_reference_against_plain_and_pallas(nb, k, w):
+    """wave_hist_fixed_reference (the exact oracle of the bf16 kernel)
+    against the f32 plain version within 1e-4 of each cell's sum of
+    |stats| plus 1e-6, and against the JAX kernel in interpret mode as
+    test_bf16_against_pallas holds the plain version."""
+    g, n = 3, 2048                  # the JAX kernel's chunk divides n
+    bt, leaf, ghk, pending = _fixed_inputs(n, g, nb, k, w, seed=nb + k)
+    kw = dict(g=g, nb=nb, k=k, w=w)
+    scale = hist_cuda.hist_scale_exponents(ghk, n)
+    got = hist_cuda.wave_hist_fixed_reference(bt, leaf, ghk, pending, scale,
+                                              **kw)
+    ref = hist_cuda.wave_hist_reference(bt, leaf, ghk, pending, **kw)
+    mag = hist_cuda.wave_hist_reference(bt, leaf, ghk.abs(), pending, **kw)
+    assert got.dtype == torch.float32 and got.shape == (g * nb, k, w)
+    assert ((got - ref).abs() <= 1e-4 * mag + 1e-6).all()
+    if k * w <= 128:
+        want = _jax(bt.numpy().T, leaf.numpy(), ghk.float().numpy(),
+                    pending.numpy(), **kw)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_fixed_reference_is_order_free():
+    """Integer sums do not depend on their order: permuting the rows
+    leaves the fixed-point histogram bit-identical (the exactness the
+    bf16 kernel relies on), where the f32 plain version may move."""
+    g, nb, k, w, n = 3, 64, 3, 5, 4000
+    bt, leaf, ghk, pending = _fixed_inputs(n, g, nb, k, w, seed=21)
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(n))
+    kw = dict(g=g, nb=nb, k=k, w=w)
+    scale = hist_cuda.hist_scale_exponents(ghk, n)
+    a = hist_cuda.wave_hist_fixed_reference(bt, leaf, ghk, pending, scale,
+                                            **kw)
+    b = hist_cuda.wave_hist_fixed_reference(
+        bt[:, perm].contiguous(), leaf[perm].contiguous(),
+        ghk[perm].contiguous(), pending, scale, **kw)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
