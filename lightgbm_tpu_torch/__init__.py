@@ -2,9 +2,12 @@
 
 Trains a binary GBDT on an NVIDIA GPU: host binning, device gradients, and
 leaf-wise tree growth in waves whose histograms come from a hand-written
-CUDA kernel (``csrc/wave_hist.cu``).  Imports nothing of JAX or of the JAX
-package.  Training runs on ``device='cuda'`` by default and raises when no
-card is present; ``device='cpu'`` takes the plain PyTorch path.
+CUDA kernel (``csrc/wave_hist.cu``).  Predicts and serves on the card
+through a packed forest and a second hand-written kernel
+(``csrc/forest_predict.cu``, ``serve/``).  Imports nothing of JAX or of
+the JAX package.  Training and serving run on ``device='cuda'`` by
+default and raise when no card is present; ``device='cpu'`` takes the
+plain PyTorch path.
 """
 
 from .basic import Booster, Dataset

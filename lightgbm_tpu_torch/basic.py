@@ -1,7 +1,7 @@
 """User-facing ``Dataset`` and ``Booster`` (counterpart of
 ``lightgbm_tpu/basic.py`` for dense matrices and scipy sparse ones, which
-bin from CSR without densifying; no callbacks, valid sets or refit
-yet)."""
+bin from CSR and predict in row chunks without densifying; no callbacks,
+valid sets, refit or pred_contrib yet)."""
 
 from __future__ import annotations
 
@@ -18,9 +18,16 @@ def _is_sparse(data) -> bool:
     return hasattr(data, "tocsr") and hasattr(data, "nnz")
 
 
-def _to_2d_float(data):
-    """A dense float64 matrix of a prediction batch (sparse input is
-    densified here; training data bins from CSR instead)."""
+#: rows of a sparse prediction batch densified at a time
+PREDICT_CHUNK_ROWS = 1 << 16
+
+
+def _to_2d_float(data, keep_float32: bool = False):
+    """A dense C-contiguous float64 matrix (sparse input is densified here;
+    training data bins from CSR and prediction densifies it in row chunks
+    instead).  With ``keep_float32`` (prediction) float32 stays float32:
+    the packed-forest kernel widens it exactly on the card and the host
+    walk compares it as float64."""
     if _is_sparse(data):
         data = data.toarray()
     arr = np.asarray(data)
@@ -28,7 +35,9 @@ def _to_2d_float(data):
         arr = arr.reshape(1, -1)
     if arr.ndim != 2:
         raise ValueError("data must be 2-dimensional")
-    return np.ascontiguousarray(arr, dtype=np.float64)
+    dtype = np.float32 if keep_float32 and arr.dtype == np.float32 \
+        else np.float64
+    return np.ascontiguousarray(arr, dtype=dtype)
 
 
 class Dataset:
@@ -68,8 +77,9 @@ class Dataset:
 
 
 class Booster:
-    """A trained or loaded model.  Training runs on ``params['device']``
-    (default ``cuda``); prediction walks the trees on the host."""
+    """A trained or loaded model.  Training, and prediction of batches of
+    ``device_predict_min_rows`` rows or more, run on ``params['device']``
+    (default ``cuda``); smaller batches walk the trees on the host."""
 
     def __init__(self, params=None, train_set: Optional[Dataset] = None,
                  model_str=None):
@@ -105,8 +115,28 @@ class Booster:
     def eval_train(self):
         return self._gbdt.eval_train()
 
-    def predict(self, data, raw_score=False):
-        return self._gbdt.predict(_to_2d_float(data), raw_score)
+    def predict(self, data, num_iteration=-1, raw_score=False,
+                pred_leaf=False, start_iteration=0):
+        """Predictions of iterations ``[start_iteration, start_iteration +
+        num_iteration)`` (all from ``start_iteration`` when
+        ``num_iteration <= 0``): converted or raw scores, or with
+        ``pred_leaf`` each tree's leaf index.  A scipy sparse matrix is
+        densified :data:`PREDICT_CHUNK_ROWS` rows at a time (the fork's
+        harness predicts 20M-request windows from CSR); every chunk takes
+        the route (kernel or host walk) of the whole batch's row count."""
+        if isinstance(data, Dataset):
+            raise TypeError("Cannot use Dataset instance for prediction, "
+                            "please use raw data instead")
+        kw = dict(num_iteration=num_iteration, raw_score=raw_score,
+                  pred_leaf=pred_leaf, start_iteration=start_iteration)
+        if _is_sparse(data):
+            csr = data.tocsr()
+            step = PREDICT_CHUNK_ROWS
+            return np.concatenate(
+                [self._gbdt.predict(_to_2d_float(csr[i:i + step], True),
+                                    batch_rows=csr.shape[0], **kw)
+                 for i in range(0, max(csr.shape[0], 1), step)], axis=0)
+        return self._gbdt.predict(_to_2d_float(data, True), **kw)
 
     def model_to_string(self) -> str:
         return self._gbdt.model_to_string()

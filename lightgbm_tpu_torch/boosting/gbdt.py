@@ -5,12 +5,14 @@ device path: scores live on the training device as a (num_model, N) float32
 tensor, gradients come from the objective as torch ops, each iteration
 grows one tree with ``ops/grow.DeviceGrower``, and the tree's split records
 stay on the device until they are replayed into host ``Tree`` objects
-(``_flush_pending``).  Prediction walks the host trees in float64.  The
-model text is the reference's "v2" format, so it loads into the JAX
-package and back.  Bagging redraws its row mask every ``bagging_freq``
-iterations and feature_fraction draws a mask per tree, both from the
-JAX package's Threefry keys, so the draws are its draws.  The fused
-multi-iteration scan, valid sets and early stopping are not ported yet.
+(``_flush_pending``).  Prediction of a large batch runs through the
+packed-forest kernel (``serve/packed.py``), of a small one by the host
+tree walk in float64.  The model text is the reference's "v2" format, so
+it loads into the JAX package and back.  Bagging redraws its row mask
+every ``bagging_freq`` iterations and feature_fraction draws a mask per
+tree, both from the JAX package's Threefry keys, so the draws are its
+draws.  The fused multi-iteration scan, valid sets and early stopping
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ def resolve_device(name: str) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise LightGBMError(
             "device_type=cuda but torch.cuda.is_available() is False; pass "
-            "device='cpu' to train with the plain PyTorch ops on the CPU")
+            "device='cpu' to run the plain PyTorch ops on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise LightGBMError(f"unsupported device {name!r}")
     return dev
@@ -248,19 +250,139 @@ class GBDT:
         return len(self.models) // max(self.num_model, 1)
 
     # ------------------------------------------------------------------
-    def predict_raw(self, data: np.ndarray) -> np.ndarray:
-        """(num_model, N) float64 raw scores by the host tree walk."""
+    # prediction (raw host data)
+    def _early_stop_instance(self):
+        """Row-wise prediction early stopping
+        (src/boosting/prediction_early_stop.cpp): binary stops a row once
+        2*|margin| exceeds the threshold, multiclass once the top-two
+        class margin does; checked every ``pred_early_stop_freq``
+        iterations."""
+        cfg = self.config
+        if not cfg.pred_early_stop:
+            return None
+        obj_name = (self.objective.name if self.objective is not None
+                    else (self.loaded_objective_str.split()[0]
+                          if self.loaded_objective_str else ""))
+        margin = float(cfg.pred_early_stop_margin)
+        freq = max(int(cfg.pred_early_stop_freq), 1)
+        if obj_name.startswith("binary") and self.num_model == 1:
+            return freq, lambda out: 2.0 * np.abs(out[0]) > margin
+        if self.num_model > 1:
+            def mc(out):
+                part = np.partition(out, self.num_model - 2, axis=0)
+                return part[-1] - part[-2] > margin
+            return freq, mc
+        log_warning("pred_early_stop is only supported for binary and "
+                    "multiclass objectives; ignoring")
+        return None
+
+    def _predict_raw_packed(self, data, end_iter, start_iteration):
+        """Batch prediction through the packed-forest kernel
+        (``serve/packed.py``, ``csrc/forest_predict.cu``): the tree slice
+        is flattened into padded tensors on ``config.device_type`` and the
+        batch routes through every tree in one launch.  Leaf routing is
+        the host walk's; values are summed in float32 (the host walk sums
+        in float64: ~1e-6 relative apart).
+
+        The pack is cached per (slice, model count, device): training
+        more trees changes ``len(self.models)`` and invalidates it;
+        editing a Tree's leaves in place does not."""
+        from ..serve.packed import pack_ensemble, predict_scores
+        key = (start_iteration, end_iter, len(self.models), self.num_model,
+               self.config.device_type)
+        cached = getattr(self, "_packed_cache", None)
+        if cached is None or cached[0] != key:
+            pe = pack_ensemble(self.models, self.num_model,
+                               start_iteration=start_iteration,
+                               num_iteration=end_iter - start_iteration,
+                               num_features=self.max_feature_idx + 1,
+                               device=resolve_device(
+                                   self.config.device_type))
+            self._packed_cache = cached = (key, pe)
+        return predict_scores(cached[1], data)
+
+    def _device_predict_wanted(self, n: int, early) -> bool:
+        """``device_predict`` force/off override the
+        ``device_predict_min_rows`` threshold of auto; row-wise early
+        stopping is host-only (the kernel runs every tree)."""
+        if early is not None:
+            return False
+        mode = str(self.config.device_predict).lower()
+        if mode == "off":
+            return False
+        if mode == "force":
+            return True
+        return n >= int(self.config.device_predict_min_rows)
+
+    def predict_raw(self, data: np.ndarray, num_iteration: int = -1,
+                    start_iteration: int = 0,
+                    batch_rows: Optional[int] = None) -> np.ndarray:
+        """(num_model, N) float64 raw scores of iterations
+        ``[start_iteration, start_iteration + num_iteration)``: through
+        the packed-forest kernel (:meth:`_device_predict_wanted`) or by the
+        host tree walk in float64.  ``data`` is a float32 or float64
+        matrix; the kernel reads either as it is.  ``batch_rows``: the rows
+        of the whole batch when ``data`` is one chunk of it (the route is
+        chosen on it, so every chunk takes the same one)."""
         self._flush_pending()
-        data = np.ascontiguousarray(np.asarray(data, np.float64))
-        out = np.zeros((self.num_model, data.shape[0]), np.float64)
-        for i, tree in enumerate(self.models):
-            out[i % self.num_model] += tree.predict(data)
-        if self.average_output and self.models:
-            out /= self.num_iterations()
+        data = np.asarray(data)
+        n = data.shape[0]
+        total_iter = self.num_iterations()
+        start_iteration = max(0, min(int(start_iteration), total_iter))
+        end_iter = total_iter if num_iteration <= 0 \
+            else min(start_iteration + num_iteration, total_iter)
+        early = self._early_stop_instance()
+        if (n > 0 and end_iter > start_iteration
+                and self._device_predict_wanted(
+                    n if batch_rows is None else int(batch_rows), early)):
+            out = self._predict_raw_packed(data, end_iter, start_iteration)
+        else:
+            out = self._predict_raw_host(
+                np.ascontiguousarray(data, np.float64), start_iteration,
+                end_iter, early)
+        if self.average_output and end_iter > start_iteration:
+            out /= (end_iter - start_iteration)
         return out
 
-    def predict(self, data, raw_score=False):
-        raw = self.predict_raw(data)
+    def _predict_raw_host(self, data, start_iteration, end_iter, early):
+        out = np.zeros((self.num_model, data.shape[0]), np.float64)
+        active = None if early is None else np.ones(data.shape[0], bool)
+        for it in range(start_iteration, end_iter):
+            for k in range(self.num_model):
+                tree = self.models[it * self.num_model + k]
+                if active is None or active.all():
+                    out[k] += tree.predict(data)
+                else:
+                    out[k, active] += tree.predict(data[active])
+            if early is not None and (it + 1 - start_iteration) \
+                    % early[0] == 0:
+                active &= ~early[1](out)
+                if not active.any():
+                    break
+        return out
+
+    def predict(self, data, num_iteration: int = -1, raw_score=False,
+                pred_leaf=False, start_iteration: int = 0,
+                batch_rows: Optional[int] = None):
+        """Converted (or raw) predictions, (N,) or (N, num_model); with
+        ``pred_leaf`` the (N, trees) leaf index of each tree of the slice,
+        by the host walk.  ``batch_rows`` as in :meth:`predict_raw`."""
+        self._flush_pending()
+        if pred_leaf:
+            data = np.ascontiguousarray(data, np.float64)
+            total_iter = self.num_iterations()
+            start_iteration = max(0, min(start_iteration, total_iter))
+            end_iter = total_iter if num_iteration <= 0 \
+                else min(start_iteration + num_iteration, total_iter)
+            base = start_iteration * self.num_model
+            n_trees = max(end_iter - start_iteration, 0) * self.num_model
+            leaves = np.zeros((data.shape[0], n_trees), np.int32)
+            for i in range(n_trees):
+                leaves[:, i] = self.models[base + i].predict_leaf(data)
+            return leaves
+        raw = self.predict_raw(data, num_iteration, start_iteration,
+                               batch_rows)
+        # averaged-output models (RF) already emit converted values
         if not raw_score and not self.average_output:
             if self.objective is not None:
                 raw = self.objective.convert_output(raw)
@@ -350,14 +472,27 @@ class GBDT:
         booster.iter = len(booster.models) // max(booster.num_model, 1)
         return booster
 
+    @classmethod
+    def load_model_from_file(cls, filename, config=None) -> "GBDT":
+        with open(filename) as fh:
+            return cls.load_model_from_string(fh.read(), config)
+
 
 def _convert_by_name(objective_str: str, raw: np.ndarray) -> np.ndarray:
-    """Output transform for models loaded from text (no live objective);
-    the binary slice's objectives only."""
+    """Output transform for models loaded from text (no live objective),
+    by the objective line's name: the JAX package's
+    ``lightgbm_tpu/boosting/gbdt.py::_convert_by_name``."""
     name = objective_str.split()[0] if objective_str else ""
     params = dict(p.split(":", 1) for p in objective_str.split()[1:]
                   if ":" in p)
     if name in ("binary", "multiclassova", "cross_entropy"):
         sigmoid = float(params.get("sigmoid", 1.0))
         return 1.0 / (1.0 + np.exp(-sigmoid * raw))
+    if name in ("poisson", "gamma", "tweedie"):
+        return np.exp(raw)
+    if name == "multiclass":
+        e = np.exp(raw - raw.max(axis=0, keepdims=True))
+        return e / e.sum(axis=0, keepdims=True)
+    if name == "cross_entropy_lambda":
+        return np.log1p(np.exp(raw))
     return raw

@@ -1,8 +1,10 @@
 """Build port objects from arrays: trees and bin mappers of a model trained
-elsewhere (the JAX package, or the reference), handed over as numpy arrays.
+elsewhere (the JAX package, or the reference), and packed ensembles,
+handed over as numpy arrays.
 
-A GBDT's state is its trees and its bin mappers.  The caller extracts the
-fields to numpy; this module imports nothing of the package they came from.
+A GBDT's state is its trees and its bin mappers; a served model's is its
+packed tables.  The caller extracts the fields to numpy; this module
+imports nothing of the package they came from.
 """
 
 from __future__ import annotations
@@ -10,11 +12,13 @@ from __future__ import annotations
 from typing import Mapping, Sequence
 
 import numpy as np
+import torch
 
 from .basic import Booster
 from .boosting.gbdt import GBDT
 from .config import Config
 from .data.binning import BinMapper
+from .serve.packed import ARRAY_FIELDS, PackedEnsemble
 from .tree.tree import Tree
 
 #: Tree fields taken from the arrays, with their dtypes
@@ -77,3 +81,33 @@ def bin_mappers_from_arrays(states: Sequence[Mapping]):
     ``BinMapper.to_state``: bin boundaries, default bin, missing type,
     ...)."""
     return [BinMapper.from_state(dict(s)) for s in states]
+
+
+#: PackedEnsemble fields with their dtypes (the JAX package's)
+PACKED_DTYPES = {
+    "split_feature": np.int32, "threshold_hi": np.float32,
+    "threshold_lo": np.float32, "decision_type": np.int32,
+    "left_child": np.int32, "right_child": np.int32, "cat_start": np.int32,
+    "cat_len": np.int32, "cat_words": np.uint32, "leaf_value": np.float32,
+    "is_stump": np.bool_,
+}
+
+
+def packed_from_arrays(fields: Mapping, *, num_model: int, max_depth: int,
+                       num_trees: int, num_features: int,
+                       device="cuda") -> PackedEnsemble:
+    """A port ``PackedEnsemble`` on ``device`` from the arrays of a packed
+    ensemble (the JAX package's ``PackedEnsemble`` fields, as numpy) and
+    its static values."""
+    out = {}
+    for name in ARRAY_FIELDS:
+        arr = np.array(fields[name], PACKED_DTYPES[name], order="C")
+        if arr.dtype == np.uint32:
+            # uint32 moves as its int32 bits (see serve/packed.py)
+            out[name] = torch.from_numpy(arr.view(np.int32)).to(
+                device).view(torch.uint32)
+        else:
+            out[name] = torch.from_numpy(arr).to(device)
+    return PackedEnsemble(**out, num_model=int(num_model),
+                          max_depth=int(max_depth), num_trees=int(num_trees),
+                          num_features=int(num_features))

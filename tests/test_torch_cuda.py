@@ -1,6 +1,7 @@
-"""lightgbm_tpu_torch on the card: the CUDA kernels against their plain
-version, Threefry on the card against the CPU, and training on cuda
-against training on the CPU path.
+"""lightgbm_tpu_torch on the card: the CUDA kernels (wave histograms,
+packed-forest prediction) against their plain version, Threefry on the
+card against the CPU, training on cuda against training on the CPU path,
+and Booster.predict through the forest kernel.
 
 Every test here needs an NVIDIA GPU and nvcc; without them they skip.
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -284,3 +285,112 @@ def test_bagged_quantized_tree_on_card_equals_cpu(cuda_device):
     assert out[0][3] == out[1][3] == 31
     for a, b in zip(out[0][:3], out[1][:3]):
         assert torch.equal(a, b)
+
+
+# -- the packed-forest kernel (csrc/forest_predict.cu) --------------------
+
+def _assert_bit_equal(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _forest_inputs(dev, seed, *, num_model=1, cats=(), nf=7, iters=20,
+                   leaves=63, rows=30_000, dtype=torch.float64):
+    import synthetic_forests as synthetic
+    g = synthetic.random_forest(seed, num_iterations=iters,
+                                num_leaves=leaves, num_features=nf,
+                                cat_features=cats, num_model=num_model)
+    x = synthetic.query_rows(g, rows, seed + 1, cat_features=cats)
+    return g, torch.from_numpy(x).to(dev, dtype)
+
+
+@pytest.mark.parametrize("num_model,cats,nf,dtype", [
+    (1, (1, 4), 7, torch.float64),      # NaN/zero missing, bitsets
+    (3, (2,), 7, torch.float64),        # multiclass
+    (1, (0,), 7, torch.float32),        # f32 rows, widened on the card
+    (1, (3,), 60, torch.float64),       # too wide to stage: global reads
+])
+def test_forest_kernel_bit_equal_to_plain(cuda_device, num_model, cats, nf,
+                                          dtype):
+    """Leaves and tree-order scores of the kernel equal its plain version
+    bit for bit, on random deep forests and edge-case rows, whole and on
+    iteration slices."""
+    from lightgbm_tpu_torch.serve import packed
+    g, x = _forest_inputs(cuda_device, 7, num_model=num_model, cats=cats,
+                          nf=nf, dtype=dtype)
+    for start, num in ((0, -1), (3, 5)):
+        pe = packed.pack_gbdt(g, start, num, device=cuda_device)
+        assert pe.max_depth >= 16
+        kw = dict(num_model=pe.num_model, max_depth=pe.max_depth)
+        for leaves in (False, True):
+            before = packed.forest_predict.launches
+            got = packed.forest_predict(pe.tables(), x, leaves=leaves, **kw)
+            assert packed.forest_predict.launches == before + 1
+            want = packed.forest_predict_reference(pe.tables(), x,
+                                                   leaves=leaves, **kw)
+            torch.cuda.synchronize()
+            _assert_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "bf16"])
+def test_fleet_kernel_bit_equal_to_plain(cuda_device, value_dtype):
+    """A mixed-tenant batch over tenants of different pads: the kernel
+    equals its plain version bit for bit, and each tenant's rows equal its
+    solo pack's."""
+    import synthetic_forests as synthetic
+    from lightgbm_tpu_torch.serve import fleet, packed
+    gs = [synthetic.random_forest(s, num_iterations=it, num_leaves=lv,
+                                  num_features=6, cat_features=(2,))
+          for s, it, lv in ((1, 10, 31), (2, 25, 63), (3, 4, 8))]
+    fl, packs = fleet.pack_fleet(gs, device=cuda_device,
+                                 value_dtype=value_dtype)
+    x = torch.from_numpy(synthetic.query_rows(gs[1], 20_000, 4,
+                                              cat_features=(2,))) \
+        .to(cuda_device)
+    tid = torch.randint(0, 3, (len(x),), device=cuda_device,
+                        dtype=torch.int32)
+    kw = dict(num_model=1, max_depth=fl.max_depth)
+    for leaves in (False, True):
+        got = packed.forest_predict(fl.tables(), x, tid, leaves=leaves, **kw)
+        want = packed.forest_predict_reference(fl.tables(), x, tid,
+                                               leaves=leaves, **kw)
+        torch.cuda.synchronize()
+        _assert_bit_equal(got, want)
+    if value_dtype == "f32":
+        scores = packed.forest_predict(fl.tables(), x, tid, **kw)
+        for m, pe in enumerate(packs):
+            rows = tid == m
+            solo = packed.forest_predict(pe.tables(), x[rows],
+                                         num_model=1, max_depth=pe.max_depth)
+            _assert_bit_equal(scores[:, rows], solo)
+
+
+def test_booster_predict_runs_the_kernel(cuda_device, monkeypatch):
+    """Booster.predict of 65536 rows or more on a card launches the
+    kernel once and walks no host tree; it predicts the training score on
+    both routes."""
+    from lightgbm_tpu_torch.serve import packed
+    from lightgbm_tpu_torch.tree.tree import Tree
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((70_000, 6))
+    x[rng.random(x.shape) < 0.05] = np.nan
+    y = (np.nan_to_num(x[:, 0]) - np.nan_to_num(x[:, 2]) > 0).astype(float)
+    booster = lt.train({"objective": "binary", "num_leaves": 31,
+                        "verbose": -1}, lt.Dataset(x, y), 5)
+    g = booster._gbdt
+    score = g.train_score[0].double().cpu().numpy()
+    real = Tree.predict
+    monkeypatch.setattr(Tree, "predict", lambda *a: pytest.fail(
+        "Tree.predict on the packed path"))
+    before = packed.forest_predict.launches
+    dev = booster.predict(x, raw_score=True)
+    assert packed.forest_predict.launches == before + 1
+    np.testing.assert_allclose(dev, score, atol=1e-5)
+    monkeypatch.setattr(Tree, "predict", real)
+    g.config.device_predict = "off"
+    np.testing.assert_allclose(booster.predict(x, raw_score=True), score,
+                               atol=1e-5)
+    loaded = lt.Booster(model_str=booster.model_to_string(),
+                        params={"device_predict": "force"})
+    np.testing.assert_array_equal(loaded.predict(x[:100], raw_score=True),
+                                  dev[:100])

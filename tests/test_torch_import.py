@@ -1,7 +1,9 @@
-"""lightgbm_tpu_torch stands alone: importing it (or running the
-histogram microbenchmark, scripts/ubench_hist_cuda.py) pulls in neither JAX
-nor the JAX package, and its training entry point defaults to the GPU and
-raises without one instead of running on the CPU."""
+"""lightgbm_tpu_torch stands alone: importing it, its serving package,
+chip_smoke.py's forest generators (synthetic_forests.py) or running the
+histogram microbenchmark (scripts/ubench_hist_cuda.py) pulls in neither
+JAX nor the JAX package, and its training and serving entry points
+default to the GPU and raise without one instead of running on the
+CPU."""
 
 import json
 import os
@@ -27,6 +29,7 @@ def test_import_pulls_in_no_jax():
         "import lightgbm_tpu_torch.ops.bagging, lightgbm_tpu_torch.ops.split\n"
         "import lightgbm_tpu_torch.ops.histogram\n"
         "import lightgbm_tpu_torch.utils.random, runpy\n"
+        "import lightgbm_tpu_torch.serve, synthetic_forests\n"
         "runpy.run_path('scripts/ubench_hist_cuda.py')\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
@@ -50,6 +53,37 @@ def test_default_device_raises_without_a_card():
         "    print('raised:', e)\n"
         "else:\n"
         "    raise SystemExit('trained without a card')\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = _python(code, env=env)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "device_type=cuda" in out.stdout
+
+
+def test_serve_pulls_in_no_jax():
+    """The serving package alone, in a fresh interpreter."""
+    code = (
+        "import sys\n"
+        "import lightgbm_tpu_torch.serve\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'lightgbm_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = _python(code)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_server_defaults_to_the_card_and_raises_without_one():
+    code = (
+        "import torch, lightgbm_tpu_torch as lt\n"
+        "from lightgbm_tpu_torch.serve import PredictionServer\n"
+        "assert not torch.cuda.is_available()\n"
+        "text = open('tests/fixtures/ref_binary.model.txt').read()\n"
+        "try:\n"
+        "    PredictionServer(lt.Booster(model_str=text))\n"
+        "except lt.LightGBMError as e:\n"
+        "    print('raised:', e)\n"
+        "else:\n"
+        "    raise SystemExit('served without a card')\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     out = _python(code, env=env)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -109,6 +109,22 @@ def test_host_predict_matches_device_score(boosters, data):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("route", ["off", "force"])
+def test_predict_matches_device_score_on_both_routes(boosters, data, route):
+    """The host walk (off) and the packed-forest path (force, its plain
+    version here) predict the training score the grower kept."""
+    x, _ = data
+    g = boosters[1]._gbdt
+    score = g.train_score[0].double().numpy()
+    mode = g.config.device_predict
+    g.config.device_predict = route
+    try:
+        raw = boosters[1].predict(x, raw_score=True)
+    finally:
+        g.config.device_predict = mode
+    np.testing.assert_allclose(raw, score, atol=1e-5)
+
+
 def test_model_text_round_trips_both_ways(boosters, data):
     """A model text predicts identically in both packages.  (The v2 text
     writes 17 digits after the point, so a reloaded model matches the
