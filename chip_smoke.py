@@ -40,24 +40,35 @@ Phases, one line each:
               of all 2M rows (through forest_predict, whose launches
               are counted) bit for bit against the plain version on the
               card and within 1e-5 of the device training score, and
-              prints the sha256 of its model text; (a) the model-text
-              round trip; (c) byte-identical model text across its runs;
+              prints the sha256 of its model text and its predict_s
+              split into pack, upload, kernel, download and the rest
+              (host clocks, and CUDA events around the kernel); (a) the
+              model-text round trip; (c) byte-identical model text across
+              its runs;
 5. serve   -- csrc/forest_predict.cu, the packed-forest kernel: the higgs
               model over all 2M rows (leaves and scores also against the
               host walk on 200k rows), a synthetic forest of 500 trees
               of up to 63 leaves with deep paths, NaN/zero missing and
               multi-word bitsets over 1M edge-case rows, a K=3
-              multiclass slice, and a four-tenant fleet (the three
-              trained models and the synthetic one, f32 and bf16 leaf
-              values), each bit-equal to the plain version, timed with
-              CUDA events beside the plain version and its bound; then
-              the fleet's entry point and a PredictionServer (requests
-              of 1 to 100,000 rows, a swap from the harness model to the
-              int8 one halfway, single-row submits from 4 threads),
-              every answer bit-equal to the plain version on the served
-              pack and to Booster.predict of the model then current, and
-              within 1e-5 of the host walk, with p50/p95 latency per
-              size.
+              multiclass slice, a four-tenant fleet (the three trained
+              models and the synthetic one, f32 and bf16 leaf values),
+              and the fork harness's serving shape (8 trees of 31 leaves
+              over 53 f64 columns, 2M rows), each bit-equal to the plain
+              version, timed with CUDA events (launches queued behind a
+              sleep kernel, so the card's time) beside the plain version,
+              its bound and, for PR 4's cases, PR 4's time quoted from
+              PERF.md (BEFORE_MS; not measured here); the 500-tree forest
+              at 1, 100, 1,000 and 10,000 rows on the route the wrapper
+              picks and on each route forced (the route crossover); then
+              the fleet's entry point, a PredictionServer (requests of 1
+              to 100,000 rows, a swap from the harness model to the int8
+              one halfway, single-row submits from 4 threads) and a
+              second one serving the 500-tree forest (requests of 1 and
+              100 rows), every answer bit-equal to the plain version on
+              the served pack (the trained models' also to
+              Booster.predict and within 1e-5 of the host walk), with
+              p50/p95 latency per size and the launches of each kernel
+              route on the main path.
 
 Prints the card's name and power limit, a JSON line of kernel
 measurements, and last {"ok": true, "device": {...}}.  Full results go to
@@ -115,6 +126,13 @@ BEFORE_MS = {
     ("wave_hist_v2", 64, 3, 128, False, False, UBENCH_ROWS): 130.96,
     ("wave_hist_v2", 32, 3, 1, False, False, N_ROWS): 2.329,
 }
+# ms of each serve-phase case in PR 4 (one thread a row, the node tables
+# read from L1/L2), quoted from PERF.md: chip_smoke.py's run 2 of that tree
+# on an H100 80GB HBM3 at 700 W; the cases PR 4 never ran are timed against
+# the parent in one call by scripts/compare_forest_cuda.py
+FOREST_BEFORE_MS = {"higgs": 1.106, "synthetic": 12.11,
+                    "multiclass_slice": 1.561, "fleet_f32": 6.411,
+                    "fleet_bf16": 6.312}
 
 
 def fail(msg: str) -> None:
@@ -173,6 +191,36 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_queued_ms(fn, reps: int) -> float:
+    """Mean card time of ``reps`` calls queued behind a sleep kernel: the
+    host enqueues them all before the card starts on them, so a kernel
+    shorter than its wrapper's host work is timed, not the enqueue rate."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def forest_counts():
+    """forest_predict's launch count and its count by route."""
+    from lightgbm_tpu_torch.serve import packed
+    return packed.forest_predict.launches, dict(packed.forest_predict.routes)
+
+
+def counts_since(before):
+    launches, routes = forest_counts()
+    return launches - before[0], {k: v - before[1][k]
+                                  for k, v in routes.items()}
 
 
 def phase_build():
@@ -409,6 +457,69 @@ TRAIN_RUNS = {
 }
 
 
+class PredictSplit:
+    """Splits one Booster.predict into its parts, measurement only: host
+    clocks (ending in a synchronize) around the pack (the node records
+    included), the upload of the query rows, the kernel launch (CUDA
+    events too) and the download (with the wrapper's checks), wrapped
+    around the package's own functions for the time of the block; the rest
+    is the host's numpy work around them."""
+
+    def __enter__(self):
+        import torch
+        from lightgbm_tpu_torch.serve import packed
+        self.real = {f: getattr(packed, f) for f in
+                     ("pack_ensemble", "query_tensor", "launch_forest",
+                      "predict_scores")}
+        self.s = dict(pack=0.0, upload=0.0, kernel=0.0, predict_scores=0.0,
+                      kernel_events_ms=0.0)
+        real = self.real
+
+        def clocked(name, fn, after=None):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                if after:
+                    after(out)
+                torch.cuda.synchronize()
+                self.s[name] += time.perf_counter() - t0
+                return out
+            return run
+
+        def kernel(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real["launch_forest"](*a, **k)
+            end.record()
+            torch.cuda.synchronize()
+            self.s["kernel_events_ms"] += start.elapsed_time(end)
+            return out
+        packed.pack_ensemble = clocked("pack", real["pack_ensemble"],
+                                       lambda pe: pe.records)
+        packed.query_tensor = clocked("upload", real["query_tensor"])
+        packed.launch_forest = clocked("kernel", kernel)
+        packed.predict_scores = clocked("predict_scores",
+                                        real["predict_scores"])
+        return self
+
+    def __exit__(self, *exc):
+        from lightgbm_tpu_torch.serve import packed
+        for name, fn in self.real.items():
+            setattr(packed, name, fn)
+        return False
+
+    def split(self, total_s: float) -> dict:
+        s = self.s
+        download = s["predict_scores"] - s["upload"] - s["kernel"]
+        return dict(pack_s=s["pack"], upload_s=s["upload"],
+                    kernel_s=s["kernel"],
+                    kernel_ms_events=s["kernel_events_ms"],
+                    download_s=download,
+                    other_s=total_s - s["pack"] - s["predict_scores"])
+
+
 def auc_of(y, score) -> float:
     from lightgbm_tpu_torch.metrics import AUCMetric
 
@@ -451,10 +562,14 @@ def train_run(name, ds, x, y, dev, profile=False):
     if auc < AUC_FLOOR:
         fail(f"{name}: training AUC {auc:.4f} below the floor {AUC_FLOOR}")
     packed.forest_predict.launches = 0        # this predict only
-    t0 = time.perf_counter()
-    raw = booster.predict(x, raw_score=True)
-    predict_s = time.perf_counter() - t0
+    packed.forest_predict.routes = {k: 0 for k in packed.forest_predict.routes}
+    with PredictSplit() as clocks:
+        t0 = time.perf_counter()
+        raw = booster.predict(x, raw_score=True)
+        predict_s = time.perf_counter() - t0
+    split = clocks.split(predict_s)
     predict_launches = packed.forest_predict.launches
+    predict_routes = dict(packed.forest_predict.routes)
     if predict_launches <= 0:
         fail(f"{name}: Booster.predict of {len(x)} rows launched no "
              f"forest_predict kernel")
@@ -492,8 +607,9 @@ def train_run(name, ds, x, y, dev, profile=False):
                   s_per_tree=per_tree, waves_per_tree=[s[1] for s in stats],
                   host_syncs_per_tree=[s[2] for s in stats],
                   launches=launches, waves=waves, host_syncs=syncs,
-                  auc=auc, predict_s=predict_s,
+                  auc=auc, predict_s=predict_s, predict_split=split,
                   predict_launches=predict_launches,
+                  predict_routes=predict_routes,
                   host_predict_s=host_predict_s,
                   predict_vs_score_max_abs=pred_err,
                   peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
@@ -503,10 +619,16 @@ def train_run(name, ds, x, y, dev, profile=False):
           f"({np.mean(per_tree[1:]):.4f} s/tree after the first, first "
           f"{per_tree[0]:.3f} s), {waves / trees:.1f} waves/tree, "
           f"{syncs / trees:.1f} host syncs/tree, kernel launches "
-          f"{launches} == waves, AUC {auc:.4f}, predict {predict_s:.3f} s "
-          f"({predict_launches} forest_predict launch{host_note}; "
-          f"bit-equal to the plain version), predict-vs-score "
-          f"{pred_err:.2g}, model text sha256 {text_sha}", flush=True)
+          f"{launches} == waves, AUC {auc:.4f}, predict {predict_s:.4f} s "
+          f"({predict_launches} forest_predict launch, routes "
+          f"{predict_routes}{host_note}; bit-equal to the plain version), "
+          f"predict-vs-score {pred_err:.2g}, model text sha256 {text_sha}",
+          flush=True)
+    print(f"  train {name}: predict_s {predict_s:.4f} s = pack "
+          f"{split['pack_s']:.4f} + upload {split['upload_s']:.4f} + kernel "
+          f"{split['kernel_s']:.4f} (events {split['kernel_ms_events']:.3f} "
+          f"ms) + download {split['download_s']:.4f} + rest "
+          f"{split['other_s']:.4f} s", flush=True)
     if profile:
         result["profile"] = profile_tree(gb)
     return booster, result
@@ -587,6 +709,11 @@ MC = dict(num_iterations=100, num_leaves=31, num_features=N_FEATURES,
 MC_SLICE = (20, 50)
 MC_ROWS = 500_000
 FLEET_ROWS = 500_000
+#: the fork harness's serving shape: trees of its config (8 windows of
+#: retraining, 31 leaves) over its rows (HISTFEATURES + 3 = 53 columns,
+#: src/capi/smoke_test.cpp:24-31,86), 2M f64 rows
+FORK = dict(num_iterations=8, num_leaves=31, num_features=53)
+FORK_ROWS = 2_000_000
 HOST_ROWS = 200_000         # higgs rows also walked on the host
 SYN_HOST_ROWS = 10_000      # synthetic rows (away from thresholds) too
 #: the server's request sizes and how many of each
@@ -620,19 +747,47 @@ def leaf_depths(tables):
     return torch.from_numpy(out).to(tables.left_child.device)
 
 
-def forest_case(name, tables, x, tid, *, num_model, max_depth, reps):
+def forest_bound(tables, x, tid, leaves, num_model):
+    """The least time the card could take to route ``x`` through
+    ``tables``: the bytes of the function (query rows read once, scores
+    written once, tenant ids, the pack) at the memory rate, or three f32
+    compares a node visit that these rows make (from their ``leaves``) at
+    the f32 rate, whichever is larger."""
+    import torch
+    r, t = leaves.shape
+    depth = leaf_depths(tables)
+    m_idx = (tid.long() if tid is not None
+             else torch.zeros(r, dtype=torch.long, device=x.device))
+    visits = int(depth[m_idx[:, None], torch.arange(t, device=x.device),
+                       leaves.long()].sum())
+    bytes_ = (x.numel() * x.element_size() + num_model * r * 4
+              + (0 if tid is None else r * 4)
+              + sum(a.numel() * a.element_size() for a in tables))
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * visits / F32_OPS_PER_S * 1e3
+    return dict(node_visits=visits, bytes=bytes_, bytes_bound_ms=bytes_ms,
+                ops_bound_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def forest_case(name, pack, x, tid, *, reps):
     """Hold forest_predict against its plain version on the card (scores
     and leaves, bit for bit), time both with CUDA events (inputs already
-    on the card), and compute the bound: the bytes of the function (query
-    rows read once, scores written once, tenant ids, the pack) at the
-    memory rate, or three f32 compares a node visit that these rows make
-    at the f32 rate, whichever is larger."""
+    on the card; the kernel's launches queued behind a sleep kernel), and
+    compute its bound (:func:`forest_bound`).  ``pack`` is a
+    PackedEnsemble or PackedFleet."""
     import torch
     from lightgbm_tpu_torch.serve import packed
+    tables = pack.tables()
+    num_model, max_depth = pack.num_model, pack.max_depth
     kw = dict(num_model=num_model, max_depth=max_depth)
-    run = lambda: packed.forest_predict(tables, x, tid, **kw)
+    run = lambda: packed.forest_predict(tables, x, tid, records=pack.records,
+                                        **kw)
+    before = forest_counts()
     scores = run()
-    leaves = packed.forest_predict(tables, x, tid, leaves=True, **kw)
+    route = [k for k, v in counts_since(before)[1].items() if v][0]
+    leaves = packed.forest_predict(tables, x, tid, leaves=True,
+                                   records=pack.records, **kw)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -646,33 +801,98 @@ def forest_case(name, tables, x, tid, *, num_model, max_depth, reps):
     ok = (torch.equal(scores.view(torch.int32), ref.view(torch.int32))
           and torch.equal(leaves, ref_leaves))
     err = float((scores.double() - ref.double()).abs().max())
-    ms = time_ms(run, reps=reps, warmup=1)
+    ms = time_queued_ms(run, reps=reps)
     r, t = leaves.shape
-    depth = leaf_depths(tables)
-    m_idx = (tid.long() if tid is not None
-             else torch.zeros(r, dtype=torch.long, device=x.device))
-    visits = int(depth[m_idx[:, None], torch.arange(t, device=x.device),
-                       leaves.long()].sum())
-    bytes_ = (x.numel() * x.element_size() + num_model * r * 4
-              + (0 if tid is None else r * 4)
-              + sum(a.numel() * a.element_size() for a in tables))
-    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    ops_ms = 3 * visits / F32_OPS_PER_S * 1e3
+    m_, _, n = tables.split_feature.shape
+    geo = packed.forest_geometry(
+        r, t, n, x.shape[1], x.dtype == torch.float64, False, num_model,
+        tenants=m_ if tid is not None else 1,
+        sm_count=torch.cuda.get_device_properties(x.device)
+        .multi_processor_count)
+    bound = forest_bound(tables, x, tid, leaves, num_model)
+    before_ms = FOREST_BEFORE_MS.get(name)
+    visits = bound["node_visits"]
     res = dict(case=name, rows=r, trees=t, num_model=num_model,
                max_depth=max_depth, x_dtype=str(x.dtype), ok=ok,
-               max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               node_visits=visits, bytes=bytes_, bytes_bound_ms=bytes_ms,
-               ops_bound_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               library_ms=None)
+               max_abs_err=err, ms=ms, before_ms_quoted=before_ms,
+               plain_ms=plain_ms, route=route, geometry=geo._asdict(),
+               **bound, visits_per_s=visits / (ms * 1e-3), library_ms=None)
+    quoted = ("" if before_ms is None else
+              f" (PR 4, quoted from PERF.md: {before_ms:.3f} ms)")
     print(f"  serve {name}: {r} rows x {t} trees (K={num_model}, depth pad "
-          f"{max_depth}, {x.dtype}): bit-equal to plain={ok}, kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{max_depth}, {x.shape[1]} {x.dtype} columns): bit-equal to "
+          f"plain={ok}, route {route} (rows/block {geo.rows_per_block}, "
+          f"chunk {geo.chunk_trees} trees, trees in shared memory "
+          f"{geo.smem_trees}, rows staged {geo.stage_rows}, tenant grouping "
+          f"{bool(geo.group_blocks)}, {geo.smem_bytes} B), kernel "
+          f"{ms:.3f} ms{quoted}, plain {plain_ms:.1f} ms, bound "
           f"{res['bound_ms'] * 1e3:.1f} us ({res['bound_by']}; "
-          f"{visits / (r * t):.2f} node visits a pair)", flush=True)
+          f"{visits / (r * t):.2f} node visits a pair, "
+          f"{res['visits_per_s']:.3g} visits/s)", flush=True)
     if not ok:
         fail(f"forest_predict disagrees with its plain version ({name})")
     return res, scores, leaves
+
+
+#: the 500-tree forest's small batches: rows, and launches timed of each
+SMALL_ROWS = {1: 500, 100: 500, 1_000: 200, 10_000: 50}
+
+
+def small_batches(pe, xs):
+    """The 500-tree forest at SMALL_ROWS rows: the route the wrapper picks
+    and each route forced, each bit-equal to the plain version (scores and
+    leaves), each timed (the route crossover)."""
+    import torch
+    from lightgbm_tpu_torch.serve import packed
+    tables, rec = pe.tables(), pe.records
+    _, t, n = tables.split_feature.shape
+    kw = dict(num_model=pe.num_model, max_depth=pe.max_depth)
+    sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
+    out = []
+    for rows, reps in SMALL_ROWS.items():
+        x = xs[:rows]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = packed.forest_predict_reference(tables, x, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        want_leaves = packed.forest_predict_reference(tables, x, leaves=True,
+                                                      **kw)
+        line = dict(rows=rows, plain_ms=plain_ms,
+                    **forest_bound(tables, x, None, want_leaves,
+                                   pe.num_model))
+        for route in ("auto", "rows", "trees"):
+            geo = packed.forest_geometry(
+                rows, t, n, x.shape[1], True, False, pe.num_model,
+                sm_count=sms, route=None if route == "auto" else route)
+            if route == "auto":
+                line["route"] = geo.route
+                run = lambda: packed.forest_predict(tables, x, records=rec,
+                                                    **kw)
+            else:
+                run = lambda geo=geo: packed.launch_forest(rec, x, None, geo,
+                                                           **kw)
+            got = run()
+            leaves_geo = packed.forest_geometry(
+                rows, t, n, x.shape[1], True, True, pe.num_model,
+                sm_count=sms, route=geo.route)
+            got_leaves = packed.launch_forest(rec, x, None, leaves_geo,
+                                              leaves=True, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(got.view(torch.int32), want.view(torch.int32))
+                    and torch.equal(got_leaves, want_leaves)):
+                fail(f"forest_predict route {route} at {rows} rows differs "
+                     f"from the plain version")
+            line[f"{route}_ms"] = time_queued_ms(run, reps)
+        out.append(line)
+        print(f"  serve 500 trees x {rows} rows: route {line['route']} "
+              f"{line['auto_ms'] * 1e3:.1f} us; forced: rows "
+              f"{line['rows_ms'] * 1e3:.1f} us, trees "
+              f"{line['trees_ms'] * 1e3:.1f} us (bit-equal to the plain "
+              f"version, scores and leaves); plain {plain_ms:.1f} ms, bound "
+              f"{line['bound_ms'] * 1e3:.2f} us ({line['bound_by']})",
+              flush=True)
+    return out
 
 
 def host_walk(models, x64):
@@ -810,7 +1030,7 @@ def serve_server(dev, models, x):
                               device=dev)
     server.warmup()
     current, model = "harness", server._snapshot()
-    launches = 0
+    before = forest_counts()    # the main path: requests and submits
     served = []                 # (what, model name, generation, rows, answer)
     lat = {n: [] for n in SERVER_REQUESTS}
     plan = [n for n, reps in SERVER_REQUESTS.items() for _ in range(reps)]
@@ -823,12 +1043,10 @@ def serve_server(dev, models, x):
             current, model = "int8", server._snapshot()
         rows = x[off:off + n]
         off = (off + n) % (len(x) - max(SERVER_REQUESTS))
-        c0 = packed.forest_predict.launches
         with _NoHostWalk():
             t0 = time.perf_counter()
             got = server.predict(rows)
             lat[n].append(time.perf_counter() - t0)
-        launches += packed.forest_predict.launches - c0
         served.append((f"request {i} ({n} rows)", current, model, rows, got))
     # single-row submits from several threads, micro-batched
     sub_lat, submitted, errors = [], [], []
@@ -855,7 +1073,7 @@ def serve_server(dev, models, x):
             for th in threads:
                 th.join(timeout=120)
     submit_launches = packed.forest_predict.launches - c0
-    launches += submit_launches
+    launches, routes = counts_since(before)
     n_sub = SUBMIT_THREADS * SUBMITS_PER_THREAD
     if errors or len(submitted) != n_sub:
         fail(f"submits: {len(submitted)} of {n_sub} answered, errors "
@@ -880,14 +1098,72 @@ def serve_server(dev, models, x):
           f"{sub_pct[0]:.3f} ms, p95 {sub_pct[1]:.3f} ms; every answer "
           f"bit-equal to the plain version and Booster.predict, within "
           f"{answers.host_max_abs:.2g} of the host walk "
-          f"({answers.checked_rows} rows)", flush=True)
-    return dict(launches=launches, submit_launches=submit_launches,
+          f"({answers.checked_rows} rows); launches by route {routes}",
+          flush=True)
+    return dict(launches=launches, routes=routes,
+                submit_launches=submit_launches,
                 checked_rows=answers.checked_rows,
                 host_max_abs=answers.host_max_abs,
                 latency_ms={str(n): dict(p50=a, p95=b, requests=len(lat[n]))
                             for n, (a, b) in pct.items()},
                 submit_latency_ms=dict(p50=sub_pct[0], p95=sub_pct[1],
                                        requests=n_sub))
+
+
+#: requests of each size to the server of the 500-tree forest
+SYN_SERVER_REQUESTS = {1: 40, 100: 40}
+
+
+def serve_server_syn(dev, syn, seed: int):
+    """A PredictionServer over the 500-tree synthetic forest: requests of
+    1 and 100 rows (the harness's per-request scoring against a forest of
+    hundreds of trees), timed, then each answer held bit for bit against
+    the plain version on the served pack."""
+    import numpy as np
+    import torch
+    import synthetic_forests as synthetic
+    from lightgbm_tpu_torch.serve import PredictionServer, packed
+    server = PredictionServer(syn, device=dev)
+    server.warmup()
+    model = server._snapshot()
+    pe = model.packed
+    x = synthetic.query_rows(syn, sum(n * k for n, k in
+                                      SYN_SERVER_REQUESTS.items()),
+                             seed, cat_features=SYN["cat_features"])
+    plan = [n for n, k in SYN_SERVER_REQUESTS.items() for _ in range(k)]
+    order = np.random.default_rng(2).permutation(len(plan))
+    lat = {n: [] for n in SYN_SERVER_REQUESTS}
+    served, off = [], 0
+    before = forest_counts()
+    for j in order:
+        n = plan[j]
+        rows = x[off:off + n]
+        off += n
+        with _NoHostWalk():
+            t0 = time.perf_counter()
+            got = server.predict(rows)
+            lat[n].append(time.perf_counter() - t0)
+        served.append((rows, got))
+    launches, routes = counts_since(before)
+    for rows, got in served:
+        plain = packed.forest_predict_reference(
+            pe.tables(), torch.from_numpy(rows).to(dev), num_model=1,
+            max_depth=pe.max_depth)
+        if not np.array_equal(got, model.convert(
+                plain.cpu().numpy().astype(np.float64), False)):
+            fail("the 500-tree server's answer differs from the plain "
+                 "version on the served pack")
+    pct = {n: (float(np.percentile(v, 50)) * 1e3,
+               float(np.percentile(v, 95)) * 1e3) for n, v in lat.items()}
+    for n, (p50, p95) in pct.items():
+        print(f"  serve 500-tree server: {n} rows x {len(lat[n])} requests: "
+              f"p50 {p50:.3f} ms, p95 {p95:.3f} ms", flush=True)
+    print(f"  serve 500-tree server: {len(served)} answers bit-equal to the "
+          f"plain version on the served pack; launches by route {routes}",
+          flush=True)
+    return dict(launches=launches, routes=routes,
+                latency_ms={str(n): dict(p50=a, p95=b, requests=len(lat[n]))
+                            for n, (a, b) in pct.items()})
 
 
 def phase_serve(dev, models, x, seed: int):
@@ -906,9 +1182,7 @@ def phase_serve(dev, models, x, seed: int):
     higgs = lt.Booster(model_str=models["higgs"])._gbdt
     pe = packed.pack_gbdt(higgs, device=dev)
     xd = torch.from_numpy(x).to(dev)
-    res, scores, leaves = forest_case(
-        "higgs", pe.tables(), xd, None, num_model=1,
-        max_depth=pe.max_depth, reps=20)
+    res, scores, leaves = forest_case("higgs", pe, xd, None, reps=20)
     check_host("higgs", res, higgs.models, 1,
                leaves[:HOST_ROWS].cpu().numpy(),
                scores[:, :HOST_ROWS].double().cpu().numpy(),
@@ -921,23 +1195,21 @@ def phase_serve(dev, models, x, seed: int):
     pe = packed.pack_gbdt(syn, device=dev)
     xs = torch.from_numpy(synthetic.query_rows(
         syn, SYN_ROWS, seed + 8, cat_features=cats)).to(dev)
-    cases["synthetic"], _, _ = forest_case(
-        "synthetic", pe.tables(), xs, None, num_model=1,
-        max_depth=pe.max_depth, reps=3)
+    cases["synthetic"], _, _ = forest_case("synthetic", pe, xs, None, reps=5)
     xh = synthetic.query_rows(syn, SYN_HOST_ROWS, seed + 9, near=False,
                               cat_features=cats)
     check_host("synthetic", cases["synthetic"], syn.models, 1,
                packed.predict_leaves(pe, xh), packed.predict_scores(pe, xh),
                xh)
+    small = small_batches(pe, xs)
     del xs
 
     mc = synthetic.random_forest(seed + 10, **MC)
     pe = packed.pack_gbdt(mc, *MC_SLICE, device=dev)
     xm = torch.from_numpy(synthetic.query_rows(
         mc, MC_ROWS, seed + 11, cat_features=MC["cat_features"])).to(dev)
-    cases["multiclass_slice"], _, _ = forest_case(
-        "multiclass_slice", pe.tables(), xm, None, num_model=3,
-        max_depth=pe.max_depth, reps=5)
+    cases["multiclass_slice"], _, _ = forest_case("multiclass_slice", pe, xm,
+                                                  None, reps=5)
     del xm
     xh = synthetic.query_rows(mc, SYN_HOST_ROWS, seed + 13, near=False,
                               cat_features=MC["cat_features"])
@@ -945,6 +1217,23 @@ def phase_serve(dev, models, x, seed: int):
                packed.tree_slice(mc.models, 3, *MC_SLICE), 3,
                packed.predict_leaves(pe, xh), packed.predict_scores(pe, xh),
                xh)
+
+    # the fork harness's serving shape: its config's trees (8 windows, 31
+    # leaves) over its 53-column rows (src/capi/smoke_test.cpp:24-31,86)
+    fork = synthetic.random_forest(seed + 14, **FORK)
+    pe = packed.pack_gbdt(fork, device=dev)
+    xk = torch.from_numpy(synthetic.query_rows(fork, FORK_ROWS,
+                                               seed + 15)).to(dev)
+    cases["fork_53"], _, _ = forest_case("fork_53", pe, xk, None, reps=10)
+    geo = cases["fork_53"]["geometry"]
+    if not (geo["stage_rows"] and (geo["smem_trees"]
+                                   or geo["route"] == "trees")):
+        fail("the fork's 53-column rows were not staged in shared memory")
+    xh = synthetic.query_rows(fork, SYN_HOST_ROWS, seed + 16, near=False)
+    check_host("fork_53", cases["fork_53"], fork.models, 1,
+               packed.predict_leaves(pe, xh), packed.predict_scores(pe, xh),
+               xh)
+    del xk
 
     tenants = [lt.Booster(model_str=models[k]) for k in
                ("higgs", "harness", "int8")] + [syn]
@@ -954,45 +1243,50 @@ def phase_serve(dev, models, x, seed: int):
     xf = xd[:FLEET_ROWS]
     for vdt in ("f32", "bf16"):
         fl, packs = fleet.pack_fleet(tenants, device=dev, value_dtype=vdt)
-        cases[f"fleet_{vdt}"], fs, _ = forest_case(
-            f"fleet_{vdt}", fl.tables(), xf, tid, num_model=1,
-            max_depth=fl.max_depth, reps=3)
+        cases[f"fleet_{vdt}"], fs, _ = forest_case(f"fleet_{vdt}", fl, xf,
+                                                   tid, reps=5)
         if vdt == "f32":
             check_fleet_host(fl, tenants, x, tid_np, cases["fleet_f32"])
             for m, solo in enumerate(packs):
                 rows = tid == m
                 got = packed.forest_predict(solo.tables(), xf[rows],
                                             num_model=1,
-                                            max_depth=solo.max_depth)
+                                            max_depth=solo.max_depth,
+                                            records=solo.records)
                 if not torch.equal(fs[:, rows].view(torch.int32),
                                    got.view(torch.int32)):
                     fail(f"fleet tenant {m} differs from its solo pack")
     # the fleet's entry point, counted as main-path launches
     n = min(100_000, FLEET_ROWS)
-    c0 = packed.forest_predict.launches
+    before = forest_counts()
     with _NoHostWalk():
         t0 = time.perf_counter()
         out = fleet.fleet_predict_scores(fl, tid_np[:n], x[:n])
         fleet_s = time.perf_counter() - t0
-    fleet_launches = packed.forest_predict.launches - c0
+    fleet_launches, fleet_routes = counts_since(before)
     if fleet_launches <= 0 or out.shape != (1, n) \
             or not np.isfinite(out).all():
         fail(f"fleet_predict_scores: {fleet_launches} launches, shape "
              f"{out.shape}")
     print(f"  serve fleet entry point: {n} mixed-tenant rows (bf16 leaf "
-          f"values) in {fleet_s * 1e3:.1f} ms, {fleet_launches} launch",
-          flush=True)
+          f"values) in {fleet_s * 1e3:.1f} ms, {fleet_launches} launch, "
+          f"routes {fleet_routes}", flush=True)
     del xd, xf
 
     server = serve_server(dev, models, x)
+    server_syn = serve_server_syn(dev, syn, seed + 17)
     bad = [k for k, c in cases.items() if not c["ok"]]
     if bad:
         fail(f"serve cases failed: {bad}")
+    routes = {k: fleet_routes[k] + server["routes"][k]
+              + server_syn["routes"][k] for k in fleet_routes}
     print(f"phase serve: ok {len(cases)} kernel cases bit-equal to the "
-          f"plain version; PredictionServer {server['launches']} and "
-          f"fleet {fleet_launches} forest_predict launches", flush=True)
-    return dict(cases=cases, server=server,
-                fleet_entry_launches=fleet_launches, fleet_entry_s=fleet_s)
+          f"plain version; PredictionServers {server['launches']} + "
+          f"{server_syn['launches']} and fleet {fleet_launches} "
+          f"forest_predict launches, by route {routes}", flush=True)
+    return dict(cases=cases, small_batches=small, server=server,
+                server_syn=server_syn, fleet_entry_launches=fleet_launches,
+                fleet_entry_routes=fleet_routes, fleet_entry_s=fleet_s)
 
 
 def profile_tree(gb):
@@ -1062,11 +1356,24 @@ def main() -> int:
     # wave_hist's path is training: its launches are those of every run;
     # wave_hist_v2's path is the ubench entry point; forest_predict's is
     # prediction: Booster.predict after each training run, the fleet's
-    # entry point and the PredictionServer (not the comparison launches)
+    # entry point and the two PredictionServers (not the comparison
+    # launches), and both of its routes must have run there
     v1_launches = sum(r["launches"] for r in train["runs"].values())
     fp_launches = (sum(r["predict_launches"] for r in train["runs"].values())
                    + serve["fleet_entry_launches"]
-                   + serve["server"]["launches"])
+                   + serve["server"]["launches"]
+                   + serve["server_syn"]["launches"])
+    fp_routes = {k: (sum(r["predict_routes"][k]
+                         for r in train["runs"].values())
+                     + serve["fleet_entry_routes"][k]
+                     + serve["server"]["routes"][k]
+                     + serve["server_syn"]["routes"][k])
+                 for k in serve["fleet_entry_routes"]}
+    if min(fp_routes.values()) <= 0:
+        fail(f"a forest_predict route never ran on the main path: "
+             f"{fp_routes}")
+    print(f"forest_predict on the main path: {fp_launches} launches, by "
+          f"route {fp_routes}", flush=True)
     higgs = serve["cases"]["higgs"]
     picks = [("wave_hist", kernels["wave_hist"][0], v1_launches,
               "lightgbm_tpu_torch/csrc/wave_hist.cu",
@@ -1085,6 +1392,7 @@ def main() -> int:
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "library_ms": c["library_ms"], "tc_ms": c["tc_ms"],
     } for name, c, launches, source, replaces in picks]}
+    line["kernels"][2]["launches_by_route"] = fp_routes
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke.json", "w") as fh:
         json.dump(dict(card=card, kind=kind, build_s=build_s,

@@ -11,10 +11,11 @@ against the current model.  :class:`PredictionServer` owns that read side:
   of ``csrc/forest_predict.cu``;
 * micro-batching (``start()`` / ``submit(rows)``): small requests coalesce
   up to ``max_batch`` rows or ``max_wait_ms`` into one launch;
-* ``warmup()`` builds the kernel's library and launches it once, so the
-  first request pays neither.  The JAX package compiles one program per
-  padded batch size and warms each; the kernel compiles nothing per shape
-  and pads no rows, so one launch warms every size.
+* ``warmup()`` builds the kernel's library and launches each of its two
+  routes once (small batches spread a row's trees over a block, large
+  ones walk a row a thread), so the first request pays neither.  The JAX
+  package compiles one program per padded batch size and warms each; the
+  kernel compiles nothing per shape and pads no rows.
 
 Not ported yet (they come with ``robust/`` and ``obs/``): the degrade-to-
 host path (circuit breaker, host-walk fallback, injected faults) and the
@@ -33,7 +34,8 @@ import numpy as np
 
 from ..boosting.gbdt import GBDT, _convert_by_name, resolve_device
 from ..utils.log import LightGBMError
-from .packed import PackedEnsemble, pack_gbdt, predict_scores
+from .packed import (TREES_ROUTE_ROWS_PER_SM, PackedEnsemble, _sm_count,
+                     pack_gbdt, predict_scores)
 
 __all__ = ["PredictionServer"]
 
@@ -118,6 +120,7 @@ class PredictionServer:
         gbdt = _as_gbdt(booster)
         packed = pack_gbdt(gbdt, self.start_iteration, self.num_iteration,
                            device=self.device)
+        packed.records          # the kernel's node records, built here too
         model = _Model(packed, gbdt)
         with self._lock:
             self._model = model
@@ -131,10 +134,16 @@ class PredictionServer:
         return model
 
     def warmup(self) -> None:
-        """Build the kernel's library and launch it once, on one row of
-        zeros, against the current model."""
+        """Build the kernel's library and launch each route once, on rows
+        of zeros, against the current model (on the CPU: one call)."""
         model = self._snapshot()
-        predict_scores(model.packed, np.zeros((1, model.packed.num_features)))
+        pe = model.packed
+        sizes = [1]
+        if pe.device.type == "cuda":
+            sizes.append(TREES_ROUTE_ROWS_PER_SM * _sm_count(pe.device.index)
+                         + 1)
+        for n in sizes:
+            predict_scores(pe, np.zeros((n, pe.num_features)))
 
     # -- direct prediction ----------------------------------------------
     def predict(self, data, raw_score: bool = False) -> np.ndarray:

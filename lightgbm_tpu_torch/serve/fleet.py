@@ -18,6 +18,7 @@ breakers and the host fallback) are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,8 +26,9 @@ import torch
 
 from ..utils.log import LightGBMError
 from .engine import _as_gbdt
-from .packed import (ARRAY_FIELDS, ForestTables, PackedEnsemble,
-                     forest_predict, pack_ensemble, query_tensor)
+from .packed import (ARRAY_FIELDS, ForestRecords, ForestTables,
+                     PackedEnsemble, forest_predict, forest_records,
+                     pack_ensemble, query_tensor)
 
 __all__ = ["PackedFleet", "stack_packs", "pack_fleet", "write_tenant",
            "fleet_predict_scores", "fleet_predict_leaves"]
@@ -103,6 +105,12 @@ class PackedFleet:
 
     def tables(self) -> ForestTables:
         return ForestTables(*(getattr(self, f) for f in ARRAY_FIELDS))
+
+    @functools.cached_property
+    def records(self) -> ForestRecords:
+        """The kernel's node records of every tenant (built on first use,
+        rewritten tenant by tenant by :func:`write_tenant`)."""
+        return forest_records(self.tables())
 
 
 def _bits(a: torch.Tensor) -> torch.Tensor:
@@ -198,9 +206,13 @@ def _fleet_write(fl: PackedFleet, row: PackedFleet, idx: int) -> PackedFleet:
     """Index-copy one tenant (``row``: a one-tenant fleet at ``fl``'s
     pads) into ``fl``'s model axis at ``idx``, in place; returns ``fl``.
     On the card the copies are ordered on the current stream with the
-    launches around them."""
+    launches around them.  Node records already built are rewritten for
+    the tenant the same way."""
     for f in ARRAY_FIELDS:
         _bits(getattr(fl, f))[idx].copy_(_bits(getattr(row, f))[0])
+    if "records" in fl.__dict__:
+        for f in ("blob", "cat", "live"):
+            getattr(fl.records, f)[idx].copy_(getattr(row.records, f)[0])
     return fl
 
 
@@ -252,7 +264,7 @@ def fleet_predict_scores(fl: PackedFleet, tenant_ids, data) -> np.ndarray:
     tid = _tenant_tensor(fl, tenant_ids, n)
     x = query_tensor(data, fl.num_features, fl.device)
     out = forest_predict(fl.tables(), x, tid, num_model=fl.num_model,
-                         max_depth=fl.max_depth)
+                         max_depth=fl.max_depth, records=fl.records)
     return out.cpu().numpy().astype(np.float64)
 
 
@@ -265,4 +277,5 @@ def fleet_predict_leaves(fl: PackedFleet, tenant_ids, data) -> np.ndarray:
     tid = _tenant_tensor(fl, tenant_ids, n)
     x = query_tensor(data, fl.num_features, fl.device)
     return forest_predict(fl.tables(), x, tid, num_model=fl.num_model,
-                          max_depth=fl.max_depth, leaves=True).cpu().numpy()
+                          max_depth=fl.max_depth, leaves=True,
+                          records=fl.records).cpu().numpy()

@@ -4,9 +4,11 @@ Counterpart of ``lightgbm_tpu/serve/packed.py``.  An arbitrary tree slice
 is packed into padded tensors keyed on RAW feature values (no dataset, no
 bin mappers, so models loaded from text pack the same as trained ones),
 with the JAX package's fields, dtypes and pads.  Every row is routed
-through every tree in one launch of ``csrc/forest_predict.cu``
-(:func:`forest_predict`), which replaces the JAX package's ``lax.scan``
-over the padded depth.
+through every tree by ``csrc/forest_predict.cu`` (:func:`forest_predict`),
+which replaces the JAX package's ``lax.scan`` over the padded depth.  The
+kernel reads a node-record table derived once from the pack
+(:func:`forest_records`, cached on the pack): one 16-byte record and one
+word a node visit instead of six separate tables.
 
 Thresholds are stored as hi/lo float32 pairs (``hi = f32(t)``, ``lo =
 f32(t - hi)``) and query values are split the same way, so the decision
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -110,6 +113,104 @@ class ForestTables(NamedTuple):
 ARRAY_FIELDS = ForestTables._fields
 
 
+class ForestRecords(NamedTuple):
+    """The kernel's node-record table, derived from a pack's
+    :class:`ForestTables` by :func:`forest_records` (lossless: see
+    :func:`decode_records`).
+
+    ``blob`` is (M, T, S) int32, one row of S = :func:`record_words` (N)
+    words a tree, 16-byte aligned so that a run of trees is one bulk copy:
+
+    ==============  ==========================================================
+    words           contents
+    ==============  ==========================================================
+    [0, 4N)         node i's hot record at 4i: threshold_hi, threshold_lo (f32
+                    bits), left_child, right_child -- one 16-byte load
+    [4N, 5N)        split_feature << 4 | decision_type
+    [5N, 6N + 1)    leaf values as f32 bits (bf16 values widen exactly)
+    6N + 1          is_stump
+    ==============  ==========================================================
+
+    ``cat`` is (M, T, N, 2) int32 (cat_start, cat_len): only categorical
+    nodes read it.  ``cat_words`` is the pack's own tensor.  ``live`` is
+    (M,) int32: the trees of each tenant up to its last one that is not a
+    stump of leaf value 0 (the padding of the tree pad and of a fleet's
+    smaller tenants); the rest add +0 and reach leaf 0, and the kernel's
+    rows route neither copies nor walks them."""
+    blob: torch.Tensor
+    cat: torch.Tensor
+    cat_words: torch.Tensor
+    live: torch.Tensor
+
+
+#: decision_type keeps bits 0-3 (categorical, default left, missing type)
+_DT_BITS = 4
+#: split_feature must stay below this to share a word with decision_type
+MAX_SPLIT_FEATURE = 1 << (31 - _DT_BITS)
+
+
+def record_words(nodes: int) -> int:
+    """Words of one tree's row of :attr:`ForestRecords.blob`: 4N record
+    words, N feature/decision words, N + 1 leaf values and the stump flag,
+    rounded up to 16 bytes."""
+    return (6 * int(nodes) + 2 + 3) // 4 * 4
+
+
+def forest_records(tables: ForestTables) -> ForestRecords:
+    """The node-record table of ``tables``, built with torch ops on their
+    device.  Raises if a field does not fit its slot (a split feature of
+    2^27 or more, a decision type outside 0-15), so the table never loses
+    what the pack holds."""
+    m_, t, n = tables.split_feature.shape
+    sf, dt = tables.split_feature, tables.decision_type
+    if sf.numel():
+        lo_f, hi_f, lo_d, hi_d = torch.stack(
+            [sf.min(), sf.max(), dt.min(), dt.max()]).tolist()
+        if lo_f < 0 or hi_f >= MAX_SPLIT_FEATURE:
+            raise LightGBMError(
+                f"split features must lie in [0, {MAX_SPLIT_FEATURE}) for "
+                f"the node records; got [{lo_f}, {hi_f}]")
+        if lo_d < 0 or hi_d >= 1 << _DT_BITS:
+            raise LightGBMError(
+                f"decision types must lie in [0, {1 << _DT_BITS}); got "
+                f"[{lo_d}, {hi_d}]")
+    blob = torch.zeros((m_, t, record_words(n)), dtype=torch.int32,
+                       device=sf.device)
+    hot = torch.stack([tables.threshold_hi.view(torch.int32),
+                       tables.threshold_lo.view(torch.int32),
+                       tables.left_child, tables.right_child], dim=-1)
+    blob[..., :4 * n] = hot.reshape(m_, t, 4 * n)
+    blob[..., 4 * n:5 * n] = (sf << _DT_BITS) | dt
+    blob[..., 5 * n:6 * n + 1] = tables.leaf_value.float().view(torch.int32)
+    blob[..., 6 * n + 1] = tables.is_stump.to(torch.int32)
+    cat = torch.stack([tables.cat_start, tables.cat_len], dim=-1)
+    pad = tables.is_stump & (tables.leaf_value[..., 0].float() == 0)
+    live = torch.where(pad, 0, torch.arange(1, t + 1, device=sf.device)) \
+        .amax(dim=1).to(torch.int32)
+    return ForestRecords(blob, cat.contiguous(), tables.cat_words, live)
+
+
+def decode_records(rec: ForestRecords,
+                   value_dtype=torch.float32) -> ForestTables:
+    """The plain inverse of :func:`forest_records`: the pack's tables, leaf
+    values narrowed to ``value_dtype`` (exact for a bf16 pack)."""
+    m_, t, _ = rec.blob.shape
+    n = rec.cat.shape[2]
+    hot = rec.blob[..., :4 * n].reshape(m_, t, n, 4)
+    word = rec.blob[..., 4 * n:5 * n]
+    as_f32 = lambda a: a.contiguous().view(torch.float32)
+    return ForestTables(
+        split_feature=word >> _DT_BITS, threshold_hi=as_f32(hot[..., 0]),
+        threshold_lo=as_f32(hot[..., 1]),
+        decision_type=word & ((1 << _DT_BITS) - 1),
+        left_child=hot[..., 2].contiguous(),
+        right_child=hot[..., 3].contiguous(),
+        cat_start=rec.cat[..., 0].contiguous(),
+        cat_len=rec.cat[..., 1].contiguous(), cat_words=rec.cat_words,
+        leaf_value=as_f32(rec.blob[..., 5 * n:6 * n + 1]).to(value_dtype),
+        is_stump=rec.blob[..., 6 * n + 1] != 0)
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedEnsemble:
     """An ensemble slice as padded tensors on one device.
@@ -168,6 +269,12 @@ class PackedEnsemble:
     def tables(self) -> ForestTables:
         return ForestTables(*(getattr(self, f).unsqueeze(0)
                               for f in ARRAY_FIELDS))
+
+    @functools.cached_property
+    def records(self) -> ForestRecords:
+        """The kernel's node records (:func:`forest_records`), built on
+        first use and kept with the pack (its tensors never change)."""
+        return forest_records(self.tables())
 
 
 def tree_slice(models: List[Tree], num_model: int,
@@ -403,30 +510,240 @@ def _check(tables: ForestTables, x, tid, num_model: int) -> None:
         raise ValueError(f"inputs on different devices: {devs}")
 
 
+# ---------------------------------------------------------------------------
+# the launch geometry: csrc/forest_predict.cu takes its numbers from here
+# ---------------------------------------------------------------------------
+
+#: shared memory one block may use (H100: 227 KB), and what one SM holds
+#: (228 KB, of which every resident block reserves 1 KB)
+SMEM_PER_BLOCK = 232_448
+SMEM_PER_SM = 233_472
+#: threads of a block (the rows route: one row a thread)
+MAX_THREADS = 256
+#: walks a trees-route thread advances at once (the kernel's kTreeWalks)
+TREE_WALKS = 2
+#: trees of the largest shared-memory chunk, and of a chunk read from
+#: global memory (where the chunk only sizes the leaves tile)
+MAX_CHUNK_TREES = 64
+GLOBAL_CHUNK_TREES = 32
+#: the fewest trees a chunk must hold before more blocks an SM are
+#: preferred to fewer blocks with larger chunks
+MIN_CHUNK_TREES = 4
+#: resident rows-route rows an SM the geometry aims for (1024 threads: the
+#: registers of 256-thread blocks at up to 64 a thread), and the blocks an
+#: SM it considers
+ROWS_PER_SM = 1024
+MAX_BLOCKS_PER_SM = 8
+#: the rows route groups a fleet's rows by tenant up to this many tenants
+#: (one shared-memory counter each), counting GROUP_ROWS rows a block
+MAX_GROUP_TENANTS = 4096
+GROUP_ROWS = 8192
+MAX_GROUP_BLOCKS = 256
+#: the trees route serves batches of at most this many rows an SM, and
+#: keeps a block's shared memory under TREES_SMEM_BUDGET where it can
+TREES_ROUTE_ROWS_PER_SM = 128
+TREES_SMEM_BUDGET = 48 * 1024
+
+
+class ForestGeometry(NamedTuple):
+    """One launch of the forest kernel.  ``route`` "rows": a thread walks
+    one row through every tree, ``rows_per_block`` rows a block, the
+    trees in chunks of ``chunk_trees`` (copied into shared memory when
+    ``smem_trees``, a fleet's rows grouped by tenant first by
+    ``group_blocks`` counting blocks), the rows staged in shared memory
+    when ``stage_rows``.  ``route`` "trees": ``threads /
+    rows_per_block`` threads share each row and walk its trees in passes
+    of ``chunk_trees`` trees, then one thread a class sums a pass's
+    values in tree order."""
+    route: str
+    threads: int
+    rows_per_block: int
+    chunk_trees: int
+    smem_trees: bool
+    stage_rows: bool
+    group_blocks: int
+    smem_bytes: int
+    grid: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-int(a) // int(b))
+
+
+def rows_smem_bytes(rows_per_block: int, chunk_trees: int, tree_words: int,
+                    nf: int, x_bytes: int, num_model: int, leaves: bool,
+                    smem_trees: bool, stage_rows: bool) -> int:
+    """Dynamic shared memory of a rows-route block, laid out as the kernel
+    lays it out: a two-chunk ring of tree rows and its two mbarriers, the
+    staged rows (row-major at an odd pitch of ``nf | 1`` values: (hi, lo)
+    pairs of f64 rows, hi alone of f32 rows), then the leaves tile (rows x
+    odd pitch) or the per-class sums (scores, K > 1)."""
+    b = 2 * chunk_trees * tree_words * 4 + 16 if smem_trees else 0
+    if stage_rows:
+        b += (nf | 1) * rows_per_block * x_bytes
+    if leaves:
+        b += rows_per_block * (chunk_trees | 1) * 4
+    elif num_model > 1:
+        b += num_model * rows_per_block * 4
+    return b
+
+
+def trees_smem_bytes(rows_per_block: int, pass_trees: int, nf: int,
+                     x_bytes: int, num_model: int, leaves: bool) -> int:
+    """Dynamic shared memory of a trees-route block: the staged rows (as
+    the rows route stages them), then (scores) each row's leaf value of
+    every tree of a pass and its per-class sums."""
+    b = rows_per_block * (nf | 1) * x_bytes
+    if not leaves:
+        b += rows_per_block * (pass_trees + num_model) * 4
+    return b
+
+
+def _trees_geometry(rows, trees, nf, x_bytes, num_model, leaves):
+    lanes = min(MAX_THREADS, _pow2_at_least(_cdiv(trees, TREE_WALKS)))
+    g = min(MAX_THREADS // lanes, _pow2_at_least(rows))
+    smem = functools.partial(trees_smem_bytes, g, nf=nf, x_bytes=x_bytes,
+                             num_model=num_model, leaves=leaves)
+    # every tree in one pass where that stays within the budget
+    least = min(trees, lanes * TREE_WALKS)
+    pass_trees = trees
+    while pass_trees > least and smem(pass_trees) > TREES_SMEM_BUDGET:
+        pass_trees = max(least, _cdiv(pass_trees, 2))
+    if smem(pass_trees) > SMEM_PER_BLOCK:
+        return None
+    return ForestGeometry("trees", lanes * g, g, pass_trees, False, True, 0,
+                          smem(pass_trees), _cdiv(rows, g))
+
+
+def _rows_geometry(rows, trees, nodes, nf, x_bytes, num_model, leaves,
+                   tenants):
+    s = record_words(nodes)
+    rb_max = min(MAX_THREADS, max(32, _pow2_at_least(rows)))
+    sizes = [rb_max >> i for i in range(8) if rb_max >> i >= 32]
+    smem = functools.partial(rows_smem_bytes, tree_words=s, nf=nf,
+                             x_bytes=x_bytes, num_model=num_model,
+                             leaves=leaves)
+
+    def chunk(rb, budget):
+        # the largest chunk within budget (the leaves tile's odd pitch may
+        # add one column)
+        tile = rb * 4 if leaves else 0
+        fixed = smem(rb, 0, smem_trees=True, stage_rows=True) + tile
+        per_tree = 2 * s * 4 + tile
+        return min(trees, MAX_CHUNK_TREES, (budget - fixed) // per_tree)
+
+    if tenants <= MAX_GROUP_TENANTS:
+        # the most resident rows an SM (up to ROWS_PER_SM), then the most
+        # rows a block, then the largest chunk: a chunk of fewer than
+        # MIN_CHUNK_TREES trees only where no larger one fits
+        best = None
+        for rb in sizes:
+            for blocks in range(MAX_BLOCKS_PER_SM, 0, -1):
+                budget = min(SMEM_PER_BLOCK, SMEM_PER_SM // blocks - 1024)
+                c = chunk(rb, budget)
+                least = min(trees, MIN_CHUNK_TREES) if blocks > 1 else 1
+                if c >= least:
+                    key = (min(blocks * rb, ROWS_PER_SM), rb, c)
+                    best = max(best or key, key)
+                    break
+        if best is not None:
+            _, rb, c = best
+            gb = (min(MAX_GROUP_BLOCKS, _cdiv(rows, GROUP_ROWS))
+                  if tenants > 1 else 0)
+            return ForestGeometry(
+                "rows", rb, rb, c, True, True, gb,
+                smem(rb, c, smem_trees=True, stage_rows=True),
+                _cdiv(rows, rb) + (tenants if gb else 0))
+    # the trees from global memory: the rows staged if they fit
+    c = min(trees, GLOBAL_CHUNK_TREES)
+    for stage in (True, False):
+        for rb in sizes:
+            b = smem(rb, c, smem_trees=False, stage_rows=stage)
+            if b <= SMEM_PER_BLOCK:
+                return ForestGeometry("rows", rb, rb, c, False, stage, 0, b,
+                                      _cdiv(rows, rb))
+    raise LightGBMError(f"no forest_predict launch fits {num_model} classes "
+                        f"in {SMEM_PER_BLOCK} bytes of shared memory")
+
+
+def forest_geometry(rows: int, trees: int, nodes: int, nf: int, x_f64: bool,
+                    leaves: bool, num_model: int, tenants: int = 1,
+                    sm_count: int = 132,
+                    route: Optional[str] = None) -> ForestGeometry:
+    """The launch of the forest kernel for ``rows`` query rows of ``nf``
+    columns (f64 or f32) over ``trees`` padded trees of ``nodes`` padded
+    nodes a tenant, ``tenants`` tenants in the batch.
+
+    Batches of at most ``TREES_ROUTE_ROWS_PER_SM`` rows an SM take the
+    trees route (a 1-row request spreads its trees over a block instead
+    of walking them all in one thread); larger ones the rows route, with
+    the rows a block and the tree chunk that keep the most rows resident
+    on an SM.  ``route`` forces a route (for measurements; the wrapper
+    never passes it).  Never more than SMEM_PER_BLOCK bytes of shared
+    memory.  The crossover is measured (scripts/compare_forest_cuda.py
+    --sweep, PERF.md): the trees route wins below ~10,000-30,000 rows for
+    forests of 10-500 trees, and up to ~100,000 for the fork's 8 trees of
+    31 leaves, where the rows route loses 10-30% of a few microseconds."""
+    x_bytes = 8 if x_f64 else 4
+    if route is None:
+        route = ("trees" if rows <= TREES_ROUTE_ROWS_PER_SM * sm_count
+                 else "rows")
+    if route == "trees":
+        geo = _trees_geometry(rows, trees, nf, x_bytes, num_model, leaves)
+        if geo is not None:
+            return geo
+    elif route != "rows":
+        raise ValueError(f"unknown route {route!r}")
+    return _rows_geometry(rows, trees, nodes, nf, x_bytes, num_model, leaves,
+                          tenants)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _kernel_lib():
     fn = load_library("forest_predict").forest_predict_launch
     if fn.argtypes is None:
         p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_float)
-        fn.argtypes = [p, i, ll, ll, i, p] + [p] * 10 + [i, p] \
-            + [i] * 6 + [f, p, p, p]
+        fn.argtypes = [p, i, ll, ll, i, p, i, p, p, p, p] + [i] * 6 + [f] \
+            + [i] * 9 + [p] * 4
         fn.restype = ctypes.c_int
     return fn
 
 
+def _check_records(rec: ForestRecords, tables: ForestTables) -> None:
+    m_, t, n = tables.split_feature.shape
+    if (rec.blob.shape != (m_, t, record_words(n))
+            or rec.cat.shape != (m_, t, n, 2)
+            or rec.live.shape != (m_,)
+            or rec.blob.dtype != torch.int32 or rec.cat.dtype != torch.int32
+            or rec.live.dtype != torch.int32
+            or not (rec.blob.is_contiguous() and rec.cat.is_contiguous())
+            or rec.blob.data_ptr() % 16):
+        raise ValueError("records do not match the tables (build them with "
+                         "forest_records)")
+
+
 def forest_predict(tables: ForestTables, x: torch.Tensor,
                    tid: Optional[torch.Tensor] = None, *, num_model: int,
-                   max_depth: int, leaves: bool = False) -> torch.Tensor:
+                   max_depth: int, leaves: bool = False,
+                   records: Optional[ForestRecords] = None) -> torch.Tensor:
     """Route every row of ``x`` ((R, F) f32 or f64 raw values, rows
     contiguous) through every tree of ``tables`` (tenant ``tid[r]`` for
     row r, tenant 0 without ``tid``).  Returns the (K, R) f32 per-class
     sums of the reached leaf values, tree order, or with ``leaves`` the
     (R, T) int32 leaf indices, padding trees included.
 
-    CUDA tensors launch ``csrc/forest_predict.cu`` (and raise if it cannot
-    launch); CPU tensors take :func:`forest_predict_reference`.  ``x``
-    must hold every column the tables split on and tenant ids must lie in
-    [0, M): the kernel does not check them."""
+    CUDA tensors launch ``csrc/forest_predict.cu`` on the route
+    :func:`forest_geometry` picks (and raise if it cannot launch); CPU
+    tensors take :func:`forest_predict_reference`.  ``records`` are the
+    tables' node records (:func:`forest_records`; a pack caches them),
+    built here when not given.  ``x`` must hold every column the tables
+    split on and tenant ids must lie in [0, M): the kernel does not check
+    them."""
     dev = x.device
     if dev.type == "cpu":
         return forest_predict_reference(tables, x, tid, num_model=num_model,
@@ -435,40 +752,64 @@ def forest_predict(tables: ForestTables, x: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"forest_predict runs on cuda or cpu tensors, got "
                          f"{dev}")
-    for name, a in zip(ARRAY_FIELDS + ("tid",), (*tables, tid)):
-        if a is not None and not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if records is None:
+        records = forest_records(tables)
+    _check_records(records, tables)
     m_, t, n = tables.split_feature.shape
+    geo = forest_geometry(
+        x.shape[0], t, n, x.shape[1], x.dtype == torch.float64, leaves,
+        num_model, tenants=m_ if tid is not None else 1,
+        sm_count=_sm_count(dev.index))
+    return launch_forest(records, x, tid, geo, num_model=num_model,
+                         max_depth=max_depth, leaves=leaves)
+
+
+def launch_forest(records: ForestRecords, x: torch.Tensor,
+                  tid: Optional[torch.Tensor], geo: ForestGeometry, *,
+                  num_model: int, max_depth: int,
+                  leaves: bool = False) -> torch.Tensor:
+    """One launch of the kernel at geometry ``geo`` (what
+    :func:`forest_predict` does after choosing it; called directly only
+    to time a forced route).  Counts the launch and its route."""
+    dev = x.device
+    m_, t, s = records.blob.shape
+    n = records.cat.shape[2]
+    if tid is not None and not tid.is_contiguous():
+        raise ValueError("tid must be contiguous")
     r = x.shape[0]
     out = (torch.empty((r, t), dtype=torch.int32, device=dev) if leaves
            else torch.empty((num_model, r), dtype=torch.float32, device=dev))
     if r == 0:
         return out
-    fn = _kernel_lib()
-    tb = tables
-    rc = fn(x.data_ptr(), int(x.dtype == torch.float64), r, x.stride(0),
-            x.shape[1], None if tid is None else tid.data_ptr(),
-            tb.split_feature.data_ptr(), tb.threshold_hi.data_ptr(),
-            tb.threshold_lo.data_ptr(), tb.decision_type.data_ptr(),
-            tb.left_child.data_ptr(), tb.right_child.data_ptr(),
-            tb.cat_start.data_ptr(), tb.cat_len.data_ptr(),
-            tb.cat_words.data_ptr(), tb.leaf_value.data_ptr(),
-            int(tb.leaf_value.dtype == torch.bfloat16),
-            tb.is_stump.data_ptr(), t, n, n + 1, tb.cat_words.shape[1],
-            num_model, max_depth, float(K_ZERO),
-            None if leaves else out.data_ptr(),
-            out.data_ptr() if leaves else None,
-            torch.cuda.current_stream(dev).cuda_stream)
+    groups = m_ if geo.group_blocks else 0
+    scratch = (torch.empty(r + 2 * (groups + 1) + geo.group_blocks * groups,
+                           dtype=torch.int32, device=dev) if groups else None)
+    rc = _kernel_lib()(
+        x.data_ptr(), int(x.dtype == torch.float64), r, x.stride(0),
+        x.shape[1], None if tid is None else tid.data_ptr(), m_,
+        records.blob.data_ptr(), records.cat.data_ptr(),
+        records.cat_words.data_ptr(), records.live.data_ptr(), t, n, s,
+        records.cat_words.shape[-1],
+        num_model, max_depth, float(K_ZERO), int(geo.route == "trees"),
+        geo.threads, geo.rows_per_block, geo.chunk_trees,
+        int(geo.smem_trees), int(geo.stage_rows), geo.group_blocks,
+        geo.smem_bytes, geo.grid,
+        None if scratch is None else scratch.data_ptr(),
+        None if leaves else out.data_ptr(),
+        out.data_ptr() if leaves else None,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"forest_predict kernel launch failed: CUDA "
-                           f"error {rc}")
+                           f"error {rc} ({geo})")
     forest_predict.launches += 1
+    forest_predict.routes[geo.route] += 1
     return out
 
 
-#: kernel launches made through :func:`forest_predict` (read by
-#: chip_smoke.py and the card tests)
+#: kernel launches made through :func:`forest_predict`, in all and by
+#: route (read by chip_smoke.py and the card tests)
 forest_predict.launches = 0
+forest_predict.routes = {"rows": 0, "trees": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -500,7 +841,7 @@ def predict_scores(pe: PackedEnsemble, data) -> np.ndarray:
         return np.zeros((pe.num_model, n), np.float64)
     x = query_tensor(data, pe.num_features, pe.device)
     out = forest_predict(pe.tables(), x, num_model=pe.num_model,
-                         max_depth=pe.max_depth)
+                         max_depth=pe.max_depth, records=pe.records)
     return out.cpu().numpy().astype(np.float64)
 
 
@@ -512,5 +853,6 @@ def predict_leaves(pe: PackedEnsemble, data) -> np.ndarray:
         return np.zeros((n, pe.num_trees), np.int32)
     x = query_tensor(data, pe.num_features, pe.device)
     out = forest_predict(pe.tables(), x, num_model=pe.num_model,
-                         max_depth=pe.max_depth, leaves=True)
+                         max_depth=pe.max_depth, leaves=True,
+                         records=pe.records)
     return out[:, :pe.num_trees].cpu().numpy()

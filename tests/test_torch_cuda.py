@@ -394,3 +394,113 @@ def test_booster_predict_runs_the_kernel(cuda_device, monkeypatch):
                         params={"device_predict": "force"})
     np.testing.assert_array_equal(loaded.predict(x[:100], raw_score=True),
                                   dev[:100])
+
+
+def _both_routes(pe_or_fl, x, tid=None, *, rows_list, leaves_too=True):
+    """The wrapper's own route and each route forced, bit for bit against
+    the plain version, at every row count of ``rows_list``; returns the
+    routes the wrapper chose."""
+    from lightgbm_tpu_torch.serve import packed
+    tables, rec = pe_or_fl.tables(), pe_or_fl.records
+    m_, t, n = tables.split_feature.shape
+    kw = dict(num_model=pe_or_fl.num_model, max_depth=pe_or_fl.max_depth)
+    chosen = []
+    for rows in rows_list:
+        xr = x[:rows]
+        tr = None if tid is None else tid[:rows]
+        for leaves in ((False, True) if leaves_too else (False,)):
+            want = packed.forest_predict_reference(tables, xr, tr,
+                                                   leaves=leaves, **kw)
+            before = dict(packed.forest_predict.routes)
+            got = packed.forest_predict(tables, xr, tr, leaves=leaves,
+                                        records=rec, **kw)
+            route = [r for r in before
+                     if packed.forest_predict.routes[r] == before[r] + 1]
+            assert len(route) == 1
+            chosen.append(route[0])
+            torch.cuda.synchronize()
+            _assert_bit_equal(got, want)
+            for forced in ("rows", "trees"):
+                geo = packed.forest_geometry(
+                    rows, t, n, x.shape[1], x.dtype == torch.float64, leaves,
+                    pe_or_fl.num_model, tenants=m_ if tid is not None else 1,
+                    route=forced)
+                got = packed.launch_forest(rec, xr, tr, geo, leaves=leaves,
+                                           **kw)
+                torch.cuda.synchronize()
+                _assert_bit_equal(got, want)
+    return chosen
+
+
+@pytest.mark.parametrize("nf,dtype,num_model", [
+    (53, torch.float64, 1),     # the fork harness's row width
+    (53, torch.float32, 1),
+    (130, torch.float64, 1),    # wider than the rows route stages 256 rows
+    (7, torch.float32, 3),      # K=3: per-class sums in shared memory
+])
+def test_forest_routes_bit_equal_on_both_sides_of_the_crossover(
+        cuda_device, nf, dtype, num_model):
+    """Both routes of the kernel, forced and as the wrapper picks them,
+    equal the plain version bit for bit (scores through their int32 bits,
+    and leaves) below and above the crossover."""
+    from lightgbm_tpu_torch.serve import packed
+    g, x = _forest_inputs(cuda_device, 21, num_model=num_model, cats=(3,),
+                          nf=nf, iters=12, leaves=31, dtype=dtype,
+                          rows=packed.TREES_ROUTE_ROWS_PER_SM
+                          * torch.cuda.get_device_properties(
+                              cuda_device).multi_processor_count + 300)
+    pe = packed.pack_gbdt(g, device=cuda_device)
+    cut = x.shape[0] - 300
+    chosen = _both_routes(pe, x, rows_list=(1, 100, cut, cut + 1, cut + 300))
+    assert chosen == ["trees"] * 6 + ["rows"] * 4
+
+
+@pytest.mark.parametrize("value_dtype", ["f32", "bf16"])
+def test_fleet_routes_bit_equal_with_grouping(cuda_device, value_dtype):
+    """A four-tenant fleet at the fork's 53 columns: the trees route, and
+    the rows route with its rows grouped by tenant, equal the plain version
+    bit for bit; a tenant swap rewrites the node records the kernel
+    reads."""
+    import synthetic_forests as synthetic
+    from lightgbm_tpu_torch.serve import fleet, packed
+    gs = [synthetic.random_forest(s, num_iterations=it, num_leaves=lv,
+                                  num_features=53, cat_features=(2,))
+          for s, it, lv in ((1, 10, 31), (2, 25, 63), (3, 4, 8), (4, 8, 31))]
+    fl, packs = fleet.pack_fleet(gs, device=cuda_device,
+                                 value_dtype=value_dtype)
+    x = torch.from_numpy(synthetic.query_rows(gs[1], 20_000, 4,
+                                              cat_features=(2,))) \
+        .to(cuda_device)
+    tid = torch.randint(0, 4, (len(x),), device=cuda_device,
+                        dtype=torch.int32)
+    chosen = _both_routes(fl, x, tid, rows_list=(1, 100, 20_000))
+    assert chosen == ["trees"] * 4 + ["rows"] * 2
+    geo = packed.forest_geometry(20_000, fl.tree_pad, fl.node_pad, 53, True,
+                                 False, 1, tenants=4)
+    assert geo.group_blocks > 0 and geo.smem_trees and geo.stage_rows
+    fleet.write_tenant(fl, 1, packs[3])
+    _both_routes(fl, x, tid, rows_list=(20_000,), leaves_too=False)
+
+
+def test_500_tree_small_requests_take_the_trees_route(cuda_device):
+    """1- and 100-row requests against a 500-tree forest go through the
+    trees route, through the entry points a user calls, and equal the
+    plain version bit for bit."""
+    import synthetic_forests as synthetic
+    from lightgbm_tpu_torch.serve import PredictionServer, packed
+    g = synthetic.random_forest(9, num_iterations=500, num_leaves=63,
+                                num_features=28, cat_features=(3, 11))
+    x = synthetic.query_rows(g, 100, 10, cat_features=(3, 11))
+    server = PredictionServer(g, device=cuda_device)
+    server.warmup()
+    pe = server._snapshot().packed
+    for rows in (1, 100):
+        before = dict(packed.forest_predict.routes)
+        got = server.predict(x[:rows], raw_score=True)
+        assert packed.forest_predict.routes["trees"] == before["trees"] + 1
+        assert packed.forest_predict.routes["rows"] == before["rows"]
+        want = packed.forest_predict_reference(
+            pe.tables(), torch.from_numpy(x[:rows]).to(cuda_device),
+            num_model=1, max_depth=pe.max_depth)[0]
+        np.testing.assert_array_equal(
+            got, want.cpu().numpy().astype(np.float64))
