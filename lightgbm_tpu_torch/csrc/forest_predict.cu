@@ -42,26 +42,24 @@
 //   took six dependent ones; categorical nodes alone read their
 //   (start, len) pair and bitset word from global memory.  Trees past a
 //   tenant's last non-padding tree (stumps of value 0) are skipped.
-// * Route "rows" (batches of more than TREES_ROUTE_ROWS_PER_SM rows an
-//   SM): a thread owns one row; a block's rows are staged in shared memory
+// * Route "rows" (large batches, and a few rows against a few trees): a
+//   thread owns one row; a block's rows are staged in shared memory
 //   row-major at an odd pitch (f64 rows as (hi, lo) pairs, f32 rows as hi
 //   alone; written and read without bank conflicts, 8 loads in flight a
 //   thread), and the trees stream through shared memory in chunks: one
 //   thread issues a cp.async.bulk copy of chunk c + 2 into a two-chunk
 //   ring (completing on an mbarrier) while the block walks chunk c + 1.
-//   The lanes of a warp walk the same trees together, so reads near the
-//   root are broadcasts; kRowWalks trees at a time, each step issuing every
-//   walk's loads before deciding (1 is the default: scripts/
-//   ablate_forest_cuda.py measured 2 and 4 slower on every case, and lanes
-//   that claim their next tree on their own slower still: their reads stop
-//   being broadcasts).  The per-class sums stay in a register (K = 1) or
+//   The lanes of a warp walk the same tree together, one tree after
+//   another, so reads near the root are broadcasts (lanes that claim their
+//   next tree on their own, or several trees a thread at once, measured
+//   slower: PERF.md).  The per-class sums stay in a register (K = 1) or
 //   the thread's shared-memory column, added in tree order.  Leaves go
 //   through a shared tile (odd pitch) so that each row's run of a chunk's
-//   trees is one coalesced store.  Where a tree does not fit the ring (or a
-//   fleet has more tenants than the grouping counts) the chunks are read
-//   from global memory; where the rows do not fit, each visit reads its
-//   value from global memory.  The geometry keeps the most rows resident
-//   an SM.
+//   trees is one coalesced store.  Where a tree does not fit the ring (or
+//   a fleet has more tenants than the grouping counts) the chunks are read
+//   from global memory, and where the rows do not fit either, each visit
+//   also reads its value from global memory.  The geometry keeps the most
+//   rows resident an SM.
 // * A fleet's rows are grouped by tenant before a rows-route launch with
 //   a counting sort (per-block counts, one offsets block, a scatter with
 //   shared-memory cursors, as csrc/wave_hist.cu sorts rows by slot tile):
@@ -74,8 +72,9 @@
 //   class adds them in tree order.  A 1-row request against 512 trees is a
 //   few walks' latency and 512 adds, not 512 walks in one thread.
 //
-// serve/packed.py::forest_geometry chooses the route and every size (rows
-// a block, trees a chunk, shared memory) and passes them here; the
+// serve/packed.py::forest_geometry chooses the route (choose_route, from
+// crossovers measured on the card) and every size (rows a block, trees a
+// chunk, shared memory) and passes them here; the
 // launcher recomputes the shared-memory layout and refuses a mismatch.
 
 #include <cuda_runtime.h>
@@ -83,12 +82,7 @@
 
 namespace {
 
-#ifndef FOREST_ROW_WALKS  // scripts/ablate_forest_cuda.py builds variants
-#define FOREST_ROW_WALKS 1
-#endif
-
 constexpr int kMaxThreads = 256;
-constexpr int kRowWalks = FOREST_ROW_WALKS;
 constexpr int kTreeWalks = 2;  // packed.TREE_WALKS
 constexpr int kDtBits = 4;      // packed._DT_BITS
 constexpr float kCatClip = 2.0e9f;  // exact in f32; < 2^31
@@ -348,45 +342,30 @@ __device__ __forceinline__ void walk_claimed(
   }
 }
 
-// Walk W trees `tb[j]` (rows of S words; `cat_t[j]` their rows of N pairs)
-// to their leaves, all lanes of a warp in the same W trees: near the root
-// their shared-memory reads are broadcasts.  node[j] starts at 0 (a tree
-// to walk) or negative (none) and ends as ~leaf.  Each step issues every
-// walk's loads before it decides, as walk_claimed does.
-template <int W, typename XT, bool kSmem, bool kStage>
-__device__ __forceinline__ void walk_lockstep(
-    const Params& p, const int* const* tb, const int2* const* cat_t,
-    const unsigned* words_m, const void* stage, int pitch, int i,
-    long long r, int (&node)[W]) {
+// Walk tree `tb` (a row of S words; `cat_t` its row of N pairs) from its
+// root, all lanes of a warp in the same tree: near the root their
+// shared-memory reads are broadcasts.  Returns the leaf reached as ~leaf
+// (a walk still at a node after max_depth steps ends there, as the scan
+// does).
+template <typename XT, bool kSmem, bool kStage>
+__device__ __forceinline__ int walk_tree(const Params& p, const int* tb,
+                                         const int2* cat_t,
+                                         const unsigned* words_m,
+                                         const void* stage, int pitch, int i,
+                                         long long r) {
   const int n4 = 4 * p.nodes;
-  for (int d = 0; d < p.max_depth; ++d) {
-    int word[W];
-    int4 rec[W];
-    bool any = false;
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      any |= node[j] >= 0;
-      const int nd = max(node[j], 0);
-      word[j] = ld1<kSmem>(tb[j] + n4 + nd);
-      rec[j] = ld4<kSmem>(tb[j] + 4 * nd);
-    }
-    if (!any) break;
-    float vhi[W], vlo[W];
-#pragma unroll
-    for (int j = 0; j < W; ++j)
-      query_value<XT, kStage>(p, stage, pitch, i, r, word[j] >> kDtBits,
-                              vhi[j], vlo[j]);
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      if (node[j] >= 0) {
-        const bool left = route_left(
-            word[j] & ((1 << kDtBits) - 1), __int_as_float(rec[j].x),
-            __int_as_float(rec[j].y), vhi[j], vlo[j], p.k_zero,
-            cat_t[j] + node[j], words_m);
-        node[j] = left ? rec[j].z : rec[j].w;
-      }
-    }
+  int node = 0;
+  for (int d = 0; d < p.max_depth && node >= 0; ++d) {
+    const int word = ld1<kSmem>(tb + n4 + node);
+    const int4 rec = ld4<kSmem>(tb + 4 * node);
+    float vhi, vlo;
+    query_value<XT, kStage>(p, stage, pitch, i, r, word >> kDtBits, vhi, vlo);
+    const bool left = route_left(word & ((1 << kDtBits) - 1),
+                                 __int_as_float(rec.x), __int_as_float(rec.y),
+                                 vhi, vlo, p.k_zero, cat_t + node, words_m);
+    node = left ? rec.z : rec.w;
   }
+  return node;
 }
 
 // ---- route "rows" ----------------------------------------------------------
@@ -486,38 +465,25 @@ __global__ void __launch_bounds__(kMaxThreads, 2) rows_kernel(Params p) {
       cb = p.blob + ((long long)m_row * T + t0) * S;
     }
     if (valid) {
-      // a warp's lanes walk the same kRowWalks trees together; a stump
-      // takes leaf 0; leaves go to the lane's tile row, values are added
-      // in tree order as each group of trees ends
-      for (int j0 = 0; j0 < nt; j0 += kRowWalks) {
-        const int* tb[kRowWalks];
-        const int2* cat_t[kRowWalks];
-        int node[kRowWalks];
-#pragma unroll
-        for (int j = 0; j < kRowWalks; ++j) {
-          const int t = min(j0 + j, nt - 1);
-          tb[j] = cb + (size_t)t * S;
-          cat_t[j] = cat_m + (long long)(t0 + t) * N;
-          node[j] = (j0 + j < nt && !ld1<kSmemTrees>(tb[j] + 6 * N + 1))
-                        ? 0 : -1;
-        }
-        walk_lockstep<kRowWalks, XT, kSmemTrees, kStage>(
-            p, tb, cat_t, words_m, stage, xpitch, tid, r, node);
-#pragma unroll
-        for (int j = 0; j < kRowWalks; ++j) {
-          const int t = j0 + j;
-          if (t >= nt) continue;
-          if constexpr (kLeaves) {
-            own[t] = ~node[j];
+      // a warp's lanes walk the same tree together; a stump takes leaf 0;
+      // leaves go to the lane's tile row, values are added in tree order
+      for (int j = 0; j < nt; ++j) {
+        const int* tb = cb + (size_t)j * S;
+        const int leaf =
+            ld1<kSmemTrees>(tb + 6 * N + 1)
+                ? 0
+                : ~walk_tree<XT, kSmemTrees, kStage>(
+                      p, tb, cat_m + (long long)(t0 + j) * N, words_m, stage,
+                      xpitch, tid, r);
+        if constexpr (kLeaves) {
+          own[j] = leaf;
+        } else {
+          const float v = __int_as_float(ld1<kSmemTrees>(tb + 5 * N + leaf));
+          if (K == 1) {
+            acc1 = __fadd_rn(acc1, v);
           } else {
-            const float v =
-                __int_as_float(ld1<kSmemTrees>(tb[j] + 5 * N + ~node[j]));
-            if (K == 1) {
-              acc1 = __fadd_rn(acc1, v);
-            } else {
-              float* a = acc_s + ((t0 + t) % K) * rb + tid;
-              *a = __fadd_rn(*a, v);
-            }
+            float* a = acc_s + ((t0 + j) % K) * rb + tid;
+            *a = __fadd_rn(*a, v);
           }
         }
       }
@@ -728,14 +694,13 @@ int launch(Kernel kernel, unsigned grid, int threads, int smem,
 template <typename XT, bool kLeaves>
 int launch_route(bool trees, bool smem_trees, bool stage, unsigned grid,
                  int threads, int smem, cudaStream_t s, const Params& p) {
+  // tree chunks in shared memory come with the rows staged beside them
+  // (forest_geometry never asks for the one without the other)
   if (trees)
     return launch(trees_kernel<XT, kLeaves>, grid, threads, smem, s, p);
-  if (smem_trees) {
-    return stage ? launch(rows_kernel<XT, kLeaves, true, true>, grid,
-                          threads, smem, s, p)
-                 : launch(rows_kernel<XT, kLeaves, true, false>, grid,
-                          threads, smem, s, p);
-  }
+  if (smem_trees)
+    return launch(rows_kernel<XT, kLeaves, true, true>, grid, threads, smem,
+                  s, p);
   return stage ? launch(rows_kernel<XT, kLeaves, false, true>, grid, threads,
                         smem, s, p)
                : launch(rows_kernel<XT, kLeaves, false, false>, grid,
@@ -788,6 +753,7 @@ extern "C" int forest_predict_launch(
       rows_per_block <= 0 || chunk_trees <= 0 ||
       (!route_trees && threads != rows_per_block) ||
       (route_trees && threads % rows_per_block) ||
+      (smem_trees && !stage_rows) ||
       (group && (!smem_trees || route_trees || !tenant || !scratch)) ||
       tree_words % 4)
     return (int)cudaErrorInvalidValue;

@@ -34,8 +34,8 @@ import numpy as np
 
 from ..boosting.gbdt import GBDT, _convert_by_name, resolve_device
 from ..utils.log import LightGBMError
-from .packed import (TREES_ROUTE_ROWS_PER_SM, PackedEnsemble, _sm_count,
-                     pack_gbdt, predict_scores)
+from .packed import (PackedEnsemble, _sm_count, forest_geometry,
+                     launch_forest, pack_gbdt, predict_scores, query_tensor)
 
 __all__ = ["PredictionServer"]
 
@@ -134,16 +134,23 @@ class PredictionServer:
         return model
 
     def warmup(self) -> None:
-        """Build the kernel's library and launch each route once, on rows
-        of zeros, against the current model (on the CPU: one call)."""
+        """Build the kernel's library and launch each route once, forced,
+        on a row of zeros against the current model (on the CPU: one
+        call)."""
         model = self._snapshot()
         pe = model.packed
-        sizes = [1]
-        if pe.device.type == "cuda":
-            sizes.append(TREES_ROUTE_ROWS_PER_SM * _sm_count(pe.device.index)
-                         + 1)
-        for n in sizes:
-            predict_scores(pe, np.zeros((n, pe.num_features)))
+        x = np.zeros((1, pe.num_features))
+        if pe.device.type != "cuda" or pe.num_trees == 0:
+            predict_scores(pe, x)
+            return
+        x = query_tensor(x, pe.num_features, pe.device)
+        _, t, n = pe.tables().split_feature.shape
+        for route in ("rows", "trees"):
+            geo = forest_geometry(1, t, n, pe.num_features, True, False,
+                                  pe.num_model, sm_count=_sm_count(
+                                      pe.device.index), route=route)
+            launch_forest(pe.records, x, None, geo, num_model=pe.num_model,
+                          max_depth=pe.max_depth)
 
     # -- direct prediction ----------------------------------------------
     def predict(self, data, raw_score: bool = False) -> np.ndarray:

@@ -539,10 +539,25 @@ MAX_BLOCKS_PER_SM = 8
 MAX_GROUP_TENANTS = 4096
 GROUP_ROWS = 8192
 MAX_GROUP_BLOCKS = 256
-#: the trees route serves batches of at most this many rows an SM, and
-#: keeps a block's shared memory under TREES_SMEM_BUDGET where it can
-TREES_ROUTE_ROWS_PER_SM = 128
+#: the trees route keeps a block's shared memory under TREES_SMEM_BUDGET
+#: where it can
 TREES_SMEM_BUDGET = 48 * 1024
+#: the route crossovers (choose_route), measured on the card by
+#: scripts/compare_forest_cuda.py --sweep over forests of 4 to 512 trees
+#: of 16 to 256 padded nodes and rows of 112 to 2400 bytes (PERF.md): the
+#: trees route wins up to TREES_ROUTE_ROWS_PER_SM rows an SM; where a row
+#: has WIDE_ROW_BYTES_PER_TREE bytes or more for each tree, to
+#: WIDE_ROWS_PER_SM_PER_BYTE more rows an SM for each byte a tree past
+#: that, and at every size if the rows route then keeps at most
+#: FEW_RESIDENT_ROWS rows resident an SM; the rows route wins requests of
+#: at most SMALL_REQUEST_PAIRS (row, tree) pairs against
+#: SMALL_FOREST_TREES trees or fewer
+TREES_ROUTE_ROWS_PER_SM = 128
+WIDE_ROW_BYTES_PER_TREE = 32
+WIDE_ROWS_PER_SM_PER_BYTE = 48
+FEW_RESIDENT_ROWS = 384
+SMALL_FOREST_TREES = 16
+SMALL_REQUEST_PAIRS = 64
 
 
 class ForestGeometry(NamedTuple):
@@ -662,10 +677,45 @@ def _rows_geometry(rows, trees, nodes, nf, x_bytes, num_model, leaves,
             if b <= SMEM_PER_BLOCK:
                 return ForestGeometry("rows", rb, rb, c, False, stage, 0, b,
                                       _cdiv(rows, rb))
-    raise LightGBMError(f"no forest_predict launch fits {num_model} classes "
-                        f"in {SMEM_PER_BLOCK} bytes of shared memory")
+    return None
 
 
+def choose_route(rows: int, trees: int, row_bytes: int, resident: int,
+                 sm_count: int) -> str:
+    """The faster route for ``rows`` query rows of ``row_bytes`` bytes over
+    ``trees`` padded trees, where the rows route would keep ``resident``
+    rows an SM, on a card of ``sm_count`` SMs: from the crossovers
+    measured (the constants above).
+
+    The rows route walks a row's trees one after another in one thread:
+    a block takes about the time of its deepest lane through every tree,
+    plus its row stage, so it is flat in the batch size until the card is
+    full.  The trees route spreads a row's trees over a block: it costs
+    one walk's latency and an ordered sum, then grows with rows x trees.
+    A few rows against a few trees are faster walked in one thread; the
+    trees route then wins until the rows route has ~128 rows an SM, or,
+    where the rows route spends its time staging rows that are wide for
+    the forest, longer the wider they are, and at every size where those
+    rows (or large trees) leave it few rows resident."""
+    if trees <= SMALL_FOREST_TREES and rows * trees <= SMALL_REQUEST_PAIRS:
+        return "rows"
+    limit = TREES_ROUTE_ROWS_PER_SM
+    if row_bytes >= WIDE_ROW_BYTES_PER_TREE * trees:
+        if resident <= FEW_RESIDENT_ROWS:
+            return "trees"
+        limit += (WIDE_ROWS_PER_SM_PER_BYTE
+                  * (row_bytes - WIDE_ROW_BYTES_PER_TREE * trees) // trees)
+    return "trees" if rows <= limit * sm_count else "rows"
+
+
+def resident_rows(geo: ForestGeometry) -> int:
+    """Rows of a rows-route launch resident on an SM at once (as
+    _rows_geometry counts them)."""
+    blocks = min(MAX_BLOCKS_PER_SM, SMEM_PER_SM // (geo.smem_bytes + 1024))
+    return min(geo.rows_per_block * blocks, ROWS_PER_SM)
+
+
+@functools.lru_cache(maxsize=4096)   # a server's request sizes repeat
 def forest_geometry(rows: int, trees: int, nodes: int, nf: int, x_f64: bool,
                     leaves: bool, num_model: int, tenants: int = 1,
                     sm_count: int = 132,
@@ -674,28 +724,29 @@ def forest_geometry(rows: int, trees: int, nodes: int, nf: int, x_f64: bool,
     columns (f64 or f32) over ``trees`` padded trees of ``nodes`` padded
     nodes a tenant, ``tenants`` tenants in the batch.
 
-    Batches of at most ``TREES_ROUTE_ROWS_PER_SM`` rows an SM take the
-    trees route (a 1-row request spreads its trees over a block instead
-    of walking them all in one thread); larger ones the rows route, with
-    the rows a block and the tree chunk that keep the most rows resident
-    on an SM.  ``route`` forces a route (for measurements; the wrapper
-    never passes it).  Never more than SMEM_PER_BLOCK bytes of shared
-    memory.  The crossover is measured (scripts/compare_forest_cuda.py
-    --sweep, PERF.md): the trees route wins below ~10,000-30,000 rows for
-    forests of 10-500 trees, and up to ~100,000 for the fork's 8 trees of
-    31 leaves, where the rows route loses 10-30% of a few microseconds."""
+    :func:`choose_route` picks the route (small batches: the trees
+    route, a row's trees spread over a block; larger ones the rows route,
+    with the rows a block and the tree chunk that keep the most rows
+    resident on an SM).  ``route`` forces one (for measurements; the
+    wrapper never passes it).  Never more than SMEM_PER_BLOCK bytes of
+    shared memory."""
     x_bytes = 8 if x_f64 else 4
+    if route not in (None, "rows", "trees"):
+        raise ValueError(f"unknown route {route!r}")
+    rows_geo = _rows_geometry(rows, trees, nodes, nf, x_bytes, num_model,
+                              leaves, tenants)
     if route is None:
-        route = ("trees" if rows <= TREES_ROUTE_ROWS_PER_SM * sm_count
-                 else "rows")
+        route = ("trees" if rows_geo is None else choose_route(
+            rows, trees, nf * x_bytes, resident_rows(rows_geo), sm_count))
     if route == "trees":
         geo = _trees_geometry(rows, trees, nf, x_bytes, num_model, leaves)
         if geo is not None:
             return geo
-    elif route != "rows":
-        raise ValueError(f"unknown route {route!r}")
-    return _rows_geometry(rows, trees, nodes, nf, x_bytes, num_model, leaves,
-                          tenants)
+    if rows_geo is None:
+        raise LightGBMError(f"no forest_predict launch fits {num_model} "
+                            f"classes in {SMEM_PER_BLOCK} bytes of shared "
+                            f"memory")
+    return rows_geo
 
 
 @functools.lru_cache(maxsize=None)

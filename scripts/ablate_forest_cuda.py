@@ -1,26 +1,21 @@
 #!/usr/bin/env python
-"""Time variants of the packed-forest kernel's rows route on one card.
+"""Time the packed-forest kernel's rows route at other launch geometries.
 
-    python scripts/ablate_forest_cuda.py [--walks 1,2,4,8]
-        [--rows-per-block 256,128] [--chunks 0,4,16]
-        [--cases synthetic,fork_53] [--reps N]
+    python scripts/ablate_forest_cuda.py [--rows-per-block 256,128]
+        [--chunks 0,4,16] [--cases synthetic,fork_53] [--reps N]
 
-Builds ``lightgbm_tpu_torch/csrc/forest_predict.cu`` once for each value of
-FOREST_ROW_WALKS (the walks a thread of the rows route advances at once)
-with nvcc, all builds at once, into
-``build/ablate_forest/``, and times each build's rows route at each rows
-per block and trees a chunk (``serve/packed.py::forest_geometry``'s
+Times the rows route of ``lightgbm_tpu_torch/csrc/forest_predict.cu`` at
+each rows per block and trees a chunk (``serve/packed.py::forest_geometry``'s
 launch with that many rows and threads a block and that chunk; chunk 0
 keeps the geometry's) on the large cases of
 ``scripts/compare_forest_cuda.py`` (the same forests and rows).  Each
 time is a CUDA-event mean of launches queued behind a sleep kernel; every
-variant's scores must equal the plain version's bit for bit.  Prints the
-card's name and power limit and one JSON line per case and variant.
+geometry's scores must equal the plain version's bit for bit.  Prints the
+card's name and power limit and one JSON line per case and geometry.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -34,36 +29,8 @@ LARGE = ("higgs_shape", "synthetic", "multiclass_slice", "fleet_f32",
          "fork_53")
 
 
-def build_variants(walks):
-    """One library per walk count, built in parallel; returns {walks:
-    forest_predict_launch with the package's argtypes}."""
-    from lightgbm_tpu_torch.ops import build
-    from lightgbm_tpu_torch.serve import packed
-    out_dir = ROOT / "build" / "ablate_forest"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for w in walks:
-        lib = out_dir / f"libforest_predict_w{w}.so"
-        cmd = build.nvcc_command("forest_predict", lib)
-        cmd.insert(1, f"-DFOREST_ROW_WALKS={w}")
-        procs[w] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    lib)
-    argtypes = packed._kernel_lib().argtypes
-    fns = {}
-    for w, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {w} walks:\n{log}")
-        fn = ctypes.CDLL(str(lib)).forest_predict_launch
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[w] = fn
-    return fns
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--walks", default="1,2,4,8")
     ap.add_argument("--rows-per-block", default="256,128")
     ap.add_argument("--chunks", default="0,4,16")
     ap.add_argument("--cases", default=",".join(LARGE))
@@ -78,9 +45,7 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    fns = build_variants([int(w) for w in args.walks.split(",")])
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    default_lib = packed._kernel_lib
     for case, forest, n, dtype in cf.CASES:
         if case not in args.cases.split(","):
             continue
@@ -95,8 +60,8 @@ def main(argv=None) -> int:
             g = gs[3]
         else:
             g = cf._forest(forest, synthetic)
-            pe = (packed.pack_gbdt(g, *cf.MC_SLICE, device=dev) if forest == "mc"
-                  else packed.pack_gbdt(g, device=dev))
+            pe = (packed.pack_gbdt(g, *cf.MC_SLICE, device=dev)
+                  if forest == "mc" else packed.pack_gbdt(g, device=dev))
         cats, seed = cf.ROWS_OF[forest.split("_")[0]]
         x = torch.from_numpy(synthetic.query_rows(g, n, seed,
                                                   cat_features=cats)).to(
@@ -127,26 +92,20 @@ def main(argv=None) -> int:
                 rows_per_block=rb, threads=rb, chunk_trees=c,
                 smem_bytes=smem,
                 grid=packed._cdiv(n, rb) + (m_ if base.group_blocks else 0))
-            for w, fn in fns.items():
-                packed._kernel_lib = lambda fn=fn: fn
-                try:
-                    run = lambda: packed.launch_forest(rec, x, tid, geo, **kw)
-                    got = run()
-                    torch.cuda.synchronize()
-                    equal = torch.equal(got.view(torch.int32),
-                                        want.view(torch.int32))
-                    ms = cf.time_ms(run, args.reps, dev)
-                finally:
-                    packed._kernel_lib = default_lib
-                print(json.dumps({
-                    "case": case, "rows": n, "walks": w,
-                    "rows_per_block": rb, "chunk_trees": c,
-                    "geometry": (rb, c) == (base.rows_per_block,
-                                            base.chunk_trees),
-                    "smem_bytes": smem, "ms": ms, "bit_equal": equal,
-                    "card": card}), flush=True)
-                if not equal:
-                    return 1
+            run = lambda: packed.launch_forest(rec, x, tid, geo, **kw)
+            got = run()
+            torch.cuda.synchronize()
+            equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            ms = cf.time_ms(run, args.reps, dev)
+            print(json.dumps({
+                "case": case, "rows": n, "rows_per_block": rb,
+                "chunk_trees": c,
+                "geometry": (rb, c) == (base.rows_per_block,
+                                        base.chunk_trees),
+                "smem_bytes": smem, "ms": ms, "bit_equal": equal,
+                "card": card}), flush=True)
+            if not equal:
+                return 1
     return 0
 
 

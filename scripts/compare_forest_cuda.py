@@ -21,8 +21,11 @@ bit against the first checkout's.  Prints the card's name and power limit
 and one JSON line per case with both checkouts' times and their ratio.
 
 ``--sweep`` times, in the NEW checkout only, each route of the kernel
-forced at 1 to 100,000 rows on three forests: the route crossover
-``serve/packed.py::TREES_ROUTE_ROWS_PER_SM`` is read from it.
+forced at 1 to 300,000 rows on the synthetic, higgs-shape and fork
+forests, the four-tenant fleet, a grid of forests of 8 to 500 trees of
+31 or 255 leaves over 28 f32 or 53 f64 columns (the route choice of
+``serve/packed.py::choose_route`` is fitted to it), and 22 forests off
+that grid (4 to 64 trees, 15 to 255 leaves, up to 300 f64 columns).
 ``--device cpu --scale 0.001`` rehearses the script without a card (the
 plain version, a thousandth of the rows, host-clock times).
 """
@@ -52,8 +55,19 @@ CASES = [("higgs_shape", "higgs", 2_000_000, "f32"),
          ("syn500_r100", "syn", 100, "f64"),
          ("syn500_r1000", "syn", 1_000, "f64"),
          ("syn500_r10000", "syn", 10_000, "f64")]
-SWEEP_ROWS = (1, 10, 100, 1_000, 3_000, 10_000, 30_000, 100_000)
-SWEEP_FORESTS = ("syn", "higgs", "fork")
+SWEEP_ROWS = (1, 10, 100, 1_000, 3_000, 10_000, 30_000, 100_000, 300_000)
+#: grid forests "g{trees}x{leaves}x{columns}": 28 columns are f32 rows
+#: (HIGGS), others f64 (53: the fork's); the grid the route choice was
+#: fitted to, then shapes between and beyond its points, checked after
+#: each refit of the choice
+SWEEP_FORESTS = ("syn", "higgs", "fork", "fleet_f32") + tuple(
+    f"g{t}x{lv}x{nf}" for t in (8, 32, 128, 500) for lv in (31, 255)
+    for nf in (28, 53)) + ("g4x31x28", "g16x31x53", "g64x63x28",
+                           "g8x127x53", "g32x31x130", "g32x255x130") + (
+    "g4x15x53", "g8x63x53", "g16x63x100", "g64x31x300") + (
+    "g4x31x53", "g8x15x40", "g16x31x80", "g8x31x100") + (
+    "g8x31x48", "g4x31x40", "g16x15x80", "g8x31x64") + (
+    "g8x31x56", "g16x15x72", "g8x63x44", "g8x15x36")
 #: categorical columns and query-row seed of each forest's rows: the
 #: synthetic, K=3 and fork rows (and forests) are chip_smoke.py's at its
 #: default --seed 0
@@ -75,7 +89,16 @@ def _forest(name, synthetic):
         # columns (src/capi/smoke_test.cpp:24-31,86)
         return synthetic.random_forest(14, num_iterations=8, num_leaves=31,
                                        num_features=53)
+    if name.startswith("g"):
+        t, lv, nf = map(int, name[1:].split("x"))
+        return synthetic.random_forest(t * 1000 + lv, num_iterations=t,
+                                       num_leaves=lv, num_features=nf)
     raise KeyError(name)
+
+
+def _sweep_dtype(forest):
+    return "f32" if forest in ("higgs", "fleet_f32") or \
+        forest.endswith("x28") else "f64"
 
 
 def time_ms(fn, reps, dev):
@@ -138,7 +161,7 @@ def child(root: str, reps: int, cases, sweep: bool, device: str,
     def rows(forest, n, dtype):
         key = (forest.split("_")[0], dtype)
         if key not in xs or xs[key].shape[0] < n:
-            cats, seed = ROWS_OF[key[0]]
+            cats, seed = ROWS_OF.get(key[0], ((), 16))
             x = synthetic.query_rows(forests[forest], max(n, 1_000), seed,
                                      cat_features=cats)
             xs[key] = torch.from_numpy(x).to(
@@ -175,21 +198,26 @@ def child(root: str, reps: int, cases, sweep: bool, device: str,
         for forest in SWEEP_FORESTS:
             pe = pack(forest)
             tables, rec = pe.tables(), pe.records
-            _, t, nn = tables.split_feature.shape
-            dtype = "f32" if forest == "higgs" else "f64"
+            m_, t, nn = tables.split_feature.shape
+            dtype = _sweep_dtype(forest)
             for n in SWEEP_ROWS:
                 x = rows(forest, n, dtype)
-                line = {"forest": forest, "rows": n, "auto":
-                        packed.forest_geometry(
-                            n, t, nn, x.shape[1], dtype == "f64", False,
-                            pe.num_model, sm_count=sms).route}
+                tid = None
+                if m_ > 1:
+                    gen = torch.Generator(device=dev).manual_seed(12)
+                    tid = torch.randint(0, m_, (n,), generator=gen,
+                                        device=dev, dtype=torch.int32)
+                shape = dict(rows=n, trees=t, nodes=nn, nf=x.shape[1],
+                             x_f64=dtype == "f64", leaves=False,
+                             num_model=pe.num_model, tenants=m_,
+                             sm_count=sms)
+                line = {"forest": forest, **shape,
+                        "auto": packed.forest_geometry(**shape).route}
                 for route in ("rows", "trees"):
-                    geo = packed.forest_geometry(
-                        n, t, nn, x.shape[1], dtype == "f64", False,
-                        pe.num_model, sm_count=sms, route=route)
+                    geo = packed.forest_geometry(**shape, route=route)
                     line[route + "_ms"] = time_ms(
                         lambda: packed.launch_forest(
-                            rec, x, None, geo, num_model=pe.num_model,
+                            rec, x, tid, geo, num_model=pe.num_model,
                             max_depth=pe.max_depth), _reps(n, reps), dev)
                 out["sweep"].append(line)
     print(json.dumps(out), flush=True)

@@ -308,7 +308,7 @@ def _forest_inputs(dev, seed, *, num_model=1, cats=(), nf=7, iters=20,
     (1, (1, 4), 7, torch.float64),      # NaN/zero missing, bitsets
     (3, (2,), 7, torch.float64),        # multiclass
     (1, (0,), 7, torch.float32),        # f32 rows, widened on the card
-    (1, (3,), 60, torch.float64),       # too wide to stage: global reads
+    (1, (3,), 60, torch.float64),       # staged past the default 48 KB
 ])
 def test_forest_kernel_bit_equal_to_plain(cuda_device, num_model, cats, nf,
                                           dtype):
@@ -432,27 +432,110 @@ def _both_routes(pe_or_fl, x, tid=None, *, rows_list, leaves_too=True):
     return chosen
 
 
-@pytest.mark.parametrize("nf,dtype,num_model", [
-    (53, torch.float64, 1),     # the fork harness's row width
-    (53, torch.float32, 1),
-    (130, torch.float64, 1),    # wider than the rows route stages 256 rows
-    (7, torch.float32, 3),      # K=3: per-class sums in shared memory
+def _last_trees_route_rows(route_of):
+    """The most rows ``route_of(rows)`` sends to the trees route (above
+    the few rows it walks on the rows route), or None where it sends every
+    larger batch there."""
+    lo, hi = 100, 1 << 24
+    assert route_of(lo) == "trees"
+    if route_of(hi) == "trees":
+        return None
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if route_of(mid) == "trees":
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+@pytest.mark.parametrize("nf,dtype,num_model,iters", [
+    (53, torch.float64, 1, 12),     # the fork harness's row width
+    (53, torch.float32, 1, 12),
+    (53, torch.float64, 1, 8),      # rows wide for 8 trees: a later cut
+    (130, torch.float64, 1, 12),    # few rows resident: no cut
+    (7, torch.float32, 3, 12),      # K=3: per-class sums in shared memory
 ])
 def test_forest_routes_bit_equal_on_both_sides_of_the_crossover(
-        cuda_device, nf, dtype, num_model):
+        cuda_device, nf, dtype, num_model, iters):
     """Both routes of the kernel, forced and as the wrapper picks them,
     equal the plain version bit for bit (scores through their int32 bits,
-    and leaves) below and above the crossover."""
+    and leaves) at one row, and below and above the crossover where the
+    shape has one."""
+    import synthetic_forests as synthetic
     from lightgbm_tpu_torch.serve import packed
-    g, x = _forest_inputs(cuda_device, 21, num_model=num_model, cats=(3,),
-                          nf=nf, iters=12, leaves=31, dtype=dtype,
-                          rows=packed.TREES_ROUTE_ROWS_PER_SM
-                          * torch.cuda.get_device_properties(
-                              cuda_device).multi_processor_count + 300)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    g = synthetic.random_forest(21, num_iterations=iters, num_leaves=31,
+                                num_features=nf, cat_features=(3,),
+                                num_model=num_model)
     pe = packed.pack_gbdt(g, device=cuda_device)
-    cut = x.shape[0] - 300
-    chosen = _both_routes(pe, x, rows_list=(1, 100, cut, cut + 1, cut + 300))
-    assert chosen == ["trees"] * 6 + ["rows"] * 4
+    _, t, n = pe.tables().split_feature.shape
+
+    def route_of(rows, leaves=False):
+        # the leaves tile takes shared memory: fewer rows resident on the
+        # rows route may move the leaves' crossover
+        return packed.forest_geometry(rows, t, n, nf, dtype == torch.float64,
+                                      leaves, num_model, sm_count=sms).route
+    cut = _last_trees_route_rows(route_of)
+    rows_list = (1, 100) + ((cut, cut + 1, cut + 300) if cut else (20_000,))
+    x = torch.from_numpy(synthetic.query_rows(g, rows_list[-1], 22,
+                                              cat_features=(3,))) \
+        .to(cuda_device, dtype)
+    chosen = _both_routes(pe, x, rows_list=rows_list)
+    assert chosen == [route_of(r, leaves) for r in rows_list
+                      for leaves in (False, True)]
+    assert chosen[4::2] == (["trees", "rows", "rows"] if cut else ["trees"])
+
+
+@pytest.mark.parametrize("case,dtype", [
+    ("large_trees", torch.float32),   # 2^13 padded nodes: no chunk fits
+    ("many_tenants", torch.float64),  # more tenants than the grouping counts
+    ("wide_rows", torch.float64),     # 1,000 f64 columns: rows not staged
+    ("wide_rows", torch.float32),     # 2,000 f32 columns
+])
+def test_rows_route_from_global_memory(cuda_device, case, dtype):
+    """The rows route where the trees, or the trees and the rows, do not
+    fit a block's shared memory: its tree chunks are read from global
+    memory (and each row's own tenant's, in a fleet walked without
+    grouping), and without a stage each visit reads its query value from
+    global memory.  Scores and leaves equal the plain version bit for
+    bit."""
+    import synthetic_forests as synthetic
+    from lightgbm_tpu_torch.serve import fleet, packed
+    nf = {"wide_rows": 1000 if dtype == torch.float64 else 2000}.get(case, 7)
+    leaves = 12_000 if case == "large_trees" else 31
+    g, x = _forest_inputs(cuda_device, 23, cats=(3,), nf=nf, iters=4,
+                          leaves=leaves, rows=3000, dtype=dtype)
+    tid, tenants = None, 1
+    pe = packed.pack_gbdt(g, device=cuda_device)
+    if case == "many_tenants":
+        gs = [g] + [synthetic.random_forest(s, num_iterations=it,
+                                            num_leaves=31, num_features=nf,
+                                            cat_features=(3,))
+                    for s, it in ((24, 6), (25, 2))]
+        pe = fleet.pack_fleet(gs, device=cuda_device)[0]
+        tid = torch.randint(0, 3, (len(x),), device=cuda_device,
+                            dtype=torch.int32)
+        tenants = packed.MAX_GROUP_TENANTS + 1
+    tables, rec = pe.tables(), pe.records
+    _, t, n = tables.split_feature.shape
+    if case == "large_trees":
+        assert n == 1 << 13
+    kw = dict(num_model=1, max_depth=pe.max_depth)
+    for want_leaves in (False, True):
+        geo = packed.forest_geometry(len(x), t, n, nf, dtype == torch.float64,
+                                     want_leaves, 1, tenants=tenants,
+                                     route="rows")
+        assert (geo.route, geo.smem_trees, geo.group_blocks) == ("rows",
+                                                                False, 0)
+        assert geo.stage_rows == (case != "wide_rows")
+        before = packed.forest_predict.routes["rows"]
+        got = packed.launch_forest(rec, x, tid, geo, leaves=want_leaves, **kw)
+        assert packed.forest_predict.routes["rows"] == before + 1
+        want = packed.forest_predict_reference(tables, x, tid,
+                                               leaves=want_leaves, **kw)
+        torch.cuda.synchronize()
+        _assert_bit_equal(got, want)
 
 
 @pytest.mark.parametrize("value_dtype", ["f32", "bf16"])

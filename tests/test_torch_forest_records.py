@@ -9,12 +9,15 @@
   and both equal the JAX package's packed prediction;
 * ``forest_geometry``, whose numbers csrc/forest_predict.cu launches with,
   never asks for more than a block's 227 KB of shared memory, stages the
-  fork's 53-column rows, and routes small batches to the trees route.
+  fork's 53-column rows, and picks the route that the card measured
+  faster at every shape of the committed sweep.
 
 tests/test_torch_cuda.py runs both routes of the kernel on the card.
 """
 
 import copy
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -220,6 +223,8 @@ def test_geometry_fits_shared_memory(x_f64, leaves):
                         assert geo.grid * geo.rows_per_block >= rows
                         continue
                     assert geo.threads == geo.rows_per_block
+                    # the kernel has no chunk ring without a row stage
+                    assert geo.stage_rows or not geo.smem_trees
                     assert geo.smem_bytes == packed.rows_smem_bytes(
                         geo.rows_per_block, geo.chunk_trees,
                         packed.record_words(nodes), nf, xb, k, leaves,
@@ -240,6 +245,27 @@ def test_geometry_routes_and_the_fork_width():
                                       1).route == "trees"
     assert packed.forest_geometry(cut + 1, 512, 64, 28, True, False,
                                   1).route == "rows"
+    # a few rows against a few trees: one thread walks them sooner
+    for rows, trees in ((1, 16), (8, 8)):
+        assert packed.forest_geometry(rows, trees, 32, 53, True, False,
+                                      1).route == "rows"
+    assert packed.forest_geometry(1, 32, 32, 53, True, False,
+                                  1).route == "trees"
+    # the fork's rows are wide for its 8 trees (424 bytes, 53 a tree): the
+    # rows route spends its time staging them, and the trees route wins
+    # far longer; with deep trees beside them the rows route keeps few
+    # rows resident, and the trees route wins at every size
+    wide = (packed.TREES_ROUTE_ROWS_PER_SM
+            + packed.WIDE_ROWS_PER_SM_PER_BYTE * (53 - 32)) * sms
+    for rows, route in ((100_000, "trees"), (wide, "trees"),
+                        (wide + 1, "rows")):
+        assert packed.forest_geometry(rows, 8, 32, 53, True, False,
+                                      1).route == route
+    geo = packed.forest_geometry(10 ** 7, 8, 256, 53, True, False, 1,
+                                 route="rows")
+    assert packed.resident_rows(geo) <= packed.FEW_RESIDENT_ROWS
+    assert packed.forest_geometry(10 ** 7, 8, 256, 53, True, False,
+                                  1).route == "trees"
     # the fork harness's rows: 53 columns, f64, 31-leaf trees, 2M rows
     geo = packed.forest_geometry(2_000_000, 8, 32, 53, True, False, 1)
     assert (geo.route, geo.stage_rows, geo.smem_trees) == ("rows", True,
@@ -262,3 +288,31 @@ def test_geometry_routes_and_the_fork_width():
                                   route="rows").route == "rows"
     with pytest.raises(ValueError, match="route"):
         packed.forest_geometry(10, 8, 8, 4, True, False, 1, route="cols")
+
+
+def test_route_choice_is_the_faster_route_measured():
+    """At every shape of the committed sweeps (both routes forced and timed
+    on the card by scripts/compare_forest_cuda.py --sweep in six calls:
+    forests of 4 to 512 trees, 16 to 256 padded nodes, rows of 112 to
+    2400 bytes, a four-tenant fleet, 1 to 300,000 rows), the route the
+    wrapper picks is the faster one or within 5% or 1.25 us of it: where
+    both routes take about 10 us, the faster one changes by about 1 us
+    from one forest of a shape to the next, which the choice does not
+    separate."""
+    path = Path(__file__).parent / "fixtures" / "forest_route_sweep.json"
+    sweeps = json.loads(path.read_text())
+    checked = 0
+    for sweep in sweeps["sweeps"]:
+        for f in sweep["forests"]:
+            for rows, rows_us, trees_us in zip(f["rows"], f["rows_us"],
+                                               f["trees_us"]):
+                route = packed.forest_geometry(
+                    rows, f["trees"], f["nodes"], f["nf"], f["x_f64"], False,
+                    1, tenants=f["tenants"],
+                    sm_count=sweeps["sm_count"]).route
+                took = trees_us if route == "trees" else rows_us
+                best = min(rows_us, trees_us)
+                assert took <= max(1.05 * best, best + 1.25), (f["name"],
+                                                               rows)
+                checked += 1
+    assert checked == 1710
