@@ -45,7 +45,23 @@ Phases, one line each:
               (host clocks, and CUDA events around the kernel); (a) the
               model-text round trip; (c) byte-identical model text across
               its runs;
-5. serve   -- csrc/forest_predict.cu, the packed-forest kernel: the higgs
+5. data    -- the data-on-the-device path: the 2M training rows uploaded
+              and binned on the card (construct_from_device_matrix; codes
+              byte-equal to the train phase's host build; the time split
+              into sample, find-bins, bundling and codes, the codes also
+              by CUDA events beside their bytes bound), 500,000 held-out
+              rows binned on the card against the training set's mappers
+              (reference=; codes byte-equal to the host's), the higgs
+              configuration trained from the card's codes through GBDT
+              (model text sha256 equal to the host-binned run's; launches
+              == waves) with the held-out set added (add_valid) and
+              evaluated every round (eval_valid), scored tree by tree by
+              the binned traversal: its AUC equal to Booster.predict's
+              within 1e-6 and its scores within 1e-5 (forest_predict
+              launches counted), the traversal's leaves equal to the host
+              walk's on 200,000 rows, ms a tree on the card; then
+              engine.train with the pair as valid set and early stopping;
+6. serve   -- csrc/forest_predict.cu, the packed-forest kernel: the higgs
               model over all 2M rows (leaves and scores also against the
               host walk on 200k rows), a synthetic forest of 500 trees
               of up to 63 leaves with deep paths, NaN/zero missing and
@@ -659,7 +675,7 @@ def phase_train(dev, seed: int, profile: bool):
 
     booster, runs["higgs"] = train_run("higgs", dense, x, y, dev, profile)
     runs["higgs"]["input"] = "dense"
-    del dense, codes_d, codes_c
+    del codes_d, codes_c
     sub = x[:200_000]
     again = lt.Booster(model_str=booster.model_to_string())
     rt_err = float(np.abs(again.predict(sub) - booster.predict(sub)).max())
@@ -694,7 +710,257 @@ def phase_train(dev, seed: int, profile: bool):
           f"matrix; harness, int8 x2 from CSR; int8 model text "
           f"byte-identical across runs), binning dense {bin_dense_s:.1f} s, "
           f"CSR {bin_s:.1f} s (same codes)", flush=True)
-    return result, models, x
+    return result, models, x, y, dense._handle
+
+
+#: the data phase's held-out rows (binned on the card against the training
+#: set's mappers), and how many of them the traversal is also walked for on
+#: the host
+VALID_ROWS = 500_000
+VALID_HOST_ROWS = 200_000
+
+
+class BinSplit:
+    """Splits one construct_from_device_matrix into bin finding, bundling
+    and codes, measurement only: host clocks (ending in a synchronize)
+    around the dataset's own methods, wrapped for the time of the block;
+    the rest is drawing and gathering the sample (and the lookups)."""
+
+    NAMES = ("_find_bins", "_bundle_features", "_bin_on_device")
+
+    def __enter__(self):
+        import torch
+        from lightgbm_tpu_torch.data.dataset import BinnedDataset
+        self.real = {f: getattr(BinnedDataset, f) for f in self.NAMES}
+        self.s = dict.fromkeys(self.NAMES, 0.0)
+
+        def clocked(name, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                self.s[name] += time.perf_counter() - t0
+                return out
+            return run
+        for name, fn in self.real.items():
+            setattr(BinnedDataset, name, clocked(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from lightgbm_tpu_torch.data.dataset import BinnedDataset
+        for name, fn in self.real.items():
+            setattr(BinnedDataset, name, fn)
+        return False
+
+    def split(self, total_s: float) -> dict:
+        s = self.s
+        return dict(sample_s=total_s - sum(s.values()),
+                    find_bins_s=s["_find_bins"],
+                    bundle_s=s["_bundle_features"],
+                    codes_s=s["_bin_on_device"])
+
+
+def phase_data(dev, seed: int, dense, x, y, train, profile: bool):
+    """The JAX package's data-on-the-device path (bench.py's main path):
+    the training rows uploaded and binned on the card, codes byte-equal to
+    the host build ``dense``; the higgs configuration trained from them
+    through GBDT (the same model text as the host-binned run) with a
+    held-out set binned on the card against the training set's mappers
+    (codes byte-equal to the host's), scored tree by tree by the binned
+    traversal and evaluated every iteration; its AUC against
+    Booster.predict's; then engine.train with the pair as its valid set
+    and early stopping.  ``profile`` adds the device time by kernel of the
+    codes and of the validation scoring."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import BinnedDataset
+    from lightgbm_tpu_torch.ops import hist_cuda, traverse
+    from lightgbm_tpu_torch.serve import packed
+
+    cfg = Config(dict(TRAIN_BASE))
+    t0 = time.perf_counter()
+    x_dev = torch.from_numpy(x).to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    with BinSplit() as clocks:
+        t0 = time.perf_counter()
+        ds = BinnedDataset.construct_from_device_matrix(x_dev, cfg)
+        torch.cuda.synchronize()
+        bin_s = time.perf_counter() - t0
+    split = clocks.split(bin_s)
+    if not ds.device_binned or ds.binned.device != x_dev.device:
+        fail("construct_from_device_matrix left its codes off the card")
+    codes = ds.binned.cpu().numpy()
+    if codes.shape != dense.binned.shape \
+            or not np.array_equal(codes, dense.binned):
+        fail(f"codes binned on the card differ from the host build's on "
+             f"{int((codes != dense.binned).sum())} cells")
+    del codes
+    codes_ms = time_ms(lambda: ds._bin_on_device(x_dev), reps=5)
+    codes_bytes = x.size * 4 + x.shape[0] * ds.num_groups
+    codes_bound_ms = codes_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  data codes: {x.shape[0]} x {x.shape[1]} f32 -> "
+          f"{ds.num_groups} groups on the card, byte-equal to the host "
+          f"build; upload {upload_s:.3f} s; construct_from_device_matrix "
+          f"{bin_s:.3f} s = sample {split['sample_s']:.3f} + find-bins "
+          f"{split['find_bins_s']:.3f} + bundling {split['bundle_s']:.3f} "
+          f"+ codes {split['codes_s']:.4f} s; codes {codes_ms:.3f} ms "
+          f"(CUDA events) against a {codes_bound_ms * 1e3:.1f} us bound "
+          f"({codes_bytes / 1e6:.0f} MB at 3.35 TB/s); host "
+          f"construct_from_matrix {train['binning_dense_s']:.2f} s",
+          flush=True)
+
+    # held-out rows, binned on the card with the training set's mappers
+    xv, yv = higgs_shape(VALID_ROWS, seed + 1)
+    xv_dev = torch.from_numpy(xv).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vds = BinnedDataset.construct_from_device_matrix(xv_dev, cfg,
+                                                     reference=ds)
+    torch.cuda.synchronize()
+    ref_bin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_v = BinnedDataset.construct_from_matrix(xv, cfg, reference=dense)
+    host_ref_s = time.perf_counter() - t0
+    if not np.array_equal(vds.binned.cpu().numpy(), host_v.binned):
+        fail("validation codes binned on the card with reference= differ "
+             "from the host construct_from_matrix(reference=)")
+    del host_v
+    ds.metadata.set_label(y)
+    vds.metadata.set_label(yv)
+
+    # the higgs configuration from the card's codes, validated each round
+    params = {**TRAIN_BASE, **TRAIN_RUNS["higgs"], "device": dev.type}
+    hist_cuda.wave_hist.launches = 0          # this run only
+    gb = GBDT(Config(params))
+    gb.init_train(ds)
+    gb.add_valid(vds, "valid")
+    eval_s = []
+    t0 = time.perf_counter()
+    for _ in range(ROUNDS):
+        if gb.train_one_iter():
+            fail("training from the card's codes stopped early")
+        t1 = time.perf_counter()
+        records = gb.eval_valid()
+        eval_s.append(time.perf_counter() - t1)
+    train_s = time.perf_counter() - t0
+    launches = hist_cuda.wave_hist.launches
+    waves = sum(st[1] for st in gb.tree_stats)
+    if launches <= 0 or launches != waves:
+        fail(f"data: kernel launches {launches} != waves {waves}")
+    booster = lt.Booster.from_gbdt(gb, params)
+    text_sha = hashlib.sha256(booster.model_to_string().encode()).hexdigest()
+    want_sha = train["runs"]["higgs"]["model_text_sha256"]
+    if text_sha != want_sha:
+        fail(f"the model trained from the card's codes has text sha256 "
+             f"{text_sha}, the host-binned higgs run {want_sha}")
+    vs = gb.valid_sets[0]
+    vscore = vs.score[0].double().cpu().numpy()
+    if vscore.shape != (VALID_ROWS,) or not np.isfinite(vscore).all():
+        fail("validation scores are not finite")
+    auc_valid = auc_of(yv, vscore)
+    packed.forest_predict.launches = 0        # this predict only
+    packed.forest_predict.routes = {k: 0 for k in packed.forest_predict.routes}
+    raw = booster.predict(xv, raw_score=True)
+    predict_launches = packed.forest_predict.launches
+    predict_routes = dict(packed.forest_predict.routes)
+    if predict_launches <= 0:
+        fail("Booster.predict of the validation rows launched no "
+             "forest_predict kernel")
+    auc_pred = auc_of(yv, raw)
+    score_err = float(np.abs(vscore - raw).max())
+    if abs(auc_valid - auc_pred) > 1e-6:
+        fail(f"validation AUC {auc_valid:.8f} from the binned traversal, "
+             f"{auc_pred:.8f} from Booster.predict")
+    if score_err > 1e-5:
+        fail(f"validation scores vs Booster.predict: {score_err:.3g}")
+    dts = [traverse.device_tree(t, ds, gb.config.num_leaves, dev)
+           for t in gb.models]
+    sub = vds.binned[:VALID_HOST_ROWS]
+    for i, (tree, dt) in enumerate(zip(gb.models, dts)):
+        leaves = traverse.traverse(sub, dt).cpu().numpy()
+        if not np.array_equal(leaves,
+                              tree.predict_leaf(xv[:VALID_HOST_ROWS])):
+            fail(f"tree {i}: the binned traversal's leaves differ from the "
+                 f"host walk's")
+    score0 = torch.zeros(VALID_ROWS, device=dev)
+
+    def score_all():
+        s = score0
+        for dt in dts:
+            s = traverse.add_tree_score(s, vs.binned, dt, 1.0)
+        return s
+    tree_ms = time_queued_ms(score_all, reps=1) / len(dts)
+    depths = [dt.depth for dt in dts]
+    profiles = None
+    if profile:
+        profiles = dict(
+            codes=profile_ops("codes", lambda: ds._bin_on_device(x_dev)),
+            valid_scoring=profile_ops(
+                f"validation scoring, {len(dts)} trees", score_all))
+    print(f"  data train: higgs from the card's codes, {ROUNDS} trees in "
+          f"{train_s:.2f} s, kernel launches {launches} == waves, model "
+          f"text sha256 {text_sha} (== the host-binned run); valid "
+          f"{VALID_ROWS} rows binned on the card with reference= in "
+          f"{ref_bin_s:.3f} s (host {host_ref_s:.2f} s, same codes); "
+          f"scoring {tree_ms:.3f} ms a tree on the card (queued, depths "
+          f"{min(depths)}-{max(depths)}), eval_valid {np.mean(eval_s) * 1e3:.1f} "
+          f"ms host; AUC {auc_valid:.6f} == Booster.predict's "
+          f"{auc_pred:.6f} ({predict_launches} forest_predict launch), "
+          f"scores within {score_err:.2g}; leaves == host walk on "
+          f"{VALID_HOST_ROWS} rows; {records[0][1]} {records[0][2]:.6f}",
+          flush=True)
+    del booster, gb, vs, dts, sub, score0
+
+    # engine.train with the pair as its valid set and early stopping
+    hist_cuda.wave_hist.launches = 0
+    tr = lt.Dataset(x_dev, y, params=dict(TRAIN_BASE))
+    va = tr.create_valid(xv_dev, yv)
+    evals = {}
+    t0 = time.perf_counter()
+    eng = lt.train({**params, "metric": ["binary_logloss", "auc"]}, tr,
+                   ROUNDS, valid_sets=[va], early_stopping_rounds=3,
+                   evals_result=evals, verbose_eval=False)
+    engine_s = time.perf_counter() - t0
+    eng_launches = hist_cuda.wave_hist.launches
+    eng_waves = sum(st[1] for st in eng._gbdt.tree_stats)
+    if eng_launches <= 0 or eng_launches != eng_waves:
+        fail(f"engine.train: kernel launches {eng_launches} != waves "
+             f"{eng_waves}")
+    aucs = evals.get("valid_0", {}).get("auc", [])
+    if not aucs or not 1 <= eng.best_iteration <= len(aucs):
+        fail(f"engine.train filled evals_result {list(evals)} and "
+             f"best_iteration {eng.best_iteration}")
+    if len(aucs) == ROUNDS and abs(aucs[-1] - auc_valid) > 1e-9:
+        fail(f"engine.train's last validation AUC {aucs[-1]:.8f} differs "
+             f"from GBDT's {auc_valid:.8f}")
+    print(f"  data engine.train: {len(aucs)} rounds in {engine_s:.2f} s "
+          f"(binning included), best_iteration {eng.best_iteration}, valid "
+          f"AUC {aucs[eng.best_iteration - 1]:.6f}, kernel launches "
+          f"{eng_launches} == waves", flush=True)
+    best = eng.best_iteration
+    del eng, tr, va, x_dev, xv_dev
+    print(f"phase data: ok (codes and validation codes byte-equal to the "
+          f"host's, model text sha256 unchanged, validation AUC equal to "
+          f"Booster.predict's)", flush=True)
+    return dict(rows=x.shape[0], upload_s=upload_s, bin_s=bin_s,
+                bin_split=split, codes_ms=codes_ms,
+                codes_bound_ms=codes_bound_ms, codes_bytes=codes_bytes,
+                host_bin_s=train["binning_dense_s"], valid_rows=VALID_ROWS,
+                valid_ref_bin_s=ref_bin_s, valid_host_ref_bin_s=host_ref_s,
+                train_s=train_s, launches=launches, waves=waves,
+                model_text_sha256=text_sha, valid_auc=auc_valid,
+                predict_auc=auc_pred, valid_vs_predict_max_abs=score_err,
+                predict_launches=predict_launches,
+                predict_routes=predict_routes, eval_valid_s=eval_s,
+                score_ms_per_tree=tree_ms, tree_depths=depths,
+                engine_s=engine_s, engine_launches=eng_launches,
+                engine_rounds=len(aucs), engine_best_iteration=best,
+                engine_evals=evals, profile=profiles)
 
 
 #: the serve phase's synthetic forest: 500 trees of up to 63 leaves over
@@ -1289,29 +1555,50 @@ def phase_serve(dev, models, x, seed: int):
                 fleet_entry_routes=fleet_routes, fleet_entry_s=fleet_s)
 
 
-def profile_tree(gb):
-    """Device time by kernel over one more tree (torch.profiler), with the
-    run's bagging mask, feature mask and quantization key."""
+def device_time(fn):
+    """Wall ms of one call of ``fn`` and its device time by kernel, (name,
+    ms, launches) largest first (torch.profiler)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    grower = gb._grower
-    grad, hess = gb.objective.get_gradients(gb.train_score)
-    gb.bagging(gb.iter)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        grower.grow_one_iter(gb.train_score[0].clone(), grad, hess,
-                             feature_mask=grower.feature_mask_for(gb.iter),
-                             row_mask=gb.row_mask, tree_idx=gb.iter)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
     rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA
             and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
+    return wall, rows
+
+
+def profile_ops(label, fn):
+    """Print and return the device time by kernel of one call of ``fn``."""
+    wall, rows = device_time(fn)
+    busy = sum(r[1] for r in rows)
+    print(f"  profile {label}: {wall * 1e3:.2f} ms wall, {busy:.3f} ms "
+          f"device busy in {sum(r[2] for r in rows)} launches")
+    for key, ms, count in rows[:8]:
+        print(f"    {ms:9.3f} ms  {count:6d}x  {key[:90]}")
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                launches=sum(r[2] for r in rows),
+                top=[dict(kernel=k, ms=m, count=c) for k, m, c in rows[:20]])
+
+
+def profile_tree(gb):
+    """Device time by kernel over one more tree (torch.profiler), with the
+    run's bagging mask, feature mask and quantization key."""
+    grower = gb._grower
+    grad, hess = gb.objective.get_gradients(gb.train_score)
+    gb.bagging(gb.iter)
+    wall, rows = device_time(lambda: grower.grow_one_iter(
+        gb.train_score[0].clone(), grad, hess,
+        feature_mask=grower.feature_mask_for(gb.iter),
+        row_mask=gb.row_mask, tree_idx=gb.iter))
     busy = sum(r[1] for r in rows)
     # the histogram layer: every kernel of csrc/wave_hist.cu
     hist = [r for r in rows if any(name in r[0] for name in HIST_KERNELS)]
@@ -1330,7 +1617,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one more tree of each run by kernel")
+                    help="also profile one more tree of each run, the "
+                    "codes and the validation scoring by kernel")
     args = ap.parse_args()
 
     if not (ROOT / "lightgbm_tpu_torch" / "csrc").is_dir():
@@ -1349,22 +1637,28 @@ def main() -> int:
     build_s = phase_build()
     kernels = phase_kernels(dev)
     ubench = phase_ubench()
-    train, models, x = phase_train(dev, args.seed, args.profile)
+    train, models, x, y, dense = phase_train(dev, args.seed, args.profile)
+    data = phase_data(dev, args.seed, dense, x, y, train, args.profile)
+    del dense, y
     serve = phase_serve(dev, models, x, args.seed)
     del x
 
-    # wave_hist's path is training: its launches are those of every run;
-    # wave_hist_v2's path is the ubench entry point; forest_predict's is
-    # prediction: Booster.predict after each training run, the fleet's
-    # entry point and the two PredictionServers (not the comparison
-    # launches), and both of its routes must have run there
-    v1_launches = sum(r["launches"] for r in train["runs"].values())
+    # wave_hist's path is training: its launches are those of every run
+    # (the data phase's two included); wave_hist_v2's path is the ubench
+    # entry point; forest_predict's is prediction: Booster.predict after
+    # each training run and of the validation rows, the fleet's entry
+    # point and the two PredictionServers (not the comparison launches),
+    # and both of its routes must have run there
+    v1_launches = (sum(r["launches"] for r in train["runs"].values())
+                   + data["launches"] + data["engine_launches"])
     fp_launches = (sum(r["predict_launches"] for r in train["runs"].values())
+                   + data["predict_launches"]
                    + serve["fleet_entry_launches"]
                    + serve["server"]["launches"]
                    + serve["server_syn"]["launches"])
     fp_routes = {k: (sum(r["predict_routes"][k]
                          for r in train["runs"].values())
+                     + data["predict_routes"][k]
                      + serve["fleet_entry_routes"][k]
                      + serve["server"]["routes"][k]
                      + serve["server_syn"]["routes"][k])
@@ -1397,7 +1691,7 @@ def main() -> int:
     with open(OUT_DIR / "chip_smoke.json", "w") as fh:
         json.dump(dict(card=card, kind=kind, build_s=build_s,
                        kernels=kernels, ubench=ubench, train=train,
-                       serve=serve,
+                       data=data, serve=serve,
                        torch=torch.__version__, cuda=torch.version.cuda),
                   fh, indent=1)
     print(card)

@@ -1,20 +1,23 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
-Trains a binary GBDT on an NVIDIA GPU: host binning, device gradients, and
+Trains a binary GBDT on an NVIDIA GPU: binning on the host (or, for a
+float32 tensor, codes on its device), device gradients, and
 leaf-wise tree growth in waves whose histograms come from a hand-written
 CUDA kernel (``csrc/wave_hist.cu``).  Predicts and serves on the card
 through a packed forest and a second hand-written kernel
 (``csrc/forest_predict.cu``, ``serve/``).  Imports nothing of JAX or of
 the JAX package.  Training and serving run on ``device='cuda'`` by
 default and raise when no card is present; ``device='cpu'`` takes the
-plain PyTorch path.
+plain PyTorch path.  Validation sets are scored on the training device
+as trees are added (``engine.train``'s ``valid_sets``, callbacks and early
+stopping).
 """
 
 from .basic import Booster, Dataset
 from .config import Config
-from .engine import train
+from .engine import cv, train
 from .utils.log import LightGBMError
 
 __version__ = "0.1.0"
 
-__all__ = ["Booster", "Config", "Dataset", "LightGBMError", "train"]
+__all__ = ["Booster", "Config", "Dataset", "LightGBMError", "cv", "train"]

@@ -1,17 +1,20 @@
 """User-facing ``Dataset`` and ``Booster`` (counterpart of
-``lightgbm_tpu/basic.py`` for dense matrices and scipy sparse ones, which
-bin from CSR and predict in row chunks without densifying; no callbacks,
-valid sets, refit or pred_contrib yet)."""
+``lightgbm_tpu/basic.py`` for dense matrices, scipy sparse ones, which
+bin from CSR and predict in row chunks without densifying, and float32
+tensors, binned on their device; validation sets bin against a training
+set's mappers (``reference``); no refit or pred_contrib yet)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from .boosting.gbdt import GBDT
 from .config import Config
 from .data.dataset import BinnedDataset
+from .utils.log import LightGBMError
 
 
 def _is_sparse(data) -> bool:
@@ -41,13 +44,19 @@ def _to_2d_float(data, keep_float32: bool = False):
 
 
 class Dataset:
-    """Training data: a dense float matrix or a scipy sparse matrix and its
-    labels, binned on the host at first use (``construct``)."""
+    """Training or validation data: a dense float matrix, a scipy sparse
+    matrix or an (N, F) float32 tensor, and its labels, binned at first use
+    (``construct``): a tensor on its own device
+    (``BinnedDataset.construct_from_device_matrix``), the others on the
+    host.  With ``reference`` (another ``Dataset``) it is binned with that
+    set's mappers and inherits its params."""
 
-    def __init__(self, data, label=None, weight=None, init_score=None,
-                 feature_name=None, categorical_feature=(), params=None):
+    def __init__(self, data, label=None, reference=None, weight=None,
+                 init_score=None, feature_name=None, categorical_feature=(),
+                 params=None):
         self.data = data
         self.label = label
+        self.reference = reference
         self.weight = weight
         self.init_score = init_score
         self.feature_name = feature_name
@@ -58,22 +67,43 @@ class Dataset:
     def construct(self) -> "Dataset":
         if self._handle is not None:
             return self
-        config = Config(self.params)
-        if _is_sparse(self.data):
+        params = dict(self.params)
+        ref = None
+        if self.reference is not None:
+            ref = self.reference.construct()._handle
+            params = {**self.reference.params, **params}
+        config = Config(params)
+        if isinstance(self.data, torch.Tensor):
+            if len(self.categorical_feature):
+                raise LightGBMError(
+                    "a tensor Dataset supports numerical features only")
+            self._handle = BinnedDataset.construct_from_device_matrix(
+                self.data, config, feature_names=self.feature_name,
+                reference=ref)
+        elif _is_sparse(self.data):
             csr = self.data.tocsr()
             self._handle = BinnedDataset.construct_from_csr(
                 csr.indptr, csr.indices, csr.data, csr.shape[1], config,
-                self.categorical_feature, feature_names=self.feature_name)
+                self.categorical_feature, feature_names=self.feature_name,
+                reference=ref)
         else:
             self._handle = BinnedDataset.construct_from_matrix(
                 _to_2d_float(self.data), config, self.categorical_feature,
-                feature_names=self.feature_name)
+                feature_names=self.feature_name, reference=ref)
         md = self._handle.metadata
         if self.label is not None:
             md.set_label(np.asarray(self.label))
         md.set_weights(self.weight)
         md.set_init_score(self.init_score)
         return self
+
+    def create_valid(self, data, label=None, weight=None, init_score=None,
+                     params=None) -> "Dataset":
+        """A validation set binned with this set's mappers."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       init_score=init_score, params=params,
+                       feature_name=self.feature_name,
+                       categorical_feature=self.categorical_feature)
 
 
 class Booster:
@@ -84,6 +114,9 @@ class Booster:
     def __init__(self, params=None, train_set: Optional[Dataset] = None,
                  model_str=None):
         self.params = dict(params or {})
+        self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
+        self._train_set: Optional[Dataset] = None
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("Training data should be Dataset instance")
@@ -91,6 +124,7 @@ class Booster:
             train_set.construct()
             self._gbdt = GBDT(Config(self.params))
             self._gbdt.init_train(train_set._handle)
+            self._train_set = train_set
         elif model_str is not None:
             self._gbdt = GBDT.load_model_from_string(model_str,
                                                      Config(self.params))
@@ -101,19 +135,65 @@ class Booster:
     def from_gbdt(cls, gbdt: GBDT, params=None) -> "Booster":
         booster = cls.__new__(cls)
         booster.params = dict(params or {})
+        booster.best_iteration = -1
+        booster.best_score = {}
+        booster._train_set = None
         booster._gbdt = gbdt
         return booster
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Evaluate ``data`` (binned against the training set) from the
+        next iteration on."""
+        data.construct()
+        self._gbdt.add_valid(data._handle, name)
+        return self
 
     def update(self) -> bool:
         """One boosting iteration; True when training cannot continue."""
         return self._gbdt.train_one_iter()
 
+    def current_iteration(self) -> int:
+        self._gbdt._flush_pending()
+        return self._gbdt.num_iterations()
+
     def num_trees(self) -> int:
         self._gbdt._flush_pending()
         return len(self._gbdt.models)
 
-    def eval_train(self):
-        return self._gbdt.eval_train()
+    def eval_train(self, feval=None):
+        """``(data_name, metric, value, bigger_is_better)`` of the training
+        set's metrics, then of ``feval(preds, train_set)``."""
+        return self._eval(self._gbdt.eval_train(), feval, is_train=True)
+
+    def eval_valid(self, feval=None):
+        """The same records for every validation set."""
+        return self._eval(self._gbdt.eval_valid(), feval, is_train=False)
+
+    def _eval(self, records, feval, is_train):
+        out = list(records)
+        if feval is None:
+            return out
+        if is_train:
+            if self._train_set is not None:
+                pred = self._inner_eval_pred(self._gbdt.train_score)
+                out.extend(_feval_records(
+                    "training", feval(pred, self._train_set)))
+            return out
+        for v in self._gbdt.valid_sets:
+            holder = Dataset.__new__(Dataset)
+            holder._handle = v.dataset
+            holder.label = v.dataset.metadata.label
+            out.extend(_feval_records(
+                v.name, feval(self._inner_eval_pred(v.score), holder)))
+        return out
+
+    def _inner_eval_pred(self, score):
+        """Converted predictions of (num_model, N) scores, as ``feval``
+        receives them: (N,), or (N * num_model,) row by row."""
+        s = score.double().cpu().numpy()
+        if self._gbdt.objective is not None:
+            s = self._gbdt.objective.convert_output(s)
+        return s[0] if s.shape[0] == 1 else s.T.reshape(-1)
 
     def predict(self, data, num_iteration=-1, raw_score=False,
                 pred_leaf=False, start_iteration=0):
@@ -140,3 +220,10 @@ class Booster:
 
     def model_to_string(self) -> str:
         return self._gbdt.model_to_string()
+
+
+def _feval_records(dataset_name, res):
+    if isinstance(res, list):
+        return [(dataset_name, n, v, b) for n, v, b in res]
+    n, v, b = res
+    return [(dataset_name, n, v, b)]

@@ -11,8 +11,10 @@ tree walk in float64.  The model text is the reference's "v2" format, so
 it loads into the JAX package and back.  Bagging redraws its row mask
 every ``bagging_freq`` iterations and feature_fraction draws a mask per
 tree, both from the JAX package's Threefry keys, so the draws are its
-draws.  The fused multi-iteration scan, valid sets and early stopping
-are not ported yet.
+draws.  Validation sets (``add_valid``) keep their scores on the device
+and take each new tree at evaluation time (``eval_valid``), by the
+binned-matrix traversal ``ops/traverse.py``.  The fused multi-iteration
+scan is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,32 +25,20 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, resolve_device
 from ..data.dataset import BinnedDataset
 from ..metrics import create_metrics
 from ..objectives import create_objective
 from ..ops.bagging import bagging_row_mask
 from ..ops.grow import DeviceGrower
 from ..ops.histogram import bucket_size
+from ..ops.traverse import add_constant_score, add_tree_score, device_tree
 from ..params import PARAM_BY_NAME
 from ..tree.tree import Tree
 from ..utils.log import LightGBMError, log_info, log_warning
 
 K_EPSILON = 1e-15
 MODEL_VERSION = "v2"
-
-
-def resolve_device(name: str) -> torch.device:
-    """The training device.  ``cuda`` without a card raises: the port never
-    carries on on the CPU unless the caller asks for ``cpu``."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise LightGBMError(
-            "device_type=cuda but torch.cuda.is_available() is False; pass "
-            "device='cpu' to run the plain PyTorch ops on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise LightGBMError(f"unsupported device {name!r}")
-    return dev
 
 
 def _replay_records(rec_i, rec_f, nl, shrinkage, bias, dataset,
@@ -91,6 +81,21 @@ class _PendingTree:
                                self.shrinkage, self.bias, dataset, config)
 
 
+class _ValidSet:
+    """A validation set: its dataset, its binned codes and (num_model, N)
+    float32 scores on the training device, its metrics, and how many of
+    the models its scores hold."""
+
+    __slots__ = ("dataset", "binned", "score", "metrics", "name",
+                 "applied_models")
+
+    def __init__(self, dataset, binned, score, metrics, name,
+                 applied_models):
+        self.dataset, self.binned, self.score = dataset, binned, score
+        self.metrics, self.name = metrics, name
+        self.applied_models = applied_models
+
+
 class GBDT:
     """Gradient Boosting Decision Tree driver."""
 
@@ -103,6 +108,7 @@ class GBDT:
         self.num_model = 1
         self.shrinkage_rate = config.learning_rate
         self.train_metrics = []
+        self.valid_sets: List[_ValidSet] = []
         self.average_output = False
         self.loaded_objective_str = ""
         self.max_feature_idx = 0
@@ -127,20 +133,8 @@ class GBDT:
         self.objective.init(md, n, self.device)
         self.num_model = self.objective.num_model_per_iteration
         self.num_data = n
-        self.train_score = torch.zeros((self.num_model, n),
-                                       dtype=torch.float32,
-                                       device=self.device)
         self.has_init_score = md.init_score is not None
-        if self.has_init_score:
-            init = np.asarray(md.init_score, np.float64).reshape(-1)
-            if len(init) != n * self.num_model:
-                raise LightGBMError(
-                    f"Initial score size doesn't match data size: got "
-                    f"{len(init)}, expected num_data * num_model = "
-                    f"{n} * {self.num_model}")
-            self.train_score = torch.as_tensor(
-                init.reshape(self.num_model, n), dtype=torch.float32,
-                device=self.device)
+        self.train_score = self._initial_scores(md, n)
         self.train_metrics = create_metrics(cfg)
         for m in self.train_metrics:
             m.init(md, n)
@@ -156,6 +150,41 @@ class GBDT:
         self.row_mask: Optional[torch.Tensor] = None
         log_info(f"Training on {self.device} ({n} rows, "
                  f"{train_set.num_groups} feature groups)")
+
+    def add_valid(self, valid_set: BinnedDataset, name: str) -> None:
+        """Score ``valid_set`` (binned with the training set's mappers)
+        from the next tree on; evaluated by :meth:`eval_valid`."""
+        if not valid_set.check_align(self.train_set):
+            raise LightGBMError(
+                "cannot add validation data, since it has different bin "
+                "mappers with training data")
+        metrics = create_metrics(self.config)
+        for m in metrics:
+            m.init(valid_set.metadata, valid_set.num_data)
+        score = self._initial_scores(valid_set.metadata, valid_set.num_data)
+        binned = valid_set.binned
+        if not isinstance(binned, torch.Tensor):
+            binned = torch.from_numpy(binned)
+        # models that predate the set are not applied, as in the JAX
+        # package
+        self.valid_sets.append(_ValidSet(
+            valid_set, binned.to(self.device), score, metrics, name,
+            len(self.models)))
+
+    def _initial_scores(self, metadata, n: int) -> torch.Tensor:
+        """(num_model, n) float32 scores on the device: the set's
+        init_score, or zeros."""
+        if metadata.init_score is None:
+            return torch.zeros((self.num_model, n), dtype=torch.float32,
+                               device=self.device)
+        init = np.asarray(metadata.init_score, np.float64).reshape(-1)
+        if len(init) != n * self.num_model:
+            raise LightGBMError(
+                f"Initial score size doesn't match data size: got "
+                f"{len(init)}, expected num_data * num_model = "
+                f"{n} * {self.num_model}")
+        return torch.as_tensor(init.reshape(self.num_model, n),
+                               dtype=torch.float32, device=self.device)
 
     def boost_from_average(self, class_id: int) -> float:
         cfg = self.config
@@ -245,6 +274,38 @@ class GBDT:
         return [("training", name, value, m.bigger_is_better)
                 for m in self.train_metrics
                 for name, value in m.eval(score, self.objective)]
+
+    def _catch_up_valid_scores(self) -> None:
+        """Add the models each valid set has not taken yet to its scores: a
+        tree by the binned traversal, a stump (the boost-from-average bias,
+        or a one-class constant) as its constant."""
+        if not self.valid_sets:
+            return
+        self._flush_pending()
+        total = len(self.models)
+        for v in self.valid_sets:
+            while v.applied_models < total:
+                idx = v.applied_models
+                tree = self.models[idx]
+                k = idx % self.num_model
+                if tree.num_leaves > 1:
+                    dt = device_tree(tree, self.train_set,
+                                     self.config.num_leaves, self.device)
+                    v.score[k] = add_tree_score(v.score[k], v.binned, dt, 1.0)
+                elif abs(tree.leaf_value[0]) > K_EPSILON:
+                    v.score[k] = add_constant_score(v.score[k],
+                                                    tree.leaf_value[0])
+                v.applied_models = idx + 1
+
+    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        self._catch_up_valid_scores()
+        out = []
+        for v in self.valid_sets:
+            score = v.score.double().cpu().numpy()
+            out.extend((v.name, name, value, m.bigger_is_better)
+                       for m in v.metrics
+                       for name, value in m.eval(score, self.objective))
+        return out
 
     def num_iterations(self) -> int:
         return len(self.models) // max(self.num_model, 1)

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional
 
+import torch
+
 from .params import (
     BOOSTING_ALIASES,
     IGNORED_PARAMS,
@@ -22,7 +24,21 @@ from .params import (
     PARAM_BY_NAME,
     TREE_LEARNER_ALIASES,
 )
-from .utils.log import log_warning
+from .utils.log import LightGBMError, log_warning
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device of ``name``.  ``cuda`` without a card raises: the port never
+    carries on on the CPU unless the caller asks for ``cpu``."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise LightGBMError(
+            "device_type=cuda but torch.cuda.is_available() is False; pass "
+            "device='cpu' to run the plain PyTorch ops on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise LightGBMError(f"unsupported device {name!r}")
+    return dev
+
 
 _RANKING_OBJECTIVES = ("lambdarank",)
 _MULTICLASS_OBJECTIVES = ("multiclass", "multiclassova")

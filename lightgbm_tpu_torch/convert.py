@@ -23,7 +23,8 @@ from .tree.tree import Tree
 
 #: Tree fields taken from the arrays, with their dtypes
 TREE_FIELDS = {
-    "split_feature": np.int32, "split_gain": np.float64,
+    "split_feature": np.int32, "split_feature_inner": np.int32,
+    "split_gain": np.float64,
     "threshold": np.float64, "threshold_in_bin": np.int32,
     "decision_type": np.int8, "left_child": np.int32,
     "right_child": np.int32, "leaf_value": np.float64,
@@ -35,7 +36,11 @@ TREE_FIELDS = {
 def tree_from_arrays(arrays: Mapping) -> Tree:
     """One ``Tree`` from a mapping with ``num_leaves``, the
     :data:`TREE_FIELDS` arrays and optionally ``shrinkage``, ``num_cat``,
-    ``cat_boundaries`` and ``cat_threshold``."""
+    ``cat_boundaries`` and ``cat_threshold``.  A tree that walks a binned
+    matrix (``ops/traverse.py``) reads ``split_feature_inner`` (the
+    used-feature index; the raw one when absent) and, with categorical
+    splits, its bitsets over inner bins ``cat_boundaries_inner`` and
+    ``cat_threshold_inner`` (the raw ones when absent)."""
     n = int(arrays["num_leaves"])
     tree = Tree(max(n, 2))
     tree.num_leaves = n
@@ -45,12 +50,17 @@ def tree_from_arrays(arrays: Mapping) -> Tree:
         src = np.asarray(arrays[name], dt)
         dst = getattr(tree, name)
         dst[:len(src)] = src[:len(dst)]
-    tree.split_feature_inner = tree.split_feature.copy()
+    if "split_feature_inner" not in arrays:
+        tree.split_feature_inner = tree.split_feature.copy()
     tree.shrinkage = float(arrays.get("shrinkage", 1.0))
     tree.num_cat = int(arrays.get("num_cat", 0))
     if tree.num_cat:
         tree.cat_boundaries = [int(v) for v in arrays["cat_boundaries"]]
         tree.cat_threshold = [int(v) for v in arrays["cat_threshold"]]
+        tree.cat_boundaries_inner = [int(v) for v in arrays.get(
+            "cat_boundaries_inner", tree.cat_boundaries)]
+        tree.cat_threshold_inner = [int(v) for v in arrays.get(
+            "cat_threshold_inner", tree.cat_threshold)]
     for node in range(n - 1):
         for child in (tree.left_child[node], tree.right_child[node]):
             if child < 0:

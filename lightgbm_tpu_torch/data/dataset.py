@@ -1,16 +1,19 @@
-"""Binned dataset construction on the host: sampling, bin finding, bundling,
-group storage.
+"""Binned dataset construction: sampling, bin finding, bundling, group
+storage.
 
 Counterpart of ``lightgbm_tpu/data/dataset.py`` for a dense float matrix
-(``construct_from_matrix``) and CSR triplets (``construct_from_csr``, which
-bins without densifying).  The binned matrix is a dense
+(``construct_from_matrix``), CSR triplets (``construct_from_csr``, which
+bins without densifying) and a float32 tensor binned where it lies
+(``construct_from_device_matrix``: bins found on a host sample, the codes
+computed with torch ops on the tensor's device).  Each takes
+``reference=``, a training set whose mappers and groups a validation set
+adopts.  The binned matrix is a dense
 ``(num_data, num_groups)`` uint8 array: every feature group holds <= 256
 total bins, so one byte per group cell suffices.  Slot 0 of every group
 means "all features at their default bin"; feature ``f`` with bin
 ``b != default_bin(f)`` maps to ``offset(f) + b - (1 if default_bin(f) == 0
 else 0)``.  The split scan reconstructs the skipped default bin from leaf
 totals.  Bin codes, groups and offsets are the JAX package's byte for byte.
-Device-side binning is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
-from ..config import Config
+from ..config import Config, resolve_device
 from ..utils.log import LightGBMError, log_warning
 from ..utils.random import make_rng
 from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper
@@ -86,7 +90,10 @@ class BinnedDataset:
         self.num_total_features: int = 0
         self.bin_mappers: List[Optional[BinMapper]] = []
         self.groups: List[FeatureGroupInfo] = []
-        self.binned: Optional[np.ndarray] = None       # (N, G) uint8
+        # (N, G) uint8: a numpy array, or a tensor where device_binned
+        self.binned = None
+        self.device_binned = False
+        self.reference: Optional["BinnedDataset"] = None
         self.metadata: Optional[Metadata] = None
         self.feature_names: List[str] = []
         self.used_features: List[int] = []             # original idx, non-trivial
@@ -113,8 +120,11 @@ class BinnedDataset:
             cls, data: np.ndarray, config: Config,
             categorical: Sequence[int] = (),
             feature_names: Optional[Sequence[str]] = None,
+            reference: Optional["BinnedDataset"] = None,
     ) -> "BinnedDataset":
-        """Build from a dense float matrix (rows, features)."""
+        """Build from a dense float matrix (rows, features).  With
+        ``reference``, a validation set: its mappers and groups, no bin
+        finding (reference ``Dataset::CreateValid``)."""
         data = np.asarray(data)
         if data.ndim != 2:
             raise LightGBMError("data must be 2-dimensional")
@@ -125,6 +135,9 @@ class BinnedDataset:
         ds.metadata = Metadata(n)
         ds.feature_names = ([f"Column_{i}" for i in range(num_feat)]
                             if feature_names is None else list(feature_names))
+        if reference is not None:
+            ds._align_with_reference(data, reference)
+            return ds
         ds._find_bins(data, config, set(int(c) for c in categorical))
         ds._bundle_features(data, config)
         ds._build_group_matrix(data)
@@ -136,11 +149,13 @@ class BinnedDataset:
             cls, indptr, indices, values, num_col: int, config: Config,
             categorical: Sequence[int] = (),
             feature_names: Optional[Sequence[str]] = None,
+            reference: Optional["BinnedDataset"] = None,
     ) -> "BinnedDataset":
         """Build from CSR triplets without densifying: host memory stays
         proportional to nnz plus the (N, G) uint8 matrix (the analog of
         the reference's ``LGBM_DatasetCreateFromCSR``, which the fork's
-        cache-admission harness calls every window)."""
+        cache-admission harness calls every window).  ``reference`` as in
+        :meth:`construct_from_matrix`."""
         indptr = np.asarray(indptr, np.int64)
         indices = np.asarray(indices, np.int64)
         values = np.asarray(values, np.float64)
@@ -161,16 +176,16 @@ class BinnedDataset:
         vals_by_col = values[order]
         col_bounds = np.searchsorted(col_sorted,
                                      np.arange(num_col + 1, dtype=np.int64))
+        if reference is not None:
+            ds._check_reference_width(num_col, reference)
+            ds._align_with_reference_shared(reference)
+            ds._build_group_matrix_csr(col_bounds, rows_by_col, vals_by_col)
+            return ds
 
         # stage 1: sampled bin finding (recorded = nonzero or NaN values of
         # the sampled rows; zeros implicit, as in the dense path)
-        sample_cnt = min(n, int(config.bin_construct_sample_cnt))
-        rng = make_rng(config.data_random_seed)
-        if sample_cnt < n:
-            sample_idx = np.sort(rng.choice(n, size=sample_cnt,
-                                            replace=False))
-        else:
-            sample_idx = np.arange(n)
+        sample_idx = ds._draw_sample(config)
+        sample_cnt = len(sample_idx)
         in_sample = np.zeros(n, bool)
         in_sample[sample_idx] = True
         sample_pos = np.full(n, -1, np.int64)
@@ -215,17 +230,143 @@ class BinnedDataset:
         ds._build_feature_lookups(config)
         return ds
 
+    @classmethod
+    def construct_from_device_matrix(
+            cls, data, config: Config,
+            feature_names: Optional[Sequence[str]] = None,
+            reference: Optional["BinnedDataset"] = None,
+            device="cuda",
+    ) -> "BinnedDataset":
+        """Build from an (N, F) float32 matrix, binned where it lies: a
+        tensor keeps its device, a numpy array is uploaded to ``device``.
+        Bins are found and features bundled on a host sample of
+        ``bin_construct_sample_cnt`` rows (drawn as
+        :meth:`construct_from_matrix` draws them, so the mappers and groups
+        are a host build's); the codes are computed on the device and
+        ``binned`` is an (N, G) uint8 tensor there (``device_binned``).
+
+        Exactness: bin boundaries are float64; a float32 value ``v``
+        satisfies ``v <= b64`` exactly when ``v <= round_down32(b64)``, so
+        searching the float32 inputs among the boundaries rounded down to
+        float32 gives the host's codes for float32 data byte for byte.
+
+        Numerical features only; ``reference`` adopts a training set's
+        mappers and groups and computes codes only."""
+        if not isinstance(data, torch.Tensor):
+            data = torch.from_numpy(np.ascontiguousarray(data)).to(
+                resolve_device(str(device)))
+        if data.ndim != 2:
+            raise LightGBMError("data must be 2-dimensional")
+        if data.dtype != torch.float32:
+            raise LightGBMError(
+                f"construct_from_device_matrix needs float32 data (got "
+                f"{data.dtype}); use construct_from_matrix")
+        n, num_feat = (int(s) for s in data.shape)
+        ds = cls()
+        ds.num_data = n
+        ds.num_total_features = num_feat
+        ds.metadata = Metadata(n)
+        ds.feature_names = ([f"Column_{i}" for i in range(num_feat)]
+                            if feature_names is None
+                            else list(feature_names))
+        if reference is not None:
+            ds._check_reference_width(num_feat, reference)
+            ds._align_with_reference_shared(reference)
+        else:
+            idx = ds._draw_sample(config)
+            sample = data[torch.from_numpy(idx).to(data.device)].cpu() \
+                .numpy().astype(np.float64)
+            ds._find_bins(sample, config, set(), presampled=True)
+            ds._bundle_features(sample, config)
+            ds._build_feature_lookups(config)
+        if any(m.bin_type == BIN_CATEGORICAL for m in ds.bin_mappers
+               if m is not None):
+            raise LightGBMError(
+                "construct_from_device_matrix supports numerical "
+                "features only; use construct_from_matrix")
+        ds.binned = ds._bin_on_device(data)
+        ds.device_binned = True
+        return ds
+
+    def _bin_on_device(self, data: torch.Tensor) -> torch.Tensor:
+        """(N, F) float32 tensor -> (N, G) uint8 codes on its device, with
+        torch ops: the used columns are gathered into an (F', N) matrix,
+        every feature is searched in one batched
+        ``searchsorted`` among its boundaries rounded down to float32
+        (padded with +inf, which no search passes), and each group takes
+        its features' non-default slots in feature order (the later
+        feature wins a bundle conflict, as in ``_build_group_matrix``)."""
+        dev = data.device
+        n = int(data.shape[0])
+        feats = [f for g in self.groups for f in g.feature_indices]
+        if not feats:
+            return torch.zeros((n, 0), dtype=torch.uint8, device=dev)
+        # per used feature: its bounds rounded down to float32, and (column,
+        # NaN's bin or -1 where NaN searches as 0, default bin, slot base)
+        bounds, meta = [], []
+        for g in self.groups:
+            for sub, f in enumerate(g.feature_indices):
+                m = self.bin_mappers[f]
+                nan_bin = m.num_bin - 1 if m.missing_type == "nan" else -1
+                n_search = m.num_bin - (1 if nan_bin >= 0 else 0)
+                b64 = np.asarray(m.bin_upper_bound[:n_search - 1], np.float64)
+                b32 = b64.astype(np.float32)
+                over = b32.astype(np.float64) > b64
+                b32[over] = np.nextafter(b32[over], np.float32(-np.inf))
+                bounds.append(b32)
+                meta.append((f, nan_bin, m.default_bin, g.bin_offsets[sub]
+                             - (1 if m.default_bin == 0 else 0)))
+        table = np.full((len(feats), max(1, max(map(len, bounds)))), np.inf,
+                        np.float32)
+        for i, b in enumerate(bounds):
+            table[i, :len(b)] = b
+        meta = torch.from_numpy(np.asarray(meta, np.int32).T.copy()).to(dev)
+        nan_bin, default_bin, slot_base = (meta[i].view(-1, 1)
+                                           for i in (1, 2, 3))
+        # (F', N), each used feature a contiguous row, in one gather from
+        # the transposed view (on the card as fast as a plain transpose and
+        # faster than gathering rows first: scripts/ablate_binning_cuda.py)
+        x = data.t().index_select(0, meta[0].long())
+        nan = torch.isnan(x)
+        b = torch.searchsorted(torch.from_numpy(table).to(dev),
+                               x.masked_fill_(nan, 0.0), side="left",
+                               out_int32=True)
+        b = torch.where(nan & (nan_bin >= 0), nan_bin, b)
+        # a default bin takes slot 0; any other slot is >= 1 (offsets
+        # start at 1) and < 256 (a group holds at most 256 bins)
+        slots = torch.where(b != default_bin, b + slot_base, 0) \
+            .to(torch.uint8)
+        codes = torch.empty((len(self.groups), n), dtype=torch.uint8,
+                            device=dev)
+        row = 0
+        for gid, g in enumerate(self.groups):
+            codes[gid] = slots[row]
+            for sub in range(1, len(g.feature_indices)):
+                codes[gid] = torch.where(slots[row + sub] != 0,
+                                         slots[row + sub], codes[gid])
+            row += len(g.feature_indices)
+        return codes.t().contiguous()
+
     # -- stage 1: bin mappers ---------------------------------------------
-    def _find_bins(self, data: np.ndarray, config: Config,
-                   categorical: set) -> None:
+    def _draw_sample(self, config: Config) -> np.ndarray:
+        """Sorted indices of the ``bin_construct_sample_cnt`` rows bins are
+        found on, from ``make_rng(data_random_seed)``."""
         n = self.num_data
         sample_cnt = min(n, int(config.bin_construct_sample_cnt))
-        rng = make_rng(config.data_random_seed)
         if sample_cnt < n:
-            sample_idx = np.sort(rng.choice(n, size=sample_cnt,
-                                            replace=False))
-        else:
-            sample_idx = np.arange(n)
+            rng = make_rng(config.data_random_seed)
+            return np.sort(rng.choice(n, size=sample_cnt, replace=False))
+        return np.arange(n)
+
+    def _find_bins(self, data: np.ndarray, config: Config,
+                   categorical: set, presampled: bool = False) -> None:
+        """``presampled``: ``data`` is the sample already (device
+        construction gathers it); the filter count still scales by the
+        whole ``num_data``."""
+        n = self.num_data
+        sample_idx = (np.arange(len(data)) if presampled
+                      else self._draw_sample(config))
+        sample_cnt = len(sample_idx)
         self._sample_idx = sample_idx
         sampled = np.asarray(data[sample_idx], dtype=np.float64)
 
@@ -424,3 +565,40 @@ class BinnedDataset:
                     pen[i] = float(fp[f])
         self.monotone_constraints = mono
         self.feature_penalty = pen
+
+    # -- validation alignment ---------------------------------------------
+    @staticmethod
+    def _check_reference_width(num_feat: int, reference) -> None:
+        if num_feat != reference.num_total_features:
+            raise LightGBMError(
+                f"validation data has {num_feat} features, train has "
+                f"{reference.num_total_features}")
+
+    def _align_with_reference_shared(self, reference) -> None:
+        """Adopt the training set's mappers and grouping (CreateValid)."""
+        self.reference = reference
+        self.bin_mappers = reference.bin_mappers
+        self.groups = reference.groups
+        self.used_features = reference.used_features
+        self.f_group = reference.f_group
+        self.f_offset = reference.f_offset
+        self.f_num_bin = reference.f_num_bin
+        self.f_default_bin = reference.f_default_bin
+        self.f_missing_type = reference.f_missing_type
+        self.f_is_categorical = reference.f_is_categorical
+        self.monotone_constraints = reference.monotone_constraints
+        self.feature_penalty = reference.feature_penalty
+        self.feature_names = reference.feature_names
+
+    def _align_with_reference(self, data: np.ndarray,
+                              reference: "BinnedDataset") -> None:
+        self._check_reference_width(data.shape[1], reference)
+        self._align_with_reference_shared(reference)
+        self._build_group_matrix(data)
+
+    def check_align(self, other: "BinnedDataset") -> bool:
+        """Reference ``Dataset::CheckAlign`` (dataset.h:300-316)."""
+        return (self.num_total_features == other.num_total_features
+                and self.num_groups == other.num_groups
+                and all(a.num_total_bin == b.num_total_bin
+                        for a, b in zip(self.groups, other.groups)))

@@ -2,7 +2,9 @@
 
 Counterpart of ``lightgbm_tpu/metrics/__init__.py`` for the binary slice;
 the JAX package's other metrics come with their objectives and are refused
-by name here.  Scores arrive as (num_model, N) float64 raw scores.
+by name here.  Scores arrive as (num_model, N) float64 raw scores.  A
+metric is initialized on the metadata (labels, weights) of the set it
+evaluates: the training set's, or each validation set's.
 """
 
 from __future__ import annotations

@@ -164,9 +164,13 @@ class DeviceGrower:
         self.n_pad = bucket_size(max(self.num_data, 1)) \
             if config.train_row_bucketing \
             else self.num_data
-        binned_t = np.zeros((self.num_groups, self.n_pad), np.uint8)
-        binned_t[:, :self.num_data] = np.asarray(dataset.binned).T
-        self.binned_t = torch.from_numpy(binned_t).to(device)
+        # a device-binned dataset's codes are transposed where they lie
+        binned = dataset.binned
+        if not isinstance(binned, torch.Tensor):
+            binned = torch.from_numpy(binned)
+        self.binned_t = torch.zeros((self.num_groups, self.n_pad),
+                                    dtype=torch.uint8, device=device)
+        self.binned_t[:, :self.num_data] = binned.to(device).t()
         self.meta = FeatureMeta.from_dataset(dataset, slot_stride=nb,
                                              device=device)
         self.hyper = SplitHyper.from_config(config)

@@ -587,3 +587,80 @@ def test_500_tree_small_requests_take_the_trees_route(cuda_device):
             num_model=1, max_depth=pe.max_depth)[0]
         np.testing.assert_array_equal(
             got, want.cpu().numpy().astype(np.float64))
+
+
+def _valid_rows(seed, n=60_000, f=12):
+    """float32 rows with NaNs and exact zeros, and labels."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    x[rng.random((n, f)) < 0.05] = np.nan
+    x[:, 3] = np.where(rng.random(n) < 0.6, 0.0, x[:, 3])
+    y = (np.nan_to_num(x[:, 0]) + 0.5 * x[:, 1] > 0).astype(np.float32)
+    return x, y
+
+
+def test_device_binning_equals_cpu_on_card(cuda_device):
+    """construct_from_device_matrix on a card tensor: mappers and codes
+    equal to the same call on a CPU tensor and to the host build, and a
+    reference-built validation set's codes too."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import BinnedDataset
+    x, _ = _valid_rows(11)
+    cfg = Config({"objective": "binary", "max_bin": 255,
+                  "bin_construct_sample_cnt": 20_000, "verbose": -1})
+    on_card = BinnedDataset.construct_from_device_matrix(
+        torch.from_numpy(x[:50_000]).to(cuda_device), cfg)
+    on_cpu = BinnedDataset.construct_from_device_matrix(
+        torch.from_numpy(x[:50_000]), cfg)
+    host = BinnedDataset.construct_from_matrix(x[:50_000], cfg)
+    assert on_card.binned.device.type == "cuda"
+    assert [m.feature_info_str() for m in on_card.bin_mappers] == \
+        [m.feature_info_str() for m in host.bin_mappers]
+    np.testing.assert_array_equal(on_card.binned.cpu().numpy(),
+                                  on_cpu.binned.numpy())
+    np.testing.assert_array_equal(on_card.binned.cpu().numpy(), host.binned)
+    valid = BinnedDataset.construct_from_device_matrix(
+        x[50_000:], cfg, reference=on_card, device=cuda_device)
+    np.testing.assert_array_equal(
+        valid.binned.cpu().numpy(),
+        BinnedDataset.construct_from_matrix(x[50_000:], cfg,
+                                            reference=host).binned)
+
+
+def test_valid_scoring_on_card_equals_cpu(cuda_device):
+    """engine.train with a device-binned validation set and early
+    stopping on the card: every tree's leaves by the traversal on the
+    card equal those on the CPU and the host walk's, the validation
+    scores equal the CPU traversal's sums and follow Booster.predict."""
+    from lightgbm_tpu_torch.ops import traverse
+    x, y = _valid_rows(12)
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "learning_rate": 0.3, "verbose": -1,
+              "metric": ["binary_logloss", "auc"]}
+    xt = torch.from_numpy(x).to(cuda_device)
+    train = lt.Dataset(xt[:50_000], y[:50_000])
+    valid = train.create_valid(xt[50_000:], y[50_000:])
+    evals = {}
+    booster = lt.train(params, train, 30, valid_sets=[valid],
+                       early_stopping_rounds=3, evals_result=evals,
+                       verbose_eval=False)
+    assert booster.best_iteration > 0
+    assert len(evals["valid_0"]["auc"]) == booster.current_iteration()
+    gb = booster._gbdt
+    vs = gb.valid_sets[0]
+    assert vs.binned.device.type == "cuda"
+    binned_cpu = vs.binned.cpu()
+    score_cpu = torch.zeros(len(x) - 50_000)
+    for tree in gb.models:
+        on_card = traverse.device_tree(tree, gb.train_set, 31, cuda_device)
+        on_cpu = traverse.device_tree(tree, gb.train_set, 31, "cpu")
+        leaves = traverse.traverse(vs.binned, on_card).cpu()
+        assert torch.equal(leaves, traverse.traverse(binned_cpu, on_cpu))
+        np.testing.assert_array_equal(leaves.numpy(),
+                                      tree.predict_leaf(x[50_000:]))
+        score_cpu = traverse.add_tree_score(score_cpu, binned_cpu, on_cpu,
+                                            1.0)
+    assert torch.equal(vs.score[0].cpu(), score_cpu)
+    np.testing.assert_allclose(vs.score[0].double().cpu().numpy(),
+                               booster.predict(x[50_000:], raw_score=True),
+                               atol=1e-5)

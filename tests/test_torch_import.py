@@ -27,7 +27,8 @@ def test_import_pulls_in_no_jax():
         "import lightgbm_tpu_torch, lightgbm_tpu_torch.convert\n"
         "import lightgbm_tpu_torch.ops.grow, lightgbm_tpu_torch.ops.hist_cuda\n"
         "import lightgbm_tpu_torch.ops.bagging, lightgbm_tpu_torch.ops.split\n"
-        "import lightgbm_tpu_torch.ops.histogram\n"
+        "import lightgbm_tpu_torch.ops.histogram, lightgbm_tpu_torch.ops.traverse\n"
+        "import lightgbm_tpu_torch.callback\n"
         "import lightgbm_tpu_torch.utils.random, runpy\n"
         "import lightgbm_tpu_torch.serve, synthetic_forests\n"
         "runpy.run_path('scripts/ubench_hist_cuda.py')\n"
