@@ -34,9 +34,20 @@ Phases, one line each:
               10 rounds: (a) 255 leaves, from the dense binning; from the
               CSR binning (b) the fork harness's config, 31 leaves,
               feature_fraction 0.8, bagging every 5 rounds at 0.8; (c)
-              grad_quant_bits=8 at 255 leaves, run twice.  Every
-              wave's histogram must come from wave_hist (launch count ==
-              waves); each run checks training AUC and Booster.predict
+              grad_quant_bits=8 at 255 leaves, run twice.  Each trains
+              through engine.train twice: fused (one chunk of 10 trees,
+              each one launch of the captured tree graph, no host sync)
+              and per-iteration (a callback without the eval-cadence
+              mark; one host sync a tree); both must give the eager wave
+              loop's model text sha256 (EAGER_SHA256), and wave_hist's
+              launches must equal the executed waves, both counted on the
+              device.  Prints s/tree both ways, the capture, warm-up and
+              instantiate seconds, peak memory after capture; for higgs
+              5 more fused chunks (s/tree median and spread, host syncs
+              a chunk, a tree graph's launch in host us) and the device
+              cost of a stage loop that never enters (--profile: device
+              busy and idle over one fused chunk).  Each run checks
+              training AUC and Booster.predict
               of all 2M rows (through forest_predict, whose launches
               are counted) bit for bit against the plain version on the
               card and within 1e-5 of the device training score, and
@@ -546,34 +557,164 @@ def auc_of(y, score) -> float:
     return m.eval(score[None, :], None)[0][1]
 
 
-def train_run(name, ds, x, y, dev, profile=False):
-    """10 rounds of one configuration on the binned Dataset ``ds``; every
-    wave's histogram must come from the wave_hist kernel.  ``profile``
-    adds a device-time breakdown of one more tree."""
+#: model text sha256 of each training configuration from the eager wave
+#: loop (PR 6's final tree, chip_smoke.py on an H100 80GB HBM3 at 700 W);
+#: the captured tree must keep every split, so every text, on both paths
+EAGER_SHA256 = {
+    "higgs":
+        "ef39698fcaafab3854b57e741e10d0641782052c8613388029d3ee03f8d7652e",
+    "harness":
+        "a6018d29ed36751a338dfc4d284379a036f65c4f066306c4724b84eecc28a0c4",
+    "int8":
+        "b7bbd432e452ceecd9cb79b96fdfe66cbc0bf0a1de06f477db89c23ef306fb5d",
+}
+#: repeated fused chunks of the higgs configuration timed after its run
+FUSED_REPEATS = 5
+
+
+def _per_iteration(env):
+    """A user callback without the eval_cadence_only mark: engine.train
+    then drives one iteration at a time (the per-iteration path), with
+    the same params, so the same model text."""
+
+
+def train_path(name, ds, dev, path):
+    """``engine.train`` of one configuration on one path ("fused": one
+    chunk of ROUNDS trees; "per_iteration"): the booster and what the run
+    counted.  Every launch of wave_hist must be an executed wave of this
+    run's grower, both counted on the device."""
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import hist_cuda
-    from lightgbm_tpu_torch.serve import packed
     params = {**TRAIN_BASE, **TRAIN_RUNS[name], "device": dev.type}
     torch.cuda.reset_peak_memory_stats(dev)
-    hist_cuda.wave_hist.launches = 0          # count this run only
+    hist_cuda.wave_hist.launches.reset()          # count this run only
+    torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    booster = lt.train(params, ds, num_boost_round=ROUNDS)
+    booster = lt.train(params, ds, num_boost_round=ROUNDS,
+                       callbacks=None if path == "fused"
+                       else [_per_iteration])
+    text = booster.model_to_string()
     train_s = time.perf_counter() - t0
-    launches = hist_cuda.wave_hist.launches
     gb = booster._gbdt
+    grower = gb._grower
+    launches = hist_cuda.wave_hist.launches.read()
+    executed = int(grower.executed_waves)
     stats = gb.tree_stats
-    waves = sum(s[1] for s in stats)
-    syncs = sum(s[2] for s in stats)
-    if launches <= 0 or launches != waves:
-        fail(f"{name}: kernel launches {launches} != waves {waves}")
+    waves = sum(s[2] for s in stats)
+    syncs = [s[3] for s in stats]
+    cap = dict(grower.capture_stats)
+    if launches <= 0 or launches != executed \
+            or executed != waves + cap["warmup_waves"]:
+        fail(f"{name} {path}: wave_hist launches {launches}, executed waves "
+             f"{executed} (device counters), tree waves {waves} + warm-up "
+             f"{cap['warmup_waves']}")
+    chunks = [s[1] for s in stats]
+    want = [ROUNDS] if path == "fused" else [1] * ROUNDS
+    if chunks != want:
+        fail(f"{name} {path}: dispatches of {chunks} trees, expected {want}")
+    if path == "fused" and syncs != [0]:
+        fail(f"{name}: the fused chunk made {syncs} host syncs")
+    if path == "per_iteration" and syncs != [1] * ROUNDS:
+        fail(f"{name}: per-iteration host syncs {syncs}, one a tree "
+             f"expected")
+    sha = hashlib.sha256(text.encode()).hexdigest()
+    if sha != EAGER_SHA256[name]:
+        fail(f"{name} {path}: model text sha256 {sha}, the eager wave "
+             f"loop's {EAGER_SHA256[name]}")
+    score = gb.train_score[0].double().cpu().numpy()
+    if not np.isfinite(score).all():
+        fail(f"{name} {path}: non-finite training scores")
+    res = dict(path=path, train_s=train_s, s_per_tree=train_s / ROUNDS,
+               model_text_sha256=sha, launches=launches,
+               executed_waves=executed, waves=waves,
+               waves_per_tree=waves / ROUNDS, host_syncs=syncs,
+               dispatch_s=[s[0] for s in stats], capture=cap,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               reserved_gb=torch.cuda.memory_reserved(dev) / 1e9)
+    return booster, score, res
+
+
+def time_fused_chunks(booster, dev):
+    """FUSED_REPEATS fused chunks of ROUNDS trees on a trained booster
+    after one untimed chunk (its first captures the fused graphs), each
+    timed on the host clock to a synchronize (s/tree), with the host time
+    until the dispatch returned and the waves its trees took, and the
+    launch of one composed tree graph alone (host us)."""
+    import torch
+    gb = booster._gbdt
+    gb.train_chunked(ROUNDS, chunk=ROUNDS)
+    per_tree, dispatch, syncs = [], [], []
+    for _ in range(FUSED_REPEATS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        gb.train_chunked(ROUNDS, chunk=ROUNDS)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        per_tree.append((time.perf_counter() - t0) / ROUNDS)
+        dispatch.append((t1 - t0) / ROUNDS)
+        syncs.append(gb._stats[-1][3])
+    waves = [s[2] / s[1] for s in gb.tree_stats[-FUSED_REPEATS:]]
+    graph = gb._grower._graph(False)
+    gb._grower._st.ctl[3:4].zero_()           # chunk slots 0..ROUNDS-1
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(ROUNDS):
+        graph.launch()
+    launch_us = (time.perf_counter() - t0) / ROUNDS * 1e6
+    torch.cuda.synchronize(dev)
+    return dict(s_per_tree=per_tree, dispatch_s_per_tree=dispatch,
+                waves_per_tree=waves, host_syncs_per_chunk=syncs,
+                launch_host_us=launch_us)
+
+
+def skipped_loop_cost(grower, dev):
+    """Device ms of a stage loop whose condition is false at entry: the
+    grower's start and finish pieces composed with its stage loops at
+    limit 0 (they never enter), against the two pieces alone, queued
+    behind a sleep kernel; per loop."""
+    from lightgbm_tpu_torch.ops import graphs
+    p = grower._graphs
+    ctl = grower._st.ctl
+    n = len(p["waves"])
+    looped = graphs.compose([(p["start"], None)]
+                            + [(w, 0) for w in p["waves"]]
+                            + [(p["finish"], None)], ctl)
+    plain = graphs.compose([(p["start"], None), (p["finish"], None)], ctl)
+    slot = ctl[3:4]
+
+    def run(graph):
+        # every launch writes chunk slot 0 (the finish piece)
+        def once():
+            slot.zero_()
+            graph.launch()
+        return once
+    ms_loops = time_queued_ms(run(looped), reps=20)
+    ms_plain = time_queued_ms(run(plain), reps=20)
+    looped.close()
+    plain.close()
+    return dict(stages=n, with_loops_ms=ms_loops, without_ms=ms_plain,
+                per_skipped_loop_us=(ms_loops - ms_plain) / n * 1e3)
+
+
+def train_run(name, ds, x, y, dev, profile=False):
+    """10 rounds of one configuration on the binned Dataset ``ds``,
+    through engine.train's fused path (one chunk of 10 captured trees)
+    and its per-iteration path: both must give the eager wave loop's
+    model text, and every wave's histogram must come from the wave_hist
+    kernel.  The fused booster's predictions are checked.  ``profile``
+    adds a device-time breakdown of one per-iteration tree and, for
+    higgs, of one fused chunk."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.serve import packed
+    booster, score, fused = train_path(name, ds, dev, "fused")
+    spare, _, plain = train_path(name, ds, dev, "per_iteration")
+    gb = booster._gbdt
     trees = booster.num_trees()
     if trees != ROUNDS:
         fail(f"{name}: expected {ROUNDS} trees, got {trees}")
-    score = gb.train_score[0].double().cpu().numpy()
-    if not np.isfinite(score).all():
-        fail(f"{name}: non-finite training scores")
     auc = auc_of(y, score)
     if auc < AUC_FLOOR:
         fail(f"{name}: training AUC {auc:.4f} below the floor {AUC_FLOOR}")
@@ -592,13 +733,13 @@ def train_run(name, ds, x, y, dev, profile=False):
     # the kernel's answer at this run's pack and row count, bit for bit
     # against the plain version on the card
     pe = packed.pack_gbdt(gb, device=dev)
-    plain = packed.forest_predict_reference(
+    plain_pred = packed.forest_predict_reference(
         pe.tables(), torch.from_numpy(x).to(dev), num_model=pe.num_model,
         max_depth=pe.max_depth)[0].double().cpu().numpy()
-    if not np.array_equal(raw, plain):
+    if not np.array_equal(raw, plain_pred):
         fail(f"{name}: Booster.predict through forest_predict differs from "
-             f"the plain version on {int((raw != plain).sum())} rows")
-    del pe, plain
+             f"the plain version on {int((raw != plain_pred).sum())} rows")
+    del pe, plain_pred
     pred_err = float(np.abs(raw - score).max())
     if pred_err > 1e-5:
         fail(f"{name}: predict through forest_predict vs device training "
@@ -616,35 +757,76 @@ def train_run(name, ds, x, y, dev, profile=False):
         if host_err > 1e-5:
             fail(f"{name}: host predict vs device training score: "
                  f"{host_err:.3g}")
-    per_tree = [s[0] for s in stats]
-    text_sha = hashlib.sha256(booster.model_to_string().encode()).hexdigest()
-    result = dict(params=params, trees=trees, model_text_sha256=text_sha,
-                  leaves=[t.num_leaves for t in gb.models], train_s=train_s,
-                  s_per_tree=per_tree, waves_per_tree=[s[1] for s in stats],
-                  host_syncs_per_tree=[s[2] for s in stats],
-                  launches=launches, waves=waves, host_syncs=syncs,
+    per_iter = plain["dispatch_s"]
+    result = dict(params={**TRAIN_BASE, **TRAIN_RUNS[name]}, trees=trees,
+                  model_text=booster.model_to_string(),
+                  model_text_sha256=fused["model_text_sha256"],
+                  leaves=[t.num_leaves for t in gb.models],
+                  fused=fused, per_iteration=plain,
+                  launches=fused["launches"] + plain["launches"],
                   auc=auc, predict_s=predict_s, predict_split=split,
                   predict_launches=predict_launches,
                   predict_routes=predict_routes,
                   host_predict_s=host_predict_s,
-                  predict_vs_score_max_abs=pred_err,
-                  peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+                  predict_vs_score_max_abs=pred_err)
+    cap = fused["capture"]
     host_note = ("" if host_predict_s is None
                  else f"; host walk {host_predict_s:.2f} s")
-    print(f"  train {name}: {trees} trees, {train_s:.2f} s "
-          f"({np.mean(per_tree[1:]):.4f} s/tree after the first, first "
-          f"{per_tree[0]:.3f} s), {waves / trees:.1f} waves/tree, "
-          f"{syncs / trees:.1f} host syncs/tree, kernel launches "
-          f"{launches} == waves, AUC {auc:.4f}, predict {predict_s:.4f} s "
-          f"({predict_launches} forest_predict launch, routes "
-          f"{predict_routes}{host_note}; bit-equal to the plain version), "
-          f"predict-vs-score {pred_err:.2g}, model text sha256 {text_sha}",
+    print(f"  train {name}: {trees} trees, fused {fused['train_s']:.3f} s "
+          f"(one chunk, {fused['host_syncs'][0]} host syncs, capture "
+          f"included: warm-up {cap['warmup_s']:.3f} + capture "
+          f"{cap['capture_s']:.3f} + instantiate {cap['instantiate_s']:.3f}"
+          f" s for {cap['graphs']} composed graph(s)), per-iteration "
+          f"{plain['train_s']:.3f} s ({np.mean(per_iter[1:]):.4f} s/tree "
+          f"after the first, 1 host sync a tree); "
+          f"{fused['waves_per_tree']:.1f} waves/tree, wave_hist launches "
+          f"{fused['launches']} + {plain['launches']} == executed waves on "
+          f"the device (warm-up {cap['warmup_waves']} each); peak memory "
+          f"{fused['peak_mem_gb']:.2f} GB after capture "
+          f"({fused['reserved_gb']:.2f} GB reserved); AUC {auc:.4f}; model "
+          f"text sha256 "
+          f"{fused['model_text_sha256']} on both paths == the eager loop's",
           flush=True)
-    print(f"  train {name}: predict_s {predict_s:.4f} s = pack "
-          f"{split['pack_s']:.4f} + upload {split['upload_s']:.4f} + kernel "
-          f"{split['kernel_s']:.4f} (events {split['kernel_ms_events']:.3f} "
-          f"ms) + download {split['download_s']:.4f} + rest "
-          f"{split['other_s']:.4f} s", flush=True)
+    print(f"  train {name}: predict {predict_s:.4f} s ({predict_launches} "
+          f"forest_predict launch, routes {predict_routes}{host_note}; "
+          f"bit-equal to the plain version), predict-vs-score "
+          f"{pred_err:.2g}; predict_s = pack {split['pack_s']:.4f} + upload "
+          f"{split['upload_s']:.4f} + kernel {split['kernel_s']:.4f} (events "
+          f"{split['kernel_ms_events']:.3f} ms) + download "
+          f"{split['download_s']:.4f} + rest {split['other_s']:.4f} s",
+          flush=True)
+    # after the checks: more fused chunks, timed, on the per-iteration
+    # run's booster (the same model; the checked booster keeps its trees)
+    gbs = spare._gbdt
+    timing = time_fused_chunks(spare, dev)
+    result["fused_repeats"] = timing
+    st = sorted(timing["s_per_tree"])
+    pi = sorted(per_iter[1:])
+    skip_note = ""
+    if name == "higgs":
+        skip = result["skipped_loop"] = skipped_loop_cost(gbs._grower, dev)
+        skip_note = (f"; a stage loop that never enters "
+                     f"{skip['per_skipped_loop_us']:.2f} us of device time "
+                     f"({skip['stages']} stages)")
+    print(f"  train {name}: {FUSED_REPEATS} more fused chunks of {ROUNDS}: "
+          f"s/tree median {st[len(st) // 2]:.5f} (min {st[0]:.5f}, max "
+          f"{st[-1]:.5f}); per-iteration trees 2-{ROUNDS}: median "
+          f"{pi[len(pi) // 2]:.5f} (min {pi[0]:.5f}, max {pi[-1]:.5f}); "
+          f"a fused dispatch returns after "
+          f"{np.median(timing['dispatch_s_per_tree']) * 1e3:.3f} ms a tree, "
+          f"waves a tree {timing['waves_per_tree']}, "
+          f"host syncs a chunk {timing['host_syncs_per_chunk']}, one tree "
+          f"graph's launch {timing['launch_host_us']:.1f} us of host"
+          f"{skip_note}", flush=True)
+    if profile:
+        result["profile_chunk"] = prof = profile_ops(
+            f"{name}: one fused chunk of {ROUNDS} trees",
+            lambda: gbs.train_chunked(ROUNDS, chunk=ROUNDS))
+        wall = st[len(st) // 2] * ROUNDS * 1e3
+        print(f"  profile {name}: device busy {prof['device_busy_ms']:.2f} "
+              f"ms of the unprofiled chunk's {wall:.2f} ms (idle "
+              f"{1 - prof['device_busy_ms'] / wall:.1%}), "
+              f"{prof['launches'] / ROUNDS:.0f} kernels a tree", flush=True)
     if profile:
         result["profile"] = profile_tree(gb)
     return booster, result
@@ -677,26 +859,26 @@ def phase_train(dev, seed: int, profile: bool):
     runs["higgs"]["input"] = "dense"
     del codes_d, codes_c
     sub = x[:200_000]
-    again = lt.Booster(model_str=booster.model_to_string())
+    models = {"higgs": runs["higgs"].pop("model_text")}
+    again = lt.Booster(model_str=models["higgs"])
     rt_err = float(np.abs(again.predict(sub) - booster.predict(sub)).max())
     if rt_err > 1e-12:
         fail(f"model text round trip moved predictions by {rt_err:.3g}")
     runs["higgs"]["roundtrip_max_abs"] = rt_err
-    models = {"higgs": booster.model_to_string()}
     del booster, again
 
     booster, runs["harness"] = train_run("harness", ds, x, y, dev, profile)
     gb = booster._gbdt
     runs["harness"]["in_bag_rows"] = int(gb.row_mask.sum())
     runs["harness"]["features_per_tree"] = gb._grower._ff_k
-    models["harness"] = booster.model_to_string()
+    models["harness"] = runs["harness"].pop("model_text")
     del booster, gb
 
     texts = []
     for rep in range(2):
         booster, res = train_run("int8", ds, x, y, dev,
                                  profile and rep == 0)
-        texts.append(booster.model_to_string())
+        texts.append(res.pop("model_text"))
         runs[f"int8_run{rep + 1}"] = res
         del booster
     if texts[0] != texts[1]:
@@ -835,7 +1017,7 @@ def phase_data(dev, seed: int, dense, x, y, train, profile: bool):
 
     # the higgs configuration from the card's codes, validated each round
     params = {**TRAIN_BASE, **TRAIN_RUNS["higgs"], "device": dev.type}
-    hist_cuda.wave_hist.launches = 0          # this run only
+    hist_cuda.wave_hist.launches.reset()      # this run only
     gb = GBDT(Config(params))
     gb.init_train(ds)
     gb.add_valid(vds, "valid")
@@ -848,10 +1030,10 @@ def phase_data(dev, seed: int, dense, x, y, train, profile: bool):
         records = gb.eval_valid()
         eval_s.append(time.perf_counter() - t1)
     train_s = time.perf_counter() - t0
-    launches = hist_cuda.wave_hist.launches
-    waves = sum(st[1] for st in gb.tree_stats)
+    launches = hist_cuda.wave_hist.launches.read()
+    waves = int(gb._grower.executed_waves)
     if launches <= 0 or launches != waves:
-        fail(f"data: kernel launches {launches} != waves {waves}")
+        fail(f"data: kernel launches {launches} != executed waves {waves}")
     booster = lt.Booster.from_gbdt(gb, params)
     text_sha = hashlib.sha256(booster.model_to_string().encode()).hexdigest()
     want_sha = train["runs"]["higgs"]["model_text_sha256"]
@@ -917,7 +1099,7 @@ def phase_data(dev, seed: int, dense, x, y, train, profile: bool):
     del booster, gb, vs, dts, sub, score0
 
     # engine.train with the pair as its valid set and early stopping
-    hist_cuda.wave_hist.launches = 0
+    hist_cuda.wave_hist.launches.reset()
     tr = lt.Dataset(x_dev, y, params=dict(TRAIN_BASE))
     va = tr.create_valid(xv_dev, yv)
     evals = {}
@@ -926,11 +1108,11 @@ def phase_data(dev, seed: int, dense, x, y, train, profile: bool):
                    ROUNDS, valid_sets=[va], early_stopping_rounds=3,
                    evals_result=evals, verbose_eval=False)
     engine_s = time.perf_counter() - t0
-    eng_launches = hist_cuda.wave_hist.launches
-    eng_waves = sum(st[1] for st in eng._gbdt.tree_stats)
+    eng_launches = hist_cuda.wave_hist.launches.read()
+    eng_waves = int(eng._gbdt._grower.executed_waves)
     if eng_launches <= 0 or eng_launches != eng_waves:
-        fail(f"engine.train: kernel launches {eng_launches} != waves "
-             f"{eng_waves}")
+        fail(f"engine.train: kernel launches {eng_launches} != executed "
+             f"waves {eng_waves}")
     aucs = evals.get("valid_0", {}).get("auc", [])
     if not aucs or not 1 <= eng.best_iteration <= len(aucs):
         fail(f"engine.train filled evals_result {list(evals)} and "
@@ -1581,7 +1763,8 @@ def profile_ops(label, fn):
     wall, rows = device_time(fn)
     busy = sum(r[1] for r in rows)
     print(f"  profile {label}: {wall * 1e3:.2f} ms wall, {busy:.3f} ms "
-          f"device busy in {sum(r[2] for r in rows)} launches")
+          f"device busy in {sum(r[2] for r in rows)} launches (device idle "
+          f"{1 - busy / (wall * 1e3):.1%})")
     for key, ms, count in rows[:8]:
         print(f"    {ms:9.3f} ms  {count:6d}x  {key[:90]}")
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy,

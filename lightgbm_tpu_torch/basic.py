@@ -149,8 +149,25 @@ class Booster:
         return self
 
     def update(self) -> bool:
-        """One boosting iteration; True when training cannot continue."""
-        return self._gbdt.train_one_iter()
+        """One boosting iteration; True when training cannot continue.
+        Drives ``GBDT.train_chunked``: one iteration takes the
+        per-iteration path, and the driver keeps the bagging state right
+        when fused chunks (``update_chunked``, ``engine.train``) and single
+        updates mix."""
+        return self._gbdt.train_chunked(1)
+
+    def update_chunked(self, n_iters: int, chunk: Optional[int] = None
+                       ) -> bool:
+        """Train ``n_iters`` iterations, fusing up to ``chunk`` whole
+        iterations into one dispatch when the configuration allows
+        (``GBDT.train_chunked``); True if training stopped early.
+        ``chunk`` defaults to the ``fused_chunk`` param (``<= 1`` disables
+        fusing).  No callbacks run here: ``engine.train`` keeps their
+        cadence."""
+        if chunk is None:
+            chunk = max(int(getattr(self._gbdt.config, "fused_chunk", 20)),
+                        0)
+        return self._gbdt.train_chunked(n_iters, chunk=chunk)
 
     def current_iteration(self) -> int:
         self._gbdt._flush_pending()

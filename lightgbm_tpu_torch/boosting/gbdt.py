@@ -13,8 +13,13 @@ every ``bagging_freq`` iterations and feature_fraction draws a mask per
 tree, both from the JAX package's Threefry keys, so the draws are its
 draws.  Validation sets (``add_valid``) keep their scores on the device
 and take each new tree at evaluation time (``eval_valid``), by the
-binned-matrix traversal ``ops/traverse.py``.  The fused multi-iteration
-scan is not ported yet.
+binned-matrix traversal ``ops/traverse.py``.  :meth:`GBDT.train_chunked`
+is the fused path (``lightgbm_tpu/boosting/gbdt.py:711-825``): a chunk of
+trees runs as ``fused_chunk`` launches of the grower's captured tree with
+gradients, bagging redraws, feature masks and int8 noise drawn on the
+card and no host read in between; the chunk's records come back in one
+asynchronous copy, and the stump check reads the previous chunk's leaf
+counts (one host sync a chunk).
 """
 
 from __future__ import annotations
@@ -71,14 +76,57 @@ class _PendingTree:
         self.rec_i, self.rec_f, self.nl = rec_i, rec_f, nl
         self.shrinkage, self.bias = shrinkage, bias
 
-    @property
-    def num_leaves(self) -> int:
-        return self.nl
-
     def materialize(self, dataset, config) -> Tree:
         return _replay_records(self.rec_i.cpu().numpy(),
-                               self.rec_f.cpu().numpy(), self.nl,
+                               self.rec_f.cpu().numpy(), int(self.nl),
                                self.shrinkage, self.bias, dataset, config)
+
+
+class _RecStack:
+    """The stacked records of a fused chunk (``DeviceGrower.fused_train``:
+    rec_i, rec_f, nl, waves, qscales): ONE asynchronous device-to-host
+    copy into pinned memory serves every tree of the chunk; :meth:`host`
+    waits for it (a host sync, counted by the caller)."""
+
+    __slots__ = ("_host", "_event")
+
+    def __init__(self, arrays, device: torch.device):
+        self._event = None
+        if device.type == "cuda":
+            self._host = tuple(torch.empty(a.shape, dtype=a.dtype,
+                                           pin_memory=True) for a in arrays)
+            for h, a in zip(self._host, arrays):
+                h.copy_(a, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(device))
+        else:
+            self._host = tuple(a.clone() for a in arrays)
+
+    def host(self):
+        """(rec_i, rec_f, nl, waves, qscales) numpy arrays."""
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        return tuple(h.numpy() for h in self._host)
+
+
+class _PendingChunkTree:
+    """One tree of a fused chunk: index ``idx`` into a shared _RecStack."""
+
+    __slots__ = ("stack", "idx", "shrinkage", "bias")
+
+    def __init__(self, stack, idx, shrinkage, bias):
+        self.stack, self.idx = stack, idx
+        self.shrinkage, self.bias = shrinkage, bias
+
+    def materialize(self, dataset, config) -> Tree:
+        rec_i, rec_f, nl = self.stack.host()[:3]
+        return _replay_records(rec_i[self.idx], rec_f[self.idx],
+                               int(nl[self.idx]), self.shrinkage, self.bias,
+                               dataset, config)
+
+
+_PENDING = (_PendingTree, _PendingChunkTree)
 
 
 class _ValidSet:
@@ -116,8 +164,11 @@ class GBDT:
         self.feature_infos: List[str] = []
         self._grower: Optional[DeviceGrower] = None
         self._device_stop = False
-        #: per-tree (seconds, waves, host syncs) of the device path
-        self.tree_stats: List[Tuple[float, int, int]] = []
+        # [seconds, trees, waves (int, device tensor or _RecStack), host
+        # syncs] per dispatch: a tree of the per-iteration path, a chunk
+        # of the fused one
+        self._stats: List[list] = []
+        self._last_chunk_stack: Optional[_RecStack] = None
 
     # ------------------------------------------------------------------
     def init_train(self, train_set: BinnedDataset):
@@ -211,12 +262,26 @@ class GBDT:
             self.device)
 
     # ------------------------------------------------------------------
+    @property
+    def tree_stats(self) -> List[Tuple[float, int, int, int]]:
+        """(seconds, trees, waves, host syncs) per dispatch: a tree of the
+        per-iteration path, a chunk of the fused path.  Seconds are the
+        host's clock around the dispatch (a fused chunk is not
+        synchronized: its lagged stall check waits for the previous
+        one).  Waves are read here, lagged (a host read)."""
+        out = []
+        for secs, trees, waves, syncs in self._stats:
+            if isinstance(waves, _RecStack):
+                waves = int(waves.host()[3].sum())
+            out.append((secs, trees, int(waves), syncs))
+        return out
+
     def train_one_iter(self) -> bool:
         """One boosting iteration; returns True when training should stop
         (the tree is a stump: no leaf meets the split requirements).
 
-        The stump check reads each tree's leaf count as soon as the tree
-        is grown: the wave loop has it on the host already.  (The JAX
+        The stump check reads the tree's leaf count as soon as the tree is
+        grown: the one host sync of the per-iteration path.  (The JAX
         package checks with a 4-iteration lag to keep its dispatch
         pipeline full, and trims the extra stumps afterwards.)"""
         if self._device_stop:
@@ -244,11 +309,9 @@ class GBDT:
         self.models.append(_PendingTree(res.rec_i, res.rec_f,
                                         res.num_leaves, shrink, bias))
         self.iter += 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.tree_stats.append((time.perf_counter() - t0, res.waves,
-                                res.host_syncs))
-        if res.num_leaves <= 1:
+        stump = int(res.num_leaves) <= 1          # the tree's host sync
+        self._stats.append([time.perf_counter() - t0, 1, res.waves, 1])
+        if stump:
             self._device_stop = True
             self._flush_pending()
             log_warning("Stopped training because there are no more leaves "
@@ -256,18 +319,130 @@ class GBDT:
             return True
         return False
 
+    # ------------------------------------------------------------------
+    # fused multi-iteration path: a chunk of trees per dispatch
+    def _fused_grad_fn(self):
+        """The objective's ``device_grad`` pair when fused training is
+        sound for the current state, else None
+        (``lightgbm_tpu/boosting/gbdt.py:680-704``): plain GBDT, one model
+        per iteration, features to split on, and an objective with a pure
+        device gradient that has a class to train."""
+        if (self._grower is None or type(self) is not GBDT
+                or self.num_model != 1
+                or self.train_set.num_features == 0
+                or self.objective is None
+                or not self.objective.class_need_train(0)):
+            return None
+        return self.objective.device_grad()
+
+    def fused_eligible(self) -> bool:
+        """Whether :meth:`train_chunked` will actually fuse."""
+        return self._fused_grad_fn() is not None
+
+    def train_chunked(self, n_iters: int, chunk: int = 20,
+                      snapshot_freq: int = 0) -> bool:
+        """Train ``n_iters`` boosting iterations, ``chunk`` whole
+        iterations a dispatch when the configuration allows (see
+        :meth:`_train_chunked_inner`).  Returns True when training stopped
+        early.  ``snapshot_freq > 0`` (the JAX package's checkpoints) is
+        refused: ``robust/`` is not ported."""
+        if int(snapshot_freq) > 0:
+            raise LightGBMError("train_chunked(snapshot_freq > 0): "
+                                "checkpoints (robust/) are not ported to "
+                                "lightgbm_tpu_torch yet")
+        return self._train_chunked_inner(n_iters, chunk)
+
+    def _train_chunked_inner(self, n_iters: int, chunk: int = 20) -> bool:
+        """The chunked training core (``lightgbm_tpu/boosting/gbdt.py:
+        750-825``).  Each chunk is ``DeviceGrower.fused_train``: one
+        key-table copy and ``chunk`` launches of the captured tree on the
+        card, no host read between its first and last tree.  Same
+        gradients, trees and scores as the per-iteration path; the stall
+        check reads the PREVIOUS chunk's leaf counts (their copy landed
+        while this chunk was queued), and ``_flush_pending`` trims the
+        trailing stump iterations.  A remainder shorter than the chunk
+        runs per-iteration (another chunk length would capture nothing
+        new but needs the same checks)."""
+        fg = self._fused_grad_fn()
+        chunk = min(chunk, n_iters)
+        if fg is None or chunk <= 1:
+            for _ in range(n_iters):
+                if self.train_one_iter():
+                    return True
+            return False
+        done = 0
+        fused_ran = False
+        while done < n_iters:
+            if self._device_stop:
+                return True
+            k = min(chunk, n_iters - done)
+            if k < chunk:
+                if fused_ran:
+                    self._sync_fused_bagging()
+                for _ in range(k):
+                    if self.train_one_iter():
+                        return True
+                return False
+            t0 = time.perf_counter()
+            bias = self.boost_from_average(0) if not self.models else 0.0
+            shrink = self.shrinkage_rate
+            out = self._grower.fused_train(chunk, self.train_score[0],
+                                           shrink, self.iter, fg)
+            self.train_score[0].copy_(out.score)
+            stack = _RecStack((out.rec_i, out.rec_f, out.nl, out.waves,
+                               out.qscales), self.device)
+            for i in range(chunk):
+                self.models.append(_PendingChunkTree(
+                    stack, i, shrink, bias if i == 0 else 0.0))
+            self.iter += chunk
+            done += chunk
+            fused_ran = True
+            # lagged stall check: the previous chunk's records
+            prev, self._last_chunk_stack = self._last_chunk_stack, stack
+            stall = prev is not None and (prev.host()[2] <= 1).all()
+            self._stats.append([time.perf_counter() - t0, chunk, stack,
+                                int(prev is not None)])
+            if stall:
+                self._trim_device_stumps()
+                return True
+        if fused_ran:
+            self._sync_fused_bagging()
+        return False
+
+    def _sync_fused_bagging(self) -> None:
+        """Set ``row_mask`` to what a per-iteration run would hold at
+        ``self.iter`` (``lightgbm_tpu/boosting/gbdt.py:827``): fused chunks
+        redraw their masks on the card, so a later per-iteration step
+        (the chunk remainder, ``Booster.update``) first takes the draw of
+        the last round that started at or before ``self.iter - 1``."""
+        if not self.need_bagging or self.iter <= 0:
+            return
+        last_done = self.iter - 1
+        self.row_mask = self._grower.bag_mask_at(
+            last_done - last_done % self.bag_freq)
+
+    def _trim_device_stumps(self) -> None:
+        """Stop after the lagged check saw a chunk of stumps, dropping the
+        trailing stump iterations (a first stump carrying the
+        boost-from-average bias stays)."""
+        self._device_stop = True
+        self._flush_pending()
+        log_warning("Stopped training because there are no more leaves "
+                    "that meet the split requirements")
+
     def _flush_pending(self):
         """Replay every device-grown tree into a host ``Tree``, then drop
         trailing stump iterations (the stop condition), keeping a first
         stump that carries the boost-from-average bias."""
         for i, m in enumerate(self.models):
-            if isinstance(m, _PendingTree):
+            if isinstance(m, _PENDING):
                 self.models[i] = m.materialize(self.train_set, self.config)
         nm = max(self.num_model, 1)
         while (len(self.models) > nm
                and all(t.num_leaves <= 1 for t in self.models[-nm:])):
             del self.models[-nm:]
             self.iter -= 1
+            self._device_stop = True
 
     def eval_train(self) -> List[Tuple[str, str, float, bool]]:
         score = self.train_score.double().cpu().numpy()

@@ -42,6 +42,9 @@ def print_evaluation(period=1, show_stdv=True):
                                for x in env.evaluation_result_list)
             log_info(f"[{env.iteration + 1}]\t{result}")
     _callback.order = 10
+    # acts only on iterations that carry evaluation results, so the fused
+    # driver may skip its empty-list invocations (engine.train)
+    _callback.eval_cadence_only = True
     return _callback
 
 
@@ -56,6 +59,7 @@ def record_evaluation(eval_result):
             eval_result.setdefault(data_name, collections.OrderedDict())
             eval_result[data_name].setdefault(eval_name, []).append(result)
     _callback.order = 20
+    _callback.eval_cadence_only = True
     return _callback
 
 
@@ -137,4 +141,8 @@ def early_stopping(stopping_rounds, first_metric_only=False, verbose=True):
             if first_metric_only:
                 break
     _callback.order = 30
+    _callback.eval_cadence_only = True
+    # engine.train does not fuse when this callback has no evaluation data,
+    # so _init's error still comes at the first iteration
+    _callback.requires_eval = True
     return _callback

@@ -1,7 +1,8 @@
 """``train``: the boosting driver (counterpart of ``lightgbm_tpu/engine.py``
-with validation sets, ``feval``, callbacks and early stopping, one
-iteration at a time; ``fobj``, ``init_model``, ``learning_rates`` and
-``cv`` are not ported yet and are refused by name)."""
+with validation sets, ``feval``, callbacks and early stopping, and the
+fused driving of ``fused_chunk`` iterations a dispatch between evaluation
+boundaries; ``fobj``, ``init_model``, ``learning_rates`` and ``cv`` are not
+ported yet and are refused by name)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,14 @@ from . import callback as callback_mod
 from .basic import Booster, Dataset
 from .config import normalize_params
 from .utils.log import LightGBMError
+
+
+def steps_to_boundary(i: int, freq: int) -> int:
+    """Iterations to run, starting at ``i``, to land on (and include) the
+    next iteration j >= i with ``(j + 1) % freq == 0``: the chunk cap
+    that keeps fused driving's evaluation cadence the per-iteration
+    loop's (``lightgbm_tpu/engine.py:20``)."""
+    return ((freq - ((i + 1) % freq)) % freq) + 1
 
 
 def _dedupe_callbacks(callbacks) -> List:
@@ -87,16 +96,50 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
     cbs_after.sort(key=lambda cb: getattr(cb, "order", 0))
 
     metric_freq = int(params.get("metric_freq", 1) or 1)
+    # fused driving (lightgbm_tpu/engine.py:113-185): when every callback
+    # acts only on evaluation-carrying iterations, each stretch between
+    # evaluation boundaries runs as chunks of fused_chunk trees
+    # (GBDT.train_chunked).  A callback without that mark forces the
+    # per-iteration loop: its CallbackEnv cadence is the contract.
+    gbdt = booster._gbdt
+    fused_cap = max(int(getattr(gbdt.config, "fused_chunk", 20)), 0)
+    cbs_opaque = any(not getattr(cb, "eval_cadence_only", False)
+                     for cb in cbs_before + cbs_after)
+    has_eval = (bool(gbdt.valid_sets) or is_valid_contain_train
+                or feval is not None)
+    # early stopping without evaluation data is a misconfiguration: stay
+    # per-iteration so its error comes at the first iteration
+    needs_eval_cb = any(getattr(cb, "requires_eval", False)
+                        for cb in cbs_before + cbs_after)
+    can_fuse = (fused_cap > 1 and not cbs_opaque
+                and not (needs_eval_cb and not has_eval)
+                and gbdt.fused_eligible())
+
     evaluation_result_list = []
-    for i in range(num_boost_round):
+    i = 0
+    while i < num_boost_round:
         for cb in cbs_before:
             cb(callback_mod.CallbackEnv(
                 model=booster, params=params, iteration=i,
                 begin_iteration=0, end_iteration=num_boost_round,
                 evaluation_result_list=None))
-        finished = booster.update()
+        step = 1
+        if can_fuse:
+            step = num_boost_round - i
+            if has_eval:
+                # up to and including the next iteration whose results
+                # feed the callbacks
+                step = min(step, steps_to_boundary(i, metric_freq))
+        if step > 1:
+            before = gbdt.iter
+            finished = gbdt.train_chunked(step, chunk=min(step, fused_cap))
+            advanced = max(gbdt.iter - before, 1)
+        else:
+            finished = booster.update()
+            advanced = 1
+        i_done = i + advanced - 1
         evaluation_result_list = []
-        if (i + 1) % metric_freq == 0 or i == num_boost_round - 1:
+        if (i_done + 1) % metric_freq == 0 or i_done == num_boost_round - 1:
             if is_valid_contain_train:
                 evaluation_result_list.extend(
                     (train_data_name, n, v, b)
@@ -105,13 +148,14 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
         try:
             for cb in cbs_after:
                 cb(callback_mod.CallbackEnv(
-                    model=booster, params=params, iteration=i,
+                    model=booster, params=params, iteration=i_done,
                     begin_iteration=0, end_iteration=num_boost_round,
                     evaluation_result_list=evaluation_result_list))
         except callback_mod.EarlyStopException as es:
             booster.best_iteration = es.best_iteration + 1
             evaluation_result_list = es.best_score
             break
+        i += advanced
         if finished:
             break
 

@@ -37,6 +37,13 @@ class ObjectiveFunction:
     def get_gradients(self, scores) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
+    def device_grad(self):
+        """``(fn, args)`` with ``fn(score, args) -> (grad, hess)`` a pure
+        tensor function of the (N,) f32 score, which a captured CUDA graph
+        can replay (``lightgbm_tpu/objectives/base.py:87``), or None: an
+        objective without one is not eligible for fused training."""
+        return None
+
     def boost_from_score(self, class_id: int) -> float:
         """Initial score (BoostFromScore)."""
         return 0.0

@@ -17,6 +17,11 @@ from .base import ObjectiveFunction
 K_EPSILON = 1e-15
 
 
+def _binary_device_grad(score, args):
+    """The fused trees' gradients (``BinaryLogloss.device_grad``)."""
+    return logloss_grad(*args[:1], score, *args[1:])
+
+
 def logloss_grad(sigmoid: float, score, sign_label, label_weight, weights):
     """(grad, hess) of the sigmoid-scaled logistic loss, in float32."""
     response = (-sign_label * sigmoid
@@ -68,11 +73,15 @@ class BinaryLogloss(ObjectiveFunction):
                                             **f32)
         self.label_weight_d = torch.as_tensor(np.where(is_pos, w_pos, w_neg),
                                               **f32)
+        self._gargs = (self.sigmoid, self.sign_label_d, self.label_weight_d,
+                       self.weights_d)
 
     def get_gradients(self, scores):
-        return logloss_grad(self.sigmoid, scores[0].float(),
-                            self.sign_label_d, self.label_weight_d,
-                            self.weights_d)
+        return _binary_device_grad(scores[0].float(), self._gargs)
+
+    def device_grad(self):
+        """(lightgbm_tpu/objectives/binary.py:85)"""
+        return _binary_device_grad, self._gargs
 
     def boost_from_score(self, class_id):
         is_pos = (self.label > 0).astype(np.float64)

@@ -24,10 +24,19 @@ growth each leaf's value is refit from the full-precision gradients with
 an exact base-128 digit sum and written back into the split record that
 created the leaf.
 
-The JAX package runs the wave loop inside one ``lax.while_loop`` with no
-host sync.  Here it is a Python loop that reads one number per wave (the
-count of splits the wave applied) on the host; :class:`GrowResult` reports
-the waves and host syncs.  Capturing a tree as a CUDA graph is later work.
+The JAX package runs the wave loop inside ``lax.while_loop``s, one per
+stage, with no host sync.  Here a tree is cut into pieces that work in
+place on tensors allocated once per grower (``_ensure_state``): a sample
+piece (fused trees: gradients, the bagging redraw, the feature mask), a
+start piece (stat columns, a fresh root), one wave piece per stage width
+and a finish piece (refit, score update, the records into a chunk slot).
+The leaf count, the done flag, the wave count and the chunk slot live in
+device control words (``ctl``), so no piece reads anything back.  On the
+card the pieces are captured once as CUDA graphs and composed into one
+graph a tree, each stage's wave the body of a WHILE node that loops while
+``not done and nl < limit`` (``ops/graphs.py``, ``csrc/graph_loop.cu``);
+on the CPU the same pieces run in a Python loop that reads the control
+words.  A wave that selects nothing is an exact no-op on the tree.
 
 Every per-leaf tensor has one junk row (index L; records: index L-1) that
 absorbs the scatters of empty lanes, so a scatter never writes a live leaf
@@ -38,6 +47,9 @@ result.
 
 from __future__ import annotations
 
+import functools
+import time
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -46,8 +58,9 @@ import torch.nn.functional as F
 
 from ..utils import random as trandom
 from ..utils.log import LightGBMError
+from .bagging import bag_mask
 from .hist_cuda import MAX_LEAF_BOUND, hist_scale_exponents, wave_hist
-from .histogram import QUANT_MAX, bucket_size, quantize_gh
+from .histogram import QUANT_MAX, bucket_size, quantize_gh_keys
 from .split import (F_DEFAULT_LEFT, F_FEATURE, F_GAIN, F_LEFT_C, F_LEFT_G,
                     F_LEFT_H, F_LEFT_OUT, F_RIGHT_C, F_RIGHT_G, F_RIGHT_H,
                     F_RIGHT_OUT, F_THRESHOLD, NEG_INF, FeatureMeta,
@@ -65,16 +78,28 @@ REC_F_LEFT_OUT, REC_F_RIGHT_OUT = 7, 8
 # striped layouts refuses that too.
 COUNT_SPLIT_ROWS = 1 << 24
 HIST_COLS = 3       # [g, h, 1] stat columns, bf16 or int8
+#: key words of a tree in the key table: feature_fraction (2), int8 noise
+#: g and h (2 + 2), bagging (2)
+KEY_WORDS = 8
 
 
 class GrowResult(NamedTuple):
     score: torch.Tensor       # (num_data,) f32 score after this tree
     rec_i: torch.Tensor       # (L-1, 5) int32 split records
     rec_f: torch.Tensor       # (L-1, 9) f32 split records
-    num_leaves: int
+    num_leaves: torch.Tensor  # () int32, on the device
     root_value: torch.Tensor  # () f32 root leaf output
-    waves: int
-    host_syncs: int
+    waves: torch.Tensor       # () int32 waves run, on the device
+
+
+class FusedResult(NamedTuple):
+    """Device views of a fused chunk's outputs, K trees."""
+    score: torch.Tensor       # (num_data,) f32 score after the chunk
+    rec_i: torch.Tensor       # (K, L-1, 5) int32
+    rec_f: torch.Tensor       # (K, L-1, 9) f32
+    nl: torch.Tensor          # (K,) int32 leaves
+    waves: torch.Tensor       # (K,) int32 waves
+    qscales: torch.Tensor     # (K, 2) f32 int8 scales (ones without)
 
 
 def _wave_width(num_leaves: int, hist_cols: int) -> int:
@@ -98,6 +123,13 @@ def feature_fraction_mask(seed: int, tree_idx: int, nf: int, k: int,
     ``k`` smallest of ``nf`` uniforms under ``fold_in(PRNGKey(seed),
     tree_idx)`` (``lightgbm_tpu/ops/grow.py::feature_fraction_mask``)."""
     key = trandom.fold_in(trandom.PRNGKey(seed), tree_idx)
+    return feature_mask_from_key(key, nf, k, device)
+
+
+def feature_mask_from_key(key, nf: int, k: int,
+                          device=None) -> torch.Tensor:
+    """:func:`feature_fraction_mask` under ``key`` (a host pair or a
+    ``(2,)`` int64 tensor, as a captured graph reads it)."""
     u = trandom.uniform(key, (nf,), device=device)
     thr = torch.sort(u).values[k - 1]
     return u <= thr
@@ -196,13 +228,54 @@ class DeviceGrower:
                             if config.feature_fraction_seed
                             else config.seed + 2) & 0x7FFFFFFF
         self._quant_seed = (int(config.seed) + 5) & 0x7FFFFFFF
+        self._ff_active = self._ff_frac < 1.0 and nf > 1
+        # bagging (GBDT.bagging's rounds; redrawn inside fused chunks)
+        self._bag_fraction = float(config.bagging_fraction)
+        self._bag_freq = int(config.bagging_freq)
+        self._bag_on = self._bag_fraction < 1.0 and self._bag_freq > 0
+        self._bag_seed = int(config.bagging_seed)
+        self._bag_npad = bucket_size(max(self.num_data, 1))
+        # constants of the pieces (made here, never inside a capture)
+        self._valid_f = self._valid.float()
+        self._leaf0 = torch.where(self._valid, 0, -1).to(torch.int32)
+        self._ctl0 = torch.tensor([1, 0, 0], dtype=torch.int32,
+                                  device=device)
+        self._neg_row = torch.full((13,), NEG_INF, dtype=torch.float32,
+                                   device=device)
+        # packed-record columns the wave gathers (index tensors on the
+        # device: a list index would copy from the host inside a capture)
+        self._cols = {k: torch.tensor(v, dtype=torch.int64, device=device)
+                      for k, v in (
+                          ("left", [F_LEFT_G, F_LEFT_H, F_LEFT_C]),
+                          ("right", [F_RIGHT_G, F_RIGHT_H, F_RIGHT_C]),
+                          ("record", [F_GAIN, F_LEFT_G, F_LEFT_H, F_LEFT_C,
+                                      F_RIGHT_G, F_RIGHT_H, F_RIGHT_C,
+                                      F_LEFT_OUT, F_RIGHT_OUT]))}
+        self._stages = [(ws, self.num_leaves if cap is None
+                         else min(cap, self.num_leaves))
+                        for ws, cap in self.stage_plan]
+        #: waves executed by this grower, counted on the device (the
+        #: warm-up before a capture included)
+        self.executed_waves = torch.zeros((), dtype=torch.int64,
+                                          device=device)
+        self._st = None
+        self._graphs = None
+        self._composed = {}
+        self._grad = None
+        #: host seconds of the eager warm-up before the captures, of the
+        #: captures and of instantiating the composed graphs, the composed
+        #: graphs built and the waves the warm-up ran (chip_smoke.py)
+        self.capture_stats = dict(warmup_s=0.0, capture_s=0.0,
+                                  instantiate_s=0.0, graphs=0,
+                                  warmup_waves=0)
+        self._ensure_state(max(int(getattr(config, "fused_chunk", 1)), 1))
 
     # ------------------------------------------------------------------
     def feature_mask_for(self, tree_idx: int) -> torch.Tensor:
         """The feature_fraction mask of global tree ``tree_idx``
         (``iter * num_model + class``); all features when the fraction
         is 1."""
-        if self._ff_frac >= 1.0 or self._ff_nf <= 1:
+        if not self._ff_active:
             return torch.ones(self._ff_nf, dtype=torch.bool,
                               device=self.device)
         return feature_fraction_mask(self._ff_seed, tree_idx, self._ff_nf,
@@ -228,31 +301,6 @@ class DeviceGrower:
         if cfg.max_depth > 0:
             ok = ok & (depth < cfg.max_depth)
         return ok
-
-    def _stat_columns(self, grad, hess, one_f, tree_idx):
-        """(n_pad, 3) stat columns and the (2,) f32 dequantization scales
-        (None without quantization).  ``one_f`` is the f32 0/1 row
-        indicator (real row x in-bag); ``grad``/``hess`` are zero past
-        the real rows but NOT bag-masked: the quantization scale is taken
-        over every real row, out-of-bag ones included, as the JAX package
-        takes it.
-
-        int8: ``[g_q, h_q, 1]`` masked by ``one_f``, the rounding noise
-        keyed ``fold_in(PRNGKey((seed + 5) & 0x7FFFFFFF), tree_idx)``.
-        bf16 (lightgbm_tpu/ops/grow.py:597): g and h are rounded to bf16
-        BEFORE the histogram, on purpose; ``.to(torch.bfloat16)`` rounds
-        to nearest even like XLA's convert, so both packages see the same
-        column values."""
-        if self.quant_bits:
-            key = trandom.fold_in(trandom.PRNGKey(self._quant_seed),
-                                  tree_idx)
-            sg, sh, gq, hq = quantize_gh(grad, hess, key)
-            m8 = one_f.to(torch.int8)
-            return torch.stack([gq * m8, hq * m8, m8], 1), torch.stack([sg,
-                                                                       sh])
-        one = one_f.to(torch.bfloat16)
-        return torch.stack([grad.to(torch.bfloat16) * one,
-                            hess.to(torch.bfloat16) * one, one], 1), None
 
     def _wave_hist(self, leaf_id, gh, pending, scale_exp):
         """(W, S, 3) histograms of the pending leaves: f32, or int32 in
@@ -293,6 +341,434 @@ class DeviceGrower:
         return self._leaf_output(gsum, hsum)
 
     # ------------------------------------------------------------------
+    # the tree's state on the device, and the pieces of a tree
+    def _ensure_state(self, capacity: int) -> None:
+        """Allocate every tensor a tree's pieces read or write, once, with
+        chunk outputs for ``capacity`` trees; a larger capacity
+        reallocates them and drops the captured graphs (they hold the old
+        buffers' addresses)."""
+        st = self._st
+        if st is not None and st.capacity >= capacity:
+            return
+        self._drop_graphs()
+        capacity = max(int(capacity), 1 if st is None else st.capacity)
+        dev = self.device
+        L, S, n, N = self.num_leaves, self.num_slots, self.n_pad, \
+            self.num_data
+        quant = bool(self.quant_bits)
+        i32 = dict(dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        hdtype = torch.int32 if quant else torch.float32
+        keep = max(L - 1, 1)
+        W = self.wave_width
+        self._st = types.SimpleNamespace(
+            capacity=capacity,
+            # inputs, written by the host before a launch (or, fused, by
+            # the sample piece from the key table)
+            score=torch.zeros(N, **f32), grad=torch.zeros(N, **f32),
+            hess=torch.zeros(N, **f32), row_mask=torch.ones(N, **f32),
+            fmask=torch.ones(self._ff_nf, dtype=torch.bool, device=dev),
+            lr=torch.zeros((), **f32),
+            keys=torch.zeros((capacity, KEY_WORDS), dtype=torch.int64,
+                             device=dev),
+            # [leaf count, done, waves, tree slot t of the chunk]
+            ctl=torch.zeros(4, **i32),
+            # one tree's working state
+            grad_p=torch.zeros(n, **f32), hess_p=torch.zeros(n, **f32),
+            one_f=torch.zeros(n, **f32),
+            gh=torch.zeros((n, HIST_COLS), dtype=torch.int8 if quant
+                           else torch.bfloat16, device=dev),
+            qscales=torch.ones(2, **f32), scale_exp=torch.zeros(3, **i32),
+            leaf_id=torch.zeros(n, **i32),
+            hist=torch.zeros((L + 1, S, 3), dtype=hdtype, device=dev),
+            total=torch.zeros((L + 1, 3), dtype=hdtype, device=dev),
+            # the winner's exact int32 left totals (quantized scan only)
+            bestl=torch.zeros((L + 1, 3), **i32) if quant else None,
+            value=torch.zeros(L + 1, **f32), depth=torch.zeros(L + 1, **i32),
+            best=torch.zeros((L + 1, 13), **f32),
+            rec_i=torch.zeros((L, REC_I_FIELDS), **i32),
+            rec_f=torch.zeros((L, REC_F_FIELDS), **f32),
+            lane_of=torch.zeros(L + 1, dtype=torch.int64, device=dev),
+            p_parent=torch.zeros(W, **i32), p_small=torch.zeros(W, **i32),
+            p_large=torch.zeros(W, **i32),
+            # chunk outputs, slot t per tree
+            out_rec_i=torch.zeros((capacity, keep, REC_I_FIELDS), **i32),
+            out_rec_f=torch.zeros((capacity, keep, REC_F_FIELDS), **f32),
+            out_nl=torch.zeros(capacity, **i32),
+            out_waves=torch.zeros(capacity, **i32),
+            out_root=torch.zeros(capacity, **f32),
+            out_qscales=torch.ones((capacity, 2), **f32))
+
+    def _tree_keys(self, tree_idx: int, it: int) -> list:
+        """The :data:`KEY_WORDS` key words of a tree, derived on the host
+        as the JAX package derives them: the feature_fraction key
+        ``fold_in(PRNGKey(ff_seed), tree_idx)``, the int8 noise keys
+        ``split(fold_in(PRNGKey(quant_seed), tree_idx))`` and the bagging
+        key ``PRNGKey((bagging_seed + it) & 0x7FFFFFFF)`` (zeros where
+        unused)."""
+        row = [0] * KEY_WORDS
+        if self._ff_active:
+            row[0:2] = trandom.fold_in(trandom.PRNGKey(self._ff_seed),
+                                       tree_idx)
+        if self.quant_bits:
+            kg, kh = trandom.split(trandom.fold_in(
+                trandom.PRNGKey(self._quant_seed), tree_idx))
+            row[2:6] = (*kg, *kh)
+        if self._bag_on:
+            row[6:8] = trandom.PRNGKey((self._bag_seed + it) & 0x7FFFFFFF)
+        return row
+
+    def _write_keys(self, rows) -> None:
+        """One host-to-device copy of the chunk's key table."""
+        host = torch.tensor(rows, dtype=torch.int64)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        self._st.keys[:len(rows)].copy_(host, non_blocking=True)
+
+    def _tree_key(self):
+        """(KEY_WORDS,) int64 key words of the chunk's current tree slot
+        (read on the device: an index tensor, never a host int)."""
+        st = self._st
+        return st.keys.index_select(0, st.ctl[3:4].long())[0]
+
+    def _piece_sample(self, redraw: bool) -> None:
+        """Fused trees only: gradients from the current score, the
+        bagging redraw (``redraw``: the host knows which trees start a
+        round) and the feature_fraction mask, into the input buffers."""
+        st = self._st
+        key = self._tree_key()
+        grad_fn, gargs = self._grad
+        g, h = grad_fn(st.score, gargs)
+        st.grad.copy_(g)
+        st.hess.copy_(h)
+        if redraw:
+            st.row_mask.copy_(bag_mask(key[6:8], self._bag_npad,
+                                       self.num_data, self._bag_fraction))
+        if self._ff_active:
+            st.fmask.copy_(feature_mask_from_key(key[0:2], self._ff_nf,
+                                                 self._ff_k))
+
+    def _piece_start(self) -> None:
+        """Stat columns (and under int8 the quantization draws) from the
+        input buffers, and a fresh tree state: one root leaf."""
+        st = self._st
+        pad = self.n_pad - self.num_data
+        valid_f = self._valid_f
+        st.grad_p.copy_(F.pad(st.grad, (0, pad)) * valid_f)
+        st.hess_p.copy_(F.pad(st.hess, (0, pad)) * valid_f)
+        st.one_f.copy_(valid_f * F.pad(st.row_mask, (0, pad)))
+        if self.quant_bits:
+            key = self._tree_key()
+            sg, sh, gq, hq = quantize_gh_keys(st.grad_p, st.hess_p,
+                                              key[2:4], key[4:6])
+            m8 = st.one_f.to(torch.int8)
+            st.gh.copy_(torch.stack([gq * m8, hq * m8, m8], 1))
+            st.qscales.copy_(torch.stack([sg, sh]))
+        else:
+            # bf16 (lightgbm_tpu/ops/grow.py:597): g and h are rounded to
+            # bf16 BEFORE the histogram, on purpose; .to(torch.bfloat16)
+            # rounds to nearest even like XLA's convert, so both packages
+            # see the same column values.  grad_p/hess_p are zero past the
+            # real rows but NOT bag-masked: the int8 scale above is taken
+            # over every real row, out-of-bag ones included, as the JAX
+            # package takes it
+            one = st.one_f.to(torch.bfloat16)
+            st.gh.copy_(torch.stack([st.grad_p.to(torch.bfloat16) * one,
+                                     st.hess_p.to(torch.bfloat16) * one,
+                                     one], 1))
+            st.scale_exp.copy_(hist_scale_exponents(st.gh, self.n_pad))
+        st.leaf_id.copy_(self._leaf0)
+        st.hist.zero_()
+        st.total.zero_()
+        if st.bestl is not None:
+            st.bestl.zero_()
+        st.value.zero_()
+        st.depth.zero_()
+        st.best.fill_(NEG_INF)
+        st.rec_i.fill_(-1)
+        st.rec_f.zero_()
+        for p in (st.p_parent, st.p_small, st.p_large):
+            p.fill_(-1)
+        st.p_small[:1].fill_(0)
+        st.ctl[:3].copy_(self._ctl0)
+
+    def _piece_wave(self, ws: int) -> None:
+        """One wave of width ``ws`` on the tree state (the JAX ``make_wave``
+        body).  Reads nothing back: the leaf count, the done flag and the
+        wave count stay on the device (``ctl``).  A wave that selects no
+        split is an exact no-op on the tree: every scatter lands on the
+        junk rows, the pending lists become empty, and ``done`` is set."""
+        st = self._st
+        dev = self.device
+        L, nb = self.num_leaves, self.nb
+        quant = bool(self.quant_bits)
+        hist, total, value, depth, best = (st.hist, st.total, st.value,
+                                           st.depth, st.best)
+        nl = st.ctl[0]
+        p_parent, p_small, p_large = (st.p_parent[:ws], st.p_small[:ws],
+                                      st.p_large[:ws])
+        # 1. fresh histograms of the pending smaller children
+        fresh = self._wave_hist(st.leaf_id, st.gh, p_small,
+                                None if quant else st.scale_exp)
+        # root (first wave only): totals from group 0's slots (every row
+        # hits one)
+        first = st.ctl[2] == 0
+        total[0] = torch.where(first, fresh[0, :nb, :].sum(0), total[0])
+        rt = total[0].float()
+        if quant:
+            rt = rt[:2] * st.qscales
+        value[0] = torch.where(first, self._leaf_output(rt[0], rt[1]),
+                               value[0])
+        # 2. larger sibling = parent - smaller (read the parents before
+        # the fresh histograms overwrite their slots)
+        par = torch.where(p_parent >= 0, p_parent, L).long()
+        large = hist[par] - fresh
+        sm_ok, lg_ok = p_small >= 0, p_large >= 0
+        sm_idx = torch.where(sm_ok, p_small, L).long()
+        lg_idx = torch.where(lg_ok, p_large, L).long()
+        hist[sm_idx] = torch.where(sm_ok[:, None, None], fresh,
+                                   hist[sm_idx])
+        hist[lg_idx] = torch.where(lg_ok[:, None, None], large,
+                                   hist[lg_idx])
+
+        # 3. find-best for both siblings of every new split, one batched
+        # scan over the (2*Ws, S, 3) stack
+        ids = torch.cat([torch.where(sm_ok, p_small, -1),
+                         torch.where(lg_ok, p_large, -1)]).long()
+        idc = ids.clamp(0, L - 1)
+        stack = torch.cat([fresh, large])
+        if quant:
+            packed, lint = find_best_split_quant(
+                stack, total[idc], st.qscales, st.fmask, self.meta,
+                self.hyper)
+            ok = self._splittable(total[idc], depth[idc],
+                                  hess_scale=st.qscales[1])
+        else:
+            packed = find_best_split_stack(stack, total[idc], st.fmask,
+                                           self.meta, self.hyper)
+            ok = self._splittable(total[idc], depth[idc])
+        ok = ok & (ids >= 0)
+        packed[:, F_GAIN] = torch.where(
+            ok, packed[:, F_GAIN],
+            torch.full_like(packed[:, F_GAIN], NEG_INF))
+        safe = torch.where(ids >= 0, ids, L)
+        best[safe] = torch.where((ids >= 0)[:, None], packed, best[safe])
+        if quant:
+            st.bestl[safe] = torch.where((ids >= 0)[:, None], lint,
+                                         st.bestl[safe])
+
+        # 4. select up to Ws best-gain splits within the budget.  Trouble
+        # spot (lightgbm_tpu/ops/grow.py:846): lax.top_k breaks ties
+        # toward the lower index; torch.topk promises no order on ties, a
+        # stable descending sort does.
+        top_vals, top_idx = torch.sort(best[:L, F_GAIN], descending=True,
+                                       stable=True)
+        top_vals, lsel = top_vals[:ws], top_idx[:ws]
+        lanes = torch.arange(ws, device=dev)
+        sel = (top_vals > 0.0) & (lanes < L - nl)
+        napply = sel.sum()
+        rank = torch.cumsum(sel.long(), 0) - 1
+        vecs = best[lsel]                             # (Ws, 13)
+        r_ids = nl + rank
+        f = vecs[:, F_FEATURE].long()
+        thr = vecs[:, F_THRESHOLD].long()
+        dl = vecs[:, F_DEFAULT_LEFT] > 0.5
+
+        # 5. apply the selected splits to leaf_id: each row looks up its
+        # leaf's lane (a row belongs to at most one selected leaf), reads
+        # that split's feature group and decides left or right as
+        # lightgbm_tpu/ops/grow.py:869-916 does
+        lane_of = st.lane_of
+        lane_of.fill_(-1)
+        lane_of[torch.where(sel, lsel, L)] = lanes
+        lane_of[L:].fill_(-1)
+        leaf_id = st.leaf_id
+        row_lane = lane_of[torch.where(leaf_id >= 0, leaf_id, L).long()]
+        lane = row_lane.clamp(min=0)
+        fl = f[lane]
+        cols = self.binned_t.gather(0, self.f_group[fl][None, :])[0].long()
+        off, wid = self.f_offset[fl], self.f_width[fl]
+        db = self.meta.default_bin[fl].long()
+        nbin = self.meta.num_bin[fl].long()
+        miss = self.meta.missing[fl]
+        dl_r, thr_r = dl[lane], thr[lane]
+        def_left = torch.where(miss == 1, dl_r, db <= thr_r)
+        shift = (db == 0).long()
+        in_range = (cols >= off) & (cols < off + wid)
+        bin_ = torch.where(in_range, cols - off + shift, db)
+        is_na = (miss == 2) & (bin_ == nbin - 1)
+        goes_left = torch.where(bin_ == db, def_left,
+                                torch.where(is_na, dl_r, bin_ <= thr_r))
+        move = (row_lane >= 0) & ~goes_left
+        leaf_id.copy_(torch.where(move, r_ids[lane].to(torch.int32),
+                                  leaf_id))
+
+        # 6. bookkeeping: scatter into the L-padded state
+        safe_l = torch.where(sel, lsel, L)
+        safe_r = torch.where(sel, r_ids, L)
+        sel2 = sel[:, None]
+        if quant:
+            # exact integer child totals: the winner's left sums from the
+            # scan, the right child by subtraction (read the parent before
+            # the scatter overwrites its slot)
+            lsum = st.bestl[lsel]
+            rsum = total[lsel] - lsum
+            small_left = lsum[:, 2] <= rsum[:, 2]
+        else:
+            lsum = vecs.index_select(1, self._cols["left"])
+            rsum = vecs.index_select(1, self._cols["right"])
+            small_left = vecs[:, F_LEFT_C] <= vecs[:, F_RIGHT_C]
+        total[safe_l] = torch.where(sel2, lsum, total[safe_l])
+        total[safe_r] = torch.where(sel2, rsum, total[safe_r])
+        value[safe_l] = torch.where(sel, vecs[:, F_LEFT_OUT], value[safe_l])
+        value[safe_r] = torch.where(sel, vecs[:, F_RIGHT_OUT],
+                                    value[safe_r])
+        child_d = depth[lsel] + 1
+        depth[safe_l] = torch.where(sel, child_d, depth[safe_l])
+        depth[safe_r] = torch.where(sel, child_d, depth[safe_r])
+        best[safe_l] = torch.where(sel2, self._neg_row, best[safe_l])
+        best[safe_r] = torch.where(sel2, self._neg_row, best[safe_r])
+        ridx = torch.where(sel, nl - 1 + rank, L - 1)
+        new_ri = torch.stack([lsel, r_ids, f, thr, dl.long()],
+                             dim=1).to(torch.int32)
+        new_rf = vecs.index_select(1, self._cols["record"])
+        st.rec_i[ridx] = torch.where(sel2, new_ri, st.rec_i[ridx])
+        st.rec_f[ridx] = torch.where(sel2, new_rf, st.rec_f[ridx])
+        # pending for the next wave: the smaller child gets the fresh
+        # histogram
+        lsel32, r32 = lsel.to(torch.int32), r_ids.to(torch.int32)
+        p_parent.copy_(torch.where(sel, lsel32, -1))
+        p_small.copy_(torch.where(sel, torch.where(small_left, lsel32, r32),
+                                  -1))
+        p_large.copy_(torch.where(sel, torch.where(small_left, r32, lsel32),
+                                  -1))
+        # control words last: every use of the leaf count above is queued
+        st.ctl[2:3].add_(1)
+        st.ctl[1:2].copy_((napply == 0).to(torch.int32).view(1))
+        st.ctl[0:1].add_(napply.to(torch.int32).view(1))
+        self.executed_waves.add_(1)
+
+    def _piece_finish(self) -> None:
+        """The int8 refit, the score update, and the tree's records into
+        chunk slot t (then t + 1)."""
+        st = self._st
+        L = self.num_leaves
+        nl = st.ctl[0]
+        leaf_vals = st.value[:L]
+        if self.quant_bits:
+            leaf_vals = self._refit_into_records(
+                self._refit(st.grad_p, st.hess_p, st.one_f, st.leaf_id,
+                            st.qscales), st.rec_i, st.rec_f, nl)
+        # score update.  Trouble spot (lightgbm_tpu/ops/grow.py:1109-1116):
+        # the JAX package adds float32(bf16(v)) + float32(bf16(v - hi)) per
+        # row through a one-hot einsum with one nonzero per row, which is
+        # exactly this gather; a direct score += lr * value[leaf_id] is
+        # more accurate but diverges from the JAX package from tree 2 on.
+        # A stump (root never split) applies nothing.
+        scaled = leaf_vals * st.lr * (nl > 1).to(torch.float32)
+        vhi = scaled.to(torch.bfloat16)
+        vlo = (scaled - vhi.float()).to(torch.bfloat16)
+        lid = st.leaf_id[:self.num_data].long()
+        st.score.add_(vhi.float()[lid] + vlo.float()[lid])
+        t = st.ctl[3:4].long()
+        keep = max(L - 1, 1)
+        st.out_rec_i.index_copy_(0, t, st.rec_i[None, :keep])
+        st.out_rec_f.index_copy_(0, t, st.rec_f[None, :keep])
+        st.out_nl.index_copy_(0, t, st.ctl[0:1])
+        st.out_waves.index_copy_(0, t, st.ctl[2:3])
+        st.out_root.index_copy_(0, t, st.value[0:1])
+        st.out_qscales.index_copy_(0, t, st.qscales[None])
+        st.ctl[3:4].add_(1)
+
+    # ------------------------------------------------------------------
+    # running a tree: the Python loop on the CPU, one launch on the card
+    def _run_tree(self, sample) -> None:
+        """Grow one tree into chunk slot t.  ``sample`` None: the host
+        wrote the gradients and masks; False / True: a fused tree, without
+        or with the bagging redraw.  On the CPU the pieces run in a Python
+        loop that reads the control words (the plain version); on the card
+        the composed graph runs, or the call raises."""
+        if self.device.type == "cuda":
+            self._graph(sample).launch()
+            return
+        self._run_pieces(sample)
+
+    def _run_pieces(self, sample) -> None:
+        """The plain version of a tree: the pieces in a Python loop that
+        reads the control words (a host read a wave).  The CPU path; the
+        card tests run it on CUDA tensors to hold the captured tree
+        against it."""
+        if sample is not None:
+            self._piece_sample(sample)
+        self._piece_start()
+        ctl = self._st.ctl
+        for ws, limit in self._stages:
+            while int(ctl[1]) == 0 and int(ctl[0]) < limit:
+                self._piece_wave(ws)
+        self._piece_finish()
+
+    def _graph(self, sample):
+        """The composed graph of a tree variant, warmed up, captured and
+        instantiated at first use (``ops/graphs.py``): the pieces once per
+        grower, the sample piece once per bagging variant.  The graphs
+        read and write only the buffers of ``_ensure_state``; call before
+        writing a launch's inputs (the warm-up runs every piece once)."""
+        g = self._composed.get(sample)
+        if g is not None:
+            return g
+        from . import graphs
+        stats = self.capture_stats
+        t0 = time.perf_counter()
+        if self._graphs is None:
+            # the launch counter and every lazy initialization must exist
+            # before the captures: run each piece once, eagerly
+            wave_hist.launches.counter(self.device)
+            self._st.ctl[3:4].zero_()
+            self._piece_start()
+            for ws, _ in self._stages:
+                self._piece_wave(ws)
+            self._piece_finish()
+            torch.cuda.synchronize(self.device)
+            stats["warmup_waves"] += len(self._stages)
+            t1 = time.perf_counter()
+            stats["warmup_s"] += t1 - t0
+            gs = graphs.GraphSet(self.device)
+            self._graphs = dict(
+                set=gs, start=gs.capture(self._piece_start),
+                waves=[gs.capture(functools.partial(self._piece_wave, ws))
+                       for ws, _ in self._stages],
+                finish=gs.capture(self._piece_finish))
+            t0 = time.perf_counter()
+            stats["capture_s"] += t0 - t1
+        pieces = self._graphs
+        steps = []
+        if sample is not None:
+            key = ("sample", bool(sample))
+            if key not in pieces:
+                self._piece_sample(bool(sample))
+                torch.cuda.synchronize(self.device)
+                pieces[key] = pieces["set"].capture(
+                    functools.partial(self._piece_sample, bool(sample)))
+            steps.append((pieces[key], None))
+            t1 = time.perf_counter()
+            stats["capture_s"] += t1 - t0
+            t0 = t1
+        steps.append((pieces["start"], None))
+        steps.extend((wg, limit) for wg, (_, limit)
+                     in zip(pieces["waves"], self._stages))
+        steps.append((pieces["finish"], None))
+        g = self._composed[sample] = graphs.compose(steps, self._st.ctl)
+        stats["instantiate_s"] += time.perf_counter() - t0
+        stats["graphs"] += 1
+        return g
+
+    def _drop_graphs(self) -> None:
+        for g in self._composed.values():
+            g.close()
+        self._composed = {}
+        self._graphs = None
+
+    # ------------------------------------------------------------------
     def grow_one_iter(self, score, grad, hess, lr=None, feature_mask=None,
                       row_mask=None, tree_idx: int = 0) -> GrowResult:
         """Grow one tree from (num_data,) f32 gradients and return the
@@ -301,224 +777,77 @@ class DeviceGrower:
         bagging: out-of-bag rows drop out of the histograms and counts but
         are still routed to leaves, so the score update reaches them.
         ``tree_idx`` is the global tree index keying the quantization
-        noise."""
-        dev = self.device
-        L, S, nb = self.num_leaves, self.num_slots, self.nb
-        lr = self.lr if lr is None else float(lr)
+        noise.  On the card this is one launch of the captured tree; no
+        value is read back."""
+        self._ensure_state(1)
+        if self.device.type == "cuda":
+            self._graph(None)
+        st = self._st
+        st.score.copy_(score)
+        st.grad.copy_(grad)
+        st.hess.copy_(hess)
+        st.lr.fill_(float(np.float32(self.lr if lr is None else lr)))
         if feature_mask is None:
-            feature_mask = torch.ones(self.meta.num_bin.shape[0],
-                                      dtype=torch.bool, device=dev)
-        pad = self.n_pad - self.num_data
-        valid_f = self._valid.float()
-        grad = F.pad(grad, (0, pad)) * valid_f
-        hess = F.pad(hess, (0, pad)) * valid_f
-        one_f = valid_f if row_mask is None \
-            else valid_f * F.pad(row_mask, (0, pad))
-        gh, qscales = self._stat_columns(grad, hess, one_f, tree_idx)
-        quant = qscales is not None
-        scale_exp = None if quant else hist_scale_exponents(gh, self.n_pad)
-        i32 = dict(dtype=torch.int32, device=dev)
-        hdtype = torch.int32 if quant else torch.float32
+            st.fmask.fill_(True)
+        else:
+            st.fmask.copy_(feature_mask)
+        if row_mask is None:
+            st.row_mask.fill_(1.0)
+        else:
+            st.row_mask.copy_(row_mask)
+        self._write_keys([self._tree_keys(tree_idx, 0)])
+        st.ctl[3:4].zero_()
+        self._run_tree(None)
+        return GrowResult(st.score.clone(), st.out_rec_i[0].clone(),
+                          st.out_rec_f[0].clone(), st.out_nl[0].clone(),
+                          st.out_root[0].clone(), st.out_waves[0].clone())
 
-        leaf_id = torch.where(self._valid, 0, -1).to(torch.int32)
-        hist = torch.zeros((L + 1, S, 3), dtype=hdtype, device=dev)
-        total = torch.zeros((L + 1, 3), dtype=hdtype, device=dev)
-        # the winner's exact int32 left totals (quantized scan only)
-        bestl = torch.zeros((L + 1, 3), **i32) if quant else None
-        value = torch.zeros((L + 1,), dtype=torch.float32, device=dev)
-        depth = torch.zeros((L + 1,), **i32)
-        neg_row = torch.full((13,), NEG_INF, dtype=torch.float32, device=dev)
-        best = neg_row.repeat(L + 1, 1)
-        rec_i = torch.full((L, REC_I_FIELDS), -1, **i32)
-        rec_f = torch.zeros((L, REC_F_FIELDS), dtype=torch.float32,
-                            device=dev)
-        lane_of = torch.full((L + 1,), -1, dtype=torch.int64, device=dev)
+    def fused_train(self, length: int, score, lr: float, it0: int,
+                    grad_fn) -> FusedResult:
+        """``length`` whole boosting iterations from iteration ``it0``
+        (counterpart of ``lightgbm_tpu/ops/grow.py::fused_train``): per
+        tree, gradients from the current score (``grad_fn``: the
+        objective's ``device_grad`` pair), the bagging redraw on trees
+        where ``it % bagging_freq == 0`` (the mask active at ``it0`` is
+        drawn first when ``it0`` is not a boundary), the feature_fraction
+        mask, growth and the score update.  On the card: one key-table
+        copy, then ``length`` launches of the captured tree, no host read
+        in between.  Returns device views (valid until the next call)."""
+        self._ensure_state(length)
+        if self._grad is None:
+            self._grad = grad_fn
+        elif any(a is not b for a, b in zip(self._grad, grad_fn)):
+            raise ValueError("fused_train: the gradient pair is captured "
+                             "once per grower and cannot change")
+        redraw = [self._bag_on and (it0 + j) % self._bag_freq == 0
+                  for j in range(length)]
+        if self.device.type == "cuda":
+            for r in sorted(set(redraw)):
+                self._graph(r)
+        st = self._st
+        st.score.copy_(score)
+        st.lr.fill_(float(np.float32(lr)))
+        self._write_keys([self._tree_keys(it0 + j, it0 + j)
+                          for j in range(length)])
+        st.ctl[3:4].zero_()
+        if not self._ff_active:
+            st.fmask.fill_(True)
+        if not self._bag_on:
+            st.row_mask.fill_(1.0)
+        elif it0 % self._bag_freq:
+            st.row_mask.copy_(self.bag_mask_at(it0 - it0 % self._bag_freq))
+        for r in redraw:
+            self._run_tree(r)
+        return FusedResult(st.score, st.out_rec_i[:length],
+                           st.out_rec_f[:length], st.out_nl[:length],
+                           st.out_waves[:length], st.out_qscales[:length])
 
-        W = self.wave_width
-        # first stage width: copied exactly (lightgbm_tpu/ops/grow.py:710);
-        # with the stage ladder it decides the growth order near the
-        # num_leaves budget
-        w0 = min(4, W) if (4 < W and 8 < L) else W
-        p_parent = torch.full((w0,), -1, **i32)
-        p_small = torch.full((w0,), -1, **i32)
-        p_small[0] = 0
-        p_large = torch.full((w0,), -1, **i32)
-        nl, waves, syncs, done = 1, 0, 0, False
-
-        for ws, cap in self.stage_plan:
-            grow_by = ws - p_parent.shape[0]
-            if grow_by > 0:
-                p_parent, p_small, p_large = (
-                    F.pad(p, (0, grow_by), value=-1)
-                    for p in (p_parent, p_small, p_large))
-            limit = L if cap is None else min(cap, L)
-            while not done and nl < limit:
-                # 1. fresh histograms of the pending smaller children
-                fresh = self._wave_hist(leaf_id, gh, p_small, scale_exp)
-                if waves == 0:
-                    # root: totals from group 0's slots (every row hits one)
-                    total[0] = fresh[0, :nb, :].sum(0)
-                    rt = total[0].float()
-                    if quant:
-                        rt = rt[:2] * qscales
-                    value[0] = self._leaf_output(rt[0], rt[1])
-                # 2. larger sibling = parent - smaller (read the parents
-                # before the fresh histograms overwrite their slots)
-                par = torch.where(p_parent >= 0, p_parent, L).long()
-                large = hist[par] - fresh
-                sm_ok, lg_ok = p_small >= 0, p_large >= 0
-                sm_idx = torch.where(sm_ok, p_small, L).long()
-                lg_idx = torch.where(lg_ok, p_large, L).long()
-                hist[sm_idx] = torch.where(sm_ok[:, None, None], fresh,
-                                           hist[sm_idx])
-                hist[lg_idx] = torch.where(lg_ok[:, None, None], large,
-                                           hist[lg_idx])
-
-                # 3. find-best for both siblings of every new split, one
-                # batched scan over the (2*Ws, S, 3) stack
-                ids = torch.cat([torch.where(sm_ok, p_small, -1),
-                                 torch.where(lg_ok, p_large, -1)]).long()
-                idc = ids.clamp(0, L - 1)
-                stack = torch.cat([fresh, large])
-                if quant:
-                    packed, lint = find_best_split_quant(
-                        stack, total[idc], qscales, feature_mask, self.meta,
-                        self.hyper)
-                    ok = self._splittable(total[idc], depth[idc],
-                                          hess_scale=qscales[1])
-                else:
-                    packed = find_best_split_stack(
-                        stack, total[idc], feature_mask, self.meta,
-                        self.hyper)
-                    ok = self._splittable(total[idc], depth[idc])
-                ok = ok & (ids >= 0)
-                packed[:, F_GAIN] = torch.where(
-                    ok, packed[:, F_GAIN],
-                    torch.full_like(packed[:, F_GAIN], NEG_INF))
-                safe = torch.where(ids >= 0, ids, L)
-                best[safe] = torch.where((ids >= 0)[:, None], packed,
-                                         best[safe])
-                if quant:
-                    bestl[safe] = torch.where((ids >= 0)[:, None], lint,
-                                              bestl[safe])
-
-                # 4. select up to Ws best-gain splits within the budget.
-                # Trouble spot (lightgbm_tpu/ops/grow.py:846): lax.top_k
-                # breaks ties toward the lower index; torch.topk promises
-                # no order on ties, a stable descending sort does.
-                top_vals, top_idx = torch.sort(best[:L, F_GAIN],
-                                               descending=True, stable=True)
-                top_vals, lsel = top_vals[:ws], top_idx[:ws]
-                lanes = torch.arange(ws, device=dev)
-                sel = (top_vals > 0.0) & (lanes < L - nl)
-                napply = int(sel.sum())               # the wave's host sync
-                syncs += 1
-                waves += 1
-                if napply == 0:
-                    done = True
-                    break
-                rank = torch.cumsum(sel.long(), 0) - 1
-                vecs = best[lsel]                     # (Ws, 13)
-                r_ids = nl + rank
-                f = vecs[:, F_FEATURE].long()
-                thr = vecs[:, F_THRESHOLD].long()
-                dl = vecs[:, F_DEFAULT_LEFT] > 0.5
-
-                # 5. apply the selected splits to leaf_id: each row looks up
-                # its leaf's lane (a row belongs to at most one selected
-                # leaf), reads that split's feature group and decides
-                # left or right as lightgbm_tpu/ops/grow.py:869-916 does
-                lane_of.fill_(-1)
-                lane_of[torch.where(sel, lsel, L)] = lanes
-                lane_of[L] = -1
-                row_lane = lane_of[torch.where(leaf_id >= 0, leaf_id,
-                                               L).long()]
-                lane = row_lane.clamp(min=0)
-                fl = f[lane]
-                cols = self.binned_t.gather(
-                    0, self.f_group[fl][None, :])[0].long()
-                off, wid = self.f_offset[fl], self.f_width[fl]
-                db = self.meta.default_bin[fl].long()
-                nbin = self.meta.num_bin[fl].long()
-                miss = self.meta.missing[fl]
-                dl_r, thr_r = dl[lane], thr[lane]
-                def_left = torch.where(miss == 1, dl_r, db <= thr_r)
-                shift = (db == 0).long()
-                in_range = (cols >= off) & (cols < off + wid)
-                bin_ = torch.where(in_range, cols - off + shift, db)
-                is_na = (miss == 2) & (bin_ == nbin - 1)
-                goes_left = torch.where(bin_ == db, def_left,
-                                        torch.where(is_na, dl_r,
-                                                    bin_ <= thr_r))
-                move = (row_lane >= 0) & ~goes_left
-                leaf_id = torch.where(move, r_ids[lane].to(torch.int32),
-                                      leaf_id)
-
-                # 6. bookkeeping: scatter into the L-padded state
-                safe_l = torch.where(sel, lsel, L)
-                safe_r = torch.where(sel, r_ids, L)
-                sel2 = sel[:, None]
-                if quant:
-                    # exact integer child totals: the winner's left sums
-                    # from the scan, the right child by subtraction (read
-                    # the parent before the scatter overwrites its slot)
-                    lsum = bestl[lsel]
-                    rsum = total[lsel] - lsum
-                    small_left = lsum[:, 2] <= rsum[:, 2]
-                else:
-                    lsum = vecs[:, [F_LEFT_G, F_LEFT_H, F_LEFT_C]]
-                    rsum = vecs[:, [F_RIGHT_G, F_RIGHT_H, F_RIGHT_C]]
-                    small_left = vecs[:, F_LEFT_C] <= vecs[:, F_RIGHT_C]
-                total[safe_l] = torch.where(sel2, lsum, total[safe_l])
-                total[safe_r] = torch.where(sel2, rsum, total[safe_r])
-                value[safe_l] = torch.where(sel, vecs[:, F_LEFT_OUT],
-                                            value[safe_l])
-                value[safe_r] = torch.where(sel, vecs[:, F_RIGHT_OUT],
-                                            value[safe_r])
-                child_d = depth[lsel] + 1
-                depth[safe_l] = torch.where(sel, child_d, depth[safe_l])
-                depth[safe_r] = torch.where(sel, child_d, depth[safe_r])
-                best[safe_l] = torch.where(sel2, neg_row, best[safe_l])
-                best[safe_r] = torch.where(sel2, neg_row, best[safe_r])
-                ridx = torch.where(sel, nl - 1 + rank, L - 1)
-                new_ri = torch.stack([lsel, r_ids, f, thr, dl.long()],
-                                     dim=1).to(torch.int32)
-                new_rf = vecs[:, [F_GAIN, F_LEFT_G, F_LEFT_H, F_LEFT_C,
-                                  F_RIGHT_G, F_RIGHT_H, F_RIGHT_C,
-                                  F_LEFT_OUT, F_RIGHT_OUT]]
-                rec_i[ridx] = torch.where(sel2, new_ri, rec_i[ridx])
-                rec_f[ridx] = torch.where(sel2, new_rf, rec_f[ridx])
-                # pending for the next wave: the smaller child gets the
-                # fresh histogram
-                lsel32, r32 = lsel.to(torch.int32), r_ids.to(torch.int32)
-                p_parent = torch.where(sel, lsel32, -1)
-                p_small = torch.where(
-                    sel, torch.where(small_left, lsel32, r32), -1)
-                p_large = torch.where(
-                    sel, torch.where(small_left, r32, lsel32), -1)
-                nl += napply
-
-        leaf_vals = value[:L]
-        if quant:
-            leaf_vals = self._refit_into_records(
-                self._refit(grad, hess, one_f, leaf_id, qscales), rec_i,
-                rec_f, nl)
-
-        # score update.  Trouble spot (lightgbm_tpu/ops/grow.py:1109-1116):
-        # the JAX package adds float32(bf16(v)) + float32(bf16(v - hi)) per
-        # row through a one-hot einsum with one nonzero per row, which is
-        # exactly this gather; a direct score += lr * value[leaf_id] is
-        # more accurate but diverges from the JAX package from tree 2 on.
-        # A stump (root never split) applies nothing.
-        lr32 = float(np.float32(lr))
-        scaled = leaf_vals * lr32 * (1.0 if nl > 1 else 0.0)
-        vhi = scaled.to(torch.bfloat16)
-        vlo = (scaled - vhi.float()).to(torch.bfloat16)
-        lid = leaf_id[:self.num_data].long()
-        new_score = score + (vhi.float()[lid] + vlo.float()[lid])
-        keep = max(L - 1, 1)
-        return GrowResult(new_score, rec_i[:keep], rec_f[:keep], nl,
-                          value[0], waves, syncs)
+    def bag_mask_at(self, it: int) -> torch.Tensor:
+        """(num_data,) f32 in-bag mask of the bagging round drawn at
+        iteration ``it`` (``GBDT.bagging``'s draw)."""
+        return bag_mask(trandom.PRNGKey((self._bag_seed + it) & 0x7FFFFFFF),
+                        self._bag_npad, self.num_data, self._bag_fraction,
+                        self.device)
 
     def _refit_into_records(self, refit, rec_i, rec_f, nl):
         """Write each existing leaf's refit value into the record that

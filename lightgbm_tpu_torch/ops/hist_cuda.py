@@ -320,12 +320,45 @@ def wave_hist(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
             leaf_bound, int(quant), geo.smem, stream)
     if rc != 0:
         raise RuntimeError(f"wave_hist kernel launch failed: CUDA error {rc}")
-    wave_hist.launches += 1
+    wave_hist.launches.bump(dev)
     return out
 
 
-#: kernel launches made through :func:`wave_hist` (read by chip_smoke.py)
-wave_hist.launches = 0
+class DeviceLaunchCount:
+    """Launches of a kernel wrapper, counted on the device: right after
+    each launch the wrapper enqueues one increment of an int64 counter on
+    the launch's device, so a launch captured into a CUDA graph counts
+    every time a replay runs it (a Python counter would count the capture
+    once).  :meth:`read` synchronizes; :meth:`counter` must have made a
+    device's counter before a capture on it (the grower does)."""
+
+    def __init__(self):
+        self._counters = {}
+
+    def counter(self, device: torch.device) -> torch.Tensor:
+        c = self._counters.get(device)
+        if c is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the launch counter of a device must "
+                                   "exist before a capture on it")
+            c = self._counters[device] = torch.zeros(
+                (), dtype=torch.int64, device=device)
+        return c
+
+    def bump(self, device: torch.device) -> None:
+        self.counter(device).add_(1)
+
+    def read(self) -> int:
+        return sum(int(c) for c in self._counters.values())
+
+    def reset(self) -> None:
+        for c in self._counters.values():
+            c.zero_()
+
+
+#: kernel launches made through :func:`wave_hist`, counted on the device
+#: (read by chip_smoke.py)
+wave_hist.launches = DeviceLaunchCount()
 
 #: csrc/wave_hist_v2.cu: output rows per CTA (three warpgroups of 64) and
 #: the column tile widths it is compiled for (wgmma N, multiples of 16 up

@@ -61,6 +61,12 @@ def quantize_gh(grad: torch.Tensor, hess: torch.Tensor, key):
     is ``fold_in(PRNGKey(seed), tree_idx)``, split into the g and h
     keys."""
     kg, kh = trandom.split(key)
+    return quantize_gh_keys(grad, hess, kg, kh)
+
+
+def quantize_gh_keys(grad: torch.Tensor, hess: torch.Tensor, kg, kh):
+    """:func:`quantize_gh` with the two noise keys given (host pairs or
+    ``(2,)`` int64 tensors, as a captured graph reads them)."""
     sg, sh = quant_scales(grad, hess)
     return (sg, sh, stochastic_round_int8(grad, sg, kg),
             stochastic_round_int8(hess, sh, kh))

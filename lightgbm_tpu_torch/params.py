@@ -820,12 +820,12 @@ PARAM_SCHEMA: Sequence[Param] = (
        section="device"),
     _p("fused_chunk", int, 20, (),
        check=">= 0",
-       desc="boosting iterations fused into ONE device dispatch by the "
-            "multi-iteration training path (GBDT.train_chunked): gradients, "
-            "bagging/feature_fraction draws and tree growth run inside a "
-            "single lax.scan. Drivers (engine.train, the CLI, the C API's "
-            "UpdateChunked) cap each dispatch at the next callback/eval/"
-            "snapshot boundary so observable cadence is unchanged; <= 1 "
+       desc="boosting iterations fused into one dispatch by the "
+            "multi-iteration training path (GBDT.train_chunked): each tree "
+            "one launch of the captured tree graph, gradients and "
+            "bagging/feature_fraction/int8 draws on the card, no host read "
+            "inside the chunk. engine.train caps each dispatch at the next "
+            "evaluation boundary so the callback cadence is unchanged; <= 1 "
             "disables fusing", section="device"),
     _p("dispatch_retries", int, 2, (), check=">= 0",
        desc="bounded retries (with short backoff) around a device "

@@ -11,7 +11,11 @@ of ``jax.random`` under the default Threefry-2x32 implementation with
 iota ``(i >> 32, i & 0xFFFFFFFF)``), so every draw equals the JAX package's
 for the same seed and tree index, on the CPU and on the card alike:
 
-* a key is a pair of 32-bit words, held as two Python ints;
+* a key is a pair of 32-bit words, held as two Python ints on the host
+  or, for the draws a captured CUDA graph replays with new keys, as a
+  ``(2,)`` int64 tensor on the draw's device (:func:`key_tensor`): the
+  graph reads the key from a buffer the host refills, so it is not baked
+  into the captured kernels;
 * ``PRNGKey(seed)`` = ``(seed >> 32, seed & 0xFFFFFFFF)`` of a 32-bit seed;
 * ``fold_in(key, d)`` = both words of ``threefry2x32(key, (0, d))``;
 * ``split(key, num)[i]`` = both words of ``threefry2x32(key, (0, i))``;
@@ -55,17 +59,13 @@ def derive_seeds(master_seed: int):
     return {n: int(c.generate_state(1)[0]) for n, c in zip(names, children)}
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+def _rotl(x, r: int):
     return ((x << r) | (x >> (32 - r))) & MASK32
 
 
-def threefry2x32(key: Key, x0: torch.Tensor, x1: torch.Tensor):
-    """Threefry-2x32 with 20 rounds (Salmon et al., SC'11; jax's
-    ``threefry2x32_p``) of the counter words ``x0``, ``x1`` (int64 tensors
-    holding uint32 values) under ``key``; returns the two output words as
-    int64 tensors on the counters' device."""
-    k0, k1 = int(key[0]) & MASK32, int(key[1]) & MASK32
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+def _rounds(ks, x0, x1):
+    """The 20 rounds over counter words ``x0``, ``x1`` (int64 tensors or
+    Python ints) under the key schedule ``ks``."""
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32
     for step in range(5):
@@ -77,10 +77,32 @@ def threefry2x32(key: Key, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
+def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
+    """Threefry-2x32 with 20 rounds (Salmon et al., SC'11; jax's
+    ``threefry2x32_p``) of the counter words ``x0``, ``x1`` (int64 tensors
+    holding uint32 values) under ``key``; returns the two output words as
+    int64 tensors on the counters' device.  ``key`` is a pair of Python
+    ints or a ``(2,)`` int64 tensor on the counters' device; both give the
+    same bits."""
+    if isinstance(key, torch.Tensor):
+        k0, k1 = key[0] & MASK32, key[1] & MASK32
+    else:
+        k0, k1 = int(key[0]) & MASK32, int(key[1]) & MASK32
+    return _rounds((k0, k1, k0 ^ k1 ^ 0x1BD11BDA), x0, x1)
+
+
 def _words(key: Key, counter: int) -> Key:
-    one = lambda v: torch.tensor([v], dtype=torch.int64)
-    a, b = threefry2x32(key, one(0), one(int(counter) & MASK32))
-    return int(a[0]), int(b[0])
+    """Both output words of the counter ``(0, counter)``, in Python ints
+    (the host derives every per-tree key this way)."""
+    k0, k1 = int(key[0]) & MASK32, int(key[1]) & MASK32
+    return _rounds((k0, k1, k0 ^ k1 ^ 0x1BD11BDA), 0,
+                   int(counter) & MASK32)
+
+
+def key_tensor(key: Key, device=None) -> torch.Tensor:
+    """A host key as the ``(2,)`` int64 tensor form."""
+    return torch.tensor([int(key[0]), int(key[1])], dtype=torch.int64,
+                        device=device)
 
 
 def PRNGKey(seed: int) -> Key:
@@ -102,8 +124,11 @@ def split(key: Key, num: int = 2) -> List[Key]:
     return [_words(key, i) for i in range(int(num))]
 
 
-def random_bits(key: Key, shape, device=None) -> torch.Tensor:
-    """32 random bits per element (int64 tensor holding uint32 values)."""
+def random_bits(key, shape, device=None) -> torch.Tensor:
+    """32 random bits per element (int64 tensor holding uint32 values);
+    ``key`` as in :func:`threefry2x32` (a tensor key sets the device)."""
+    if isinstance(key, torch.Tensor):
+        device = key.device
     shape = tuple(int(s) for s in (shape if isinstance(shape, (tuple, list))
                                    else (shape,)))
     n = int(np.prod(shape, dtype=np.int64))
@@ -112,8 +137,9 @@ def random_bits(key: Key, shape, device=None) -> torch.Tensor:
     return (a ^ b).reshape(shape)
 
 
-def uniform(key: Key, shape, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: float32 in [0, 1)."""
+def uniform(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1); ``key`` a
+    host pair or a ``(2,)`` int64 tensor."""
     bits = random_bits(key, shape, device)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     return mant.view(torch.float32) - 1.0

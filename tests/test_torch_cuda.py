@@ -54,10 +54,10 @@ def test_kernel_matches_plain_on_card(cuda_device, n, g, nb, k, w, quant):
     order) and bit-identical across runs."""
     bins, leaf, ghk, pending = _inputs(cuda_device, n, g, nb, k, w, quant)
     kw = dict(g=g, nb=nb, k=k, w=w)
-    before = hist_cuda.wave_hist.launches
+    before = hist_cuda.wave_hist.launches.read()
     a = hist_cuda.wave_hist(bins, leaf, ghk, pending, **kw)
     b = hist_cuda.wave_hist(bins, leaf, ghk, pending, **kw)
-    assert hist_cuda.wave_hist.launches == before + 2
+    assert hist_cuda.wave_hist.launches.read() == before + 2
     ref = hist_cuda.wave_hist_reference(bins, leaf, ghk, pending, **kw)
     assert torch.equal(a, b)
     assert not a[..., -1].any()
@@ -91,11 +91,13 @@ def test_training_on_card_matches_cpu_path(cuda_device):
          + 0.3 * rng.standard_normal(len(x)) > 0.4).astype(float)
     params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
               "verbose": -1}
-    hist_cuda.wave_hist.launches = 0
+    hist_cuda.wave_hist.launches.reset()
     on_card = lt.train(params, lt.Dataset(x, y), 5)
     gb = on_card._gbdt
     assert gb.device.type == "cuda"
-    assert hist_cuda.wave_hist.launches == sum(s[1] for s in gb.tree_stats)
+    assert hist_cuda.wave_hist.launches.read() \
+        == int(gb._grower.executed_waves) \
+        >= sum(s[2] for s in gb.tree_stats)
     on_cpu = lt.train({**params, "device": "cpu"}, lt.Dataset(x, y), 5)
     assert on_card.num_trees() == on_cpu.num_trees() == 5
     t_card, t_cpu = gb.models[0], on_cpu._gbdt.models[0]
@@ -664,3 +666,116 @@ def test_valid_scoring_on_card_equals_cpu(cuda_device):
     np.testing.assert_allclose(vs.score[0].double().cpu().numpy(),
                                booster.predict(x[50_000:], raw_score=True),
                                atol=1e-5)
+
+
+# -- the captured tree (ops/graphs.py, csrc/graph_loop.cu) ----------------
+
+def _graph_grower(dev, params, rows=6_000, seed=11):
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import BinnedDataset
+    from lightgbm_tpu_torch.ops.grow import DeviceGrower
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, 8))
+    cfg = Config({"objective": "binary", "max_bin": 63, "verbose": -1,
+                  "min_data_in_leaf": 5, **params})
+    ds = BinnedDataset.construct_from_matrix(x, cfg)
+    grad = torch.from_numpy(rng.standard_normal(rows).astype(np.float32))
+    hess = torch.from_numpy((0.05 + rng.random(rows)).astype(np.float32))
+    return DeviceGrower(ds, cfg, dev), grad.to(dev), hess.to(dev)
+
+
+@pytest.mark.parametrize("params", [
+    {"num_leaves": 31},
+    {"num_leaves": 255, "min_data_in_leaf": 2},
+    {"num_leaves": 31, "grad_quant_bits": 8, "feature_fraction": 0.8},
+    {"num_leaves": 255, "min_data_in_leaf": 2, "grad_quant_bits": 8},
+], ids=["bf16_31", "bf16_255", "int8_31_ff", "int8_255"])
+def test_captured_tree_equals_eager_loop_on_card(cuda_device, params):
+    """One launch of the composed graph grows the tree the plain loop of
+    the same pieces grows on the card (a host read a wave), bit for bit:
+    records, leaf count, waves and score; the loop's wave count equals
+    the device's, and every wave launched wave_hist once."""
+    grower, grad, hess = _graph_grower(cuda_device, params)
+    score = torch.zeros(grower.num_data, device=cuda_device)
+    mask = grower.feature_mask_for(2)
+    got = grower.grow_one_iter(score, grad, hess, 0.1, feature_mask=mask,
+                               tree_idx=2)
+    st = grower._st
+    st.score.copy_(score)
+    st.grad.copy_(grad)
+    st.hess.copy_(hess)
+    st.fmask.copy_(mask)
+    st.ctl[3:4].zero_()
+    grower._run_pieces(None)
+    assert int(got.num_leaves) >= 3
+    assert int(got.num_leaves) == int(st.out_nl[0])
+    assert int(got.waves) == int(st.out_waves[0])
+    assert torch.equal(got.rec_i, st.out_rec_i[0])
+    assert torch.equal(got.rec_f.view(torch.int32),
+                       st.out_rec_f[0].view(torch.int32))
+    assert torch.equal(got.score.view(torch.int32),
+                       st.score.view(torch.int32))
+    hist_cuda.wave_hist.launches.reset()
+    before = int(grower.executed_waves)
+    again = grower.grow_one_iter(score, grad, hess, 0.1, feature_mask=mask,
+                                 tree_idx=2)
+    assert torch.equal(again.rec_i, got.rec_i)
+    assert hist_cuda.wave_hist.launches.read() == int(again.waves) \
+        == int(grower.executed_waves) - before
+
+
+def test_fused_chunk_makes_no_host_sync(cuda_device):
+    """A chunk of the fused path (the key-table copy, the launches and
+    the records' asynchronous copy) runs under sync debug mode "error";
+    its trees equal those of per-iteration training."""
+    from lightgbm_tpu_torch.boosting.gbdt import _RecStack
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((8_000, 8))
+    y = (x[:, 0] + 0.5 * rng.standard_normal(len(x)) > 0).astype(float)
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "verbose": -1, "bagging_freq": 2, "bagging_fraction": 0.8,
+              "feature_fraction": 0.8}
+    fused = lt.Booster(params, lt.Dataset(x, y))
+    gb = fused._gbdt
+    fused.update_chunked(4, chunk=4)          # captures the graphs
+    fg = gb._fused_grad_fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = gb._grower.fused_train(4, gb.train_score[0], 0.1, 4, fg)
+        _RecStack((out.rec_i, out.rec_f, out.nl, out.waves, out.qscales),
+                  cuda_device)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    plain = lt.Booster(params, lt.Dataset(x, y))
+    for _ in range(4):
+        plain.update()
+    assert fused.model_to_string() == plain.model_to_string()
+    assert [s[3] for s in plain._gbdt.tree_stats] == [1, 1, 1, 1]
+
+
+def test_capture_memory_does_not_grow_with_the_wave_budget(cuda_device):
+    """The wave graphs are loop bodies, one a stage: the memory the
+    captures take stays within twice the peak of one eager tree, at 31
+    and at 255 leaves (the budget of waves grows 8x)."""
+    for leaves in (31, 255):
+        grower, grad, hess = _graph_grower(cuda_device,
+                                           {"num_leaves": leaves,
+                                            "min_data_in_leaf": 2},
+                                           rows=200_000)
+        st = grower._st
+        st.grad.copy_(grad)
+        st.hess.copy_(hess)
+        st.ctl[3:4].zero_()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grower._run_pieces(None)
+        torch.cuda.synchronize()
+        eager = torch.cuda.max_memory_allocated() - base
+        before = torch.cuda.memory_reserved()
+        grower._graph(None)
+        torch.cuda.synchronize()
+        captured = torch.cuda.memory_reserved() - before
+        assert captured <= 2 * eager + (8 << 20), (leaves, captured, eager)

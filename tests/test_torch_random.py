@@ -71,3 +71,34 @@ def test_prngkey_rejects_out_of_range_seeds():
         trandom.PRNGKey(-1)
     with pytest.raises(ValueError, match="seed"):
         trandom.PRNGKey(1 << 32)
+
+
+@pytest.mark.parametrize("seed", [0, 42, 0x7FFFFFFF])
+@pytest.mark.parametrize("shape", [1, 28, 3001, bucket_size(3001)])
+def test_tensor_key_draws_equal_host_key_and_jax(seed, shape):
+    """A key held in a (2,) int64 tensor (as a captured CUDA graph reads
+    it from the key table) draws the host-key form's bits and jax's."""
+    key = trandom.fold_in(trandom.PRNGKey(seed), seed % 89)
+    jkey = jax.random.fold_in(jax.random.PRNGKey(seed), seed % 89)
+    tkey = trandom.key_tensor(key)
+    assert tkey.dtype == torch.int64 and tuple(tkey.shape) == (2,)
+    got = trandom.uniform(tkey, shape)
+    np.testing.assert_array_equal(_bits(got.numpy()),
+                                  _bits(trandom.uniform(key, shape).numpy()))
+    np.testing.assert_array_equal(
+        _bits(got.numpy()), _bits(jax.random.uniform(jkey, (shape,))))
+    np.testing.assert_array_equal(
+        trandom.random_bits(tkey, shape).numpy(),
+        trandom.random_bits(key, shape).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_host_words_equal_the_tensor_rounds(seed):
+    """fold_in and split derive keys in Python ints (the host builds a
+    chunk's key table that way); the tensor rounds give the same words."""
+    key = trandom.PRNGKey(seed)
+    for d in (0, 3, 0xFFFFFFFF):
+        a, b = trandom.threefry2x32(trandom.key_tensor(key),
+                                    torch.zeros(1, dtype=torch.int64),
+                                    torch.full((1,), d, dtype=torch.int64))
+        assert trandom.fold_in(key, d) == (int(a[0]), int(b[0]))

@@ -92,3 +92,32 @@ def test_quantization_noise_does_not_depend_on_the_row_pad():
         np.testing.assert_array_equal(b.numpy()[:3000] if b.dim() else
                                       b.numpy(), a.numpy())
     assert not long_[2][3000:].any() and not long_[3][3000:].any()
+
+
+@pytest.mark.parametrize("seed,tree_idx", [(3, 0), (30, 7), (0x7FFFFFFF,
+                                                               1234)])
+def test_tensor_keyed_draws_equal_jax(seed, tree_idx):
+    """The draws a captured tree makes from its key-table row (the keys as
+    (2,) int64 tensors): the feature_fraction mask, the bag and the int8
+    columns equal the JAX package's for the same seeds."""
+    nf, k = 28, 23
+    fkey = trandom.fold_in(trandom.PRNGKey(seed), tree_idx)
+    np.testing.assert_array_equal(
+        tgrow.feature_mask_from_key(trandom.key_tensor(fkey), nf,
+                                    k).numpy(),
+        np.asarray(jgrow.feature_fraction_mask(seed, tree_idx, nf, k)))
+    bseed = (seed + tree_idx) & 0x7FFFFFFF
+    n_pad = thist.bucket_size(3001)
+    np.testing.assert_array_equal(
+        tbag.bag_mask(trandom.key_tensor(trandom.PRNGKey(bseed)), n_pad,
+                      3001, 0.8).numpy(),
+        np.asarray(jbag.bagging_row_mask(bseed, n_pad, 3001, 0.8)))
+    grad, hess = _grads(3001, seed % 97)
+    kg, kh = (trandom.key_tensor(k_) for k_ in trandom.split(fkey))
+    got = thist.quantize_gh_keys(torch.from_numpy(grad),
+                                 torch.from_numpy(hess), kg, kh)
+    want = jhist.quantize_gh(jnp.asarray(grad), jnp.asarray(hess),
+                             jax.random.fold_in(jax.random.PRNGKey(seed),
+                                                tree_idx))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
