@@ -38,15 +38,23 @@ Phases, one line each:
               through engine.train twice: fused (one chunk of 10 trees,
               each one launch of the captured tree graph, no host sync)
               and per-iteration (a callback without the eval-cadence
-              mark; one host sync a tree); both must give the eager wave
-              loop's model text sha256 (EAGER_SHA256), and wave_hist's
-              launches must equal the executed waves, both counted on the
-              device.  Prints s/tree both ways, the capture, warm-up and
-              instantiate seconds, peak memory after capture; for higgs
-              5 more fused chunks (s/tree median and spread, host syncs
-              a chunk, a tree graph's launch in host us) and the device
-              cost of a stage loop that never enters (--profile: device
-              busy and idle over one fused chunk).  Each run checks
+              mark; one host sync a tree); both must give the same
+              model text, at --seed 0 the eager wave loop's sha256
+              (EAGER_SHA256); a third booster trains the same chunk with
+              each tree's pieces in the plain Python loop on the card
+              (nothing captured), and its records, leaves, waves, int8
+              scales, scores and model text must equal the fused run's
+              bit for bit; wave_hist's launches, counted on the device,
+              must equal the trees' waves plus the warm-up waves.
+              Prints s/tree three ways, the capture, warm-up and
+              instantiate seconds, peak memory after capture, 5 more
+              fused chunks (s/tree median and spread, host syncs a
+              chunk, a tree graph's launch in host us), for higgs the
+              device cost of a stage loop that never enters (--profile:
+              device busy by kernel over one fused chunk and one tree,
+              quoted only when the trace holds every wave_hist launch,
+              against the median unprofiled time of the same work).
+              Each run checks
               training AUC and Booster.predict
               of all 2M rows (through forest_predict, whose launches
               are counted) bit for bit against the plain version on the
@@ -65,8 +73,8 @@ Phases, one line each:
               (reference=; codes byte-equal to the host's), the higgs
               configuration trained from the card's codes through GBDT
               (model text sha256 equal to the host-binned run's; launches
-              == waves) with the held-out set added (add_valid) and
-              evaluated every round (eval_valid), scored tree by tree by
+              == tree waves + warm-up) with the held-out set added
+              (add_valid) and evaluated every round (eval_valid), scored tree by tree by
               the binned traversal: its AUC equal to Booster.predict's
               within 1e-6 and its scores within 1e-5 (forest_predict
               launches counted), the traversal's leaves equal to the host
@@ -557,9 +565,10 @@ def auc_of(y, score) -> float:
     return m.eval(score[None, :], None)[0][1]
 
 
-#: model text sha256 of each training configuration from the eager wave
-#: loop (PR 6's final tree, chip_smoke.py on an H100 80GB HBM3 at 700 W);
-#: the captured tree must keep every split, so every text, on both paths
+#: model text sha256 of each training configuration at --seed 0 from the
+#: eager wave loop (chip_smoke.py on an H100 80GB HBM3 at 700 W before the
+#: trees were captured); the captured tree must keep every split, so every
+#: text, on both paths
 EAGER_SHA256 = {
     "higgs":
         "ef39698fcaafab3854b57e741e10d0641782052c8613388029d3ee03f8d7652e",
@@ -578,11 +587,12 @@ def _per_iteration(env):
     the same params, so the same model text."""
 
 
-def train_path(name, ds, dev, path):
+def train_path(name, ds, dev, path, seed):
     """``engine.train`` of one configuration on one path ("fused": one
     chunk of ROUNDS trees; "per_iteration"): the booster and what the run
-    counted.  Every launch of wave_hist must be an executed wave of this
-    run's grower, both counted on the device."""
+    counted.  wave_hist's launches, counted on the device, must equal the
+    waves of the run's trees (each tree's own count) plus the warm-up
+    waves before the capture."""
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lt
@@ -600,15 +610,13 @@ def train_path(name, ds, dev, path):
     gb = booster._gbdt
     grower = gb._grower
     launches = hist_cuda.wave_hist.launches.read()
-    executed = int(grower.executed_waves)
     stats = gb.tree_stats
     waves = sum(s[2] for s in stats)
     syncs = [s[3] for s in stats]
     cap = dict(grower.capture_stats)
-    if launches <= 0 or launches != executed \
-            or executed != waves + cap["warmup_waves"]:
-        fail(f"{name} {path}: wave_hist launches {launches}, executed waves "
-             f"{executed} (device counters), tree waves {waves} + warm-up "
+    if launches <= 0 or launches != waves + cap["warmup_waves"]:
+        fail(f"{name} {path}: wave_hist launches {launches} (device "
+             f"counter) != tree waves {waves} + warm-up "
              f"{cap['warmup_waves']}")
     chunks = [s[1] for s in stats]
     want = [ROUNDS] if path == "fused" else [1] * ROUNDS
@@ -620,20 +628,60 @@ def train_path(name, ds, dev, path):
         fail(f"{name}: per-iteration host syncs {syncs}, one a tree "
              f"expected")
     sha = hashlib.sha256(text.encode()).hexdigest()
-    if sha != EAGER_SHA256[name]:
+    if seed == 0 and sha != EAGER_SHA256[name]:
         fail(f"{name} {path}: model text sha256 {sha}, the eager wave "
              f"loop's {EAGER_SHA256[name]}")
     score = gb.train_score[0].double().cpu().numpy()
     if not np.isfinite(score).all():
         fail(f"{name} {path}: non-finite training scores")
     res = dict(path=path, train_s=train_s, s_per_tree=train_s / ROUNDS,
-               model_text_sha256=sha, launches=launches,
-               executed_waves=executed, waves=waves,
+               model_text_sha256=sha, launches=launches, waves=waves,
                waves_per_tree=waves / ROUNDS, host_syncs=syncs,
                dispatch_s=[s[0] for s in stats], capture=cap,
                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                reserved_gb=torch.cuda.memory_reserved(dev) / 1e9)
     return booster, score, res
+
+
+CHUNK_FIELDS = ("rec_i", "rec_f", "nl", "waves", "qscales")
+
+
+def plain_chunk(name, ds, dev, booster):
+    """The plain version of the fused path on the card, at the main path's
+    inputs: a new booster on the same Dataset trains its chunk of ROUNDS
+    trees with each tree's pieces run by the Python loop that reads the
+    control words (``DeviceGrower._run_pieces``: a host read a wave,
+    nothing captured).  The chunk's records (split records, leaves, waves,
+    int8 scales), the training scores and the model text must equal the
+    fused run's bit for bit.  Returns the loop's seconds a tree."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    params = {**TRAIN_BASE, **TRAIN_RUNS[name], "device": dev.type}
+    plain = lt.Booster(params, ds)
+    grower = plain._gbdt._grower
+    grower._graph = lambda sample: None       # capture nothing
+    grower._run_tree = grower._run_pieces     # the loop, not the graph
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    plain.update_chunked(ROUNDS, chunk=ROUNDS)
+    torch.cuda.synchronize(dev)
+    plain_s = (time.perf_counter() - t0) / ROUNDS
+    if grower._composed or grower._graphs is not None:
+        fail(f"{name}: the plain loop captured a graph")
+    got = booster._gbdt._last_chunk_stack.host()
+    want = plain._gbdt._last_chunk_stack.host()
+    for field, a, b in zip(CHUNK_FIELDS, got, want):
+        if a.shape != b.shape or a.tobytes() != b.tobytes():
+            fail(f"{name}: the captured chunk's {field} differs from the "
+                 f"plain loop's on the card")
+    a, b = booster._gbdt.train_score[0], plain._gbdt.train_score[0]
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        fail(f"{name}: the captured chunk's training scores differ from "
+             f"the plain loop's on {int((a != b).sum())} rows")
+    if plain.model_to_string() != booster.model_to_string():
+        fail(f"{name}: the plain loop's model text differs from the "
+             f"captured chunk's")
+    return plain_s
 
 
 def time_fused_chunks(booster, dev):
@@ -698,19 +746,26 @@ def skipped_loop_cost(grower, dev):
                 per_skipped_loop_us=(ms_loops - ms_plain) / n * 1e3)
 
 
-def train_run(name, ds, x, y, dev, profile=False):
+def train_run(name, ds, x, y, dev, seed, profile=False):
     """10 rounds of one configuration on the binned Dataset ``ds``,
     through engine.train's fused path (one chunk of 10 captured trees)
-    and its per-iteration path: both must give the eager wave loop's
-    model text, and every wave's histogram must come from the wave_hist
-    kernel.  The fused booster's predictions are checked.  ``profile``
-    adds a device-time breakdown of one per-iteration tree and, for
-    higgs, of one fused chunk."""
+    and its per-iteration path: both must give the same model text (at
+    --seed 0 the eager wave loop's), the fused chunk must equal the plain
+    loop of its pieces on the card bit for bit, and every wave's
+    histogram must come from the wave_hist kernel.  The fused booster's
+    predictions are checked.  ``profile`` adds a device-time breakdown of
+    one per-iteration tree and of one fused chunk."""
     import numpy as np
     import torch
+    from lightgbm_tpu_torch.ops import hist_cuda
     from lightgbm_tpu_torch.serve import packed
-    booster, score, fused = train_path(name, ds, dev, "fused")
-    spare, _, plain = train_path(name, ds, dev, "per_iteration")
+    booster, score, fused = train_path(name, ds, dev, "fused", seed)
+    spare, _, plain = train_path(name, ds, dev, "per_iteration", seed)
+    if plain["model_text_sha256"] != fused["model_text_sha256"]:
+        fail(f"{name}: the per-iteration model text "
+             f"{plain['model_text_sha256']} differs from the fused "
+             f"{fused['model_text_sha256']}")
+    loop_s = plain_chunk(name, ds, dev, booster)
     gb = booster._gbdt
     trees = booster.num_trees()
     if trees != ROUNDS:
@@ -763,6 +818,7 @@ def train_run(name, ds, x, y, dev, profile=False):
                   model_text_sha256=fused["model_text_sha256"],
                   leaves=[t.num_leaves for t in gb.models],
                   fused=fused, per_iteration=plain,
+                  plain_loop_s_per_tree=loop_s,
                   launches=fused["launches"] + plain["launches"],
                   auc=auc, predict_s=predict_s, predict_split=split,
                   predict_launches=predict_launches,
@@ -772,6 +828,7 @@ def train_run(name, ds, x, y, dev, profile=False):
     cap = fused["capture"]
     host_note = ("" if host_predict_s is None
                  else f"; host walk {host_predict_s:.2f} s")
+    eager_note = " == the eager loop's" if seed == 0 else ""
     print(f"  train {name}: {trees} trees, fused {fused['train_s']:.3f} s "
           f"(one chunk, {fused['host_syncs'][0]} host syncs, capture "
           f"included: warm-up {cap['warmup_s']:.3f} + capture "
@@ -780,13 +837,14 @@ def train_run(name, ds, x, y, dev, profile=False):
           f"{plain['train_s']:.3f} s ({np.mean(per_iter[1:]):.4f} s/tree "
           f"after the first, 1 host sync a tree); "
           f"{fused['waves_per_tree']:.1f} waves/tree, wave_hist launches "
-          f"{fused['launches']} + {plain['launches']} == executed waves on "
-          f"the device (warm-up {cap['warmup_waves']} each); peak memory "
+          f"{fused['launches']} + {plain['launches']} == tree waves + "
+          f"warm-up {cap['warmup_waves']} each; peak memory "
           f"{fused['peak_mem_gb']:.2f} GB after capture "
-          f"({fused['reserved_gb']:.2f} GB reserved); AUC {auc:.4f}; model "
-          f"text sha256 "
-          f"{fused['model_text_sha256']} on both paths == the eager loop's",
-          flush=True)
+          f"({fused['reserved_gb']:.2f} GB reserved); AUC {auc:.4f}; the "
+          f"chunk == the plain loop of its pieces on the card bit for bit "
+          f"(records, leaves, waves, scales, scores; {loop_s:.4f} s/tree); "
+          f"model text sha256 {fused['model_text_sha256']} on both paths"
+          f"{eager_note}", flush=True)
     print(f"  train {name}: predict {predict_s:.4f} s ({predict_launches} "
           f"forest_predict launch, routes {predict_routes}{host_note}; "
           f"bit-equal to the plain version), predict-vs-score "
@@ -819,16 +877,15 @@ def train_run(name, ds, x, y, dev, profile=False):
           f"graph's launch {timing['launch_host_us']:.1f} us of host"
           f"{skip_note}", flush=True)
     if profile:
-        result["profile_chunk"] = prof = profile_ops(
+        hist_cuda.wave_hist.launches.reset()      # this chunk only
+        prof = result["profile_chunk"] = profile_ops(
             f"{name}: one fused chunk of {ROUNDS} trees",
-            lambda: gbs.train_chunked(ROUNDS, chunk=ROUNDS))
-        wall = st[len(st) // 2] * ROUNDS * 1e3
-        print(f"  profile {name}: device busy {prof['device_busy_ms']:.2f} "
-              f"ms of the unprofiled chunk's {wall:.2f} ms (idle "
-              f"{1 - prof['device_busy_ms'] / wall:.1%}), "
-              f"{prof['launches'] / ROUNDS:.0f} kernels a tree", flush=True)
-    if profile:
-        result["profile"] = profile_tree(gb)
+            lambda: gbs.train_chunked(ROUNDS, chunk=ROUNDS), waves=True)
+        if prof["complete"]:
+            print(f"  profile {name}: "
+                  f"{unprofiled_idle('a fused chunk', prof, st, ROUNDS)}",
+                  flush=True)
+        result["profile"] = profile_tree(gb, pi)
     return booster, result
 
 
@@ -855,7 +912,8 @@ def phase_train(dev, seed: int, profile: bool):
         fail("CSR bin codes differ from the dense matrix's")
     runs = {}
 
-    booster, runs["higgs"] = train_run("higgs", dense, x, y, dev, profile)
+    booster, runs["higgs"] = train_run("higgs", dense, x, y, dev, seed,
+                                       profile)
     runs["higgs"]["input"] = "dense"
     del codes_d, codes_c
     sub = x[:200_000]
@@ -867,7 +925,8 @@ def phase_train(dev, seed: int, profile: bool):
     runs["higgs"]["roundtrip_max_abs"] = rt_err
     del booster, again
 
-    booster, runs["harness"] = train_run("harness", ds, x, y, dev, profile)
+    booster, runs["harness"] = train_run("harness", ds, x, y, dev, seed,
+                                         profile)
     gb = booster._gbdt
     runs["harness"]["in_bag_rows"] = int(gb.row_mask.sum())
     runs["harness"]["features_per_tree"] = gb._grower._ff_k
@@ -876,7 +935,7 @@ def phase_train(dev, seed: int, profile: bool):
 
     texts = []
     for rep in range(2):
-        booster, res = train_run("int8", ds, x, y, dev,
+        booster, res = train_run("int8", ds, x, y, dev, seed,
                                  profile and rep == 0)
         texts.append(res.pop("model_text"))
         runs[f"int8_run{rep + 1}"] = res
@@ -1031,9 +1090,11 @@ def phase_data(dev, seed: int, dense, x, y, train, profile: bool):
         eval_s.append(time.perf_counter() - t1)
     train_s = time.perf_counter() - t0
     launches = hist_cuda.wave_hist.launches.read()
-    waves = int(gb._grower.executed_waves)
+    waves = sum(s[2] for s in gb.tree_stats) \
+        + gb._grower.capture_stats["warmup_waves"]
     if launches <= 0 or launches != waves:
-        fail(f"data: kernel launches {launches} != executed waves {waves}")
+        fail(f"data: kernel launches {launches} != tree waves + warm-up "
+             f"{waves}")
     booster = lt.Booster.from_gbdt(gb, params)
     text_sha = hashlib.sha256(booster.model_to_string().encode()).hexdigest()
     want_sha = train["runs"]["higgs"]["model_text_sha256"]
@@ -1085,7 +1146,8 @@ def phase_data(dev, seed: int, dense, x, y, train, profile: bool):
             valid_scoring=profile_ops(
                 f"validation scoring, {len(dts)} trees", score_all))
     print(f"  data train: higgs from the card's codes, {ROUNDS} trees in "
-          f"{train_s:.2f} s, kernel launches {launches} == waves, model "
+          f"{train_s:.2f} s, kernel launches {launches} == tree waves + "
+          f"warm-up, model "
           f"text sha256 {text_sha} (== the host-binned run); valid "
           f"{VALID_ROWS} rows binned on the card with reference= in "
           f"{ref_bin_s:.3f} s (host {host_ref_s:.2f} s, same codes); "
@@ -1109,10 +1171,11 @@ def phase_data(dev, seed: int, dense, x, y, train, profile: bool):
                    evals_result=evals, verbose_eval=False)
     engine_s = time.perf_counter() - t0
     eng_launches = hist_cuda.wave_hist.launches.read()
-    eng_waves = int(eng._gbdt._grower.executed_waves)
+    eng_waves = sum(s[2] for s in eng._gbdt.tree_stats) \
+        + eng._gbdt._grower.capture_stats["warmup_waves"]
     if eng_launches <= 0 or eng_launches != eng_waves:
-        fail(f"engine.train: kernel launches {eng_launches} != executed "
-             f"waves {eng_waves}")
+        fail(f"engine.train: kernel launches {eng_launches} != tree waves "
+             f"+ warm-up {eng_waves}")
     aucs = evals.get("valid_0", {}).get("auc", [])
     if not aucs or not 1 <= eng.best_iteration <= len(aucs):
         fail(f"engine.train filled evals_result {list(evals)} and "
@@ -1123,7 +1186,7 @@ def phase_data(dev, seed: int, dense, x, y, train, profile: bool):
     print(f"  data engine.train: {len(aucs)} rounds in {engine_s:.2f} s "
           f"(binning included), best_iteration {eng.best_iteration}, valid "
           f"AUC {aucs[eng.best_iteration - 1]:.6f}, kernel launches "
-          f"{eng_launches} == waves", flush=True)
+          f"{eng_launches} == tree waves + warm-up", flush=True)
     best = eng.best_iteration
     del eng, tr, va, x_dev, xv_dev
     print(f"phase data: ok (codes and validation codes byte-equal to the "
@@ -1738,16 +1801,21 @@ def phase_serve(dev, models, x, seed: int):
 
 
 def device_time(fn):
-    """Wall ms of one call of ``fn`` and its device time by kernel, (name,
-    ms, launches) largest first (torch.profiler)."""
+    """Wall ms of one call of ``fn``, its device time by kernel, (name,
+    ms, launches) largest first (torch.profiler), and the CUDA-event span
+    of the call on the stream (ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
@@ -1755,45 +1823,96 @@ def device_time(fn):
             if ev.device_type == DeviceType.CUDA
             and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
-    return wall, rows
+    return wall, rows, start.elapsed_time(end)
 
 
-def profile_ops(label, fn):
-    """Print and return the device time by kernel of one call of ``fn``."""
-    wall, rows = device_time(fn)
+def wave_hist_in_trace(rows) -> int:
+    """Launches of csrc/wave_hist.cu's histogram kernel in a trace."""
+    return sum(r[2] for r in rows if "wave_hist_list_kernel" in r[0])
+
+
+def profile_ops(label, fn, waves=False):
+    """Print and return the device time by kernel of one call of ``fn``,
+    busy against the call's CUDA-event span.  ``waves``: the call trains
+    (the wave_hist counter was reset before it), and its busy time is
+    quoted only from a trace that holds every wave_hist launch."""
+    wall, rows, span = device_time(fn)
     busy = sum(r[1] for r in rows)
-    print(f"  profile {label}: {wall * 1e3:.2f} ms wall, {busy:.3f} ms "
-          f"device busy in {sum(r[2] for r in rows)} launches (device idle "
-          f"{1 - busy / (wall * 1e3):.1%})")
+    launches = sum(r[2] for r in rows)
+    complete = not waves or trace_complete(label, wave_hist_in_trace(rows))
+    if complete:
+        print(f"  profile {label}: {wall * 1e3:.2f} ms wall, {span:.2f} ms "
+              f"CUDA-event span, {busy:.3f} ms device busy in {launches} "
+              f"launches (device idle {1 - busy / span:.1%} of the span, "
+              f"the profiler's stretch included)")
     for key, ms, count in rows[:8]:
         print(f"    {ms:9.3f} ms  {count:6d}x  {key[:90]}")
-    return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
-                launches=sum(r[2] for r in rows),
+    return dict(wall_ms=wall * 1e3, span_ms=span, complete=complete,
+                device_busy_ms=busy if complete else None, launches=launches,
                 top=[dict(kernel=k, ms=m, count=c) for k, m, c in rows[:20]])
 
 
-def profile_tree(gb):
+def unprofiled_idle(what, prof, times_s, trees) -> str:
+    """The device busy time of a complete trace against the median
+    unprofiled time of the same work.  The profiler stretches the traced
+    call (its own span overstates the idle share) and its kernels too (a
+    harness chunk's traced busy time exceeded the unprofiled chunk's
+    time), so the share is a lower bound on the idle share, and is not
+    resolved when the busy time is the longer."""
+    wall = sorted(times_s)[len(times_s) // 2] * trees * 1e3
+    busy = prof["device_busy_ms"]
+    idle = (f"idle at least {1 - busy / wall:.1%}" if busy < wall
+            else "idle not resolved: the trace's busy time is the longer")
+    return (f"{what}: device busy {busy:.2f} ms in the trace against "
+            f"{wall:.2f} ms, the median unprofiled time ({idle}), "
+            f"{prof['launches'] / trees:.0f} kernels a tree")
+
+
+def trace_complete(label, seen: int) -> bool:
+    """Whether a trace holds every wave_hist launch its call made (the
+    device counter, reset before the call): a trace of graph replays can
+    miss kernels, and then its busy time is not quoted."""
+    from lightgbm_tpu_torch.ops import hist_cuda
+    want = hist_cuda.wave_hist.launches.read()
+    if seen != want:
+        print(f"  profile {label}: the trace holds {seen} of the "
+              f"{want} wave_hist launches the device counted; its busy "
+              f"time and idle share are not quoted", flush=True)
+    return seen == want
+
+
+def profile_tree(gb, per_tree_s):
     """Device time by kernel over one more tree (torch.profiler), with the
-    run's bagging mask, feature mask and quantization key."""
+    run's bagging mask, feature mask and quantization key; busy and idle
+    only from a complete trace, idle also against ``per_tree_s``, the
+    unprofiled per-iteration trees' seconds."""
+    from lightgbm_tpu_torch.ops import hist_cuda
     grower = gb._grower
     grad, hess = gb.objective.get_gradients(gb.train_score)
     gb.bagging(gb.iter)
-    wall, rows = device_time(lambda: grower.grow_one_iter(
+    hist_cuda.wave_hist.launches.reset()
+    wall, rows, span = device_time(lambda: grower.grow_one_iter(
         gb.train_score[0].clone(), grad, hess,
         feature_mask=grower.feature_mask_for(gb.iter),
         row_mask=gb.row_mask, tree_idx=gb.iter))
+    complete = trace_complete("one tree", wave_hist_in_trace(rows))
     busy = sum(r[1] for r in rows)
     # the histogram layer: every kernel of csrc/wave_hist.cu
     hist = [r for r in rows if any(name in r[0] for name in HIST_KERNELS)]
     hist_ms = sum(r[1] for r in hist)
-    print(f"  profile: one tree {wall * 1e3:.1f} ms wall, "
-          f"{busy:.1f} ms device busy, {hist_ms:.3f} ms in the histogram "
-          f"kernels ({sum(r[2] for r in hist)} launches)")
+    res = dict(wall_ms=wall * 1e3, span_ms=span, complete=complete,
+               device_busy_ms=busy if complete else None,
+               launches=sum(r[2] for r in rows), hist_kernel_ms=hist_ms,
+               top=[dict(kernel=k, ms=m, count=c) for k, m, c in rows[:40]])
+    if complete:
+        print(f"  profile: one tree {wall * 1e3:.1f} ms wall, {span:.2f} ms "
+              f"CUDA-event span under the profiler, {busy:.2f} ms device "
+              f"busy, {hist_ms:.3f} ms in the histogram kernels "
+              f"({sum(r[2] for r in hist)} launches); "
+              f"{unprofiled_idle('a tree', res, per_tree_s, 1)}")
     for key, ms, count in rows[:15]:
         print(f"    {ms:9.3f} ms  {count:6d}x  {key[:90]}")
-    return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
-                hist_kernel_ms=hist_ms,
-                top=[dict(kernel=k, ms=m, count=c) for k, m, c in rows[:40]])
+    return res
 
 
 def main() -> int:

@@ -254,10 +254,6 @@ class DeviceGrower:
         self._stages = [(ws, self.num_leaves if cap is None
                          else min(cap, self.num_leaves))
                         for ws, cap in self.stage_plan]
-        #: waves executed by this grower, counted on the device (the
-        #: warm-up before a capture included)
-        self.executed_waves = torch.zeros((), dtype=torch.int64,
-                                          device=device)
         self._st = None
         self._graphs = None
         self._composed = {}
@@ -646,7 +642,6 @@ class DeviceGrower:
         st.ctl[2:3].add_(1)
         st.ctl[1:2].copy_((napply == 0).to(torch.int32).view(1))
         st.ctl[0:1].add_(napply.to(torch.int32).view(1))
-        self.executed_waves.add_(1)
 
     def _piece_finish(self) -> None:
         """The int8 refit, the score update, and the tree's records into
@@ -696,8 +691,8 @@ class DeviceGrower:
     def _run_pieces(self, sample) -> None:
         """The plain version of a tree: the pieces in a Python loop that
         reads the control words (a host read a wave).  The CPU path; the
-        card tests run it on CUDA tensors to hold the captured tree
-        against it."""
+        card tests and chip_smoke.py run it on CUDA tensors to hold the
+        captured tree against it."""
         if sample is not None:
             self._piece_sample(sample)
         self._piece_start()

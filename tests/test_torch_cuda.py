@@ -96,8 +96,8 @@ def test_training_on_card_matches_cpu_path(cuda_device):
     gb = on_card._gbdt
     assert gb.device.type == "cuda"
     assert hist_cuda.wave_hist.launches.read() \
-        == int(gb._grower.executed_waves) \
-        >= sum(s[2] for s in gb.tree_stats)
+        == sum(s[2] for s in gb.tree_stats) \
+        + gb._grower.capture_stats["warmup_waves"]
     on_cpu = lt.train({**params, "device": "cpu"}, lt.Dataset(x, y), 5)
     assert on_card.num_trees() == on_cpu.num_trees() == 5
     t_card, t_cpu = gb.models[0], on_cpu._gbdt.models[0]
@@ -716,12 +716,10 @@ def test_captured_tree_equals_eager_loop_on_card(cuda_device, params):
     assert torch.equal(got.score.view(torch.int32),
                        st.score.view(torch.int32))
     hist_cuda.wave_hist.launches.reset()
-    before = int(grower.executed_waves)
     again = grower.grow_one_iter(score, grad, hess, 0.1, feature_mask=mask,
                                  tree_idx=2)
     assert torch.equal(again.rec_i, got.rec_i)
-    assert hist_cuda.wave_hist.launches.read() == int(again.waves) \
-        == int(grower.executed_waves) - before
+    assert hist_cuda.wave_hist.launches.read() == int(again.waves)
 
 
 def test_fused_chunk_makes_no_host_sync(cuda_device):
