@@ -8,8 +8,9 @@ Phases, one line each:
 1. build   -- compile every CUDA source of the package with nvcc (sm_90a),
               all sources at once;
 2. kernel  -- call each kernel's wrapper on card tensors at the shapes its
-              path gives it (2M rows; wave_hist_v2 also at the ubench's
-              10.5M) and hold the result against the plain PyTorch
+              path gives it (2M rows x 28 groups, wave_hist also at the
+              lambdarank configuration's 723,412 rows x 136 groups;
+              wave_hist_v2 also at the ubench's 10.5M) and hold the result against the plain PyTorch
               version: int8 byte-equal, bf16 within 1e-4 x (histogram of
               |stats|) + 1e-6 of it (the plain version's f32 atomics and
               the tensor cores sum in other orders) and bit-identical
@@ -64,7 +65,31 @@ Phases, one line each:
               (host clocks, and CUDA events around the kernel); (a) the
               model-text round trip; (c) byte-identical model text across
               its runs;
-5. data    -- the data-on-the-device path: the 2M training rows uploaded
+5. objectives -- two configurations at full width through engine.train,
+              each checked as phase train checks its runs (fused ==
+              per-iteration model text, the chunk bit-equal to the plain
+              loop on the card, wave_hist launches == tree waves +
+              warm-up, Booster.predict bit-equal to forest_predict's
+              plain version), with 5 more fused chunks timed:
+              (a) regression: L2 (metric l2) on the train phase's dense
+              binning of the 2M HIGGS-shape rows, the target the fixed
+              signal of higgs_shape's labels plus N(0, 0.5^2) noise
+              (regression_target); floors: training l2 after 10 rounds
+              below round 1's and below 0.6 var(y);
+              (b) lambdarank: MSLR-WEB10K's shape (synth_mslr, a copy of
+              bench.py's: 723,412 rows x 136 features over 6,000
+              queries, 5 relevance levels), bench.py::run_mslr's settings
+              (metric ndcg, eval_at 10, 255 leaves, min_data_in_leaf 20,
+              min_sum_hessian_in_leaf 1e-3), a held-out set of 120,000
+              rows over 1,000 queries binned against the training mappers
+              and evaluated every round of the per-iteration run (its
+              host ms printed apart); floors: held-out NDCG@10 after 10
+              rounds above round 1's and 0.05 above a seeded random
+              score's; the card gradient at the first tree's scores held
+              against lambdarank_grad_f64 (float64, one query at a time)
+              on 200+ queries of every bucket size, its ms a tree (CUDA
+              events) and peak memory printed;
+6. data    -- the data-on-the-device path: the 2M training rows uploaded
               and binned on the card (construct_from_device_matrix; codes
               byte-equal to the train phase's host build; the time split
               into sample, find-bins, bundling and codes, the codes also
@@ -80,7 +105,7 @@ Phases, one line each:
               launches counted), the traversal's leaves equal to the host
               walk's on 200,000 rows, ms a tree on the card; then
               engine.train with the pair as valid set and early stopping;
-6. serve   -- csrc/forest_predict.cu, the packed-forest kernel: the higgs
+7. serve   -- csrc/forest_predict.cu, the packed-forest kernel: the higgs
               model over all 2M rows (leaves and scores also against the
               host walk on 200k rows), a synthetic forest of 500 trees
               of up to 63 leaves with deep paths, NaN/zero missing and
@@ -137,6 +162,9 @@ BF16_TC_OPS_PER_S = 989e12
 UBENCH_CASES = ("hist3_w42", "pallas2_w42_ch4096", "pallas2_w128_ch4096",
                 "pallas2_w4_ch4096")
 UBENCH_ROWS = 10_518_528    # the ubench's default 10.5M rows, padded
+MSLR_ROWS = 723_412         # MSLR-WEB10K's rows, queries and features
+MSLR_QUERIES = 6000
+MSLR_FEATURES = 136
 # ms of each kernel-phase case before the kernels' redesign, quoted from
 # PERF.md for the per-case lines only (chip_smoke.py's runs of that tree on
 # an H100 80GB HBM3 at 700 W; the W=200, W=33 and NB=32 cases, which that
@@ -211,6 +239,80 @@ def higgs_shape(n: int, seed: int):
     p = 1.0 / (1.0 + np.exp(-(z - np.median(z)) * 1.5))
     y = (rng.random(n) < p).astype(np.float32)
     return x, y
+
+
+def synth_mslr(rows: int, cols: int = 136, n_queries: int = 6000,
+               seed: int = 7):
+    """MSLR-WEB10K-shaped learning-to-rank rows (a copy of bench.py's
+    synth_mslr): ``rows`` documents over ``n_queries`` queries with
+    lognormal sizes (sigma 0.7, mean ~120, clipped to 5-1000, then scaled
+    to ``rows``), 136 features, and 5 relevance levels from global
+    quantiles of a noisy nonlinear utility with a per-query offset.  The
+    scaling truncates each size, which leaves bench.py's copy ~0.4% short
+    of ``rows`` (720,515 of 723,412); here the first queries take one row
+    more each until the sizes sum to ``rows``.  Returns (x float32, y
+    float32, query sizes)."""
+    import numpy as np
+    wrng = np.random.default_rng(20260731)
+    w1 = wrng.standard_normal(cols).astype(np.float32) / np.sqrt(cols)
+    w2 = wrng.standard_normal(cols).astype(np.float32) / np.sqrt(cols)
+    rng = np.random.default_rng(seed)
+    sizes = np.clip(rng.lognormal(4.45, 0.7, n_queries).astype(np.int64),
+                    5, 1000)
+    sizes = np.maximum((sizes * (rows / sizes.sum())).astype(np.int64), 2)
+    sizes[:max(rows - int(sizes.sum()), 0)] += 1
+    total = int(sizes.sum())
+    x = rng.standard_normal((total, cols), dtype=np.float32)
+    qoff = np.repeat(rng.standard_normal(n_queries, dtype=np.float32),
+                     sizes)
+    util = ((x @ w1) + 0.7 * np.abs(x @ w2) + 0.8 * qoff
+            + 0.9 * rng.standard_normal(total, dtype=np.float32))
+    y = np.digitize(util, np.quantile(util, [0.55, 0.75, 0.90, 0.97])) \
+        .astype(np.float32)
+    return x, y, sizes
+
+
+def lambdarank_grad_f64(score, label, qb, label_gain, sigmoid: float,
+                        max_position: int, queries=None):
+    """The plain version of LambdarankNDCG's gradient: float64 numpy, one
+    query at a time, its pairs as the reference's GetGradientsForOneQuery
+    forms them (rank_objective.hpp) with the exact sigmoid: documents
+    sorted by score (stable), every pair whose labels differ, lambda
+    ``-dNDCG * 2/(1+exp(2 sigma delta))`` with ``dNDCG`` divided by
+    ``0.01 + |delta|`` when the query's best and worst scores differ, and
+    the inverse max DCG at ``max_position``.  Returns (grad, hess, mag) of
+    the rows of ``queries`` (default all; others stay 0): ``mag`` is the
+    sum of the magnitudes of a row's pair terms, the scale of its
+    gradient's rounding (a row's lambdas have both signs, so the gradient
+    can be far smaller than what its sum rounds at)."""
+    import numpy as np
+    score = np.asarray(score, np.float64)
+    label = np.asarray(label).astype(np.int64)
+    gains = np.asarray(label_gain, np.float64)
+    grad, hess, mag = (np.zeros(len(score)) for _ in range(3))
+    top = 1.0 / np.log2(np.arange(2, 2 + max_position))
+    for q in (range(len(qb) - 1) if queries is None else queries):
+        lo, hi = int(qb[q]), int(qb[q + 1])
+        n = hi - lo
+        ideal = np.sort(label[lo:hi])[::-1][:max_position]
+        mdcg = float((gains[ideal] * top[:len(ideal)]).sum())
+        inv = 1.0 / mdcg if mdcg > 0 else 0.0
+        order = np.argsort(-score[lo:hi], kind="stable")
+        ss, gl = score[lo:hi][order], label[lo:hi][order]
+        disc = 1.0 / np.log2(np.arange(2, 2 + n))
+        delta = ss[:, None] - ss[None, :]
+        dndcg = ((gains[gl][:, None] - gains[gl][None, :])
+                 * np.abs(disc[:, None] - disc[None, :]) * inv)
+        if ss[0] != ss[n - 1]:
+            dndcg = dndcg / (0.01 + np.abs(delta))
+        sig = 2.0 / (1.0 + np.exp(2.0 * sigmoid * delta))
+        pair = gl[:, None] > gl[None, :]
+        lam = np.where(pair, -dndcg * sig, 0.0)
+        hes = np.where(pair, 2.0 * dndcg * sig * (2.0 - sig), 0.0)
+        grad[lo + order] = lam.sum(1) - lam.sum(0)
+        hess[lo + order] = hes.sum(1) + hes.sum(0)
+        mag[lo + order] = np.abs(lam).sum(1) + np.abs(lam).sum(0)
+    return grad, hess, mag
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -343,7 +445,7 @@ def measure_case(name, kernel, dev, c, *, tensor_core=False):
     for bit."""
     import torch
     from lightgbm_tpu_torch.ops import hist_cuda
-    g = N_FEATURES
+    g = c.get("g", N_FEATURES)
     nb, k, w, quant = c["nb"], c["k"], c["w"], c["quant"]
     bins, leaf, ghk, pending = kernel_case(dev, **c)
     n = bins.shape[1]
@@ -390,7 +492,9 @@ def measure_case(name, kernel, dev, c, *, tensor_core=False):
     # dense one-hot product over B columns on the tensor cores
     tc_ms = 2 * n * g * nb * (-(-(k * w) // 8) * 8) / BF16_TC_OPS_PER_S \
         * 1e3 if tensor_core else None
-    before_ms = BEFORE_MS[(name, nb, k, w, quant, bool(c.get("dup")), n)]
+    # None for the cases added after the redesign (G=136)
+    before_ms = BEFORE_MS.get((name, nb, k, w, quant, bool(c.get("dup")),
+                               n))
     r = dict(kernel=name, case=c, rows=n, rows_in_wave=m, repro=repro,
              ok=ok, tolerance=tol, max_abs_err=err, exact=exact, ms=ms,
              before_ms_quoted=before_ms, plain_ms=plain_ms,
@@ -401,11 +505,13 @@ def measure_case(name, kernel, dev, c, *, tensor_core=False):
              tc_ms=tc_ms)
     tc = f", one-hot product at the tensor-core peak {tc_ms:.3f} ms" \
         if tensor_core else ""
-    print(f"  kernel {name} {'int8' if quant else 'bf16'} n={n} NB={nb} "
-          f"K={k} W={w}{' dup' if c.get('dup') else ''}: ok={ok} "
+    before = ("not run before the redesign" if before_ms is None else
+              f"before the redesign, quoted from PERF.md: {before_ms:.3f} "
+              f"ms")
+    print(f"  kernel {name} {'int8' if quant else 'bf16'} n={n} G={g} "
+          f"NB={nb} K={k} W={w}{' dup' if c.get('dup') else ''}: ok={ok} "
           f"repro={repro} exact={exact} max_abs_err={err:.3g} kernel "
-          f"{ms:.3f} ms (before the redesign, quoted from PERF.md: "
-          f"{before_ms:.3f} ms), bound "
+          f"{ms:.3f} ms ({before}), bound "
           f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}){tc}, plain "
           f"{plain_ms:.2f} ms, library {library_ms:.2f} ms", flush=True)
     del bins, leaf, ghk, pending, a, b, ref
@@ -428,7 +534,11 @@ def phase_kernels(dev):
           # a wave past 255 leaves (six slot tiles), and a ragged slot
           # range
           dict(nb=256, k=3, w=200, quant=False),
-          dict(nb=256, k=3, w=33, quant=False)]
+          dict(nb=256, k=3, w=33, quant=False),
+          # the lambdarank configuration's shape: MSLR-WEB10K's 136
+          # feature groups over its 723,412 rows
+          dict(nb=256, k=3, w=128, quant=False, g=MSLR_FEATURES,
+               n=MSLR_ROWS)]
     v2 = [dict(nb=64, k=3, w=128, quant=False),
           dict(nb=256, k=3, w=128, quant=False),
           dict(nb=64, k=3, w=42, quant=False),
@@ -489,6 +599,13 @@ TRAIN_RUNS = {
     "harness": {"num_leaves": 31, "feature_fraction": 0.8,
                 "bagging_freq": 5, "bagging_fraction": 0.8},
     "int8": {"num_leaves": 255, "grad_quant_bits": 8},
+    # phase objectives: BASELINE.json's L2-regression config on the HIGGS
+    # matrix, and bench.py::run_mslr's lambdarank settings
+    "regression": {"objective": "regression", "metric": "l2",
+                   "num_leaves": 255},
+    "lambdarank": {"objective": "lambdarank", "metric": "ndcg",
+                   "eval_at": [10], "num_leaves": 255,
+                   "min_data_in_leaf": 20, "min_sum_hessian_in_leaf": 1e-3},
 }
 
 
@@ -587,12 +704,14 @@ def _per_iteration(env):
     the same params, so the same model text."""
 
 
-def train_path(name, ds, dev, path, seed):
+def train_path(name, ds, dev, path, seed, valid=None):
     """``engine.train`` of one configuration on one path ("fused": one
     chunk of ROUNDS trees; "per_iteration"): the booster and what the run
     counted.  wave_hist's launches, counted on the device, must equal the
     waves of the run's trees (each tree's own count) plus the warm-up
-    waves before the capture."""
+    waves before the capture.  ``valid`` (per-iteration only: a valid set
+    makes engine.train evaluate, so stop, every iteration) is evaluated
+    every round into the result's ``evals``."""
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lt
@@ -601,10 +720,13 @@ def train_path(name, ds, dev, path, seed):
     torch.cuda.reset_peak_memory_stats(dev)
     hist_cuda.wave_hist.launches.reset()          # count this run only
     torch.cuda.synchronize(dev)
+    evals = {}
     t0 = time.perf_counter()
     booster = lt.train(params, ds, num_boost_round=ROUNDS,
                        callbacks=None if path == "fused"
-                       else [_per_iteration])
+                       else [_per_iteration],
+                       valid_sets=None if valid is None else [valid],
+                       evals_result=evals)
     text = booster.model_to_string()
     train_s = time.perf_counter() - t0
     gb = booster._gbdt
@@ -628,7 +750,7 @@ def train_path(name, ds, dev, path, seed):
         fail(f"{name}: per-iteration host syncs {syncs}, one a tree "
              f"expected")
     sha = hashlib.sha256(text.encode()).hexdigest()
-    if seed == 0 and sha != EAGER_SHA256[name]:
+    if seed == 0 and name in EAGER_SHA256 and sha != EAGER_SHA256[name]:
         fail(f"{name} {path}: model text sha256 {sha}, the eager wave "
              f"loop's {EAGER_SHA256[name]}")
     score = gb.train_score[0].double().cpu().numpy()
@@ -639,7 +761,8 @@ def train_path(name, ds, dev, path, seed):
                waves_per_tree=waves / ROUNDS, host_syncs=syncs,
                dispatch_s=[s[0] for s in stats], capture=cap,
                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-               reserved_gb=torch.cuda.memory_reserved(dev) / 1e9)
+               reserved_gb=torch.cuda.memory_reserved(dev) / 1e9,
+               evals=evals)
     return booster, score, res
 
 
@@ -746,33 +869,14 @@ def skipped_loop_cost(grower, dev):
                 per_skipped_loop_us=(ms_loops - ms_plain) / n * 1e3)
 
 
-def train_run(name, ds, x, y, dev, seed, profile=False):
-    """10 rounds of one configuration on the binned Dataset ``ds``,
-    through engine.train's fused path (one chunk of 10 captured trees)
-    and its per-iteration path: both must give the same model text (at
-    --seed 0 the eager wave loop's), the fused chunk must equal the plain
-    loop of its pieces on the card bit for bit, and every wave's
-    histogram must come from the wave_hist kernel.  The fused booster's
-    predictions are checked.  ``profile`` adds a device-time breakdown of
-    one per-iteration tree and of one fused chunk."""
+def predict_checked(name, booster, x, score, dev) -> dict:
+    """``Booster.predict`` of every training row (raw scores), timed and
+    split (PredictSplit): it must launch forest_predict (counted), equal
+    the kernel's plain version on the card bit for bit and the device
+    training score within 1e-5."""
     import numpy as np
     import torch
-    from lightgbm_tpu_torch.ops import hist_cuda
     from lightgbm_tpu_torch.serve import packed
-    booster, score, fused = train_path(name, ds, dev, "fused", seed)
-    spare, _, plain = train_path(name, ds, dev, "per_iteration", seed)
-    if plain["model_text_sha256"] != fused["model_text_sha256"]:
-        fail(f"{name}: the per-iteration model text "
-             f"{plain['model_text_sha256']} differs from the fused "
-             f"{fused['model_text_sha256']}")
-    loop_s = plain_chunk(name, ds, dev, booster)
-    gb = booster._gbdt
-    trees = booster.num_trees()
-    if trees != ROUNDS:
-        fail(f"{name}: expected {ROUNDS} trees, got {trees}")
-    auc = auc_of(y, score)
-    if auc < AUC_FLOOR:
-        fail(f"{name}: training AUC {auc:.4f} below the floor {AUC_FLOOR}")
     packed.forest_predict.launches = 0        # this predict only
     packed.forest_predict.routes = {k: 0 for k in packed.forest_predict.routes}
     with PredictSplit() as clocks:
@@ -787,7 +891,7 @@ def train_run(name, ds, x, y, dev, seed, profile=False):
              f"forest_predict kernel")
     # the kernel's answer at this run's pack and row count, bit for bit
     # against the plain version on the card
-    pe = packed.pack_gbdt(gb, device=dev)
+    pe = packed.pack_gbdt(booster._gbdt, device=dev)
     plain_pred = packed.forest_predict_reference(
         pe.tables(), torch.from_numpy(x).to(dev), num_model=pe.num_model,
         max_depth=pe.max_depth)[0].double().cpu().numpy()
@@ -799,6 +903,42 @@ def train_run(name, ds, x, y, dev, seed, profile=False):
     if pred_err > 1e-5:
         fail(f"{name}: predict through forest_predict vs device training "
              f"score: {pred_err:.3g}")
+    return dict(predict_s=predict_s, predict_split=split,
+                predict_launches=predict_launches,
+                predict_routes=predict_routes,
+                predict_vs_score_max_abs=pred_err)
+
+
+def train_run(name, ds, x, y, dev, seed, profile=False):
+    """10 rounds of one configuration on the binned Dataset ``ds``,
+    through engine.train's fused path (one chunk of 10 captured trees)
+    and its per-iteration path: both must give the same model text (at
+    --seed 0 the eager wave loop's), the fused chunk must equal the plain
+    loop of its pieces on the card bit for bit, and every wave's
+    histogram must come from the wave_hist kernel.  The fused booster's
+    predictions are checked.  ``profile`` adds a device-time breakdown of
+    one per-iteration tree and of one fused chunk."""
+    import numpy as np
+    from lightgbm_tpu_torch.ops import hist_cuda
+    booster, score, fused = train_path(name, ds, dev, "fused", seed)
+    spare, _, plain = train_path(name, ds, dev, "per_iteration", seed)
+    if plain["model_text_sha256"] != fused["model_text_sha256"]:
+        fail(f"{name}: the per-iteration model text "
+             f"{plain['model_text_sha256']} differs from the fused "
+             f"{fused['model_text_sha256']}")
+    loop_s = plain_chunk(name, ds, dev, booster)
+    gb = booster._gbdt
+    trees = booster.num_trees()
+    if trees != ROUNDS:
+        fail(f"{name}: expected {ROUNDS} trees, got {trees}")
+    auc = auc_of(y, score)
+    if auc < AUC_FLOOR:
+        fail(f"{name}: training AUC {auc:.4f} below the floor {AUC_FLOOR}")
+    pred = predict_checked(name, booster, x, score, dev)
+    predict_s, split = pred["predict_s"], pred["predict_split"]
+    predict_launches = pred["predict_launches"]
+    predict_routes = pred["predict_routes"]
+    pred_err = pred["predict_vs_score_max_abs"]
     host_predict_s = None
     if name == "higgs":
         # the host walk, the only route before the kernel, on the same
@@ -952,6 +1092,240 @@ def phase_train(dev, seed: int, profile: bool):
           f"byte-identical across runs), binning dense {bin_dense_s:.1f} s, "
           f"CSR {bin_s:.1f} s (same codes)", flush=True)
     return result, models, x, y, dense._handle
+
+
+#: the lambdarank configuration's held-out set (bench.py::run_mslr's), and
+#: how many queries of each bucket size its gradient is checked on
+MSLR_VALID_ROWS = 120_000
+MSLR_VALID_QUERIES = 1000
+GRAD_QUERIES_PER_BUCKET = 40
+GRAD_QUERIES_MIN = 200
+
+
+def regression_target(x, seed: int):
+    """The regression configuration's continuous target: the fixed signal
+    of higgs_shape's labels (before their logistic draw) plus N(0, 0.5^2)
+    noise from ``seed + 2``, so var(y) = var(signal) + 0.25."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 2)
+    z = (1.2 * np.log(x[:, 0]) - 0.8 * np.abs(x[:, 1]) + 0.6 * x[:, 3]
+         + 1.5 * np.log(x[:, 25]) - 1.0 * np.log(x[:, 27])
+         + 0.4 * np.sin(x[:, 2]) * x[:, 4] + 0.5 * x[:, 7])
+    return (z + 0.5 * rng.standard_normal(len(z))).astype(np.float32)
+
+
+def objective_run(name, ds, x, dev, seed, valid=None, profile=False):
+    """One new objective's 10 rounds, checked as train_run checks the
+    binary ones: fused and per-iteration model texts equal, the fused
+    chunk bit-equal to the plain loop of its pieces on the card, wave_hist
+    launches == tree waves + warm-up (train_path), Booster.predict through
+    forest_predict bit-equal to its plain version; then 5 more fused
+    chunks timed.  ``valid`` is evaluated every round of the
+    per-iteration run.  ``profile`` adds the device time by kernel of one
+    more tree of the fused booster (its gradient outside the trace)."""
+    import numpy as np
+    booster, score, fused = train_path(name, ds, dev, "fused", seed)
+    spare, _, per = train_path(name, ds, dev, "per_iteration", seed,
+                               valid=valid)
+    if per["model_text_sha256"] != fused["model_text_sha256"]:
+        fail(f"{name}: the per-iteration model text "
+             f"{per['model_text_sha256']} differs from the fused "
+             f"{fused['model_text_sha256']}")
+    loop_s = plain_chunk(name, ds, dev, booster)
+    if booster.num_trees() != ROUNDS:
+        fail(f"{name}: expected {ROUNDS} trees, got {booster.num_trees()}")
+    pred = predict_checked(name, booster, x, score, dev)
+    eval_ms = None
+    if valid is not None:
+        # the validation metric's host work alone: no tree to catch up
+        t0 = time.perf_counter()
+        spare._gbdt.eval_valid()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+    pi = sorted(per["dispatch_s"][1:])
+    # before the timed chunks: a trace taken right after graph replays
+    # held a wave_hist launch more than the device counted
+    prof = profile_tree(booster._gbdt, pi) if profile else None
+    timing = time_fused_chunks(spare, dev)
+    st = sorted(timing["s_per_tree"])
+    cap = fused["capture"]
+    res = dict(params={**TRAIN_BASE, **TRAIN_RUNS[name]}, trees=ROUNDS,
+               model_text_sha256=fused["model_text_sha256"],
+               leaves=[t.num_leaves for t in booster._gbdt.models],
+               fused=fused, per_iteration=per, plain_loop_s_per_tree=loop_s,
+               launches=fused["launches"] + per["launches"],
+               fused_repeats=timing, eval_valid_host_ms=eval_ms,
+               profile=prof, **pred)
+    print(f"  {name}: {ROUNDS} trees, fused {fused['train_s']:.3f} s (one "
+          f"chunk, {fused['host_syncs'][0]} host syncs, capture included: "
+          f"warm-up {cap['warmup_s']:.3f} + capture {cap['capture_s']:.3f} "
+          f"+ instantiate {cap['instantiate_s']:.3f} s), per-iteration "
+          f"{per['train_s']:.3f} s; {fused['waves_per_tree']:.1f} "
+          f"waves/tree, wave_hist launches {fused['launches']} + "
+          f"{per['launches']} == tree waves + warm-up {cap['warmup_waves']} "
+          f"each; peak memory {fused['peak_mem_gb']:.2f} GB after capture; "
+          f"the chunk == the plain loop of its pieces on the card bit for "
+          f"bit ({loop_s:.4f} s/tree); model text sha256 "
+          f"{fused['model_text_sha256']} on both paths", flush=True)
+    print(f"  {name}: s/tree fused median {st[len(st) // 2]:.5f} (min "
+          f"{st[0]:.5f}, max {st[-1]:.5f}) over {FUSED_REPEATS} chunks, "
+          f"per-iteration trees 2-{ROUNDS} median {pi[len(pi) // 2]:.5f} "
+          f"(min {pi[0]:.5f}, max {pi[-1]:.5f}); waves a tree "
+          f"{timing['waves_per_tree']}; predict {pred['predict_s']:.4f} s "
+          f"({pred['predict_launches']} forest_predict launch, bit-equal to "
+          f"the plain version, predict-vs-score "
+          f"{pred['predict_vs_score_max_abs']:.2g})"
+          + ("" if eval_ms is None else
+             f"; eval_valid {eval_ms:.1f} ms of host a round"), flush=True)
+    return booster, res
+
+
+def rank_grad_check(booster, x, y, sizes, dev):
+    """Lambdarank's gradient on the card at the first tree's scores (its
+    Booster.predict with num_iteration=1, as float32), held against the
+    float64 plain version (lambdarank_grad_f64) on GRAD_QUERIES_PER_BUCKET
+    queries of every bucket size (at least GRAD_QUERIES_MIN) at rtol 1e-4
+    / atol 1e-6: a gradient's rtol of the sum of its pair terms'
+    magnitudes (its lambdas have both signs), a hessian's of itself.
+    Times the gradient with CUDA events (outside any capture) and reads
+    its peak memory."""
+    import numpy as np
+    import torch
+    obj = booster._gbdt.objective
+    raw1 = booster.predict(x, num_iteration=1, raw_score=True) \
+        .astype(np.float32)
+    score = torch.from_numpy(raw1).to(dev)
+    fn, args = obj.device_grad()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    g, h = fn(score, args)
+    torch.cuda.synchronize(dev)
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    grad_ms = time_ms(lambda: fn(score, args), reps=5, warmup=1)
+    g, h = g.cpu().numpy(), h.cpu().numpy()
+    qb = np.concatenate([[0], np.cumsum(sizes)])
+    lengths = np.diff(qb)
+    pads = np.maximum(8, 1 << np.ceil(np.log2(np.maximum(lengths, 1)))
+                      .astype(np.int64))
+    picked = [np.flatnonzero(pads == p)[:GRAD_QUERIES_PER_BUCKET]
+              for p in sorted(set(pads.tolist()))]
+    queries = np.concatenate(picked)
+    if len(queries) < GRAD_QUERIES_MIN:
+        rest = np.setdiff1d(np.arange(len(lengths)), queries)
+        queries = np.concatenate([queries,
+                                  rest[:GRAD_QUERIES_MIN - len(queries)]])
+    fg, fh, mag = lambdarank_grad_f64(raw1, y, qb, obj.label_gain,
+                                      obj.sigmoid, obj.max_position,
+                                      queries=queries)
+    rows = np.concatenate([np.arange(qb[q], qb[q + 1]) for q in queries])
+    g_err = np.abs(g[rows] - fg[rows])
+    h_err = np.abs(h[rows] - fh[rows])
+    ok = bool((g_err <= 1e-4 * mag[rows] + 1e-6).all()
+              and (h_err <= 1e-4 * np.abs(fh[rows]) + 1e-6).all())
+    res = dict(queries=int(len(queries)), rows=int(len(rows)),
+               bucket_sizes={int(p): list(v) for p, v in
+                             obj.bucket_sizes.items()},
+               max_abs_err_grad=float(g_err.max()),
+               max_abs_err_hess=float(h_err.max()),
+               max_rel_err_hess=float((h_err / np.maximum(
+                   np.abs(fh[rows]), 1e-30)).max()),
+               grad_ms=grad_ms, peak_gb=peak_gb, ok=ok,
+               tolerance="grad 1e-4 * sum|pair terms| + 1e-6, "
+                         "hess 1e-4 * |hess| + 1e-6")
+    print(f"  lambdarank gradient: {grad_ms:.2f} ms a tree (CUDA events, "
+          f"{len(obj.bucket_sizes)} buckets {sorted(obj.bucket_sizes)}), "
+          f"peak {peak_gb:.2f} GB above its inputs; against the float64 "
+          f"plain version on {len(queries)} queries ({len(rows)} rows, "
+          f"every bucket size): max abs err grad "
+          f"{res['max_abs_err_grad']:.3g}, hess {res['max_abs_err_hess']:.3g}"
+          f" (rel {res['max_rel_err_hess']:.3g}); ok={ok}", flush=True)
+    if not ok:
+        fail("lambdarank's card gradient disagrees with the float64 plain "
+             "version")
+    return res
+
+
+def phase_objectives(dev, seed: int, x, dense, profile: bool):
+    """The regression and lambdarank configurations at full width through
+    engine.train (objective_run's checks), with their quality floors:
+    regression's training l2 after 10 rounds below that after 1 round and
+    below 0.6 var(y); lambdarank's held-out NDCG@10 after 10 rounds above
+    that after 1 round and 0.05 above a seeded random score's."""
+    import copy
+    import numpy as np
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.data.dataset import Metadata
+    from lightgbm_tpu_torch.metrics import NDCGMetric
+    from lightgbm_tpu_torch.config import Config
+    runs = {}
+
+    # regression: the train phase's dense binning of the HIGGS matrix with
+    # a continuous target
+    y = regression_target(x, seed)
+    handle = copy.copy(dense)
+    handle.metadata = Metadata(handle.num_data)
+    handle.metadata.set_label(y)
+    ds = lt.Dataset(None, params=dict(TRAIN_BASE))
+    ds._handle = handle
+    booster, res = objective_run("regression", ds, x, dev, seed,
+                                 profile=profile)
+    raw1 = booster.predict(x, num_iteration=1, raw_score=True)
+    l2_1 = float(np.mean((raw1 - y) ** 2))
+    (_, metric, l2_10, _), = booster.eval_train()
+    var = float(np.var(y.astype(np.float64)))
+    res.update(l2_round1=l2_1, l2_round10=l2_10, var_y=var)
+    print(f"  regression: training l2 after 1 round {l2_1:.4f}, after "
+          f"{ROUNDS} {l2_10:.4f} ({metric}; var(y) {var:.4f}, floor "
+          f"{0.6 * var:.4f})", flush=True)
+    if metric != "l2" or not (l2_10 < l2_1 and l2_10 < 0.6 * var):
+        fail(f"regression: training l2 {l2_10:.4f} after {ROUNDS} rounds "
+             f"misses its floors (round 1 {l2_1:.4f}, 0.6 var(y) "
+             f"{0.6 * var:.4f})")
+    runs["regression"] = res
+    del booster, ds, handle
+
+    # lambdarank: MSLR-WEB10K's shape, a held-out set binned against the
+    # training mappers
+    t0 = time.perf_counter()
+    xr, yr, sizes = synth_mslr(MSLR_ROWS, n_queries=MSLR_QUERIES,
+                               seed=seed + 7)
+    xv, yv, sv = synth_mslr(MSLR_VALID_ROWS, n_queries=MSLR_VALID_QUERIES,
+                            seed=seed + 1234)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lt.Dataset(xr, yr, group=sizes, params=dict(TRAIN_BASE)).construct()
+    valid = ds.create_valid(xv, yv, group=sv).construct()
+    bin_s = time.perf_counter() - t0
+    groups = ds._handle.num_groups
+    print(f"  lambdarank: {len(yr)} rows x {xr.shape[1]} features "
+          f"({groups} groups), {len(sizes)} queries (sizes {sizes.min()}-"
+          f"{sizes.max()}, mean {sizes.mean():.1f}); held-out {len(yv)} "
+          f"rows, {len(sv)} queries; made in {gen_s:.1f} s, binned on the "
+          f"host in {bin_s:.1f} s", flush=True)
+    if groups != MSLR_FEATURES:
+        fail(f"lambdarank: {groups} feature groups, expected "
+             f"{MSLR_FEATURES}")
+    booster, res = objective_run("lambdarank", ds, xr, dev, seed,
+                                 valid=valid, profile=profile)
+    ndcg = res["per_iteration"]["evals"]["valid_0"]["ndcg@10"]
+    rng = np.random.default_rng(seed + 9)
+    m = NDCGMetric(Config({"eval_at": [10]}))
+    m.init(valid._handle.metadata, len(yv))
+    (_, rand), = m.eval(rng.standard_normal((1, len(yv))), None)
+    res.update(ndcg10_by_round=ndcg, ndcg10_random=rand,
+               grad=rank_grad_check(booster, xr, yr, sizes, dev),
+               gen_s=gen_s, binning_s=bin_s)
+    print(f"  lambdarank: held-out NDCG@10 after 1 round {ndcg[0]:.4f}, "
+          f"after {ROUNDS} {ndcg[-1]:.4f}; a random score's {rand:.4f}",
+          flush=True)
+    if not (ndcg[-1] > ndcg[0] and ndcg[-1] > rand + 0.05):
+        fail(f"lambdarank: held-out NDCG@10 {ndcg[-1]:.4f} misses its "
+             f"floors (round 1 {ndcg[0]:.4f}, random {rand:.4f} + 0.05)")
+    runs["lambdarank"] = res
+    print(f"phase objectives: ok regression (2M x 28) and lambdarank "
+          f"({len(yr)} x {xr.shape[1]}, {len(sizes)} queries) at 255 "
+          f"leaves, fused == per-iteration == the plain loop", flush=True)
+    return dict(runs=runs)
 
 
 #: the data phase's held-out rows (binned on the card against the training
@@ -1940,6 +2314,7 @@ def main() -> int:
     kernels = phase_kernels(dev)
     ubench = phase_ubench()
     train, models, x, y, dense = phase_train(dev, args.seed, args.profile)
+    objectives = phase_objectives(dev, args.seed, x, dense, args.profile)
     data = phase_data(dev, args.seed, dense, x, y, train, args.profile)
     del dense, y
     serve = phase_serve(dev, models, x, args.seed)
@@ -1951,15 +2326,19 @@ def main() -> int:
     # each training run and of the validation rows, the fleet's entry
     # point and the two PredictionServers (not the comparison launches),
     # and both of its routes must have run there
+    obj_runs = objectives["runs"].values()
     v1_launches = (sum(r["launches"] for r in train["runs"].values())
+                   + sum(r["launches"] for r in obj_runs)
                    + data["launches"] + data["engine_launches"])
     fp_launches = (sum(r["predict_launches"] for r in train["runs"].values())
+                   + sum(r["predict_launches"] for r in obj_runs)
                    + data["predict_launches"]
                    + serve["fleet_entry_launches"]
                    + serve["server"]["launches"]
                    + serve["server_syn"]["launches"])
     fp_routes = {k: (sum(r["predict_routes"][k]
                          for r in train["runs"].values())
+                     + sum(r["predict_routes"][k] for r in obj_runs)
                      + data["predict_routes"][k]
                      + serve["fleet_entry_routes"][k]
                      + serve["server"]["routes"][k]
@@ -1993,7 +2372,7 @@ def main() -> int:
     with open(OUT_DIR / "chip_smoke.json", "w") as fh:
         json.dump(dict(card=card, kind=kind, build_s=build_s,
                        kernels=kernels, ubench=ubench, train=train,
-                       data=data, serve=serve,
+                       objectives=objectives, data=data, serve=serve,
                        torch=torch.__version__, cuda=torch.version.cuda),
                   fh, indent=1)
     print(card)

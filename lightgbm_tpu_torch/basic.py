@@ -49,15 +49,18 @@ class Dataset:
     (``construct``): a tensor on its own device
     (``BinnedDataset.construct_from_device_matrix``), the others on the
     host.  With ``reference`` (another ``Dataset``) it is binned with that
-    set's mappers and inherits its params."""
+    set's mappers and inherits its params.  ``group``: the query sizes
+    (or boundaries from 0) of a ranking set, in the JAX package's
+    positional place (``lightgbm_tpu/basic.py:71``)."""
 
     def __init__(self, data, label=None, reference=None, weight=None,
-                 init_score=None, feature_name=None, categorical_feature=(),
-                 params=None):
+                 group=None, init_score=None, feature_name=None,
+                 categorical_feature=(), params=None):
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -94,16 +97,32 @@ class Dataset:
         if self.label is not None:
             md.set_label(np.asarray(self.label))
         md.set_weights(self.weight)
+        if self.group is not None:
+            md.set_query(np.asarray(self.group))
         md.set_init_score(self.init_score)
         return self
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     params=None) -> "Dataset":
-        """A validation set binned with this set's mappers."""
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A validation set binned with this set's mappers (its own
+        labels, weights and queries)."""
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params,
+                       group=group, init_score=init_score, params=params,
                        feature_name=self.feature_name,
                        categorical_feature=self.categorical_feature)
+
+    def set_group(self, group) -> "Dataset":
+        self.group = group
+        if self._handle is not None and group is not None:
+            self._handle.metadata.set_query(np.asarray(group))
+        return self
+
+    def get_group(self):
+        """The query sizes, or None."""
+        if self._handle is not None:
+            qb = self._handle.metadata.query_boundaries
+            return None if qb is None else np.diff(qb)
+        return self.group
 
 
 class Booster:

@@ -179,6 +179,13 @@ class GBDT:
         self.device = resolve_device(cfg.device_type)
         self.train_set = train_set
         self.objective = create_objective(cfg)
+        if self.objective.is_renew_tree_output:
+            # the JAX package trains these on its host learner
+            # (lightgbm_tpu/boosting/gbdt.py:381-386, renewal at :946-966)
+            raise LightGBMError(
+                f"objective={cfg.objective} renews its leaf outputs after "
+                f"growth, which needs the host learner (tree/learner.py); "
+                f"not ported to lightgbm_tpu_torch yet")
         n = train_set.num_data
         md = train_set.metadata
         self.objective.init(md, n, self.device)
@@ -197,6 +204,10 @@ class GBDT:
         self.bag_fraction = float(cfg.bagging_fraction)
         self.bag_freq = int(cfg.bagging_freq)
         self.need_bagging = self.bag_fraction < 1.0 and self.bag_freq > 0
+        # carried as the JAX package carries it (gbdt.py:288-289); the
+        # device grower always reads the hessian column
+        self.is_constant_hessian = bool(self.objective.is_constant_hessian
+                                        and not self.need_bagging)
         # (num_data,) f32 in-bag mask of the current bagging round
         self.row_mask: Optional[torch.Tensor] = None
         log_info(f"Training on {self.device} ({n} rows, "
@@ -247,6 +258,10 @@ class GBDT:
                 self.train_score[class_id] += init_score
                 log_info(f"Start training from score {init_score:f}")
                 return init_score
+        elif self.objective.name in ("regression_l1", "quantile", "mape"):
+            log_warning(f"Disabling boost_from_average in "
+                        f"{self.objective.name} may cause the slow "
+                        f"convergence")
         return 0.0
 
     def bagging(self, it: int) -> None:

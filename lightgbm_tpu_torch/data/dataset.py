@@ -32,12 +32,15 @@ MAX_GROUP_BIN = 256
 
 
 class Metadata:
-    """Labels, weights and init scores (reference ``Metadata``)."""
+    """Labels, weights, query boundaries and init scores (reference
+    ``Metadata``; ``lightgbm_tpu/data/dataset.py:36-103``)."""
 
     def __init__(self, num_data: int):
         self.num_data = num_data
         self.label: Optional[np.ndarray] = None
         self.weights: Optional[np.ndarray] = None
+        self.query_boundaries: Optional[np.ndarray] = None
+        self.query_weights: Optional[np.ndarray] = None
         self.init_score: Optional[np.ndarray] = None
 
     def set_label(self, label):
@@ -56,6 +59,36 @@ class Metadata:
             raise LightGBMError(
                 f"weight length {len(weights)} != num_data {self.num_data}")
         self.weights = weights
+        self._update_query_weights()
+
+    def set_query(self, group):
+        """``group``: per-query sizes, or boundaries when it is already
+        cumulative from 0."""
+        if group is None:
+            self.query_boundaries = None
+            self.query_weights = None
+            return
+        group = np.ascontiguousarray(group, dtype=np.int64).reshape(-1)
+        if len(group) > 0 and group[0] == 0:
+            boundaries = group
+        else:
+            boundaries = np.concatenate([[0], np.cumsum(group)])
+        if boundaries[-1] != self.num_data:
+            raise LightGBMError(
+                f"sum of query counts {boundaries[-1]} != num_data "
+                f"{self.num_data}")
+        self.query_boundaries = boundaries.astype(np.int64)
+        self._update_query_weights()
+
+    def _update_query_weights(self):
+        """Per-query weight: the mean of its rows' weights."""
+        if self.weights is not None and self.query_boundaries is not None:
+            qb = self.query_boundaries
+            qw = np.zeros(len(qb) - 1, dtype=np.float32)
+            for i in range(len(qw)):
+                lo, hi = qb[i], qb[i + 1]
+                qw[i] = self.weights[lo:hi].mean() if hi > lo else 0.0
+            self.query_weights = qw
 
     def set_init_score(self, init_score):
         if init_score is None:
@@ -63,6 +96,10 @@ class Metadata:
             return
         self.init_score = np.ascontiguousarray(
             init_score, dtype=np.float64).reshape(-1)
+
+    def num_queries(self) -> int:
+        return 0 if self.query_boundaries is None \
+            else len(self.query_boundaries) - 1
 
 
 class FeatureGroupInfo:

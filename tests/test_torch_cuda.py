@@ -777,3 +777,104 @@ def test_capture_memory_does_not_grow_with_the_wave_budget(cuda_device):
         torch.cuda.synchronize()
         captured = torch.cuda.memory_reserved() - before
         assert captured <= 2 * eager + (8 << 20), (leaves, captured, eager)
+
+
+# -- the new objectives on the card ---------------------------------------
+
+def _rank_rows(seed=3, n_queries=300):
+    """Queries of 2-700 documents (every bucket from 8 to 1024), 20
+    features, relevance 0-4."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(2, 200, n_queries)
+    sizes[:3] = [700, 300, 9]
+    n = int(sizes.sum())
+    x = rng.standard_normal((n, 20))
+    util = x[:, 0] + np.abs(x[:, 1]) + 0.7 * rng.standard_normal(n)
+    y = np.digitize(util, np.quantile(util, [0.5, 0.75, 0.9, 0.97]))
+    return x, y.astype(np.float64), sizes
+
+
+def test_kernel_bf16_equals_fixed_reference_at_136_groups(cuda_device):
+    """The lambdarank configuration's shape (MSLR-WEB10K: 136 feature
+    groups, NB=256, W=128): bit-equal to wave_hist_fixed_reference."""
+    n, g, nb, k, w = 60_000, 136, 256, 3, 128
+    bins, leaf, ghk, pending = _inputs(cuda_device, n, g, nb, k, w, False,
+                                       seed=136)
+    leaf = torch.randint(0, 2 * w + 1, (n,), device=cuda_device,
+                         dtype=torch.int32)
+    kw = dict(g=g, nb=nb, k=k, w=w)
+    scale = hist_cuda.hist_scale_exponents(ghk, n)
+    a = hist_cuda.wave_hist(bins, leaf, ghk, pending, scale_exp=scale,
+                            leaf_bound=2 * w + 1, **kw)
+    want = hist_cuda.wave_hist_fixed_reference(bins, leaf, ghk, pending,
+                                               scale, **kw)
+    assert torch.equal(a.view(torch.int32), want.view(torch.int32))
+    assert a[..., :-1].abs().sum() > 0
+
+
+def test_lambdarank_gradient_on_card_equals_cpu(cuda_device):
+    """The (B, P, P) pair batches on the card against the same objective
+    on the CPU: within 1e-5 of the sum of a row's pair terms (summation
+    order), on buckets 8 to 1024."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import Metadata
+    from lightgbm_tpu_torch.objectives import create_objective
+    _, y, sizes = _rank_rows()
+    md = Metadata(len(y))
+    md.set_label(y)
+    md.set_query(sizes)
+    score = np.random.default_rng(4).standard_normal(len(y)) \
+        .astype(np.float32)
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        obj = create_objective(Config({"objective": "lambdarank"}))
+        obj.init(md, len(y), dev)
+        fn, args = obj.device_grad()
+        out.append([t.cpu().numpy() for t in
+                    fn(torch.from_numpy(score).to(dev), args)])
+    assert 1024 in obj.bucket_sizes
+    (cg, ch), (dg, dh) = out
+    mag = np.abs(cg).max()
+    np.testing.assert_allclose(dg, cg, rtol=1e-4, atol=1e-5 * mag)
+    np.testing.assert_allclose(dh, ch, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("objective", ["lambdarank", "regression"])
+def test_captured_chunk_of_a_new_objective_equals_plain_loop(cuda_device,
+                                                             objective):
+    """A fused chunk whose sample piece runs the objective's device_grad
+    (lambdarank's sorts and pair batches; L2) inside the captured tree:
+    no host sync (sync debug mode "error"), and records, leaves, waves
+    and scores bit-equal to the plain loop of the same pieces on the
+    card, and to per-iteration training's model text."""
+    x, y, sizes = _rank_rows()
+    params = {"objective": objective, "num_leaves": 63, "max_bin": 63,
+              "min_data_in_leaf": 20, "verbose": -1}
+    group = sizes if objective == "lambdarank" else None
+    fused = lt.Booster(params, lt.Dataset(x, y, group=group))
+    gb = fused._gbdt
+    assert gb.fused_eligible()
+    fused.update_chunked(4, chunk=4)          # captures the graphs
+    fg = gb._fused_grad_fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gb._grower.fused_train(4, gb.train_score[0].clone(), 0.1, 4, fg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    plain = lt.Booster(params, lt.Dataset(x, y, group=group))
+    grower = plain._gbdt._grower
+    grower._graph = lambda sample: None
+    grower._run_tree = grower._run_pieces
+    plain.update_chunked(4, chunk=4)
+    got = gb._last_chunk_stack.host()
+    want = plain._gbdt._last_chunk_stack.host()
+    for a, b in zip(got, want):
+        assert a.tobytes() == b.tobytes()
+    assert torch.equal(gb.train_score.view(torch.int32),
+                       plain._gbdt.train_score.view(torch.int32))
+    per = lt.Booster(params, lt.Dataset(x, y, group=group))
+    for _ in range(4):
+        per.update()
+    assert per.model_to_string() == plain.model_to_string()
