@@ -227,3 +227,15 @@ def test_first_trees_equal_from_device_and_host_binning():
             np.testing.assert_array_equal(getattr(a, name),
                                           getattr(b, name), name)
     assert boosters[0].model_to_string() == boosters[1].model_to_string()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This module's torch CPU ops on one thread: with several test
+    workers on one machine, each op's OpenMP team of one thread a core
+    oversubscribes the cores, and the port's test files ran 10-60x
+    slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -316,3 +316,15 @@ def test_route_choice_is_the_faster_route_measured():
                                                                rows)
                 checked += 1
     assert checked == 1710
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This module's torch CPU ops on one thread: with several test
+    workers on one machine, each op's OpenMP team of one thread a core
+    oversubscribes the cores, and the port's test files ran 10-60x
+    slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

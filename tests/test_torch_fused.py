@@ -286,3 +286,15 @@ def test_snapshots_are_refused_by_name():
     gb = _train({}, x, y, 0)
     with pytest.raises(Exception, match="robust"):
         gb.train_chunked(4, chunk=2, snapshot_freq=2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This module's torch CPU ops on one thread: with several test
+    workers on one machine, each op's OpenMP team of one thread a core
+    oversubscribes the cores, and the port's test files ran 10-60x
+    slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -221,3 +221,15 @@ def test_bagged_feature_masked_tree_matches_jax(params, bag_seed, tree_idx):
     np.testing.assert_allclose(res.score.numpy(), np.asarray(out[0]),
                                rtol=0, atol=1e-6)
     assert (res.score.numpy() != score)[trm.numpy() == 0].all()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This module's torch CPU ops on one thread: with several test
+    workers on one machine, each op's OpenMP team of one thread a core
+    oversubscribes the cores, and the port's test files ran 10-60x
+    slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

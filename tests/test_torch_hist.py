@@ -306,3 +306,15 @@ def test_fixed_reference_is_order_free():
         bt[:, perm].contiguous(), leaf[perm].contiguous(),
         ghk[perm].contiguous(), pending, scale, **kw)
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This module's torch CPU ops on one thread: with several test
+    workers on one machine, each op's OpenMP team of one thread a core
+    oversubscribes the cores, and the port's test files ran 10-60x
+    slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

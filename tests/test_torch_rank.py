@@ -51,6 +51,18 @@ BASE = {"objective": "lambdarank", "num_leaves": 15, "max_bin": 63,
         "learning_rate": 0.1, "min_data_in_leaf": 10, "verbose": -1}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This module's torch CPU ops on one thread: with several test
+    workers on one machine, each op's OpenMP team of one thread a core
+    oversubscribes the cores, and the port's test files ran 10-60x
+    slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rank_data(n_queries=60, cols=8, seed=5):
     """Seeded queries of 2-63 documents (every bucket from 8 to 64),
     relevance 0-4 from a noisy utility with a per-query offset."""

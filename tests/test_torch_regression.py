@@ -49,6 +49,18 @@ ULP2 = ["fair", "poisson", "gamma", "tweedie", "cross_entropy",
 FIXTURES = "tests/fixtures"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This module's torch CPU ops on one thread: with several test
+    workers on one machine, each op's OpenMP team of one thread a core
+    oversubscribes the cores, and the port's test files ran 10-60x
+    slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _labels(name, rng, n):
     if name in ("poisson", "tweedie"):
         return rng.poisson(2.0, n).astype(np.float32)

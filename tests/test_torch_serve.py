@@ -597,3 +597,15 @@ def test_packed_from_arrays_round_trip():
     x = _queries(jpe.num_features, 200, 13, categorical=True)
     np.testing.assert_array_equal(packed.predict_leaves(tpe, x),
                                   jpacked.predict_leaves(jpe, x))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This module's torch CPU ops on one thread: with several test
+    workers on one machine, each op's OpenMP team of one thread a core
+    oversubscribes the cores, and the port's test files ran 10-60x
+    slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -243,3 +243,15 @@ def test_int8_first_tree_text_byte_equal_to_jax_op_by_op(data):
     got = tb.model_to_string().split("parameters:")[0]
     assert "Tree=0" in got and "Tree=1" not in got
     assert got == want
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This module's torch CPU ops on one thread: with several test
+    workers on one machine, each op's OpenMP team of one thread a core
+    oversubscribes the cores, and the port's test files ran 10-60x
+    slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -349,3 +349,15 @@ def test_user_callbacks_run_once_in_order():
                callbacks=[late, first, late, second], verbose_eval=False)
     assert calls == [(0, "a"), (0, "b"), (0, "late"),
                      (1, "a"), (1, "b"), (1, "late")]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This module's torch CPU ops on one thread: with several test
+    workers on one machine, each op's OpenMP team of one thread a core
+    oversubscribes the cores, and the port's test files ran 10-60x
+    slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
