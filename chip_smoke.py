@@ -9,8 +9,9 @@ Phases, one line each:
               all sources at once;
 2. kernel  -- call each kernel's wrapper on card tensors at the shapes its
               path gives it (2M rows x 28 groups, wave_hist also at the
-              lambdarank configuration's 723,412 rows x 136 groups;
-              wave_hist_v2 also at the ubench's 10.5M) and hold the result against the plain PyTorch
+              lambdarank configuration's 723,412 rows x 136 groups and
+              the multiclass phase's 2M rows x 20 groups; wave_hist_v2
+              also at the ubench's 10.5M) and hold the result against the plain PyTorch
               version: int8 byte-equal, bf16 within 1e-4 x (histogram of
               |stats|) + 1e-6 of it (the plain version's f32 atomics and
               the tensor cores sum in other orders) and bit-identical
@@ -128,7 +129,31 @@ Phases, one line each:
               the served pack (the trained models' also to
               Booster.predict and within 1e-5 of the host walk), with
               p50/p95 latency per size and the launches of each kernel
-              route on the main path.
+              route on the main path;
+8. multiclass -- BASELINE.json's config 4 on an Expedia-shaped set made
+              from --seed (expedia_shape: 2M rows, 11 categorical id
+              columns of 4 to 60,000 ids, one in one-hot mode, and 9
+              numerical ones; 100 hotel clusters; 200,000 held-out rows
+              binned against the training mappers): (a) multiclass at 255
+              leaves, 5 rounds per-iteration through engine.train with
+              the held-out set scored by multi_logloss and multi_error
+              every round; wave_hist launches == tree waves + warm-up,
+              one host sync an iteration, one more tree grown under sync
+              debug mode "error", round 1's 100 trees equal to the plain
+              loop's on the card (model text), Booster.predict of the
+              held-out rows bit-equal to forest_predict's plain version
+              (also timed there as a kernel case) and its softmax within
+              1e-5 of the host walk's on 20,000 rows, categorical nodes
+              with raw-category bitsets past 4 words; floors: held-out
+              multi_logloss after round 5 below round 1's and ln 100,
+              multi_error 0.05 below a seeded random score's; prints
+              s/iteration, s/tree, waves a tree, binning s, eval_valid
+              host ms and peak memory; (b) binary is_booking on the same
+              binned columns, 255 leaves, objective_run's checks (fused ==
+              per-iteration text, with categorical splits; the chunk
+              bit-equal to the plain loop; predict bit-equal to the plain
+              version), and under grad_quant_bits=8 twice (byte-identical
+              text, each chunk bit-equal to the plain loop).
 
 Prints the card's name and power limit, a JSON line of kernel
 measurements, and last {"ok": true, "device": {...}}.  Full results go to
@@ -169,7 +194,8 @@ MSLR_FEATURES = 136
 # PERF.md for the per-case lines only (chip_smoke.py's runs of that tree on
 # an H100 80GB HBM3 at 700 W; the W=200, W=33 and NB=32 cases, which that
 # tree's chip_smoke.py did not run, from scripts/compare_hist_cuda.py on
-# the same card), keyed (kernel, NB, K, W, int8, duplicate ids, rows)
+# the same card), keyed (kernel, NB, K, W, int8, duplicate ids, rows), all
+# at G=28
 BEFORE_MS = {
     ("wave_hist", 256, 3, 128, False, False, N_ROWS): 3.696,
     ("wave_hist", 256, 3, 16, False, False, N_ROWS): 0.615,
@@ -492,9 +518,9 @@ def measure_case(name, kernel, dev, c, *, tensor_core=False):
     # dense one-hot product over B columns on the tensor cores
     tc_ms = 2 * n * g * nb * (-(-(k * w) // 8) * 8) / BF16_TC_OPS_PER_S \
         * 1e3 if tensor_core else None
-    # None for the cases added after the redesign (G=136)
+    # None for the cases added after the redesign (G=136, G=20)
     before_ms = BEFORE_MS.get((name, nb, k, w, quant, bool(c.get("dup")),
-                               n))
+                               n)) if g == N_FEATURES else None
     r = dict(kernel=name, case=c, rows=n, rows_in_wave=m, repro=repro,
              ok=ok, tolerance=tol, max_abs_err=err, exact=exact, ms=ms,
              before_ms_quoted=before_ms, plain_ms=plain_ms,
@@ -538,7 +564,11 @@ def phase_kernels(dev):
           # the lambdarank configuration's shape: MSLR-WEB10K's 136
           # feature groups over its 723,412 rows
           dict(nb=256, k=3, w=128, quant=False, g=MSLR_FEATURES,
-               n=MSLR_ROWS)]
+               n=MSLR_ROWS),
+          # the multiclass phase's: the Expedia-shaped set's 20 groups
+          # over its 2M rows
+          dict(nb=256, k=3, w=128, quant=False, g=EXPEDIA_FEATURES,
+               n=EXPEDIA_ROWS)]
     v2 = [dict(nb=64, k=3, w=128, quant=False),
           dict(nb=256, k=3, w=128, quant=False),
           dict(nb=64, k=3, w=42, quant=False),
@@ -766,7 +796,7 @@ def train_path(name, ds, dev, path, seed, valid=None):
     return booster, score, res
 
 
-CHUNK_FIELDS = ("rec_i", "rec_f", "nl", "waves", "qscales")
+CHUNK_FIELDS = ("rec_i", "rec_f", "nl", "waves", "qscales", "rec_c")
 
 
 def plain_chunk(name, ds, dev, booster):
@@ -775,7 +805,7 @@ def plain_chunk(name, ds, dev, booster):
     trees with each tree's pieces run by the Python loop that reads the
     control words (``DeviceGrower._run_pieces``: a host read a wave,
     nothing captured).  The chunk's records (split records, leaves, waves,
-    int8 scales), the training scores and the model text must equal the
+    int8 scales, categorical bin sets), the training scores and the model text must equal the
     fused run's bit for bit.  Returns the loop's seconds a tree."""
     import torch
     import lightgbm_tpu_torch as lt
@@ -1326,6 +1356,388 @@ def phase_objectives(dev, seed: int, x, dense, profile: bool):
           f"({len(yr)} x {xr.shape[1]}, {len(sizes)} queries) at 255 "
           f"leaves, fused == per-iteration == the plain loop", flush=True)
     return dict(runs=runs)
+
+
+#: the multiclass phase: an Expedia-shaped set (the Kaggle "Expedia Hotel
+#: Recommendations" train.csv's columns; its tens of millions of rows cut
+#: to 2M, past which the port refuses without striped stat columns), 100
+#: hotel clusters, 5 rounds
+EXPEDIA_ROWS = 2_000_000
+EXPEDIA_VALID_ROWS = 200_000
+EXPEDIA_CLASSES = 100
+#: categorical id columns and the cardinality the generator gives each,
+#: with Zipf-like frequencies.  The mapper keeps categories until 99% of
+#: the sampled rows are covered (and at least max_bin of them), and a
+#: feature group holds at most 256 bins, so the columns past 255 ids draw
+#: from a steeper Zipf-Mandelbrot law whose 255 most frequent ids hold
+#: over 99% of the rows (EXPEDIA_STEEP)
+EXPEDIA_CATEGORICAL = {
+    "site_name": 53, "posa_continent": 4, "user_location_country": 239,
+    "user_location_region": 1_000, "user_location_city": 50_000,
+    "channel": 11, "srch_destination_id": 60_000,
+    "srch_destination_type_id": 8, "hotel_continent": 7,
+    "hotel_country": 210, "hotel_market": 2_100}
+EXPEDIA_STEEP = (2.6, 10.0)   # p(rank k) ~ (k + 10)^-2.6 past 255 ids
+EXPEDIA_NUMERICAL = ("orig_destination_distance", "is_mobile", "is_package",
+                     "srch_adults_cnt", "srch_children_cnt", "srch_rm_cnt",
+                     "cnt", "nights", "days_ahead")
+EXPEDIA_FEATURES = len(EXPEDIA_CATEGORICAL) + len(EXPEDIA_NUMERICAL)
+MC_ROUNDS = 5
+#: held-out rows also walked on the host (float64) for the softmax check
+MC_HOST_ROWS = 20_000
+MC_BASE = {"objective": "multiclass", "num_class": EXPEDIA_CLASSES,
+           "metric": "multi_logloss,multi_error", "num_leaves": 255,
+           "max_bin": 255, "learning_rate": 0.1, "wave_plan": "fixed",
+           "verbose": -1}
+#: run (b): binary is_booking on the same columns, fused and per-iteration
+TRAIN_RUNS["expedia_binary"] = {"num_leaves": 255}
+TRAIN_RUNS["expedia_int8"] = {"num_leaves": 255, "grad_quant_bits": 8}
+
+
+def _zipf_ids(rng, n: int, card: int):
+    """``n`` ids in [0, card) over a random order of the ids, with
+    Zipf(1.1) frequencies up to 255 ids, else EXPEDIA_STEEP's."""
+    import numpy as np
+    s, q = (1.1, 0.0) if card <= 255 else EXPEDIA_STEEP
+    p = 1.0 / (np.arange(1, card + 1) + q) ** s
+    cdf = np.cumsum(p / p.sum())
+    rank = np.minimum(np.searchsorted(cdf, rng.random(n)), card - 1)
+    return rng.permutation(card)[rank]
+
+
+def expedia_shape(n: int, seed: int):
+    """(x (n, 20) float64, hotel_cluster (n,), is_booking (n,)): the
+    Expedia Hotel Recommendations train.csv's columns (11 categorical ids
+    first, in EXPEDIA_CATEGORICAL's order, then EXPEDIA_NUMERICAL; a third
+    of the distances NaN).  The cluster is drawn from a softmax of fixed
+    per-(hotel_market, srch_destination_type_id) preferences (each market
+    favours a few clusters), hotel_continent's, and distance and package
+    effects, with Gumbel noise; is_booking from a fixed logistic function.
+    The tables are fixed (seed 1234), the rows come from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    cols = {name: _zipf_ids(rng, n, card)
+            for name, card in EXPEDIA_CATEGORICAL.items()}
+    dist = rng.lognormal(6.0, 1.5, n)
+    dist[rng.random(n) < 1 / 3] = np.nan
+    num = {"orig_destination_distance": dist,
+           "is_mobile": (rng.random(n) < 0.13).astype(float),
+           "is_package": (rng.random(n) < 0.25).astype(float),
+           "srch_adults_cnt": np.minimum(1 + rng.poisson(0.9, n), 9),
+           "srch_children_cnt": np.minimum(rng.poisson(0.35, n), 9),
+           "srch_rm_cnt": np.minimum(1 + rng.poisson(0.1, n), 8),
+           "cnt": rng.geometric(0.6, n),
+           "nights": 1 + rng.poisson(2.5, n),
+           "days_ahead": np.round(rng.exponential(40.0, n))}
+    x = np.stack([cols[k] for k in EXPEDIA_CATEGORICAL]
+                 + [num[k] for k in EXPEDIA_NUMERICAL], axis=1) \
+        .astype(np.float64)
+    fixed = np.random.default_rng(1234)
+    k = EXPEDIA_CLASSES
+    market = fixed.normal(0.0, 0.5, (EXPEDIA_CATEGORICAL["hotel_market"], k))
+    fav = fixed.integers(0, k, (len(market), 4))
+    np.put_along_axis(market, fav, fixed.uniform(2.5, 4.0, fav.shape), 1)
+    dtype_pref = fixed.normal(0.0, 1.0, (8, k))
+    cont_pref = fixed.normal(0.0, 0.7, (7, k))
+    w_dist, w_pkg = fixed.normal(0.0, 0.6, k), fixed.normal(0.0, 0.8, k)
+    site_b = fixed.normal(0.0, 0.4, EXPEDIA_CATEGORICAL["site_name"])
+    chan_b = fixed.normal(0.0, 0.3, EXPEDIA_CATEGORICAL["channel"])
+    ld = np.log1p(np.nan_to_num(dist, nan=np.exp(6.0)))
+    zd = (ld - 6.0) / 1.5
+    y = np.empty(n, np.int64)
+    for lo in range(0, n, 200_000):
+        hi = min(n, lo + 200_000)
+        logit = (market[cols["hotel_market"][lo:hi]]
+                 + dtype_pref[cols["srch_destination_type_id"][lo:hi]]
+                 + cont_pref[cols["hotel_continent"][lo:hi]]
+                 + np.outer(zd[lo:hi], w_dist)
+                 + np.outer(num["is_package"][lo:hi], w_pkg))
+        y[lo:hi] = np.argmax(logit + rng.gumbel(size=logit.shape), axis=1)
+    zb = (-2.4 + 0.9 * num["is_package"] - 0.4 * num["is_mobile"]
+          + site_b[cols["site_name"]] + chan_b[cols["channel"]]
+          - 0.25 * np.log1p(num["days_ahead"])
+          + 0.3 * (num["srch_rm_cnt"] > 1) + 0.2 * zd)
+    booking = (rng.random(n) < 1.0 / (1.0 + np.exp(-zb))).astype(np.float64)
+    return x, y.astype(np.float64), booking
+
+
+def multiclass_round1_plain(ds, dev, booster):
+    """Round 1 of run (a) grown again by a new booster whose trees run
+    their pieces in the plain Python loop on the card (a host read a
+    wave, nothing captured): its K trees' model text must equal the first
+    K trees of the captured run's.  Returns the loop's seconds a tree."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    plain = lt.Booster({**MC_BASE, "device": dev.type}, ds)
+    grower = plain._gbdt._grower
+    grower._graph = lambda sample: None       # capture nothing
+    grower._run_tree = grower._run_pieces     # the loop, not the graph
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    plain.update()
+    torch.cuda.synchronize(dev)
+    loop_s = (time.perf_counter() - t0) / EXPEDIA_CLASSES
+    if grower._composed or grower._graphs is not None:
+        fail("multiclass: the plain loop captured a graph")
+    plain._gbdt._flush_pending()
+    k = EXPEDIA_CLASSES
+    got = [t.to_string() for t in booster._gbdt.models[:k]]
+    want = [t.to_string() for t in plain._gbdt.models[:k]]
+    bad = [i for i in range(k) if got[i] != want[i]]
+    if bad:
+        fail(f"multiclass: round 1's captured trees {bad[:10]} differ from "
+             f"the plain loop's on the card")
+    return loop_s
+
+
+def multiclass_predict_checked(booster, xv, dev):
+    """Booster.predict of the held-out rows (raw (N, K)) through
+    forest_predict (counted), bit-equal to the kernel's plain version on
+    the card, and its softmax within 1e-5 of the host walk's float64 one
+    on MC_HOST_ROWS rows; forest_case times the kernel at this pack and
+    row count (long raw-category bitsets)."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.serve import packed
+    packed.forest_predict.launches = 0        # this predict only
+    packed.forest_predict.routes = {k: 0 for k in packed.forest_predict.routes}
+    t0 = time.perf_counter()
+    raw = booster.predict(xv, raw_score=True)
+    predict_s = time.perf_counter() - t0
+    launches = packed.forest_predict.launches
+    routes = dict(packed.forest_predict.routes)
+    if launches <= 0:
+        fail("multiclass: Booster.predict of the held-out rows launched no "
+             "forest_predict kernel")
+    pe = packed.pack_gbdt(booster._gbdt, device=dev)
+    xd = torch.from_numpy(xv).to(dev)
+    plain = packed.forest_predict_reference(
+        pe.tables(), xd, num_model=pe.num_model,
+        max_depth=pe.max_depth).double().cpu().numpy().T
+    if not np.array_equal(raw, plain):
+        fail(f"multiclass: Booster.predict through forest_predict differs "
+             f"from the plain version on {int((raw != plain).sum())} "
+             f"values")
+    gb = booster._gbdt
+    gb.config.device_predict = "off"
+    t0 = time.perf_counter()
+    host = booster.predict(xv[:MC_HOST_ROWS])
+    host_s = time.perf_counter() - t0
+    gb.config.device_predict = "auto"
+    prob = gb.objective.convert_output(raw[:MC_HOST_ROWS].T).T
+    host_err = float(np.abs(prob - host).max())
+    if host_err > 1e-5:
+        fail(f"multiclass: predict's softmax vs the host walk's float64 "
+             f"one: {host_err:.3g}")
+    case, _, _ = forest_case("expedia_multiclass", pe, xd, None, reps=5)
+    words = [int(np.diff(t.cat_boundaries).max()) for t in gb.models
+             if t.num_cat > 0]
+    del pe, xd, plain
+    torch.cuda.empty_cache()
+    return dict(predict_s=predict_s, predict_launches=launches,
+                predict_routes=routes, host_walk_rows=MC_HOST_ROWS,
+                host_walk_s=host_s, softmax_vs_host_max_abs=host_err,
+                forest_case=case,
+                categorical_nodes=sum(t.num_cat for t in gb.models),
+                longest_bitset_words=max(words) if words else 0)
+
+
+def multiclass_run(ds, valid, xv, yv, dev, seed, profile):
+    """Run (a): objective=multiclass, 100 classes, 255 leaves, MC_ROUNDS
+    rounds per-iteration through engine.train with the held-out set
+    scored by multi_logloss and multi_error every round."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.metrics import create_metrics
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops import hist_cuda
+    k = EXPEDIA_CLASSES
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist_cuda.wave_hist.launches.reset()          # this run only
+    torch.cuda.synchronize(dev)
+    evals = {}
+    t0 = time.perf_counter()
+    booster = lt.train({**MC_BASE, "device": dev.type}, ds, MC_ROUNDS,
+                       valid_sets=[valid], evals_result=evals)
+    torch.cuda.synchronize(dev)
+    train_s = time.perf_counter() - t0
+    gb = booster._gbdt
+    grower = gb._grower
+    launches = hist_cuda.wave_hist.launches.read()
+    stats = gb.tree_stats
+    waves = sum(s[2] for s in stats)
+    cap = dict(grower.capture_stats)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if launches <= 0 or launches != waves + cap["warmup_waves"]:
+        fail(f"multiclass: wave_hist launches {launches} (device counter) "
+             f"!= tree waves {waves} + warm-up {cap['warmup_waves']}")
+    if [s[1] for s in stats] != [k] * MC_ROUNDS:
+        fail(f"multiclass: trees an iteration {[s[1] for s in stats]}, "
+             f"expected {k} each")
+    if [s[3] for s in stats] != [1] * MC_ROUNDS:
+        fail(f"multiclass: host syncs an iteration {[s[3] for s in stats]},"
+             f" expected 1 each")
+    if booster.num_trees() != k * MC_ROUNDS:
+        fail(f"multiclass: {booster.num_trees()} trees, expected "
+             f"{k * MC_ROUNDS}")
+    # one more tree of class 0 under sync debug mode "error": the
+    # membership state and the bitset routing capture with no host sync
+    grad, hess = gb.objective.get_gradients(gb.train_score)
+    score0 = gb.train_score[0].clone()
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grower.grow_one_iter(score0, grad[0], hess[0],
+                             feature_mask=grower.feature_mask_for(0),
+                             tree_idx=0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    del grad, hess, score0
+    loop_s = multiclass_round1_plain(ds, dev, booster)
+    # eval_valid's host work alone (no tree to catch up): the (K, N)
+    # scores' copy and both metrics
+    t0 = time.perf_counter()
+    gb.eval_valid()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    loss = evals["valid_0"]["multi_logloss"]
+    err = evals["valid_0"]["multi_error"]
+    rng = np.random.default_rng(seed + 9)
+    m = create_metrics(Config({"metric": "multi_error"}))[0]
+    m.init(valid._handle.metadata, len(yv))
+    (_, rand_err), = m.eval(rng.standard_normal((k, len(yv))), None)
+    pred = multiclass_predict_checked(booster, xv, dev)
+    it_s = sorted(s[0] for s in stats[1:])
+    res = dict(params=dict(MC_BASE), rounds=MC_ROUNDS, classes=k,
+               train_s=train_s, s_per_iteration=[s[0] for s in stats],
+               s_per_tree_median=it_s[len(it_s) // 2] / k,
+               waves=waves, waves_per_tree=waves / (k * MC_ROUNDS),
+               launches=launches, capture=cap, peak_mem_gb=peak_gb,
+               host_syncs=[s[3] for s in stats],
+               plain_loop_s_per_tree=loop_s, eval_valid_host_ms=eval_ms,
+               multi_logloss=loss, multi_error=err,
+               multi_error_random=rand_err, **pred)
+    print(f"  multiclass: {k} classes x {MC_ROUNDS} rounds = "
+          f"{booster.num_trees()} trees in {train_s:.2f} s (capture "
+          f"included: warm-up {cap['warmup_s']:.3f} + capture "
+          f"{cap['capture_s']:.3f} + instantiate {cap['instantiate_s']:.3f}"
+          f" s); s/iteration {[round(s[0], 3) for s in stats]}, s/tree "
+          f"{res['s_per_tree_median']:.5f} (iterations 2-{MC_ROUNDS}, "
+          f"median); {res['waves_per_tree']:.2f} waves a tree; wave_hist "
+          f"launches {launches} == tree waves + warm-up "
+          f"{cap['warmup_waves']}; 1 host sync an iteration; a tree "
+          f"grown under sync debug mode \"error\"; peak memory "
+          f"{peak_gb:.2f} GB; round 1's {k} trees == the plain loop's on "
+          f"the card ({loop_s:.4f} s/tree)", flush=True)
+    print(f"  multiclass: held-out multi_logloss by round "
+          f"{[round(v, 4) for v in loss]} (ln {k} = {np.log(k):.4f}), "
+          f"multi_error {[round(v, 4) for v in err]} (a random score's "
+          f"{rand_err:.4f}); eval_valid {eval_ms:.1f} ms of host; predict "
+          f"of {len(xv)} rows {pred['predict_s']:.3f} s "
+          f"({pred['predict_launches']} forest_predict launch, bit-equal to "
+          f"the plain version; softmax within {pred['softmax_vs_host_max_abs']:.2g}"
+          f" of the host walk's on {MC_HOST_ROWS} rows, "
+          f"{pred['host_walk_s']:.2f} s); {pred['categorical_nodes']} "
+          f"categorical nodes, the longest raw-category bitset "
+          f"{pred['longest_bitset_words']} words", flush=True)
+    if not (loss[-1] < loss[0] and loss[-1] < np.log(k)):
+        fail(f"multiclass: held-out multi_logloss {loss[-1]:.4f} after "
+             f"{MC_ROUNDS} rounds misses its floors (round 1 {loss[0]:.4f},"
+             f" ln {k} {np.log(k):.4f})")
+    if not err[-1] <= rand_err - 0.05:
+        fail(f"multiclass: held-out multi_error {err[-1]:.4f} misses its "
+             f"floor (a random score's {rand_err:.4f} - 0.05)")
+    if pred["longest_bitset_words"] <= 4:
+        fail(f"multiclass: the longest raw-category bitset has "
+             f"{pred['longest_bitset_words']} words, not past the serve "
+             f"phase's 4")
+    if profile:
+        res["profile"] = profile_tree(gb, [s / k for s in it_s])
+    return res
+
+
+def phase_multiclass(dev, seed: int, profile: bool):
+    """BASELINE.json's config 4 on the Expedia-shaped set: run (a)
+    multiclass (multiclass_run) and run (b) binary is_booking on the same
+    binned columns, 10 rounds fused and per-iteration (objective_run's
+    checks: the texts equal, the chunk bit-equal to the plain loop,
+    categorical splits in the model) and under grad_quant_bits=8 twice
+    (byte-identical text, the chunk bit-equal to the plain loop)."""
+    import copy
+    import numpy as np
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.data.dataset import Metadata
+    t0 = time.perf_counter()
+    x, y, booking = expedia_shape(EXPEDIA_ROWS, seed + 11)
+    xv, yv, _ = expedia_shape(EXPEDIA_VALID_ROWS, seed + 12)
+    gen_s = time.perf_counter() - t0
+    cats = list(range(len(EXPEDIA_CATEGORICAL)))
+    t0 = time.perf_counter()
+    ds = lt.Dataset(x, y, categorical_feature=cats,
+                    params=dict(MC_BASE)).construct()
+    valid = ds.create_valid(xv, yv).construct()
+    bin_s = time.perf_counter() - t0
+    h = ds._handle
+    nbin = [int(h.bin_mappers[f].num_bin) for f in cats]
+    if h.num_groups != EXPEDIA_FEATURES:
+        fail(f"multiclass: {h.num_groups} feature groups, expected "
+             f"{EXPEDIA_FEATURES} (the kernel phase's case)")
+    onehot = [f for f, b in zip(cats, nbin)
+              if b <= int(MC_BASE.get("max_cat_to_onehot", 4))]
+    if not onehot or len(onehot) == len(cats):
+        fail(f"multiclass: categorical bins {nbin}: both scan modes must "
+             f"run")
+    print(f"  multiclass: Expedia-shaped {len(y)} rows x {x.shape[1]} "
+          f"columns ({len(cats)} categorical, bins {nbin}), "
+          f"{EXPEDIA_CLASSES} classes; held-out {len(yv)} rows; made in "
+          f"{gen_s:.1f} s, binned on the host in {bin_s:.1f} s", flush=True)
+    runs = {"multiclass": multiclass_run(ds, valid, xv, yv, dev, seed,
+                                         profile)}
+    runs["multiclass"].update(gen_s=gen_s, binning_s=bin_s,
+                              categorical_bins=nbin)
+    del valid, xv, yv
+
+    # run (b): is_booking on the same binned columns
+    handle = copy.copy(h)
+    handle.metadata = Metadata(handle.num_data)
+    handle.metadata.set_label(booking)
+    bds = lt.Dataset(None, params=dict(TRAIN_BASE))
+    bds._handle = handle
+    booster, res = objective_run("expedia_binary", bds, x, dev, seed)
+    text = booster.model_to_string()
+    if "cat_threshold=" not in text:
+        fail("expedia_binary: the model has no categorical split")
+    res["categorical_nodes"] = sum(t.num_cat for t in booster._gbdt.models)
+    runs["expedia_binary"] = res
+    del booster
+    shas = []
+    for rep in range(2):
+        booster, _, r = train_path("expedia_int8", bds, dev, "fused", seed)
+        r["plain_loop_s_per_tree"] = plain_chunk("expedia_int8", bds, dev,
+                                                 booster)
+        shas.append(r["model_text_sha256"])
+        runs[f"expedia_int8_run{rep + 1}"] = r
+        del booster
+    if shas[0] != shas[1]:
+        fail("expedia_int8: two runs gave different model text")
+    print(f"  expedia_int8: two fused runs, model text sha256 {shas[0]} "
+          f"both; each chunk == the plain loop's on the card", flush=True)
+    print(f"phase multiclass: ok (a) {EXPEDIA_CLASSES} classes x "
+          f"{MC_ROUNDS} rounds at 255 leaves on {len(y)} rows, (b) "
+          f"categorical binary fused == per-iteration == the plain loop, "
+          f"int8 byte-identical", flush=True)
+    launches = (runs["multiclass"]["launches"]
+                + runs["expedia_binary"]["launches"]
+                + sum(runs[f"expedia_int8_run{i}"]["launches"]
+                      for i in (1, 2)))
+    fp_launches = (runs["multiclass"]["predict_launches"]
+                   + runs["expedia_binary"]["predict_launches"])
+    fp_routes = {r: (runs["multiclass"]["predict_routes"][r]
+                     + runs["expedia_binary"]["predict_routes"][r])
+                 for r in runs["multiclass"]["predict_routes"]}
+    return dict(rows=EXPEDIA_ROWS, valid_rows=EXPEDIA_VALID_ROWS,
+                runs=runs, launches=launches, predict_launches=fp_launches,
+                predict_routes=fp_routes)
 
 
 #: the data phase's held-out rows (binned on the card against the training
@@ -2262,7 +2674,9 @@ def profile_tree(gb, per_tree_s):
     unprofiled per-iteration trees' seconds."""
     from lightgbm_tpu_torch.ops import hist_cuda
     grower = gb._grower
-    grad, hess = gb.objective.get_gradients(gb.train_score)
+    # class 0's tree (a multiclass objective's gradients are (K, N))
+    grad, hess = (t.reshape(-1, t.shape[-1])[0] for t in
+                  gb.objective.get_gradients(gb.train_score))
     gb.bagging(gb.iter)
     hist_cuda.wave_hist.launches.reset()
     wall, rows, span = device_time(lambda: grower.grow_one_iter(
@@ -2319,6 +2733,7 @@ def main() -> int:
     del dense, y
     serve = phase_serve(dev, models, x, args.seed)
     del x
+    multiclass = phase_multiclass(dev, args.seed, args.profile)
 
     # wave_hist's path is training: its launches are those of every run
     # (the data phase's two included); wave_hist_v2's path is the ubench
@@ -2329,20 +2744,23 @@ def main() -> int:
     obj_runs = objectives["runs"].values()
     v1_launches = (sum(r["launches"] for r in train["runs"].values())
                    + sum(r["launches"] for r in obj_runs)
-                   + data["launches"] + data["engine_launches"])
+                   + data["launches"] + data["engine_launches"]
+                   + multiclass["launches"])
     fp_launches = (sum(r["predict_launches"] for r in train["runs"].values())
                    + sum(r["predict_launches"] for r in obj_runs)
                    + data["predict_launches"]
                    + serve["fleet_entry_launches"]
                    + serve["server"]["launches"]
-                   + serve["server_syn"]["launches"])
+                   + serve["server_syn"]["launches"]
+                   + multiclass["predict_launches"])
     fp_routes = {k: (sum(r["predict_routes"][k]
                          for r in train["runs"].values())
                      + sum(r["predict_routes"][k] for r in obj_runs)
                      + data["predict_routes"][k]
                      + serve["fleet_entry_routes"][k]
                      + serve["server"]["routes"][k]
-                     + serve["server_syn"]["routes"][k])
+                     + serve["server_syn"]["routes"][k]
+                     + multiclass["predict_routes"][k])
                  for k in serve["fleet_entry_routes"]}
     if min(fp_routes.values()) <= 0:
         fail(f"a forest_predict route never ran on the main path: "
@@ -2373,6 +2791,7 @@ def main() -> int:
         json.dump(dict(card=card, kind=kind, build_s=build_s,
                        kernels=kernels, ubench=ubench, train=train,
                        objectives=objectives, data=data, serve=serve,
+                       multiclass=multiclass,
                        torch=torch.__version__, cuda=torch.version.cuda),
                   fh, indent=1)
     print(card)

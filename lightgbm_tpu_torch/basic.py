@@ -25,6 +25,25 @@ def _is_sparse(data) -> bool:
 PREDICT_CHUNK_ROWS = 1 << 16
 
 
+def _resolve_categorical(categorical_feature, feature_names,
+                         num_features: int) -> list:
+    """Sorted column indices of ``categorical_feature``, given by index
+    or by name (``lightgbm_tpu/basic.py::_resolve_categorical``)."""
+    if categorical_feature in (None, "auto"):
+        return []
+    out = []
+    for c in categorical_feature:
+        if isinstance(c, str):
+            if not feature_names or c not in feature_names:
+                raise LightGBMError(f"unknown categorical feature name {c}")
+            out.append(list(feature_names).index(c))
+        else:
+            if int(c) >= num_features:
+                raise LightGBMError("categorical_feature index out of range")
+            out.append(int(c))
+    return sorted(set(out))
+
+
 def _to_2d_float(data, keep_float32: bool = False):
     """A dense C-contiguous float64 matrix (sparse input is densified here;
     training data bins from CSR and prediction densifies it in row chunks
@@ -87,11 +106,15 @@ class Dataset:
             csr = self.data.tocsr()
             self._handle = BinnedDataset.construct_from_csr(
                 csr.indptr, csr.indices, csr.data, csr.shape[1], config,
-                self.categorical_feature, feature_names=self.feature_name,
-                reference=ref)
+                _resolve_categorical(self.categorical_feature,
+                                     self.feature_name, csr.shape[1]),
+                feature_names=self.feature_name, reference=ref)
         else:
+            data = _to_2d_float(self.data)
             self._handle = BinnedDataset.construct_from_matrix(
-                _to_2d_float(self.data), config, self.categorical_feature,
+                data, config, _resolve_categorical(
+                    self.categorical_feature, self.feature_name,
+                    data.shape[1]),
                 feature_names=self.feature_name, reference=ref)
         md = self._handle.metadata
         if self.label is not None:

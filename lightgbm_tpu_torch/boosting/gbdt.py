@@ -3,8 +3,9 @@
 Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` for the per-iteration
 device path: scores live on the training device as a (num_model, N) float32
 tensor, gradients come from the objective as torch ops, each iteration
-grows one tree with ``ops/grow.DeviceGrower``, and the tree's split records
-stay on the device until they are replayed into host ``Tree`` objects
+grows one tree a class (K = ``num_model``) with
+``ops/grow.DeviceGrower``, and the trees' split records stay on the
+device until they are replayed into host ``Tree`` objects
 (``_flush_pending``).  Prediction of a large batch runs through the
 packed-forest kernel (``serve/packed.py``), of a small one by the host
 tree walk in float64.  The model text is the reference's "v2" format, so
@@ -39,27 +40,40 @@ from ..ops.grow import DeviceGrower
 from ..ops.histogram import bucket_size
 from ..ops.traverse import add_constant_score, add_tree_score, device_tree
 from ..params import PARAM_BY_NAME
-from ..tree.tree import Tree
+from ..tree.tree import Tree, categorical_bitsets
 from ..utils.log import LightGBMError, log_info, log_warning
 
 K_EPSILON = 1e-15
 MODEL_VERSION = "v2"
 
 
-def _replay_records(rec_i, rec_f, nl, shrinkage, bias, dataset,
+def _replay_records(rec_i, rec_f, rec_c, nl, shrinkage, bias, dataset,
                     config) -> Tree:
-    """Replay the host copy of one tree's split records into a ``Tree``."""
+    """Replay the host copy of one tree's split records into a ``Tree``;
+    a categorical feature's split takes its bin set from the eight words
+    of ``rec_c``."""
     tree = Tree(config.num_leaves)
     if nl > 1:
+        is_cat = np.asarray(dataset.f_is_categorical)
         for s in range(nl - 1):
             leaf, _right, f, thr, dl = (int(v) for v in rec_i[s])
             gain, _lg, _lh, lc, _rg, _rh, rc, lout, rout = (
                 float(v) for v in rec_f[s])
             real_f = dataset.used_features[f]
             mapper = dataset.bin_mappers[real_f]
-            tree.split(leaf, f, real_f, thr, mapper.bin_to_value(thr), lout,
-                       rout, int(lc), int(rc), gain,
-                       dataset.f_missing_type[f], bool(dl))
+            missing = dataset.f_missing_type[f]
+            if is_cat[f]:
+                words = rec_c[s].astype(np.uint32)
+                member = [b for b in range(min(mapper.num_bin, 256))
+                          if (words[b >> 5] >> (b & 31)) & 1]
+                inner, raw = categorical_bitsets(mapper, member)
+                tree.split_categorical(leaf, f, real_f, inner, raw, lout,
+                                       rout, int(lc), int(rc), gain,
+                                       missing)
+            else:
+                tree.split(leaf, f, real_f, thr, mapper.bin_to_value(thr),
+                           lout, rout, int(lc), int(rc), gain, missing,
+                           bool(dl))
         tree.apply_shrinkage(shrinkage)
     # a stump applied nothing to the scores, so it carries only the bias
     if abs(bias) > K_EPSILON:
@@ -70,21 +84,22 @@ def _replay_records(rec_i, rec_f, nl, shrinkage, bias, dataset,
 class _PendingTree:
     """Device-side split records of a grown tree, replayed lazily."""
 
-    __slots__ = ("rec_i", "rec_f", "nl", "shrinkage", "bias")
+    __slots__ = ("rec_i", "rec_f", "rec_c", "nl", "shrinkage", "bias")
 
-    def __init__(self, rec_i, rec_f, nl, shrinkage, bias):
-        self.rec_i, self.rec_f, self.nl = rec_i, rec_f, nl
-        self.shrinkage, self.bias = shrinkage, bias
+    def __init__(self, rec_i, rec_f, rec_c, nl, shrinkage, bias):
+        self.rec_i, self.rec_f, self.rec_c = rec_i, rec_f, rec_c
+        self.nl, self.shrinkage, self.bias = nl, shrinkage, bias
 
     def materialize(self, dataset, config) -> Tree:
         return _replay_records(self.rec_i.cpu().numpy(),
-                               self.rec_f.cpu().numpy(), int(self.nl),
+                               self.rec_f.cpu().numpy(),
+                               self.rec_c.cpu().numpy(), int(self.nl),
                                self.shrinkage, self.bias, dataset, config)
 
 
 class _RecStack:
     """The stacked records of a fused chunk (``DeviceGrower.fused_train``:
-    rec_i, rec_f, nl, waves, qscales): ONE asynchronous device-to-host
+    rec_i, rec_f, nl, waves, qscales, rec_c): ONE asynchronous device-to-host
     copy into pinned memory serves every tree of the chunk; :meth:`host`
     waits for it (a host sync, counted by the caller)."""
 
@@ -103,7 +118,7 @@ class _RecStack:
             self._host = tuple(a.clone() for a in arrays)
 
     def host(self):
-        """(rec_i, rec_f, nl, waves, qscales) numpy arrays."""
+        """(rec_i, rec_f, nl, waves, qscales, rec_c) numpy arrays."""
         if self._event is not None:
             self._event.synchronize()
             self._event = None
@@ -120,10 +135,10 @@ class _PendingChunkTree:
         self.shrinkage, self.bias = shrinkage, bias
 
     def materialize(self, dataset, config) -> Tree:
-        rec_i, rec_f, nl = self.stack.host()[:3]
+        rec_i, rec_f, nl, _, _, rec_c = self.stack.host()
         return _replay_records(rec_i[self.idx], rec_f[self.idx],
-                               int(nl[self.idx]), self.shrinkage, self.bias,
-                               dataset, config)
+                               rec_c[self.idx], int(nl[self.idx]),
+                               self.shrinkage, self.bias, dataset, config)
 
 
 _PENDING = (_PendingTree, _PendingChunkTree)
@@ -190,6 +205,8 @@ class GBDT:
         md = train_set.metadata
         self.objective.init(md, n, self.device)
         self.num_model = self.objective.num_model_per_iteration
+        self.class_need_train = [self.objective.class_need_train(k)
+                                 for k in range(self.num_model)]
         self.num_data = n
         self.has_init_score = md.init_score is not None
         self.train_score = self._initial_scores(md, n)
@@ -292,40 +309,63 @@ class GBDT:
         return out
 
     def train_one_iter(self) -> bool:
-        """One boosting iteration; returns True when training should stop
-        (the tree is a stump: no leaf meets the split requirements).
+        """One boosting iteration, a tree a class
+        (``lightgbm_tpu/boosting/gbdt.py:609-675``); returns True when
+        training should stop (every class's tree is a stump: no leaf
+        meets the split requirements).
 
-        The stump check reads the tree's leaf count as soon as the tree is
-        grown: the one host sync of the per-iteration path.  (The JAX
-        package checks with a 4-iteration lag to keep its dispatch
-        pipeline full, and trims the extra stumps afterwards.)"""
+        The stump check reads the K trees' leaf counts in one copy as
+        soon as they are grown: the one host sync of the per-iteration
+        path.  (The JAX package checks with a 4-iteration lag to keep its
+        dispatch pipeline full, and trims the extra stumps afterwards.)
+        A class with nothing to learn (``class_need_train``) gets a fixed
+        stump, which carries the class's score in the first iteration."""
         if self._device_stop:
             return True
-        if not self.objective.class_need_train(0):
+        K = self.num_model
+        if not any(self.class_need_train):
             # one-class labels: a fixed stump carrying the class's score
             if not self.models:
-                tree = Tree(2)
-                tree.leaf_value[0] = self.objective.boost_from_score(0)
-                self.train_score[0] += tree.leaf_value[0]
-                self.models.append(tree)
+                for k in range(K):
+                    tree = Tree(2)
+                    tree.leaf_value[0] = self.objective.boost_from_score(k)
+                    self.train_score[k] += tree.leaf_value[0]
+                    self.models.append(tree)
             self._device_stop = True
             return True
         t0 = time.perf_counter()
-        bias = self.boost_from_average(0)
+        biases = [self.boost_from_average(k) for k in range(K)]
         grad, hess = self.objective.get_gradients(self.train_score)
+        if grad.dim() == 1:
+            grad, hess = grad[None], hess[None]
         self.bagging(self.iter)
         shrink = self.shrinkage_rate
-        tree_idx = self.iter * self.num_model
-        res = self._grower.grow_one_iter(
-            self.train_score[0], grad, hess, shrink,
-            feature_mask=self._grower.feature_mask_for(tree_idx),
-            row_mask=self.row_mask, tree_idx=tree_idx)
-        self.train_score[0] = res.score
-        self.models.append(_PendingTree(res.rec_i, res.rec_f,
-                                        res.num_leaves, shrink, bias))
+        first_iter = len(self.models) < K
+        nls, waves = [], []
+        for k in range(K):
+            if not self.class_need_train[k]:
+                tree = Tree(2)
+                if first_iter:
+                    tree.leaf_value[0] = self.objective.boost_from_score(k)
+                    self.train_score[k] += tree.leaf_value[0]
+                self.models.append(tree)
+                continue
+            tree_idx = self.iter * K + k
+            res = self._grower.grow_one_iter(
+                self.train_score[k], grad[k], hess[k], shrink,
+                feature_mask=self._grower.feature_mask_for(tree_idx),
+                row_mask=self.row_mask, tree_idx=tree_idx)
+            self.train_score[k] = res.score
+            self.models.append(_PendingTree(res.rec_i, res.rec_f, res.rec_c,
+                                            res.num_leaves, shrink,
+                                            biases[k]))
+            nls.append(res.num_leaves)
+            waves.append(res.waves)
         self.iter += 1
-        stump = int(res.num_leaves) <= 1          # the tree's host sync
-        self._stats.append([time.perf_counter() - t0, 1, res.waves, 1])
+        # the iteration's host sync: every trained class's leaf count
+        stump = bool((torch.stack(nls) <= 1).all())
+        self._stats.append([time.perf_counter() - t0, len(nls),
+                            torch.stack(waves).sum(), 1])
         if stump:
             self._device_stop = True
             self._flush_pending()
@@ -346,7 +386,7 @@ class GBDT:
                 or self.num_model != 1
                 or self.train_set.num_features == 0
                 or self.objective is None
-                or not self.objective.class_need_train(0)):
+                or not self.class_need_train[0]):
             return None
         return self.objective.device_grad()
 
@@ -405,7 +445,7 @@ class GBDT:
                                            shrink, self.iter, fg)
             self.train_score[0].copy_(out.score)
             stack = _RecStack((out.rec_i, out.rec_f, out.nl, out.waves,
-                               out.qscales), self.device)
+                               out.qscales, out.rec_c), self.device)
             for i in range(chunk):
                 self.models.append(_PendingChunkTree(
                     stack, i, shrink, bias if i == 0 else 0.0))

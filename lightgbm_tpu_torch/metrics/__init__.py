@@ -1,9 +1,7 @@
 """Evaluation metrics on the host (numpy).
 
 Counterpart of ``lightgbm_tpu/metrics/__init__.py`` (the reference's
-``src/metric/``): every metric of the JAX package but ``multi_logloss`` and
-``multi_error``, which wait for multiclass and are refused by name.  Scores
-arrive as (num_model, N) float64 raw scores; the objective converts them
+``src/metric/``): every metric of the JAX package.  Scores arrive as (num_model, N) float64 raw scores; the objective converts them
 where the reference does (sigmoid, exp).  A metric is initialized on the
 metadata (labels, weights, queries) of the set it evaluates: the training
 set's, or each validation set's.
@@ -193,6 +191,30 @@ class AUCMetric(Metric):
         return [(self.name, auc / denom if denom > 0 else 1.0)]
 
 
+# multiclass metrics (multiclass_metric.hpp)
+
+class MultiLoglossMetric(Metric):
+    name = "multi_logloss"
+
+    def eval(self, score, objective):
+        prob = _convert(score, objective)      # (K, N)
+        li = self.label.astype(np.int64)
+        p = np.clip(prob[li, np.arange(len(li))], 1e-15, None)
+        return [(self.name, self._avg(-np.log(p)))]
+
+
+class MultiErrorMetric(Metric):
+    """The share of rows whose raw score's first argmax is not the label
+    (the JAX package's rule, ties to the lower class)."""
+
+    name = "multi_error"
+
+    def eval(self, score, objective):
+        li = self.label.astype(np.int64)
+        pred = np.argmax(score, axis=0)
+        return [(self.name, self._avg((pred != li).astype(np.float64)))]
+
+
 # cross-entropy metrics (xentropy_metric.hpp)
 
 class CrossEntropyMetric(_PointwiseMetric):
@@ -330,6 +352,8 @@ _REGISTRY = {
     "binary_logloss": BinaryLoglossMetric,
     "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
+    "multi_logloss": MultiLoglossMetric,
+    "multi_error": MultiErrorMetric,
     "cross_entropy": CrossEntropyMetric,
     "cross_entropy_lambda": CrossEntropyLambdaMetric,
     "kullback_leibler": KLDivMetric,
@@ -341,7 +365,7 @@ _REGISTRY = {
     "map": MapMetric,
 }
 #: the JAX package's metrics that are not ported yet, and why
-NOT_PORTED = {"multi_logloss": "multiclass", "multi_error": "multiclass"}
+NOT_PORTED: dict = {}
 
 
 def create_metrics(config):

@@ -1,12 +1,12 @@
 """Objective factory (``lightgbm_tpu/objectives/__init__.py``): every
-single-model objective of the JAX package.  ``multiclass`` and
-``multiclassova`` (K trees an iteration) are not ported yet and are refused
-by name; ``regression_l1``, ``quantile`` and ``mape`` are ported, and
-``GBDT.init_train`` refuses to train them (``is_renew_tree_output``)."""
+objective of the JAX package.  ``regression_l1``, ``quantile`` and
+``mape`` are ported, and ``GBDT.init_train`` refuses to train them
+(``is_renew_tree_output``)."""
 
 from ..utils.log import LightGBMError
 from .base import ObjectiveFunction
 from .binary import BinaryLogloss
+from .multiclass import MulticlassOVA, MulticlassSoftmax
 from .rank import LambdarankNDCG
 from .regression import (Fair, Gamma, Huber, Mape, Poisson, Quantile,
                          RegressionL1, RegressionL2, Tweedie)
@@ -23,15 +23,14 @@ _REGISTRY = {
     "gamma": Gamma,
     "tweedie": Tweedie,
     "binary": BinaryLogloss,
+    "multiclass": MulticlassSoftmax,
+    "multiclassova": MulticlassOVA,
     "cross_entropy": CrossEntropy,
     "cross_entropy_lambda": CrossEntropyLambda,
     "lambdarank": LambdarankNDCG,
 }
 #: the JAX package's objectives that are not ported yet, and why
-NOT_PORTED = {
-    "multiclass": "K trees an iteration",
-    "multiclassova": "K trees an iteration",
-}
+NOT_PORTED: dict = {}
 
 
 def create_objective(config) -> ObjectiveFunction:

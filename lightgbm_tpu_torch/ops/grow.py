@@ -1,10 +1,10 @@
 """Leaf-wise tree growth on the device, in synchronized waves.
 
 Counterpart of ``lightgbm_tpu/ops/grow.py`` (``GrowerPrograms._grow_impl``
-and ``DeviceGrower``), unsharded, numerical features, with bf16 stat
-columns or, under ``grad_quant_bits=8``, int8 quantized ones, and with the
-per-tree bagging row mask and feature_fraction mask.  The formulation is
-the JAX package's:
+and ``DeviceGrower``), unsharded, with bf16 stat columns or, under
+``grad_quant_bits=8``, int8 quantized ones, with the per-tree bagging row
+mask and feature_fraction mask, and with categorical splits.  The
+formulation is the JAX package's:
 
 * a per-row ``leaf_id`` vector stands in for a row permutation; a split
   rewrites it with one elementwise pass over the ``(G, N)`` binned matrix;
@@ -13,13 +13,19 @@ the JAX package's:
   hand-written kernel (``ops/hist_cuda.wave_hist``); the larger sibling is
   the parent minus the smaller one;
 * every new leaf's best split comes from one batched scan
-  (``ops/split.find_best_split_stack``), and the wave applies up to W of
+  (``ops/split.find_best_split``), and the wave applies up to W of
   the best-gain splits at once, within the ``num_leaves`` budget;
-* wave widths follow the legacy stage plan (``ops/stage_plan.py``).
+* wave widths follow the legacy stage plan (``ops/stage_plan.py``);
+* a categorical split sends a row left iff the bit of its decoded bin is
+  set in the winner's bin set, kept per leaf as a (256,) membership row
+  (``bestc``) and recorded as eight int32 words (``rec_c``).  Every
+  categorical step is gated on ``has_cat`` (a dataset with a categorical
+  feature), so other models run exactly the ops they ran before.
 
 Under ``grad_quant_bits=8`` the histograms, leaf totals and the split
-scan stay int32 in quantized units (``ops/split.find_best_split_quant``),
-so the parent-minus-sibling subtraction and every count are exact; after
+scan stay int32 in quantized units (``ops/split.find_best_split`` with
+``scales``), so the parent-minus-sibling subtraction and every count are
+exact; after
 growth each leaf's value is refit from the full-precision gradients with
 an exact base-128 digit sum and written back into the split record that
 created the leaf.
@@ -63,13 +69,14 @@ from .hist_cuda import MAX_LEAF_BOUND, hist_scale_exponents, wave_hist
 from .histogram import QUANT_MAX, bucket_size, quantize_gh_keys
 from .split import (F_DEFAULT_LEFT, F_FEATURE, F_GAIN, F_LEFT_C, F_LEFT_G,
                     F_LEFT_H, F_LEFT_OUT, F_RIGHT_C, F_RIGHT_G, F_RIGHT_H,
-                    F_RIGHT_OUT, F_THRESHOLD, NEG_INF, FeatureMeta,
-                    SplitHyper, find_best_split_quant, find_best_split_stack)
+                    F_IS_CAT, F_RIGHT_OUT, F_THRESHOLD, NEG_INF,
+                    FeatureMeta, SplitHyper, find_best_split)
 from .stage_plan import legacy_stage_plan
 
 REC_I_FIELDS = 5    # leaf, right, feature, threshold, default_left
 REC_F_FIELDS = 9    # gain, lg, lh, lc, rg, rh, rc, left_out, right_out
 REC_F_LEFT_OUT, REC_F_RIGHT_OUT = 7, 8
+REC_C_WORDS = 8     # a categorical split's 256-bin set as int32 words
 # at or above this many rows the JAX package stripes its stat columns
 # (two count columns; under quantization two g and h columns too) to keep
 # every accumulator exact; the port has no striped layout yet.  Its
@@ -87,6 +94,7 @@ class GrowResult(NamedTuple):
     score: torch.Tensor       # (num_data,) f32 score after this tree
     rec_i: torch.Tensor       # (L-1, 5) int32 split records
     rec_f: torch.Tensor       # (L-1, 9) f32 split records
+    rec_c: torch.Tensor       # (L-1, 8) int32 categorical bin sets
     num_leaves: torch.Tensor  # () int32, on the device
     root_value: torch.Tensor  # () f32 root leaf output
     waves: torch.Tensor       # () int32 waves run, on the device
@@ -97,6 +105,7 @@ class FusedResult(NamedTuple):
     score: torch.Tensor       # (num_data,) f32 score after the chunk
     rec_i: torch.Tensor       # (K, L-1, 5) int32
     rec_f: torch.Tensor       # (K, L-1, 9) f32
+    rec_c: torch.Tensor       # (K, L-1, 8) int32
     nl: torch.Tensor          # (K,) int32 leaves
     waves: torch.Tensor       # (K,) int32 waves
     qscales: torch.Tensor     # (K, 2) f32 int8 scales (ones without)
@@ -154,8 +163,6 @@ def check_slice_config(config, dataset) -> None:
         todo.append("wave_plan=profiled")
     if config.boosting != "gbdt":
         todo.append(f"boosting={config.boosting}")
-    if np.asarray(dataset.f_is_categorical).any():
-        todo.append("categorical features")
     if np.asarray(dataset.monotone_constraints).any():
         todo.append("monotone_constraints")
     if getattr(config, "forcedsplits_filename", ""):
@@ -206,6 +213,7 @@ class DeviceGrower:
         self.meta = FeatureMeta.from_dataset(dataset, slot_stride=nb,
                                              device=device)
         self.hyper = SplitHyper.from_config(config)
+        self.has_cat = bool(np.asarray(dataset.f_is_categorical).any())
         i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64),
                                         device=device)
         nbins = np.asarray(dataset.f_num_bin, np.int64)
@@ -242,6 +250,7 @@ class DeviceGrower:
                                   device=device)
         self._neg_row = torch.full((13,), NEG_INF, dtype=torch.float32,
                                    device=device)
+        self._bit_pos = torch.arange(32, dtype=torch.int32, device=device)
         # packed-record columns the wave gathers (index tensors on the
         # device: a list index would copy from the host inside a capture)
         self._cols = {k: torch.tensor(v, dtype=torch.int64, device=device)
@@ -380,16 +389,21 @@ class DeviceGrower:
             total=torch.zeros((L + 1, 3), dtype=hdtype, device=dev),
             # the winner's exact int32 left totals (quantized scan only)
             bestl=torch.zeros((L + 1, 3), **i32) if quant else None,
+            # the winner's bin set of each leaf (categorical scan only)
+            bestc=torch.zeros((L + 1, 256), dtype=torch.bool, device=dev)
+            if self.has_cat else None,
             value=torch.zeros(L + 1, **f32), depth=torch.zeros(L + 1, **i32),
             best=torch.zeros((L + 1, 13), **f32),
             rec_i=torch.zeros((L, REC_I_FIELDS), **i32),
             rec_f=torch.zeros((L, REC_F_FIELDS), **f32),
+            rec_c=torch.zeros((L, REC_C_WORDS), **i32),
             lane_of=torch.zeros(L + 1, dtype=torch.int64, device=dev),
             p_parent=torch.zeros(W, **i32), p_small=torch.zeros(W, **i32),
             p_large=torch.zeros(W, **i32),
             # chunk outputs, slot t per tree
             out_rec_i=torch.zeros((capacity, keep, REC_I_FIELDS), **i32),
             out_rec_f=torch.zeros((capacity, keep, REC_F_FIELDS), **f32),
+            out_rec_c=torch.zeros((capacity, keep, REC_C_WORDS), **i32),
             out_nl=torch.zeros(capacity, **i32),
             out_waves=torch.zeros(capacity, **i32),
             out_root=torch.zeros(capacity, **f32),
@@ -478,6 +492,9 @@ class DeviceGrower:
         st.total.zero_()
         if st.bestl is not None:
             st.bestl.zero_()
+        if st.bestc is not None:
+            st.bestc.zero_()
+            st.rec_c.zero_()
         st.value.zero_()
         st.depth.zero_()
         st.best.fill_(NEG_INF)
@@ -533,16 +550,11 @@ class DeviceGrower:
                          torch.where(lg_ok, p_large, -1)]).long()
         idc = ids.clamp(0, L - 1)
         stack = torch.cat([fresh, large])
-        if quant:
-            packed, lint = find_best_split_quant(
-                stack, total[idc], st.qscales, st.fmask, self.meta,
-                self.hyper)
-            ok = self._splittable(total[idc], depth[idc],
-                                  hess_scale=st.qscales[1])
-        else:
-            packed = find_best_split_stack(stack, total[idc], st.fmask,
-                                           self.meta, self.hyper)
-            ok = self._splittable(total[idc], depth[idc])
+        packed, catm, lint = find_best_split(
+            stack, total[idc], st.fmask, self.meta, self.hyper,
+            has_cat=self.has_cat, scales=st.qscales if quant else None)
+        ok = self._splittable(total[idc], depth[idc],
+                              hess_scale=st.qscales[1] if quant else None)
         ok = ok & (ids >= 0)
         packed[:, F_GAIN] = torch.where(
             ok, packed[:, F_GAIN],
@@ -552,6 +564,9 @@ class DeviceGrower:
         if quant:
             st.bestl[safe] = torch.where((ids >= 0)[:, None], lint,
                                          st.bestl[safe])
+        if self.has_cat:
+            st.bestc[safe] = torch.where((ids >= 0)[:, None], catm,
+                                         st.bestc[safe])
 
         # 4. select up to Ws best-gain splits within the budget.  Trouble
         # spot (lightgbm_tpu/ops/grow.py:846): lax.top_k breaks ties
@@ -595,6 +610,16 @@ class DeviceGrower:
         is_na = (miss == 2) & (bin_ == nbin - 1)
         goes_left = torch.where(bin_ == db, def_left,
                                 torch.where(is_na, dl_r, bin_ <= thr_r))
+        if self.has_cat:
+            # categorical routing (lightgbm_tpu/ops/grow.py:892-911): left
+            # iff the decoded bin's bit is set in the lane's 8-word set;
+            # the word is gathered where the JAX package selects it
+            bits = st.bestc[lsel].view(ws, REC_C_WORDS, 32).to(torch.int32)
+            words = (bits << self._bit_pos).sum(dim=2, dtype=torch.int32)
+            word = words.view(-1)[lane * REC_C_WORDS + (bin_ >> 5)]
+            left_cat = ((word >> (bin_ & 31)) & 1) == 1
+            is_cat = vecs[:, F_IS_CAT] > 0.5
+            goes_left = torch.where(is_cat[lane], left_cat, goes_left)
         move = (row_lane >= 0) & ~goes_left
         leaf_id.copy_(torch.where(move, r_ids[lane].to(torch.int32),
                                   leaf_id))
@@ -630,6 +655,8 @@ class DeviceGrower:
         new_rf = vecs.index_select(1, self._cols["record"])
         st.rec_i[ridx] = torch.where(sel2, new_ri, st.rec_i[ridx])
         st.rec_f[ridx] = torch.where(sel2, new_rf, st.rec_f[ridx])
+        if self.has_cat:
+            st.rec_c[ridx] = torch.where(sel2, words, st.rec_c[ridx])
         # pending for the next wave: the smaller child gets the fresh
         # histogram
         lsel32, r32 = lsel.to(torch.int32), r_ids.to(torch.int32)
@@ -653,7 +680,7 @@ class DeviceGrower:
         if self.quant_bits:
             leaf_vals = self._refit_into_records(
                 self._refit(st.grad_p, st.hess_p, st.one_f, st.leaf_id,
-                            st.qscales), st.rec_i, st.rec_f, nl)
+                            st.qscales), st.rec_i, st.rec_f, nl, st.value)
         # score update.  Trouble spot (lightgbm_tpu/ops/grow.py:1109-1116):
         # the JAX package adds float32(bf16(v)) + float32(bf16(v - hi)) per
         # row through a one-hot einsum with one nonzero per row, which is
@@ -669,6 +696,7 @@ class DeviceGrower:
         keep = max(L - 1, 1)
         st.out_rec_i.index_copy_(0, t, st.rec_i[None, :keep])
         st.out_rec_f.index_copy_(0, t, st.rec_f[None, :keep])
+        st.out_rec_c.index_copy_(0, t, st.rec_c[None, :keep])
         st.out_nl.index_copy_(0, t, st.ctl[0:1])
         st.out_waves.index_copy_(0, t, st.ctl[2:3])
         st.out_root.index_copy_(0, t, st.value[0:1])
@@ -794,7 +822,8 @@ class DeviceGrower:
         st.ctl[3:4].zero_()
         self._run_tree(None)
         return GrowResult(st.score.clone(), st.out_rec_i[0].clone(),
-                          st.out_rec_f[0].clone(), st.out_nl[0].clone(),
+                          st.out_rec_f[0].clone(), st.out_rec_c[0].clone(),
+                          st.out_nl[0].clone(),
                           st.out_root[0].clone(), st.out_waves[0].clone())
 
     def fused_train(self, length: int, score, lr: float, it0: int,
@@ -834,7 +863,8 @@ class DeviceGrower:
         for r in redraw:
             self._run_tree(r)
         return FusedResult(st.score, st.out_rec_i[:length],
-                           st.out_rec_f[:length], st.out_nl[:length],
+                           st.out_rec_f[:length], st.out_rec_c[:length],
+                           st.out_nl[:length],
                            st.out_waves[:length], st.out_qscales[:length])
 
     def bag_mask_at(self, it: int) -> torch.Tensor:
@@ -844,11 +874,14 @@ class DeviceGrower:
                         self._bag_npad, self.num_data, self._bag_fraction,
                         self.device)
 
-    def _refit_into_records(self, refit, rec_i, rec_f, nl):
+    def _refit_into_records(self, refit, rec_i, rec_f, nl, value):
         """Write each existing leaf's refit value into the record that
         created it (the last record naming the leaf: a left child keeps
         its parent's id, a right id is fresh), in place; returns the (L,)
-        leaf values (0 past the last leaf)."""
+        leaf values (0 past the last leaf).  A leaf that a categorical
+        split created keeps its growth value (``value``): a sorted-mode
+        split's outputs take ``lambda_l2 + cat_l2``, which the refit
+        formula would drop (lightgbm_tpu/ops/grow.py:1087-1095)."""
         L = self.num_leaves
         dev = self.device
         exists = torch.arange(L, device=dev) < nl
@@ -862,6 +895,10 @@ class DeviceGrower:
         crec = torch.maximum(last_l[:L], last_r[:L])
         is_left = last_l[:L] >= last_r[:L]
         do = exists & (crec >= 0)
+        if self.has_cat:
+            cfeat = rec_i[torch.where(do, crec, 0), 2].long()
+            from_cat = do & (self.meta.is_cat[cfeat.clamp(min=0)] == 1)
+            refit = torch.where(from_cat, value[:L], refit)
         leaf_vals = torch.where(exists, refit, torch.zeros_like(refit))
         rows = torch.where(do, crec, L - 1)          # junk record row
         cols = torch.where(is_left, REC_F_LEFT_OUT, REC_F_RIGHT_OUT)

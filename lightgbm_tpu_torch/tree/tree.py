@@ -29,11 +29,29 @@ def _avoid_inf(x: float) -> float:
     return float(x)
 
 
-def find_in_bitset(words, val: int) -> bool:
-    i1 = val // 32
-    if val < 0 or i1 >= len(words):
-        return False
-    return bool((words[i1] >> (val % 32)) & 1)
+def construct_bitset(values) -> List[int]:
+    """Common::ConstructBitset: ints -> uint32 bitset words."""
+    if len(values) == 0:
+        return []
+    words = [0] * (int(max(values)) // 32 + 1)
+    for v in values:
+        v = int(v)
+        words[v // 32] |= 1 << (v % 32)
+    return words
+
+
+def categorical_bitsets(mapper, member_bins):
+    """(inner-bin bitset, raw-category bitset) of a categorical split whose
+    LEFT side is the bin set ``member_bins``
+    (``lightgbm_tpu/tree/tree.py::categorical_bitsets``): bins past 255
+    and the bins with no category (``bin_2_categorical[b] < 0``) stay out
+    of the raw one.  The binned validation traversal reads the first, the
+    host walk and the packed forest the second."""
+    member_bins = [int(b) for b in member_bins if int(b) < 256]
+    cats = [int(mapper.bin_2_categorical[b]) for b in member_bins
+            if b < len(mapper.bin_2_categorical)
+            and mapper.bin_2_categorical[b] >= 0]
+    return construct_bitset(member_bins), construct_bitset(cats)
 
 
 class Tree:
@@ -112,6 +130,25 @@ class Tree:
         self.num_leaves += 1
         return self.num_leaves - 1
 
+    def split_categorical(self, leaf, feature, real_feature, bitset_inner,
+                          bitset, left_value, right_value, left_cnt,
+                          right_cnt, gain, missing_type: int) -> int:
+        """Categorical split: ``bitset_inner`` over bins, ``bitset`` over
+        raw category values; returns the new (right) leaf index."""
+        node = self._split_common(leaf, feature, real_feature, left_value,
+                                  right_value, left_cnt, right_cnt, gain)
+        self.decision_type[node] = (K_CATEGORICAL_MASK
+                                    | ((int(missing_type) & 3) << 2))
+        self.threshold_in_bin[node] = self.num_cat
+        self.threshold[node] = self.num_cat
+        self.num_cat += 1
+        self.cat_threshold_inner.extend(int(w) for w in bitset_inner)
+        self.cat_boundaries_inner.append(len(self.cat_threshold_inner))
+        self.cat_threshold.extend(int(w) for w in bitset)
+        self.cat_boundaries.append(len(self.cat_threshold))
+        self.num_leaves += 1
+        return self.num_leaves - 1
+
     # ------------------------------------------------------------------
     def apply_shrinkage(self, rate: float):
         self.leaf_value[:self.num_leaves] *= rate
@@ -137,16 +174,22 @@ class Tree:
                   ((missing == 2) & nan_mask)
         left = np.where(is_miss, default_left, v <= self.threshold[node])
         if self.num_cat > 0 and is_cat.any():
+            # CategoricalDecision: the value truncated toward zero (NaN is
+            # category 0 unless the missing type is NaN, then it goes
+            # right), left iff its bit is set in the node's raw bitset
             ci = np.nonzero(is_cat)[0]
-            for i in ci:
-                fv = fval[i]
-                iv = -1 if np.isnan(fv) else int(fv)
-                if np.isnan(fv) and missing[i] != 2:
-                    iv = 0
-                cat_idx = int(self.threshold[node[i]])
-                lo, hi = self.cat_boundaries[cat_idx], self.cat_boundaries[cat_idx + 1]
-                left[i] = (iv >= 0 and
-                           find_in_bitset(self.cat_threshold[lo:hi], iv))
+            fv = fval[ci]
+            nan = np.isnan(fv)
+            iv = np.trunc(np.clip(np.where(nan, 0.0, fv), -1.0, 2.0 ** 31))
+            iv = np.where(nan & (missing[ci] == 2), -1, iv).astype(np.int64)
+            cat_idx = self.threshold[node[ci]].astype(np.int64)
+            bounds = np.asarray(self.cat_boundaries, np.int64)
+            lo, n_words = bounds[cat_idx], np.diff(bounds)[cat_idx]
+            widx = iv >> 5
+            inside = (iv >= 0) & (widx < n_words)
+            words = np.asarray(self.cat_threshold + [0], np.int64)
+            word = words[np.where(inside, lo + widx, -1)]
+            left[ci] = inside & (((word >> (iv & 31)) & 1) == 1)
         return left
 
     def predict_leaf(self, data: np.ndarray) -> np.ndarray:

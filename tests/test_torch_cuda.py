@@ -878,3 +878,101 @@ def test_captured_chunk_of_a_new_objective_equals_plain_loop(cuda_device,
     for _ in range(4):
         per.update()
     assert per.model_to_string() == plain.model_to_string()
+
+
+def _categorical_rows(n=12_000, seed=3):
+    """Two categorical columns (40 and 4 categories: the sorted-subset
+    and the one-hot scan) and two numerical ones, with a binary label
+    and a 3-class one."""
+    rng = np.random.default_rng(seed)
+    x = np.stack([rng.integers(0, 40, n), rng.integers(0, 4, n),
+                  rng.standard_normal(n), rng.random(n)], 1).astype(float)
+    lut = rng.standard_normal((40, 3))
+    z = lut[x[:, 0].astype(int)] + 0.5 * (x[:, 1] == 2)[:, None] \
+        + np.outer(x[:, 2], [-0.5, 0.0, 0.5])
+    y3 = np.argmax(z + rng.gumbel(size=z.shape), axis=1).astype(float)
+    yb = (z[:, 0] + 0.3 * rng.standard_normal(n) > 0).astype(float)
+    return x, yb, y3
+
+
+@pytest.mark.parametrize("quant", [0, 8])
+def test_categorical_captured_chunk_equals_plain_loop(cuda_device, quant):
+    """A fused chunk of categorical trees (membership state, bitset
+    routing and records inside the captured tree) makes no host sync
+    (sync debug mode "error"); its records (the bin sets included),
+    leaves, waves and scores equal the plain loop of the same pieces on
+    the card bit for bit, and per-iteration training's model text."""
+    x, yb, _ = _categorical_rows()
+    params = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
+              "grad_quant_bits": quant, "verbose": -1}
+    data = lambda: lt.Dataset(x, yb, categorical_feature=[0, 1])
+    fused = lt.Booster(params, data())
+    gb = fused._gbdt
+    fused.update_chunked(4, chunk=4)          # captures the graphs
+    fg = gb._fused_grad_fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gb._grower.fused_train(4, gb.train_score[0].clone(), 0.1, 4, fg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    plain = lt.Booster(params, data())
+    grower = plain._gbdt._grower
+    grower._graph = lambda sample: None
+    grower._run_tree = grower._run_pieces
+    plain.update_chunked(4, chunk=4)
+    got = gb._last_chunk_stack.host()
+    want = plain._gbdt._last_chunk_stack.host()
+    for a, b in zip(got, want):
+        assert a.tobytes() == b.tobytes()
+    per = lt.Booster(params, data())
+    for _ in range(4):
+        per.update()
+    text = per.model_to_string()
+    assert "cat_threshold=" in text
+    assert text == plain.model_to_string()
+
+
+def test_multiclass_categorical_on_card_matches_cpu_path(cuda_device):
+    """K=3 softmax with categorical columns: the card's per-iteration
+    trees (one captured launch a class, one host sync an iteration, no
+    sync inside a tree's launch) have the CPU path's splits, and predict
+    (N, 3) within 1e-4 of it; every wave's histogram came from the
+    kernel."""
+    x, _, y3 = _categorical_rows()
+    params = {"objective": "multiclass", "num_class": 3, "num_leaves": 31,
+              "max_bin": 63, "verbose": -1}
+    data = lambda: lt.Dataset(x, y3, categorical_feature=[0, 1])
+    hist_cuda.wave_hist.launches.reset()
+    on_card = lt.train(params, data(), 4)
+    gb = on_card._gbdt
+    assert [s[1] for s in gb.tree_stats] == [3] * 4
+    assert [s[3] for s in gb.tree_stats] == [1] * 4
+    assert hist_cuda.wave_hist.launches.read() \
+        == sum(s[2] for s in gb.tree_stats) \
+        + gb._grower.capture_stats["warmup_waves"]
+    grower = gb._grower
+    score = gb.train_score[1].clone()
+    grad, hess = (t[1].contiguous() for t in
+                  gb.objective.get_gradients(gb.train_score))
+    mask = grower.feature_mask_for(13)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grower.grow_one_iter(score, grad, hess, 0.1, feature_mask=mask,
+                             tree_idx=13)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    on_cpu = lt.train({**params, "device": "cpu"}, data(), 4)
+    gb._flush_pending()
+    on_cpu._gbdt._flush_pending()
+    for t_card, t_cpu in zip(gb.models[:3], on_cpu._gbdt.models[:3]):
+        n = t_card.num_leaves
+        assert n == t_cpu.num_leaves > 2
+        np.testing.assert_array_equal(t_card.split_feature[:n - 1],
+                                      t_cpu.split_feature[:n - 1])
+        assert t_card.cat_threshold == t_cpu.cat_threshold
+    assert sum(t.num_cat for t in gb.models) > 0
+    np.testing.assert_allclose(on_card.predict(x, raw_score=True),
+                               on_cpu.predict(x, raw_score=True), atol=1e-4)

@@ -3,8 +3,9 @@
 every ported metric within 1e-12 relative, unweighted and weighted, with
 the output conversion of its objective; ``ndcg`` and ``map`` also with
 query weights and ``eval_at`` past a query's length; every JAX metric
-name ported or refused by name (``multi_logloss`` and ``multi_error``
-wait for multiclass).
+name ported or refused by name (none is refused since multiclass;
+``multi_logloss`` and ``multi_error`` are held in
+tests/test_torch_multiclass.py).
 """
 
 import numpy as np

@@ -72,10 +72,10 @@ def test_find_best_matches_jax(params):
     want = np.asarray(want)
 
     tmeta = tsplit.FeatureMeta.from_dataset(td, NB, torch.device("cpu"))
-    got = tsplit.find_best_split_stack(
+    got = tsplit.find_best_split(
         torch.from_numpy(hist), torch.from_numpy(totals),
         torch.from_numpy(mask), tmeta,
-        tsplit.SplitHyper.from_config(tc)).numpy()
+        tsplit.SplitHyper.from_config(tc))[0].numpy()
 
     assert got.shape == want.shape == (6, 13)
     assert (want[:, tsplit.F_GAIN] > tsplit.NEG_INF).any()
@@ -125,10 +125,10 @@ def test_quantized_scan_byte_equal_to_jax(params):
         jmeta, jsplit.SplitHyper.from_config(jc), False,
         scales=jnp.asarray(scales))
     tmeta = tsplit.FeatureMeta.from_dataset(td, NB, torch.device("cpu"))
-    got, got_l = tsplit.find_best_split_quant(
+    got, _, got_l = tsplit.find_best_split(
         torch.from_numpy(hist), torch.from_numpy(totals),
-        torch.from_numpy(scales), torch.from_numpy(mask), tmeta,
-        tsplit.SplitHyper.from_config(tc))
+        torch.from_numpy(mask), tmeta, tsplit.SplitHyper.from_config(tc),
+        scales=torch.from_numpy(scales))
     want = np.asarray(want)
     assert (want[:, tsplit.F_GAIN] > tsplit.NEG_INF).any()
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
