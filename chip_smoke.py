@@ -106,7 +106,30 @@ Phases, one line each:
               launches counted), the traversal's leaves equal to the host
               walk's on 200,000 rows, ms a tree on the card; then
               engine.train with the pair as valid set and early stopping;
-7. serve   -- csrc/forest_predict.cu, the packed-forest kernel: the higgs
+7. boosting -- GOSS, DART and RF on the train phase's dense binning (255
+              leaves), per-iteration through engine.train and Booster,
+              with 500,000 held-out rows binned on the card against the
+              training mappers: (a) GOSS (top_rate 0.2, other_rate 0.1,
+              30 rounds, a warm-up of 10) twice with the same sha256,
+              s/tree of warm-up and sampled trees, iteration 15's in-bag
+              rows against top_k + other_k and its selection recomputed
+              by the plain goss_partition on the CPU (buffer, count and
+              multiplier bit-equal), training AUC >= AUC_FLOOR; int8 GOSS
+              20 rounds twice, byte-identical text; (b) DART (drop_rate
+              0.1, skip_drop 0.5, max_drop 50, drop_seed 4, 30 rounds,
+              the held-out set attached): the drops of each iteration,
+              s/iteration split by CUDA events into the drop, the tree and
+              the normalization, the traversals counted and one timed over
+              the training and the held-out rows, one iteration with drops
+              grown under sync debug "error", the held-out and training
+              scores equal to Booster.predict within 1e-5 of max|score|;
+              (c) RF (bagging 0.8 every round, feature_fraction 0.8, 20
+              rounds): predict's held-out binary_logloss within 1e-6 of
+              eval_valid's, the average_output line, Booster(model_file=)
+              predicting bit-equal, held-out AUC >= RF_AUC_FLOOR; every
+              run's wave_hist launches == tree waves + warm-up, every
+              predict bit-equal to forest_predict's plain version;
+8. serve   -- csrc/forest_predict.cu, the packed-forest kernel: the higgs
               model over all 2M rows (leaves and scores also against the
               host walk on 200k rows), a synthetic forest of 500 trees
               of up to 63 leaves with deep paths, NaN/zero missing and
@@ -130,7 +153,7 @@ Phases, one line each:
               Booster.predict and within 1e-5 of the host walk), with
               p50/p95 latency per size and the launches of each kernel
               route on the main path;
-8. multiclass -- BASELINE.json's config 4 on an Expedia-shaped set made
+9. multiclass -- BASELINE.json's config 4 on an Expedia-shaped set made
               from --seed (expedia_shape: 2M rows, 11 categorical id
               columns of 4 to 60,000 ids, one in one-hot mode, and 9
               numerical ones; 100 hotel clusters; 200,000 held-out rows
@@ -899,11 +922,14 @@ def skipped_loop_cost(grower, dev):
                 per_skipped_loop_us=(ms_loops - ms_plain) / n * 1e3)
 
 
-def predict_checked(name, booster, x, score, dev) -> dict:
+def predict_checked(name, booster, x, score, dev, bar=1e-5,
+                    keep_raw=False) -> dict:
     """``Booster.predict`` of every training row (raw scores), timed and
     split (PredictSplit): it must launch forest_predict (counted), equal
-    the kernel's plain version on the card bit for bit and the device
-    training score within 1e-5."""
+    the kernel's plain version on the card bit for bit (an averaged
+    model's sums divided by its iterations, as predict divides them) and
+    the device score ``score`` of the same rows within ``bar``.
+    ``keep_raw`` returns the predictions too, under "raw"."""
     import numpy as np
     import torch
     from lightgbm_tpu_torch.serve import packed
@@ -925,18 +951,23 @@ def predict_checked(name, booster, x, score, dev) -> dict:
     plain_pred = packed.forest_predict_reference(
         pe.tables(), torch.from_numpy(x).to(dev), num_model=pe.num_model,
         max_depth=pe.max_depth)[0].double().cpu().numpy()
+    if booster._gbdt.average_output:
+        plain_pred = plain_pred / booster._gbdt.num_iterations()
     if not np.array_equal(raw, plain_pred):
         fail(f"{name}: Booster.predict through forest_predict differs from "
              f"the plain version on {int((raw != plain_pred).sum())} rows")
     del pe, plain_pred
     pred_err = float(np.abs(raw - score).max())
-    if pred_err > 1e-5:
-        fail(f"{name}: predict through forest_predict vs device training "
-             f"score: {pred_err:.3g}")
-    return dict(predict_s=predict_s, predict_split=split,
-                predict_launches=predict_launches,
-                predict_routes=predict_routes,
-                predict_vs_score_max_abs=pred_err)
+    if pred_err > bar:
+        fail(f"{name}: predict through forest_predict vs device "
+             f"score: {pred_err:.3g} (bar {bar:.3g})")
+    out = dict(predict_s=predict_s, predict_split=split,
+               predict_launches=predict_launches,
+               predict_routes=predict_routes,
+               predict_vs_score_max_abs=pred_err)
+    if keep_raw:
+        out["raw"] = raw
+    return out
 
 
 def train_run(name, ds, x, y, dev, seed, profile=False):
@@ -1994,6 +2025,415 @@ def phase_data(dev, seed: int, dense, x, y, train, profile: bool):
                 engine_evals=evals, profile=profiles)
 
 
+#: phase boosting: GOSS, DART and RF on the train phase's dense HIGGS
+#: binning (2M x 28, max_bin 255, binary, 255 leaves), with VALID_ROWS
+#: held-out rows binned on the card against the training mappers
+BOOST_BASE = {**TRAIN_BASE, "num_leaves": 255}
+BOOST_RUNS = {
+    "goss": {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1},
+    "goss_int8": {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1,
+                  "grad_quant_bits": 8},
+    "dart": {"boosting": "dart", "drop_rate": 0.1, "skip_drop": 0.5,
+             "max_drop": 50, "drop_seed": 4},
+    "rf": {"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.8,
+           "feature_fraction": 0.8, "metric": ["binary_logloss", "auc"]},
+}
+BOOST_ROUNDS = {"goss": 30, "goss_int8": 20, "dart": 30, "rf": 20}
+#: the GOSS iteration whose selection is recomputed on the CPU (the
+#: warm-up at learning rate 0.1 covers iterations 0-9)
+GOSS_CHECK_ITER = 15
+#: the RF's held-out AUC floor, fixed before its first card run (PERF.md)
+RF_AUC_FLOOR = 0.78
+#: training rows DART's training score is held against predict on
+DART_TRAIN_ROWS = 200_000
+
+
+def dataset_of(handle, reference=None):
+    """A user's ``lt.Dataset`` over an already binned BinnedDataset (its
+    labels set), so that engine.train and Booster take it as they take
+    any Dataset, without binning it again."""
+    import lightgbm_tpu_torch as lt
+    d = lt.Dataset(None, reference=reference)
+    d._handle = handle
+    return d
+
+
+def boost_launches_ok(name, gb, launches, rounds):
+    """wave_hist launches == the trees' waves + the warm-up's; one tree
+    and one host sync an iteration."""
+    stats = gb.tree_stats
+    waves = sum(s[2] for s in stats)
+    warm = gb._grower.capture_stats["warmup_waves"]
+    if launches <= 0 or launches != waves + warm:
+        fail(f"boosting {name}: wave_hist launches {launches} != tree "
+             f"waves {waves} + warm-up {warm}")
+    if [s[1] for s in stats] != [1] * rounds \
+            or [s[3] for s in stats] != [1] * rounds:
+        fail(f"boosting {name}: dispatches {[s[1] for s in stats]} and "
+             f"host syncs {[s[3] for s in stats]}, one each an iteration "
+             f"expected")
+    return waves
+
+
+def boost_run(name, train, dev, valid=None):
+    """engine.train of one boosting configuration: the booster and what
+    the run counted (every tree per-iteration: GOSS, DART and RF never
+    fuse)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import hist_cuda
+    params = {**BOOST_BASE, **BOOST_RUNS[name], "device": dev.type}
+    rounds = BOOST_ROUNDS[name]
+    evals = {}
+    hist_cuda.wave_hist.launches.reset()      # this run only
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    booster = lt.train(params, train, num_boost_round=rounds,
+                       valid_sets=None if valid is None else [valid],
+                       evals_result=evals, verbose_eval=False)
+    text = booster.model_to_string()
+    train_s = time.perf_counter() - t0
+    gb = booster._gbdt
+    if gb.fused_eligible() or booster.num_trees() != rounds:
+        fail(f"boosting {name}: {booster.num_trees()} trees, fused "
+             f"eligible {gb.fused_eligible()}")
+    launches = hist_cuda.wave_hist.launches.read()
+    waves = boost_launches_ok(name, gb, launches, rounds)
+    return booster, text, dict(
+        params={**BOOST_BASE, **BOOST_RUNS[name]}, rounds=rounds,
+        train_s=train_s, launches=launches, waves=waves,
+        waves_per_tree=waves / rounds,
+        s_per_iteration=[s[0] for s in gb.tree_stats],
+        capture=dict(gb._grower.capture_stats), evals=evals,
+        model_text_sha256=hashlib.sha256(text.encode()).hexdigest())
+
+
+def _median(v):
+    v = sorted(v)
+    return v[len(v) // 2] if v else None
+
+
+def boost_goss(train, x, y, dev):
+    """GOSS twice (the same sha256), its iteration-15 selection recomputed
+    by the plain goss_partition on the CPU, training AUC and predict; the
+    int8 GOSS twice, byte-identical."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.boosting import goss as goss_mod
+    from lightgbm_tpu_torch.ops.bagging import goss_counts, goss_partition
+    warm = int(1.0 / BOOST_BASE["learning_rate"])
+    real, calls, seen = goss_mod.goss_row_mask, [], {}
+
+    def spy(key, score, n_pad, num_data, top, other):
+        out = real(key, score, n_pad, num_data, top, other)
+        if warm + len(calls) == GOSS_CHECK_ITER:
+            seen.update(key=key, score=score.clone(), n_pad=n_pad,
+                        mask=out[0].clone(), mult=out[1].clone())
+        calls.append(1)
+        return out
+    goss_mod.goss_row_mask = spy
+    try:
+        booster, text, res = boost_run("goss", train, dev)
+    finally:
+        goss_mod.goss_row_mask = real
+    gb = booster._gbdt
+    rounds = BOOST_ROUNDS["goss"]
+    if len(calls) != rounds - warm or not seen:
+        fail(f"goss: {len(calls)} selections in {rounds} rounds, "
+             f"{rounds - warm} expected after a warm-up of {warm}")
+    n = gb.num_data
+    top_k, other_k = goss_counts(n, 0.2, 0.1)
+    in_bag = int(seen["mask"].sum())
+    args = (seen["n_pad"], n, 0.2, 0.1)
+    card = goss_partition(seen["key"], seen["score"], *args)
+    cpu = goss_partition(seen["key"], seen["score"].cpu(), *args)
+    for what, a, b in zip(("buffer", "count", "multiplier"), card, cpu):
+        if not torch.equal(a.cpu(), b):
+            fail(f"goss: iteration {GOSS_CHECK_ITER}'s {what} on the card "
+                 f"differs from the plain goss_partition on the CPU")
+    used = torch.zeros(seen["n_pad"], device=dev)
+    used[card[0][:int(card[1])].long()] = 1.0
+    if not torch.equal(used[:n], seen["mask"]) or \
+            not torch.equal(card[2][:n], seen["mult"]) or in_bag != int(card[1]):
+        fail("goss: the grower's row mask is not goss_partition's selection")
+    # the selection alone at iteration 15's scores: as the per-iteration
+    # path runs it (host enqueue included) and queued (card time)
+    select = lambda: real(seen["key"], seen["score"], *args)
+    sel_ms = time_ms(select, reps=5)
+    sel_card_ms = time_queued_ms(select, reps=5)
+    score = gb.train_score[0].double().cpu().numpy()
+    auc = auc_of(y, score)
+    if auc < AUC_FLOOR:
+        fail(f"goss: training AUC {auc:.4f} below the floor {AUC_FLOOR}")
+    pred = predict_checked("goss", booster, x, score, dev)
+    secs = res["s_per_iteration"]
+    waves = [s[2] for s in gb.tree_stats]
+    res.update(auc=auc, top_k=top_k, other_k=other_k,
+               in_bag_iter15=in_bag, multiplier=float(
+                   seen["mult"].max()),
+               warmup_s_per_tree=_median(secs[1:warm]),
+               sampled_s_per_tree=_median(secs[warm:]),
+               warmup_waves_per_tree=float(np.mean(waves[1:warm])),
+               sampled_waves_per_tree=float(np.mean(waves[warm:])),
+               selection_ms=sel_ms, selection_card_ms=sel_card_ms, **pred)
+    del booster, gb, seen, card, cpu, used
+    again, text2, res2 = boost_run("goss", train, dev)
+    if text2 != text:
+        fail(f"goss: two runs gave model text sha256 "
+             f"{res['model_text_sha256']} and {res2['model_text_sha256']}")
+    del again
+    res["rerun"] = res2
+    print(f"  boosting goss: {rounds} trees in {res['train_s']:.2f} s, "
+          f"s/tree warm-up trees 2-{warm} median "
+          f"{res['warmup_s_per_tree']:.5f}, sampled trees {warm + 1}-"
+          f"{rounds} median {res['sampled_s_per_tree']:.5f} (waves a tree "
+          f"{res['warmup_waves_per_tree']:.2f} / "
+          f"{res['sampled_waves_per_tree']:.2f}; the selection alone "
+          f"{sel_ms:.3f} ms, card time {sel_card_ms:.3f} ms); "
+          f"{res['waves_per_tree']:.1f} waves/tree, wave_hist launches "
+          f"{res['launches']} == tree waves + warm-up; iteration "
+          f"{GOSS_CHECK_ITER} in-bag {in_bag} rows against top_k + "
+          f"other_k = {top_k} + {other_k} = {top_k + other_k} "
+          f"(multiplier {res['multiplier']:.6f}), its buffer, count and "
+          f"multiplier on the card bit-equal to the plain goss_partition "
+          f"on the CPU; AUC {auc:.4f}; predict {pred['predict_s']:.4f} s "
+          f"bit-equal to the plain version; model text sha256 "
+          f"{res['model_text_sha256']} on both runs", flush=True)
+    texts, int8 = [], []
+    for _ in range(2):
+        b, t, r = boost_run("goss_int8", train, dev)
+        texts.append(t)
+        int8.append(r)
+        del b
+    if texts[0] != texts[1]:
+        fail("goss grad_quant_bits=8: two runs gave different model text")
+    print(f"  boosting goss_int8: {BOOST_ROUNDS['goss_int8']} trees twice "
+          f"in {int8[0]['train_s']:.2f} / {int8[1]['train_s']:.2f} s, "
+          f"byte-identical text (sha256 {int8[0]['model_text_sha256']}), "
+          f"s/tree median {_median(int8[0]['s_per_iteration'][1:]):.5f}, "
+          f"wave_hist launches {int8[0]['launches']} + "
+          f"{int8[1]['launches']} == tree waves + warm-up", flush=True)
+    return res, int8
+
+
+def boost_dart(train, valid, x, xv, dev):
+    """DART with the held-out set attached, one Booster.update an
+    iteration: each iteration's drops, its time split by CUDA events into
+    the drop (replay, catch-up, the dropped trees out of the training
+    score), the tree and the normalization, the traversals counted; one
+    iteration with drops grown under sync debug "error"; the held-out and
+    training scores against Booster.predict within 1e-5 of max|score|."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import hist_cuda, traverse
+    params = {**BOOST_BASE, **BOOST_RUNS["dart"], "device": dev.type}
+    rounds = BOOST_ROUNDS["dart"]
+    booster = lt.Booster(params, train)
+    booster.add_valid(valid, "valid")
+    gb = booster._gbdt
+    marks = {}
+
+    def timed(fn, a, b):
+        def run(*args, **kw):
+            marks[a] = torch.cuda.Event(enable_timing=True)
+            marks[a].record()
+            out = fn(*args, **kw)
+            marks[b] = torch.cuda.Event(enable_timing=True)
+            marks[b].record()
+            return out
+        return run
+    guarded = []
+    real_grow = gb._grow_trees
+
+    def grow(*args):
+        if guarded or not gb.drop_index:
+            return real_grow(*args)
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real_grow(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        guarded.append(gb.iter)
+        return out
+    gb._dropping_trees = timed(gb._dropping_trees, "d0", "d1")
+    gb._normalize = timed(gb._normalize, "n0", "n1")
+    gb._grow_trees = grow
+    hist_cuda.wave_hist.launches.reset()
+    iters = []
+    t_all = time.perf_counter()
+    for it in range(rounds):
+        marks.clear()
+        tr0 = gb.traversals
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if booster.update():
+            fail(f"dart: training stopped at iteration {it}")
+        torch.cuda.synchronize(dev)
+        host_s = time.perf_counter() - t0
+        iters.append(dict(
+            drops=list(gb.drop_index), host_s=host_s,
+            traversals=gb.traversals - tr0,
+            drop_ms=marks["d0"].elapsed_time(marks["d1"]),
+            tree_ms=marks["d1"].elapsed_time(marks["n0"]),
+            normalize_ms=marks["n0"].elapsed_time(marks["n1"])))
+    train_s = time.perf_counter() - t_all
+    del gb._dropping_trees, gb._normalize, gb._grow_trees
+    if not guarded:
+        fail("dart: no iteration dropped a tree")
+    launches = hist_cuda.wave_hist.launches.read()
+    waves = boost_launches_ok("dart", gb, launches, rounds)
+    booster.eval_valid()
+    vscore = gb.valid_sets[0].score[0].double().cpu().numpy()
+    tscore = gb.train_score[0, :DART_TRAIN_ROWS].double().cpu().numpy()
+    scale = float(max(np.abs(vscore).max(), np.abs(tscore).max()))
+    bar = 1e-5 * scale
+    pv = predict_checked("dart held-out", booster, xv, vscore, dev, bar=bar)
+    pt = predict_checked("dart training", booster, x[:DART_TRAIN_ROWS],
+                         tscore, dev, bar=bar)
+    # one traversal of the deepest tree: the training rows in the
+    # grower's (G, n_pad) layout, and the held-out rows
+    tree = max(gb.models, key=traverse.tree_depth)
+    dt = traverse.device_tree(tree, gb.train_set, gb.config.num_leaves, dev)
+    codes = gb._grower.binned_t[:, :gb.num_data]
+    s_train = gb.train_score[0].clone()
+    s_valid = gb.valid_sets[0].score[0].clone()
+    trav_train_ms = time_queued_ms(lambda: traverse.add_tree_score(
+        s_train, codes, dt, 1.0, groups_major=True), reps=5)
+    trav_valid_ms = time_queued_ms(lambda: traverse.add_tree_score(
+        s_valid, gb.valid_sets[0].binned, dt, 1.0), reps=5)
+    dropped = sum(len(i["drops"]) for i in iters)
+    with_drops = [i for i in iters if i["drops"]]
+    res = dict(params={**BOOST_BASE, **BOOST_RUNS["dart"]}, rounds=rounds,
+               train_s=train_s, launches=launches, waves=waves,
+               waves_per_tree=waves / rounds, iterations=iters,
+               dropped_trees=dropped, traversals=gb.traversals,
+               sync_guarded_iteration=guarded[0],
+               valid_vs_predict_max_abs=pv["predict_vs_score_max_abs"],
+               train_vs_predict_max_abs=pt["predict_vs_score_max_abs"],
+               bar=bar, traversal_train_ms=trav_train_ms,
+               traversal_valid_ms=trav_valid_ms, deepest_tree=dt.depth,
+               predict_launches=pv["predict_launches"]
+               + pt["predict_launches"],
+               predict_routes={k: pv["predict_routes"][k]
+                               + pt["predict_routes"][k]
+                               for k in pv["predict_routes"]},
+               model_text_sha256=hashlib.sha256(
+                   booster.model_to_string().encode()).hexdigest())
+    print(f"  boosting dart: drops by iteration "
+          f"{[i['drops'] for i in iters]}", flush=True)
+    print(f"  boosting dart: {rounds} iterations in {train_s:.2f} s, "
+          f"{dropped} dropped trees over {len(with_drops)} iterations, "
+          f"{gb.traversals} traversals; s/iteration median "
+          f"{_median([i['host_s'] for i in iters]):.5f} (with drops "
+          f"{_median([i['host_s'] for i in with_drops]):.5f}); CUDA events "
+          f"a drop iteration: drop {_median([i['drop_ms'] for i in with_drops]):.2f}"
+          f" + tree {_median([i['tree_ms'] for i in with_drops]):.2f} + "
+          f"normalize {_median([i['normalize_ms'] for i in with_drops]):.2f}"
+          f" ms, tree alone {_median([i['tree_ms'] for i in iters if not i['drops']]):.2f}"
+          f" ms; one traversal of a depth-{dt.depth} tree "
+          f"{trav_train_ms:.3f} ms over the {gb.num_data} training rows "
+          f"(G, n_pad) and {trav_valid_ms:.3f} ms over the "
+          f"{len(xv)} held-out rows; iteration {guarded[0]}'s trees grown "
+          f"under sync debug \"error\"; wave_hist launches {launches} == "
+          f"tree waves + warm-up; held-out and training scores == "
+          f"Booster.predict within {pv['predict_vs_score_max_abs']:.2g} "
+          f"and {pt['predict_vs_score_max_abs']:.2g} (bar {bar:.2g})",
+          flush=True)
+    return res
+
+
+def boost_rf(train, valid, xv, yv, dev, tmp):
+    """RF through engine.train with the held-out set: predict's
+    binary_logloss against eval_valid's, the average_output line, the
+    model_file round trip bit-equal, the held-out AUC floor."""
+    import numpy as np
+    import lightgbm_tpu_torch as lt
+    booster, text, res = boost_run("rf", train, dev, valid=valid)
+    gb = booster._gbdt
+    rounds = BOOST_ROUNDS["rf"]
+    vscore = gb.valid_sets[0].score[0].double().cpu().numpy() / rounds
+    pred = predict_checked("rf", booster, xv, vscore, dev, keep_raw=True)
+    p = pred.pop("raw")
+    eps = 1e-15
+    pc = np.clip(p, eps, 1 - eps)
+    logloss = float(-np.mean(yv * np.log(pc) + (1 - yv) * np.log(1 - pc)))
+    want = res["evals"]["valid_0"]["binary_logloss"][-1]
+    if abs(logloss - want) > 1e-6:
+        fail(f"rf: Booster.predict's held-out binary_logloss {logloss:.8f}, "
+             f"eval_valid's {want:.8f}")
+    if "\naverage_output\n" not in text:
+        fail("rf: the model text has no average_output line")
+    auc = auc_of(yv, p)
+    if auc < RF_AUC_FLOOR:
+        fail(f"rf: held-out AUC {auc:.4f} below the floor {RF_AUC_FLOOR}")
+    path = tmp / "rf_model.txt"
+    booster.save_model(str(path))
+    loaded = lt.Booster(model_file=str(path), params={"device": dev.type})
+    again = predict_checked("rf loaded", loaded, xv, vscore, dev,
+                            keep_raw=True)
+    if not np.array_equal(again.pop("raw"), p):
+        fail("rf: the model loaded through Booster(model_file=) predicts "
+             "other values")
+    res.update(auc_valid=auc, logloss_predict=logloss, logloss_eval=want,
+               predict_launches=pred["predict_launches"]
+               + again["predict_launches"],
+               predict_routes={k: pred["predict_routes"][k]
+                               + again["predict_routes"][k]
+                               for k in pred["predict_routes"]},
+               predict_s=pred["predict_s"])
+    print(f"  boosting rf: {rounds} trees in {res['train_s']:.2f} s, s/tree "
+          f"median {_median(res['s_per_iteration'][1:]):.5f}, "
+          f"{res['waves_per_tree']:.1f} waves/tree, wave_hist launches "
+          f"{res['launches']} == tree waves + warm-up; held-out AUC "
+          f"{auc:.4f} (floor {RF_AUC_FLOOR}), binary_logloss "
+          f"{logloss:.6f} from predict == eval_valid's {want:.6f}; "
+          f"average_output in the text; Booster(model_file=) predicts "
+          f"bit-equal; both predicts bit-equal to the plain version",
+          flush=True)
+    return res
+
+
+def phase_boosting(dev, seed: int, dense, x, y):
+    """GOSS, DART and RF through engine.train and Booster on the card,
+    on the train phase's dense binning of the 2M HIGGS-shape rows, with
+    VALID_ROWS held-out rows (higgs_shape(VALID_ROWS, seed + 1)) binned on
+    the card against its mappers."""
+    import tempfile
+    OUT_DIR.mkdir(exist_ok=True)
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import BinnedDataset
+    t0 = time.perf_counter()
+    xv, yv = higgs_shape(VALID_ROWS, seed + 1)
+    vds = BinnedDataset.construct_from_device_matrix(
+        torch.from_numpy(xv).to(dev), Config(dict(TRAIN_BASE)),
+        reference=dense)
+    vds.metadata.set_label(yv)
+    valid_s = time.perf_counter() - t0
+    train = dataset_of(dense)
+    valid = dataset_of(vds, reference=train)
+    goss, int8 = boost_goss(train, x, y, dev)
+    dart = boost_dart(train, valid, x, xv, dev)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        rf = boost_rf(train, valid, xv, yv, dev, Path(tmp))
+    runs = dict(goss=goss, goss_int8=int8, dart=dart, rf=rf)
+    launches = (goss["launches"] + goss["rerun"]["launches"]
+                + sum(r["launches"] for r in int8) + dart["launches"]
+                + rf["launches"])
+    routes = {k: goss["predict_routes"][k] + dart["predict_routes"][k]
+              + rf["predict_routes"][k] for k in goss["predict_routes"]}
+    print(f"phase boosting: ok (goss, goss_int8 x2, dart, rf; valid "
+          f"binned in {valid_s:.2f} s; wave_hist launches {launches}, "
+          f"forest_predict launches {sum(routes.values())})", flush=True)
+    return dict(runs=runs, valid_rows=VALID_ROWS, valid_bin_s=valid_s,
+                launches=launches,
+                predict_launches=sum(routes.values()),
+                predict_routes=routes)
+
+
 #: the serve phase's synthetic forest: 500 trees of up to 63 leaves over
 #: the HIGGS width, deep paths, three categorical columns of up to 128
 #: categories (four bitset words)
@@ -2730,13 +3170,14 @@ def main() -> int:
     train, models, x, y, dense = phase_train(dev, args.seed, args.profile)
     objectives = phase_objectives(dev, args.seed, x, dense, args.profile)
     data = phase_data(dev, args.seed, dense, x, y, train, args.profile)
+    boosting = phase_boosting(dev, args.seed, dense, x, y)
     del dense, y
     serve = phase_serve(dev, models, x, args.seed)
     del x
     multiclass = phase_multiclass(dev, args.seed, args.profile)
 
     # wave_hist's path is training: its launches are those of every run
-    # (the data phase's two included); wave_hist_v2's path is the ubench
+    # (the data phase's two and the boosting phase's six included); wave_hist_v2's path is the ubench
     # entry point; forest_predict's is prediction: Booster.predict after
     # each training run and of the validation rows, the fleet's entry
     # point and the two PredictionServers (not the comparison launches),
@@ -2745,10 +3186,11 @@ def main() -> int:
     v1_launches = (sum(r["launches"] for r in train["runs"].values())
                    + sum(r["launches"] for r in obj_runs)
                    + data["launches"] + data["engine_launches"]
-                   + multiclass["launches"])
+                   + boosting["launches"] + multiclass["launches"])
     fp_launches = (sum(r["predict_launches"] for r in train["runs"].values())
                    + sum(r["predict_launches"] for r in obj_runs)
                    + data["predict_launches"]
+                   + boosting["predict_launches"]
                    + serve["fleet_entry_launches"]
                    + serve["server"]["launches"]
                    + serve["server_syn"]["launches"]
@@ -2757,6 +3199,7 @@ def main() -> int:
                          for r in train["runs"].values())
                      + sum(r["predict_routes"][k] for r in obj_runs)
                      + data["predict_routes"][k]
+                     + boosting["predict_routes"][k]
                      + serve["fleet_entry_routes"][k]
                      + serve["server"]["routes"][k]
                      + serve["server_syn"]["routes"][k]
@@ -2790,7 +3233,8 @@ def main() -> int:
     with open(OUT_DIR / "chip_smoke.json", "w") as fh:
         json.dump(dict(card=card, kind=kind, build_s=build_s,
                        kernels=kernels, ubench=ubench, train=train,
-                       objectives=objectives, data=data, serve=serve,
+                       objectives=objectives, data=data,
+                       boosting=boosting, serve=serve,
                        multiclass=multiclass,
                        torch=torch.__version__, cuda=torch.version.cuda),
                   fh, indent=1)

@@ -2,7 +2,9 @@
 ``lightgbm_tpu/basic.py`` for dense matrices, scipy sparse ones, which
 bin from CSR and predict in row chunks without densifying, and float32
 tensors, binned on their device; validation sets bin against a training
-set's mappers (``reference``); no refit or pred_contrib yet)."""
+set's mappers (``reference``); the model-output surface: sliced model
+text, ``save_model``, ``Booster(model_file=)``, ``dump_model``,
+``feature_importance``; no refit or pred_contrib yet)."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .boosting import create_boosting
 from .boosting.gbdt import GBDT
 from .config import Config
 from .data.dataset import BinnedDataset
@@ -151,10 +154,11 @@ class Dataset:
 class Booster:
     """A trained or loaded model.  Training, and prediction of batches of
     ``device_predict_min_rows`` rows or more, run on ``params['device']``
-    (default ``cuda``); smaller batches walk the trees on the host."""
+    (default ``cuda``); smaller batches walk the trees on the host.  The
+    boosting mode is ``params['boosting']``: gbdt, goss, dart or rf."""
 
     def __init__(self, params=None, train_set: Optional[Dataset] = None,
-                 model_str=None):
+                 model_file=None, model_str=None):
         self.params = dict(params or {})
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
@@ -164,14 +168,18 @@ class Booster:
                 raise TypeError("Training data should be Dataset instance")
             train_set.params = {**self.params, **train_set.params}
             train_set.construct()
-            self._gbdt = GBDT(Config(self.params))
+            self._gbdt = create_boosting(Config(self.params))
             self._gbdt.init_train(train_set._handle)
             self._train_set = train_set
+        elif model_file is not None:
+            self._gbdt = GBDT.load_model_from_file(model_file,
+                                                   Config(self.params))
         elif model_str is not None:
             self._gbdt = GBDT.load_model_from_string(model_str,
                                                      Config(self.params))
         else:
-            raise TypeError("one of train_set or model_str is needed")
+            raise TypeError("one of train_set, model_file or model_str is "
+                            "needed")
 
     @classmethod
     def from_gbdt(cls, gbdt: GBDT, params=None) -> "Booster":
@@ -248,9 +256,13 @@ class Booster:
 
     def _inner_eval_pred(self, score):
         """Converted predictions of (num_model, N) scores, as ``feval``
-        receives them: (N,), or (N * num_model,) row by row."""
+        receives them: (N,), or (N * num_model,) row by row.  An averaged
+        model (RF) gives its sums over the iterations, not converted
+        (rf.hpp's EvalOneMetric passes a null objective)."""
         s = score.double().cpu().numpy()
-        if self._gbdt.objective is not None:
+        if self._gbdt.average_output:
+            s = s / max(self._gbdt.num_iterations(), 1)
+        elif self._gbdt.objective is not None:
             s = self._gbdt.objective.convert_output(s)
         return s[0] if s.shape[0] == 1 else s.T.reshape(-1)
 
@@ -277,8 +289,46 @@ class Booster:
                  for i in range(0, max(csr.shape[0], 1), step)], axis=0)
         return self._gbdt.predict(_to_2d_float(data, True), **kw)
 
-    def model_to_string(self) -> str:
-        return self._gbdt.model_to_string()
+    def model_to_string(self, num_iteration=-1, start_iteration=0) -> str:
+        """The model text of iterations ``[start_iteration, start_iteration
+        + num_iteration)`` (to the last when ``num_iteration <= 0``)."""
+        return self._gbdt.model_to_string(start_iteration, num_iteration)
+
+    def save_model(self, filename, num_iteration=-1,
+                   start_iteration=0) -> "Booster":
+        self._gbdt.save_model_to_file(filename, start_iteration,
+                                      num_iteration)
+        return self
+
+    def dump_model(self, num_iteration=-1, start_iteration=0) -> dict:
+        """The model as a dict (``lightgbm_tpu/basic.py::dump_model``: the
+        header fields and every tree's ``Tree.to_json``)."""
+        g = self._gbdt
+        g._flush_pending()
+        return {
+            "name": "tree",
+            "version": "v2",
+            "num_class": max(g.num_model, 1),
+            "num_tree_per_iteration": g.num_model,
+            "label_index": 0,
+            "max_feature_idx": g.max_feature_idx,
+            "objective": (g.objective.to_string() if g.objective
+                          else g.loaded_objective_str),
+            "average_output": g.average_output,
+            "feature_names": g.feature_names,
+            "tree_info": [
+                {"tree_index": i, **t.to_json()}
+                for i, t in enumerate(g.models)],
+        }
+
+    def feature_importance(self, importance_type="split", iteration=-1):
+        """(num_features,) float64 split counts ("split") or summed gains
+        ("gain") over the first ``iteration`` iterations (all when
+        ``<= 0``)."""
+        return self._gbdt.feature_importance(importance_type, iteration)
+
+    def feature_name(self):
+        return list(self._gbdt.feature_names)
 
 
 def _feval_records(dataset_name, res):

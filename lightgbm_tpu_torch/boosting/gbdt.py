@@ -14,7 +14,11 @@ every ``bagging_freq`` iterations and feature_fraction draws a mask per
 tree, both from the JAX package's Threefry keys, so the draws are its
 draws.  Validation sets (``add_valid``) keep their scores on the device
 and take each new tree at evaluation time (``eval_valid``), by the
-binned-matrix traversal ``ops/traverse.py``.  :meth:`GBDT.train_chunked`
+binned-matrix traversal ``ops/traverse.py``.  An iteration runs along
+the JAX package's hooks (``_device_gradients``, ``_adjust_gradients``,
+``bagging``, ``_post_bagging_adjust``, ``_tree_multiplier``), which GOSS,
+DART and RF override (``goss.py``, ``dart.py``, ``rf.py``).
+:meth:`GBDT.train_chunked`
 is the fused path (``lightgbm_tpu/boosting/gbdt.py:711-825``): a chunk of
 trees runs as ``fused_chunk`` launches of the grower's captured tree with
 gradients, bagging redraws, feature masks and int8 noise drawn on the
@@ -188,9 +192,6 @@ class GBDT:
     # ------------------------------------------------------------------
     def init_train(self, train_set: BinnedDataset):
         cfg = self.config
-        if cfg.boosting != "gbdt":
-            raise LightGBMError(f"boosting={cfg.boosting} is not ported to "
-                                f"lightgbm_tpu_torch yet")
         self.device = resolve_device(cfg.device_type)
         self.train_set = train_set
         self.objective = create_objective(cfg)
@@ -293,6 +294,30 @@ class GBDT:
             self.num_data, 1)), self.num_data, self.bag_fraction,
             self.device)
 
+    def _check_custom_gradients(self, gradients, hessians) -> None:
+        if gradients is not None or hessians is not None:
+            raise LightGBMError("custom gradients (fobj) are not ported to "
+                                "lightgbm_tpu_torch yet")
+
+    def _tree_multiplier(self) -> float:
+        return 1.0
+
+    def _adjust_gradients(self, grad, hess):
+        return grad, hess
+
+    def _post_bagging_adjust(self, grad, hess):
+        return grad, hess
+
+    def _device_gradients(self):
+        """(grad (K, N), hess (K, N), per-class boost-from-average biases)
+        of the current scores; RF overrides it with its fixed targets."""
+        biases = [self.boost_from_average(k) for k in range(self.num_model)]
+        grad, hess = self.objective.get_gradients(self.train_score)
+        if grad.dim() == 1:
+            grad, hess = grad[None], hess[None]
+        grad, hess = self._adjust_gradients(grad, hess)
+        return grad, hess, biases
+
     # ------------------------------------------------------------------
     @property
     def tree_stats(self) -> List[Tuple[float, int, int, int]]:
@@ -308,18 +333,22 @@ class GBDT:
             out.append((secs, trees, int(waves), syncs))
         return out
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """One boosting iteration, a tree a class
         (``lightgbm_tpu/boosting/gbdt.py:609-675``); returns True when
         training should stop (every class's tree is a stump: no leaf
-        meets the split requirements).
+        meets the split requirements).  Gradients, the bagging draw and
+        the shrinkage come through the hooks GOSS, DART and RF override;
+        the trees grow in :meth:`_grow_trees`, with no host read.
 
         The stump check reads the K trees' leaf counts in one copy as
         soon as they are grown: the one host sync of the per-iteration
         path.  (The JAX package checks with a 4-iteration lag to keep its
         dispatch pipeline full, and trims the extra stumps afterwards.)
         A class with nothing to learn (``class_need_train``) gets a fixed
-        stump, which carries the class's score in the first iteration."""
+        stump, which carries the class's score in the first iteration.
+        Custom gradients (``fobj``) are not ported."""
+        self._check_custom_gradients(gradients, hessians)
         if self._device_stop:
             return True
         K = self.num_model
@@ -334,12 +363,29 @@ class GBDT:
             self._device_stop = True
             return True
         t0 = time.perf_counter()
-        biases = [self.boost_from_average(k) for k in range(K)]
-        grad, hess = self.objective.get_gradients(self.train_score)
-        if grad.dim() == 1:
-            grad, hess = grad[None], hess[None]
+        grad, hess, biases = self._device_gradients()
         self.bagging(self.iter)
-        shrink = self.shrinkage_rate
+        grad, hess = self._post_bagging_adjust(grad, hess)
+        shrink = self.shrinkage_rate * self._tree_multiplier()
+        nls, waves = self._grow_trees(grad, hess, biases, shrink)
+        self.iter += 1
+        # the iteration's host sync: every trained class's leaf count
+        stump = bool((torch.stack(nls) <= 1).all())
+        self._stats.append([time.perf_counter() - t0, len(nls),
+                            torch.stack(waves).sum(), 1])
+        if stump:
+            self._device_stop = True
+            self._flush_pending()
+            log_warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            return True
+        return False
+
+    def _grow_trees(self, grad, hess, biases, shrink):
+        """One tree a class on the device, pending in ``models``; returns
+        the trained classes' (leaf counts, waves) as device tensors.  Reads
+        nothing back to the host."""
+        K = self.num_model
         first_iter = len(self.models) < K
         nls, waves = [], []
         for k in range(K):
@@ -361,18 +407,7 @@ class GBDT:
                                             biases[k]))
             nls.append(res.num_leaves)
             waves.append(res.waves)
-        self.iter += 1
-        # the iteration's host sync: every trained class's leaf count
-        stump = bool((torch.stack(nls) <= 1).all())
-        self._stats.append([time.perf_counter() - t0, len(nls),
-                            torch.stack(waves).sum(), 1])
-        if stump:
-            self._device_stop = True
-            self._flush_pending()
-            log_warning("Stopped training because there are no more leaves "
-                        "that meet the split requirements")
-            return True
-        return False
+        return nls, waves
 
     # ------------------------------------------------------------------
     # fused multi-iteration path: a chunk of trees per dispatch
@@ -681,18 +716,34 @@ class GBDT:
                 raw = _convert_by_name(self.loaded_objective_str, raw)
         return raw[0] if self.num_model == 1 else raw.T
 
-    def split_counts(self) -> np.ndarray:
-        """Splits per feature over all trees (the model text's "feature
-        importances" block)."""
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: int = -1) -> np.ndarray:
+        """(num_features,) float64 per-feature split counts ("split") or
+        summed positive split gains ("gain") over the first ``iteration``
+        iterations (all when ``<= 0``), as the JAX package's
+        ``feature_importance``."""
         self._flush_pending()
-        out = np.zeros(self.max_feature_idx + 1, np.int64)
-        for tree in self.models:
-            np.add.at(out, tree.split_feature[:tree.num_leaves - 1], 1)
+        out = np.zeros(self.max_feature_idx + 1, np.float64)
+        total_iter = self.num_iterations()
+        end_iter = total_iter if iteration <= 0 \
+            else min(iteration, total_iter)
+        for tree in self.models[:end_iter * self.num_model]:
+            for node in range(tree.num_leaves - 1):
+                f = tree.split_feature[node]
+                if importance_type == "split":
+                    out[f] += 1
+                else:
+                    out[f] += max(tree.split_gain[node], 0.0)
         return out
 
     # ------------------------------------------------------------------
     # model text (gbdt_model_text.cpp:243-330 format "v2")
-    def model_to_string(self) -> str:
+    def model_to_string(self, start_iteration: int = 0,
+                        num_iteration: int = -1) -> str:
+        """The model text of iterations ``[start_iteration,
+        start_iteration + num_iteration)`` (to the last when
+        ``num_iteration <= 0``), numbered from 0; the feature importances
+        block counts every tree, as the JAX package's does."""
         self._flush_pending()
         label_index = (int(self.config.label_column or 0)
                        if str(self.config.label_column).isdigit() else 0)
@@ -710,8 +761,16 @@ class GBDT:
         lines.append("feature_names=" + " ".join(self.feature_names))
         lines.append("feature_infos=" + " ".join(self.feature_infos))
 
-        tree_strs = [f"Tree={i}\n" + tree.to_string()
-                     for i, tree in enumerate(self.models)]
+        total_iter = self.num_iterations()
+        start_iteration = max(0, min(int(start_iteration), total_iter))
+        num_used = total_iter * self.num_model
+        if num_iteration > 0:
+            num_used = min((start_iteration + num_iteration)
+                           * self.num_model, num_used)
+        start_model = start_iteration * self.num_model
+        tree_strs = [f"Tree={i - start_model}\n"
+                     + self.models[i].to_string()
+                     for i in range(start_model, num_used)]
         lines.append("tree_sizes=" + " ".join(str(len(s) + 1)
                                               for s in tree_strs))
         lines.append("")
@@ -719,7 +778,7 @@ class GBDT:
         for s in tree_strs:
             body += s + "\n"
         body += "end of trees\n"
-        counts = self.split_counts()
+        counts = self.feature_importance("split").astype(np.int64)
         body += "\nfeature importances:\n"
         for i in np.argsort(-counts, kind="stable"):
             if counts[i] > 0:
@@ -737,6 +796,12 @@ class GBDT:
                 v = ",".join(str(x) for x in v)
             out.append(f"[{p.name}: {v}]")
         return "\n".join(out)
+
+    def save_model_to_file(self, filename, start_iteration: int = 0,
+                           num_iteration: int = -1) -> None:
+        with open(filename, "w") as fh:
+            fh.write(self.model_to_string(start_iteration, num_iteration))
+        log_info(f"Finished saving model to file {filename}")
 
     @classmethod
     def load_model_from_string(cls, text: str, config=None) -> "GBDT":

@@ -71,10 +71,16 @@ def tree_from_arrays(arrays: Mapping) -> Tree:
 def booster_from_arrays(trees: Sequence[Mapping], params=None, *,
                         max_feature_idx: int, feature_names=None,
                         objective: str = "binary sigmoid:1",
-                        num_tree_per_iteration: int = 1) -> Booster:
+                        num_tree_per_iteration: int = 1,
+                        average_output: bool = False,
+                        feature_infos=None) -> Booster:
     """A port ``Booster`` that predicts with the given trees.  ``objective``
-    is the model text's objective line (it picks the output transform)."""
+    is the model text's objective line (it picks the output transform);
+    ``average_output`` (a random forest's) averages the trees' sum over
+    the iterations instead; ``feature_infos`` fills the model text's line
+    of that name."""
     gbdt = GBDT(Config(dict(params or {})))
+    gbdt.average_output = bool(average_output)
     gbdt.models = [tree_from_arrays(t) for t in trees]
     gbdt.num_model = int(num_tree_per_iteration)
     gbdt.iter = len(gbdt.models) // gbdt.num_model
@@ -83,6 +89,8 @@ def booster_from_arrays(trees: Sequence[Mapping], params=None, *,
                           else [f"Column_{i}"
                                 for i in range(max_feature_idx + 1)])
     gbdt.loaded_objective_str = objective
+    if feature_infos is not None:
+        gbdt.feature_infos = list(feature_infos)
     return Booster.from_gbdt(gbdt, params)
 
 

@@ -161,8 +161,6 @@ def check_slice_config(config, dataset) -> None:
         todo.append("gpu_use_dp (K=5/6 hi/lo stat columns)")
     if str(config.wave_plan) == "profiled":
         todo.append("wave_plan=profiled")
-    if config.boosting != "gbdt":
-        todo.append(f"boosting={config.boosting}")
     if np.asarray(dataset.monotone_constraints).any():
         todo.append("monotone_constraints")
     if getattr(config, "forcedsplits_filename", ""):

@@ -9,8 +9,10 @@ here the loop runs exactly the tree's depth, known on the host, so scoring
 a tree reads nothing back from the device.
 
 This is the training side's traversal, one tree over the binned rows of a
-dataset that shares the training set's mappers (validation sets).  Batch
-prediction from raw values goes through ``serve/packed.py`` instead.
+dataset that shares the training set's mappers: validation sets, and
+DART's dropped trees over the training rows, read in place from the
+grower's ``(G, n_pad)`` layout (``groups_major``).  Batch prediction from
+raw values goes through ``serve/packed.py`` instead.
 """
 
 from __future__ import annotations
@@ -102,11 +104,14 @@ def device_tree(tree: Tree, dataset, max_leaves: int,
 
 
 def _goes_left(binned: torch.Tensor, t: DeviceTree, cur: torch.Tensor,
-               f: torch.Tensor) -> torch.Tensor:
+               f: torch.Tensor, groups_major: bool) -> torch.Tensor:
     """Each row's decision at its node ``cur``, whose fields ``f`` (N, 11)
     were gathered per row."""
-    slot = torch.gather(binned, 1, f[:, N_GROUP:N_GROUP + 1].long()) \
-        .view(-1).to(torch.int32)
+    if groups_major:
+        slot = torch.gather(binned, 0, f[:, N_GROUP].long()[None, :])
+    else:
+        slot = torch.gather(binned, 1, f[:, N_GROUP:N_GROUP + 1].long())
+    slot = slot.view(-1).to(torch.int32)
     off, db, thr = f[:, N_OFFSET], f[:, N_DEFAULT_BIN], f[:, N_THRESHOLD]
     miss, dl = f[:, N_MISSING], f[:, N_DEFAULT_LEFT] != 0
     in_range = (slot >= off) & (slot < off + f[:, N_WIDTH])
@@ -123,25 +128,29 @@ def _goes_left(binned: torch.Tensor, t: DeviceTree, cur: torch.Tensor,
     return torch.where(f[:, N_IS_CAT] != 0, left_cat, left_num)
 
 
-def traverse(binned: torch.Tensor, t: DeviceTree) -> torch.Tensor:
+def traverse(binned: torch.Tensor, t: DeviceTree,
+             groups_major: bool = False) -> torch.Tensor:
     """(N,) int64 leaf index of every row of an (N, G) uint8 binned matrix,
-    after ``t.depth`` steps."""
-    node = torch.zeros(binned.shape[0], dtype=torch.int64,
-                       device=binned.device)
+    or of a (G, N) one with ``groups_major`` (the grower's layout, a view
+    of its first N columns: no copy), after ``t.depth`` steps."""
+    node = torch.zeros(binned.shape[1 if groups_major else 0],
+                       dtype=torch.int64, device=binned.device)
     for _ in range(t.depth):
         active = node >= 0
         cur = node.clamp(min=0)
         f = t.nodes[cur]
-        left = _goes_left(binned, t, cur, f)
+        left = _goes_left(binned, t, cur, f, groups_major)
         nxt = torch.where(left, f[:, N_LEFT], f[:, N_RIGHT]).long()
         node = torch.where(active, nxt, node)
     return ~node
 
 
 def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
-                   t: DeviceTree, multiplier: float) -> torch.Tensor:
+                   t: DeviceTree, multiplier: float,
+                   groups_major: bool = False) -> torch.Tensor:
     """``score + multiplier * leaf_value[traverse(binned)]``."""
-    return score + multiplier * t.leaf_value[traverse(binned, t)]
+    return score + multiplier * t.leaf_value[
+        traverse(binned, t, groups_major)]
 
 
 def add_constant_score(score: torch.Tensor, value: float) -> torch.Tensor:

@@ -4,8 +4,8 @@ Counterpart of ``lightgbm_tpu/tree/tree.py`` (the reference ``Tree``,
 ``include/LightGBM/tree.h``, on numpy arrays).  Node wiring, decision-type
 bit encoding (bit0 categorical, bit1 default_left, bits>=2 missing type)
 and the text fields are the "v2" model format, so model texts move between
-this package, the JAX package and the reference.  TreeSHAP, JSON dumps and
-if-else code generation are not ported yet.
+this package, the JAX package and the reference; ``to_json`` is the JSON
+dump.  TreeSHAP and if-else code generation are not ported yet.
 """
 
 from __future__ import annotations
@@ -216,6 +216,39 @@ class Tree:
         return self.leaf_value[self.predict_leaf(data)]
 
     # -- serialization -----------------------------------------------------
+    def to_json(self) -> dict:
+        """The tree as ``dump_model`` writes it: nested split and leaf
+        records (``lightgbm_tpu/tree/tree.py::Tree.to_json``)."""
+        def node_json(idx):
+            if idx < 0:
+                leaf = ~idx
+                return {
+                    "leaf_index": int(leaf),
+                    "leaf_value": float(self.leaf_value[leaf]),
+                    "leaf_count": int(self.leaf_count[leaf]),
+                }
+            dt = int(self.decision_type[idx])
+            return {
+                "split_index": int(idx),
+                "split_feature": int(self.split_feature[idx]),
+                "split_gain": float(self.split_gain[idx]),
+                "threshold": float(self.threshold[idx]),
+                "decision_type": "==" if dt & K_CATEGORICAL_MASK else "<=",
+                "default_left": bool(dt & K_DEFAULT_LEFT_MASK),
+                "missing_type": ["None", "Zero", "NaN"][(dt >> 2) & 3],
+                "internal_value": float(self.internal_value[idx]),
+                "internal_count": int(self.internal_count[idx]),
+                "left_child": node_json(int(self.left_child[idx])),
+                "right_child": node_json(int(self.right_child[idx])),
+            }
+
+        return {
+            "num_leaves": int(self.num_leaves),
+            "num_cat": int(self.num_cat),
+            "shrinkage": float(self.shrinkage),
+            "tree_structure": node_json(0 if self.num_leaves > 1 else -1),
+        }
+
     def to_string(self) -> str:
         n = self.num_leaves
 

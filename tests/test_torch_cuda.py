@@ -976,3 +976,83 @@ def test_multiclass_categorical_on_card_matches_cpu_path(cuda_device):
     assert sum(t.num_cat for t in gb.models) > 0
     np.testing.assert_allclose(on_card.predict(x, raw_score=True),
                                on_cpu.predict(x, raw_score=True), atol=1e-4)
+
+
+# -- GOSS, DART and RF on the card ----------------------------------------
+
+def test_goss_selection_on_card_equals_cpu(cuda_device):
+    """goss_partition on card tensors: buffer, count and multiplier
+    bit-equal to the CPU's on the same scores (ties included), and the
+    grower's mask drawn with no host sync."""
+    from lightgbm_tpu_torch.ops.bagging import goss_partition, goss_row_mask
+    from lightgbm_tpu_torch.utils import random as trandom
+    rng = np.random.default_rng(5)
+    n_pad, num_data = 1 << 17, 100_003
+    s = np.abs(rng.standard_normal(n_pad)).astype(np.float32)
+    s[::7] = 0.5                                   # ties at the threshold
+    s[num_data:] = 0.0
+    key = trandom.PRNGKey(1234)
+    cpu = goss_partition(key, torch.from_numpy(s), n_pad, num_data, 0.2,
+                         0.1)
+    dev_s = torch.from_numpy(s).to(cuda_device)
+    card = goss_partition(key, dev_s, n_pad, num_data, 0.2, 0.1)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mask, mult = goss_row_mask(key, dev_s, n_pad, num_data, 0.2, 0.1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = torch.zeros(n_pad)
+    want[cpu[0][:int(cpu[1])].long()] = 1.0
+    assert torch.equal(mask.cpu(), want[:num_data])
+    assert torch.equal(mult.cpu(), cpu[2][:num_data])
+
+
+def test_dart_iteration_with_drops_on_card(cuda_device):
+    """DART with a drop every iteration on the card against the CPU path:
+    the same drops, the same splits, the dropped trees' traversal of the
+    grower's (G, n_pad) codes on the card equal to the CPU's, and the
+    training and validation scores equal to Booster.predict."""
+    from lightgbm_tpu_torch.ops import traverse
+    x, y = _valid_rows(21, n=40_000)
+    params = {"objective": "binary", "boosting": "dart", "num_leaves": 31,
+              "max_bin": 63, "learning_rate": 0.2, "drop_rate": 1.0,
+              "skip_drop": 0.0, "max_drop": 2, "drop_seed": 4,
+              "verbose": -1}
+    boosters = {}
+    for dev in ("cuda", "cpu"):
+        d = lt.Dataset(x[:30_000], y[:30_000])
+        b = lt.Booster({**params, "device": dev}, d)
+        b.add_valid(d.create_valid(x[30_000:], y[30_000:]), "v")
+        drops = []
+        for _ in range(4):
+            assert not b.update()
+            drops.append(list(b._gbdt.drop_index))
+        boosters[dev] = (b, drops)
+    (card, card_drops), (cpu, cpu_drops) = boosters["cuda"], boosters["cpu"]
+    assert card_drops == cpu_drops and card_drops[-1]
+    gb = card._gbdt
+    assert gb.traversals > 0
+    gb._flush_pending()
+    cpu._gbdt._flush_pending()
+    for t_card, t_cpu in zip(gb.models[:2], cpu._gbdt.models[:2]):
+        n = t_card.num_leaves
+        assert n == t_cpu.num_leaves > 2
+        np.testing.assert_array_equal(t_card.split_feature[:n - 1],
+                                      t_cpu.split_feature[:n - 1])
+    tree = gb.models[0]
+    codes = gb._grower.binned_t[:, :gb.num_data]
+    on_card = traverse.traverse(codes, traverse.device_tree(
+        tree, gb.train_set, 31, cuda_device), groups_major=True).cpu()
+    np.testing.assert_array_equal(on_card.numpy(),
+                                  tree.predict_leaf(x[:30_000]))
+    pred = card.predict(x[:30_000], raw_score=True)
+    scale = np.abs(pred).max()
+    assert np.abs(gb.train_score[0].double().cpu().numpy() - pred).max() \
+        <= 1e-5 * scale
+    card.eval_valid()
+    vpred = card.predict(x[30_000:], raw_score=True)
+    assert np.abs(gb.valid_sets[0].score[0].double().cpu().numpy()
+                  - vpred).max() <= 1e-5 * scale
