@@ -129,7 +129,40 @@ Phases, one line each:
               predicting bit-equal, held-out AUC >= RF_AUC_FLOOR; every
               run's wave_hist launches == tree waves + warm-up, every
               predict bit-equal to forest_predict's plain version;
-8. serve   -- csrc/forest_predict.cu, the packed-forest kernel: the higgs
+8. pipeline -- the fork's retrain-every-window loop (RetrainPipeline) at
+              the harness's shape (examples/cache_admission.py,
+              src/test.cpp): a Zipf(0.8) trace over 200,000 objects made
+              from --seed, 4 windows of 1,000,000 requests, OPT labels
+              and the 53 CSR features (50 inter-arrival gaps, log2 size,
+              cache bytes available, cost), each window trained on its
+              last 500,000 rows with the fork's configuration (binary,
+              max_bin 255, 31 leaves, 50 iterations fused in chunks of 25,
+              feature_fraction 0.8, bagging every 5 at 0.8,
+              min_data_in_leaf 50, min_sum_hessian 5.0) and, from window 1
+              on, scored first by the previous model over all its
+              1,000,000 rows through the server: (b) pipelined fresh, the
+              features derived in its prep thread, a prober thread asking
+              the server for 1-1,000 rows throughout; (a) a serial loop of
+              fresh GBDTs with reference= binning against window 0, every
+              window's sha256 equal to (b)'s; (c) warm with 10 more
+              iterations a window, the card's leaf ids equal to the host
+              walk of 100,000 rows for every copied tree and the refit
+              scores summed from them equal to predict's within 1e-6 of
+              max|score|; (d) (b) with a checkpoint directory and the
+              fault pipeline.prep:at=2, resumed to (b)'s final sha256.
+              Fails unless every prober request succeeded, one inside a
+              later window's training, every swap of (b) kept its pads,
+              the held-out AUC of (b) clears PIPE_AUC_FLOOR and each
+              run's wave_hist launches equal its trees' waves plus
+              warm-up.  Prints per window prep, stall, train, eval and
+              swap seconds, drift, rebinned, CUDA-graph captures and
+              their seconds, s/tree and host syncs; per run the overlap
+              fraction, one window's featurization and host-binning
+              seconds and the quality on the next window; the obs
+              snapshot's pipeline.* counters; writes run (b)'s Chrome
+              trace to chiprun_out/pipeline_b_trace.json.  Telemetry is
+              on in this phase only;
+9. serve   -- csrc/forest_predict.cu, the packed-forest kernel: the higgs
               model over all 2M rows (leaves and scores also against the
               host walk on 200k rows), a synthetic forest of 500 trees
               of up to 63 leaves with deep paths, NaN/zero missing and
@@ -153,7 +186,7 @@ Phases, one line each:
               Booster.predict and within 1e-5 of the host walk), with
               p50/p95 latency per size and the launches of each kernel
               route on the main path;
-9. multiclass -- BASELINE.json's config 4 on an Expedia-shaped set made
+10. multiclass -- BASELINE.json's config 4 on an Expedia-shaped set made
               from --seed (expedia_shape: 2M rows, 11 categorical id
               columns of 4 to 60,000 ids, one in one-hot mode, and 9
               numerical ones; 100 hotel clusters; 200,000 held-out rows
@@ -2434,6 +2467,534 @@ def phase_boosting(dev, seed: int, dense, x, y):
                 predict_routes=routes)
 
 
+# ---------------------------------------------------------------------------
+# phase pipeline: the fork's retrain-every-window loop (RetrainPipeline)
+# ---------------------------------------------------------------------------
+
+#: the fork harness's trace and windows (examples/cache_admission.py's
+#: defaults, src/test.cpp's shape): a Zipf(0.8) stream over 200,000
+#: objects, windows of 1,000,000 requests, each trained on its last
+#: 500,000 (sampling=1) and, from window 1 on, scored first with the
+#: previous model over all its rows
+PIPE_OBJECTS = 200_000
+PIPE_WINDOW = 1_000_000
+PIPE_WINDOWS = 4
+PIPE_SAMPLE = 500_000
+PIPE_CACHE_SIZE = 1 << 30
+PIPE_CUTOFF = 0.5
+HISTFEATURES = 50               # inter-arrival gaps; + log2 size, avail, cost
+PIPE_COLS = HISTFEATURES + 3
+#: the fork's exact training configuration (cache_admission.py:55-62,
+#: src/test.cpp:66-87), 50 iterations fused in chunks of 25
+PIPE_BASE = {"boosting": "gbdt", "objective": "binary", "max_bin": 255,
+             "num_iterations": 50, "learning_rate": 0.1, "num_leaves": 31,
+             "feature_fraction": 0.8, "bagging_freq": 5,
+             "bagging_fraction": 0.8, "min_data_in_leaf": 50,
+             "min_sum_hessian_in_leaf": 5.0, "fused_chunk": 25,
+             "verbosity": -1}
+PIPE_CHUNK = 25
+PIPE_WARM_ITERATIONS = 10
+#: held-out AUC floor of a window's model on the next window's requests,
+#: fixed in PERF.md from a CPU rehearsal before the first card run
+PIPE_AUC_FLOOR = 0.70
+#: rows of each warm window the card's leaf ids are walked on the host
+PIPE_HOST_ROWS = 100_000
+PIPE_FAULT = "pipeline.prep:at=2"
+
+
+def synth_trace(n_requests: int, n_objects: int, seed: int):
+    """Zipf-popularity request stream with per-object lognormal sizes
+    (a copy of examples/cache_admission.py::synth_trace)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, n_objects + 1, dtype=np.float64)
+    probs = ranks ** -0.8
+    probs /= probs.sum()
+    ids = rng.choice(n_objects, size=n_requests, p=probs).astype(np.int64)
+    obj_size = np.clip(rng.lognormal(9.0, 1.5, n_objects), 64,
+                       1 << 26).astype(np.int64)
+    sizes = obj_size[ids]
+    costs = np.ones(n_requests, np.float64)
+    return ids, sizes, costs
+
+
+def calculate_opt(ids, sizes, cache_size, window_size):
+    """OPT admission labels (src/test.cpp:97-122; a copy of
+    examples/cache_admission.py::calculate_opt)."""
+    import numpy as np
+    n = len(ids)
+    order = np.lexsort((np.arange(n), ids))
+    sid = ids[order]
+    spos = np.arange(n)[order]
+    same = sid[:-1] == sid[1:]
+    has_next = np.zeros(n, bool)
+    volume = np.full(n, np.iinfo(np.int64).max, np.int64)
+    prev_idx = spos[:-1][same]
+    next_idx = spos[1:][same]
+    has_next[prev_idx] = True
+    volume[prev_idx] = (next_idx - prev_idx) * sizes[prev_idx]
+    to_cache = np.zeros(n, bool)
+    cache_volume = cache_size * window_size
+    by_vol = np.argsort(volume, kind="stable")
+    vol_cum = np.cumsum(volume[by_vol].astype(np.float64))
+    admit = np.concatenate([[True], vol_cum[:-1] <= cache_volume])
+    sel = by_vol[admit & has_next[by_vol]]
+    to_cache[sel] = True
+    return to_cache, float(to_cache.sum()) / n
+
+
+def derive_features(ids, sizes, costs, to_cache, cache_size):
+    """Gap features + log2 size, cacheAvailBytes and cost of every request
+    of a window, as CSR (src/test.cpp:125-209; a copy of
+    examples/cache_admission.py::derive_features with sampling=0: the
+    training rows are carved out of these by csr_row_subset)."""
+    import numpy as np
+    n = len(ids)
+    order = np.lexsort((np.arange(n), ids))
+    sid = ids[order]
+    spos = np.arange(n)[order].astype(np.int64)
+    gaps = np.zeros((n, HISTFEATURES), np.float64)
+    gap_count = np.zeros(n, np.int32)
+    prev = spos.copy()
+    prev_valid = np.ones(n, bool)
+    for k in range(HISTFEATURES):
+        shifted = np.empty(n, np.int64)
+        shifted[1 + k:] = spos[:n - 1 - k]
+        shifted[:1 + k] = -1
+        valid = np.zeros(n, bool)
+        valid[1 + k:] = sid[1 + k:] == sid[:n - 1 - k]
+        valid &= prev_valid
+        g = np.where(valid, prev - shifted, 0)
+        gaps[spos[valid], k] = g[valid]
+        gap_count[spos[valid]] += 1
+        prev = np.where(valid, shifted, prev)
+        prev_valid = valid
+    cache_avail = np.empty(n, np.float64)
+    avail = float(cache_size)
+    cached = {}
+    for i in range(n):
+        cache_avail[i] = 0.0 if avail <= 0 else np.round(
+            100.0 * np.log2(avail))
+        oid = int(ids[i])
+        adm = bool(to_cache[i])
+        if oid not in cached:
+            if adm:
+                avail -= float(sizes[i])
+                cached[oid] = float(sizes[i])
+        elif not adm:
+            avail += cached.pop(oid)
+    gc = gap_count
+    indptr = np.zeros(n + 1, np.int32)
+    np.cumsum(gc + 3, out=indptr[1:])
+    nnz = int(indptr[-1])
+    indices = np.zeros(nnz, np.int32)
+    data = np.zeros(nnz, np.float64)
+    rows = np.repeat(np.arange(n), gc)
+    col_in_row = np.arange(int(gc.sum()), dtype=np.int64) \
+        - np.repeat(np.cumsum(gc, dtype=np.int64) - gc, gc)
+    flat = indptr[:-1][rows] + col_in_row
+    indices[flat] = col_in_row
+    data[flat] = gaps[rows, col_in_row]
+    tail = indptr[1:] - 3
+    indices[tail] = HISTFEATURES
+    data[tail] = np.round(100.0 * np.log2(sizes))
+    indices[tail + 1] = HISTFEATURES + 1
+    data[tail + 1] = cache_avail
+    indices[tail + 2] = HISTFEATURES + 2
+    data[tail + 2] = costs
+    return to_cache.astype(np.float32), indptr, indices, data
+
+
+def csr_row_subset(indptr, indices, data, keep):
+    """CSR rows selected by boolean mask ``keep`` (one gather; a copy of
+    examples/cache_admission.py::_csr_row_subset)."""
+    import numpy as np
+    rows = np.flatnonzero(keep)
+    counts = (indptr[rows + 1] - indptr[rows]).astype(np.int64)
+    out_indptr = np.zeros(len(rows) + 1, np.int32)
+    out_indptr[1:] = np.cumsum(counts)
+    flat = np.repeat(indptr[rows].astype(np.int64)
+                     - out_indptr[:-1], counts) \
+        + np.arange(int(out_indptr[-1]), dtype=np.int64)
+    return out_indptr, indices[flat], data[flat]
+
+
+class _Prober:
+    """A thread that asks the server for 1 to 1,000 rows at a time until
+    stopped, recording each request's host interval and outcome.
+    ``rows()`` gives the request rows once the server has a model."""
+
+    def __init__(self, server, rows, seed: int):
+        import threading
+        import numpy as np
+        self.server, self.rows = server, rows
+        self.rng = np.random.default_rng(seed)
+        self.log, self.errors = [], []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="chip-smoke-prober")
+
+    def _loop(self):
+        import numpy as np
+        while not self._stop.is_set():
+            if self.server._model is None:
+                time.sleep(0.005)
+                continue
+            n = int(self.rng.integers(1, 1001))
+            t0 = time.perf_counter()
+            try:
+                out = np.asarray(self.server.predict(self.rows()[:n]))
+                ok = out.shape == (n,) and bool(np.isfinite(out).all())
+            except Exception as e:                   # noqa: BLE001
+                self.errors.append(repr(e))
+                ok = False
+            self.log.append((t0, time.perf_counter(), n, ok))
+            time.sleep(0.002)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+        return False
+
+
+def pipeline_waves(boosters):
+    """Trees' waves plus warm-up waves over the fresh growers of a run."""
+    return sum(sum(s[2] for s in g.tree_stats)
+               + g._grower.capture_stats["warmup_waves"] for g in boosters)
+
+
+def pipeline_window_rows(res):
+    """One window's printed numbers."""
+    g = res.booster
+    stats = g.tree_stats
+    trees = sum(s[1] for s in stats)
+    return dict(window=res.window, policy=res.policy,
+                prep_s=res.prep_s, stall_s=res.stall_s,
+                train_s=res.train_s, eval_s=res.eval_s, swap_s=res.swap_s,
+                drift=res.drift, rebinned=res.rebinned,
+                captures=res.captures, capture_s=res.capture_s,
+                trees_grown=trees,
+                s_per_tree=(sum(s[0] for s in stats) / trees
+                            if trees else None),
+                host_syncs=sum(s[3] for s in stats),
+                swap_same_shape=res.swap_same_shape,
+                num_trees=res.num_trees, metrics=res.eval_metrics,
+                meta=res.meta)
+
+
+def pipeline_eval(pred, pw):
+    """The model's quality on the next window's requests: AUC of the
+    admission labels and the fork's fp/fn rates at the cutoff."""
+    import numpy as np
+    label = np.asarray(pw.eval_label, np.float64)
+    pred = np.asarray(pred, np.float64)
+    return {"auc": auc_of(label, pred),
+            "fp": float(((label < PIPE_CUTOFF)
+                         & (pred >= PIPE_CUTOFF)).mean()),
+            "fn": float(((label >= PIPE_CUTOFF)
+                         & (pred < PIPE_CUTOFF)).mean())}
+
+
+def phase_pipeline(dev, seed: int):
+    """RetrainPipeline on the card at the harness's shape: (b) the
+    pipelined fresh run with a prober, featurizing in its prep; (a) the
+    serial loop of fresh GBDTs with reference= binning on the same
+    windows; (c) the warm policy; (d) (b) checkpointed, killed at window
+    2's prep and resumed."""
+    import shutil
+    import numpy as np
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT, scores_from_leaves
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import BinnedDataset
+    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.pipeline import (PipelineError, PreppedWindow,
+                                             RetrainPipeline,
+                                             densify_csr_rows)
+    from lightgbm_tpu_torch.robust import faults
+    params = {**PIPE_BASE, "device": dev.type}
+    cfg = Config(params)
+    t0 = time.perf_counter()
+    ids, sizes, costs = synth_trace(PIPE_WINDOW * PIPE_WINDOWS,
+                                    PIPE_OBJECTS, seed)
+    trace_s = time.perf_counter() - t0
+    windows, feat_s = {}, {}
+
+    def featurize(w):
+        t = time.perf_counter()
+        lo, hi = w * PIPE_WINDOW, (w + 1) * PIPE_WINDOW
+        to_cache, _ = calculate_opt(ids[lo:hi], sizes[lo:hi],
+                                    PIPE_CACHE_SIZE, PIPE_WINDOW)
+        label, indptr, indices, data = derive_features(
+            ids[lo:hi], sizes[lo:hi], costs[lo:hi], to_cache,
+            PIPE_CACHE_SIZE)
+        keep = np.arange(PIPE_WINDOW) >= PIPE_WINDOW - PIPE_SAMPLE
+        tr = csr_row_subset(indptr, indices, data, keep)
+        windows[w] = PreppedWindow(
+            label=label[keep], csr=tr + (PIPE_COLS,),
+            eval_label=label if w > 0 else None,
+            eval_csr=(indptr, indices, data, PIPE_COLS) if w > 0 else None)
+        feat_s[w] = time.perf_counter() - t
+        return windows[w]
+
+    def cached(w):
+        return windows[w]
+
+    def counted(run):
+        """(results, wave_hist launches, forest launches, forest routes,
+        seconds) of ``run()``, the counts reset just before it."""
+        hist_cuda.wave_hist.launches.reset()
+        before = forest_counts()
+        t = time.perf_counter()
+        out = run()
+        secs = time.perf_counter() - t
+        fl, fr = counts_since(before)
+        return out, hist_cuda.wave_hist.launches.read(), fl, fr, secs
+
+    obs.configure(enabled=True)
+    kw = dict(num_iterations=PIPE_BASE["num_iterations"], chunk=PIPE_CHUNK,
+              rebin_on_drift=False)
+    out = {}
+    launches_total, fl_total, routes_total = 0, 0, None
+
+    def add(wl, fl, fr):
+        nonlocal launches_total, fl_total, routes_total
+        launches_total += wl
+        fl_total += fl
+        routes_total = fr if routes_total is None else {
+            k: routes_total[k] + v for k, v in fr.items()}
+
+    # (b) pipelined fresh run, featurizing in its prep, probed throughout
+    obs.reset()
+    pipe_b = RetrainPipeline(params, window_policy="fresh", **kw)
+    rows0 = None
+
+    def prep_b(w):
+        nonlocal rows0
+        pw = featurize(w)
+        if rows0 is None:
+            rows0 = densify_csr_rows(pw.csr, 0, 1000)
+        return pw
+
+    def run_b():
+        with _Prober(pipe_b.server, lambda: rows0, seed) as pr:
+            res = pipe_b.run(range(PIPE_WINDOWS), prep_b,
+                             eval_fn=pipeline_eval)
+        return res, pr
+
+    (res_b, prober), wl, fl, fr, secs = counted(run_b)
+    add(wl, fl, fr)
+    waves = pipeline_waves(r.booster for r in res_b)
+    if wl <= 0 or wl != waves:
+        fail(f"pipeline (b): wave_hist launches {wl} != tree waves + "
+             f"warm-up {waves}")
+    trace_path = OUT_DIR / "pipeline_b_trace.json"
+    OUT_DIR.mkdir(exist_ok=True)
+    obs.dump_trace(str(trace_path))
+    snap_b = obs.snapshot()
+    pipe_counters = {k: v for k, v in snap_b["counters"].items()
+                     if k.startswith("pipeline.")}
+    pipe_timings = {k: v for k, v in snap_b["timings"].items()
+                    if k.startswith("pipeline.")}
+    sha_b = [hashlib.sha256(r.booster.model_to_string().encode())
+             .hexdigest() for r in res_b]
+    if prober.errors or not prober.log \
+            or not all(ok for *_, ok in prober.log):
+        fail(f"pipeline (b): prober requests failed: "
+             f"{prober.errors[:3]} ({len(prober.log)} requests)")
+    inside = sum(1 for a, b, _, _ in prober.log for r in res_b[1:]
+                 if r.train_span[0] <= a and b <= r.train_span[1])
+    if inside <= 0:
+        fail("pipeline (b): no prober request inside a later window's "
+             "training")
+    same = [r.swap_same_shape for r in res_b[1:]]
+    if not all(same):
+        fail(f"pipeline (b): swap_same_shape {same}")
+    aucs = [r.eval_metrics["auc"] for r in res_b[1:]]
+    if min(aucs) < PIPE_AUC_FLOOR:
+        fail(f"pipeline (b): held-out AUC {aucs} below {PIPE_AUC_FLOOR}")
+    bin_s = [r.prep_s - feat_s[r.window] for r in res_b]
+    out["b"] = dict(
+        seconds=secs, launches=wl, waves=waves, forest_launches=fl,
+        forest_routes=fr, overlap_fraction=pipe_b.overlap_fraction,
+        windows=[pipeline_window_rows(r) for r in res_b],
+        featurize_s=[feat_s[w] for w in range(PIPE_WINDOWS)],
+        host_bin_s=bin_s, sha256=sha_b,
+        rows=[r.rows for r in res_b],
+        prober=dict(requests=len(prober.log), inside_training=inside,
+                    p50_ms=1e3 * _median([b - a for a, b, _, _
+                                          in prober.log])),
+        pipeline_counters=pipe_counters, pipeline_timings=pipe_timings,
+        captures=snap_b["captures"], trace=str(trace_path))
+    del res_b
+
+    # (a) the serial loop on the same windows
+    def run_a():
+        ref, res = None, []
+        for w in range(PIPE_WINDOWS):
+            pw = windows[w]
+            t = time.perf_counter()
+            ds = BinnedDataset.construct_from_csr(*pw.csr, cfg,
+                                                  reference=ref)
+            ds.metadata.set_label(pw.label)
+            ref = ref or ds
+            b = time.perf_counter()
+            g = GBDT(cfg)
+            g.init_train(ds)
+            g.train_chunked(PIPE_BASE["num_iterations"], chunk=PIPE_CHUNK)
+            text = g.model_to_string()
+            res.append((g, hashlib.sha256(text.encode()).hexdigest(),
+                        b - t, time.perf_counter() - b))
+        return res
+
+    res_a, wl, fl, fr, secs = counted(run_a)
+    add(wl, fl, fr)
+    waves = pipeline_waves(g for g, *_ in res_a)
+    if wl <= 0 or wl != waves:
+        fail(f"pipeline (a): wave_hist launches {wl} != tree waves + "
+             f"warm-up {waves}")
+    sha_a = [s for _, s, _, _ in res_a]
+    if sha_a != sha_b:
+        fail(f"pipeline: serial loop sha256 {sha_a} != pipelined {sha_b}")
+    out["a"] = dict(seconds=secs, launches=wl, sha256=sha_a,
+                    bin_s=[b for _, _, b, _ in res_a],
+                    train_s=[t for _, _, _, t in res_a])
+    del res_a
+
+    # (c) the warm policy
+    obs.reset()
+    pipe_c = RetrainPipeline(params, window_policy="warm",
+                             warm_iterations=PIPE_WARM_ITERATIONS, **kw)
+    seen = {}
+
+    def on_c(res):
+        seen[res.window] = pipe_c.last_leaf_ids if res.policy == "warm" \
+            else None
+
+    res_c, wl, fl, fr, secs = counted(
+        lambda: pipe_c.run(range(PIPE_WINDOWS), cached,
+                           eval_fn=pipeline_eval, on_window=on_c))
+    add(wl, fl, fr)
+    waves = pipeline_waves(r.booster for r in res_c)
+    if wl <= 0 or wl != waves:
+        fail(f"pipeline (c): wave_hist launches {wl} != tree waves + "
+             f"warm-up {waves}")
+    checked = []
+    for r in res_c[1:]:
+        if r.policy != "warm":
+            fail(f"pipeline (c): window {r.window} ran {r.policy}")
+        ids_w = seen[r.window]
+        copied = res_c[r.window - 1].booster.models
+        xr = densify_csr_rows(windows[r.window].csr, 0, PIPE_HOST_ROWS)
+        for tree, got in zip(copied, ids_w):
+            if tree.num_leaves > 1 and not np.array_equal(
+                    got[:PIPE_HOST_ROWS], tree.predict_leaf(xr)):
+                fail(f"pipeline (c): window {r.window}: the card's leaf "
+                     f"ids differ from the host walk")
+        g = r.booster
+        refit = lt.Booster.from_gbdt(g)
+        mode = g.config.device_predict
+        g.config.device_predict = "off"
+        raw = refit.predict(xr, raw_score=True,
+                            num_iteration=len(ids_w))
+        g.config.device_predict = mode
+        summed = scores_from_leaves(g.models[:len(ids_w)],
+                                    [None if i is None
+                                     else i[:PIPE_HOST_ROWS]
+                                     for i in ids_w], 1,
+                                    len(xr))[0]
+        err = float(np.abs(summed - raw).max())
+        if err > 1e-6 * float(np.abs(raw).max()):
+            fail(f"pipeline (c): window {r.window}: refit scores from the "
+                 f"leaf ids differ from predict by {err}")
+        checked.append(dict(window=r.window, trees=len(ids_w),
+                            max_abs_err=err))
+    out["c"] = dict(seconds=secs, launches=wl, forest_launches=fl,
+                    overlap_fraction=pipe_c.overlap_fraction,
+                    windows=[pipeline_window_rows(r) for r in res_c],
+                    refit_checks=checked,
+                    refit_timings=obs.snapshot()["timings"].get(
+                        "pipeline.refit"))
+    del res_c, pipe_c
+
+    # (d) (b) checkpointed, killed at window 2's prep, resumed
+    ckpt = OUT_DIR / "pipeline_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def run_d():
+        pipe = RetrainPipeline(params, window_policy="fresh",
+                               checkpoint_dir=str(ckpt), **kw)
+        faults.configure(PIPE_FAULT)
+        try:
+            pipe.run(range(PIPE_WINDOWS), cached, eval_fn=pipeline_eval)
+        except PipelineError as e:
+            killed = (e.window, [r.window for r in e.results])
+        else:
+            fail("pipeline (d): the injected prep fault did not fire")
+        finally:
+            faults.clear()
+        pipe.server = None
+        resumed = RetrainPipeline.resume(str(ckpt), params,
+                                         window_policy="fresh", **kw)
+        served = resumed.server.predict(rows0[:100])
+        res = resumed.run(range(PIPE_WINDOWS), cached,
+                          eval_fn=pipeline_eval)
+        return killed, served, res
+
+    (killed, served, res_d), wl, fl, fr, secs = counted(run_d)
+    add(wl, fl, fr)
+    sha_d = hashlib.sha256(res_d[-1].booster.model_to_string().encode()) \
+        .hexdigest()
+    if killed != (2, [0, 1]) or [r.window for r in res_d] != [2, 3]:
+        fail(f"pipeline (d): killed at {killed}, resumed windows "
+             f"{[r.window for r in res_d]}")
+    if sha_d != sha_b[-1]:
+        fail(f"pipeline (d): resumed final sha256 {sha_d} != (b)'s "
+             f"{sha_b[-1]}")
+    if not np.isfinite(served).all():
+        fail("pipeline (d): the resumed server's answers are not finite")
+    out["d"] = dict(seconds=secs, launches=wl, killed_at=killed[0],
+                    sha256=sha_d,
+                    windows=[pipeline_window_rows(r) for r in res_d])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del res_d
+    obs.configure(enabled=False)
+    obs.reset()
+
+    for run in ("b", "c"):
+        for row in out[run]["windows"]:
+            print(f"pipeline ({run}) window {row['window']} "
+                  f"{row['policy']}: prep_s {row['prep_s']:.3f} stall_s "
+                  f"{row['stall_s']:.3f} train_s {row['train_s']:.3f} "
+                  f"eval_s {row['eval_s']:.3f} swap_s {row['swap_s']:.4f} "
+                  f"drift {row['drift']} rebinned {row['rebinned']} "
+                  f"captures {row['captures']} ({row['capture_s']:.3f} s) "
+                  f"s/tree {row['s_per_tree']:.5f} host syncs "
+                  f"{row['host_syncs']} metrics {row['metrics']}",
+                  flush=True)
+    b = out["b"]
+    print(f"pipeline (b): overlap {b['overlap_fraction']}; one window's "
+          f"featurization {b['featurize_s'][1]:.2f} s and host binning "
+          f"{b['host_bin_s'][1]:.2f} s; prober {b['prober']}; AUC on the "
+          f"next window {[w['metrics']['auc'] for w in b['windows'][1:]]}"
+          f"; (c) overlap {out['c']['overlap_fraction']}", flush=True)
+    print(f"pipeline counters {b['pipeline_counters']}", flush=True)
+    print(f"phase pipeline: ok ((a) == (b) sha256 every window, (d) "
+          f"resumed to (b)'s {sha_b[-1][:16]}; wave_hist launches "
+          f"{launches_total}, forest_predict launches {fl_total}; trace "
+          f"{b['trace']}; {trace_s:.1f} s of trace synthesis)", flush=True)
+    return dict(runs=out, launches=launches_total,
+                predict_launches=fl_total, predict_routes=routes_total,
+                windows=PIPE_WINDOWS, window=PIPE_WINDOW,
+                sample=PIPE_SAMPLE, trace_s=trace_s)
+
+
+
 #: the serve phase's synthetic forest: 500 trees of up to 63 leaves over
 #: the HIGGS width, deep paths, three categorical columns of up to 128
 #: categories (four bitset words)
@@ -3172,25 +3733,30 @@ def main() -> int:
     data = phase_data(dev, args.seed, dense, x, y, train, args.profile)
     boosting = phase_boosting(dev, args.seed, dense, x, y)
     del dense, y
+    pipeline = phase_pipeline(dev, args.seed)
     serve = phase_serve(dev, models, x, args.seed)
     del x
     multiclass = phase_multiclass(dev, args.seed, args.profile)
 
     # wave_hist's path is training: its launches are those of every run
-    # (the data phase's two and the boosting phase's six included); wave_hist_v2's path is the ubench
+    # (the data phase's two, the boosting phase's six and the pipeline
+    # phase's windows included); wave_hist_v2's path is the ubench
     # entry point; forest_predict's is prediction: Booster.predict after
     # each training run and of the validation rows, the fleet's entry
-    # point and the two PredictionServers (not the comparison launches),
+    # point, the two PredictionServers and the pipeline's server (its
+    # evaluations, swaps' warm-up and prober; not the comparison launches),
     # and both of its routes must have run there
     obj_runs = objectives["runs"].values()
     v1_launches = (sum(r["launches"] for r in train["runs"].values())
                    + sum(r["launches"] for r in obj_runs)
                    + data["launches"] + data["engine_launches"]
-                   + boosting["launches"] + multiclass["launches"])
+                   + boosting["launches"] + pipeline["launches"]
+                   + multiclass["launches"])
     fp_launches = (sum(r["predict_launches"] for r in train["runs"].values())
                    + sum(r["predict_launches"] for r in obj_runs)
                    + data["predict_launches"]
                    + boosting["predict_launches"]
+                   + pipeline["predict_launches"]
                    + serve["fleet_entry_launches"]
                    + serve["server"]["launches"]
                    + serve["server_syn"]["launches"]
@@ -3200,6 +3766,7 @@ def main() -> int:
                      + sum(r["predict_routes"][k] for r in obj_runs)
                      + data["predict_routes"][k]
                      + boosting["predict_routes"][k]
+                     + pipeline["predict_routes"][k]
                      + serve["fleet_entry_routes"][k]
                      + serve["server"]["routes"][k]
                      + serve["server_syn"]["routes"][k]
@@ -3234,7 +3801,8 @@ def main() -> int:
         json.dump(dict(card=card, kind=kind, build_s=build_s,
                        kernels=kernels, ubench=ubench, train=train,
                        objectives=objectives, data=data,
-                       boosting=boosting, serve=serve,
+                       boosting=boosting, pipeline=pipeline,
+                       serve=serve,
                        multiclass=multiclass,
                        torch=torch.__version__, cuda=torch.version.cuda),
                   fh, indent=1)

@@ -4,7 +4,7 @@ bin from CSR and predict in row chunks without densifying, and float32
 tensors, binned on their device; validation sets bin against a training
 set's mappers (``reference``); the model-output surface: sliced model
 text, ``save_model``, ``Booster(model_file=)``, ``dump_model``,
-``feature_importance``; no refit or pred_contrib yet)."""
+``feature_importance``; ``refit`` on new labels; no pred_contrib yet)."""
 
 from __future__ import annotations
 
@@ -288,6 +288,18 @@ class Booster:
                                     batch_rows=csr.shape[0], **kw)
                  for i in range(0, max(csr.shape[0], 1), step)], axis=0)
         return self._gbdt.predict(_to_2d_float(data, True), **kw)
+
+    def refit(self, data, label, decay_rate=0.9, **kwargs) -> "Booster":
+        """A NEW Booster with this model's tree structure and leaf values
+        refit against ``label`` on ``data`` with ``decay_rate`` (reference
+        RefitTree, gbdt.cpp:265-288; ``GBDT.refit_leaves``).  This booster
+        is left as it was: the copy is made through the model text.  The
+        gradients run on ``params['device']`` (default ``cuda``)."""
+        arr = _to_2d_float(data)
+        new_booster = Booster(model_str=self.model_to_string(),
+                              params=self.params)
+        new_booster._gbdt.refit_leaves(arr, label, decay_rate=decay_rate)
+        return new_booster
 
     def model_to_string(self, num_iteration=-1, start_iteration=0) -> str:
         """The model text of iterations ``[start_iteration, start_iteration

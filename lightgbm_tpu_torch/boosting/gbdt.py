@@ -24,7 +24,14 @@ trees runs as ``fused_chunk`` launches of the grower's captured tree with
 gradients, bagging redraws, feature masks and int8 noise drawn on the
 card and no host read in between; the chunk's records come back in one
 asynchronous copy, and the stump check reads the previous chunk's leaf
-counts (one host sync a chunk).
+counts (one host sync a chunk).  With ``snapshot_freq`` it writes atomic
+training checkpoints (``robust/checkpoint.py``) that
+:meth:`GBDT.resume_from_checkpoint` continues from byte for byte;
+:meth:`GBDT.refit_leaves` refits the leaf values on new labels.  Every
+dispatch runs under the ``grow.dispatch`` fault site and
+``dispatch_retries`` (``robust/retry.py``); with telemetry on, iterations
+and chunks record ``train.*`` spans (``obs/``), none of which reads the
+card.
 """
 
 from __future__ import annotations
@@ -35,8 +42,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import Config, resolve_device
-from ..data.dataset import BinnedDataset
+from ..data.dataset import BinnedDataset, Metadata
 from ..metrics import create_metrics
 from ..objectives import create_objective
 from ..ops.bagging import bagging_row_mask
@@ -44,11 +52,16 @@ from ..ops.grow import DeviceGrower
 from ..ops.histogram import bucket_size
 from ..ops.traverse import add_constant_score, add_tree_score, device_tree
 from ..params import PARAM_BY_NAME
+from ..robust import checkpoint as _checkpoint
+from ..robust import faults
+from ..robust.retry import (RetryPolicy, transient_dispatch_errors,
+                            with_retries)
 from ..tree.tree import Tree, categorical_bitsets
 from ..utils.log import LightGBMError, log_info, log_warning
 
 K_EPSILON = 1e-15
 MODEL_VERSION = "v2"
+_TRANSIENT_DISPATCH = transient_dispatch_errors()
 
 
 def _replay_records(rec_i, rec_f, rec_c, nl, shrinkage, bias, dataset,
@@ -193,6 +206,14 @@ class GBDT:
     def init_train(self, train_set: BinnedDataset):
         cfg = self.config
         self.device = resolve_device(cfg.device_type)
+        # telemetry and fault injection arm from params; in the windowed
+        # pipeline this runs once per window, so both stay additive
+        obs.configure_from_config(cfg)
+        faults.configure_from_config(cfg)
+        obs.inc("train.init_train")
+        obs.instant("init_train", cat="boost", rows=int(train_set.num_data),
+                    features=int(train_set.num_features))
+        self._last_chunk_stack = None
         self.train_set = train_set
         self.objective = create_objective(cfg)
         if self.objective.is_renew_tree_output:
@@ -347,8 +368,19 @@ class GBDT:
         dispatch pipeline full, and trims the extra stumps afterwards.)
         A class with nothing to learn (``class_need_train``) gets a fixed
         stump, which carries the class's score in the first iteration.
-        Custom gradients (``fobj``) are not ported."""
+        Custom gradients (``fobj``) are not ported.  With telemetry on,
+        the iteration is a ``train.iter`` span (it syncs with the card only
+        under sync profiling)."""
         self._check_custom_gradients(gradients, hessians)
+        if not obs.enabled():
+            return self._train_one_iter()
+        with obs.span("train.iter", cat="boost", iteration=self.iter) as sp:
+            out = self._train_one_iter()
+            sp.sync_value = self.train_score
+        obs.sample_device_memory()
+        return out
+
+    def _train_one_iter(self) -> bool:
         if self._device_stop:
             return True
         K = self.num_model
@@ -397,10 +429,11 @@ class GBDT:
                 self.models.append(tree)
                 continue
             tree_idx = self.iter * K + k
-            res = self._grower.grow_one_iter(
+            fmask = self._grower.feature_mask_for(tree_idx)
+            res = self._dispatch_guard(lambda: self._grower.grow_one_iter(
                 self.train_score[k], grad[k], hess[k], shrink,
-                feature_mask=self._grower.feature_mask_for(tree_idx),
-                row_mask=self.row_mask, tree_idx=tree_idx)
+                feature_mask=fmask, row_mask=self.row_mask,
+                tree_idx=tree_idx))
             self.train_score[k] = res.score
             self.models.append(_PendingTree(res.rec_i, res.rec_f, res.rec_c,
                                             res.num_leaves, shrink,
@@ -408,6 +441,25 @@ class GBDT:
             nls.append(res.num_leaves)
             waves.append(res.waves)
         return nls, waves
+
+    def _dispatch_guard(self, fn):
+        """Run a device-dispatch thunk under the ``grow.dispatch`` fault
+        site with ``dispatch_retries`` bounded retries on transient errors
+        (``lightgbm_tpu/boosting/gbdt.py::_dispatch_guard``).  The site is
+        checked before the dispatch, so a retried dispatch starts from the
+        same inputs.  Only injected faults, ``OSError`` and
+        ``TimeoutError`` are retried: a CUDA error raises at once
+        (``robust/retry.py::transient_dispatch_errors``)."""
+        def attempt():
+            faults.check("grow.dispatch")
+            return fn()
+        retries = int(getattr(self.config, "dispatch_retries", 2))
+        if retries <= 0:
+            return attempt()
+        policy = RetryPolicy(max_attempts=retries + 1, base_delay_s=0.05,
+                             max_delay_s=1.0,
+                             retry_on=_TRANSIENT_DISPATCH)
+        return with_retries(attempt, policy, site="grow.dispatch")
 
     # ------------------------------------------------------------------
     # fused multi-iteration path: a chunk of trees per dispatch
@@ -430,17 +482,39 @@ class GBDT:
         return self._fused_grad_fn() is not None
 
     def train_chunked(self, n_iters: int, chunk: int = 20,
-                      snapshot_freq: int = 0) -> bool:
+                      snapshot_freq: int = 0,
+                      snapshot_path: str = "") -> bool:
         """Train ``n_iters`` boosting iterations, ``chunk`` whole
         iterations a dispatch when the configuration allows (see
         :meth:`_train_chunked_inner`).  Returns True when training stopped
-        early.  ``snapshot_freq > 0`` (the JAX package's checkpoints) is
-        refused: ``robust/`` is not ported."""
-        if int(snapshot_freq) > 0:
-            raise LightGBMError("train_chunked(snapshot_freq > 0): "
-                                "checkpoints (robust/) are not ported to "
-                                "lightgbm_tpu_torch yet")
-        return self._train_chunked_inner(n_iters, chunk)
+        early.  With ``snapshot_freq > 0`` each dispatch is also cut at
+        the snapshot boundaries and an atomic checkpoint
+        (``<snapshot_path>.snapshot_iter_N`` and its exact-score sidecar,
+        :meth:`save_checkpoint`) is written every ``snapshot_freq``
+        iterations (``lightgbm_tpu/boosting/gbdt.py::train_chunked``); a
+        killed run resumes from the last one
+        (:meth:`resume_from_checkpoint`)."""
+        freq = int(snapshot_freq)
+        if freq <= 0 or n_iters <= 0:
+            return self._train_chunked_inner(n_iters, chunk)
+        path = str(snapshot_path
+                   or self.config.output_model or "LightGBM_model.txt")
+        done = 0
+        while done < n_iters:
+            step = min(n_iters - done, freq - self.iter % freq)
+            before = self.iter
+            stopped = self._train_chunked_inner(step, chunk)
+            done += self.iter - before
+            if (self.iter > before and self.iter % freq == 0
+                    and not stopped):
+                with obs.span("train.snapshot", cat="boost",
+                              iteration=self.iter):
+                    self.save_checkpoint(
+                        f"{path}.snapshot_iter_{self.iter}")
+                obs.inc("train.snapshots")
+            if stopped:
+                return True
+        return False
 
     def _train_chunked_inner(self, n_iters: int, chunk: int = 20) -> bool:
         """The chunked training core (``lightgbm_tpu/boosting/gbdt.py:
@@ -476,8 +550,8 @@ class GBDT:
             t0 = time.perf_counter()
             bias = self.boost_from_average(0) if not self.models else 0.0
             shrink = self.shrinkage_rate
-            out = self._grower.fused_train(chunk, self.train_score[0],
-                                           shrink, self.iter, fg)
+            out = self._dispatch_guard(lambda: self._grower.fused_train(
+                chunk, self.train_score[0], shrink, self.iter, fg))
             self.train_score[0].copy_(out.score)
             stack = _RecStack((out.rec_i, out.rec_f, out.nl, out.waves,
                                out.qscales, out.rec_c), self.device)
@@ -492,12 +566,33 @@ class GBDT:
             stall = prev is not None and (prev.host()[2] <= 1).all()
             self._stats.append([time.perf_counter() - t0, chunk, stack,
                                 int(prev is not None)])
+            if obs.enabled():
+                self._obs_chunk(t0, chunk)
             if stall:
                 self._trim_device_stumps()
                 return True
         if fused_ran:
             self._sync_fused_bagging()
         return False
+
+    def _obs_chunk(self, t0: float, chunk: int) -> None:
+        """Record one fused chunk: a ``train.chunk`` span and ``chunk``
+        ``train.iter`` observations of the chunk's mean, so iteration
+        counts and percentiles compare with the per-iteration path.
+        Without sync profiling this times the host's dispatch, not the
+        card (the chunk is not waited for)."""
+        if obs.STATE.sync:
+            obs._wait_for(self.train_score)
+        dt = time.perf_counter() - t0
+        reg = obs.registry()
+        reg.observe("train.chunk", dt)
+        reg.inc("train.fused_chunks")
+        reg.set_gauge("train.fused_chunk_len", chunk)
+        obs.STATE.trace.add("train.chunk", cat="boost", t0=t0, dur=dt,
+                            args={"iteration": self.iter, "chunk": chunk})
+        for _ in range(chunk):
+            reg.observe("train.iter", dt / chunk)
+        obs.sample_device_memory()
 
     def _sync_fused_bagging(self) -> None:
         """Set ``row_mask`` to what a per-iteration run would hold at
@@ -524,9 +619,13 @@ class GBDT:
         """Replay every device-grown tree into a host ``Tree``, then drop
         trailing stump iterations (the stop condition), keeping a first
         stump that carries the boost-from-average bias."""
-        for i, m in enumerate(self.models):
-            if isinstance(m, _PENDING):
-                self.models[i] = m.materialize(self.train_set, self.config)
+        pending = [i for i, m in enumerate(self.models)
+                   if isinstance(m, _PENDING)]
+        if pending:
+            with obs.span("flush_pending", cat="boost", trees=len(pending)):
+                for i in pending:
+                    self.models[i] = self.models[i].materialize(
+                        self.train_set, self.config)
         nm = max(self.num_model, 1)
         while (len(self.models) > nm
                and all(t.num_leaves <= 1 for t in self.models[-nm:])):
@@ -797,6 +896,136 @@ class GBDT:
             out.append(f"[{p.name}: {v}]")
         return "\n".join(out)
 
+    # ------------------------------------------------------------------
+    # training checkpoints (lightgbm_tpu/boosting/gbdt.py:1377-1487)
+    def save_checkpoint(self, path: str) -> None:
+        """Atomic training checkpoint: the full model text at ``path`` and
+        a ``.state.npz`` sidecar with the exact float32 training scores
+        and the iteration counter, both written temp-then-rename.  Reads
+        the scores off the card (one host sync)."""
+        self._flush_pending()
+        _checkpoint.atomic_write_text(path, self.model_to_string())
+        _checkpoint.save_train_state(path + ".state.npz",
+                                     self.train_score.cpu().numpy(),
+                                     self.iter)
+        log_info(f"Saved training checkpoint to {path}")
+
+    def resume_from_checkpoint(self, path: str) -> "GBDT":
+        """Adopt a :meth:`save_checkpoint` snapshot after ``init_train`` on
+        the same data: the snapshot's trees replace the model list, the
+        sidecar's scores are copied into the training score buffer on the
+        card (in place: a captured tree reads it by address), and the
+        bagging draw of the last redraw boundary is re-made.  Bagging,
+        feature_fraction and int8 quantization are Threefry draws keyed on
+        the iteration, so continued boosting is byte-identical to the
+        uninterrupted run."""
+        if self.train_set is None:
+            raise LightGBMError(
+                "resume_from_checkpoint requires init_train first "
+                "(the training scores are sized by the dataset)")
+        state = _checkpoint.load_train_state(path + ".state.npz")
+        if state is None:
+            raise LightGBMError(
+                f"snapshot {path} has no state sidecar "
+                f"({path}.state.npz); cannot resume exactly")
+        score, it = state
+        if score.shape != (self.num_model, self.num_data):
+            raise LightGBMError(
+                f"snapshot scores have shape {score.shape}, this dataset "
+                f"needs {(self.num_model, self.num_data)} — resume must use "
+                f"the SAME training data")
+        loaded = GBDT.load_model_from_file(path)
+        if len(loaded.models) != it * max(self.num_model, 1):
+            raise LightGBMError(
+                f"snapshot {path} holds {len(loaded.models)} trees but "
+                f"claims iteration {it}")
+        self.models = list(loaded.models)
+        self.iter = int(it)
+        self.train_score.copy_(torch.from_numpy(score).to(self.device))
+        self._device_stop = False
+        self._last_chunk_stack = None
+        # the per-iteration path continues mid-round: re-make the bagging
+        # draw active after iteration (iter - 1)
+        self._sync_fused_bagging()
+        log_info(f"Resumed training from {path} (iteration {self.iter})")
+        return self
+
+    # ------------------------------------------------------------------
+    # leaf refit on new data (reference GBDT::RefitTree, gbdt.cpp:265-288;
+    # lightgbm_tpu/boosting/gbdt.py:1207-1290)
+    def _refit_objective(self):
+        """A fresh objective for refit gradients (the live training
+        objective keeps its own labels): the trained objective's name, or
+        a loaded model's objective line with its ``key:value`` extras."""
+        if self.objective is not None:
+            name = self.objective.name
+            extras = {}
+        elif self.loaded_objective_str:
+            toks = self.loaded_objective_str.split()
+            name = toks[0]
+            extras = dict(t.split(":", 1) for t in toks[1:] if ":" in t)
+        else:
+            name = "regression"
+            extras = {}
+        if name in ("none", ""):
+            raise LightGBMError(
+                "refit requires an objective; this model was trained "
+                "with a custom objective function")
+        keys = ("sigmoid", "alpha", "fair_c", "poisson_max_delta_step",
+                "tweedie_variance_power", "scale_pos_weight",
+                "is_unbalance", "reg_sqrt", "num_class", "max_position",
+                "label_gain")
+        params = {k: getattr(self.config, k) for k in keys}
+        params.update(extras)
+        params["objective"] = name
+        params["num_class"] = max(self.num_model, 1)
+        return create_objective(Config(params))
+
+    def refit_leaves(self, data, label, decay_rate: float = 0.9,
+                     leaf_ids=None) -> "GBDT":
+        """Refit every tree's leaf values in place against ``label``,
+        keeping the routing: a leaf that receives rows takes ``decay *
+        old + (1 - decay) * optimal * learning_rate``, where ``optimal``
+        is the regularized leaf output of the new rows' gradients; a leaf
+        without rows keeps its value bit for bit.
+
+        ``data`` is a dense raw-feature matrix, walked on the host; or
+        ``leaf_ids`` gives each tree's (N,) leaf ids (None for a stump),
+        as the pipeline's binned traversal on the card does, and the raw
+        scores are summed from the leaf values.  The gradients are the
+        objective's on ``config.device_type``.  Drops the packed-forest
+        cache, so the next prediction or ``swap()`` packs the new
+        values."""
+        self._flush_pending()
+        label = np.asarray(label, np.float64)
+        device = resolve_device(self.config.device_type)
+        obj = self._refit_objective()
+        md = Metadata(len(label))
+        md.set_label(label)
+        obj.init(md, len(label), device)
+        if leaf_ids is None:
+            arr = np.ascontiguousarray(np.asarray(data, np.float64))
+            raw = self.predict_raw(arr)
+            leaf_ids = [tree.predict_leaf(arr) if tree.num_leaves > 1
+                        else None for tree in self.models]
+        else:
+            raw = scores_from_leaves(self.models, leaf_ids, self.num_model,
+                                     len(label))
+        grad, hess = obj.get_gradients(
+            torch.as_tensor(raw, dtype=torch.float32, device=device))
+        if grad.dim() == 1:
+            grad, hess = grad[None], hess[None]
+        grad = grad.double().cpu().numpy()
+        hess = hess.double().cpu().numpy()
+        shrink = float(self.config.learning_rate)
+        for idx, tree in enumerate(self.models):
+            k = idx % self.num_model
+            refit_tree_leaves(tree, leaf_ids[idx], grad[k], hess[k],
+                              self.config, decay_rate, shrink)
+        # in-place leaf edits: the packed cache's key sees only the count
+        self._packed_cache = None
+        return self
+
     def save_model_to_file(self, filename, start_iteration: int = 0,
                            num_iteration: int = -1) -> None:
         with open(filename, "w") as fh:
@@ -832,6 +1061,63 @@ class GBDT:
     def load_model_from_file(cls, filename, config=None) -> "GBDT":
         with open(filename) as fh:
             return cls.load_model_from_string(fh.read(), config)
+
+
+def scores_from_leaves(models, leaf_ids, num_model: int,
+                       n: int) -> np.ndarray:
+    """(num_model, n) float64 raw scores summed from each tree's leaf
+    values at the given (N,) leaf ids (None: a stump, its leaf 0)."""
+    raw = np.zeros((max(num_model, 1), n), np.float64)
+    for idx, tree in enumerate(models):
+        k = idx % max(num_model, 1)
+        if leaf_ids[idx] is None:
+            raw[k] += tree.leaf_value[0]
+        else:
+            raw[k] += tree.leaf_value[np.asarray(leaf_ids[idx])]
+    return raw
+
+
+def _refit_leaf_optimum(sum_grad: np.ndarray, sum_hess: np.ndarray,
+                        config) -> np.ndarray:
+    """Vectorized regularized leaf output (the reference's
+    ``FeatureHistogram::CalculateSplittedLeafOutput``):
+    ``-ThresholdL1(sum_grad, l1) / (sum_hess + l2)``, clipped to
+    ``+-max_delta_step`` when that is set."""
+    l1 = float(config.lambda_l1)
+    l2 = float(config.lambda_l2)
+    thr = np.sign(sum_grad) * np.maximum(np.abs(sum_grad) - l1, 0.0)
+    denom = sum_hess + l2
+    safe = denom > 0.0
+    out = np.where(safe, -thr / np.where(safe, denom, 1.0), 0.0)
+    mds = float(getattr(config, "max_delta_step", 0.0))
+    if mds > 0.0:
+        out = np.clip(out, -mds, mds)
+    return out
+
+
+def refit_tree_leaves(tree: Tree, leaf_ids, grad: np.ndarray,
+                      hess: np.ndarray, config, decay_rate: float,
+                      shrinkage: float) -> None:
+    """Refit one tree's leaf values in place from new-data gradients (one
+    ``np.bincount`` a statistic).  ``leaf_ids`` is the per-row leaf
+    assignment, or None for a stump (every row in leaf 0).  Empty leaves
+    keep their old value; the routing arrays are untouched."""
+    n_leaves = max(int(tree.num_leaves), 1)
+    if leaf_ids is None:
+        cnt = np.array([len(grad)], np.int64)
+        sg = np.array([float(np.sum(grad))])
+        sh = np.array([float(np.sum(hess))])
+    else:
+        leaf_ids = np.asarray(leaf_ids)
+        cnt = np.bincount(leaf_ids, minlength=n_leaves)[:n_leaves]
+        sg = np.bincount(leaf_ids, weights=grad,
+                         minlength=n_leaves)[:n_leaves]
+        sh = np.bincount(leaf_ids, weights=hess,
+                         minlength=n_leaves)[:n_leaves]
+    optimal = _refit_leaf_optimum(sg, sh, config) * shrinkage
+    old = tree.leaf_value[:n_leaves]
+    tree.leaf_value[:n_leaves] = np.where(
+        cnt > 0, decay_rate * old + (1.0 - decay_rate) * optimal, old)
 
 
 def _convert_by_name(objective_str: str, raw: np.ndarray) -> np.ndarray:

@@ -10,9 +10,10 @@ import collections
 from typing import List
 
 from . import callback as callback_mod
+from . import obs
 from .basic import Booster, Dataset
 from .config import normalize_params
-from .utils.log import LightGBMError
+from .utils.log import LightGBMError, log_warning
 
 
 def steps_to_boundary(i: int, freq: int) -> int:
@@ -87,6 +88,10 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
         cbs.append(callback_mod.print_evaluation(verbose_eval))
     if evals_result is not None:
         cbs.append(callback_mod.record_evaluation(evals_result))
+    if obs.enabled():
+        # telemetry hooks: a CallbackEnv-compatible pair timing each
+        # iteration and sampling device memory (fused driving keeps them)
+        cbs.extend(obs.iteration_hooks())
     cbs_before = [cb for cb in cbs
                   if getattr(cb, "before_iteration", False)]
     cbs_after = [cb for cb in cbs
@@ -103,7 +108,8 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
     # per-iteration loop: its CallbackEnv cadence is the contract.
     gbdt = booster._gbdt
     fused_cap = max(int(getattr(gbdt.config, "fused_chunk", 20)), 0)
-    cbs_opaque = any(not getattr(cb, "eval_cadence_only", False)
+    cbs_opaque = any(not (getattr(cb, "eval_cadence_only", False)
+                          or getattr(cb, "obs_hook", False))
                      for cb in cbs_before + cbs_after)
     has_eval = (bool(gbdt.valid_sets) or is_valid_contain_train
                 or feval is not None)
@@ -162,6 +168,11 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
     booster.best_score = collections.defaultdict(collections.OrderedDict)
     for rec in (evaluation_result_list or []):
         booster.best_score[rec[0]][rec[1]] = rec[2]
+    try:
+        obs.flush()   # write metrics/trace files when paths are configured
+    except OSError as e:
+        # telemetry is best-effort: a bad path must not lose the booster
+        log_warning(f"failed to write telemetry output: {e}")
     return booster
 
 

@@ -1,0 +1,44 @@
+"""Process-global observability state.
+
+One module-level singleton keeps the enabled flag, the registry and the
+trace buffer, so every instrumentation site shares the same fast-path
+check: ``if not STATE.enabled: return`` (counterpart of
+``lightgbm_tpu/obs/state.py``, without the streaming exporter, the rolling
+windows and the SLO state, which the port does not have).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from .events import TraceBuffer
+from .registry import MetricsRegistry
+
+
+class ObsState:
+    __slots__ = ("enabled", "sync", "trace_context", "registry", "trace",
+                 "metrics_path", "trace_path", "events_path",
+                 "_atexit_registered", "_mem_unavailable", "_trace_flushed")
+
+    def __init__(self):
+        self.enabled = False
+        # when True, a span with a ``sync_value`` waits for the card before
+        # stopping its clock (one device sync a span: honest attribution,
+        # serialises the host against the card; off for production runs)
+        self.sync = False
+        # causal trace-context propagation (obs/tracing.py): spans gain
+        # trace_id/span_id/parent_id; off = zero context objects
+        self.trace_context = False
+        self.registry = MetricsRegistry()
+        self.trace = TraceBuffer()
+        self.metrics_path: Optional[str] = None
+        self.trace_path: Optional[str] = None
+        self.events_path: Optional[str] = None
+        self._atexit_registered = False
+        self._mem_unavailable = False
+        # (path, event_count, dropped) of the last trace write, so
+        # repeated flushes skip re-serializing an unchanged buffer
+        self._trace_flushed = None
+
+
+STATE = ObsState()

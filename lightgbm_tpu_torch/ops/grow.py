@@ -62,6 +62,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..obs import capture_track
+from ..params import PARAM_BY_NAME
 from ..utils import random as trandom
 from ..utils.log import LightGBMError
 from .bagging import bag_mask
@@ -144,11 +146,51 @@ def feature_mask_from_key(key, nf: int, k: int,
     return u <= thr
 
 
+def unported_options(config) -> list:
+    """The options set in ``config`` that select code the port does not
+    have, whatever the data: the distributed learners and sharding
+    (ROADMAP item 7), the multi-host pod checkpoints, and the streaming
+    telemetry exporter, SLOs and XLA cost attribution."""
+    todo = []
+    learner = str(config.tree_learner)
+    if learner in ("feature", "data", "voting") \
+            and int(config.num_machines) > 1:
+        todo.append(f"tree_learner={learner} with num_machines="
+                    f"{int(config.num_machines)} (distributed learners)")
+    if str(config.data_sharding) != "off":
+        todo.append(f"data_sharding={config.data_sharding}")
+    if int(getattr(config, "num_hosts", 0) or 0) > 1:
+        todo.append(f"num_hosts={int(config.num_hosts)} (multi-host "
+                    f"training and its pod checkpoints)")
+    for name in ("stream_path", "prom_path"):
+        if str(getattr(config, name, "") or ""):
+            todo.append(f"{name} (the streaming telemetry exporter)")
+    if int(getattr(config, "obs_http_port", 0) or 0):
+        todo.append("obs_http_port (the telemetry scrape endpoint)")
+    # only the exporter reads it: any value but the default selects it
+    if float(config.obs_export_interval) \
+            != PARAM_BY_NAME["obs_export_interval"].default:
+        todo.append("obs_export_interval (the streaming telemetry "
+                    "exporter)")
+    if bool(getattr(config, "profile_attribution", False)):
+        todo.append("profile_attribution (XLA cost attribution)")
+    return todo
+
+
+def check_config_options(config) -> None:
+    """Raise on :func:`unported_options` (the checks that need no data:
+    the pipeline runs them before its first window)."""
+    todo = unported_options(config)
+    if todo:
+        raise LightGBMError("not ported to lightgbm_tpu_torch yet: "
+                            + ", ".join(todo))
+
+
 def check_slice_config(config, dataset) -> None:
     """Refuse, by name, the options whose code paths the port does not
     have yet (the JAX package either supports them on its device grower
     or falls back to its host learner; the port has neither)."""
-    todo = []
+    todo = unported_options(config)
     n = int(dataset.num_data)
     quant_bits, striped = _hist_layout(n, config)
     if quant_bits not in (0, 8):
@@ -739,7 +781,7 @@ class DeviceGrower:
             return g
         from . import graphs
         stats = self.capture_stats
-        t0 = time.perf_counter()
+        t0 = t_start = time.perf_counter()
         if self._graphs is None:
             # the launch counter and every lazy initialization must exist
             # before the captures: run each piece once, eagerly
@@ -779,8 +821,12 @@ class DeviceGrower:
                      in zip(pieces["waves"], self._stages))
         steps.append((pieces["finish"], None))
         g = self._composed[sample] = graphs.compose(steps, self._st.ctl)
-        stats["instantiate_s"] += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        stats["instantiate_s"] += t1 - t0
         stats["graphs"] += 1
+        capture_track.record("grow.tree", capture_track.signature_of(
+            (self.n_pad, self.num_groups, self.nb, self.num_leaves,
+             self.quant_bits, sample)), t_start, t1 - t_start)
         return g
 
     def _drop_graphs(self) -> None:

@@ -17,9 +17,9 @@ against the current model.  :class:`PredictionServer` owns that read side:
   package compiles one program per padded batch size and warms each; the
   kernel compiles nothing per shape and pads no rows.
 
-Not ported yet (they come with ``robust/`` and ``obs/``): the degrade-to-
-host path (circuit breaker, host-walk fallback, injected faults) and the
-telemetry.  A failure on the card raises to the caller.
+Not ported yet: the degrade-to-host path (circuit breaker, host-walk
+fallback, injected faults) and the serving telemetry beyond the swap
+span and counters.  A failure on the card raises to the caller.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..boosting.gbdt import GBDT, _convert_by_name, resolve_device
 from ..utils.log import LightGBMError
 from .packed import (PackedEnsemble, _sm_count, forest_geometry,
@@ -114,16 +115,28 @@ class PredictionServer:
             self.swap(booster)
 
     # -- model lifecycle ------------------------------------------------
-    def swap(self, booster) -> None:
+    def swap(self, booster) -> bool:
         """Replace the served model atomically: packing and upload happen
-        outside the lock, readers switch between complete generations."""
+        outside the lock, readers switch between complete generations.
+        Returns whether the new pack's pads (``shape_signature``) equal
+        the previous model's, as the JAX package's swap does (there the
+        same pads reuse compiled programs; the kernel compiles nothing per
+        shape)."""
         gbdt = _as_gbdt(booster)
-        packed = pack_gbdt(gbdt, self.start_iteration, self.num_iteration,
-                           device=self.device)
-        packed.records          # the kernel's node records, built here too
-        model = _Model(packed, gbdt)
-        with self._lock:
-            self._model = model
+        with obs.span("serve.swap", cat="serve"):
+            packed = pack_gbdt(gbdt, self.start_iteration,
+                               self.num_iteration, device=self.device)
+            packed.records      # the kernel's node records, built here too
+            model = _Model(packed, gbdt)
+            with self._lock:
+                prev = self._model
+                self._model = model
+        same_shape = (prev is not None and prev.packed.shape_signature()
+                      == packed.shape_signature())
+        obs.inc("serve.swaps")
+        if prev is not None and not same_shape:
+            obs.inc("serve.swap_shape_changes")
+        return same_shape
 
     def _snapshot(self) -> _Model:
         with self._lock:

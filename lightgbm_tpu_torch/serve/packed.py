@@ -26,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -852,15 +853,18 @@ def launch_forest(records: ForestRecords, x: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"forest_predict kernel launch failed: CUDA "
                            f"error {rc} ({geo})")
-    forest_predict.launches += 1
-    forest_predict.routes[geo.route] += 1
+    with _COUNT_LOCK:
+        forest_predict.launches += 1
+        forest_predict.routes[geo.route] += 1
     return out
 
 
 #: kernel launches made through :func:`forest_predict`, in all and by
-#: route (read by chip_smoke.py and the card tests)
+#: route (read by chip_smoke.py and the card tests); a server's threads
+#: launch concurrently, so the counts change under a lock
 forest_predict.launches = 0
 forest_predict.routes = {"rows": 0, "trees": 0}
+_COUNT_LOCK = threading.Lock()
 
 
 # ---------------------------------------------------------------------------

@@ -1056,3 +1056,99 @@ def test_dart_iteration_with_drops_on_card(cuda_device):
     vpred = card.predict(x[30_000:], raw_score=True)
     assert np.abs(gb.valid_sets[0].score[0].double().cpu().numpy()
                   - vpred).max() <= 1e-5 * scale
+
+
+def _pipeline_windows(seed_base, n=20_000, nf=10):
+    from lightgbm_tpu_torch.pipeline import PreppedWindow
+
+    def prep(w):
+        rng = np.random.default_rng(seed_base + w)
+        x = rng.standard_normal((n, nf))
+        y = (x[:, 0] + 0.5 * x[:, 1] + 0.3 * rng.standard_normal(n)
+             > 0).astype(np.float64)
+        return PreppedWindow(label=y, dense=x, eval_dense=x[:5000],
+                             eval_label=y[:5000])
+    return prep
+
+
+PIPE_CARD = {"objective": "binary", "num_leaves": 31, "max_bin": 255,
+             "min_data_in_leaf": 50, "min_sum_hessian_in_leaf": 5.0,
+             "feature_fraction": 0.8, "bagging_freq": 5,
+             "bagging_fraction": 0.8, "num_iterations": 10,
+             "fused_chunk": 5, "verbosity": -1, "device": "cuda"}
+
+
+def test_pipeline_three_windows_on_card_equal_serial_loop(cuda_device):
+    """Three windows of the pipeline on the card (prep thread, fresh
+    growers capturing their graphs, swaps into a server on the card, a
+    prober thread predicting throughout) give the byte-identical models
+    of a serial loop of fresh GBDTs with reference= binning."""
+    import threading
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import BinnedDataset
+    from lightgbm_tpu_torch.pipeline import RetrainPipeline
+    prep = _pipeline_windows(500)
+    pipe = RetrainPipeline(PIPE_CARD, window_policy="fresh",
+                           rebin_on_drift=False, eval_chunk_rows=2048)
+    stop, errors, answered = threading.Event(), [], [0]
+    xq = np.random.default_rng(1).standard_normal((64, 10))
+
+    def prober():
+        while not stop.is_set():
+            if pipe.server._model is None:
+                continue
+            try:
+                assert np.isfinite(pipe.server.predict(xq)).all()
+                answered[0] += 1
+            except Exception as e:              # noqa: BLE001
+                errors.append(e)
+
+    t = threading.Thread(target=prober, daemon=True)
+    t.start()
+    try:
+        res = pipe.run(range(3), prep,
+                       eval_fn=lambda pred, pw: {"n": len(pred)})
+    finally:
+        stop.set()
+        t.join()
+    assert not errors and answered[0] > 0
+    cfg = Config(PIPE_CARD)
+    ref = None
+    for w, r in enumerate(res):
+        pw = prep(w)
+        ds = BinnedDataset.construct_from_matrix(pw.dense, cfg,
+                                                 reference=ref)
+        ds.metadata.set_label(pw.label)
+        ref = ref or ds
+        g = GBDT(cfg)
+        g.init_train(ds)
+        g.train_chunked(10, chunk=5)
+        assert r.booster.model_to_string() == g.model_to_string(), w
+    assert [r.eval_metrics for r in res[1:]] == [{"n": 5000}] * 2
+
+
+def test_refit_leaf_ids_on_card_equal_host_walk(cuda_device):
+    """The warm policy's leaf ids (ops/traverse.py over the grower's codes
+    on the card) equal the host walk of the rows for every copied tree,
+    and its training scores summed from them equal predict(raw_score)."""
+    from lightgbm_tpu_torch.pipeline import RetrainPipeline
+    prep = _pipeline_windows(600)
+    pipe = RetrainPipeline(PIPE_CARD, window_policy="warm",
+                           warm_iterations=5, rebin_on_drift=False,
+                           serve=False)
+    res = pipe.run(range(2), prep)
+    assert [r.policy for r in res] == ["fresh", "warm"]
+    x1 = prep(1).dense
+    copied = res[0].booster.models
+    ids = pipe.last_leaf_ids
+    assert len(ids) == len(copied)
+    for tree, got in zip(copied, ids):
+        if tree.num_leaves > 1:
+            np.testing.assert_array_equal(got, tree.predict_leaf(x1))
+    from lightgbm_tpu_torch.boosting.gbdt import scores_from_leaves
+    warm = res[1].booster
+    summed = scores_from_leaves(warm.models[:len(ids)], ids, 1, len(x1))
+    raw = warm.predict_raw(x1, num_iteration=len(ids))
+    np.testing.assert_allclose(summed, raw, rtol=0,
+                               atol=1e-6 * np.abs(raw).max())

@@ -281,11 +281,22 @@ def test_engine_opaque_callback_or_fused_chunk_1_does_not_fuse():
         == runs["callback"].model_to_string()
 
 
-def test_snapshots_are_refused_by_name():
+def test_snapshots_are_refused_by_name(tmp_path):
+    """``snapshot_freq`` writes a snapshot every 2 iterations (the fused
+    chunks are cut at the boundaries); a snapshot whose exact-score
+    sidecar is gone is skipped by ``latest_snapshot`` and refused by name
+    on resume."""
+    from lightgbm_tpu_torch.robust.checkpoint import latest_snapshot
     x, y = _binary_data(rows=600)
     gb = _train({}, x, y, 0)
-    with pytest.raises(Exception, match="robust"):
-        gb.train_chunked(4, chunk=2, snapshot_freq=2)
+    path = str(tmp_path / "m.txt")
+    gb.train_chunked(4, chunk=2, snapshot_freq=2, snapshot_path=path)
+    assert latest_snapshot(path) == path + ".snapshot_iter_4"
+    (tmp_path / "m.txt.snapshot_iter_4.state.npz").unlink()
+    assert latest_snapshot(path) == path + ".snapshot_iter_2"
+    with pytest.raises(Exception, match="no state sidecar"):
+        _train({}, x, y, 0).resume_from_checkpoint(
+            path + ".snapshot_iter_4")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -111,3 +111,34 @@ def test_ubench_runs_without_jax_on_the_cpu():
                                           "pallas2_w4_ch4096",
                                           "apply_fused_w25"]
     assert lines[0]["device"] == "cpu"
+
+
+def test_operations_modules_pull_in_no_jax():
+    """obs, robust and the pipeline, in a fresh interpreter."""
+    code = (
+        "import sys\n"
+        "import lightgbm_tpu_torch.obs, lightgbm_tpu_torch.robust\n"
+        "import lightgbm_tpu_torch.pipeline\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'lightgbm_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = _python(code)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_pipeline_defaults_to_the_card_and_raises_without_one():
+    code = (
+        "import torch, lightgbm_tpu_torch as lt\n"
+        "from lightgbm_tpu_torch.pipeline import RetrainPipeline\n"
+        "assert not torch.cuda.is_available()\n"
+        "try:\n"
+        "    RetrainPipeline({'objective': 'binary'})\n"
+        "except lt.LightGBMError as e:\n"
+        "    print('raised:', e)\n"
+        "else:\n"
+        "    raise SystemExit('a pipeline without a card')\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = _python(code, env=env)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "device_type=cuda" in out.stdout
