@@ -24,7 +24,18 @@ Phases, one line each:
               PERF.md (BEFORE_MS; not measured here); the bound is the
               function's (bytes or adds), and wave_hist_v2's one-hot
               product at the tensor-core peak is reported beside it as
-              tc_ms;
+              tc_ms (past LIBRARY_SORT_TERMS terms the library call is one
+              index_add_: index_put_'s sort would not fit the card); wave_hist
+              also in the layouts past COUNT_SPLIT_ROWS at the fork's
+              window (20M x 53: striped K=4 bf16 at W=96 and 30, striped
+              int8 K=6 at W=64 and 30, gpu_use_dp's K=6 at W=30; W=30 is
+              the window's 31 leaves') and gpu_use_dp's K=5 (W=76) and
+              K=6 (W=64) bf16 at 2M x 28, and its one-slot list mode
+              (wave_hist_rows, the host learner's window histogram) with
+              f32 stats over a ragged window of 1,234,567 rows of a
+              permuted 2M-row buffer and over the 34,603,008-row root
+              window (its rows in order, and in a random order),
+              bit-equal to wave_hist_rows_fixed_reference;
 3. ubench  -- scripts/ubench_hist_cuda.py's hist3_w42 and pallas2_*
               cases at its default 10.5M rows: the entry point of the
               tensor-core kernel wave_hist_v2, whose launches are counted
@@ -209,7 +220,30 @@ Phases, one line each:
               per-iteration text, with categorical splits; the chunk
               bit-equal to the plain loop; predict bit-equal to the plain
               version), and under grad_quant_bits=8 twice (byte-identical
-              text, each chunk bit-equal to the plain loop).
+              text, each chunk bit-equal to the plain loop);
+11. window20m -- the fork's window at its real size (after boosting):
+              20,000,000 x 53 rows in the harness's column distributions
+              (window_shape, from --seed; a 2,000,000-row held-out tail),
+              binned on the card (construct_from_device_matrix), trained
+              with the fork's configuration (50 iterations, chunks of 25):
+              bf16 fused and per-iteration (the same sha256; striped K=4
+              counts, W=30, the exact 20M-row pad), int8 (K=6, the f32
+              fallback scan past INT32_SCAN_ROWS) and gpu_use_dp (K=6),
+              every tree's leaf counts equal to its bag's rows, launches ==
+              waves + warm-up, held-out AUC >= WIN_AUC_FLOOR; then
+              gpu_use_dp's K=5 on the train phase's 2M x 28 binning;
+12. host_learner -- the host tree learner on the card (after window20m)
+              on the train phase's 2M x 28 binning, 63 leaves, 5 rounds:
+              monotone constraints on 3 columns (predictions monotone
+              along a sweep of each), a depth-2 forced-split JSON (every
+              tree starts with it), regression_l1, quantile (alpha 0.9)
+              and mape on regression_target (the training metric falls),
+              and a custom fobj (binary logloss); each through
+              forest_predict (bit-equal to its plain version) and within
+              1e-5 of the host walk; then 34,603,008 x 28 HIGGS-shaped
+              rows binned on the card, 3 trees of 31 leaves: the route
+              logs why the host learner trains, every tree's leaf counts
+              sum to the rows.
 
 Prints the card's name and power limit, a JSON line of kernel
 measurements, and last {"ok": true, "device": {...}}.  Full results go to
@@ -466,10 +500,13 @@ def phase_build():
 
 
 def kernel_case(dev, *, nb, k, w, quant, seed, n=N_ROWS, g=N_FEATURES,
-                dup=False):
+                dup=False, striped=False):
     """Inputs at a training-path shape: w pending leaves out of 2w+1 live
-    ones (the root wave: every row in leaf 0), bf16 [g, h, 1] stats or
-    int8 quantized ones; ``dup`` draws the pending ids with repeats."""
+    ones (the root wave: every row in leaf 0), bf16 [g, h, 1] stats
+    (K=4: two count columns; K=5: g and h twice; K=6: both) or int8
+    quantized ones; ``dup`` draws the pending ids with repeats;
+    ``striped`` (int8 K=6) zeroes each column pair's stripe outside its
+    half of the rows, as the grower's striped layout does."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
     bins = torch.randint(0, nb, (g, n), generator=gen, device=dev,
@@ -486,6 +523,18 @@ def kernel_case(dev, *, nb, k, w, quant, seed, n=N_ROWS, g=N_FEATURES,
     if quant:
         ghk = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                             dtype=torch.int32).to(torch.int8)
+        if striped:
+            first = (torch.arange(n, device=dev) < n // 2).to(torch.int8)
+            ghk[:, 0::2] *= first[:, None]
+            ghk[:, 1::2] *= (1 - first)[:, None]
+    elif k > 3:
+        grad = torch.randn(n, generator=gen, device=dev) * 0.5
+        hess = torch.rand(n, generator=gen, device=dev) * 0.25
+        one = torch.ones(n, device=dev)
+        cols = [grad, grad * 2 ** -9] if k in (5, 6) else [grad]
+        cols += [hess, hess * 2 ** -9] if k in (5, 6) else [hess]
+        cols += [one, one] if k in (4, 6) else [one]
+        ghk = torch.stack(cols, 1).to(torch.bfloat16)
     else:
         grad = torch.randn(n, generator=gen, device=dev) * 0.5
         hess = torch.rand(n, generator=gen, device=dev) * 0.25
@@ -495,15 +544,41 @@ def kernel_case(dev, *, nb, k, w, quant, seed, n=N_ROWS, g=N_FEATURES,
     return bins, leaf, ghk, pending
 
 
+#: above this many (group, row, stat) terms the library yardstick is one
+#: index_add_ of (G*m, K) rows into a (G*NB*W, K) table: index_put_'s
+#: accumulate path sorts its indices and would not fit the card's memory
+#: at the 20M-row cases
+LIBRARY_SORT_TERMS = 1 << 30
+
+
 def library_hist(bins, leaf, ghk, pending, *, g, nb, k, w):
     """Yardstick only (never called by the port): the same histogram as
     one PyTorch call, index_put_ with accumulate on the flattened
     (group, bin, stat, slot) index of every (row, slot) pair whose leaf
-    the slot holds.  Returns (thunk, out, rows in the wave)."""
+    the slot holds (past LIBRARY_SORT_TERMS, index_add_ of each pair's K
+    stats into its (group, bin, slot) row).  Returns (thunk, out in the
+    (G*NB, K, W) layout, rows in the wave, the call's name)."""
     import torch
     dev = bins.device
     rows, s = torch.nonzero((leaf[:, None] == pending[None, :])
                             & (pending[None, :] >= 0), as_tuple=True)
+    acc = torch.float32 if ghk.dtype == torch.bfloat16 else torch.int32
+    if g * rows.numel() * k > LIBRARY_SORT_TERMS:
+        idx = bins[:, rows].long()                             # (G, m)
+        idx += (torch.arange(g, device=dev) * nb)[:, None]
+        idx *= w
+        idx += s[None, :]
+        idx = idx.reshape(-1)
+        m = int(torch.unique(rows).numel())
+        src = ghk[rows].to(acc)[None].expand(g, -1, -1).reshape(-1, k)
+        del rows, s
+        table = torch.zeros((g * nb * w, k), dtype=acc, device=dev)
+
+        def run_add():
+            table.zero_()
+            table.index_add_(0, idx, src)
+        return run_add, table.view(g * nb, w, k).permute(0, 2, 1), m, \
+            "index_add_"
     b = bins[:, rows].long()                                   # (G, m)
     gi = torch.arange(g, device=dev)[:, None]
     kk = torch.arange(k, device=dev)
@@ -517,7 +592,8 @@ def library_hist(bins, leaf, ghk, pending, *, g, nb, k, w):
     def run():
         out.zero_()
         out.index_put_((flat,), vals, accumulate=True)
-    return run, out, int(torch.unique(rows).numel())
+    return run, out.view(g * nb, k, w), int(torch.unique(rows).numel()), \
+        "index_put_"
 
 
 def measure_case(name, kernel, dev, c, *, tensor_core=False):
@@ -529,10 +605,16 @@ def measure_case(name, kernel, dev, c, *, tensor_core=False):
     from lightgbm_tpu_torch.ops import hist_cuda
     g = c.get("g", N_FEATURES)
     nb, k, w, quant = c["nb"], c["k"], c["w"], c["quant"]
-    bins, leaf, ghk, pending = kernel_case(dev, **c)
+    bins, leaf, ghk, pending = kernel_case(
+        dev, **{key: v for key, v in c.items() if key != "mode"})
+    torch.cuda.synchronize()
     n = bins.shape[1]
     kw = dict(g=g, nb=nb, k=k, w=w)
-    run = lambda: kernel(bins, leaf, ghk, pending, **kw)
+    if c.get("striped"):
+        kw_k = dict(kw, col_rows=n - n // 2)
+    else:
+        kw_k = kw
+    run = lambda: kernel(bins, leaf, ghk, pending, **kw_k)
     a, b = run(), run()
     torch.cuda.synchronize()
     ref = hist_cuda.wave_hist_reference(bins, leaf, ghk, pending, **kw)
@@ -558,10 +640,10 @@ def measure_case(name, kernel, dev, c, *, tensor_core=False):
     ms = time_ms(run, reps=20)
     plain_ms = time_ms(lambda: hist_cuda.wave_hist_reference(
         bins, leaf, ghk, pending, **kw), reps=2, warmup=1)
-    lib_run, lib_out, m = library_hist(bins, leaf, ghk, pending, **kw)
+    lib_run, lib_out, m, lib_call = library_hist(bins, leaf, ghk, pending,
+                                                 **kw)
     library_ms = time_ms(lib_run, reps=3, warmup=1)
-    lib_err = float((lib_out.view(ref.shape).double()
-                     - ref.double()).abs().max())
+    lib_err = float((lib_out.double() - ref.double()).abs().max())
     del lib_run, lib_out
     # the bound is the function's, the same for both kernels: its bytes
     # (bins and leaf ids of every row, the stats of the rows in the wave,
@@ -576,11 +658,13 @@ def measure_case(name, kernel, dev, c, *, tensor_core=False):
         * 1e3 if tensor_core else None
     # None for the cases added after the redesign (G=136, G=20)
     before_ms = BEFORE_MS.get((name, nb, k, w, quant, bool(c.get("dup")),
-                               n)) if g == N_FEATURES else None
+                               n)) if g == N_FEATURES and not c.get(
+                                   "striped") and k in (3, 6) else None
     r = dict(kernel=name, case=c, rows=n, rows_in_wave=m, repro=repro,
              ok=ok, tolerance=tol, max_abs_err=err, exact=exact, ms=ms,
              before_ms_quoted=before_ms, plain_ms=plain_ms,
              library_ms=library_ms, library_max_abs_err=lib_err,
+             library_call=lib_call, mode=c.get("mode"),
              bytes_bound_ms=bound_bytes_ms, ops_bound_ms=ops_ms,
              bound_ms=max(bound_bytes_ms, ops_ms),
              bound_by="bytes" if bound_bytes_ms >= ops_ms else "operations",
@@ -590,7 +674,8 @@ def measure_case(name, kernel, dev, c, *, tensor_core=False):
     before = ("not run before the redesign" if before_ms is None else
               f"before the redesign, quoted from PERF.md: {before_ms:.3f} "
               f"ms")
-    print(f"  kernel {name} {'int8' if quant else 'bf16'} n={n} G={g} "
+    print(f"  kernel {name} {c.get('mode') or ''} "
+          f"{'int8' if quant else 'bf16'} n={n} G={g} "
           f"NB={nb} K={k} W={w}{' dup' if c.get('dup') else ''}: ok={ok} "
           f"repro={repro} exact={exact} max_abs_err={err:.3g} kernel "
           f"{ms:.3f} ms ({before}), bound "
@@ -624,7 +709,25 @@ def phase_kernels(dev):
           # the multiclass phase's: the Expedia-shaped set's 20 groups
           # over its 2M rows
           dict(nb=256, k=3, w=128, quant=False, g=EXPEDIA_FEATURES,
-               n=EXPEDIA_ROWS)]
+               n=EXPEDIA_ROWS),
+          # the layouts past COUNT_SPLIT_ROWS at the fork's window (20M x
+          # 53): striped counts (K=4) and striped int8 (K=6), at their
+          # full widths at 255 leaves (W=96, W=64) and at the width the
+          # window's 31 leaves give them (W=30), gpu_use_dp's K=6 there too
+          dict(nb=256, k=4, w=96, quant=False, g=WIN_COLS, n=WIN_ROWS,
+               mode="k4_bf16_20m_w96"),
+          dict(nb=256, k=6, w=64, quant=True, g=WIN_COLS, n=WIN_ROWS,
+               striped=True, mode="k6_int8_20m_w64"),
+          dict(nb=256, k=4, w=30, quant=False, g=WIN_COLS, n=WIN_ROWS,
+               mode="k4_bf16_20m"),
+          dict(nb=256, k=6, w=30, quant=True, g=WIN_COLS, n=WIN_ROWS,
+               striped=True, mode="k6_int8_20m"),
+          dict(nb=256, k=6, w=30, quant=False, g=WIN_COLS, n=WIN_ROWS,
+               mode="k6_bf16_20m"),
+          # gpu_use_dp's hi/lo columns at 2M x 28: K=5 (W=76) and, with
+          # striped counts, K=6 (W=64)
+          dict(nb=256, k=5, w=76, quant=False, mode="k5_bf16"),
+          dict(nb=256, k=6, w=64, quant=False, mode="k6_bf16_w64")]
     v2 = [dict(nb=64, k=3, w=128, quant=False),
           dict(nb=256, k=3, w=128, quant=False),
           dict(nb=64, k=3, w=42, quant=False),
@@ -636,7 +739,7 @@ def phase_kernels(dev):
           dict(nb=64, k=3, w=128, quant=False, n=UBENCH_ROWS),
           # a warpgroup's 64 output rows straddle two groups
           dict(nb=32, k=3, w=1, quant=False)]
-    results = {"wave_hist": [], "wave_hist_v2": []}
+    results = {"wave_hist": [], "wave_hist_v2": [], "wave_hist_rows": []}
     for i, c in enumerate(v1):
         results["wave_hist"].append(measure_case(
             "wave_hist", lambda *a, live=2 * c["w"] + 1, **kw:
@@ -646,8 +749,105 @@ def phase_kernels(dev):
         results["wave_hist_v2"].append(measure_case(
             "wave_hist_v2", hist_cuda.wave_hist_v2, dev,
             dict(c, seed=100 + i), tensor_core=True))
-    print(f"phase kernel: ok {len(v1)} + {len(v2)} shapes", flush=True)
+    # the host learner's one-slot list mode, f32 stats: a ragged leaf
+    # window of a permuted row buffer at 2M x 28; the 34.6M-row route's
+    # root window, whose list is the rows in order, and the same rows
+    # listed in a random order (a deep window's worst case)
+    for i, (name, n, m, permuted) in enumerate((
+            ("f32_2m", N_ROWS, 1_234_567, True),
+            ("f32_34.6m", HOST_ROUTE_ROWS, HOST_ROUTE_ROWS, False),
+            ("f32_34.6m_permuted", HOST_ROUTE_ROWS, HOST_ROUTE_ROWS,
+             True))):
+        results["wave_hist_rows"].append(dict(
+            measure_rows_case(dev, n, m, 200 + i, permuted=permuted),
+            name=name))
+    print(f"phase kernel: ok {len(v1)} + {len(v2)} + "
+          f"{len(results['wave_hist_rows'])} shapes", flush=True)
     return results
+
+
+def measure_rows_case(dev, n, m, seed, g=N_FEATURES, nb=256, permuted=True):
+    """The one-slot list mode (wave_hist_rows) over ``m`` rows listed at a
+    ragged offset of a permuted ``n``-row buffer (``permuted`` False: the
+    rows in order, as a root window lists them), f32 [g, h, 1] stats:
+    bit-equal to wave_hist_rows_fixed_reference, within 1e-4 of the |stat|
+    histogram of the f32 plain version, bit-identical across two runs;
+    kernel, plain version and one index_add_ timed."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_cuda
+    k = 3
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, nb, (g, n), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    grad = torch.randn(n, generator=gen, device=dev) * 0.5
+    hess = torch.rand(n, generator=gen, device=dev) * 0.25
+    ghk = torch.stack([grad, hess, torch.ones(n, device=dev)], 1)
+    del grad, hess
+    off = (n - m) // 3
+    buf = torch.randperm(n, generator=gen, device=dev) if permuted \
+        else torch.arange(n, device=dev)
+    rows = buf.to(torch.int32)[off:off + m]
+    scale = hist_cuda.exponents_for_rows(ghk.abs().amax(0), m)
+    kw = dict(g=g, nb=nb, k=k)
+    run = lambda: hist_cuda.wave_hist_rows(bins, ghk, rows, scale_exp=scale,
+                                           **kw)
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    repro = bool(torch.equal(a, b))
+    exact = bool(torch.equal(a.view(torch.int32),
+                             hist_cuda.wave_hist_rows_fixed_reference(
+                                 bins, ghk, rows, scale, **kw)
+                             .view(torch.int32)))
+    ref = hist_cuda.wave_hist_rows_reference(bins, ghk, rows, **kw)
+    mag = hist_cuda.wave_hist_rows_reference(bins, ghk.abs(), rows, **kw)
+    err = float((a.double() - ref.double()).abs().max())
+    ok = repro and exact and bool(((a - ref).abs() <= 1e-4 * mag
+                                   + 1e-6).all())
+    ms = time_ms(run, reps=20)
+    plain_ms = time_ms(lambda: hist_cuda.wave_hist_rows_reference(
+        bins, ghk, rows, **kw), reps=2, warmup=1)
+    r64 = rows.long()
+    idx = bins[:, r64].long()
+    idx += (torch.arange(g, device=dev) * nb)[:, None]
+    idx = idx.reshape(-1)
+    src = ghk[r64][None].expand(g, -1, -1).reshape(-1, k)
+    table = torch.zeros((g * nb, k), device=dev)
+
+    def lib():
+        table.zero_()
+        table.index_add_(0, idx, src)
+    library_ms = time_ms(lib, reps=3, warmup=1)
+    lib_err = float((table.double() - ref.double()).abs().max())
+    del idx, src, table, r64
+    # bytes: the list, each listed row's bins and stats, the histogram
+    # out; operations: one add a listed row, group and stat
+    bytes_ = m * (4 + g + k * 4) + g * nb * k * 4
+    bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = m * g * k / F32_OPS_PER_S * 1e3
+    r = dict(kernel="wave_hist_rows", mode="f32_rows", rows=n,
+             rows_in_wave=m, case=dict(n=n, m=m, g=g, nb=nb, k=k,
+                                       permuted=permuted),
+             repro=repro, ok=ok, exact=exact,
+             tolerance="bit-equal to wave_hist_rows_fixed_reference; "
+             "1e-4*|hist| + 1e-6 of the f32 plain version",
+             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             library_ms=library_ms, library_max_abs_err=lib_err,
+             library_call="index_add_", bytes_bound_ms=bound_bytes_ms,
+             ops_bound_ms=ops_ms, bound_ms=max(bound_bytes_ms, ops_ms),
+             bound_by="bytes" if bound_bytes_ms >= ops_ms else "operations",
+             tc_ms=None)
+    print(f"  kernel wave_hist_rows f32 n={n} m={m} "
+          f"{'permuted' if permuted else 'in order'} G={g} NB={nb} K={k}: "
+          f"ok={ok} repro={repro} exact={exact} max_abs_err={err:.3g} "
+          f"kernel {ms:.3f} ms, bound {r['bound_ms'] * 1e3:.1f} us "
+          f"({r['bound_by']}), plain {plain_ms:.2f} ms, library "
+          f"{library_ms:.2f} ms", flush=True)
+    del bins, ghk, buf, rows, a, b, ref, mag
+    torch.cuda.empty_cache()
+    if not ok:
+        fail(f"wave_hist_rows disagrees with its plain version at n={n} "
+             f"m={m}")
+    return r
 
 
 def phase_ubench():
@@ -1186,6 +1386,498 @@ def phase_train(dev, seed: int, profile: bool):
           f"byte-identical across runs), binning dense {bin_dense_s:.1f} s, "
           f"CSR {bin_s:.1f} s (same codes)", flush=True)
     return result, models, x, y, dense._handle
+
+
+#: the fork's retrain window at its own size (PAPERS.md: a 20M-row window
+#: every retrain): the harness's 53 columns, a 2M-row held-out tail
+WIN_ROWS = 20_000_000
+WIN_TAIL = 2_000_000
+WIN_COLS = 53
+WIN_ROUNDS = 50
+WIN_CHUNK = 25
+#: held-out AUC floor of the 20M-row window's model, fixed in PERF.md
+#: before the first card run
+WIN_AUC_FLOOR = 0.70
+#: the row count at which the JAX package leaves its device grower
+#: (2 * COUNT_SPLIT_ROWS) and a bit more: the host learner's route
+HOST_ROUTE_ROWS = (1 << 25) + (1 << 20)
+HOST_ROUNDS = 5
+HOST_ROUTE_ROUNDS = 3
+#: training AUC floor of path B's binary runs (63 leaves, 5 rounds),
+#: fixed in PERF.md before the first card run
+HOST_AUC_FLOOR = 0.75
+HOST_WALK_ROWS = 100_000
+
+
+def window_shape(n: int, seed: int, chunk: int = 1 << 20):
+    """A window of the fork's cache-admission rows with the harness's 53
+    dense columns (src/test.cpp:125-209): 50 inter-arrival gaps (0 past
+    the object's history), round(100 log2 size), round(100 log2 cache
+    bytes available) and the cost.  Each row's object has a lognormal
+    mean inter-arrival gap; its history length falls with that gap; the
+    label is the OPT-like admission of a next request whose reuse volume
+    (next gap x size) is small.  Made from ``seed`` in chunks of rows
+    (float32, (n, 53)); labels (n,) float32."""
+    import numpy as np
+    x = np.zeros((n, WIN_COLS), np.float32)
+    y = np.zeros(n, np.float32)
+    for c0 in range(0, n, chunk):
+        rng = np.random.default_rng([seed, c0 // chunk])
+        m = min(chunk, n - c0)
+        log_mu = rng.normal(7.0, 2.0, m)
+        mu = np.exp(log_mu)
+        hist_len = np.clip((50 * (1.0 - log_mu / 14.0)
+                            + rng.normal(0, 6, m)).astype(np.int64), 0, 50)
+        gaps = np.maximum(np.round(rng.exponential(1.0, (m, 50))
+                                   * mu[:, None]), 1.0)
+        gaps[np.arange(50)[None, :] >= hist_len[:, None]] = 0.0
+        size = np.clip(rng.lognormal(9.0, 1.5, m), 64, 1 << 26)
+        avail = rng.uniform(0.0, float(1 << 30), m)
+        x[c0:c0 + m, :50] = gaps
+        x[c0:c0 + m, 50] = np.round(100.0 * np.log2(size))
+        x[c0:c0 + m, 51] = np.where(avail <= 0, 0.0,
+                                    np.round(100.0 * np.log2(
+                                        np.maximum(avail, 1.0))))
+        x[c0:c0 + m, 52] = 1.0
+        volume = rng.exponential(1.0, m) * mu * size
+        y[c0:c0 + m] = volume < 1.5e8
+    return x, y
+
+
+def window_run(name, ds, dev, params, path, rounds):
+    """``engine.train`` of one configuration on the window on one path
+    ("fused": chunks of ``fused_chunk``; "per_iteration": a callback
+    without the eval-cadence mark): the booster and what the run
+    counted.  wave_hist's launches (device counter) must equal the trees'
+    waves plus the warm-up's."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import hist_cuda
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist_cuda.wave_hist.launches.reset()          # this run only
+    torch.cuda.synchronize(dev)
+    params = {k: v for k, v in params.items() if k != "num_iterations"}
+    t0 = time.perf_counter()
+    booster = lt.train({**params, "device": dev.type}, ds,
+                       num_boost_round=rounds,
+                       callbacks=None if path == "fused"
+                       else [_per_iteration], verbose_eval=False)
+    text = booster.model_to_string()
+    torch.cuda.synchronize(dev)
+    train_s = time.perf_counter() - t0
+    gb = booster._gbdt
+    grower = gb._grower
+    launches = hist_cuda.wave_hist.launches.read()
+    stats = gb.tree_stats
+    waves = sum(st[2] for st in stats)
+    cap = dict(grower.capture_stats)
+    if launches <= 0 or launches != waves + cap["warmup_waves"]:
+        fail(f"window {name} {path}: wave_hist launches {launches} != "
+             f"tree waves {waves} + warm-up {cap['warmup_waves']}")
+    chunk = int(params["fused_chunk"])
+    want = [chunk] * (rounds // chunk) if path == "fused" \
+        else [1] * rounds
+    if [st[1] for st in stats] != want:
+        fail(f"window {name} {path}: dispatches {[st[1] for st in stats]},"
+             f" expected {want}")
+    res = dict(path=path, train_s=train_s, s_per_tree=train_s / rounds,
+               dispatch_s=[st[0] for st in stats],
+               host_syncs=[st[3] for st in stats], launches=launches,
+               waves=waves, waves_per_tree=waves / rounds, capture=cap,
+               hist_cols=grower.hist_cols, wave_width=grower.wave_width,
+               int_scan=grower.int_scan, striped=grower.striped,
+               n_pad=grower.n_pad,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               model_text_sha256=hashlib.sha256(text.encode()).hexdigest())
+    return booster, res
+
+
+def check_leaf_counts(name, booster):
+    """Every tree's leaf counts sum to the rows in its bag exactly (counts
+    past 2^24 rows: the striped columns and the int8 f32 fallback)."""
+    gb = booster._gbdt
+    gb._flush_pending()
+    freq = gb.bag_freq if gb.need_bagging else 0
+    bags = {}
+    for it, tree in enumerate(gb.models):
+        if tree.num_leaves <= 1:
+            continue
+        r = it - it % freq if freq else -1
+        if r not in bags:
+            bags[r] = int(gb._grower.bag_mask_at(r).sum()) if freq \
+                else gb.num_data
+        total = int(tree.leaf_count[:tree.num_leaves].sum())
+        if total != bags[r]:
+            fail(f"window {name}: tree {it}'s leaf counts sum to {total}, "
+                 f"its bag holds {bags[r]} rows")
+    return len(bags)
+
+
+def phase_window20m(dev, seed: int, dense):
+    """Path A: the fork's 20M-row window (see the module docstring)."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import BinnedDataset, Metadata
+    t0 = time.perf_counter()
+    x_all, y_all = window_shape(WIN_ROWS + WIN_TAIL, seed + 11)
+    gen_s = time.perf_counter() - t0
+    x, y = x_all[:WIN_ROWS], y_all[:WIN_ROWS]
+    xt, yt = x_all[WIN_ROWS:], y_all[WIN_ROWS:]
+    base = {**PIPE_BASE, "num_iterations": WIN_ROUNDS,
+            "fused_chunk": WIN_CHUNK}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    x_dev = torch.from_numpy(x).to(dev)
+    torch.cuda.synchronize(dev)
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    handle = BinnedDataset.construct_from_device_matrix(
+        x_dev, Config({**base, "device": dev.type}))
+    torch.cuda.synchronize(dev)
+    bin_s = time.perf_counter() - t0
+    bin_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del x_dev
+    torch.cuda.empty_cache()
+    handle.metadata = Metadata(handle.num_data)
+    handle.metadata.set_label(y)
+    ds = dataset_of(handle)
+    print(f"  window20m: {WIN_ROWS} x {WIN_COLS} made in {gen_s:.1f} s, "
+          f"uploaded in {upload_s:.2f} s, binned on the card in "
+          f"{bin_s:.2f} s (peak {bin_peak:.2f} GB), "
+          f"{handle.num_groups} groups", flush=True)
+    runs = {}
+    boosters = {}
+    for name, extra, path in (("bf16", {}, "fused"),
+                              ("bf16", {}, "per_iteration"),
+                              ("int8", {"grad_quant_bits": 8}, "fused"),
+                              ("dp", {"gpu_use_dp": True}, "fused")):
+        booster, res = window_run(name, ds, dev, {**base, **extra}, path,
+                                  WIN_ROUNDS)
+        res["bags_checked"] = check_leaf_counts(name, booster)
+        key = f"{name}_{path}"
+        runs[key] = res
+        print(f"  window20m {key}: s/tree {res['s_per_tree']:.4f} "
+              f"(dispatches {[round(v, 3) for v in res['dispatch_s']][:4]}"
+              f"...), waves/tree {res['waves_per_tree']:.2f}, hist_cols "
+              f"{res['hist_cols']}, W {res['wave_width']}, int_scan "
+              f"{res['int_scan']}, n_pad {res['n_pad']}, peak "
+              f"{res['peak_mem_gb']:.2f} GB, captures "
+              f"{res['capture']['graphs']} ({res['capture']['capture_s']:.2f}"
+              f" s), leaf counts exact over {res['bags_checked']} bags, "
+              f"sha256 {res['model_text_sha256'][:16]}", flush=True)
+        if path == "per_iteration":
+            del booster
+        else:
+            boosters[name] = booster
+    if runs["bf16_fused"]["model_text_sha256"] \
+            != runs["bf16_per_iteration"]["model_text_sha256"]:
+        fail("window20m: fused and per-iteration model texts differ")
+    want = {"bf16_fused": (4, False), "int8_fused": (6, False),
+            "dp_fused": (6, False)}
+    for key, (k, int_scan) in want.items():
+        if runs[key]["hist_cols"] != k or runs[key]["int_scan"] != int_scan:
+            fail(f"window20m {key}: hist_cols {runs[key]['hist_cols']} "
+                 f"int_scan {runs[key]['int_scan']}, expected {k} "
+                 f"{int_scan}")
+    if runs["bf16_fused"]["n_pad"] != WIN_ROWS:
+        fail(f"window20m: row pad {runs['bf16_fused']['n_pad']}, the exact "
+             f"rows {WIN_ROWS} expected")
+    launches = sum(r["launches"] for r in runs.values())
+    launches_by_mode = {"k4_bf16_20m": runs["bf16_fused"]["launches"]
+                        + runs["bf16_per_iteration"]["launches"],
+                        "k6_int8_20m": runs["int8_fused"]["launches"],
+                        "k6_bf16_20m": runs["dp_fused"]["launches"]}
+    predict_launches = 0
+    routes = None
+    for name, booster in boosters.items():
+        before = forest_counts()
+        t0 = time.perf_counter()
+        pred = booster.predict(xt, raw_score=True)
+        runs[f"{name}_fused"]["predict_tail_s"] = time.perf_counter() - t0
+        n_l, r_l = counts_since(before)
+        predict_launches += n_l
+        routes = r_l if routes is None else {
+            k: routes[k] + r_l[k] for k in routes}
+        if not np.isfinite(pred).all() or pred.shape != (WIN_TAIL,):
+            fail(f"window20m {name}: held-out predictions not finite "
+                 f"({pred.shape})")
+        auc = auc_of(yt, pred)
+        runs[f"{name}_fused"]["heldout_auc"] = auc
+        print(f"  window20m {name}: held-out AUC on the {WIN_TAIL}-row "
+              f"tail {auc:.4f} (floor {WIN_AUC_FLOOR})", flush=True)
+        if auc < WIN_AUC_FLOOR:
+            fail(f"window20m {name}: held-out AUC {auc:.4f} below "
+                 f"{WIN_AUC_FLOOR}")
+    del boosters, ds, handle
+    torch.cuda.empty_cache()
+    # gpu_use_dp's K=5 (W=76) at the train phase's 2M x 28 binning
+    booster, res = window_run("dp_2m", dataset_of(dense), dev,
+                              {**TRAIN_BASE, "num_leaves": 255,
+                               "gpu_use_dp": True, "fused_chunk": ROUNDS},
+                              "fused", ROUNDS)
+    if (res["hist_cols"], res["wave_width"]) != (5, 76):
+        fail(f"window20m dp_2m: hist_cols {res['hist_cols']} W "
+             f"{res['wave_width']}, expected 5 and 76")
+    runs["dp_2m_fused"] = res
+    launches += res["launches"]
+    launches_by_mode["k5_bf16"] = res["launches"]
+    print(f"  window20m dp_2m (gpu_use_dp at 2M x 28): s/tree "
+          f"{res['s_per_tree']:.4f}, hist_cols 5, W 76", flush=True)
+    del booster
+    print(f"phase window20m: ok {WIN_ROWS} rows, bf16 fused == "
+          f"per-iteration (sha256), int8 K=6 on the f32 fallback scan, "
+          f"gpu_use_dp K=6 and K=5, every tree's leaf counts exact",
+          flush=True)
+    return dict(rows=WIN_ROWS, cols=WIN_COLS, tail=WIN_TAIL,
+                data_s=gen_s, upload_s=upload_s, binning_s=bin_s,
+                binning_peak_gb=bin_peak, runs=runs, launches=launches,
+                launches_by_mode=launches_by_mode,
+                predict_launches=predict_launches, predict_routes=routes)
+
+
+HOST_RUNS = {
+    "monotone": {"objective": "binary"},
+    "forced": {"objective": "binary"},
+    "l1": {"objective": "regression_l1", "metric": "l1"},
+    "quantile": {"objective": "quantile", "alpha": 0.9,
+                 "metric": "quantile"},
+    "mape": {"objective": "mape", "metric": "mape"},
+    "fobj": {},
+}
+#: path B's monotone constraints: the pT and m_jj columns that raise the
+#: labels' signal up, the m_jjj column that lowers it
+HOST_MONOTONE = {0: 1, 25: 1, 27: -1}
+HOST_BASE = {"max_bin": 255, "learning_rate": 0.1, "num_leaves": 63,
+             "min_data_in_leaf": 20}
+HOST_FORCED = {"feature": 25, "threshold": 1.0,
+               "left": {"feature": 0, "threshold": 1.0},
+               "right": {"feature": 27, "threshold": 1.0}}
+
+
+def host_run(name, ds, dev, params, rounds, fobj=None, valid=None):
+    """engine.train on the host learner: the booster and its counts (the
+    window kernel's launches, counted on the device, must be > 0 and
+    wave_hist must not launch)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import hist_cuda
+    hist_cuda.wave_hist.launches.reset()
+    hist_cuda.wave_hist_rows.launches.reset()
+    torch.cuda.synchronize(dev)
+    evals = {}
+    t0 = time.perf_counter()
+    booster = lt.train({**params, "device": dev.type}, ds,
+                       num_boost_round=rounds, fobj=fobj,
+                       valid_sets=valid, evals_result=evals,
+                       verbose_eval=False)
+    torch.cuda.synchronize(dev)
+    train_s = time.perf_counter() - t0
+    gb = booster._gbdt
+    launches = hist_cuda.wave_hist_rows.launches.read()
+    if gb.learner is None or gb._grower is not None:
+        fail(f"host_learner {name}: did not train on the host learner")
+    if launches <= 0 or hist_cuda.wave_hist.launches.read() != 0:
+        fail(f"host_learner {name}: wave_hist_rows launches {launches}, "
+             f"wave_hist {hist_cuda.wave_hist.launches.read()}")
+    if booster.num_trees() != rounds * gb.num_model:
+        fail(f"host_learner {name}: {booster.num_trees()} trees")
+    return booster, dict(train_s=train_s, s_per_tree=train_s / rounds,
+                         launches=launches, evals=evals,
+                         leaves=[t.num_leaves for t in gb.models])
+
+
+def host_checked(name, booster, x, dev):
+    """Booster.predict through forest_predict (bit-equal to its plain
+    version, within 1e-5 of the training scores) and within 1e-9 of the
+    host walk on HOST_WALK_ROWS rows."""
+    import numpy as np
+    gb = booster._gbdt
+    score = gb.train_score[0].double().cpu().numpy()
+    res = predict_checked(f"host_learner {name}", booster, x, score, dev,
+                          keep_raw=True)
+    raw = res.pop("raw")
+    sub = np.ascontiguousarray(x[:HOST_WALK_ROWS], np.float64)
+    walk = gb._predict_raw_host(sub, 0, gb.num_iterations(), None)[0]
+    err = float(np.abs(walk - raw[:HOST_WALK_ROWS]).max())
+    if err > 1e-5:
+        fail(f"host_learner {name}: predict vs the host walk {err:.3g}")
+    res["host_walk_max_abs"] = err
+    return res, raw
+
+
+def phase_host_learner(dev, seed: int, dense, x, y, tmp):
+    """Path B: the host learner on the card (see the module docstring)."""
+    import logging
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import BinnedDataset, Metadata
+    forced_path = os.path.join(tmp, "forced_splits.json")
+    with open(forced_path, "w") as fh:
+        json.dump(HOST_FORCED, fh)
+    y_reg = regression_target(x, seed)
+    runs, launches = {}, 0
+    predict_launches, routes = 0, None
+    for name, extra in HOST_RUNS.items():
+        params = {**HOST_BASE, **extra}
+        label = y_reg if name in ("l1", "quantile", "mape") else y
+        fobj = None
+        if name == "forced":
+            params["forcedsplits_filename"] = forced_path
+        if name == "fobj":
+            def fobj(preds, _ds, y=y):
+                p = 1.0 / (1.0 + np.exp(-preds))
+                return (p - y).astype(np.float32), \
+                    (p * (1.0 - p)).astype(np.float32)
+        # the train phase's binning, with this run's labels and (the
+        # dataset carries them) monotone constraints
+        handle = BinnedDataset.__new__(BinnedDataset)
+        handle.__dict__.update(dense.__dict__)
+        handle.metadata = Metadata(dense.num_data)
+        handle.metadata.set_label(label)
+        if name == "monotone":
+            handle.monotone_constraints = np.asarray(
+                [HOST_MONOTONE.get(f, 0) for f in dense.used_features],
+                np.int32)
+        ds = dataset_of(handle)
+        valid = [ds] if name in ("l1", "quantile", "mape") else None
+        booster, res = host_run(name, ds, dev, params, HOST_ROUNDS, fobj,
+                                valid)
+        launches += res["launches"]
+        pres, raw = host_checked(name, booster, x, dev)
+        res.update(pres)
+        predict_launches += res["predict_launches"]
+        r_l = res["predict_routes"]
+        routes = r_l if routes is None else {k: routes[k] + r_l[k]
+                                             for k in routes}
+        gb = booster._gbdt
+        if name in ("monotone", "forced", "fobj"):
+            res["train_auc"] = auc_of(y, raw)
+            if res["train_auc"] < HOST_AUC_FLOOR:
+                fail(f"host_learner {name}: training AUC "
+                     f"{res['train_auc']:.4f} below {HOST_AUC_FLOOR}")
+        if name == "monotone":
+            rng = np.random.default_rng(seed + 5)
+            probe = x[rng.choice(len(x), 1000, replace=False)].astype(
+                np.float64)
+            worst = 0.0
+            for f, sign in HOST_MONOTONE.items():
+                grid = np.quantile(x[:, f], np.linspace(0.001, 0.999, 64))
+                rows = np.repeat(probe, len(grid), axis=0)
+                rows[:, f] = np.tile(grid, len(probe))
+                pr = gb._predict_raw_host(rows, 0, gb.num_iterations(),
+                                          None)[0].reshape(len(probe), -1)
+                step = sign * np.diff(pr, axis=1)
+                worst = min(worst, float(step.min()))
+            res["monotone_worst_step"] = worst
+            if worst < -1e-9:
+                fail(f"host_learner monotone: predictions move against a "
+                     f"constraint by {worst:.3g}")
+        if name == "forced":
+            for i, tree in enumerate(gb.models):
+                left, right = int(tree.left_child[0]), int(tree.right_child[0])
+                if (int(tree.split_feature[0]) != 25 or left < 0
+                        or right < 0
+                        or int(tree.split_feature[left]) != 0
+                        or int(tree.split_feature[right]) != 27
+                        or abs(float(tree.threshold[0]) - 1.0) > 0.05):
+                    fail(f"host_learner forced: tree {i} does not start "
+                         f"with the forced splits")
+        if name in ("l1", "quantile", "mape"):
+            curve = next(iter(res["evals"]["valid_0"].values()))
+            res["metric_curve"] = curve
+            if not curve[-1] < curve[0]:
+                fail(f"host_learner {name}: training metric {curve} did "
+                     f"not fall")
+            if name == "quantile":
+                res["coverage"] = float((y_reg <= raw).mean())
+        print(f"  host_learner {name}: s/tree {res['s_per_tree']:.3f}, "
+              f"leaves {res['leaves']}, window-kernel launches "
+              f"{res['launches']}, predict vs host walk "
+              f"{res['host_walk_max_abs']:.2g}"
+              + (f", training AUC {res['train_auc']:.4f}"
+                 if "train_auc" in res else "")
+              + (f", metric {res['metric_curve'][0]:.4f} -> "
+                 f"{res['metric_curve'][-1]:.4f}"
+                 if "metric_curve" in res else "")
+              + (f", coverage {res['coverage']:.3f}"
+                 if "coverage" in res else ""), flush=True)
+        runs[name] = res
+        del booster
+    # the route at 2^25 + 2^20 rows: the device grower's row bound passed,
+    # the host learner trains, and says why
+    t0 = time.perf_counter()
+    xr, yr = higgs_shape(HOST_ROUTE_ROWS, seed + 7)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x_dev = torch.from_numpy(xr).to(dev)
+    handle = BinnedDataset.construct_from_device_matrix(
+        x_dev, Config({**TRAIN_BASE, "device": dev.type}))
+    torch.cuda.synchronize(dev)
+    bin_s = time.perf_counter() - t0
+    del x_dev
+    torch.cuda.empty_cache()
+    handle.metadata = Metadata(handle.num_data)
+    handle.metadata.set_label(yr)
+
+    class _Capture(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+    cap = _Capture()
+    logger = logging.getLogger("lightgbm_tpu_torch")
+    old_level = logger.level
+    logger.addHandler(cap)
+    logger.setLevel(logging.INFO)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        booster, res = host_run("route", dataset_of(handle), dev,
+                                {**TRAIN_BASE, "num_leaves": 31,
+                                 "verbose": 1}, HOST_ROUTE_ROUNDS)
+    finally:
+        logger.removeHandler(cap)
+        logger.setLevel(old_level)
+    why = [m for m in cap.lines if m.startswith("Using the host tree")]
+    if not why or "rows >= 2 * COUNT_SPLIT_ROWS" not in why[0]:
+        fail(f"host_learner route: no route reason logged ({why})")
+    route_launches = res["launches"]
+    launches += route_launches
+    gb = booster._gbdt
+    for i, tree in enumerate(gb.models):
+        total = int(tree.leaf_count[:tree.num_leaves].sum())
+        if total != HOST_ROUTE_ROWS:
+            fail(f"host_learner route: tree {i}'s leaf counts sum to "
+                 f"{total}, not {HOST_ROUTE_ROWS}")
+    score = gb.train_score[0]
+    if not bool(torch.isfinite(score).all()):
+        fail("host_learner route: non-finite training scores")
+    res.update(rows=HOST_ROUTE_ROWS, data_s=gen_s, binning_s=bin_s,
+               reason=why[0],
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               train_auc_sample=auc_of(yr[:2_000_000],
+                                       score[:2_000_000].double().cpu()
+                                       .numpy()))
+    runs["route"] = res
+    print(f"  host_learner route: {HOST_ROUTE_ROWS} x {N_FEATURES} made in "
+          f"{gen_s:.1f} s, binned on the card in {bin_s:.1f} s; "
+          f"'{why[0]}'; s/tree {res['s_per_tree']:.3f}, leaves "
+          f"{res['leaves']}, window-kernel launches {res['launches']}, "
+          f"leaf counts sum to the rows, peak {res['peak_mem_gb']:.2f} GB",
+          flush=True)
+    del booster, handle, xr, yr
+    torch.cuda.empty_cache()
+    print(f"phase host_learner: ok {len(runs)} runs on the host learner "
+          f"(monotone, forced, L1, quantile, mape, fobj, "
+          f"{HOST_ROUTE_ROWS} rows)", flush=True)
+    return dict(runs=runs, launches=launches,
+                launches_by_case={"f32_2m": launches - route_launches,
+                                  "f32_34.6m": route_launches},
+                predict_launches=predict_launches, predict_routes=routes)
 
 
 #: the lambdarank configuration's held-out set (bench.py::run_mslr's), and
@@ -3732,6 +4424,11 @@ def main() -> int:
     objectives = phase_objectives(dev, args.seed, x, dense, args.profile)
     data = phase_data(dev, args.seed, dense, x, y, train, args.profile)
     boosting = phase_boosting(dev, args.seed, dense, x, y)
+    window = phase_window20m(dev, args.seed, dense)
+    import tempfile
+    OUT_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        host = phase_host_learner(dev, args.seed, dense, x, y, tmp)
     del dense, y
     pipeline = phase_pipeline(dev, args.seed)
     serve = phase_serve(dev, models, x, args.seed)
@@ -3739,8 +4436,9 @@ def main() -> int:
     multiclass = phase_multiclass(dev, args.seed, args.profile)
 
     # wave_hist's path is training: its launches are those of every run
-    # (the data phase's two, the boosting phase's six and the pipeline
-    # phase's windows included); wave_hist_v2's path is the ubench
+    # at K=3 (the data phase's two, the boosting phase's six and the
+    # pipeline phase's windows included; window20m's layouts are counted
+    # in their own wave_hist:<mode> rows); wave_hist_v2's path is the ubench
     # entry point; forest_predict's is prediction: Booster.predict after
     # each training run and of the validation rows, the fleet's entry
     # point, the two PredictionServers and the pipeline's server (its
@@ -3756,6 +4454,8 @@ def main() -> int:
                    + sum(r["predict_launches"] for r in obj_runs)
                    + data["predict_launches"]
                    + boosting["predict_launches"]
+                   + window["predict_launches"]
+                   + host["predict_launches"]
                    + pipeline["predict_launches"]
                    + serve["fleet_entry_launches"]
                    + serve["server"]["launches"]
@@ -3766,6 +4466,8 @@ def main() -> int:
                      + sum(r["predict_routes"][k] for r in obj_runs)
                      + data["predict_routes"][k]
                      + boosting["predict_routes"][k]
+                     + window["predict_routes"][k]
+                     + host["predict_routes"][k]
                      + pipeline["predict_routes"][k]
                      + serve["fleet_entry_routes"][k]
                      + serve["server"]["routes"][k]
@@ -3787,6 +4489,22 @@ def main() -> int:
              ("forest_predict", dict(higgs, tc_ms=None), fp_launches,
               "lightgbm_tpu_torch/csrc/forest_predict.cu",
               "lightgbm_tpu/serve/packed.py:323")]
+    # kernel 1's layouts and modes on this slice's paths: each mode's case
+    # at the main path's shape beside the launches the mode made there
+    # (the cases at other widths are in chip_smoke.json)
+    wave_src = "lightgbm_tpu_torch/csrc/wave_hist.cu"
+    wave_tpu = "lightgbm_tpu/ops/hist_pallas.py:218"
+    by_mode = {c["mode"]: c for c in kernels["wave_hist"] if c.get("mode")}
+    for mode, n_launch in window["launches_by_mode"].items():
+        picks.append((f"wave_hist:{mode}", dict(by_mode[mode]), n_launch,
+                      wave_src, wave_tpu))
+    rows_cases = {c["name"]: c for c in kernels["wave_hist_rows"]}
+    for key, n_launch in host["launches_by_case"].items():
+        picks.append((f"wave_hist_rows:{key}", rows_cases[key], n_launch,
+                      wave_src, wave_tpu))
+    for name, _, n_launch, _, _ in picks:
+        if n_launch <= 0:
+            fail(f"{name} never launched on the main path")
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
@@ -3801,7 +4519,8 @@ def main() -> int:
         json.dump(dict(card=card, kind=kind, build_s=build_s,
                        kernels=kernels, ubench=ubench, train=train,
                        objectives=objectives, data=data,
-                       boosting=boosting, pipeline=pipeline,
+                       boosting=boosting, window20m=window,
+                       host_learner=host, pipeline=pipeline,
                        serve=serve,
                        multiclass=multiclass,
                        torch=torch.__version__, cuda=torch.version.cuda),

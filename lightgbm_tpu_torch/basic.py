@@ -198,13 +198,42 @@ class Booster:
         self._gbdt.add_valid(data._handle, name)
         return self
 
-    def update(self) -> bool:
+    def update(self, train_set=None, fobj=None) -> bool:
         """One boosting iteration; True when training cannot continue.
         Drives ``GBDT.train_chunked``: one iteration takes the
         per-iteration path, and the driver keeps the bagging state right
         when fused chunks (``update_chunked``, ``engine.train``) and single
-        updates mix."""
-        return self._gbdt.train_chunked(1)
+        updates mix.  With ``fobj(preds, train_set) -> (grad, hess)`` the
+        iteration trains on the custom gradients, on the host learner
+        (``lightgbm_tpu/basic.py:300-330``)."""
+        if train_set is not None:
+            raise LightGBMError("resetting training data mid-training is "
+                                "not ported to lightgbm_tpu_torch yet")
+        if fobj is None:
+            return self._gbdt.train_chunked(1)
+        grad, hess = fobj(self._curr_pred_for_fobj(), self._train_set)
+        return self._boost(grad, hess)
+
+    def _curr_pred_for_fobj(self) -> np.ndarray:
+        """The raw training scores for ``fobj``: (N,), or class-major
+        rows flattened row by row for several models."""
+        score = self._gbdt.train_score.double().cpu().numpy()
+        if score.shape[0] == 1:
+            return score[0]
+        return score.T.reshape(-1)
+
+    def _boost(self, grad, hess) -> bool:
+        grad = np.asarray(grad, np.float32)
+        hess = np.asarray(hess, np.float32)
+        num_model = self._gbdt.num_model
+        n = self._gbdt.num_data
+        if grad.size != n * num_model or hess.size != n * num_model:
+            raise LightGBMError(f"gradients size mismatch: {grad.size} != "
+                                f"{n * num_model}")
+        if num_model > 1:
+            grad = grad.reshape(n, num_model).T
+            hess = hess.reshape(n, num_model).T
+        return self._gbdt.train_one_iter(grad, hess)
 
     def update_chunked(self, n_iters: int, chunk: Optional[int] = None
                        ) -> bool:

@@ -15,10 +15,10 @@ class DART(GBDT):
     the dropped trees and the new one (dart.hpp:86-186).  The drop draw
     is the JAX package's numpy ``RandomState(drop_seed & 0x7FFFFFFF)``
     stream.  A dropped tree leaves and re-enters the training score by
-    the binned traversal over the grower's own ``(G, n_pad)`` codes
-    (``ops/traverse.py``, ``groups_major``): no second copy of the
-    training matrix.  ``traversals`` counts those traversals (training
-    and validation)."""
+    the binned traversal over the grower's (or the host learner's) own
+    ``(G, N)`` codes (``ops/traverse.py``, ``groups_major``): no second
+    copy of the training matrix.  ``traversals`` counts those traversals
+    (training and validation)."""
 
     def init_train(self, train_set):
         super().init_train(train_set)
@@ -38,9 +38,9 @@ class DART(GBDT):
         dt = device_tree(tree, self.train_set, self.config.num_leaves,
                          self.device)
         if train:
-            codes = self._grower.binned_t[:, :self.num_data]
             self.train_score[k] = add_tree_score(
-                self.train_score[k], codes, dt, 1.0, groups_major=True)
+                self.train_score[k], self._train_codes_t(), dt, 1.0,
+                groups_major=True)
             self.traversals += 1
         if valid:
             for v in self.valid_sets:
@@ -147,7 +147,7 @@ class DART(GBDT):
     def train_one_iter(self, gradients=None, hessians=None) -> bool:
         self._check_custom_gradients(gradients, hessians)
         self._dropping_trees()
-        if super().train_one_iter():
+        if super().train_one_iter(gradients, hessians):
             # training stopped before _normalize could restore the dropped
             # trees: undo the drop, so the stored model agrees with the
             # training score and predict() (the reference returns with

@@ -1,15 +1,20 @@
 """GBDT: the boosting loop, record replay into trees, model text.
 
-Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` for the per-iteration
-device path: scores live on the training device as a (num_model, N) float32
-tensor, gradients come from the objective as torch ops, each iteration
-grows one tree a class (K = ``num_model``) with
-``ops/grow.DeviceGrower``, and the trees' split records stay on the
-device until they are replayed into host ``Tree`` objects
-(``_flush_pending``).  Prediction of a large batch runs through the
-packed-forest kernel (``serve/packed.py``), of a small one by the host
-tree walk in float64.  The model text is the reference's "v2" format, so
-it loads into the JAX package and back.  Bagging redraws its row mask
+Counterpart of ``lightgbm_tpu/boosting/gbdt.py``: scores live on the
+training device as a (num_model, N) float32 tensor, gradients come from
+the objective as torch ops (or from the caller, ``fobj``), and each
+iteration grows one tree a class (K = ``num_model``).  Where
+``ops/grow.host_learner_reason`` finds nothing and ``device_growth`` is not
+``off``, ``ops/grow.DeviceGrower`` grows them and their split records
+stay on the device until they are replayed into host ``Tree`` objects
+(``_flush_pending``); otherwise the host learner (``tree/learner.py``)
+grows them (monotone constraints, forced splits, leaf-renewing
+objectives, ``fobj``, ``2 * COUNT_SPLIT_ROWS`` rows or more), renews
+their leaf outputs and updates the scores through its partition.
+Prediction of a large batch runs through the packed-forest kernel
+(``serve/packed.py``), of a small one by the host tree walk in float64.
+The model text is the reference's "v2" format, so it loads into the JAX
+package and back.  Bagging redraws its row mask
 every ``bagging_freq`` iterations and feature_fraction draws a mask per
 tree, both from the JAX package's Threefry keys, so the draws are its
 draws.  Validation sets (``add_valid``) keep their scores on the device
@@ -48,8 +53,9 @@ from ..data.dataset import BinnedDataset, Metadata
 from ..metrics import create_metrics
 from ..objectives import create_objective
 from ..ops.bagging import bagging_row_mask
-from ..ops.grow import DeviceGrower
+from ..ops.grow import DeviceGrower, check_slice_config, host_learner_reason
 from ..ops.histogram import bucket_size
+from ..parallel import create_tree_learner
 from ..ops.traverse import add_constant_score, add_tree_score, device_tree
 from ..params import PARAM_BY_NAME
 from ..robust import checkpoint as _checkpoint
@@ -195,6 +201,7 @@ class GBDT:
         self.feature_names: List[str] = []
         self.feature_infos: List[str] = []
         self._grower: Optional[DeviceGrower] = None
+        self.learner = None
         self._device_stop = False
         # [seconds, trees, waves (int, device tensor or _RecStack), host
         # syncs] per dispatch: a tree of the per-iteration path, a chunk
@@ -215,20 +222,20 @@ class GBDT:
                     features=int(train_set.num_features))
         self._last_chunk_stack = None
         self.train_set = train_set
+        check_slice_config(cfg, train_set)
+        # objective "none" (custom gradients, fobj): None, as in the JAX
+        # package
         self.objective = create_objective(cfg)
-        if self.objective.is_renew_tree_output:
-            # the JAX package trains these on its host learner
-            # (lightgbm_tpu/boosting/gbdt.py:381-386, renewal at :946-966)
-            raise LightGBMError(
-                f"objective={cfg.objective} renews its leaf outputs after "
-                f"growth, which needs the host learner (tree/learner.py); "
-                f"not ported to lightgbm_tpu_torch yet")
         n = train_set.num_data
         md = train_set.metadata
-        self.objective.init(md, n, self.device)
-        self.num_model = self.objective.num_model_per_iteration
-        self.class_need_train = [self.objective.class_need_train(k)
-                                 for k in range(self.num_model)]
+        if self.objective is not None:
+            self.objective.init(md, n, self.device)
+            self.num_model = self.objective.num_model_per_iteration
+            self.class_need_train = [self.objective.class_need_train(k)
+                                     for k in range(self.num_model)]
+        else:
+            self.num_model = max(int(cfg.num_class), 1)
+            self.class_need_train = [True] * self.num_model
         self.num_data = n
         self.has_init_score = md.init_score is not None
         self.train_score = self._initial_scores(md, n)
@@ -239,18 +246,69 @@ class GBDT:
         self.max_feature_idx = train_set.num_total_features - 1
         self.feature_infos = [m.feature_info_str() for m in
                               train_set.bin_mappers]
-        self._grower = DeviceGrower(train_set, cfg, self.device)
+        self._grower = self.learner = None
+        why = self._host_learner_reason(train_set)
+        if why is None:
+            self._grower = DeviceGrower(train_set, cfg, self.device)
+        else:
+            log_info(f"Using the host tree learner: {why}")
+            self._host_learner()
         self.bag_fraction = float(cfg.bagging_fraction)
         self.bag_freq = int(cfg.bagging_freq)
         self.need_bagging = self.bag_fraction < 1.0 and self.bag_freq > 0
         # carried as the JAX package carries it (gbdt.py:288-289); the
         # device grower always reads the hessian column
-        self.is_constant_hessian = bool(self.objective.is_constant_hessian
-                                        and not self.need_bagging)
-        # (num_data,) f32 in-bag mask of the current bagging round
+        self.is_constant_hessian = bool(
+            self.objective is not None
+            and self.objective.is_constant_hessian and not self.need_bagging)
+        # (num_data,) f32 in-bag mask of the current bagging round (device
+        # grower); the host learner's bag: an index buffer whose first
+        # bag_count rows are in the bag
         self.row_mask: Optional[torch.Tensor] = None
+        self.bag_buffer: Optional[torch.Tensor] = None
+        self.bag_count = n
         log_info(f"Training on {self.device} ({n} rows, "
                  f"{train_set.num_groups} feature groups)")
+
+    def _host_learner_reason(self, train_set) -> Optional[str]:
+        """Why the host learner trains this configuration, or None when
+        the device grower does (``device_growth`` on or auto and
+        ``ops/grow.host_learner_reason`` None; the JAX package's route,
+        ``lightgbm_tpu/boosting/gbdt.py:291-320``)."""
+        mode = str(self.config.device_growth).lower()
+        if mode == "off":
+            return "device_growth=off"
+        why = host_learner_reason(self.config, train_set, self.objective)
+        if why is not None and mode == "on":
+            log_warning(f"device_growth=on requested but the configuration "
+                        f"is not eligible ({why}); falling back to the host "
+                        f"learner")
+        return why
+
+    def _host_learner(self):
+        """The host learner, made at first use (custom gradients on a
+        device-grown booster make it too, over the grower's codes), with
+        the forced splits."""
+        if self.learner is None:
+            cfg = self.config
+            codes = (None if self._grower is None
+                     else self._grower.binned_t[:, :self.num_data])
+            self.learner = create_tree_learner(cfg, self.train_set,
+                                               self.device, codes)
+            if getattr(cfg, "forcedsplits_filename", ""):
+                import json
+                with open(cfg.forcedsplits_filename) as fh:
+                    self.learner.forced_splits = json.load(fh)
+                log_info(f"Loaded forced splits from "
+                         f"{cfg.forcedsplits_filename}")
+        return self.learner
+
+    def _train_codes_t(self) -> torch.Tensor:
+        """The training rows' ``(G, num_data)`` codes on the device, for
+        whole-data traversals."""
+        if self._grower is not None:
+            return self._grower.binned_t[:, :self.num_data]
+        return self._host_learner().traverse_binned
 
     def add_valid(self, valid_set: BinnedDataset, name: str) -> None:
         """Score ``valid_set`` (binned with the training set's mappers)
@@ -289,7 +347,7 @@ class GBDT:
 
     def boost_from_average(self, class_id: int) -> float:
         cfg = self.config
-        if self.models or self.has_init_score:
+        if self.models or self.has_init_score or self.objective is None:
             return 0.0
         if cfg.boost_from_average or self.train_set.num_features == 0:
             init_score = self.objective.boost_from_score(class_id)
@@ -304,21 +362,27 @@ class GBDT:
         return 0.0
 
     def bagging(self, it: int) -> None:
-        """Redraw the in-bag row mask when ``it`` starts a bagging round
+        """Redraw the bag when ``it`` starts a bagging round
         (lightgbm_tpu/boosting/gbdt.py:454-463): seed ``(bagging_seed +
         it) & 0x7FFFFFFF``, uniforms over the host learner's bagging pad
-        ``bucket_size(num_data)``."""
+        ``bucket_size(num_data)``; the device grower's row mask and the
+        host learner's index buffer hold the same draw."""
         if not self.need_bagging or it % self.bag_freq != 0:
             return
         seed = (int(self.config.bagging_seed) + it) & 0x7FFFFFFF
-        self.row_mask = bagging_row_mask(seed, bucket_size(max(
-            self.num_data, 1)), self.num_data, self.bag_fraction,
-            self.device)
+        if self._grower is not None:
+            self.row_mask = bagging_row_mask(seed, bucket_size(max(
+                self.num_data, 1)), self.num_data, self.bag_fraction,
+                self.device)
+        if self.learner is not None:
+            self.bag_buffer, self.bag_count = self.learner.bagging_state(
+                seed, self.bag_fraction)
 
     def _check_custom_gradients(self, gradients, hessians) -> None:
-        if gradients is not None or hessians is not None:
-            raise LightGBMError("custom gradients (fobj) are not ported to "
-                                "lightgbm_tpu_torch yet")
+        """Custom gradients come as both arrays or neither."""
+        if (gradients is None) != (hessians is None):
+            raise LightGBMError("custom gradients need both gradients and "
+                                "hessians")
 
     def _tree_multiplier(self) -> float:
         return 1.0
@@ -368,14 +432,20 @@ class GBDT:
         dispatch pipeline full, and trims the extra stumps afterwards.)
         A class with nothing to learn (``class_need_train``) gets a fixed
         stump, which carries the class's score in the first iteration.
-        Custom gradients (``fobj``) are not ported.  With telemetry on,
-        the iteration is a ``train.iter`` span (it syncs with the card only
+        Custom gradients (``fobj``: ``(K, N)``-shaped arrays) and the
+        configurations the device grower does not take run on the host
+        learner (:meth:`_train_one_iter_host`).  With telemetry on, the
+        iteration is a ``train.iter`` span (it syncs with the card only
         under sync profiling)."""
         self._check_custom_gradients(gradients, hessians)
+        host = self._grower is None or gradients is not None
+        run = (lambda: self._train_one_iter_host(gradients, hessians)) \
+            if host else self._train_one_iter
         if not obs.enabled():
-            return self._train_one_iter()
-        with obs.span("train.iter", cat="boost", iteration=self.iter) as sp:
-            out = self._train_one_iter()
+            return run()
+        with obs.span("train.iter", cat="boost", iteration=self.iter,
+                      path="host" if host else "device") as sp:
+            out = run()
             sp.sync_value = self.train_score
         obs.sample_device_memory()
         return out
@@ -412,6 +482,104 @@ class GBDT:
                         "that meet the split requirements")
             return True
         return False
+
+    def _train_one_iter_host(self, gradients=None, hessians=None) -> bool:
+        """One iteration on the host learner
+        (``lightgbm_tpu/boosting/gbdt.py:501-608``): a tree a class from
+        the objective's gradients or the caller's, each renewed
+        (:meth:`_renew_tree_output`), shrunk and added to the training
+        scores through the learner's partition (or, under bagging, by the
+        binned traversal of every row).  The validation sets take the
+        trees at evaluation time.  Returns True when every class's tree
+        is a stump."""
+        learner = self._host_learner()
+        if self._grower is not None:
+            # a device-grown booster taking custom gradients
+            self._flush_pending()
+        K = self.num_model
+        if gradients is None:
+            # the objective's (or RF's fixed) gradients, the hooks applied
+            grad, hess, init_scores = self._device_gradients()
+        else:
+            init_scores = [0.0] * K
+            grad = torch.as_tensor(np.asarray(gradients, np.float32)
+                                   .reshape(K, -1), device=self.device)
+            hess = torch.as_tensor(np.asarray(hessians, np.float32)
+                                   .reshape(K, -1), device=self.device)
+            grad, hess = self._adjust_gradients(grad, hess)
+        if self.bag_buffer is None:
+            # the learner was made after the round's draw
+            self._sync_fused_bagging()
+        self.bagging(self.iter)
+        grad, hess = self._post_bagging_adjust(grad, hess)
+        shrink = self.shrinkage_rate * self._tree_multiplier()
+        should_continue = False
+        for k in range(K):
+            tree = Tree(2)
+            if self.class_need_train[k] and self.train_set.num_features > 0:
+                tree = learner.train(
+                    grad[k], hess[k], indices_buffer=self.bag_buffer,
+                    data_count=self.bag_count
+                    if self.bag_buffer is not None else None)
+            if tree.num_leaves > 1:
+                should_continue = True
+                self._renew_tree_output(tree, k)
+                tree.apply_shrinkage(shrink)
+                self._update_score_host(tree, k)
+                if abs(init_scores[k]) > K_EPSILON:
+                    tree.add_bias(init_scores[k])
+            elif len(self.models) < K:
+                if not self.class_need_train[k]:
+                    output = (self.objective.boost_from_score(k)
+                              if self.objective is not None else 0.0)
+                else:
+                    output = init_scores[k]
+                tree = Tree(2)
+                tree.leaf_value[0] = output
+                if abs(output) > K_EPSILON:
+                    self.train_score[k] += output
+            self.models.append(tree)
+        if not should_continue:
+            log_warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            if len(self.models) > K:
+                del self.models[-K:]
+            return True
+        self.iter += 1
+        return False
+
+    def _renew_tree_output(self, tree: Tree, class_id: int) -> None:
+        """Percentile leaf renewal of the L1-style objectives
+        (serial_tree_learner.cpp:780-818,
+        ``lightgbm_tpu/boosting/gbdt.py::_renew_tree_output``): each leaf's
+        output becomes the objective's percentile of its rows' residuals
+        (one copy of the scores and the partition to the host)."""
+        obj = self.objective
+        if obj is None or not obj.is_renew_tree_output:
+            return
+        score = self.train_score[class_id].double().cpu().numpy()
+        label = np.asarray(obj.label, np.float64)
+        w = obj.label_weight if obj.name == "mape" else obj.weights
+        for leaf, rows in self.learner.leaf_indices_host().items():
+            if len(rows) == 0:
+                continue
+            residuals = label[rows] - score[rows]
+            lw = w[rows] if w is not None else None
+            tree.leaf_value[leaf] = obj.renew_tree_output(
+                tree.leaf_value[leaf], residuals, lw)
+
+    def _update_score_host(self, tree: Tree, class_id: int) -> None:
+        """Add a host-learned tree to the training scores: through the
+        partition, or under bagging (out-of-bag rows are in no window) by
+        the binned traversal of every row."""
+        if self.bag_buffer is not None and self.bag_count < self.num_data:
+            dt = device_tree(tree, self.train_set, self.config.num_leaves,
+                             self.device)
+            self.train_score[class_id] = add_tree_score(
+                self.train_score[class_id], self._train_codes_t(), dt, 1.0,
+                groups_major=True)
+        else:
+            self.learner.update_score(self.train_score[class_id], tree)
 
     def _grow_trees(self, grad, hess, biases, shrink):
         """One tree a class on the device, pending in ``models``; returns
@@ -595,7 +763,8 @@ class GBDT:
         obs.sample_device_memory()
 
     def _sync_fused_bagging(self) -> None:
-        """Set ``row_mask`` to what a per-iteration run would hold at
+        """Set ``row_mask`` (and the host learner's ``bag_buffer``) to
+        what a per-iteration run would hold at
         ``self.iter`` (``lightgbm_tpu/boosting/gbdt.py:827``): fused chunks
         redraw their masks on the card, so a later per-iteration step
         (the chunk remainder, ``Booster.update``) first takes the draw of
@@ -603,8 +772,13 @@ class GBDT:
         if not self.need_bagging or self.iter <= 0:
             return
         last_done = self.iter - 1
-        self.row_mask = self._grower.bag_mask_at(
-            last_done - last_done % self.bag_freq)
+        start = last_done - last_done % self.bag_freq
+        if self._grower is not None:
+            self.row_mask = self._grower.bag_mask_at(start)
+        if self.learner is not None:
+            self.bag_buffer, self.bag_count = self.learner.bagging_state(
+                (int(self.config.bagging_seed) + start) & 0x7FFFFFFF,
+                self.bag_fraction)
 
     def _trim_device_stumps(self) -> None:
         """Stop after the lagged check saw a chunk of stumps, dropping the
@@ -900,14 +1074,16 @@ class GBDT:
     # training checkpoints (lightgbm_tpu/boosting/gbdt.py:1377-1487)
     def save_checkpoint(self, path: str) -> None:
         """Atomic training checkpoint: the full model text at ``path`` and
-        a ``.state.npz`` sidecar with the exact float32 training scores
-        and the iteration counter, both written temp-then-rename.  Reads
-        the scores off the card (one host sync)."""
+        a ``.state.npz`` sidecar with the exact float32 training scores,
+        the iteration counter and the host learner's feature_fraction RNG
+        state (when it trains), both written temp-then-rename.  Reads the
+        scores off the card (one host sync)."""
         self._flush_pending()
         _checkpoint.atomic_write_text(path, self.model_to_string())
-        _checkpoint.save_train_state(path + ".state.npz",
-                                     self.train_score.cpu().numpy(),
-                                     self.iter)
+        rng = getattr(self.learner, "_rng", None)
+        _checkpoint.save_train_state(
+            path + ".state.npz", self.train_score.cpu().numpy(), self.iter,
+            rng_state=rng.get_state() if rng is not None else None)
         log_info(f"Saved training checkpoint to {path}")
 
     def resume_from_checkpoint(self, path: str) -> "GBDT":
@@ -917,8 +1093,9 @@ class GBDT:
         card (in place: a captured tree reads it by address), and the
         bagging draw of the last redraw boundary is re-made.  Bagging,
         feature_fraction and int8 quantization are Threefry draws keyed on
-        the iteration, so continued boosting is byte-identical to the
-        uninterrupted run."""
+        the iteration, and the host learner's feature_fraction stream is
+        restored from the sidecar, so continued boosting is byte-identical
+        to the uninterrupted run."""
         if self.train_set is None:
             raise LightGBMError(
                 "resume_from_checkpoint requires init_train first "
@@ -928,7 +1105,7 @@ class GBDT:
             raise LightGBMError(
                 f"snapshot {path} has no state sidecar "
                 f"({path}.state.npz); cannot resume exactly")
-        score, it = state
+        score, it, rng_state = state
         if score.shape != (self.num_model, self.num_data):
             raise LightGBMError(
                 f"snapshot scores have shape {score.shape}, this dataset "
@@ -944,6 +1121,9 @@ class GBDT:
         self.train_score.copy_(torch.from_numpy(score).to(self.device))
         self._device_stop = False
         self._last_chunk_stack = None
+        rng = getattr(self.learner, "_rng", None)
+        if rng_state is not None and rng is not None:
+            rng.set_state(rng_state)
         # the per-iteration path continues mid-round: re-make the bagging
         # draw active after iteration (iter - 1)
         self._sync_fused_bagging()

@@ -17,8 +17,9 @@ class GOSS(GBDT):
     sample the rest and up-weight the sample's gradients and hessians.  No
     sampling during the warm-up (``iter < 1/learning_rate``,
     goss.hpp:138).  The selection runs on the training device
-    (``ops/bagging.goss_partition``'s draw) and reaches the grower as its
-    0/1 row mask; nothing is read back to the host."""
+    (``ops/bagging.goss_partition``'s draw) and reaches the device grower
+    as its 0/1 row mask (nothing is read back to the host), the host
+    learner as its index buffer."""
 
     def init_train(self, train_set):
         super().init_train(train_set)
@@ -37,13 +38,22 @@ class GOSS(GBDT):
         ``bucket_size(num_data)`` (``lightgbm_tpu/tree/learner.py:
         185-204``)."""
         self.row_mask = None
+        self.bag_buffer, self.bag_count = None, self.num_data
         self._goss_multiplier = None
         if it < int(1.0 / max(self.config.learning_rate, 1e-12)):
             return
         grad, hess = self._cur_grad
+        seed = (int(self.config.bagging_seed) + it) & 0x7FFFFFFF
+        if self._grower is None:
+            # the host learner's selection: an index buffer
+            # (lightgbm_tpu/boosting/goss.py:26-38)
+            self.bag_buffer, self.bag_count, self._goss_multiplier = \
+                self.learner.goss_state(seed, (grad * hess).abs().sum(0),
+                                        self.config.top_rate,
+                                        self.config.other_rate)
+            return
         n_pad = bucket_size(max(self.num_data, 1))
         score = F.pad((grad * hess).abs().sum(0), (0, n_pad - self.num_data))
-        seed = (int(self.config.bagging_seed) + it) & 0x7FFFFFFF
         self.row_mask, self._goss_multiplier = goss_row_mask(
             trandom.PRNGKey(seed), score, n_pad, self.num_data,
             self.config.top_rate, self.config.other_rate)

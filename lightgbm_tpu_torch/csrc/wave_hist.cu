@@ -9,7 +9,12 @@
 //   out[(g*NB + b), k, w] = sum of ghk[r, k] over rows r with
 //                           bins_t[g, r] == b and leaf_id[r] == pending[w]
 //
-// for every wave width W and K in {3,4,5,6}.  The TPU kernel built a one-hot
+// for every wave width W and K in {3,4,5,6}, with bf16, int8 or f32 stat
+// columns.  A second entry, wave_hist_rows_launch, computes one slot's
+// histogram over a caller's row list (a leaf's window of the host
+// learner's partition buffer, lightgbm_tpu/tree/learner.py
+// _window_histogram): no pre-pass, no sort, and no gather of the bins
+// before the kernel.  The TPU kernel built a one-hot
 // of the bins and contracted it on the MXU because the TPU has no scatter;
 // here each row adds its K values into exactly one (bin, slot) cell of a
 // shared-memory histogram.
@@ -58,9 +63,10 @@
 // (three more launches over the rows), and one CTA an SM of 1024 threads
 // whose list reads are gathers.
 //
-// Determinism: no float atomics anywhere.  bf16 stats are converted to
-// int64 fixed point with one power-of-two scale per stat column (chosen by
-// the caller from max|column| and the row count, so no sum can overflow),
+// Determinism: no float atomics anywhere.  bf16 (and f32) stats are
+// converted to int64 fixed point with one power-of-two scale per stat column
+// (chosen by the caller from max|column| and the row count, so no sum can
+// overflow; an f32 stat keeps the bits above 2^-scale, bf16 loses none),
 // accumulated with integer atomics in shared and then global memory, and
 // converted to f32 at the end.  Integer addition is associative, so the
 // result is bit-identical from run to run and to any other exact order
@@ -179,35 +185,47 @@ __global__ void scatter_rows_kernel(const int16_t* __restrict__ slot_of_row,
   }
 }
 
+// `list_len` >= 0: a one-slot histogram over a caller's row list of that
+// length (every entry in slot 0, no row -> slot map); -1 otherwise.
 struct Geo {
-  long long n;
+  long long n, list_len;
   int g, nb, w, wt, gb, splits;
 };
 
-template <bool QUANT>
-using AccT = typename std::conditional<QUANT, int, long long>::type;
-template <bool QUANT>
-using StatT = typename std::conditional<QUANT, int8_t, __nv_bfloat16>::type;
+// stat column types: bf16 and f32 accumulate in int64 fixed point, int8 in
+// int32
+enum Mode { BF16 = 0, INT8 = 1, F32 = 2 };
+template <int MODE>
+using AccT = typename std::conditional<MODE == INT8, int, long long>::type;
+template <int MODE>
+using StatT = typename std::conditional<
+    MODE == INT8, int8_t,
+    typename std::conditional<MODE == F32, float, __nv_bfloat16>::type>::type;
 
-// a row's K stats as fixed-point integers (bf16) or int8 values
-template <int K, bool QUANT>
-__device__ __forceinline__ void to_fixed(const StatT<QUANT>* s,
+__device__ __forceinline__ float stat_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float stat_float(float v) { return v; }
+
+// a row's K stats as fixed-point integers (bf16, f32) or int8 values
+template <int K, int MODE>
+__device__ __forceinline__ void to_fixed(const StatT<MODE>* s,
                                          const int (&exps)[K],
-                                         AccT<QUANT> (&q)[K]) {
+                                         AccT<MODE> (&q)[K]) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    if constexpr (QUANT)
+    if constexpr (MODE == INT8)
       q[k] = s[k];
     else
-      q[k] = __float2ll_rn(ldexpf(__bfloat162float(s[k]), exps[k]));
+      q[k] = __float2ll_rn(ldexpf(stat_float(s[k]), exps[k]));
   }
 }
 
 // add a row's K values into the shared-memory cells cell[0], cell[wt], ...
-template <int K, bool QUANT>
-__device__ __forceinline__ void add_row(AccT<QUANT>* cell, int wt,
-                                        const AccT<QUANT> (&q)[K]) {
-  if constexpr (QUANT) {
+template <int K, int MODE>
+__device__ __forceinline__ void add_row(AccT<MODE>* cell, int wt,
+                                        const AccT<MODE> (&q)[K]) {
+  if constexpr (MODE == INT8) {
 #pragma unroll
     for (int k = 0; k < K; ++k)
       if (q[k]) atomicAdd(cell + k * wt, q[k]);
@@ -234,17 +252,17 @@ __device__ __forceinline__ void add_row(AccT<QUANT>* cell, int wt,
 
 // flush a CTA's (gb, NB, K, wt) tile, slots from slot0: integer atomics
 // into the (G*NB, K, W) accumulator (row splits add into the same cells)
-template <int K, bool QUANT>
-__device__ void flush_tile(const AccT<QUANT>* cells, int ncell, int g0,
+template <int K, int MODE>
+__device__ void flush_tile(const AccT<MODE>* cells, int ncell, int g0,
                            int slot0, const Geo& p, void* acc_raw) {
   for (int i = threadIdx.x; i < ncell; i += THREADS) {
     const int j = i % p.wt;
-    const AccT<QUANT> v = cells[i];
+    const AccT<MODE> v = cells[i];
     if (v == 0 || slot0 + j >= p.w) continue;
     const int gbk = i / p.wt;  // (gi*nb + b)*K + k
     const long long o =
         ((long long)g0 * p.nb * K + gbk) * p.w + slot0 + j;
-    if constexpr (QUANT)
+    if constexpr (MODE == INT8)
       atomicAdd(reinterpret_cast<int*>(acc_raw) + o, v);
     else
       atomicAdd(reinterpret_cast<unsigned long long*>(acc_raw) + o,
@@ -255,9 +273,10 @@ __device__ void flush_tile(const AccT<QUANT>* cells, int ncell, int g0,
 // Grid (slot tiles * splits, group tiles): CTA (t, s) holds the (gb
 // groups, NB, K, wt slots) tile of slot tile t and reads the s-th of
 // `splits` parts of the tile's list from the counting sort (list null: a
-// one-slot wave, whose list is every row), LIST_ROWS entries a thread per
-// step with all their loads issued before their atomics.
-template <int K, bool QUANT>
+// one-slot wave, whose list is every row; p.list_len >= 0: the caller's
+// list, every entry in slot 0), LIST_ROWS entries a thread per step with
+// all their loads issued before their atomics.
+template <int K, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 wave_hist_list_kernel(const uint8_t* __restrict__ bins_t,
                       const int16_t* __restrict__ slot_of_row,
@@ -266,8 +285,8 @@ wave_hist_list_kernel(const uint8_t* __restrict__ bins_t,
                       const int* __restrict__ list,
                       const long long* __restrict__ tile_range,
                       void* __restrict__ acc_raw, const Geo p) {
-  using Acc = AccT<QUANT>;
-  using Stat = StatT<QUANT>;
+  using Acc = AccT<MODE>;
+  using Stat = StatT<MODE>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int nb = p.nb, wt = p.wt;
   Acc* cells = reinterpret_cast<Acc*>(smem);  // [gb][nb][K][wt]
@@ -280,9 +299,11 @@ wave_hist_list_kernel(const uint8_t* __restrict__ bins_t,
   for (int i = threadIdx.x; i < ncell; i += THREADS) cells[i] = 0;
   int exps[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) exps[k] = QUANT ? 0 : scale_exp[k];
-  const long long start = list ? tile_range[2 * tile] : 0;
-  const long long len = list ? tile_range[2 * tile + 1] : p.n;
+  for (int k = 0; k < K; ++k) exps[k] = MODE == INT8 ? 0 : scale_exp[k];
+  const bool direct = p.list_len >= 0;
+  const long long start = (list && !direct) ? tile_range[2 * tile] : 0;
+  const long long len =
+      direct ? p.list_len : (list ? tile_range[2 * tile + 1] : p.n);
   const long long a = start + len * part / p.splits;
   const long long b = start + len * (part + 1) / p.splits;
   __syncthreads();
@@ -297,12 +318,12 @@ wave_hist_list_kernel(const uint8_t* __restrict__ bins_t,
     }
 #pragma unroll
     for (int u = 0; u < LIST_ROWS; ++u)
-      j[u] = row[u] >= 0 ? slot_of_row[row[u]] - slot0 : -1;
+      j[u] = row[u] < 0 ? -1 : (direct ? 0 : slot_of_row[row[u]] - slot0);
     Acc q[LIST_ROWS][K];
 #pragma unroll
     for (int u = 0; u < LIST_ROWS; ++u) {
       if (j[u] >= 0)
-        to_fixed<K, QUANT>(ghk + (long long)row[u] * K, exps, q[u]);
+        to_fixed<K, MODE>(ghk + (long long)row[u] * K, exps, q[u]);
     }
     for (int gi = 0; gi < g_here; ++gi) {
       const uint8_t* col = bins_t + (long long)(g0 + gi) * p.n;
@@ -312,12 +333,12 @@ wave_hist_list_kernel(const uint8_t* __restrict__ bins_t,
 #pragma unroll
       for (int u = 0; u < LIST_ROWS; ++u)
         if (bin[u] < (unsigned)nb)
-          add_row<K, QUANT>(cells + ((gi * nb + bin[u]) * K) * wt + j[u],
-                            wt, q[u]);
+          add_row<K, MODE>(cells + ((gi * nb + bin[u]) * K) * wt + j[u],
+                           wt, q[u]);
     }
   }
   __syncthreads();
-  flush_tile<K, QUANT>(cells, ncell, g0, slot0, p, acc_raw);
+  flush_tile<K, MODE>(cells, ncell, g0, slot0, p, acc_raw);
 }
 
 // int64 fixed point -> f32 with the column's scale 2^-scale_exp[k]
@@ -341,10 +362,10 @@ struct Buffers {
   void* acc;
 };
 
-template <int K, bool QUANT>
+template <int K, int MODE>
 cudaError_t launch_k(dim3 grid, size_t smem, cudaStream_t st,
                      const Buffers& b, const Geo& geo) {
-  auto kern = wave_hist_list_kernel<K, QUANT>;
+  auto kern = wave_hist_list_kernel<K, MODE>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -353,16 +374,58 @@ cudaError_t launch_k(dim3 grid, size_t smem, cudaStream_t st,
   return cudaGetLastError();
 }
 
+template <int K>
+cudaError_t launch_mode(int mode, dim3 grid, size_t smem, cudaStream_t st,
+                        const Buffers& b, const Geo& geo) {
+  switch (mode) {
+    case BF16:
+      return launch_k<K, BF16>(grid, smem, st, b, geo);
+    case INT8:
+      return launch_k<K, INT8>(grid, smem, st, b, geo);
+    case F32:
+      return launch_k<K, F32>(grid, smem, st, b, geo);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_any(int k, int mode, dim3 grid, size_t smem,
+                       cudaStream_t st, const Buffers& b, const Geo& geo) {
+  switch (k) {
+    case 3:
+      return launch_mode<3>(mode, grid, smem, st, b, geo);
+    case 4:
+      return launch_mode<4>(mode, grid, smem, st, b, geo);
+    case 5:
+      return launch_mode<5>(mode, grid, smem, st, b, geo);
+    case 6:
+      return launch_mode<6>(mode, grid, smem, st, b, geo);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t to_f32(const void* acc, void* out, const void* scale_exp,
+                   long long total, int k, int w, cudaStream_t st) {
+  const int tpb = 256;
+  fixed_to_f32_kernel<<<(unsigned)((total + tpb - 1) / tpb), tpb, 0, st>>>(
+      (const long long*)acc, (float*)out, (const int32_t*)scale_exp, total,
+      k, w);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  `acc` must be zeroed by the
-// caller: int64 (bf16 input) or int32 (int8 input) of G*NB*K*W cells.
+// caller: int64 (bf16 or f32 input, `mode` 0 or 2) or int32 (int8 input,
+// `mode` 1) of G*NB*K*W cells.
 // `slots` is int16 scratch of n entries; for w > 1 the rows are sorted,
 // and `counts` is int32 scratch of pre_blocks * tiles entries, `list` of
-// n, `tile_range` int64 of 2 * tiles (all three unused at w = 1).  For bf16 input `out_f32` receives the converted
-// histogram; for int8 input the int32 accumulator is the output.  The
-// launch shape comes from ops/hist_cuda.py `_geometry`.  Returns the CUDA
-// error code of the launches (0 on success).
+// n, `tile_range` int64 of 2 * tiles (all three unused at w = 1).  For bf16
+// and f32 input `out_f32` receives the converted histogram; for int8 input
+// the int32 accumulator is the output.  The launch shape comes from
+// ops/hist_cuda.py `_geometry`.  Returns the CUDA error code of the
+// launches (0 on success).
 extern "C" int wave_hist_launch(const void* bins_t, const void* leaf_id,
                                 const void* ghk, const void* pending,
                                 const void* scale_exp, void* slots,
@@ -370,7 +433,7 @@ extern "C" int wave_hist_launch(const void* bins_t, const void* leaf_id,
                                 void* acc, void* out_f32, long long n, int g,
                                 int nb, int k, int w, int wt, int gb,
                                 int tiles, int splits, int pre_blocks,
-                                long long pre_rows, int leaf_bound, int quant,
+                                long long pre_rows, int leaf_bound, int mode,
                                 long long smem, void* stream) {
   if (wt < 1 || gb < 1 || splits < 1 || tiles < 1 || pre_blocks < 1 ||
       (long long)tiles * wt < w)
@@ -393,33 +456,38 @@ extern "C" int wave_hist_launch(const void* bins_t, const void* leaf_id,
     if (e != cudaSuccess) return (int)e;
   }
 
-  const Geo geo{n, g, nb, w, wt, gb, splits};
+  const Geo geo{n, -1, g, nb, w, wt, gb, splits};
   const dim3 grid((unsigned)(tiles * splits), (unsigned)((g + gb - 1) / gb),
                   1);
   const Buffers buf{(const uint8_t*)bins_t, (const int16_t*)slots, ghk,
                     (const int32_t*)scale_exp,
                     sorted ? (const int*)list : nullptr,
                     (const long long*)tile_range, acc};
-  e = cudaErrorInvalidValue;
-#define WH_CASE(KK)                                                        \
-  case KK:                                                                 \
-    e = quant ? launch_k<KK, true>(grid, (size_t)smem, st, buf, geo)      \
-              : launch_k<KK, false>(grid, (size_t)smem, st, buf, geo);    \
-    break;
-  switch (k) {
-    WH_CASE(3)
-    WH_CASE(4)
-    WH_CASE(5)
-    WH_CASE(6)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef WH_CASE
-  if (e != cudaSuccess || quant) return (int)e;
-  const long long total = (long long)g * nb * k * w;
-  const int tpb = 256;
-  fixed_to_f32_kernel<<<(unsigned)((total + tpb - 1) / tpb), tpb, 0, st>>>(
-      (const long long*)acc, (float*)out_f32, (const int32_t*)scale_exp,
-      total, k, w);
-  return (int)cudaGetLastError();
+  e = launch_any(k, mode, grid, (size_t)smem, st, buf, geo);
+  if (e != cudaSuccess || mode == INT8) return (int)e;
+  return (int)to_f32(acc, out_f32, scale_exp, (long long)g * nb * k * w, k,
+                     w, st);
+}
+
+// One slot over the caller's `m` rows `rows` (int32 indices into the n
+// columns of bins_t and the n rows of ghk; any order, no repeats needed for
+// exactness): acc and out_f32 as above with W = 1.  The grid is `splits`
+// parts of the list x the group tiles of `gb` groups.
+extern "C" int wave_hist_rows_launch(const void* bins_t, const void* ghk,
+                                     const void* rows, const void* scale_exp,
+                                     void* acc, void* out_f32, long long n,
+                                     long long m, int g, int nb, int k,
+                                     int gb, int splits, int mode,
+                                     long long smem, void* stream) {
+  if (gb < 1 || splits < 1 || m < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const Geo geo{n, m, g, nb, 1, 1, gb, splits};
+  const dim3 grid((unsigned)splits, (unsigned)((g + gb - 1) / gb), 1);
+  const Buffers buf{(const uint8_t*)bins_t, nullptr, ghk,
+                    (const int32_t*)scale_exp, (const int*)rows, nullptr,
+                    acc};
+  cudaError_t e = launch_any(k, mode, grid, (size_t)smem, st, buf, geo);
+  if (e != cudaSuccess || mode == INT8) return (int)e;
+  return (int)to_f32(acc, out_f32, scale_exp, (long long)g * nb * k, k, 1,
+                     st);
 }

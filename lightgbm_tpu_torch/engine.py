@@ -1,8 +1,9 @@
 """``train``: the boosting driver (counterpart of ``lightgbm_tpu/engine.py``
 with validation sets, ``feval``, callbacks and early stopping, and the
 fused driving of ``fused_chunk`` iterations a dispatch between evaluation
-boundaries; ``fobj``, ``init_model``, ``learning_rates`` and ``cv`` are not
-ported yet and are refused by name)."""
+boundaries, and ``fobj`` on the host learner; ``init_model``,
+``learning_rates`` and ``cv`` are not ported yet and are refused by
+name)."""
 
 from __future__ import annotations
 
@@ -48,13 +49,19 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
     set, under its valid name); ``feval(preds, dataset)`` adds
     ``(name, value, bigger_is_better)`` records; the results go to
     ``callbacks``, to ``evals_result`` and, with ``early_stopping_rounds``,
-    to early stopping, which sets ``booster.best_iteration``."""
-    for name, value in (("fobj", fobj), ("init_model", init_model),
+    to early stopping, which sets ``booster.best_iteration``.
+    ``fobj(preds, train_set) -> (grad, hess)`` trains on custom gradients
+    (objective ``none``), one iteration at a time."""
+    for name, value in (("init_model", init_model),
                         ("learning_rates", learning_rates)):
         if value is not None:
             raise LightGBMError(f"train({name}=...) is not ported to "
                                 f"lightgbm_tpu_torch yet")
     params = normalize_params(params)
+    if fobj is not None:
+        # custom gradients: no objective, the host learner, no fusing
+        # (lightgbm_tpu/engine.py:46-47, :134)
+        params["objective"] = "none"
     num_boost_round = params.pop("num_iterations", num_boost_round)
     if num_boost_round <= 0:
         raise ValueError("num_boost_round should be greater than zero.")
@@ -117,7 +124,7 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
     # per-iteration so its error comes at the first iteration
     needs_eval_cb = any(getattr(cb, "requires_eval", False)
                         for cb in cbs_before + cbs_after)
-    can_fuse = (fused_cap > 1 and not cbs_opaque
+    can_fuse = (fobj is None and fused_cap > 1 and not cbs_opaque
                 and not (needs_eval_cb and not has_eval)
                 and gbdt.fused_eligible())
 
@@ -141,7 +148,7 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
             finished = gbdt.train_chunked(step, chunk=min(step, fused_cap))
             advanced = max(gbdt.iter - before, 1)
         else:
-            finished = booster.update()
+            finished = booster.update(fobj=fobj)
             advanced = 1
         i_done = i + advanced - 1
         evaluation_result_list = []

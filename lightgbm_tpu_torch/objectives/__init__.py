@@ -1,7 +1,9 @@
 """Objective factory (``lightgbm_tpu/objectives/__init__.py``): every
-objective of the JAX package.  ``regression_l1``, ``quantile`` and
-``mape`` are ported, and ``GBDT.init_train`` refuses to train them
-(``is_renew_tree_output``)."""
+objective of the JAX package, and None for ``none`` (custom gradients,
+``fobj``).  ``regression_l1``, ``quantile`` and ``mape`` renew their leaf
+outputs (``is_renew_tree_output``), so the host learner trains them."""
+
+from typing import Optional
 
 from ..utils.log import LightGBMError
 from .base import ObjectiveFunction
@@ -33,8 +35,11 @@ _REGISTRY = {
 NOT_PORTED: dict = {}
 
 
-def create_objective(config) -> ObjectiveFunction:
+def create_objective(config) -> Optional[ObjectiveFunction]:
+    """The objective of ``config``, or None for custom gradients."""
     name = config.objective
+    if name in ("none", "null", "custom", "na"):
+        return None
     cls = _REGISTRY.get(name)
     if cls is None:
         why = f" ({NOT_PORTED[name]})" if name in NOT_PORTED else ""

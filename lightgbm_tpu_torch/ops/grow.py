@@ -3,7 +3,12 @@
 Counterpart of ``lightgbm_tpu/ops/grow.py`` (``GrowerPrograms._grow_impl``
 and ``DeviceGrower``), unsharded, with bf16 stat columns or, under
 ``grad_quant_bits=8``, int8 quantized ones, with the per-tree bagging row
-mask and feature_fraction mask, and with categorical splits.  The
+mask and feature_fraction mask, and with categorical splits.  The stat
+columns take the JAX package's layouts (``_hist_layout``): K=3 ``[g, h,
+1]``; from :data:`COUNT_SPLIT_ROWS` rows the striped K=4 (two count
+columns, rows split at half the grower's rows) or, under int8, K=6 (g, h
+and count each striped); under ``gpu_use_dp`` K=5 (hi/lo bf16 g and h)
+or K=6 (and striped counts).  The wave width scales with 3/K.  The
 formulation is the JAX package's:
 
 * a per-row ``leaf_id`` vector stands in for a row permutation; a split
@@ -28,7 +33,11 @@ scan stay int32 in quantized units (``ops/split.find_best_split`` with
 exact; after
 growth each leaf's value is refit from the full-precision gradients with
 an exact base-128 digit sum and written back into the split record that
-created the leaf.
+created the leaf.  Past :data:`INT32_SCAN_ROWS` rows (where an int32 sum
+of |q| <= 127 could wrap) the quantized histograms are dequantized once
+to f32 (the stripes cast to f32 before they are summed), the scan runs
+in f32 and the refit sums hi/lo bf16 columns exactly in int64 fixed
+point.
 
 The JAX package runs the wave loop inside ``lax.while_loop``s, one per
 stage, with no host sync.  Here a tree is cut into pieces that work in
@@ -65,10 +74,10 @@ import torch.nn.functional as F
 from ..obs import capture_track
 from ..params import PARAM_BY_NAME
 from ..utils import random as trandom
-from ..utils.log import LightGBMError
+from ..utils.log import LightGBMError, log_info
 from .bagging import bag_mask
 from .hist_cuda import MAX_LEAF_BOUND, hist_scale_exponents, wave_hist
-from .histogram import QUANT_MAX, bucket_size, quantize_gh_keys
+from .histogram import QUANT_MAX, bucket_size, quantize_gh_keys, slot_pitch
 from .split import (F_DEFAULT_LEFT, F_FEATURE, F_GAIN, F_LEFT_C, F_LEFT_G,
                     F_LEFT_H, F_LEFT_OUT, F_RIGHT_C, F_RIGHT_G, F_RIGHT_H,
                     F_IS_CAT, F_RIGHT_OUT, F_THRESHOLD, NEG_INF,
@@ -79,14 +88,18 @@ REC_I_FIELDS = 5    # leaf, right, feature, threshold, default_left
 REC_F_FIELDS = 9    # gain, lg, lh, lc, rg, rh, rc, left_out, right_out
 REC_F_LEFT_OUT, REC_F_RIGHT_OUT = 7, 8
 REC_C_WORDS = 8     # a categorical split's 256-bin set as int32 words
-# at or above this many rows the JAX package stripes its stat columns
-# (two count columns; under quantization two g and h columns too) to keep
-# every accumulator exact; the port has no striped layout yet.  Its
-# quantized f32 fallback scan starts higher still, past (2^31 - 1) // 127
-# rows (where int32 sums of |q| <= 127 could overflow), so refusing the
-# striped layouts refuses that too.
+#: at or above this many grower rows the stat columns are striped: two
+#: count columns (under int8 two g and two h columns too), each summing
+#: fewer than 2^24 rows.  The device grower takes up to twice this many
+#: real rows; past that the host learner trains.  Module-level so tests
+#: can force the striped layouts on small data (as the JAX package's
+#: tests set its own).
 COUNT_SPLIT_ROWS = 1 << 24
-HIST_COLS = 3       # [g, h, 1] stat columns, bf16 or int8
+#: the int32 scan of grad_quant_bits=8 is exact up to this many padded
+#: rows (|sum q| <= 127 * rows); past it the histograms are dequantized to
+#: f32 before the scan.  Module-level for the tests, like the JAX
+#: package's.
+INT32_SCAN_ROWS = ((1 << 31) - 1) // 127
 #: key words of a tree in the key table: feature_fraction (2), int8 noise
 #: g and h (2 + 2), bagging (2)
 KEY_WORDS = 8
@@ -119,13 +132,100 @@ def _wave_width(num_leaves: int, hist_cols: int) -> int:
     return min(wmax, max(int(num_leaves) - 1, 1))
 
 
-def _hist_layout(num_data: int, config):
-    """(quant_bits, striped) for this row count and config
-    (``lightgbm_tpu/ops/grow.py::_hist_layout``).  The port runs only the
-    layouts with :data:`HIST_COLS` columns: ``check_slice_config``
-    refuses the striped and gpu_use_dp ones."""
+def _hist_layout(num_rows: int, config):
+    """(quant_bits, striped, hist_cols) for the grower's row count and the
+    config (``lightgbm_tpu/ops/grow.py::_hist_layout``): int8 K=3, or 6
+    striped; gpu_use_dp K=5, or 6 with striped counts; bf16 K=3, or 4
+    with striped counts."""
+    dp = bool(getattr(config, "gpu_use_dp", False))
     quant_bits = int(getattr(config, "grad_quant_bits", 0) or 0)
-    return quant_bits, int(num_data) >= COUNT_SPLIT_ROWS
+    striped = int(num_rows) >= COUNT_SPLIT_ROWS
+    if quant_bits:
+        hist_cols = 6 if striped else 3
+    elif dp:
+        hist_cols = 6 if striped else 5
+    else:
+        hist_cols = 4 if striped else 3
+    return quant_bits, striped, hist_cols
+
+
+def grower_rows(num_data: int, config):
+    """(layout rows, n_pad): the row count the JAX grower keys its layout
+    on and the port's row pad.  Rows are padded to a power-of-two bucket
+    (one set of buffer shapes, and of captured graphs, per bucket) unless
+    ``train_row_bucketing`` is off or the bucket would reach twice
+    :data:`COUNT_SPLIT_ROWS`, where exact rows are used, as the JAX grower
+    does (``lightgbm_tpu/ops/grow.py:1494-1510``).  The JAX grower never
+    buckets under int8 and the port does (element i of a draw does not
+    depend on the draw's length), so its layout follows the real rows
+    there."""
+    n = int(num_data)
+    quant = bool(int(getattr(config, "grad_quant_bits", 0) or 0))
+    n_pad = n
+    if config.train_row_bucketing:
+        bucket = bucket_size(max(n, 1))
+        if bucket >= 2 * COUNT_SPLIT_ROWS:
+            log_info(f"train_row_bucketing: row bucket {bucket} would "
+                     f"reach the striped-count bound "
+                     f"({2 * COUNT_SPLIT_ROWS}); using exact rows ({n}): "
+                     f"graphs are per row count at this scale")
+        else:
+            n_pad = bucket
+    return (n if quant else n_pad), n_pad
+
+
+def _combine_hist_cols(h, k: int):
+    """The K accumulated stat columns (last axis) as [g, h, count]
+    (``lightgbm_tpu/ops/grow.py::_combine_hist_cols``): K=4 sums the
+    count stripes, K=5 the hi/lo pairs of g and h, K=6 every pair; f32 or
+    int32 (exact below :data:`INT32_SCAN_ROWS`)."""
+    if k == 4:
+        return torch.stack([h[..., 0], h[..., 1], h[..., 2] + h[..., 3]],
+                           dim=-1)
+    if k == 5:
+        return torch.stack([h[..., 0] + h[..., 1], h[..., 2] + h[..., 3],
+                            h[..., 4]], dim=-1)
+    if k == 6:
+        return torch.stack([h[..., 0] + h[..., 1], h[..., 2] + h[..., 3],
+                            h[..., 4] + h[..., 5]], dim=-1)
+    return h
+
+
+def _hi_lo_cols(grad, hess, one):
+    """[g_hi, g_lo, h_hi, h_lo] bf16 columns masked by ``one`` (bf16): each
+    lo column carries the bf16 rounding residual of its hi column
+    (``lightgbm_tpu/ops/grow.py::_hi_lo_cols``)."""
+    ghi, hhi = grad.to(torch.bfloat16), hess.to(torch.bfloat16)
+    glo = (grad - ghi.float()).to(torch.bfloat16)
+    hlo = (hess - hhi.float()).to(torch.bfloat16)
+    return [ghi * one, glo * one, hhi * one, hlo * one]
+
+
+def _grower_refusal(config, dataset):
+    """What of the data and the config the device grower does not take,
+    or None."""
+    if np.asarray(dataset.monotone_constraints).any():
+        return "monotone constraints"
+    if getattr(config, "forcedsplits_filename", ""):
+        return "forced splits"
+    if int(dataset.num_data) >= 2 * COUNT_SPLIT_ROWS:
+        return (f"{int(dataset.num_data)} rows >= 2 * COUNT_SPLIT_ROWS "
+                f"({2 * COUNT_SPLIT_ROWS})")
+    return None
+
+
+def host_learner_reason(config, dataset, objective):
+    """Why the device grower does not cover this training configuration,
+    or None when it does (``lightgbm_tpu/ops/grow.py::
+    device_growth_eligible``); the host learner (``tree/learner.py``)
+    trains the rest."""
+    if dataset.num_groups == 0 or dataset.num_features == 0:
+        return "no usable features"
+    if objective is None:
+        return "custom objective (objective=none, fobj)"
+    if objective.is_renew_tree_output:
+        return f"objective={objective.name} renews its leaf outputs"
+    return _grower_refusal(config, dataset)
 
 
 def feature_fraction_mask(seed: int, tree_idx: int, nf: int, k: int,
@@ -149,8 +249,9 @@ def feature_mask_from_key(key, nf: int, k: int,
 def unported_options(config) -> list:
     """The options set in ``config`` that select code the port does not
     have, whatever the data: the distributed learners and sharding
-    (ROADMAP item 7), the multi-host pod checkpoints, and the streaming
-    telemetry exporter, SLOs and XLA cost attribution."""
+    (ROADMAP item 7), the multi-host pod checkpoints, the streaming
+    telemetry exporter, SLOs and XLA cost attribution, and the profiled
+    wave plan (ROADMAP item 6)."""
     todo = []
     learner = str(config.tree_learner)
     if learner in ("feature", "data", "voting") \
@@ -174,6 +275,8 @@ def unported_options(config) -> list:
                     "exporter)")
     if bool(getattr(config, "profile_attribution", False)):
         todo.append("profile_attribution (XLA cost attribution)")
+    if str(config.wave_plan) == "profiled":
+        todo.append("wave_plan=profiled (the profiled stage plan)")
     return todo
 
 
@@ -186,29 +289,24 @@ def check_config_options(config) -> None:
                             + ", ".join(todo))
 
 
+#: the host learner's int32 row indices and the kernel's row lists hold
+#: fewer rows than this
+MAX_ROWS = 1 << 31
+
+
 def check_slice_config(config, dataset) -> None:
     """Refuse, by name, the options whose code paths the port does not
-    have yet (the JAX package either supports them on its device grower
-    or falls back to its host learner; the port has neither)."""
+    have yet, whichever learner would train them: more leaves than the
+    histogram kernel's leaf table holds, more rows than a row index
+    holds, and :func:`unported_options`."""
     todo = unported_options(config)
-    n = int(dataset.num_data)
-    quant_bits, striped = _hist_layout(n, config)
+    quant_bits = int(getattr(config, "grad_quant_bits", 0) or 0)
     if quant_bits not in (0, 8):
         todo.append(f"grad_quant_bits={quant_bits}")
-    if striped:
-        todo.append(f"{n} rows >= {COUNT_SPLIT_ROWS} (striped stat columns"
-                    + (" and the f32 quantized scan" if quant_bits else "")
-                    + ")")
-    if config.gpu_use_dp:
-        todo.append("gpu_use_dp (K=5/6 hi/lo stat columns)")
-    if str(config.wave_plan) == "profiled":
-        todo.append("wave_plan=profiled")
-    if np.asarray(dataset.monotone_constraints).any():
-        todo.append("monotone_constraints")
-    if getattr(config, "forcedsplits_filename", ""):
-        todo.append("forced splits")
     if int(config.num_leaves) > MAX_LEAF_BOUND:
         todo.append(f"num_leaves > {MAX_LEAF_BOUND}")
+    if int(dataset.num_data) >= MAX_ROWS:
+        todo.append(f"{int(dataset.num_data)} rows (int32 row indices)")
     if todo:
         raise LightGBMError("not ported to lightgbm_tpu_torch yet: "
                             + ", ".join(todo))
@@ -225,24 +323,21 @@ class DeviceGrower:
         if dataset.num_groups == 0:
             raise LightGBMError("no usable features: every feature is "
                                 "constant")
+        why = _grower_refusal(config, dataset)
+        if why is not None:
+            raise LightGBMError(f"the device grower does not take {why}: "
+                                f"the host learner trains it")
         self.config = config
         self.device = device
         self.num_data = int(dataset.num_data)
         self.num_groups = int(dataset.num_groups)
         self.num_leaves = int(config.num_leaves)
-        # per-group slot pitch: smallest power of two covering every group
-        nb = 64
-        for grp in dataset.groups:
-            while grp.num_total_bin > nb:
-                nb *= 2
-        self.nb = nb
+        self.nb = nb = slot_pitch(dataset)
         self.num_slots = self.num_groups * nb
-        # pow2 row bucket: one set of buffer shapes per bucket (the shapes
-        # a later CUDA-graph capture keys on); pad rows carry leaf id -1
-        # and zero stats
-        self.n_pad = bucket_size(max(self.num_data, 1)) \
-            if config.train_row_bucketing \
-            else self.num_data
+        # pow2 row bucket (or exact rows, grower_rows): one set of buffer
+        # shapes per bucket (the shapes a CUDA-graph capture keys on); pad
+        # rows carry leaf id -1 and zero stats
+        layout_rows, self.n_pad = grower_rows(self.num_data, config)
         # a device-binned dataset's codes are transposed where they lie
         binned = dataset.binned
         if not isinstance(binned, torch.Tensor):
@@ -261,10 +356,19 @@ class DeviceGrower:
         self.f_group = i64(dataset.f_group)
         self.f_offset = i64(dataset.f_offset)
         self.f_width = i64(nbins - (dbins == 0))
-        self.quant_bits, _ = _hist_layout(self.num_data, config)
-        self.wave_width = _wave_width(self.num_leaves, HIST_COLS)
+        self.quant_bits, self.striped, self.hist_cols = _hist_layout(
+            layout_rows, config)
+        # the stripes split the rows at half the JAX grower's rows
+        self.stripe_at = layout_rows // 2
+        self.col_rows = max(self.stripe_at, self.n_pad - self.stripe_at) \
+            if self.striped else self.n_pad
+        # the int32 scan, exact while |sum q| <= 127 * rows fits int32;
+        # past it the f32 fallback (lightgbm_tpu/ops/grow.py:281)
+        self.int_scan = bool(self.quant_bits) \
+            and self.n_pad <= INT32_SCAN_ROWS
+        self.wave_width = _wave_width(self.num_leaves, self.hist_cols)
         self.stage_plan = legacy_stage_plan(self.num_leaves, self.wave_width,
-                                            HIST_COLS)
+                                            self.hist_cols)
         self.lr = float(config.learning_rate)
         self._valid = torch.arange(self.n_pad, device=device) < self.num_data
         # sampling seeds (lightgbm_tpu/ops/grow.py:364-379)
@@ -285,6 +389,9 @@ class DeviceGrower:
         self._bag_npad = bucket_size(max(self.num_data, 1))
         # constants of the pieces (made here, never inside a capture)
         self._valid_f = self._valid.float()
+        if self.striped:
+            self._stripe = torch.arange(self.n_pad, device=device) \
+                < self.stripe_at
         self._leaf0 = torch.where(self._valid, 0, -1).to(torch.int32)
         self._ctl0 = torch.tensor([1, 0, 0], dtype=torch.int32,
                                   device=device)
@@ -347,14 +454,30 @@ class DeviceGrower:
             ok = ok & (depth < cfg.max_depth)
         return ok
 
-    def _wave_hist(self, leaf_id, gh, pending, scale_exp):
+    def _wave_hist(self, leaf_id, gh, pending, scale_exp, qscales):
         """(W, S, 3) histograms of the pending leaves: f32, or int32 in
-        quantized units."""
-        w = pending.shape[0]
+        quantized units under the int32 scan.  Past the int32 bound the
+        quantized histograms are dequantized once, each stripe cast to f32
+        before the stripes are summed (an int32 sum of two stripes can
+        wrap; counts sum exactly in int32)."""
+        w, k = pending.shape[0], self.hist_cols
         out = wave_hist(self.binned_t, leaf_id, gh, pending,
-                        g=self.num_groups, nb=self.nb, k=HIST_COLS, w=w,
-                        scale_exp=scale_exp, leaf_bound=self.num_leaves)
-        return out.permute(2, 0, 1)             # (G*NB, K, W) -> (W, S, K)
+                        g=self.num_groups, nb=self.nb, k=k, w=w,
+                        scale_exp=scale_exp, leaf_bound=self.num_leaves,
+                        col_rows=self.col_rows)
+        acc = out.permute(2, 0, 1)              # (G*NB, K, W) -> (W, S, K)
+        if not self.quant_bits or self.int_scan:
+            return _combine_hist_cols(acc, k)
+        f32 = lambda a: a.to(torch.float32)
+        if k == 6:
+            gsum = f32(acc[..., 0]) + f32(acc[..., 1])
+            hsum = f32(acc[..., 2]) + f32(acc[..., 3])
+            cnt = f32(acc[..., 4] + acc[..., 5])
+        else:
+            gsum, hsum, cnt = (f32(acc[..., 0]), f32(acc[..., 1]),
+                               f32(acc[..., 2]))
+        return torch.stack([gsum * qscales[0], hsum * qscales[1], cnt],
+                           dim=-1)
 
     def _refit(self, grad, hess, one_f, leaf_id, scales):
         """(L,) leaf values refit from the full-precision gradients
@@ -385,6 +508,24 @@ class DeviceGrower:
                 + s[:, 5] * (1 / 16384.0)) * scales[1]
         return self._leaf_output(gsum, hsum)
 
+    def _refit_f32(self, grad, hess, one_f, leaf_id):
+        """(L,) leaf values refit past the int32 bound
+        (lightgbm_tpu/ops/grow.py:1058-1073): the hi/lo bf16 columns of the
+        masked gradients summed per leaf.  The JAX package contracts them
+        in f32; here each column is summed exactly in int64 fixed point
+        (bf16 * 2**e is exact in f32, :func:`hist_scale_exponents`), so
+        the sums are the same in any order, run to run."""
+        L = self.num_leaves
+        cols = torch.stack(_hi_lo_cols(grad, hess, one_f.to(torch.bfloat16)),
+                           1)
+        e = hist_scale_exponents(cols, self.n_pad)
+        q = torch.round(cols.float() * torch.exp2(e.float())).to(torch.int64)
+        idx = torch.where(leaf_id >= 0, leaf_id, L).long()
+        sums = torch.zeros((L + 1, 4), dtype=torch.int64,
+                           device=self.device).index_add_(0, idx, q)
+        s = (sums[:L].double() * torch.exp2(-e.double())).float()
+        return self._leaf_output(s[:, 0] + s[:, 1], s[:, 2] + s[:, 3])
+
     # ------------------------------------------------------------------
     # the tree's state on the device, and the pieces of a tree
     def _ensure_state(self, capacity: int) -> None:
@@ -403,7 +544,7 @@ class DeviceGrower:
         quant = bool(self.quant_bits)
         i32 = dict(dtype=torch.int32, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
-        hdtype = torch.int32 if quant else torch.float32
+        hdtype = torch.int32 if self.int_scan else torch.float32
         keep = max(L - 1, 1)
         W = self.wave_width
         self._st = types.SimpleNamespace(
@@ -421,14 +562,15 @@ class DeviceGrower:
             # one tree's working state
             grad_p=torch.zeros(n, **f32), hess_p=torch.zeros(n, **f32),
             one_f=torch.zeros(n, **f32),
-            gh=torch.zeros((n, HIST_COLS), dtype=torch.int8 if quant
+            gh=torch.zeros((n, self.hist_cols), dtype=torch.int8 if quant
                            else torch.bfloat16, device=dev),
-            qscales=torch.ones(2, **f32), scale_exp=torch.zeros(3, **i32),
+            scale_exp=torch.zeros(self.hist_cols, **i32),
+            qscales=torch.ones(2, **f32),
             leaf_id=torch.zeros(n, **i32),
             hist=torch.zeros((L + 1, S, 3), dtype=hdtype, device=dev),
             total=torch.zeros((L + 1, 3), dtype=hdtype, device=dev),
-            # the winner's exact int32 left totals (quantized scan only)
-            bestl=torch.zeros((L + 1, 3), **i32) if quant else None,
+            # the winner's exact int32 left totals (int32 scan only)
+            bestl=torch.zeros((L + 1, 3), **i32) if self.int_scan else None,
             # the winner's bin set of each leaf (categorical scan only)
             bestc=torch.zeros((L + 1, 256), dtype=torch.bool, device=dev)
             if self.has_cat else None,
@@ -507,12 +649,22 @@ class DeviceGrower:
         st.grad_p.copy_(F.pad(st.grad, (0, pad)) * valid_f)
         st.hess_p.copy_(F.pad(st.hess, (0, pad)) * valid_f)
         st.one_f.copy_(valid_f * F.pad(st.row_mask, (0, pad)))
+        k = self.hist_cols
         if self.quant_bits:
             key = self._tree_key()
             sg, sh, gq, hq = quantize_gh_keys(st.grad_p, st.hess_p,
                                               key[2:4], key[4:6])
             m8 = st.one_f.to(torch.int8)
-            st.gh.copy_(torch.stack([gq * m8, hq * m8, m8], 1))
+            if k == 6:
+                # striped g, h and count columns: each stripe's int32
+                # accumulation stays exact below 127 * 2^24
+                s8 = self._stripe.to(torch.int8)
+                t8 = 1 - s8
+                cols = [gq * m8 * s8, gq * m8 * t8, hq * m8 * s8,
+                        hq * m8 * t8, m8 * s8, m8 * t8]
+            else:
+                cols = [gq * m8, hq * m8, m8]
+            st.gh.copy_(torch.stack(cols, 1))
             st.qscales.copy_(torch.stack([sg, sh]))
         else:
             # bf16 (lightgbm_tpu/ops/grow.py:597): g and h are rounded to
@@ -523,9 +675,19 @@ class DeviceGrower:
             # over every real row, out-of-bag ones included, as the JAX
             # package takes it
             one = st.one_f.to(torch.bfloat16)
-            st.gh.copy_(torch.stack([st.grad_p.to(torch.bfloat16) * one,
-                                     st.hess_p.to(torch.bfloat16) * one,
-                                     one], 1))
+            if k in (5, 6):
+                cols = _hi_lo_cols(st.grad_p, st.hess_p, one)
+            else:
+                cols = [st.grad_p.to(torch.bfloat16) * one,
+                        st.hess_p.to(torch.bfloat16) * one]
+            if k in (4, 6):
+                # two count stripes (the JAX package's layout; the kernel's
+                # fixed-point count is exact either way)
+                stripe = self._stripe.to(torch.bfloat16)
+                cols += [one * stripe, one * (1.0 - stripe)]
+            else:
+                cols += [one]
+            st.gh.copy_(torch.stack(cols, 1))
             st.scale_exp.copy_(hist_scale_exponents(st.gh, self.n_pad))
         st.leaf_id.copy_(self._leaf0)
         st.hist.zero_()
@@ -554,7 +716,7 @@ class DeviceGrower:
         st = self._st
         dev = self.device
         L, nb = self.num_leaves, self.nb
-        quant = bool(self.quant_bits)
+        quant = self.int_scan
         hist, total, value, depth, best = (st.hist, st.total, st.value,
                                            st.depth, st.best)
         nl = st.ctl[0]
@@ -562,7 +724,8 @@ class DeviceGrower:
                                       st.p_large[:ws])
         # 1. fresh histograms of the pending smaller children
         fresh = self._wave_hist(st.leaf_id, st.gh, p_small,
-                                None if quant else st.scale_exp)
+                                None if self.quant_bits else st.scale_exp,
+                                st.qscales)
         # root (first wave only): totals from group 0's slots (every row
         # hits one)
         first = st.ctl[2] == 0
@@ -718,9 +881,12 @@ class DeviceGrower:
         nl = st.ctl[0]
         leaf_vals = st.value[:L]
         if self.quant_bits:
-            leaf_vals = self._refit_into_records(
-                self._refit(st.grad_p, st.hess_p, st.one_f, st.leaf_id,
-                            st.qscales), st.rec_i, st.rec_f, nl, st.value)
+            refit = self._refit(st.grad_p, st.hess_p, st.one_f, st.leaf_id,
+                                st.qscales) if self.int_scan \
+                else self._refit_f32(st.grad_p, st.hess_p, st.one_f,
+                                     st.leaf_id)
+            leaf_vals = self._refit_into_records(refit, st.rec_i, st.rec_f,
+                                                 nl, st.value)
         # score update.  Trouble spot (lightgbm_tpu/ops/grow.py:1109-1116):
         # the JAX package adds float32(bf16(v)) + float32(bf16(v - hi)) per
         # row through a one-hot einsum with one nonzero per row, which is
@@ -826,7 +992,8 @@ class DeviceGrower:
         stats["graphs"] += 1
         capture_track.record("grow.tree", capture_track.signature_of(
             (self.n_pad, self.num_groups, self.nb, self.num_leaves,
-             self.quant_bits, sample)), t_start, t1 - t_start)
+             self.quant_bits, self.hist_cols, sample)), t_start,
+            t1 - t_start)
         return g
 
     def _drop_graphs(self) -> None:

@@ -8,19 +8,31 @@ leaves::
     out[g*NB + b, k, w] = sum of ghk[r, k] over rows r with
                           binned_t[g, r] == b and leaf_id[r] == pending[w]
 
-returning ``(G*NB, K, W)`` float32 (bf16 stat columns) or int32 (int8 stat
-columns), the layout of ``wave_hist_pallas``.  Non-negative ``pending``
-entries are distinct leaf ids; a slot whose entry is negative is empty and
-stays zero.  (The TPU kernel's equality mask would gather the rows of leaf
--1 there, the bucket padding, whose stats the grower zeroes: same result.)
+returning ``(G*NB, K, W)`` float32 (bf16 or f32 stat columns) or int32
+(int8 stat columns), the layout of ``wave_hist_pallas``.  Non-negative
+``pending`` entries are distinct leaf ids; a slot whose entry is negative
+is empty and stays zero.  (The TPU kernel's equality mask would gather
+the rows of leaf -1 there, the bucket padding, whose stats the grower
+zeroes: same result.)
 
 :func:`wave_hist` launches ``csrc/wave_hist.cu`` for CUDA tensors and takes
 the plain version :func:`wave_hist_reference` only for CPU tensors.  The
-kernel accumulates bf16 stats in int64 fixed point (one power-of-two scale
-per stat column, :func:`hist_scale_exponents`), so its f32 result is the
-exactly rounded sum, bit-identical run to run; the plain version sums in
-f32 in ``index_add_`` order.  The two therefore agree to f32 summation
-error, not bit for bit; int8 stats agree exactly.
+kernel accumulates bf16 and f32 stats in int64 fixed point (one
+power-of-two scale per stat column, :func:`hist_scale_exponents`), so its
+f32 result is the exactly rounded sum of the fixed-point values,
+bit-identical run to run (an f32 stat keeps its bits above the column's
+scale; a bf16 one keeps all of them); the plain version sums in f32 in
+``index_add_`` order.  The two therefore agree to f32 summation error, not
+bit for bit; int8 stats agree exactly.  A striped layout (K=4 or 6: each
+of g, h or the count in two columns, rows split between them) keeps every
+column's sum inside its accumulator; the int8 guard counts the rows of
+one column (``col_rows``), not of the call.
+
+:func:`wave_hist_rows` is the host learner's one-slot histogram: the same
+kernel over a caller's row list (a leaf's window of the partition
+buffer) in place of the wave's sorted list, with full-f32 stat columns
+(``lightgbm_tpu/tree/learner.py::_window_histogram``).  Its plain
+version is :func:`wave_hist_rows_reference`.
 
 :func:`wave_hist_v2` launches ``csrc/wave_hist_v2.cu``, the TPU v2 kernel's
 formulation: the histogram as the one-hot matrix product on the tensor
@@ -49,19 +61,37 @@ INT8_EXACT_ROWS = ((1 << 31) - 1) // 127
 
 
 def hist_scale_exponents(ghk: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """(K,) int32 fixed-point exponents for bf16 stat columns: column k is
-    accumulated as ``round(v * 2**e[k])`` in int64.  With ``max|col| <
-    2**p`` and ``n_rows <= 2**q``, ``e = 62 - p - q`` keeps every sum of
-    ``n_rows`` values below ``2**62``.  Computed on the device (no host
-    sync); the grower calls it once per tree."""
-    amax = ghk.abs().amax(dim=0).float()
+    """(K,) int32 fixed-point exponents for bf16 or f32 stat columns:
+    column k is accumulated as ``round(v * 2**e[k])`` in int64.  With
+    ``max|col| < 2**p`` and ``n_rows <= 2**q``, ``e = 62 - p - q`` keeps
+    every sum of ``n_rows`` values below ``2**62``.  Computed on the
+    device (no host sync); the grower calls it once per tree."""
+    return exponents_for_rows(ghk.abs().amax(dim=0).float(), n_rows)
+
+
+def exponents_for_rows(amax: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """:func:`hist_scale_exponents` from the (K,) column maxima ``amax``:
+    the host learner takes the maxima once a tree and the exponents of
+    each leaf window from its row count."""
     _, p = torch.frexp(amax)
     q = max(int(n_rows) - 1, 0).bit_length()
     e = (62 - q) - p.to(torch.int32)
     return torch.where(amax > 0, e, torch.zeros_like(e)).contiguous()
 
 
-def _check(binned_t, leaf_id, ghk, pending, g, nb, k, w):
+_STAT_DTYPES = (torch.bfloat16, torch.int8, torch.float32)
+#: the kernel's stat modes (csrc/wave_hist.cu ``Mode``)
+_MODE = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
+
+
+def _check_int8_rows(ghk, rows: int) -> None:
+    if ghk.dtype == torch.int8 and rows > INT8_EXACT_ROWS:
+        raise ValueError(f"int8 stats over {rows} rows of one column can "
+                         f"overflow int32 accumulators (limit "
+                         f"{INT8_EXACT_ROWS})")
+
+
+def _check(binned_t, leaf_id, ghk, pending, g, nb, k, w, col_rows=None):
     if binned_t.dim() != 2 or binned_t.shape[0] != g:
         raise ValueError(f"binned_t must be (G={g}, n), got "
                          f"{tuple(binned_t.shape)}")
@@ -73,8 +103,8 @@ def _check(binned_t, leaf_id, ghk, pending, g, nb, k, w):
                          f"{tuple(leaf_id.shape)} {leaf_id.dtype}")
     if ghk.shape != (n, k):
         raise ValueError(f"ghk must be ({n}, {k}), got {tuple(ghk.shape)}")
-    if ghk.dtype not in (torch.bfloat16, torch.int8):
-        raise ValueError(f"ghk must be bf16 or int8 stat columns, got "
+    if ghk.dtype not in _STAT_DTYPES:
+        raise ValueError(f"ghk must be bf16, int8 or f32 stat columns, got "
                          f"{ghk.dtype}")
     if pending.shape != (w,) or pending.dtype != torch.int32:
         raise ValueError(f"pending must be ({w},) int32, got "
@@ -83,9 +113,7 @@ def _check(binned_t, leaf_id, ghk, pending, g, nb, k, w):
         raise ValueError(f"K must be one of 3, 4, 5, 6, got {k}")
     if not 0 < nb <= 256 or w < 1:
         raise ValueError(f"need 0 < NB <= 256 and W >= 1, got NB={nb} W={w}")
-    if ghk.dtype == torch.int8 and n > INT8_EXACT_ROWS:
-        raise ValueError(f"int8 stats over {n} rows can overflow int32 "
-                         f"accumulators (limit {INT8_EXACT_ROWS})")
+    _check_int8_rows(ghk, n if col_rows is None else int(col_rows))
     devs = {t.device for t in (binned_t, leaf_id, ghk, pending)}
     if len(devs) != 1:
         raise ValueError(f"inputs on different devices: {devs}")
@@ -96,8 +124,8 @@ def wave_hist_reference(binned_t, leaf_id, ghk, pending, *, g: int, nb: int,
                         k: int, w: int) -> torch.Tensor:
     """The plain PyTorch version: per slot, select the slot's rows and
     ``index_add_`` their stats into every group's bins, accumulating in
-    f32 (bf16 input) or int32 (int8 input)."""
-    _check(binned_t, leaf_id, ghk, pending, g, nb, k, w)
+    f32 (bf16 or f32 input) or int32 (int8 input)."""
+    _check(binned_t, leaf_id, ghk, pending, g, nb, k, w, col_rows=0)
     dev = binned_t.device
     acc = torch.int32 if ghk.dtype == torch.int8 else torch.float32
     vals = ghk.to(acc)
@@ -119,21 +147,17 @@ def wave_hist_reference(binned_t, leaf_id, ghk, pending, *, g: int, nb: int,
 def wave_hist_fixed_reference(binned_t, leaf_id, ghk, pending, scale_exp,
                               *, g: int, nb: int, k: int,
                               w: int) -> torch.Tensor:
-    """The exact plain version of :func:`wave_hist`'s bf16 arithmetic, in
-    torch ops on any device: each stat ``v`` of column ``k`` becomes the
-    int64 ``round_half_even(v * 2**scale_exp[k])``, the integers are
-    summed with ``index_add_`` into ``(G*NB, K, W)``, and the sums are
-    scaled back as ``(acc.double() * 2**-scale_exp).float()``.  Integer
-    sums do not depend on their order, so the kernel must equal it bit
-    for bit.  A test oracle: nothing on the training path calls it."""
+    """The exact plain version of :func:`wave_hist`'s bf16 and f32
+    arithmetic, in torch ops on any device: each stat ``v`` of column
+    ``k`` becomes the int64 ``round_half_even(v * 2**scale_exp[k])``, the
+    integers are summed with ``index_add_`` into ``(G*NB, K, W)``, and the
+    sums are scaled back as ``(acc.double() * 2**-scale_exp).float()``.
+    Integer sums do not depend on their order, so the kernel must equal it
+    bit for bit.  A test oracle: nothing on the training path calls it."""
     _check(binned_t, leaf_id, ghk, pending, g, nb, k, w)
-    if ghk.dtype != torch.bfloat16:
-        raise ValueError(f"the fixed-point reference takes bf16 stat "
-                         f"columns, got {ghk.dtype}")
     dev = binned_t.device
     e = scale_exp.to(device=dev, dtype=torch.float64)
-    # bf16 * 2**e is exact in f64, so rounding it rounds the true product
-    q = torch.round(ghk.double() * torch.exp2(e)).to(torch.int64)
+    q = _fixed_point(ghk, e)
     acc = torch.zeros((g * nb, k, w), dtype=torch.int64, device=dev)
     base = (torch.arange(g, device=dev, dtype=torch.int64) * nb)[:, None]
     for s in range(w):
@@ -146,6 +170,71 @@ def wave_hist_fixed_reference(binned_t, leaf_id, ghk, pending, scale_exp,
         tile.index_add_(0, idx, q[rows].repeat(g, 1)[ok])
         acc[:, :, s] = tile
     return (acc.double() * torch.exp2(-e)[None, :, None]).float()
+
+
+def _fixed_point(ghk, e):
+    """int64 ``round_half_even(v * 2**e)`` of bf16 or f32 stats (the
+    product is exact in f64, so rounding it rounds the true product)."""
+    if ghk.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the fixed-point reference takes bf16 or f32 "
+                         f"stat columns, got {ghk.dtype}")
+    return torch.round(ghk.double() * torch.exp2(e)).to(torch.int64)
+
+
+def _check_rows(binned_t, ghk, rows, g, nb, k):
+    if binned_t.dim() != 2 or binned_t.shape[0] != g \
+            or binned_t.dtype != torch.uint8:
+        raise ValueError(f"binned_t must be (G={g}, n) uint8, got "
+                         f"{tuple(binned_t.shape)} {binned_t.dtype}")
+    n = binned_t.shape[1]
+    if ghk.shape != (n, k) or ghk.dtype not in _STAT_DTYPES:
+        raise ValueError(f"ghk must be ({n}, {k}) bf16, int8 or f32, got "
+                         f"{tuple(ghk.shape)} {ghk.dtype}")
+    if rows.dim() != 1 or rows.dtype != torch.int32:
+        raise ValueError(f"rows must be a 1-D int32 list, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    if k not in (3, 4, 5, 6) or not 0 < nb <= 256:
+        raise ValueError(f"need K in 3..6 and 0 < NB <= 256, got K={k} "
+                         f"NB={nb}")
+    _check_int8_rows(ghk, rows.shape[0])
+    devs = {t.device for t in (binned_t, ghk, rows)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on different devices: {devs}")
+    return n
+
+
+def wave_hist_rows_reference(binned_t, ghk, rows, *, g: int, nb: int,
+                             k: int) -> torch.Tensor:
+    """The plain version of :func:`wave_hist_rows`: ``index_add_`` of the
+    listed rows' stats into every group's bins, in list order, in f32
+    (bf16 or f32 input) or int32 (int8 input)."""
+    _check_rows(binned_t, ghk, rows, g, nb, k)
+    acc = torch.int32 if ghk.dtype == torch.int8 else torch.float32
+    r = rows.long()
+    return _rows_sum(binned_t, r, ghk[r].to(acc), g, nb, k)
+
+
+def _rows_sum(binned_t, r, vals, g, nb, k):
+    """``index_add_`` of the (m, K) ``vals`` of rows ``r`` into each
+    group's bins, a group at a time (no (G*m, K) copy)."""
+    out = torch.zeros((g * nb, k), dtype=vals.dtype, device=vals.device)
+    for gi in range(g):
+        b = binned_t[gi, r].long()
+        ok = b < nb
+        out.index_add_(0, (gi * nb + b)[ok], vals[ok])
+    return out
+
+
+def wave_hist_rows_fixed_reference(binned_t, ghk, rows, scale_exp, *, g: int,
+                                   nb: int, k: int) -> torch.Tensor:
+    """The exact plain version of :func:`wave_hist_rows` (as
+    :func:`wave_hist_fixed_reference`): the kernel must equal it bit for
+    bit.  A test oracle."""
+    _check_rows(binned_t, ghk, rows, g, nb, k)
+    e = scale_exp.to(device=binned_t.device, dtype=torch.float64)
+    r = rows.long()
+    acc = _rows_sum(binned_t, r, _fixed_point(ghk[r], e), g, nb, k)
+    return (acc.double() * torch.exp2(-e)[None, :]).float()
 
 
 #: shared memory a CTA of csrc/wave_hist.cu may use for its slice of the
@@ -249,42 +338,40 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _inputs_on_card(binned_t, leaf_id, ghk, pending, name: str) -> None:
-    dev = binned_t.device
+def _inputs_on_card(name: str, **tensors) -> None:
+    dev = next(iter(tensors.values())).device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
-    for arg, t in (("binned_t", binned_t), ("leaf_id", leaf_id),
-                   ("ghk", ghk), ("pending", pending)):
+    for arg, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
 
 
 def wave_hist(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
-              w: int, scale_exp=None, leaf_bound=None) -> torch.Tensor:
+              w: int, scale_exp=None, leaf_bound=None,
+              col_rows=None) -> torch.Tensor:
     """Wave histogram ``(G*NB, K, W)``; see the module docstring.
 
     CUDA tensors launch the kernel (and raise if it cannot launch); CPU
     tensors take :func:`wave_hist_reference`.  ``scale_exp`` is the (K,)
-    int32 output of :func:`hist_scale_exponents` for bf16 stats;
+    int32 output of :func:`hist_scale_exponents` for bf16 or f32 stats;
     ``leaf_bound`` exceeds every pending leaf id (the grower passes
     ``num_leaves``; at most :data:`MAX_LEAF_BOUND`).  Both are computed
-    here when omitted, the bound with one host sync."""
-    n = _check(binned_t, leaf_id, ghk, pending, g, nb, k, w)
+    here when omitted, the bound with one host sync.  ``col_rows`` is the
+    most rows any one stat column holds (a striped int8 layout: the
+    larger stripe; default every row), which the int8 guard counts."""
+    n = _check(binned_t, leaf_id, ghk, pending, g, nb, k, w, col_rows)
     dev = binned_t.device
     if dev.type == "cpu":
         return wave_hist_reference(binned_t, leaf_id, ghk, pending, g=g,
                                    nb=nb, k=k, w=w)
-    _inputs_on_card(binned_t, leaf_id, ghk, pending, "wave_hist")
+    _inputs_on_card("wave_hist", binned_t=binned_t, leaf_id=leaf_id, ghk=ghk,
+                    pending=pending)
     if w > MAX_WAVE:
         raise ValueError(f"W must be at most {MAX_WAVE}, got {w}")
     quant = ghk.dtype == torch.int8
     if not quant:
-        if scale_exp is None:
-            scale_exp = hist_scale_exponents(ghk, n)
-        if (scale_exp.shape != (k,) or scale_exp.dtype != torch.int32
-                or scale_exp.device != dev or not scale_exp.is_contiguous()):
-            raise ValueError("scale_exp must be a contiguous (K,) int32 "
-                             "tensor on the inputs' device")
+        scale_exp = _scale_exp_on_card(scale_exp, ghk, n, k, dev)
     if leaf_bound is None:
         leaf_bound = max(int(pending.max().item()) + 1, 1)
     if not 0 < leaf_bound <= MAX_LEAF_BOUND:
@@ -317,10 +404,86 @@ def wave_hist(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
             slots.data_ptr(), counts, list_, tile_range, acc.data_ptr(),
             None if quant else out.data_ptr(), n, g, nb, k, w, geo.wt,
             geo.gb, geo.tiles, geo.splits, geo.pre_blocks, geo.pre_rows,
-            leaf_bound, int(quant), geo.smem, stream)
+            leaf_bound, _MODE[ghk.dtype], geo.smem, stream)
     if rc != 0:
         raise RuntimeError(f"wave_hist kernel launch failed: CUDA error {rc}")
     wave_hist.launches.bump(dev)
+    return out
+
+
+def _scale_exp_on_card(scale_exp, ghk, n, k, dev):
+    if scale_exp is None:
+        scale_exp = hist_scale_exponents(ghk, n)
+    if (scale_exp.shape != (k,) or scale_exp.dtype != torch.int32
+            or scale_exp.device != dev or not scale_exp.is_contiguous()):
+        raise ValueError("scale_exp must be a contiguous (K,) int32 "
+                         "tensor on the inputs' device")
+    return scale_exp
+
+
+@functools.lru_cache(maxsize=1024)
+def _rows_geometry(m, g, nb, k, quant, sm_count):
+    """(gb, splits, smem) of a one-slot list launch: as many groups a CTA
+    as its tile fits, and about one CTA a SM, but no more parts of the
+    list than 4,096-row pieces (a small window's CTAs would mostly zero
+    and flush their tiles)."""
+    gb = 1
+    while gb < g and _cta_smem(nb, k, 1, gb + 1, quant) <= _SMEM_BUDGET:
+        gb += 1
+    gb = _balanced(g, gb)
+    gtiles = -(-g // gb)
+    splits = max(1, min(sm_count // gtiles, -(-max(m, 1) // 4096)))
+    return gb, splits, _cta_smem(nb, k, 1, gb, quant)
+
+
+def _rows_lib():
+    fn = load_library("wave_hist").wave_hist_rows_launch
+    if fn.argtypes is None:
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, ll, ll, i, i, i, i, i, i, ll, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def wave_hist_rows(binned_t, ghk, rows, *, g: int, nb: int, k: int,
+                   scale_exp=None) -> torch.Tensor:
+    """One slot's histogram ``(G*NB, K)`` over the rows listed in ``rows``
+    (1-D int32 indices into the ``n`` columns of ``binned_t`` (G, n) and
+    the ``n`` rows of ``ghk`` (n, K)): the host learner's leaf window
+    (``rows`` a slice of its partition buffer).  ``binned_t`` may be a
+    column slice of a wider codes tensor (the device grower's
+    ``(G, n_pad)`` codes): the kernel reads its rows at their pitch
+    ``binned_t.stride(0)``.  CUDA tensors launch
+    ``csrc/wave_hist.cu`` in its list mode (or raise); CPU tensors take
+    :func:`wave_hist_rows_reference`.  ``scale_exp`` as for
+    :func:`wave_hist`, for ``len(rows)`` rows (computed here, over every
+    row of ``ghk``, when omitted)."""
+    n = _check_rows(binned_t, ghk, rows, g, nb, k)
+    m = int(rows.shape[0])
+    dev = binned_t.device
+    if dev.type == "cpu":
+        return wave_hist_rows_reference(binned_t, ghk, rows, g=g, nb=nb, k=k)
+    _inputs_on_card("wave_hist_rows", ghk=ghk, rows=rows)
+    if binned_t.stride(1) != 1:
+        raise ValueError("binned_t's rows must be contiguous")
+    quant = ghk.dtype == torch.int8
+    if not quant:
+        scale_exp = _scale_exp_on_card(scale_exp, ghk, m, k, dev)
+    gb, splits, smem = _rows_geometry(m, g, nb, k, quant, _sm_count(dev))
+    acc = torch.zeros((g * nb, k), dtype=torch.int32 if quant
+                      else torch.int64, device=dev)
+    out = acc if quant else torch.empty((g * nb, k), dtype=torch.float32,
+                                        device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _rows_lib()(binned_t.data_ptr(), ghk.data_ptr(), rows.data_ptr(),
+                     None if quant else scale_exp.data_ptr(), acc.data_ptr(),
+                     None if quant else out.data_ptr(), binned_t.stride(0),
+                     m, g, nb, k, gb,
+                     splits, _MODE[ghk.dtype], smem, stream)
+    if rc != 0:
+        raise RuntimeError(f"wave_hist_rows kernel launch failed: CUDA "
+                           f"error {rc}")
+    wave_hist_rows.launches.bump(dev)
     return out
 
 
@@ -356,9 +519,10 @@ class DeviceLaunchCount:
             c.zero_()
 
 
-#: kernel launches made through :func:`wave_hist`, counted on the device
-#: (read by chip_smoke.py)
+#: kernel launches made through :func:`wave_hist` and
+#: :func:`wave_hist_rows`, counted on the device (read by chip_smoke.py)
 wave_hist.launches = DeviceLaunchCount()
+wave_hist_rows.launches = DeviceLaunchCount()
 
 #: csrc/wave_hist_v2.cu: output rows per CTA (three warpgroups of 64) and
 #: the column tile widths it is compiled for (wgmma N, multiples of 16 up
@@ -448,7 +612,8 @@ def wave_hist_v2(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
     if dev.type == "cpu":
         return wave_hist_reference(binned_t, leaf_id, ghk, pending, g=g,
                                    nb=nb, k=k, w=w)
-    _inputs_on_card(binned_t, leaf_id, ghk, pending, "wave_hist_v2")
+    _inputs_on_card("wave_hist_v2", binned_t=binned_t, leaf_id=leaf_id,
+                    ghk=ghk, pending=pending)
     if n % 16:
         # the kernel's bulk copies move whole 16-row pieces: pad with rows
         # of leaf -1, which no column selects

@@ -387,7 +387,8 @@ def min_gain_shift_of(totals, hp: SplitHyper):
 
 
 def find_best_split(hists, totals, feature_mask, meta: FeatureMeta,
-                    hp: SplitHyper, has_cat: bool = False, scales=None):
+                    hp: SplitHyper, has_cat: bool = False, scales=None,
+                    constraint=None):
     """Best split of every leaf of a (B, S, 3) histogram stack with (B, 3)
     totals: (packed (B, 13) f32 records in real units, the gain NEG_INF
     where no candidate clears the bar; the winners' (B, 256) bool
@@ -397,7 +398,14 @@ def find_best_split(hists, totals, feature_mask, meta: FeatureMeta,
     ``scales`` (2,) f32 ``[scale_g, scale_h]`` switches on the int32 scan
     of ``grad_quant_bits=8``: ``hists`` and ``totals`` are then int32 in
     quantized units, and the caller takes the right child as total -
-    left."""
+    left.
+
+    ``constraint`` ``(cmin, cmax)`` bounds every leaf output of the stack
+    (the host learner's monotone midpoints; f32 values, as the JAX
+    package carries them): outputs are clamped to it before the
+    monotone-violation test and in the records."""
+    cmin, cmax = (-np.inf, np.inf) if constraint is None else (
+        float(np.float32(constraint[0])), float(np.float32(constraint[1])))
     if scales is None:
         totals_f, svec = totals, None
     else:
@@ -407,12 +415,12 @@ def find_best_split(hists, totals, feature_mask, meta: FeatureMeta,
         totals_f = totals.float() * svec
     shift = min_gain_shift_of(totals_f, hp)
     fh = feature_histograms(hists, totals, meta)
-    pf = per_feature_best(fh, totals_f, meta, hp, shift, scales=svec,
-                          has_cat=has_cat)
+    pf = per_feature_best(fh, totals_f, meta, hp, shift, cmin, cmax,
+                          scales=svec, has_cat=has_cat)
     feat_gain = masked_feature_gain(pf, meta, feature_mask, shift)
     best_f = torch.argmax(feat_gain, dim=1)
     packed, member = pack_best(best_f, feat_gain, pf, totals_f, meta, hp,
-                               scales=svec)
+                               cmin, cmax, scales=svec)
     lint = None
     if scales is not None:
         rows = torch.arange(best_f.shape[0], device=best_f.device)

@@ -682,10 +682,11 @@ PARAM_SCHEMA: Sequence[Param] = (
     _p("device_growth", str, "auto", ("tpu_device_growth",),
        check="auto/on/off",
        desc="fully on-device wave-synchronized tree growth (one dispatch "
-            "per boosting iteration, no per-split host sync). auto = on "
-            "for TPU backends when the config is eligible (serial learner, "
-            "no monotone constraints/forced splits/renew-tree objectives); "
-            "off = always use the host-driven learner",
+            "per boosting iteration, no per-split host sync). auto and on "
+            "= the device grower when the config is eligible (no monotone "
+            "constraints/forced splits/renew-tree objectives/custom "
+            "objective, fewer than 2^25 rows), else the host-driven "
+            "learner; off = always use the host-driven learner",
        section="device"),
     _p("device_predict", str, "auto", ("tpu_device_predict",),
        check="auto/force/off",
@@ -844,10 +845,11 @@ PARAM_SCHEMA: Sequence[Param] = (
 PARAM_BY_NAME = {p.name: p for p in PARAM_SCHEMA}
 
 #: TPU-only knobs of the JAX package, accepted and ignored by the port: it
-#: has one histogram kernel (no einsum/Pallas choice, no Pallas grid), always
-#: grows trees on the device, and traces or compiles no XLA programs.
+#: has one histogram kernel (no einsum/Pallas choice, no Pallas grid) and
+#: traces or compiles no XLA programs.  (``device_growth`` has a meaning:
+#: ``off`` trains on the host learner.)
 IGNORED_PARAMS = frozenset({
-    "hist_kernel", "tpu_rows_per_block", "device_growth", "grower_cache",
+    "hist_kernel", "tpu_rows_per_block", "grower_cache",
     "find_best_fusion", "compile_cache_dir", "compile_cache_min_entry_bytes",
     "compile_cache_strict_keys",
 })

@@ -457,16 +457,17 @@ class RetrainPipeline:
                           chunk=min(self.chunk, self.num_iterations))
         return bst
 
-    def _leaf_assignments(self, trees, ds, grower):
+    def _leaf_assignments(self, trees, ds, bst):
         """Per-tree (N,) leaf ids of ``ds``'s rows by the binned traversal
-        on the training device, over the grower's ``(G, n_pad)`` codes —
-        exact, because the mappers are shared objects across windows
+        on the training device, over the booster's ``(G, N)`` training
+        codes (the device grower's or the host learner's) — exact,
+        because the mappers are shared objects across windows
         (BinMapperCache).  One copy back to the host for all trees; a
         stump's entry is None."""
         from ..ops.traverse import device_tree, traverse
-        binned = grower.binned_t[:, :ds.num_data]
+        binned = bst._train_codes_t()
         ids = [traverse(binned, device_tree(tree, ds, self.config.num_leaves,
-                                            grower.device),
+                                            bst.device),
                         groups_major=True)
                if tree.num_leaves > 1 else None for tree in trees]
         grown = [t for t in ids if t is not None]
@@ -489,7 +490,7 @@ class RetrainPipeline:
         bst.iter = len(trees) // max(bst.num_model, 1)
         with obs.span("pipeline.refit", cat="pipeline",
                       trees=len(trees)) as sp:
-            leaf_ids = self._leaf_assignments(trees, ds, bst._grower)
+            leaf_ids = self._leaf_assignments(trees, ds, bst)
             label = np.asarray(ds.metadata.label, np.float64)
             # the ONE refit implementation (GBDT.refit_leaves): with
             # precomputed leaf assignments it rebuilds raw scores from

@@ -85,14 +85,21 @@ def atomic_replace_from(writer, path: str) -> None:
 # training snapshots (GBDT.save_checkpoint sidecar)
 # ---------------------------------------------------------------------------
 
-def save_train_state(path: str, score: np.ndarray,
-                     iteration: int) -> None:
+def save_train_state(path: str, score: np.ndarray, iteration: int,
+                     rng_state: Optional[tuple] = None) -> None:
     """Atomic ``.npz`` sidecar with the exact (K, N) float32 training
-    scores and the iteration counter (the JAX package's sidecar without
-    its host learner's Mersenne-Twister state: the port has no host
-    learner, and every draw it makes is keyed on the iteration)."""
+    scores, the iteration counter and (optionally) the host learner's
+    Mersenne-Twister state, the one draw stream that is not keyed on the
+    iteration (its feature_fraction), in the JAX package's format."""
     arrays = {"score": np.asarray(score, np.float32),
               "iteration": np.int64(iteration)}
+    if rng_state is not None:
+        name, keys, pos, has_gauss, cached = rng_state
+        arrays.update(rng_name=np.asarray(str(name)),
+                      rng_keys=np.asarray(keys, np.uint32),
+                      rng_pos=np.int64(pos),
+                      rng_has_gauss=np.int64(has_gauss),
+                      rng_cached=np.float64(cached))
     tmp = _tmp_path(path)
     with open(tmp, "wb") as fh:
         np.savez(fh, **arrays)
@@ -102,13 +109,21 @@ def save_train_state(path: str, score: np.ndarray,
     os.replace(tmp, path)
 
 
-def load_train_state(path: str) -> Optional[Tuple[np.ndarray, int]]:
-    """-> (score float32, iteration), or None when no sidecar exists."""
+def load_train_state(path: str) -> Optional[Tuple]:
+    """-> (score float32, iteration, host learner's RNG state or None),
+    or None when no sidecar exists."""
     if not os.path.exists(path):
         return None
     with np.load(path) as state:
+        rng_state = None
+        if "rng_name" in state.files:
+            rng_state = (str(state["rng_name"]),
+                         np.asarray(state["rng_keys"], np.uint32),
+                         int(state["rng_pos"]),
+                         int(state["rng_has_gauss"]),
+                         float(state["rng_cached"]))
         return (np.asarray(state["score"], np.float32),
-                int(state["iteration"]))
+                int(state["iteration"]), rng_state)
 
 
 def latest_snapshot(output_model: str) -> Optional[str]:

@@ -20,7 +20,7 @@ features (``tests/parity_data.py``).
 * RF in binary and 3-class multiclass: equal trees and predictions,
   ``average_output`` in the text, the text and file round trips,
   ``feval`` receiving the averaged (unconverted) predictions as in the
-  JAX package; RF without bagging, an unknown ``boosting``, custom
+  JAX package; RF without bagging, an unknown ``boosting``, RF's custom
   gradients and the default device without a card raise;
 * none of the three fuses, and ``train_chunked(6, chunk=3)`` equals six
   single updates bit for bit.
@@ -418,13 +418,19 @@ def test_unknown_boosting_raises():
 
 @pytest.mark.parametrize("boosting", ["gbdt", "rf"])
 def test_custom_gradients_are_refused(data, boosting):
+    """RF refuses custom gradients, as the JAX package does.  GBDT trains
+    them on the host learner, and refuses gradients without hessians."""
     x, y, _ = data
     params = {**(RF_PARAMS if boosting == "rf" else BASE), "device": "cpu"}
     b = tlgb.Booster(params, tlgb.Dataset(x, y))
     g = np.zeros(len(x), np.float32)
-    match = "RF mode" if boosting == "rf" else "custom gradients"
+    match = "RF mode" if boosting == "rf" else "custom gradients need both"
     with pytest.raises(LightGBMError, match=match):
-        b._gbdt.train_one_iter(g, g)
+        b._gbdt.train_one_iter(g, None if boosting == "gbdt" else g)
+    if boosting == "gbdt":
+        grad = (0.5 - y).astype(np.float32)
+        assert not b._gbdt.train_one_iter(grad, np.full_like(grad, 0.25))
+        assert b._gbdt.learner is not None and b.num_trees() == 1
 
 
 # ----------------------------------------------------------------------

@@ -106,9 +106,9 @@ def test_snapshot_text_loads_in_the_jax_package(tmp_path, data):
     np.testing.assert_allclose(np.asarray(jb.predict(x, raw_score=True)),
                                g.predict(x, raw_score=True), rtol=0,
                                atol=1e-12)
-    score, it = checkpoint.load_train_state(path
-                                            + ".snapshot_iter_5.state.npz")
-    assert it == 5
+    score, it, rng_state = checkpoint.load_train_state(
+        path + ".snapshot_iter_5.state.npz")
+    assert it == 5 and rng_state is None
     np.testing.assert_array_equal(score, g.train_score.numpy())
 
 

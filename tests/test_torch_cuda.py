@@ -176,6 +176,165 @@ def test_kernel_int8_byte_equal(cuda_device, w, k):
                                                         pending, **kw))
 
 
+@pytest.mark.parametrize("w,k", [(1, 3), (40, 3), (64, 6), (76, 5)])
+def test_kernel_f32_equals_fixed_reference(cuda_device, w, k):
+    """Full-f32 stat columns (the host learner's) in the wave mode: the
+    int64 fixed-point sums equal wave_hist_fixed_reference bit for bit."""
+    n, g, nb = 30_016, 3, 256
+    bins, leaf, _, pending = _inputs(cuda_device, n, g, nb, k, w, False,
+                                     seed=w)
+    pending[0] = 0
+    ghk = torch.randn((n, k), device=cuda_device) * 3.0
+    leaf = torch.randint(0, 2 * w + 1, (n,), device=cuda_device,
+                         dtype=torch.int32)
+    kw = dict(g=g, nb=nb, k=k, w=w)
+    scale = hist_cuda.hist_scale_exponents(ghk, n)
+    a = hist_cuda.wave_hist(bins, leaf, ghk, pending, scale_exp=scale, **kw)
+    want = hist_cuda.wave_hist_fixed_reference(bins, leaf, ghk, pending,
+                                               scale, **kw)
+    assert torch.equal(a.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("m,dtype", [(1, torch.float32),
+                                     (1537, torch.float32),
+                                     (200_003, torch.float32),
+                                     (50_000, torch.bfloat16),
+                                     (70_001, torch.int8)])
+def test_rows_kernel_equals_fixed_reference(cuda_device, m, dtype):
+    """The one-slot list mode over a ragged window of a permuted row
+    buffer: f32 and bf16 stats bit-equal to the fixed-point plain version,
+    int8 byte-equal to the int32 plain version; launches counted."""
+    n, g, nb, k = 250_000, 7, 256, 3
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    bins = torch.randint(0, nb, (g, n), device=cuda_device,
+                         dtype=torch.uint8, generator=gen)
+    if dtype == torch.int8:
+        ghk = torch.randint(-127, 128, (n, k), device=cuda_device,
+                            dtype=torch.int8, generator=gen)
+    else:
+        ghk = (torch.randn((n, k), device=cuda_device, generator=gen)
+               * 2.0).to(dtype)
+    buf = torch.randperm(n, device=cuda_device, generator=gen).to(
+        torch.int32)
+    rows = buf[17:17 + m]
+    kw = dict(g=g, nb=nb, k=k)
+    before = hist_cuda.wave_hist_rows.launches.read()
+    if dtype == torch.int8:
+        a = hist_cuda.wave_hist_rows(bins, ghk, rows, **kw)
+        assert torch.equal(a, hist_cuda.wave_hist_rows_reference(
+            bins, ghk, rows, **kw))
+    else:
+        scale = hist_cuda.exponents_for_rows(ghk.abs().amax(0).float(), m)
+        a = hist_cuda.wave_hist_rows(bins, ghk, rows, scale_exp=scale, **kw)
+        want = hist_cuda.wave_hist_rows_fixed_reference(bins, ghk, rows,
+                                                        scale, **kw)
+        assert torch.equal(a.view(torch.int32), want.view(torch.int32))
+    assert hist_cuda.wave_hist_rows.launches.read() == before + 1
+
+
+def test_rows_kernel_reads_codes_at_their_pitch(cuda_device):
+    """The list mode over a column slice of wider codes (the host learner
+    over a device grower's ``(G, n_pad)`` codes): the kernel reads each
+    group at the codes' pitch, bit-equal to the plain version over the
+    same view and to a contiguous copy."""
+    n, n_pad, g, nb, k = 30_001, 32_768, 5, 256, 3
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    wide = torch.randint(0, nb, (g, n_pad), device=cuda_device,
+                         dtype=torch.uint8, generator=gen)
+    bins = wide[:, :n]
+    ghk = torch.randn((n, k), device=cuda_device, generator=gen)
+    rows = torch.randperm(n, device=cuda_device, generator=gen).to(
+        torch.int32)[:20_000]
+    kw = dict(g=g, nb=nb, k=k)
+    scale = hist_cuda.exponents_for_rows(ghk.abs().amax(0), rows.shape[0])
+    a = hist_cuda.wave_hist_rows(bins, ghk, rows, scale_exp=scale, **kw)
+    want = hist_cuda.wave_hist_rows_fixed_reference(bins, ghk, rows, scale,
+                                                    **kw)
+    assert torch.equal(a.view(torch.int32), want.view(torch.int32))
+    b = hist_cuda.wave_hist_rows(bins.contiguous(), ghk, rows,
+                                 scale_exp=scale, **kw)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("extra,cols", [({}, 4), ({"gpu_use_dp": True}, 6),
+                                        ({"grad_quant_bits": 8}, 6),
+                                        ({"gpu_use_dp": True,
+                                          "count_split": 0}, 5)])
+def test_striped_layout_tree_on_card_equals_cpu(cuda_device, monkeypatch,
+                                                extra, cols):
+    """The striped and gpu_use_dp layouts (COUNT_SPLIT_ROWS lowered to
+    force them at 30,000 rows): the trees grown on the card have the CPU
+    path's structure, leaf values within 1e-5 of the tree's largest (5e-5
+    with gpu_use_dp) and predictions within 1e-4 (the objective's exp
+    differs in the last bits between the card and the CPU, so even int8
+    trees after the first are not byte-equal;
+    test_bagged_quantized_tree_on_card_equals_cpu holds injected
+    gradients byte for byte)."""
+    from lightgbm_tpu_torch.ops import grow
+    extra = dict(extra)
+    if extra.pop("count_split", 1):
+        monkeypatch.setattr(grow, "COUNT_SPLIT_ROWS", 20_000)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((30_000, 6))
+    y = (x[:, 0] + 0.5 * x[:, 1] ** 2 + 0.3 * rng.standard_normal(len(x))
+         > 0.4).astype(float)
+    params = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
+              "verbose": -1, **extra}
+    card = lt.train(params, lt.Dataset(x, y), 3)
+    cpu = lt.train({**params, "device": "cpu"}, lt.Dataset(x, y), 3)
+    assert card._gbdt._grower.hist_cols == cols
+    assert card.num_trees() == cpu.num_trees() == 3
+    for tc, tp in zip(card._gbdt.models, cpu._gbdt.models):
+        nl = tc.num_leaves
+        assert nl == tp.num_leaves
+        np.testing.assert_array_equal(tc.split_feature[:nl - 1],
+                                      tp.split_feature[:nl - 1])
+        np.testing.assert_array_equal(tc.threshold_in_bin[:nl - 1],
+                                      tp.threshold_in_bin[:nl - 1])
+        # the card sums exactly, the CPU in f32 in row order; gpu_use_dp's
+        # four hi/lo columns are summed apart and added, and a small
+        # leaf's value cancels: 5e-5 of the tree's largest there
+        tol = 5e-5 if "gpu_use_dp" in params else 1e-5
+        np.testing.assert_allclose(
+            tc.leaf_value[:nl], tp.leaf_value[:nl], rtol=tol,
+            atol=tol * np.abs(tp.leaf_value[:nl]).max())
+    np.testing.assert_allclose(card.predict(x, raw_score=True),
+                               cpu.predict(x, raw_score=True), atol=1e-4)
+
+
+@pytest.mark.parametrize("extra", [
+    {"objective": "binary", "monotone_constraints": "1,-1,0,0,0,0"},
+    {"objective": "regression_l1"},
+    {"objective": "quantile", "alpha": 0.9, "bagging_fraction": 0.7,
+     "bagging_freq": 1},
+    {"objective": "binary", "device_growth": "off", "boosting": "goss",
+     "learning_rate": 0.5}], ids=["monotone", "l1", "quantile_bag", "goss"])
+def test_host_learner_on_card_matches_cpu(cuda_device, extra):
+    """The host learner on the card (window histograms from the list
+    mode, f32 stats in fixed point) against the CPU path (f32 plain
+    version): the same trees, predictions within 1e-4."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((30_000, 6))
+    y = x[:, 0] + 0.5 * x[:, 1] ** 2 + 0.3 * rng.standard_normal(len(x))
+    if extra["objective"] == "binary":
+        y = (y > 0.4).astype(float)
+    params = {"num_leaves": 31, "max_bin": 63, "verbose": -1, **extra}
+    hist_cuda.wave_hist_rows.launches.reset()
+    card = lt.train(params, lt.Dataset(x, y), 4)
+    assert card._gbdt.learner is not None and card._gbdt._grower is None
+    assert hist_cuda.wave_hist_rows.launches.read() > 0
+    cpu = lt.train({**params, "device": "cpu"}, lt.Dataset(x, y), 4)
+    for tc, tp in zip(card._gbdt.models, cpu._gbdt.models):
+        nl = tc.num_leaves
+        assert nl == tp.num_leaves
+        np.testing.assert_array_equal(tc.split_feature[:nl - 1],
+                                      tp.split_feature[:nl - 1])
+        np.testing.assert_array_equal(tc.threshold_in_bin[:nl - 1],
+                                      tp.threshold_in_bin[:nl - 1])
+    np.testing.assert_allclose(card.predict(x, raw_score=True),
+                               cpu.predict(x, raw_score=True), atol=1e-4)
+
+
 def test_v2_register_fragment_layout(cuda_device):
     """NB=32, W=1: a warpgroup's 64 output rows straddle two groups, and
     every output row is held to its own exact value (integer stats, so
@@ -256,10 +415,10 @@ def test_threefry_on_card_equals_cpu(cuda_device):
                            on_cpu.view(torch.int32))
 
 
-def test_bagged_quantized_tree_on_card_equals_cpu(cuda_device):
-    """grad_quant_bits=8 with bagging and feature_fraction: integer
-    histograms and scan, so the tree grown on the card (kernel
-    histograms) has the CPU path's records byte for byte."""
+def _quantized_tree_on_card_and_cpu(cuda_device, cols):
+    """One int8 tree with bagging and feature_fraction from injected
+    gradients, grown on the card and on the CPU path at a ``cols``-column
+    layout: both records, byte for byte."""
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.data.dataset import BinnedDataset
     from lightgbm_tpu_torch.ops.bagging import bagging_row_mask
@@ -276,6 +435,7 @@ def test_bagged_quantized_tree_on_card_equals_cpu(cuda_device):
     out = []
     for dev in (cuda_device, torch.device("cpu")):
         grower = DeviceGrower(ds, cfg, dev)
+        assert grower.hist_cols == cols
         mask = bagging_row_mask(9, 32768, len(x), 0.8, device=dev)
         t = lambda a: torch.from_numpy(a).to(dev)
         res = grower.grow_one_iter(t(np.zeros(len(x), np.float32)),
@@ -287,6 +447,23 @@ def test_bagged_quantized_tree_on_card_equals_cpu(cuda_device):
     assert out[0][3] == out[1][3] == 31
     for a, b in zip(out[0][:3], out[1][:3]):
         assert torch.equal(a, b)
+
+
+def test_bagged_quantized_tree_on_card_equals_cpu(cuda_device):
+    """grad_quant_bits=8 with bagging and feature_fraction: integer
+    histograms and scan, so the tree grown on the card (kernel
+    histograms) has the CPU path's records byte for byte."""
+    _quantized_tree_on_card_and_cpu(cuda_device, 3)
+
+
+def test_striped_quantized_tree_on_card_equals_cpu(cuda_device,
+                                                   monkeypatch):
+    """The same at the striped int8 K=6 layout (COUNT_SPLIT_ROWS lowered
+    to force it at 30,000 rows): still integer sums and an integer scan,
+    so the card's records equal the CPU path's byte for byte."""
+    from lightgbm_tpu_torch.ops import grow
+    monkeypatch.setattr(grow, "COUNT_SPLIT_ROWS", 20_000)
+    _quantized_tree_on_card_and_cpu(cuda_device, 6)
 
 
 # -- the packed-forest kernel (csrc/forest_predict.cu) --------------------

@@ -120,9 +120,11 @@ def test_rejects_bad_inputs():
     binned, leaf, ghk, pending = _inputs()
     bt = torch.from_numpy(np.ascontiguousarray(binned.T))
     kw = dict(g=3, nb=64, k=3, w=5)
-    with pytest.raises(ValueError, match="bf16 or int8"):
+    # f32 stat columns are a mode of the kernel (the host learner's); f64
+    # ones are not
+    with pytest.raises(ValueError, match="bf16, int8 or f32"):
         hist_cuda.wave_hist(bt, torch.from_numpy(leaf),
-                            torch.from_numpy(ghk).float(),
+                            torch.from_numpy(ghk).double(),
                             torch.from_numpy(pending), **kw)
     with pytest.raises(ValueError, match="K must be"):
         hist_cuda.wave_hist(bt, torch.from_numpy(leaf),

@@ -1,12 +1,25 @@
 """The port's parameter table is the JAX package's: names, aliases,
-defaults, checks and sections; only the device differs."""
+defaults, checks and sections; only the device differs.  ``device_growth``
+routes: ``off`` trains on the host learner."""
 
+import numpy as np
 import pytest
+import torch
 
 from lightgbm_tpu import params as jp
 from lightgbm_tpu.config import Config as JConfig
 from lightgbm_tpu_torch import params as tp
 from lightgbm_tpu_torch.config import Config as TConfig
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This module's torch CPU ops on one thread (several test workers
+    share the machine's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_same_names_in_same_order():
@@ -54,4 +67,22 @@ def test_tpu_only_knobs_accepted_and_announced(caplog):
         cfg = TConfig({"hist_kernel": "pallas", "device_growth": "off"})
     assert cfg.hist_kernel == "pallas"
     assert "hist_kernel is a TPU-only knob" in caplog.text
-    assert "device_growth is a TPU-only knob" in caplog.text
+    # device_growth has a meaning in the port: off trains on the host
+    # learner (test_device_growth_off_routes_to_the_host_learner)
+    assert "device_growth" not in tp.IGNORED_PARAMS
+    assert cfg.device_growth == "off"
+
+
+@pytest.mark.parametrize("mode,host", [("off", True), ("auto", False),
+                                       ("on", False)])
+def test_device_growth_off_routes_to_the_host_learner(mode, host):
+    import lightgbm_tpu_torch as tlgb
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((600, 4))
+    y = (x[:, 0] > 0).astype(float)
+    b = tlgb.train({"objective": "binary", "num_leaves": 7, "verbose": -1,
+                    "device": "cpu", "device_growth": mode},
+                   tlgb.Dataset(x, y), 2, verbose_eval=False)
+    assert (b._gbdt.learner is not None) == host
+    assert (b._gbdt._grower is None) == host
+    assert b.num_trees() == 2

@@ -7,7 +7,9 @@ trained them serially with no error and no log, byte-equal to its serial
 run, while the JAX package built its parallel learner.  They now raise
 ``LightGBMError`` naming the option, from ``engine.train`` and from
 ``RetrainPipeline``; so do the options that select the unported telemetry
-exporter, the XLA cost attribution and multi-host training.  A parallel
+exporter, the XLA cost attribution, multi-host training and the profiled
+wave plan, on the device grower and on the host learner; so does a leaf
+budget past the histogram kernel's leaf table.  A parallel
 ``tree_learner`` with one machine degrades to serial, as the reference
 does.
 """
@@ -41,6 +43,9 @@ REFUSED = [
     ({"obs_http_port": 9100}, "obs_http_port"),
     ({"obs_export_interval": 0.5}, "obs_export_interval"),
     ({"profile_attribution": True}, "profile_attribution"),
+    ({"wave_plan": "profiled"}, "wave_plan=profiled"),
+    ({"wave_plan": "profiled", "device_growth": "off"},
+     "wave_plan=profiled"),
 ]
 
 
@@ -61,7 +66,8 @@ def data():
 
 
 @pytest.mark.parametrize("extra,name", REFUSED,
-                         ids=[n for _, n in REFUSED])
+                         ids=[n + ("_host" if e.get("device_growth") == "off"
+                                   else "") for e, n in REFUSED])
 def test_unported_options_are_refused_by_name(data, extra, name):
     x, y = data
     with pytest.raises(LightGBMError, match="not ported") as ei:
@@ -81,6 +87,17 @@ def test_parallel_learner_on_one_machine_trains_serially(data, learner):
     # a feature-parallel learner drops feature_fraction (1.0 here anyway)
     np.testing.assert_array_equal(one.predict(x, raw_score=True),
                                   serial.predict(x, raw_score=True))
+
+
+@pytest.mark.parametrize("device_growth", ["auto", "off"])
+def test_leaf_budget_past_the_kernel_table_is_refused(data, device_growth):
+    """More leaves than the histogram kernel's leaf table holds, on
+    either learner."""
+    x, y = data
+    with pytest.raises(LightGBMError, match="num_leaves > 16384"):
+        tlgb.train({**BASE, "num_leaves": 20_000,
+                    "device_growth": device_growth}, tlgb.Dataset(x, y), 1,
+                   verbose_eval=False)
 
 
 def test_mapper_broadcast_is_refused_by_name():

@@ -243,17 +243,17 @@ def test_train_state_roundtrip_across_packages(tmp_path):
     score = rng.standard_normal((3, 257)).astype(np.float32)
     p = str(tmp_path / "s.npz")
     checkpoint.save_train_state(p, score, 17)
-    got, it = checkpoint.load_train_state(p)
+    got, it, rng_state = checkpoint.load_train_state(p)
     np.testing.assert_array_equal(got, score)
-    assert it == 17
+    assert it == 17 and rng_state is None
     jscore, jit, rng_state = jcheckpoint.load_train_state(p)
     np.testing.assert_array_equal(jscore, score)
     assert jit == 17 and rng_state is None
     q = str(tmp_path / "j.npz")
     jcheckpoint.save_train_state(q, score, 9)
-    got, it = checkpoint.load_train_state(q)
+    got, it, rng_state = checkpoint.load_train_state(q)
     np.testing.assert_array_equal(got, score)
-    assert it == 9
+    assert it == 9 and rng_state is None
     assert checkpoint.load_train_state(str(tmp_path / "none")) is None
 
 

@@ -271,8 +271,7 @@ def test_refused_by_name():
     y, _, _ = pd.make_labels(pd.make_features())
     train = tlgb.Dataset(x, y[:300])
     params = {**BASE, "device": "cpu"}
-    for kw in ({"fobj": lambda p, d: (p, p)}, {"init_model": "m.txt"},
-               {"learning_rates": [0.1] * 3}):
+    for kw in ({"init_model": "m.txt"}, {"learning_rates": [0.1] * 3}):
         name = next(iter(kw))
         with pytest.raises(LightGBMError, match=f"train\\({name}="):
             tlgb.train(params, train, 3, **kw)
