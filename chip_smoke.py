@@ -245,6 +245,40 @@ Phases, one line each:
               logs why the host learner trains, every tree's leaf counts
               sum to the rows.
 
+13. capi   -- the C ABI on the card (after pipeline): src/capi_cuda/ built
+              with its Makefile (liblgbm_tpu_torch.so against the
+              unchanged include/lightgbm_tpu/c_api.h; a failed build fails
+              the run); the unchanged src/capi/smoke_test.cpp linked to it
+              run as a subprocess (no device in its parameters: the card),
+              twice with one LGBM_TPU_COMPILE_CACHE directory, the second
+              run's LGBM_WarmupTrain building 0 libraries; then
+              window_harness (src/capi_cuda/window_harness.cpp) over
+              CAPI_WINDOWS windows of 2,000,000 rows of the harness's 53
+              columns (window_shape, zeros dropped, written as raw CSR
+              arrays to a temporary directory): warm-up, then per training
+              window DatasetCreateFromCSR (window 0 the reference of the
+              rest), SetField, BoosterCreate, UpdateChunked (the fork's
+              parameters, chunks of 25), ServeCreate/ServeSwap,
+              BoosterPredictForCSR and ServePredictForCSR of the next
+              window, serve p50 at 1 and 100,000 rows, SaveModel and
+              BoosterFree, a two-tenant fleet on the last; the same
+              windows trained in this process through engine.train with
+              the grower cache on and off: every window's trees (the
+              model text before its parameters block) with one sha256 in
+              all three runs, the ABI's predictions equal to
+              Booster.predict of the same rows within 1e-12, windows 1-2
+              capturing nothing and each taking the cached grower (a
+              grow.cache_hits a window, in the harness's metrics file
+              too), held-out AUC >= WIN_AUC_FLOOR, and the harness's
+              wave_hist, forest_predict and capture counts above 0.
+              Prints per window DatasetCreate s, train s, ms a tree,
+              captures, predict s, serve p50, the ABI's train s against
+              the in-process run's, and peak card memory with the cache
+              on.
+
+Between phases the grower cache (ops/grow.py) is emptied, so each phase
+holds only its own growers' card memory.
+
 Prints the card's name and power limit, a JSON line of kernel
 measurements, and last {"ok": true, "device": {...}}.  Full results go to
 chiprun_out/chip_smoke.json.
@@ -317,6 +351,15 @@ FOREST_BEFORE_MS = {"higgs": 1.106, "synthetic": 12.11,
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def clear_growers(dev) -> None:
+    """Empty the grower cache (ops/grow.py) and return its card memory."""
+    import torch
+    from lightgbm_tpu_torch import compile_cache
+    compile_cache.clear()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -1066,6 +1109,7 @@ def plain_chunk(name, ds, dev, booster):
     import torch
     import lightgbm_tpu_torch as lt
     params = {**TRAIN_BASE, **TRAIN_RUNS[name], "device": dev.type}
+    clear_growers(dev)      # a new grower: nothing captured in it yet
     plain = lt.Booster(params, ds)
     grower = plain._gbdt._grower
     grower._graph = lambda sample: None       # capture nothing
@@ -2224,6 +2268,7 @@ def multiclass_round1_plain(ds, dev, booster):
     K trees of the captured run's.  Returns the loop's seconds a tree."""
     import torch
     import lightgbm_tpu_torch as lt
+    clear_growers(dev)      # a new grower: nothing captured in it yet
     plain = lt.Booster({**MC_BASE, "device": dev.type}, ds)
     grower = plain._gbdt._grower
     grower._graph = lambda sample: None       # capture nothing
@@ -3687,6 +3732,280 @@ def phase_pipeline(dev, seed: int):
 
 
 
+CAPI_ROWS = 2_000_000
+CAPI_WINDOWS = 4            # three trained windows and the next one scored
+#: the fork's training parameters (examples/cache_admission.py:57), in
+#: chunks of 25 (:66) as window_harness.cpp trains them
+CAPI_PARAMS = {"boosting": "gbdt", "objective": "binary", "max_bin": 255,
+               "num_iterations": 50, "learning_rate": 0.1,
+               "num_leaves": 31, "tree_learner": "serial",
+               "feature_fraction": 0.8, "bagging_freq": 5,
+               "bagging_fraction": 0.8, "min_data_in_leaf": 50,
+               "min_sum_hessian_in_leaf": 5.0, "fused_chunk": 25,
+               "verbosity": -1}
+CAPI_BUILD = ROOT / "src" / "capi_cuda" / "build"
+
+
+def trees_sha256(text: str) -> str:
+    """sha256 of a model text before its parameters block (which records
+    grower_cache and how the run was driven)."""
+    return hashlib.sha256(text.split("\nparameters:\n")[0].encode()) \
+        .hexdigest()
+
+
+def run_native(cmd, env, cwd, timeout):
+    """Run a native driver; echo its lines; fail unless it exits 0."""
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        print(f"  | {line}", flush=True)
+    if res.returncode != 0:
+        print(res.stderr[-4000:], flush=True)
+        fail(f"capi: {Path(cmd[0]).name} exited {res.returncode}")
+    return res.stdout, secs
+
+
+def metric_counts(path) -> dict:
+    """The launch gauges and capture/cache counters of a native run's
+    metrics file."""
+    snap = json.loads(Path(path).read_text())
+    g, c = snap.get("gauges", {}), snap.get("counters", {})
+    return dict(
+        wave_hist=int(g.get("hist_cuda.wave_hist.launches", 0)),
+        forest_predict=int(g.get("packed.forest_predict.launches", 0)),
+        routes={r: int(g.get(f"packed.forest_predict.routes.{r}", 0))
+                for r in ("rows", "trees")},
+        captures=int(c.get("capture.total", 0)),
+        cache_hits=int(c.get("grow.cache_hits", 0)),
+        cache_misses=int(c.get("grow.cache_misses", 0)),
+        peak_bytes=(snap.get("device_memory") or {}).get(
+            "peak_bytes_in_use"))
+
+
+def phase_capi(dev, seed: int):
+    """The native ABI on the card (the module docstring's phase 13)."""
+    import tempfile
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.obs import capture_track
+    from lightgbm_tpu_torch.ops import grow, hist_cuda
+    from lightgbm_tpu_torch.serve import packed
+    out = {}
+    t0 = time.perf_counter()
+    res = subprocess.run(["make", "-C", str(CAPI_BUILD.parent),
+                          f"BUILD={CAPI_BUILD}", f"PY={sys.executable}"],
+                         capture_output=True, text=True)
+    out["build_s"] = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
+        fail("capi: the native ABI (src/capi_cuda) did not build")
+    print(f"capi: built liblgbm_tpu_torch.so, smoke_test and "
+          f"window_harness in {out['build_s']:.1f} s", flush=True)
+    launches = dict(wave_hist=0, forest_predict=0,
+                    routes={"rows": 0, "trees": 0})
+
+    def add(counts):
+        launches["wave_hist"] += counts["wave_hist"]
+        launches["forest_predict"] += counts["forest_predict"]
+        for r in launches["routes"]:
+            launches["routes"][r] += counts["routes"][r]
+
+    with tempfile.TemporaryDirectory(prefix="capi_") as tmp:
+        tmp = Path(tmp)
+        base_env = dict(os.environ, LGBM_TPU_PYROOT=str(ROOT),
+                        LGBM_TPU_COMPILE_CACHE=str(tmp / "kernels"))
+        # (1) the unchanged harness, twice with one build directory
+        smoke = []
+        for run in (1, 2):
+            env = dict(base_env,
+                       LGBM_TPU_METRICS=str(tmp / f"smoke{run}.json"))
+            stdout, secs = run_native([str(CAPI_BUILD / "smoke_test")],
+                                      env, str(tmp), 600)
+            built = [int(line.split("(")[1].split()[0]) for line in
+                     stdout.splitlines() if line.startswith("warmup:")]
+            counts = metric_counts(tmp / f"smoke{run}.json")
+            add(counts)
+            smoke.append(dict(seconds=secs, warmup_built=built,
+                              counts=counts))
+            print(f"capi: smoke_test run {run} passed in {secs:.1f} s "
+                  f"(warm-up built {built} libraries; {counts})",
+                  flush=True)
+        if smoke[1]["warmup_built"] != [0, 0]:
+            fail(f"capi: the second smoke_test run's warm-up built "
+                 f"{smoke[1]['warmup_built']} libraries, 0 expected")
+        out["smoke"] = smoke
+
+        # (2) the windows, written as raw CSR arrays
+        t0 = time.perf_counter()
+        windows = []
+        for k in range(CAPI_WINDOWS):
+            x, y = window_shape(CAPI_ROWS, seed + 40 + k)
+            csr = sp.csr_matrix(x)
+            del x
+            csr.indptr.astype(np.int64).tofile(tmp / f"w{k}_indptr.i64")
+            csr.indices.astype(np.int32).tofile(tmp / f"w{k}_indices.i32")
+            csr.data.astype(np.float32).tofile(tmp / f"w{k}_data.f32")
+            y.astype(np.float32).tofile(tmp / f"w{k}_label.f32")
+            windows.append((csr, y))
+        out["windows_s"] = time.perf_counter() - t0
+        nnz = [int(c.nnz) for c, _ in windows]
+        print(f"capi: {CAPI_WINDOWS} windows of {CAPI_ROWS} x {WIN_COLS} "
+              f"({nnz} nonzeros) in {out['windows_s']:.1f} s", flush=True)
+
+        # (3) the fork's loop through the native ABI
+        env = dict(base_env, LGBM_TPU_METRICS=str(tmp / "harness.json"))
+        stdout, secs = run_native([str(CAPI_BUILD / "window_harness"),
+                                   str(tmp), str(CAPI_WINDOWS)], env,
+                                  str(tmp), 1200)
+        rows = [json.loads(line.split(" ", 1)[1]) for line in
+                stdout.splitlines() if line.startswith("WINDOW ")]
+        warm = json.loads(next(line for line in stdout.splitlines()
+                               if line.startswith("WARMUP ")
+                               ).split(" ", 1)[1])
+        per_window = [metric_counts(tmp / f"metrics_w{k}.json")
+                      for k in range(CAPI_WINDOWS - 1)]
+        final = metric_counts(tmp / "harness.json")
+        add(final)
+        native_sha = [trees_sha256((tmp / f"model_w{k}.txt").read_text())
+                      for k in range(CAPI_WINDOWS - 1)]
+        native_pred = [np.fromfile(tmp / f"pred_w{k}.f64")
+                       for k in range(CAPI_WINDOWS - 1)]
+        native_served = [np.fromfile(tmp / f"serve_w{k}.f64")
+                         for k in range(CAPI_WINDOWS - 1)]
+    # window 0's count includes the warm-up's captures
+    caps = [per_window[0]["captures"]] + [
+        b["captures"] - a["captures"]
+        for a, b in zip(per_window, per_window[1:])]
+    hits = [per_window[0]["cache_hits"]] + [
+        b["cache_hits"] - a["cache_hits"]
+        for a, b in zip(per_window, per_window[1:])]
+    out["native"] = dict(seconds=secs, warmup=warm, windows=rows,
+                         captures=caps, cache_hits=hits, counts=final,
+                         sha256=native_sha)
+    if min(final["wave_hist"], final["forest_predict"],
+           final["captures"]) <= 0:
+        fail(f"capi: the harness's metrics show no card work: {final}")
+    if caps[1:] != [0] * (CAPI_WINDOWS - 2) or \
+            hits[1:] != [1] * (CAPI_WINDOWS - 2):
+        fail(f"capi: native windows captured {caps} and took the cached "
+             f"grower {hits} times; windows 1-2 must capture nothing and "
+             f"hit once each")
+
+    # (4) the same windows in this process, the grower cache on and off
+    clear_growers(dev)
+    torch.cuda.init()
+    datasets = []
+    for k, (csr, y) in enumerate(windows[:-1]):
+        t0 = time.perf_counter()
+        ds = lt.Dataset(csr, label=y, params={**CAPI_PARAMS,
+                                              "device": dev.type},
+                        reference=datasets[0] if datasets else None)
+        ds.construct()
+        datasets.append(ds)
+        rows[k]["inprocess_dataset_s"] = time.perf_counter() - t0
+    inproc = {}
+    for cache in (True, False):
+        params = {**CAPI_PARAMS, "device": dev.type, "grower_cache": cache}
+        torch.cuda.reset_peak_memory_stats(dev)
+        hist_cuda.wave_hist.launches.reset()
+        fp0 = packed.forest_predict.launches
+        routes0 = dict(packed.forest_predict.routes)
+        runs = []
+        for k, ds in enumerate(datasets):
+            c0 = capture_track.COUNTS["captures"]
+            h0 = grow.GROWER_CACHE_COUNTS["hits"]
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            b = lt.train(params, ds, num_boost_round=CAPI_PARAMS[
+                "num_iterations"])
+            torch.cuda.synchronize(dev)
+            train_s = time.perf_counter() - t0
+            run = dict(train_s=train_s, ms_per_tree=1e3 * train_s /
+                       CAPI_PARAMS["num_iterations"],
+                       captures=capture_track.COUNTS["captures"] - c0,
+                       cache_hit=grow.GROWER_CACHE_COUNTS["hits"] - h0,
+                       sha256=trees_sha256(b.model_to_string()))
+            if cache:
+                # the ABI's predictions against Booster.predict of the same
+                # rows (the trees of the cache-off run are the same)
+                nxt, ynext = windows[k + 1]
+                dense = nxt.toarray().astype(np.float64)
+                t0 = time.perf_counter()
+                pred = b.predict(dense)
+                run.update(
+                    predict_s=time.perf_counter() - t0,
+                    pred_err=float(np.abs(pred - native_pred[k]).max()),
+                    served_err=float(np.abs(native_served[k]
+                                            - native_pred[k]).max()),
+                    auc=auc_of(ynext, pred))
+                del dense
+            runs.append(run)
+            del b
+        inproc[cache] = dict(
+            windows=runs, peak_mem_gb=torch.cuda.max_memory_allocated(dev)
+            / 1e9, launches=hist_cuda.wave_hist.launches.read(),
+            predict_launches=packed.forest_predict.launches - fp0,
+            predict_routes={r: packed.forest_predict.routes[r] - routes0[r]
+                            for r in routes0})
+        launches["wave_hist"] += inproc[cache]["launches"]
+        launches["forest_predict"] += inproc[cache]["predict_launches"]
+        for r in launches["routes"]:
+            launches["routes"][r] += inproc[cache]["predict_routes"][r]
+    del datasets, windows
+    clear_growers(dev)
+    on, off = inproc[True]["windows"], inproc[False]["windows"]
+    for k in range(CAPI_WINDOWS - 1):
+        shas = {native_sha[k], on[k]["sha256"], off[k]["sha256"]}
+        if len(shas) != 1:
+            fail(f"capi window {k}: trees sha256 native {native_sha[k]}, "
+                 f"in-process {on[k]['sha256']}, grower_cache=false "
+                 f"{off[k]['sha256']}")
+        if on[k]["pred_err"] > 1e-12:
+            fail(f"capi window {k}: the ABI's predictions differ from "
+                 f"Booster.predict by {on[k]['pred_err']}")
+        if on[k]["auc"] < WIN_AUC_FLOOR:
+            fail(f"capi window {k}: held-out AUC {on[k]['auc']:.4f} < "
+                 f"{WIN_AUC_FLOOR}")
+    if [r["captures"] for r in on[1:]] != [0] * (CAPI_WINDOWS - 2) or \
+            [r["cache_hit"] for r in on[1:]] != [1] * (CAPI_WINDOWS - 2):
+        fail(f"capi in-process: captures {[r['captures'] for r in on]}, "
+             f"cache hits {[r['cache_hit'] for r in on]}")
+    for k, row in enumerate(rows):
+        abi_s = row["booster_create_s"] + row["train_s"]
+        row["abi_overhead"] = abi_s / on[k]["train_s"] - 1.0
+        print(f"capi window {k}: DatasetCreate {row['dataset_s']:.2f} s "
+              f"(in-process {row['inprocess_dataset_s']:.2f} s), train "
+              f"{row['train_s']:.3f} s ({1e3 * row['train_s'] / 50:.2f} ms "
+              f"a tree; create {row['booster_create_s']:.3f} s; "
+              f"in-process {on[k]['train_s']:.3f} s, cache off "
+              f"{off[k]['train_s']:.3f} s; ABI overhead "
+              f"{100 * row['abi_overhead']:.1f}%), captures {caps[k]} "
+              f"(in-process {on[k]['captures']}, cache off "
+              f"{off[k]['captures']}), predict {row['predict_s']:.3f} s, "
+              f"serve all {row['serve_predict_s']:.3f} s, serve p50 "
+              f"{row['serve_p50_ms_1']:.3f} ms at 1 row and "
+              f"{row['serve_p50_ms_big']:.2f} ms at {row['serve_big_rows']}"
+              f", AUC "
+              f"{on[k]['auc']:.4f}, trees sha256 {native_sha[k][:16]}",
+              flush=True)
+    out["windows"] = rows
+    out["inprocess"] = {"cache_on": inproc[True], "cache_off": inproc[False]}
+    out["launches"] = launches
+    print(f"capi: peak card memory {inproc[True]['peak_mem_gb']:.2f} GB "
+          f"with the grower cache on, {inproc[False]['peak_mem_gb']:.2f} "
+          f"GB off (in-process); the harness's "
+          f"{(final['peak_bytes'] or 0) / 1e9:.2f} GB", flush=True)
+    print(f"phase capi: ok (3 runs, one sha256 a window; warm-up built "
+          f"{warm['train_built']} + {warm['serve_built']} libraries; "
+          f"launches {launches})", flush=True)
+    return out
+
+
+
 #: the serve phase's synthetic forest: 500 trees of up to 63 leaves over
 #: the HIGGS width, deep paths, three categorical columns of up to 128
 #: categories (four bitset words)
@@ -4421,34 +4740,47 @@ def main() -> int:
     kernels = phase_kernels(dev)
     ubench = phase_ubench()
     train, models, x, y, dense = phase_train(dev, args.seed, args.profile)
+    clear_growers(dev)
     objectives = phase_objectives(dev, args.seed, x, dense, args.profile)
+    clear_growers(dev)
     data = phase_data(dev, args.seed, dense, x, y, train, args.profile)
+    clear_growers(dev)
     boosting = phase_boosting(dev, args.seed, dense, x, y)
+    clear_growers(dev)
     window = phase_window20m(dev, args.seed, dense)
+    clear_growers(dev)
     import tempfile
     OUT_DIR.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         host = phase_host_learner(dev, args.seed, dense, x, y, tmp)
+    clear_growers(dev)
     del dense, y
     pipeline = phase_pipeline(dev, args.seed)
+    clear_growers(dev)
+    capi = phase_capi(dev, args.seed)
+    clear_growers(dev)
     serve = phase_serve(dev, models, x, args.seed)
     del x
     multiclass = phase_multiclass(dev, args.seed, args.profile)
 
     # wave_hist's path is training: its launches are those of every run
-    # at K=3 (the data phase's two, the boosting phase's six and the
-    # pipeline phase's windows included; window20m's layouts are counted
+    # at K=3 (the data phase's two, the boosting phase's six, the
+    # pipeline phase's windows and the capi phase's, in its native
+    # subprocesses too, included; window20m's layouts are counted
     # in their own wave_hist:<mode> rows); wave_hist_v2's path is the ubench
     # entry point; forest_predict's is prediction: Booster.predict after
     # each training run and of the validation rows, the fleet's entry
-    # point, the two PredictionServers and the pipeline's server (its
-    # evaluations, swaps' warm-up and prober; not the comparison launches),
-    # and both of its routes must have run there
+    # point, the two PredictionServers, the pipeline's server (its
+    # evaluations, swaps' warm-up and prober; not the comparison launches)
+    # and the capi phase's (its native drivers' servers, fleet and
+    # Booster predictions, and the in-process Booster.predict), and both of
+    # its routes must have run there
     obj_runs = objectives["runs"].values()
     v1_launches = (sum(r["launches"] for r in train["runs"].values())
                    + sum(r["launches"] for r in obj_runs)
                    + data["launches"] + data["engine_launches"]
                    + boosting["launches"] + pipeline["launches"]
+                   + capi["launches"]["wave_hist"]
                    + multiclass["launches"])
     fp_launches = (sum(r["predict_launches"] for r in train["runs"].values())
                    + sum(r["predict_launches"] for r in obj_runs)
@@ -4457,6 +4789,7 @@ def main() -> int:
                    + window["predict_launches"]
                    + host["predict_launches"]
                    + pipeline["predict_launches"]
+                   + capi["launches"]["forest_predict"]
                    + serve["fleet_entry_launches"]
                    + serve["server"]["launches"]
                    + serve["server_syn"]["launches"]
@@ -4469,6 +4802,7 @@ def main() -> int:
                      + window["predict_routes"][k]
                      + host["predict_routes"][k]
                      + pipeline["predict_routes"][k]
+                     + capi["launches"]["routes"][k]
                      + serve["fleet_entry_routes"][k]
                      + serve["server"]["routes"][k]
                      + serve["server_syn"]["routes"][k]
@@ -4521,7 +4855,7 @@ def main() -> int:
                        objectives=objectives, data=data,
                        boosting=boosting, window20m=window,
                        host_learner=host, pipeline=pipeline,
-                       serve=serve,
+                       capi=capi, serve=serve,
                        multiclass=multiclass,
                        torch=torch.__version__, cuda=torch.version.cuda),
                   fh, indent=1)

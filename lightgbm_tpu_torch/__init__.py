@@ -10,7 +10,9 @@ the JAX package.  Training and serving run on ``device='cuda'`` by
 default and raise when no card is present; ``device='cpu'`` takes the
 plain PyTorch path.  Validation sets are scored on the training device
 as trees are added (``engine.train``'s ``valid_sets``, callbacks and early
-stopping).
+stopping).  The fork's C ABI (``c_api.py``, ``capi_embed.py``, the native
+library of ``src/capi_cuda/``) and the command line (``python -m
+lightgbm_tpu_torch``) drive the same paths.
 """
 
 from .basic import Booster, Dataset

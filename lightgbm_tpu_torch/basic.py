@@ -4,7 +4,9 @@ bin from CSR and predict in row chunks without densifying, and float32
 tensors, binned on their device; validation sets bin against a training
 set's mappers (``reference``); the model-output surface: sliced model
 text, ``save_model``, ``Booster(model_file=)``, ``dump_model``,
-``feature_importance``; ``refit`` on new labels; no pred_contrib yet)."""
+``feature_importance``; ``refit`` on new labels; TreeSHAP ``pred_contrib``;
+the Dataset's row subsets, binary files, text files (``data/parser.py``)
+and field getters and setters; ``rollback_one_iter``)."""
 
 from __future__ import annotations
 
@@ -73,7 +75,9 @@ class Dataset:
     host.  With ``reference`` (another ``Dataset``) it is binned with that
     set's mappers and inherits its params.  ``group``: the query sizes
     (or boundaries from 0) of a ranking set, in the JAX package's
-    positional place (``lightgbm_tpu/basic.py:71``)."""
+    positional place (``lightgbm_tpu/basic.py:71``).  ``data`` may also be
+    a path: a binary dataset file (``save_binary``) or a text file
+    (CSV, TSV or LibSVM, ``data/parser.py``)."""
 
     def __init__(self, data, label=None, reference=None, weight=None,
                  group=None, init_score=None, feature_name=None,
@@ -87,6 +91,7 @@ class Dataset:
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params or {})
+        self.used_indices = None
         self._handle: Optional[BinnedDataset] = None
 
     def construct(self) -> "Dataset":
@@ -98,7 +103,28 @@ class Dataset:
             ref = self.reference.construct()._handle
             params = {**self.reference.params, **params}
         config = Config(params)
-        if isinstance(self.data, torch.Tensor):
+        if self.used_indices is not None and ref is not None:
+            # a subset slices the parent's codes; it never re-bins
+            self._handle = ref.copy_subset(self.used_indices)
+            self._set_fields()
+            return self
+        if isinstance(self.data, str):
+            if BinnedDataset.is_binary_file(self.data):
+                self._handle = BinnedDataset.load_binary(self.data)
+                self._set_fields()
+                return self
+            from .data.parser import load_text_file
+            arr, label, names = load_text_file(self.data, config)
+            if self.label is None:
+                self.label = label
+            if self.feature_name is None:
+                self.feature_name = names
+            self._handle = BinnedDataset.construct_from_matrix(
+                arr, config, _resolve_categorical(
+                    self.categorical_feature, self.feature_name,
+                    arr.shape[1]),
+                feature_names=self.feature_name, reference=ref)
+        elif isinstance(self.data, torch.Tensor):
             if len(self.categorical_feature):
                 raise LightGBMError(
                     "a tensor Dataset supports numerical features only")
@@ -119,14 +145,86 @@ class Dataset:
                     self.categorical_feature, self.feature_name,
                     data.shape[1]),
                 feature_names=self.feature_name, reference=ref)
+        self._set_fields()
+        return self
+
+    def _set_fields(self) -> None:
+        """The labels, weights, queries and init scores given to this
+        Dataset, over the built set's own."""
         md = self._handle.metadata
         if self.label is not None:
             md.set_label(np.asarray(self.label))
-        md.set_weights(self.weight)
+        if self.weight is not None:
+            md.set_weights(self.weight)
         if self.group is not None:
             md.set_query(np.asarray(self.group))
-        md.set_init_score(self.init_score)
+        if self.init_score is not None:
+            md.set_init_score(self.init_score)
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows ``used_indices`` (sorted) of this set, binned with its
+        mappers, with its labels, weights and init scores."""
+        ds = Dataset(None, reference=self, params=params or self.params,
+                     feature_name=self.feature_name,
+                     categorical_feature=self.categorical_feature)
+        ds.used_indices = sorted(int(i) for i in used_indices)
+        return ds
+
+    def save_binary(self, filename) -> "Dataset":
+        """Write the built set in the binary format both packages read."""
+        self.construct()._handle.save_binary(str(filename))
         return self
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._handle is not None and label is not None:
+            self._handle.metadata.set_label(np.asarray(label))
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._handle is not None and weight is not None:
+            self._handle.metadata.set_weights(np.asarray(weight))
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._handle is not None:
+            self._handle.metadata.set_init_score(
+                None if init_score is None else np.asarray(init_score))
+        return self
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        self.feature_name = feature_name
+        if self._handle is not None and feature_name not in (None, "auto"):
+            if len(feature_name) != self._handle.num_total_features:
+                raise LightGBMError("length of feature names doesn't equal "
+                                    "with num_feature")
+            self._handle.feature_names = [str(f) for f in feature_name]
+        return self
+
+    def get_label(self):
+        if self._handle is not None and \
+                self._handle.metadata.label is not None:
+            return np.asarray(self._handle.metadata.label)
+        return None if self.label is None else np.asarray(self.label)
+
+    def get_weight(self):
+        if self._handle is not None:
+            w = self._handle.metadata.weights
+            return None if w is None else np.asarray(w)
+        return self.weight
+
+    def get_init_score(self):
+        if self._handle is not None:
+            return self._handle.metadata.init_score
+        return self.init_score
+
+    def num_data(self) -> int:
+        return self.construct()._handle.num_data
+
+    def num_feature(self) -> int:
+        return self.construct()._handle.num_total_features
 
     def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None, params=None) -> "Dataset":
@@ -252,6 +350,19 @@ class Booster:
         self._gbdt._flush_pending()
         return self._gbdt.num_iterations()
 
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's trees and take them out of the
+        scores."""
+        self._gbdt.rollback_one_iter()
+        return self
+
+    def num_model_per_iteration(self) -> int:
+        return self._gbdt.num_model
+
+    def set_train_data_name(self, name) -> "Booster":
+        self._train_data_name = name
+        return self
+
     def num_trees(self) -> int:
         self._gbdt._flush_pending()
         return len(self._gbdt.models)
@@ -296,17 +407,24 @@ class Booster:
         return s[0] if s.shape[0] == 1 else s.T.reshape(-1)
 
     def predict(self, data, num_iteration=-1, raw_score=False,
-                pred_leaf=False, start_iteration=0):
+                pred_leaf=False, start_iteration=0, pred_contrib=False):
         """Predictions of iterations ``[start_iteration, start_iteration +
         num_iteration)`` (all from ``start_iteration`` when
         ``num_iteration <= 0``): converted or raw scores, or with
         ``pred_leaf`` each tree's leaf index.  A scipy sparse matrix is
         densified :data:`PREDICT_CHUNK_ROWS` rows at a time (the fork's
         harness predicts 20M-request windows from CSR); every chunk takes
-        the route (kernel or host walk) of the whole batch's row count."""
+        the route (kernel or host walk) of the whole batch's row count.
+        ``pred_contrib``: the TreeSHAP contributions of the first
+        ``num_iteration`` iterations, each row's last column the expected
+        value, on the host in float64."""
         if isinstance(data, Dataset):
             raise TypeError("Cannot use Dataset instance for prediction, "
                             "please use raw data instead")
+        if pred_contrib:
+            return self._gbdt.predict(_to_2d_float(data),
+                                      num_iteration=num_iteration,
+                                      pred_contrib=True)
         kw = dict(num_iteration=num_iteration, raw_score=raw_score,
                   pred_leaf=pred_leaf, start_iteration=start_iteration)
         if _is_sparse(data):

@@ -53,7 +53,8 @@ from ..data.dataset import BinnedDataset, Metadata
 from ..metrics import create_metrics
 from ..objectives import create_objective
 from ..ops.bagging import bagging_row_mask
-from ..ops.grow import DeviceGrower, check_slice_config, host_learner_reason
+from ..ops.grow import (DeviceGrower, acquire_grower, check_slice_config,
+                        host_learner_reason, release_grower)
 from ..ops.histogram import bucket_size
 from ..parallel import create_tree_learner
 from ..ops.traverse import add_constant_score, add_tree_score, device_tree
@@ -62,7 +63,7 @@ from ..robust import checkpoint as _checkpoint
 from ..robust import faults
 from ..robust.retry import (RetryPolicy, transient_dispatch_errors,
                             with_retries)
-from ..tree.tree import Tree, categorical_bitsets
+from ..tree.tree import Tree, categorical_bitsets, tree_shap_batch
 from ..utils.log import LightGBMError, log_info, log_warning
 
 K_EPSILON = 1e-15
@@ -221,6 +222,7 @@ class GBDT:
         obs.instant("init_train", cat="boost", rows=int(train_set.num_data),
                     features=int(train_set.num_features))
         self._last_chunk_stack = None
+        self.release_grower()
         self.train_set = train_set
         check_slice_config(cfg, train_set)
         # objective "none" (custom gradients, fobj): None, as in the JAX
@@ -249,7 +251,9 @@ class GBDT:
         self._grower = self.learner = None
         why = self._host_learner_reason(train_set)
         if why is None:
-            self._grower = DeviceGrower(train_set, cfg, self.device)
+            # a cached grower of equal shapes when grower_cache is on
+            self._grower = acquire_grower(train_set, cfg, self.device,
+                                          self.objective, self)
         else:
             log_info(f"Using the host tree learner: {why}")
             self._host_learner()
@@ -269,6 +273,15 @@ class GBDT:
         self.bag_count = n
         log_info(f"Training on {self.device} ({n} rows, "
                  f"{train_set.num_groups} feature groups)")
+
+    def release_grower(self) -> None:
+        """Hand the device grower back to the grower cache, idle, for a
+        later booster (``LGBM_BoosterFree``, a new ``init_train``); this
+        booster trains no more on it.  A booster that is dropped releases
+        its grower the same way."""
+        if self._grower is not None:
+            release_grower(self._grower)
+            self._grower = None
 
     def _host_learner_reason(self, train_set) -> Optional[str]:
         """Why the host learner trains this configuration, or None when
@@ -848,6 +861,37 @@ class GBDT:
     def num_iterations(self) -> int:
         return len(self.models) // max(self.num_model, 1)
 
+    def rollback_one_iter(self) -> None:
+        """Remove the last iteration's trees and their scores
+        (gbdt.cpp:414-430; ``lightgbm_tpu/boosting/gbdt.py::
+        rollback_one_iter``): each tree is subtracted from the training
+        scores by the binned traversal of every row, and from a valid
+        set's scores when that set has taken it (valid sets take trees at
+        evaluation time).  A stump is not subtracted, as in the JAX
+        package."""
+        if not self.models:
+            return
+        self._flush_pending()
+        K = self.num_model
+        base = len(self.models) - K
+        for k in range(K):
+            tree = self.models[base + k]
+            if tree.num_leaves > 1:
+                dt = device_tree(tree, self.train_set, self.config.num_leaves,
+                                 self.device)
+                self.train_score[k] = add_tree_score(
+                    self.train_score[k], self._train_codes_t(), dt, -1.0,
+                    groups_major=True)
+                for v in self.valid_sets:
+                    if v.applied_models > base + k:
+                        v.score[k] = add_tree_score(v.score[k], v.binned,
+                                                    dt, -1.0)
+        del self.models[-K:]
+        for v in self.valid_sets:
+            v.applied_models = min(v.applied_models, len(self.models))
+        self.iter -= 1
+        self._last_chunk_stack = None
+
     # ------------------------------------------------------------------
     # prediction (raw host data)
     def _early_stop_instance(self):
@@ -962,11 +1006,15 @@ class GBDT:
 
     def predict(self, data, num_iteration: int = -1, raw_score=False,
                 pred_leaf=False, start_iteration: int = 0,
-                batch_rows: Optional[int] = None):
+                batch_rows: Optional[int] = None, pred_contrib=False):
         """Converted (or raw) predictions, (N,) or (N, num_model); with
         ``pred_leaf`` the (N, trees) leaf index of each tree of the slice,
-        by the host walk.  ``batch_rows`` as in :meth:`predict_raw`."""
+        by the host walk; with ``pred_contrib`` the TreeSHAP feature
+        contributions (:meth:`_predict_contrib`).  ``batch_rows`` as in
+        :meth:`predict_raw`."""
         self._flush_pending()
+        if pred_contrib:
+            return self._predict_contrib(data, num_iteration)
         if pred_leaf:
             data = np.ascontiguousarray(data, np.float64)
             total_iter = self.num_iterations()
@@ -988,6 +1036,29 @@ class GBDT:
             elif self.loaded_objective_str:
                 raw = _convert_by_name(self.loaded_objective_str, raw)
         return raw[0] if self.num_model == 1 else raw.T
+
+    def _predict_contrib(self, data, num_iteration: int = -1) -> np.ndarray:
+        """(N, F + 1) TreeSHAP contributions, the last column the expected
+        value, or (N, num_model * (F + 1)) for several models, of the first
+        ``num_iteration`` iterations (``lightgbm_tpu/boosting/gbdt.py::
+        _predict_contrib``): host float64, rows in chunks of 4,096."""
+        data = np.ascontiguousarray(np.asarray(data, np.float64))
+        n = data.shape[0]
+        nf = self.max_feature_idx + 1
+        total_iter = self.num_iterations()
+        end_iter = total_iter if num_iteration <= 0 \
+            else min(num_iteration, total_iter)
+        out = np.zeros((n, self.num_model, nf + 1), np.float64)
+        chunk = 4096
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            for it in range(end_iter):
+                for k in range(self.num_model):
+                    tree_shap_batch(self.models[it * self.num_model + k],
+                                    data[lo:hi], out[lo:hi, k])
+        if self.num_model == 1:
+            return out[:, 0, :]
+        return out.reshape(n, -1)
 
     def feature_importance(self, importance_type: str = "split",
                            iteration: int = -1) -> np.ndarray:

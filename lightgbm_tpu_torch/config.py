@@ -90,6 +90,18 @@ def _check_range(param, value):
             f"parameter {param.name}={value} violates constraint {spec}")
 
 
+def parse_config_str(content: str) -> Dict[str, str]:
+    """``key=value`` lines of a CLI config file ('#' comments)."""
+    out: Dict[str, str] = {}
+    for line in content.splitlines():
+        line = line.split("#", 1)[0].strip()
+        if not line or "=" not in line:
+            continue
+        k, v = line.split("=", 1)
+        out[k.strip()] = v.strip()
+    return out
+
+
 def resolve_alias(key: str) -> str:
     """Map a parameter alias to its canonical name (unknown keys pass through)."""
     k = key.strip().lower()

@@ -13,22 +13,29 @@ total bins, so one byte per group cell suffices.  Slot 0 of every group
 means "all features at their default bin"; feature ``f`` with bin
 ``b != default_bin(f)`` maps to ``offset(f) + b - (1 if default_bin(f) == 0
 else 0)``.  The split scan reconstructs the skipped default bin from leaf
-totals.  Bin codes, groups and offsets are the JAX package's byte for byte.
+totals.  Bin codes, groups and offsets are the JAX package's byte for byte.  ``copy_subset`` slices rows of a
+built set, and ``save_binary``/``load_binary`` keep a built set in the JAX
+package's binary file (:data:`BINARY_MAGIC`, then a pickle of host numpy
+arrays and mapper states), so either package loads the other's files.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..config import Config, resolve_device
-from ..utils.log import LightGBMError, log_warning
+from ..utils.log import LightGBMError, log_info, log_warning
 from ..utils.random import make_rng
 from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper
 
 MAX_GROUP_BIN = 256
+#: the first bytes of a binary dataset file (``lightgbm_tpu/data/
+#: dataset.py::BINARY_MAGIC``)
+BINARY_MAGIC = b"LIGHTGBM_TPU_DATASET_V1\n"
 
 
 class Metadata:
@@ -205,9 +212,13 @@ class BinnedDataset:
         ds.feature_names = ([f"Column_{i}" for i in range(num_col)]
                             if feature_names is None else list(feature_names))
 
-        # column-major view of the nonzeros (one stable sort, O(nnz))
+        # column-major view of the nonzeros (one stable sort, O(nnz); on
+        # 16-bit keys numpy's stable sort is a radix sort, ~7x faster than
+        # on int64 at 55M nonzeros)
         row_ids = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
-        order = np.argsort(indices, kind="stable")
+        key = indices.astype(np.int16) \
+            if num_col <= np.iinfo(np.int16).max else indices
+        order = np.argsort(key, kind="stable")
         col_sorted = indices[order]
         rows_by_col = row_ids[order]
         vals_by_col = values[order]
@@ -639,3 +650,109 @@ class BinnedDataset:
                 and self.num_groups == other.num_groups
                 and all(a.num_total_bin == b.num_total_bin
                         for a, b in zip(self.groups, other.groups)))
+
+    # -- row subsets and the binary file ----------------------------------
+    def host_binned(self) -> np.ndarray:
+        """The (N, G) uint8 codes as a host numpy array."""
+        b = self.binned
+        if isinstance(b, torch.Tensor):
+            return b.cpu().numpy()
+        return np.asarray(b)
+
+    def copy_subset(self, indices) -> "BinnedDataset":
+        """A set of the rows ``indices`` with this set's mappers and groups
+        (reference ``Dataset::CopySubset``; ``lightgbm_tpu/data/
+        dataset.py::copy_subset``).  Codes stay where they lie."""
+        indices = np.asarray(indices, np.int64)
+        sub = BinnedDataset()
+        sub.num_data = len(indices)
+        sub.num_total_features = self.num_total_features
+        for name in ("bin_mappers", "groups", "used_features", "f_group",
+                     "f_offset", "f_num_bin", "f_default_bin",
+                     "f_missing_type", "f_is_categorical",
+                     "monotone_constraints", "feature_penalty",
+                     "feature_names"):
+            setattr(sub, name, getattr(self, name))
+        if isinstance(self.binned, torch.Tensor):
+            sub.binned = self.binned[torch.from_numpy(indices).to(
+                self.binned.device)]
+            sub.device_binned = True
+        else:
+            sub.binned = np.ascontiguousarray(self.binned[indices])
+        md = Metadata(sub.num_data)
+        old = self.metadata
+        if old is not None:
+            if old.label is not None:
+                md.label = old.label[indices]
+            if old.weights is not None:
+                md.weights = old.weights[indices]
+            if old.init_score is not None:
+                ns = len(old.init_score) // max(old.num_data, 1)
+                md.init_score = (old.init_score.reshape(ns, -1)[:, indices]
+                                 .reshape(-1) if ns > 1
+                                 else old.init_score[indices])
+        sub.metadata = md
+        return sub
+
+    def save_binary(self, path: str) -> None:
+        """Write the set to ``path`` in the JAX package's binary format
+        (reference ``SaveBinaryFile``): host numpy arrays only, never
+        tensors."""
+        md = self.metadata
+        state = {
+            "num_data": self.num_data,
+            "num_total_features": self.num_total_features,
+            "feature_names": self.feature_names,
+            "used_features": self.used_features,
+            "mappers": [m.to_state() if m else None
+                        for m in self.bin_mappers],
+            "groups": [g.feature_indices for g in self.groups],
+            "binned": self.host_binned(),
+            "label": None if md is None else md.label,
+            "weights": None if md is None else md.weights,
+            "query_boundaries": None if md is None else md.query_boundaries,
+            "init_score": None if md is None else md.init_score,
+            "monotone": np.asarray(self.monotone_constraints),
+            "penalty": np.asarray(self.feature_penalty),
+        }
+        with open(path, "wb") as fh:
+            fh.write(BINARY_MAGIC)
+            pickle.dump(state, fh, protocol=4)
+        log_info(f"Saved binary dataset to {path}")
+
+    @classmethod
+    def is_binary_file(cls, path: str) -> bool:
+        try:
+            with open(path, "rb") as fh:
+                return fh.read(len(BINARY_MAGIC)) == BINARY_MAGIC
+        except OSError:
+            return False
+
+    @classmethod
+    def load_binary(cls, path: str) -> "BinnedDataset":
+        """Read a file :meth:`save_binary` (or the JAX package) wrote."""
+        with open(path, "rb") as fh:
+            if fh.read(len(BINARY_MAGIC)) != BINARY_MAGIC:
+                raise LightGBMError(
+                    f"{path} is not a lightgbm_tpu binary dataset")
+            state = pickle.load(fh)
+        ds = cls()
+        ds.num_data = int(state["num_data"])
+        ds.num_total_features = int(state["num_total_features"])
+        ds.feature_names = list(state["feature_names"])
+        ds.used_features = list(state["used_features"])
+        ds.bin_mappers = [BinMapper.from_state(s) if s else None
+                          for s in state["mappers"]]
+        ds.groups = [FeatureGroupInfo(g, [ds.bin_mappers[f] for f in g])
+                     for g in state["groups"]]
+        ds.binned = np.asarray(state["binned"])
+        md = ds.metadata = Metadata(ds.num_data)
+        md.label = state["label"]
+        md.weights = state["weights"]
+        md.query_boundaries = state["query_boundaries"]
+        md.init_score = state["init_score"]
+        md._update_query_weights()
+        ds._build_feature_lookups(None)
+        ds.monotone_constraints = np.asarray(state["monotone"], np.int32)
+        ds.feature_penalty = np.asarray(state["penalty"], np.float64)
+        return ds

@@ -369,11 +369,16 @@ def summary() -> Dict:
 
 
 def dump_metrics(path: Optional[str] = None) -> Optional[str]:
+    """Write the snapshot to ``path`` atomically: a reader, or a write
+    that fails midway (at process exit), never leaves a partial file."""
     path = path or STATE.metrics_path
     if not path:
         return None
-    with open(path, "w") as fh:
-        json.dump(snapshot(), fh, indent=1)
+    doc = json.dumps(snapshot(), indent=1)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as fh:
+        fh.write(doc)
+    os.replace(tmp, path)
     return path
 
 

@@ -10,7 +10,9 @@ a tree's pieces and the instantiation of the composed graph
 :func:`record` counts them by name and signature and times them, the way
 ``track_jit`` counts traces, and the pipeline reports captures per window.
 
-When observability is disabled :func:`record` is one flag check.
+When observability is disabled :func:`record` only adds to
+:data:`COUNTS`, the process's always-on capture count (the warm-up report
+reads it).
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ from __future__ import annotations
 from typing import Iterable
 
 from .state import STATE
+
+#: captures of this process, counted whether telemetry is on or off
+COUNTS = {"captures": 0}
 
 
 def signature_of(parts: Iterable) -> str:
@@ -32,6 +37,7 @@ def record(name: str, signature: str, t0: float, seconds: float) -> None:
     eager warm-up, the captures and the instantiation): a
     ``capture.<name>`` timing, the ``capture.total`` counter, the
     per-signature count and a ``capture:<name>`` trace span."""
+    COUNTS["captures"] += 1
     st = STATE
     if not st.enabled:
         return

@@ -1,9 +1,13 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each source under ``lightgbm_tpu_torch/csrc/`` is compiled at first use into
-``build/lightgbm_tpu_torch/`` beside the package (a shared library with a
-plain C interface, for ``sm_90a``), under a name that carries the digest of
-the source, so an edited source is never served a stale library.
+:data:`BUILD_DIR` (a shared library with a plain C interface, for
+``sm_90a``), under a name that carries the digest of the source, so an
+edited source is never served a stale library.  :data:`BUILD_DIR` is
+``build/lightgbm_tpu_torch/`` beside the package, or the directory that
+``LGBM_TPU_COMPILE_CACHE`` (or ``compile_cache.configure``) names: the
+libraries are what a later process finds built.  :data:`COUNTS` holds the
+libraries this process built and those it found built.
 """
 
 from __future__ import annotations
@@ -17,7 +21,15 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = CSRC.parent.parent / "build" / "lightgbm_tpu_torch"
+DEFAULT_BUILD_DIR = CSRC.parent.parent / "build" / "lightgbm_tpu_torch"
+ENV_VAR = "LGBM_TPU_COMPILE_CACHE"
+_FALSY = ("", "0", "false", "no", "off")
+BUILD_DIR = (Path(os.environ[ENV_VAR]).expanduser()
+             if os.environ.get(ENV_VAR, "").lower() not in _FALSY
+             else DEFAULT_BUILD_DIR)
+#: libraries built by this process ("built") and found already built
+#: ("found")
+COUNTS = {"built": 0, "found": 0}
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 
@@ -50,7 +62,9 @@ def start_build(name: str):
     several sources at once."""
     out = library_path(name)
     if out.exists():
+        COUNTS["found"] += 1
         return None, out
+    COUNTS["built"] += 1
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(nvcc_command(name, tmp), stdout=subprocess.PIPE,

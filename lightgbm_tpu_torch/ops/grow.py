@@ -53,6 +53,15 @@ graph a tree, each stage's wave the body of a WHILE node that loops while
 on the CPU the same pieces run in a Python loop that reads the control
 words.  A wave that selects nothing is an exact no-op on the tree.
 
+With ``grower_cache`` (on by default, as in the JAX package) a grower
+outlives its booster: :func:`acquire_grower` hands a new booster an idle
+grower of equal key (:func:`grower_key`: rows, groups, slot pitch,
+features, categorical, the layout bounds, the config but its seeds and
+learning rate, the gradient function's shapes, the device), which
+takes the booster's codes, feature metadata, gradient arguments and seeds
+into its static buffers (:meth:`DeviceGrower.adopt`) and replays its
+captured graphs without a new capture.
+
 Every per-leaf tensor has one junk row (index L; records: index L-1) that
 absorbs the scatters of empty lanes, so a scatter never writes a live leaf
 twice.  CUDA ``index_put_`` writes duplicate indices in no fixed order;
@@ -63,14 +72,19 @@ result.
 from __future__ import annotations
 
 import functools
+import hashlib
+import threading
 import time
 import types
+import weakref
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..obs import capture_track
 from ..params import PARAM_BY_NAME
 from ..utils import random as trandom
@@ -250,8 +264,9 @@ def unported_options(config) -> list:
     """The options set in ``config`` that select code the port does not
     have, whatever the data: the distributed learners and sharding
     (ROADMAP item 7), the multi-host pod checkpoints, the streaming
-    telemetry exporter, SLOs and XLA cost attribution, and the profiled
-    wave plan (ROADMAP item 6)."""
+    telemetry exporter, SLOs and XLA cost attribution, the profiled
+    wave plan (ROADMAP item 6), the streaming two-round text loader and
+    the CLI's chaos soak."""
     todo = []
     learner = str(config.tree_learner)
     if learner in ("feature", "data", "voting") \
@@ -277,6 +292,10 @@ def unported_options(config) -> list:
         todo.append("profile_attribution (XLA cost attribution)")
     if str(config.wave_plan) == "profiled":
         todo.append("wave_plan=profiled (the profiled stage plan)")
+    if bool(getattr(config, "two_round", False)):
+        todo.append("two_round=true (the streaming two-round text loader)")
+    if str(getattr(config, "task", "train")) == "soak":
+        todo.append("task=soak (the fleet chaos soak)")
     return todo
 
 
@@ -310,6 +329,127 @@ def check_slice_config(config, dataset) -> None:
     if todo:
         raise LightGBMError("not ported to lightgbm_tpu_torch yet: "
                             + ", ".join(todo))
+
+
+#: idle growers kept for later boosters, at most this many (LRU; the JAX
+#: package's ``_PROGRAM_CACHE_MAX``)
+GROWER_CACHE_MAX = 8
+# id(grower) -> [key, grower, weakref to its booster or None when idle]
+_GROWER_CACHE: "OrderedDict[int, list]" = OrderedDict()
+_GROWER_CACHE_LOCK = threading.Lock()
+#: cache hits and misses of this process (always counted; with telemetry
+#: on also ``grow.cache_hits`` / ``grow.cache_misses``)
+GROWER_CACHE_COUNTS = {"hits": 0, "misses": 0}
+#: parameters no capture reads: the seeds (a grower takes its booster's,
+#: :meth:`DeviceGrower.adopt`; the binning's and DART's are the
+#: booster's), the learning rate (a buffer written every launch) and the
+#: caching and logging knobs
+_NON_CAPTURE_PARAMS = frozenset({
+    "seed", "bagging_seed", "feature_fraction_seed", "data_random_seed",
+    "drop_seed", "learning_rate", "grower_cache", "compile_cache_dir",
+    "verbosity", "num_iterations"})
+
+
+def _config_digest(config) -> str:
+    items = sorted((k, repr(v)) for k, v in config.to_dict().items()
+                   if k not in _NON_CAPTURE_PARAMS)
+    return hashlib.sha1(repr(items).encode()).hexdigest()
+
+
+def _args_signature(a):
+    """The shapes a captured gradient reads: tensors by shape and dtype,
+    scalars by value, sequences element by element."""
+    if isinstance(a, torch.Tensor):
+        return ("tensor", tuple(a.shape), str(a.dtype))
+    if isinstance(a, (tuple, list)):
+        return tuple(_args_signature(x) for x in a)
+    return repr(a)
+
+
+def _copy_args(dst, src) -> None:
+    """Copy the tensors of ``src`` into those of ``dst`` (equal
+    signatures), in place."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src):
+            _copy_args(d, s)
+
+
+def grower_key(dataset, config, device, objective) -> tuple:
+    """What shapes a grower's captures (the JAX package's
+    ``programs_signature`` plus the row count, which sizes the port's
+    buffers, and the gradient function the fused tree captures)."""
+    grad = None if objective is None else objective.device_grad()
+    gsig = None if grad is None else (
+        f"{grad[0].__module__}.{grad[0].__qualname__}",
+        _args_signature(grad[1]))
+    return (str(device), int(dataset.num_data), int(dataset.num_groups),
+            int(slot_pitch(dataset)), len(dataset.used_features),
+            bool(np.asarray(dataset.f_is_categorical).any()),
+            COUNT_SPLIT_ROWS, INT32_SCAN_ROWS, _config_digest(config), gsig)
+
+
+def acquire_grower(dataset, config, device, objective, owner
+                   ) -> "DeviceGrower":
+    """A grower for ``owner`` (a booster): an idle cached grower of equal
+    :func:`grower_key`, adopted (:meth:`DeviceGrower.adopt`), or a new
+    one, cached.  Without ``grower_cache`` always a new, uncached one."""
+    if not bool(getattr(config, "grower_cache", True)):
+        return DeviceGrower(dataset, config, device)
+    key = grower_key(dataset, config, device, objective)
+    with _GROWER_CACHE_LOCK:
+        hit = None
+        for gid, entry in _GROWER_CACHE.items():
+            if entry[0] == key and (entry[2] is None or entry[2]() is None) \
+                    and not _patched(entry[1]):
+                hit = entry
+                _GROWER_CACHE.move_to_end(gid)
+                break
+        if hit is not None:
+            hit[2] = weakref.ref(owner)
+    if hit is not None:
+        GROWER_CACHE_COUNTS["hits"] += 1
+        obs.inc("grow.cache_hits")
+        hit[1].adopt(dataset, config, objective)
+        return hit[1]
+    GROWER_CACHE_COUNTS["misses"] += 1
+    obs.inc("grow.cache_misses")
+    grower = DeviceGrower(dataset, config, device)
+    with _GROWER_CACHE_LOCK:
+        _GROWER_CACHE[id(grower)] = [key, grower, weakref.ref(owner)]
+        while len(_GROWER_CACHE) > GROWER_CACHE_MAX:
+            _GROWER_CACHE.popitem(last=False)
+    return grower
+
+
+def _patched(grower) -> bool:
+    """Whether a method was replaced on the grower itself (the plain-loop
+    checks run a tree's pieces that way): such a grower stays its
+    booster's and is never handed to another."""
+    return any(callable(v) and not isinstance(v, torch.Tensor)
+               for v in vars(grower).values())
+
+
+def release_grower(grower: "DeviceGrower") -> None:
+    """Mark a cached grower idle (its booster was freed)."""
+    with _GROWER_CACHE_LOCK:
+        entry = _GROWER_CACHE.get(id(grower))
+        if entry is not None and entry[1] is grower:
+            entry[2] = None
+
+
+def clear_grower_cache() -> int:
+    """Drop every cached grower (their device buffers go with the last
+    reference); returns how many were dropped."""
+    with _GROWER_CACHE_LOCK:
+        n = len(_GROWER_CACHE)
+        _GROWER_CACHE.clear()
+    return n
+
+
+def cached_growers() -> int:
+    return len(_GROWER_CACHE)
 
 
 class DeviceGrower:
@@ -369,23 +509,17 @@ class DeviceGrower:
         self.wave_width = _wave_width(self.num_leaves, self.hist_cols)
         self.stage_plan = legacy_stage_plan(self.num_leaves, self.wave_width,
                                             self.hist_cols)
-        self.lr = float(config.learning_rate)
         self._valid = torch.arange(self.n_pad, device=device) < self.num_data
-        # sampling seeds (lightgbm_tpu/ops/grow.py:364-379)
+        self._set_seeds(config)
         nf = int(self.meta.num_bin.shape[0])
         self._ff_frac = float(config.feature_fraction)
         self._ff_nf = nf
         self._ff_k = max(1, int(np.ceil(nf * self._ff_frac)))
-        self._ff_seed = int(config.feature_fraction_seed
-                            if config.feature_fraction_seed
-                            else config.seed + 2) & 0x7FFFFFFF
-        self._quant_seed = (int(config.seed) + 5) & 0x7FFFFFFF
         self._ff_active = self._ff_frac < 1.0 and nf > 1
         # bagging (GBDT.bagging's rounds; redrawn inside fused chunks)
         self._bag_fraction = float(config.bagging_fraction)
         self._bag_freq = int(config.bagging_freq)
         self._bag_on = self._bag_fraction < 1.0 and self._bag_freq > 0
-        self._bag_seed = int(config.bagging_seed)
         self._bag_npad = bucket_size(max(self.num_data, 1))
         # constants of the pieces (made here, never inside a capture)
         self._valid_f = self._valid.float()
@@ -421,6 +555,48 @@ class DeviceGrower:
                                   instantiate_s=0.0, graphs=0,
                                   warmup_waves=0)
         self._ensure_state(max(int(getattr(config, "fused_chunk", 1)), 1))
+
+    def _set_seeds(self, config) -> None:
+        """Sampling seeds (lightgbm_tpu/ops/grow.py:364-379): host values
+        the key tables are derived from, never captured."""
+        self.lr = float(config.learning_rate)
+        self._ff_seed = int(config.feature_fraction_seed
+                            if config.feature_fraction_seed
+                            else config.seed + 2) & 0x7FFFFFFF
+        self._quant_seed = (int(config.seed) + 5) & 0x7FFFFFFF
+        self._bag_seed = int(config.bagging_seed)
+
+    def adopt(self, dataset, config, objective) -> None:
+        """Take a new booster's data into this (idle, cached) grower: its
+        codes, feature metadata and seeds, and its gradient arguments into
+        the tensors the captured fused tree reads (the booster's objective
+        then reads those tensors too), so the captured graphs replay for it
+        as they were.  Everything else a capture reads is equal by
+        :func:`grower_key`."""
+        dev = self.device
+        binned = dataset.binned
+        if not isinstance(binned, torch.Tensor):
+            binned = torch.from_numpy(binned)
+        self.binned_t[:, :self.num_data].copy_(binned.to(dev).t())
+        meta = FeatureMeta.from_dataset(dataset, slot_stride=self.nb,
+                                        device=dev)
+        for dst, src in zip(self.meta, meta):
+            dst.copy_(src)
+        nbins = np.asarray(dataset.f_num_bin, np.int64)
+        dbins = np.asarray(dataset.f_default_bin, np.int64)
+        for dst, src in ((self.f_group, dataset.f_group),
+                         (self.f_offset, dataset.f_offset),
+                         (self.f_width, nbins - (dbins == 0))):
+            dst.copy_(torch.as_tensor(np.asarray(src, np.int64)))
+        self.config = config
+        self._set_seeds(config)
+        if self._grad is not None and objective is not None:
+            fn, args = objective.device_grad()
+            _copy_args(self._grad[1], args)
+            objective._gargs = self._grad[1]
+        self.capture_stats = dict(warmup_s=0.0, capture_s=0.0,
+                                  instantiate_s=0.0, graphs=0,
+                                  warmup_waves=0)
 
     # ------------------------------------------------------------------
     def feature_mask_for(self, tree_idx: int) -> torch.Tensor:

@@ -849,9 +849,8 @@ PARAM_BY_NAME = {p.name: p for p in PARAM_SCHEMA}
 #: traces or compiles no XLA programs.  (``device_growth`` has a meaning:
 #: ``off`` trains on the host learner.)
 IGNORED_PARAMS = frozenset({
-    "hist_kernel", "tpu_rows_per_block", "grower_cache",
-    "find_best_fusion", "compile_cache_dir", "compile_cache_min_entry_bytes",
-    "compile_cache_strict_keys",
+    "hist_kernel", "tpu_rows_per_block", "find_best_fusion",
+    "compile_cache_min_entry_bytes", "compile_cache_strict_keys",
 })
 
 # alias -> canonical name (includes the canonical names themselves)

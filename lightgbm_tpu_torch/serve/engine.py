@@ -13,13 +13,16 @@ against the current model.  :class:`PredictionServer` owns that read side:
   up to ``max_batch`` rows or ``max_wait_ms`` into one launch;
 * ``warmup()`` builds the kernel's library and launches each of its two
   routes once (small batches spread a row's trees over a block, large
-  ones walk a row a thread), so the first request pays neither.  The JAX
-  package compiles one program per padded batch size and warms each; the
-  kernel compiles nothing per shape and pads no rows.
+  ones walk a row a thread), so the first request pays neither; given
+  row buckets (:func:`warmup_bucket_ladder`, ``default_warmup_buckets``)
+  it also scores a batch of zeros at each.  The JAX package compiles one
+  program per padded batch size and warms each; the kernel compiles
+  nothing per shape and pads no rows.
 
-Not ported yet: the degrade-to-host path (circuit breaker, host-walk
-fallback, injected faults) and the serving telemetry beyond the swap
-span and counters.  A failure on the card raises to the caller.
+Not ported: the degrade-to-host path (circuit breaker, host-walk
+fallback, injected faults; ``host_fallback=True`` is refused by name) and
+the serving telemetry beyond the swap span and counters.  A failure on
+the card raises to the caller.
 """
 
 from __future__ import annotations
@@ -28,17 +31,50 @@ import threading
 import time
 from concurrent.futures import Future
 from queue import Empty, Queue
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import obs
 from ..boosting.gbdt import GBDT, _convert_by_name, resolve_device
 from ..utils.log import LightGBMError
-from .packed import (PackedEnsemble, _sm_count, forest_geometry,
-                     launch_forest, pack_gbdt, predict_scores, query_tensor)
+from .packed import (PackedEnsemble, _pow2_at_least, _sm_count,
+                     forest_geometry, launch_forest, pack_gbdt,
+                     predict_scores, query_tensor)
 
-__all__ = ["PredictionServer"]
+__all__ = ["PredictionServer", "warmup_bucket_ladder", "row_bucket"]
+
+
+def row_bucket(n: int, lo: int = 128) -> int:
+    """The power of two at least ``max(n, lo)`` (the JAX package's batch
+    pad, ``lightgbm_tpu/serve/packed.py::row_bucket``)."""
+    return _pow2_at_least(int(n), int(lo))
+
+
+def warmup_bucket_ladder(min_rows: Optional[int] = None,
+                         min_bucket: int = 128) -> List[int]:
+    """The default warm-up batch sizes (``lightgbm_tpu/serve/engine.py::
+    warmup_bucket_ladder``): 128, 1,024 and 8,192 rows and the bucket of
+    ``device_predict_min_rows`` (``None``: the schema default), where
+    ``Booster.predict`` moves to the card."""
+    if min_rows is None:
+        from ..params import PARAM_BY_NAME
+        min_rows = int(PARAM_BY_NAME["device_predict_min_rows"].default)
+    out = [128, 1024, 8192]
+    if min_rows > 0:
+        b = row_bucket(int(min_rows), min_bucket)
+        if b not in out:
+            out.append(b)
+    return out
+
+
+def refuse_host_fallback(host_fallback: bool) -> None:
+    """The degrade-to-host path is not ported (ROADMAP item 4.4): on the
+    card it would hide a failing kernel."""
+    if host_fallback:
+        raise LightGBMError("host_fallback=True is not ported to "
+                            "lightgbm_tpu_torch yet (the degrade-to-host "
+                            "path): a device error raises")
 
 
 def _as_gbdt(booster) -> GBDT:
@@ -96,12 +132,22 @@ class PredictionServer:
     ``None`` for an empty server to ``swap()`` into later.
     ``num_iteration``/``start_iteration`` select the served tree slice on
     every swap; ``max_batch``/``max_wait_ms`` configure the micro-batching
-    queue (``start()``/``submit()``)."""
+    queue (``start()``/``submit()``); ``min_bucket`` and
+    ``device_predict_min_rows`` (``None``: the swapped booster's) set the
+    warm-up ladder (:meth:`default_warmup_buckets`)."""
 
     def __init__(self, booster=None, *, device="cuda",
                  num_iteration: int = -1, start_iteration: int = 0,
-                 max_batch: int = 8192, max_wait_ms: float = 2.0):
+                 max_batch: int = 8192, max_wait_ms: float = 2.0,
+                 min_bucket: int = 128,
+                 device_predict_min_rows: Optional[int] = None,
+                 host_fallback: bool = False):
+        refuse_host_fallback(host_fallback)
         self.device = resolve_device(str(device))
+        self.min_bucket = int(min_bucket)
+        self.device_predict_min_rows = (
+            None if device_predict_min_rows is None
+            else int(device_predict_min_rows))
         self._lock = threading.Lock()
         self._model: Optional[_Model] = None
         self.num_iteration = int(num_iteration)
@@ -123,6 +169,11 @@ class PredictionServer:
         same pads reuse compiled programs; the kernel compiles nothing per
         shape)."""
         gbdt = _as_gbdt(booster)
+        if self.device_predict_min_rows is None:
+            rows = getattr(getattr(gbdt, "config", None),
+                           "device_predict_min_rows", None)
+            if rows is not None:
+                self.device_predict_min_rows = int(rows)
         with obs.span("serve.swap", cat="serve"):
             packed = pack_gbdt(gbdt, self.start_iteration,
                                self.num_iteration, device=self.device)
@@ -138,6 +189,11 @@ class PredictionServer:
             obs.inc("serve.swap_shape_changes")
         return same_shape
 
+    @property
+    def packed(self) -> PackedEnsemble:
+        """The current model's pack."""
+        return self._snapshot().packed
+
     def _snapshot(self) -> _Model:
         with self._lock:
             model = self._model
@@ -146,24 +202,43 @@ class PredictionServer:
                                 "swap(booster) first")
         return model
 
-    def warmup(self) -> None:
+    def default_warmup_buckets(self) -> List[int]:
+        """:func:`warmup_bucket_ladder` at this server's
+        ``device_predict_min_rows`` and ``min_bucket``."""
+        return warmup_bucket_ladder(self.device_predict_min_rows,
+                                    self.min_bucket)
+
+    def warmup(self, row_buckets: Optional[Sequence[int]] = None
+               ) -> List[int]:
         """Build the kernel's library and launch each route once, forced,
         on a row of zeros against the current model (on the CPU: one
-        call)."""
+        call); then score a batch of zeros at each of ``row_buckets``
+        (rounded up to powers of two of at least ``min_bucket``).  Returns
+        the buckets scored."""
         model = self._snapshot()
         pe = model.packed
         x = np.zeros((1, pe.num_features))
         if pe.device.type != "cuda" or pe.num_trees == 0:
             predict_scores(pe, x)
-            return
-        x = query_tensor(x, pe.num_features, pe.device)
-        _, t, n = pe.tables().split_feature.shape
-        for route in ("rows", "trees"):
-            geo = forest_geometry(1, t, n, pe.num_features, True, False,
-                                  pe.num_model, sm_count=_sm_count(
-                                      pe.device.index), route=route)
-            launch_forest(pe.records, x, None, geo, num_model=pe.num_model,
-                          max_depth=pe.max_depth)
+        else:
+            xq = query_tensor(x, pe.num_features, pe.device)
+            _, t, n = pe.tables().split_feature.shape
+            for route in ("rows", "trees"):
+                geo = forest_geometry(1, t, n, pe.num_features, True, False,
+                                      pe.num_model, sm_count=_sm_count(
+                                          pe.device.index), route=route)
+                launch_forest(pe.records, xq, None, geo,
+                              num_model=pe.num_model,
+                              max_depth=pe.max_depth)
+        done: List[int] = []
+        for rows in row_buckets or ():
+            b = row_bucket(int(rows), self.min_bucket)
+            if b in done:
+                continue
+            with obs.span("serve.warmup", cat="serve", rows=b):
+                predict_scores(pe, np.zeros((b, pe.num_features)))
+            done.append(b)
+        return done
 
     # -- direct prediction ----------------------------------------------
     def predict(self, data, raw_score: bool = False) -> np.ndarray:

@@ -11,27 +11,43 @@ index copy into the model axis (:func:`write_tenant`).  The opt-in
 ``value_dtype="bf16"`` variant halves the leaf table; routing stays exact,
 only the leaf values quantize.
 
-``FleetServer`` and ``TenantHandle`` (replicas, per-replica circuit
-breakers and the host fallback) are not ported yet.
+:class:`FleetServer` serves a fleet to threads: per-row tenant ids,
+tenant hot swaps that other tenants never wait on (an index copy, no
+recapture: the kernel compiles nothing per shape), micro-batching queues
+with one worker a replica, and warm-up.  Replicas wrap round onto the
+one card, as the JAX package wraps them onto its devices: each has its
+own queue and worker over the one fleet.  :class:`TenantHandle` is one
+tenant behind the ``PredictionServer`` surface.  Not ported: the
+per-replica circuit breaker and the degrade-to-host path
+(``host_fallback=True`` is refused by name); a device error raises to the
+caller.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
+import time
+from concurrent.futures import Future
+from queue import Empty, Queue
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
+from ..config import resolve_device
 from ..utils.log import LightGBMError
-from .engine import _as_gbdt
+from .engine import (ModelMeta, _as_gbdt, refuse_host_fallback,
+                     row_bucket)
 from .packed import (ARRAY_FIELDS, ForestRecords, ForestTables,
                      PackedEnsemble, forest_predict, forest_records,
                      pack_ensemble, query_tensor)
 
 __all__ = ["PackedFleet", "stack_packs", "pack_fleet", "write_tenant",
-           "fleet_predict_scores", "fleet_predict_leaves"]
+           "fleet_predict_scores", "fleet_predict_leaves", "FleetServer",
+           "TenantHandle"]
 
 #: accepted ``value_dtype`` spellings -> torch dtype of the leaf table
 _VALUE_DTYPES = {"f32": torch.float32, "float32": torch.float32,
@@ -252,7 +268,7 @@ def _tenant_tensor(fl: PackedFleet, tenant_ids, rows: int) -> torch.Tensor:
         raise LightGBMError(
             f"tenant_ids must be in [0, {fl.num_tenants}); got "
             f"[{tid.min()}, {tid.max()}]")
-    return torch.from_numpy(tid).to(fl.device)
+    return torch.from_numpy(np.array(tid, np.int32)).to(fl.device)
 
 
 def fleet_predict_scores(fl: PackedFleet, tenant_ids, data) -> np.ndarray:
@@ -279,3 +295,352 @@ def fleet_predict_leaves(fl: PackedFleet, tenant_ids, data) -> np.ndarray:
     return forest_predict(fl.tables(), x, tid, num_model=fl.num_model,
                           max_depth=fl.max_depth, leaves=True,
                           records=fl.records).cpu().numpy()
+
+
+class _FleetGen:
+    """One immutable generation: the fleet and each tenant's
+    :class:`ModelMeta`."""
+
+    __slots__ = ("fleet", "metas", "packs")
+
+    def __init__(self, fleet: PackedFleet, metas, packs):
+        self.fleet, self.metas, self.packs = fleet, tuple(metas), list(packs)
+
+
+class _Replica:
+    __slots__ = ("index", "queue", "worker")
+
+    def __init__(self, index: int):
+        self.index = index
+        self.queue: Queue = Queue()
+        self.worker: Optional[threading.Thread] = None
+
+
+class FleetServer:
+    """Thread-safe multi-tenant hot-swap predictor over a
+    :class:`PackedFleet` on ``device`` (``cuda`` by default, which raises
+    without a card; ``lightgbm_tpu/serve/fleet.py::FleetServer``).
+
+    ``boosters`` seed the M tenants (each a ``Booster``, ``GBDT`` or model
+    path; a cold fleet repeats one booster and ``swap_tenant``s later).
+    ``replicas`` request queues with a worker each (0: one), round-robin,
+    all on the one card.  ``value_dtype="bf16"``: the quantized leaf
+    values.  ``num_iteration``/``start_iteration`` select the served
+    slice on every swap."""
+
+    def __init__(self, boosters: Sequence, *, num_iteration: int = -1,
+                 start_iteration: int = 0, min_bucket: int = 128,
+                 replicas: int = 1, max_batch: int = 8192,
+                 max_wait_ms: float = 2.0, host_fallback: bool = False,
+                 value_dtype: str = "f32",
+                 num_features: Optional[int] = None, device="cuda"):
+        refuse_host_fallback(host_fallback)
+        if not boosters:
+            raise LightGBMError("FleetServer needs at least one tenant")
+        self.device = resolve_device(str(device))
+        self.num_iteration = int(num_iteration)
+        self.start_iteration = int(start_iteration)
+        self.min_bucket = int(min_bucket)
+        self.max_batch = int(max_batch)
+        self.max_wait_ms = float(max_wait_ms)
+        self.value_dtype = str(value_dtype).lower()
+        _value_dtype(self.value_dtype)
+        n_rep = int(replicas) or 1
+        if n_rep < 1:
+            raise LightGBMError(f"replicas must be >= 1, got {replicas}")
+        self._replicas = [_Replica(i) for i in range(n_rep)]
+        self._lock = threading.Lock()        # the generation pointer
+        self._swap_lock = threading.Lock()   # one swap at a time
+        self._stopping = threading.Event()
+        self._rr = 0
+        gbdts = [_as_gbdt(b) for b in boosters]
+        fleet, packs = pack_fleet(
+            gbdts, num_features=num_features,
+            start_iteration=self.start_iteration,
+            num_iteration=self.num_iteration,
+            value_dtype=self.value_dtype, device=self.device)
+        self._gen = _FleetGen(fleet, [ModelMeta(g, pe.num_iterations)
+                                      for g, pe in zip(gbdts, packs)], packs)
+        obs.set_gauge("serve.fleet.tenants", fleet.num_tenants)
+        obs.set_gauge("serve.fleet.replicas", n_rep)
+
+    def _snapshot(self) -> _FleetGen:
+        with self._lock:
+            return self._gen
+
+    @property
+    def fleet(self) -> PackedFleet:
+        return self._snapshot().fleet
+
+    @property
+    def num_tenants(self) -> int:
+        return self._snapshot().fleet.num_tenants
+
+    @property
+    def num_replicas(self) -> int:
+        return len(self._replicas)
+
+    def tenant(self, tenant_id: int) -> "TenantHandle":
+        """One tenant behind the ``PredictionServer`` surface."""
+        return TenantHandle(self, tenant_id)
+
+    # -- tenant hot swap ------------------------------------------------
+    def swap_tenant(self, tenant_id: int, booster) -> bool:
+        """Replace ONE tenant.  A pack that fits the fleet's pads is
+        index-copied into its row (the other tenants keep serving, nothing
+        is captured or compiled); one that does not re-stacks the fleet
+        into a new generation.  Returns whether it fit."""
+        m = int(tenant_id)
+        gbdt = _as_gbdt(booster)
+        with obs.span("serve.fleet.swap", cat="serve", tenant=m), \
+                self._swap_lock:
+            gen = self._snapshot()
+            fl = gen.fleet
+            if not 0 <= m < fl.num_tenants:
+                raise LightGBMError(
+                    f"tenant_id {m} out of range [0, {fl.num_tenants})")
+            gbdt._flush_pending()
+            pe = pack_ensemble(gbdt.models, gbdt.num_model,
+                               start_iteration=self.start_iteration,
+                               num_iteration=self.num_iteration,
+                               num_features=fl.num_features,
+                               device=self.device)
+            if pe.num_model != fl.num_model:
+                raise LightGBMError(
+                    f"tenant {m} booster has num_model={pe.num_model}; "
+                    f"the fleet serves num_model={fl.num_model}")
+            packs = list(gen.packs)
+            packs[m] = pe
+            fits = fl.fits(pe)
+            if fits:
+                write_tenant(fl, m, pe)
+            else:
+                fl = stack_packs(packs, self.value_dtype)
+            metas = list(gen.metas)
+            metas[m] = ModelMeta(gbdt, pe.num_iterations)
+            new_gen = _FleetGen(fl, metas, packs)
+            with self._lock:
+                self._gen = new_gen
+        obs.inc("serve.fleet.swaps")
+        if not fits:
+            obs.inc("serve.fleet.swap_shape_changes")
+        return fits
+
+    # -- warm-up --------------------------------------------------------
+    def warmup(self, row_buckets: Optional[Sequence[int]] = None
+               ) -> List[int]:
+        """Score a batch of zeros for tenant 0 at each row bucket
+        (``None``: 128, 1,024 and 8,192 rows), building the kernel's
+        library first; returns the buckets scored."""
+        if row_buckets is None:
+            row_buckets = [128, 1024, 8192]
+        fl = self._snapshot().fleet
+        done: List[int] = []
+        for rows in row_buckets:
+            b = row_bucket(int(rows), self.min_bucket)
+            if b in done:
+                continue
+            with obs.span("serve.fleet.warmup", cat="serve", rows=b):
+                fleet_predict_scores(fl, 0, np.zeros((b, fl.num_features)))
+            done.append(b)
+        return done
+
+    # -- prediction -----------------------------------------------------
+    def _pick_replica(self) -> _Replica:
+        with self._lock:
+            i = self._rr
+            self._rr = (i + 1) % len(self._replicas)
+        return self._replicas[i]
+
+    def _convert(self, gen: _FleetGen, tid: np.ndarray, raw: np.ndarray,
+                 raw_score: bool) -> np.ndarray:
+        """Each tenant's rows converted as its solo server converts
+        them."""
+        k = gen.fleet.num_model
+        tenants = np.unique(tid)
+        if len(tenants) == 1:
+            return gen.metas[int(tenants[0])].convert(raw, raw_score)
+        out = np.empty(raw.shape[1] if k == 1 else (raw.shape[1], k),
+                       np.float64)
+        for m in tenants:
+            rows = np.nonzero(tid == m)[0]
+            out[rows] = gen.metas[int(m)].convert(raw[:, rows], raw_score)
+        return out
+
+    def predict(self, tenant_ids, data, raw_score: bool = False,
+                replica: Optional[int] = None) -> np.ndarray:
+        """Score a mixed-tenant batch in one kernel launch, each row
+        answered as its tenant's solo server would: (rows,), or (rows,
+        num_model) for multiclass.  A device error raises."""
+        data = np.atleast_2d(np.asarray(data))
+        n = int(data.shape[0])
+        gen = self._snapshot()
+        fl = gen.fleet
+        tid = np.asarray(tenant_ids, np.int32)
+        if tid.ndim == 0:
+            tid = np.full(n, int(tid), np.int32)
+        if tid.shape != (n,):
+            obs.inc("serve.fleet.input_errors")
+            raise LightGBMError(
+                f"tenant_ids shape {tid.shape} does not match {n} rows")
+        if n and (tid.min() < 0 or tid.max() >= fl.num_tenants):
+            obs.inc("serve.fleet.input_errors")
+            raise LightGBMError(
+                f"tenant_ids must be in [0, {fl.num_tenants}); got "
+                f"[{tid.min()}, {tid.max()}]")
+        if data.shape[1] < fl.num_features:
+            obs.inc("serve.fleet.input_errors")
+            raise LightGBMError(
+                f"query data has {data.shape[1]} features but the fleet "
+                f"needs {fl.num_features}")
+        rep = (self._replicas[int(replica)] if replica is not None
+               else self._pick_replica())
+        with obs.span("serve.fleet.predict", cat="serve", rows=n,
+                      replica=rep.index):
+            raw = fleet_predict_scores(fl, tid, data)
+            out = self._convert(gen, tid, raw, raw_score)
+        obs.inc("serve.fleet.requests")
+        obs.inc("serve.fleet.rows", n)
+        return out
+
+    # -- micro-batching, a queue and a worker a replica -------------------
+    def start(self) -> "FleetServer":
+        """Start one micro-batching worker a replica (idempotent)."""
+        with self._lock:
+            self._stopping.clear()
+            for rep in self._replicas:
+                if rep.worker is not None and rep.worker.is_alive():
+                    continue
+                rep.worker = threading.Thread(
+                    target=self._drain_loop, args=(rep,),
+                    name=f"lgbm-fleet-{rep.index}", daemon=True)
+                rep.worker.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop the workers; queued requests are answered first."""
+        with self._lock:
+            workers = [rep.worker for rep in self._replicas]
+            for rep in self._replicas:
+                rep.worker = None
+            # inside the lock: submit() checks liveness and enqueues under
+            # it, so an accepted request lands in a queue that is drained
+            self._stopping.set()
+        for w in workers:
+            if w is not None:
+                w.join(timeout=10.0)
+
+    def __enter__(self) -> "FleetServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> bool:
+        self.stop()
+        return False
+
+    def submit(self, tenant_ids, data, raw_score: bool = False) -> Future:
+        """Enqueue a (tenant_ids, rows) request on the next replica's
+        queue; resolves to what ``predict`` returns for those rows."""
+        data = np.atleast_2d(np.asarray(data))
+        tid = np.asarray(tenant_ids, np.int32)
+        if tid.ndim == 0:
+            tid = np.full(data.shape[0], int(tid), np.int32)
+        fut: Future = Future()
+        rep = self._pick_replica()
+        with self._lock:
+            if (self._stopping.is_set() or rep.worker is None
+                    or not rep.worker.is_alive()):
+                raise LightGBMError("fleet micro-batching workers not "
+                                    "running; call start() (or "
+                                    "predict())")
+            rep.queue.put((tid, data, bool(raw_score), fut))
+        return fut
+
+    def _drain_loop(self, rep: _Replica) -> None:
+        while True:
+            try:
+                first = rep.queue.get(timeout=0.05)
+            except Empty:
+                if self._stopping.is_set():
+                    return
+                continue
+            batch = [first]
+            rows = first[1].shape[0]
+            deadline = time.perf_counter() + self.max_wait_ms / 1e3
+            while rows < self.max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    item = rep.queue.get(timeout=remaining)
+                except Empty:
+                    break
+                batch.append(item)
+                rows += item[1].shape[0]
+            self._run_batch(rep, batch)
+
+    def _run_batch(self, rep: _Replica, batch: List[Tuple]) -> None:
+        """One launch per raw_score flavour; a failing batch is retried
+        request by request, so a bad request fails only its own Future."""
+        for flavor in sorted({rs for _, _, rs, _ in batch}):
+            group = [b for b in batch if b[2] == flavor]
+            try:
+                if len(group) > 1:
+                    tid = np.concatenate([g[0] for g in group])
+                    data = np.concatenate([g[1] for g in group], axis=0)
+                else:
+                    tid, data = group[0][0], group[0][1]
+                out = self.predict(tid, data, raw_score=flavor,
+                                   replica=rep.index)
+            except Exception:   # noqa: BLE001 -- isolate the bad request
+                for g in group:
+                    try:
+                        res = self.predict(g[0], g[1], raw_score=flavor,
+                                           replica=rep.index)
+                    except Exception as e:   # noqa: BLE001 -- per future
+                        if not g[3].done():
+                            g[3].set_exception(e)
+                    else:
+                        if not g[3].done():
+                            g[3].set_result(res)
+                continue
+            lo = 0
+            for g in group:
+                hi = lo + g[1].shape[0]
+                if not g[3].done():
+                    g[3].set_result(out[lo:hi])
+                lo = hi
+
+
+class TenantHandle:
+    """One tenant of a :class:`FleetServer` behind the solo
+    ``PredictionServer`` surface (``swap``/``predict``/``warmup``/
+    ``_model``), so the retrain pipeline can target a fleet tenant."""
+
+    __slots__ = ("fleet_server", "tenant_id")
+
+    def __init__(self, fleet_server: FleetServer, tenant_id: int):
+        m = int(tenant_id)
+        if not 0 <= m < fleet_server.num_tenants:
+            raise LightGBMError(
+                f"tenant_id {m} out of range "
+                f"[0, {fleet_server.num_tenants})")
+        self.fleet_server = fleet_server
+        self.tenant_id = m
+
+    @property
+    def _model(self) -> Optional[ModelMeta]:
+        return self.fleet_server._snapshot().metas[self.tenant_id]
+
+    def swap(self, booster) -> bool:
+        return self.fleet_server.swap_tenant(self.tenant_id, booster)
+
+    def predict(self, data, raw_score: bool = False) -> np.ndarray:
+        return self.fleet_server.predict(self.tenant_id, data,
+                                         raw_score=raw_score)
+
+    def warmup(self, row_buckets: Optional[Sequence[int]] = None
+               ) -> List[int]:
+        return self.fleet_server.warmup(row_buckets)
+
+    def stop(self) -> None:
+        """Nothing: the fleet's workers outlive any one tenant view."""

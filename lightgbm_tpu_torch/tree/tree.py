@@ -5,7 +5,9 @@ Counterpart of ``lightgbm_tpu/tree/tree.py`` (the reference ``Tree``,
 bit encoding (bit0 categorical, bit1 default_left, bits>=2 missing type)
 and the text fields are the "v2" model format, so model texts move between
 this package, the JAX package and the reference; ``to_json`` is the JSON
-dump.  TreeSHAP and if-else code generation are not ported yet.
+dump; ``tree_shap_batch`` is TreeSHAP over a batch of rows (host float64,
+as in the JAX package) and ``to_if_else`` the C++ code generation of the
+CLI's ``convert_model`` task.
 """
 
 from __future__ import annotations
@@ -215,6 +217,56 @@ class Tree:
     def predict(self, data: np.ndarray) -> np.ndarray:
         return self.leaf_value[self.predict_leaf(data)]
 
+    def expected_value(self) -> float:
+        if self.num_leaves == 1:
+            return float(self.leaf_value[0])
+        return float(self.internal_value[0])
+
+    def predict_contrib_row(self, row: np.ndarray, contribs: np.ndarray):
+        """TreeSHAP of one row (the per-row recursion of tree.h:466-485,
+        the oracle of :func:`tree_shap_batch`); adds into ``contribs``
+        (num_features + 1,)."""
+        contribs[-1] += self.expected_value()
+        if self.num_leaves > 1:
+            _tree_shap(self, np.asarray(row, np.float64), contribs)
+
+    def to_if_else(self, index: int, is_predict_leaf: bool) -> str:
+        """C++ if-else code of the tree (reference SaveModelToIfElse,
+        gbdt_model_text.cpp:150-240)."""
+        name = "PredictTree" + str(index) + ("Leaf" if is_predict_leaf
+                                             else "")
+        body = self._node_if_else(0 if self.num_leaves > 1 else -1,
+                                  is_predict_leaf, 1)
+        return f"double {name}(const double* arr) {{\n{body}}}\n"
+
+    def _node_if_else(self, idx: int, leaf_mode: bool, indent: int) -> str:
+        pad = "  " * indent
+        if idx < 0:
+            val = (~idx) if leaf_mode else self.leaf_value[~idx]
+            return f"{pad}return {val};\n"
+        dt = int(self.decision_type[idx])
+        f = int(self.split_feature[idx])
+        missing = (dt >> 2) & 3
+        default_left = bool(dt & K_DEFAULT_LEFT_MASK)
+        if dt & K_CATEGORICAL_MASK:
+            cat_idx = int(self.threshold[idx])
+            lo = self.cat_boundaries[cat_idx]
+            hi = self.cat_boundaries[cat_idx + 1]
+            words = ",".join(str(w) for w in self.cat_threshold[lo:hi])
+            cond = (f"CategoricalDecision(arr[{f}], (const uint32_t[])"
+                    f"{{{words}}}, {hi - lo})")
+        else:
+            thr = repr(float(self.threshold[idx]))
+            miss = {1: f"IsZero(arr[{f}])",
+                    2: f"std::isnan(arr[{f}])"}.get(missing, "false")
+            cond = (f"(({miss}) ? {str(default_left).lower()} : "
+                    f"(arr[{f}] <= {thr}))")
+        left = self._node_if_else(int(self.left_child[idx]), leaf_mode,
+                                  indent + 1)
+        right = self._node_if_else(int(self.right_child[idx]), leaf_mode,
+                                   indent + 1)
+        return f"{pad}if ({cond}) {{\n{left}{pad}}} else {{\n{right}{pad}}}\n"
+
     # -- serialization -----------------------------------------------------
     def to_json(self) -> dict:
         """The tree as ``dump_model`` writes it: nested split and leaf
@@ -338,3 +390,160 @@ def _fmt(v) -> str:
 def _fmt_double(v) -> str:
     return np.format_float_positional(
         float(v), precision=17, unique=True, trim="0")
+
+
+# ---------------------------------------------------------------------------
+# TreeSHAP (reference src/io/tree.cpp TreeSHAP; lightgbm_tpu/tree/tree.py)
+# ---------------------------------------------------------------------------
+
+def _decide_left(tree: Tree, rows: np.ndarray, node: int) -> np.ndarray:
+    """(rows,) bool: whether each row takes the left child at ``node``,
+    by :meth:`Tree._decision_matrix` (one decision rule for prediction
+    and SHAP)."""
+    nodes = np.full(rows.shape[0], node, np.int32)
+    return tree._decision_matrix(nodes, rows[:, tree.split_feature[node]])
+
+
+def _structural_depth(tree: Tree) -> int:
+    """Max depth from the children arrays (a loaded tree has no depths)."""
+    depth = {0: 0}
+    max_d = 0
+    for node in range(tree.num_leaves - 1):
+        d = depth[node] + 1
+        for c in (int(tree.left_child[node]), int(tree.right_child[node])):
+            if c >= 0:
+                depth[c] = d
+        max_d = max(max_d, d)
+    return max_d
+
+
+def _child_count(tree: Tree, c: int) -> float:
+    return float(tree.leaf_count[~c] if c < 0 else tree.internal_count[c])
+
+
+class _Path:
+    """TreeSHAP path state over a batch of rows: the feature of each path
+    position is a scalar (the recursion's control flow depends on the tree
+    only), its zero/one fractions and weight are (rows,) arrays.  A scalar
+    row is a batch of one."""
+
+    __slots__ = ("feature", "zero", "one", "pweight")
+
+    def __init__(self, depth_cap, rows):
+        self.feature = np.full(depth_cap, -1, np.int64)
+        self.zero = np.zeros((depth_cap, rows))
+        self.one = np.zeros((depth_cap, rows))
+        self.pweight = np.zeros((depth_cap, rows))
+
+    def fork(self, k):
+        """A copy of the first ``k`` positions (later ones are written
+        before they are read)."""
+        out = _Path.__new__(_Path)
+        out.feature = self.feature.copy()
+        out.zero = np.empty_like(self.zero)
+        out.one = np.empty_like(self.one)
+        out.pweight = np.empty_like(self.pweight)
+        out.zero[:k] = self.zero[:k]
+        out.one[:k] = self.one[:k]
+        out.pweight[:k] = self.pweight[:k]
+        return out
+
+    def extend(self, ud, zero_fraction, one_fraction, feature):
+        self.feature[ud] = feature
+        self.zero[ud] = zero_fraction
+        self.one[ud] = one_fraction
+        self.pweight[ud] = 1.0 if ud == 0 else 0.0
+        pw = self.pweight
+        for i in range(ud - 1, -1, -1):
+            pw[i + 1] += one_fraction * pw[i] * (i + 1) / (ud + 1)
+            pw[i] = zero_fraction * pw[i] * (ud - i) / (ud + 1)
+
+    def _fractions(self, path_index):
+        one = self.one[path_index]
+        zero = self.zero[path_index]
+        nonzero = one != 0
+        return (one, zero, nonzero, np.where(nonzero, one, 1.0),
+                np.where(zero != 0, zero, 1.0))
+
+    def unwind(self, ud, path_index):
+        one, zero, nonzero, safe_one, safe_zero = self._fractions(path_index)
+        next_one = self.pweight[ud].copy()
+        for i in range(ud - 1, -1, -1):
+            tmp = self.pweight[i].copy()
+            pw_nz = next_one * (ud + 1) / ((i + 1) * safe_one)
+            pw_z = tmp * (ud + 1) / (safe_zero * (ud - i))
+            self.pweight[i] = np.where(nonzero, pw_nz, pw_z)
+            next_one = np.where(nonzero,
+                                tmp - pw_nz * zero * (ud - i) / (ud + 1),
+                                next_one)
+        for i in range(path_index, ud):
+            self.feature[i] = self.feature[i + 1]
+            self.zero[i] = self.zero[i + 1]
+            self.one[i] = self.one[i + 1]
+
+    def unwound_sum(self, ud, path_index):
+        one, zero, nonzero, safe_one, safe_zero = self._fractions(path_index)
+        next_one = self.pweight[ud].copy()
+        total = np.zeros_like(next_one)
+        for i in range(ud - 1, -1, -1):
+            tmp = next_one * (ud + 1) / ((i + 1) * safe_one)
+            total += np.where(nonzero, tmp, self.pweight[i] * (ud + 1)
+                              / (safe_zero * (ud - i)))
+            next_one = np.where(nonzero, self.pweight[i] - tmp * zero
+                                * (ud - i) / (ud + 1), next_one)
+        return total
+
+
+def tree_shap_batch(tree: Tree, rows: np.ndarray, contribs: np.ndarray):
+    """TreeSHAP for a batch (``lightgbm_tpu/tree/tree.py::tree_shap_batch``):
+    ``rows`` (B, F) float64, ``contribs`` (B, F + 1) accumulated in place,
+    the last column taking the tree's expected value."""
+    contribs[:, -1] += tree.expected_value()
+    if tree.num_leaves <= 1:
+        return
+    _shap_recurse(tree, rows, contribs)
+
+
+def _tree_shap(tree: Tree, row: np.ndarray, contribs: np.ndarray):
+    """TreeSHAP of one row into ``contribs`` (F + 1,), without the
+    expected value (the per-row reference recursion)."""
+    out = np.zeros((1, contribs.shape[0]))
+    _shap_recurse(tree, row[None, :], out)
+    contribs += out[0]
+
+
+def _shap_recurse(tree: Tree, rows: np.ndarray, contribs: np.ndarray):
+    depth_cap = _structural_depth(tree) + 2
+    nrows = rows.shape[0]
+
+    def recurse(node, ud, parent, parent_zero, parent_one, parent_feature):
+        path = parent.fork(ud + 1)
+        path.extend(ud, parent_zero, parent_one, parent_feature)
+        if node < 0:
+            leaf_v = float(tree.leaf_value[~node])
+            for i in range(1, ud + 1):
+                w = path.unwound_sum(ud, i)
+                contribs[:, path.feature[i]] += (
+                    w * (path.one[i] - path.zero[i]) * leaf_v)
+            return
+        left_mask = _decide_left(tree, rows, node)
+        node_count = max(float(tree.internal_count[node]), 1.0)
+        lc = int(tree.left_child[node])
+        rc = int(tree.right_child[node])
+        inc_zero = np.ones(nrows)
+        inc_one = np.ones(nrows)
+        feature = int(tree.split_feature[node])
+        path_index = 0
+        while path_index <= ud and path.feature[path_index] != feature:
+            path_index += 1
+        if path_index != ud + 1:
+            inc_zero = path.zero[path_index].copy()
+            inc_one = path.one[path_index].copy()
+            path.unwind(ud, path_index)
+            ud -= 1
+        recurse(lc, ud + 1, path, _child_count(tree, lc) / node_count
+                * inc_zero, inc_one * left_mask, feature)
+        recurse(rc, ud + 1, path, _child_count(tree, rc) / node_count
+                * inc_zero, inc_one * ~left_mask, feature)
+
+    recurse(0, 0, _Path(depth_cap, nrows), 1.0, np.ones(nrows), -1)

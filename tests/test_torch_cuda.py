@@ -1329,3 +1329,80 @@ def test_refit_leaf_ids_on_card_equal_host_walk(cuda_device):
     raw = warm.predict_raw(x1, num_iteration=len(ids))
     np.testing.assert_allclose(summed, raw, rtol=0,
                                atol=1e-6 * np.abs(raw).max())
+
+
+def _cache_window(seed, n=60_000, nf=12):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, nf)).astype(np.float32)
+    y = (x[:, 0] + 0.5 * x[:, 1] + 0.3 * rng.standard_normal(n)
+         > 0).astype(np.float32)
+    return x, y
+
+
+def test_grower_cache_replays_without_recapture_on_card(cuda_device):
+    """Three windows of the fork's sampling (bagging, feature_fraction),
+    fused: windows 1-2 take window 0's grower and capture nothing; every
+    model's trees equal those of a fresh grower (grower_cache=false)."""
+    from lightgbm_tpu_torch import compile_cache
+    from lightgbm_tpu_torch.obs import capture_track
+    from lightgbm_tpu_torch.ops import grow
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "feature_fraction": 0.8, "bagging_freq": 5,
+              "bagging_fraction": 0.8, "min_data_in_leaf": 50,
+              "fused_chunk": 10, "verbosity": -1}
+    cut = lambda s: s.split("\nparameters:\n")[0]
+    compile_cache.clear()
+    try:
+        for cache in (True, False):
+            texts, captures, hits = [], [], []
+            for w in range(3):
+                x, y = _cache_window(w)
+                c0 = capture_track.COUNTS["captures"]
+                h0 = grow.GROWER_CACHE_COUNTS["hits"]
+                b = lt.train({**params, "grower_cache": cache},
+                             lt.Dataset(x, label=y), num_boost_round=20)
+                captures.append(capture_track.COUNTS["captures"] - c0)
+                hits.append(grow.GROWER_CACHE_COUNTS["hits"] - h0)
+                texts.append(cut(b.model_to_string()))
+                del b
+            if cache:
+                assert captures[0] > 0 and captures[1:] == [0, 0]
+                assert hits == [0, 1, 1]
+                cached = texts
+            else:
+                assert min(captures) > 0 and hits == [0, 0, 0]
+                assert texts == cached
+    finally:
+        compile_cache.clear()
+
+
+def test_fleet_server_on_the_forest_kernel(cuda_device):
+    """A two-tenant FleetServer on the card: each tenant's rows equal its
+    solo PredictionServer's bit for bit through forest_predict, a fitting
+    swap is an index copy, and the micro-batching queues answer as
+    predict does."""
+    from lightgbm_tpu_torch.serve import (FleetServer, PredictionServer,
+                                          packed)
+    boosters = []
+    for w in range(2):
+        x, y = _cache_window(10 + w, n=20_000)
+        boosters.append(lt.train(
+            {"objective": "binary", "num_leaves": 31, "verbosity": -1},
+            lt.Dataset(x, label=y), num_boost_round=8))
+    xq, _ = _cache_window(20, n=5_000)
+    tids = (np.arange(5_000) % 2).astype(np.int32)
+    before = packed.forest_predict.launches
+    fs = FleetServer(boosters, replicas=2)
+    got = fs.predict(tids, xq)
+    assert packed.forest_predict.launches == before + 1
+    for m, b in enumerate(boosters):
+        rows = np.nonzero(tids == m)[0]
+        np.testing.assert_array_equal(
+            got[rows], PredictionServer(b).predict(xq[rows]))
+    fleet0 = fs.fleet
+    assert fs.swap_tenant(0, boosters[1]) is True and fs.fleet is fleet0
+    np.testing.assert_array_equal(fs.predict(0, xq), fs.predict(1, xq))
+    with fs:
+        fut = fs.submit(tids[:100], xq[:100])
+        np.testing.assert_array_equal(fut.result(timeout=60),
+                                      fs.predict(tids[:100], xq[:100]))
