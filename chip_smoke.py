@@ -274,7 +274,39 @@ Phases, one line each:
               Prints per window DatasetCreate s, train s, ms a tree,
               captures, predict s, serve p50, the ABI's train s against
               the in-process run's, and peak card memory with the cache
-              on.
+              on.  The harness's processes (LGBM_TPU_COMPILE_CACHE set:
+              a plan store) measure the wave-stage plan once under
+              wave_plan=auto (2M rows); the in-process runs adopt the
+              plan they kept, so all three grow under one plan;
+14. api    -- the rest of the training API (after capi) at the HIGGS
+              shape: the 2M x 28 rows binned once on the card and kept
+              raw (free_raw_data=False), 255 leaves, max_bin 255: (1)
+              5 rounds, save_model, then engine.train(init_model=path)
+              5 more (10 iterations, the first 5 trees' text byte-equal
+              to the saved model's, held-out AUC on 500,000 rows at
+              least the first model's; the init score's forest_predict
+              launches); (2) learning_rates=0.1*0.9**i for 10 rounds per
+              iteration (each tree's shrinkage its rate; the training
+              score against predict_raw of the training rows, under
+              1e-4), then a reset to 0.05 and a fused chunk (its trees'
+              shrinkage 0.05, the score again), a reset of
+              min_data_in_leaf refused by name, and a refused booster's
+              grower adopted by a new booster with the trees of
+              grower_cache=false; (3) cv, 3 folds, 5 rounds, AUC mean
+              >= AUC_FLOOR; (4) LGBMClassifier(n_estimators=10,
+              num_leaves=255): its trees byte-equal to engine.train's
+              with the params it passes, predict_proba[:, 1] equal to
+              Booster.predict; (5) a pickled booster's predictions
+              byte-equal; (6) wave_plan=profiled: kernel 1 timed at
+              every candidate width on the real codes (median and
+              spread of PROBE_REPS launches), the fit, its
+              residuals, the derived plan (installed and kept in the
+              store), s/tree of fused chunks against the fixed ladder's,
+              training AUC >= AUC_FLOOR, a second booster and a fresh
+              process adopting the plan with 0 profiles, and
+              wave_plan=auto with a fresh store measuring once and
+              keeping its verdict (the derived plan only past the 2%
+              bar at the probes' worst case).
 
 Between phases the grower cache (ops/grow.py) is emptied, so each phase
 holds only its own growers' card memory.
@@ -3876,6 +3908,11 @@ def phase_capi(dev, seed: int):
                        for k in range(CAPI_WINDOWS - 1)]
         native_served = [np.fromfile(tmp / f"serve_w{k}.f64")
                          for k in range(CAPI_WINDOWS - 1)]
+        # the wave-stage plans the harness measured (wave_plan=auto with
+        # a store): the in-process runs adopt them from a store of their
+        # own, so the three runs grow under one plan
+        plans = {f.name: f.read_bytes() for f in
+                 (tmp / "kernels" / "stage_plans").glob("plan_*.json")}
     # window 0's count includes the warm-up's captures
     caps = [per_window[0]["captures"]] + [
         b["captures"] - a["captures"]
@@ -3896,8 +3933,16 @@ def phase_capi(dev, seed: int):
              f"hit once each")
 
     # (4) the same windows in this process, the grower cache on and off
+    from lightgbm_tpu_torch.ops import build
+    from lightgbm_tpu_torch.ops import stage_plan
     clear_growers(dev)
     torch.cuda.init()
+    store = Path(tempfile.mkdtemp(prefix="capi_plans_"))
+    (store / "stage_plans").mkdir()
+    for name, blob in plans.items():
+        (store / "stage_plans" / name).write_bytes(blob)
+    build_dir = build.BUILD_DIR
+    loads0 = grow.PLAN_COUNTS["persisted_loads"]
     datasets = []
     for k, (csr, y) in enumerate(windows[:-1]):
         t0 = time.perf_counter()
@@ -3909,7 +3954,8 @@ def phase_capi(dev, seed: int):
         rows[k]["inprocess_dataset_s"] = time.perf_counter() - t0
     inproc = {}
     for cache in (True, False):
-        params = {**CAPI_PARAMS, "device": dev.type, "grower_cache": cache}
+        params = {**CAPI_PARAMS, "device": dev.type, "grower_cache": cache,
+                  "compile_cache_dir": str(store)}
         torch.cuda.reset_peak_memory_stats(dev)
         hist_cuda.wave_hist.launches.reset()
         fp0 = packed.forest_predict.launches
@@ -3955,6 +4001,22 @@ def phase_capi(dev, seed: int):
         launches["forest_predict"] += inproc[cache]["predict_launches"]
         for r in launches["routes"]:
             launches["routes"][r] += inproc[cache]["predict_routes"][r]
+    sig = grow.plan_signature(datasets[0]._handle, lt.Config(params), dev)
+    out["plan"] = dict(stored=len(plans),
+                       loads=grow.PLAN_COUNTS["persisted_loads"] - loads0,
+                       digest=stage_plan.plan_digest(
+                           stage_plan.cached_plan(sig)
+                           or grow.default_stage_plan(CAPI_ROWS,
+                                                      lt.Config(params))))
+    # back to the package's build directory for later phases (the
+    # in-process boosters' compile_cache_dir moved it process-wide)
+    build.BUILD_DIR = build_dir
+    stage_plan.forget_plan(sig)
+    import shutil
+    shutil.rmtree(store, ignore_errors=True)
+    print(f"capi: {len(plans)} stage plan(s) kept by the harness, "
+          f"{out['plan']['loads']} adopted in process, plan "
+          f"{out['plan']['digest']}", flush=True)
     del datasets, windows
     clear_growers(dev)
     on, off = inproc[True]["windows"], inproc[False]["windows"]
@@ -4004,6 +4066,349 @@ def phase_capi(dev, seed: int):
           f"launches {launches})", flush=True)
     return out
 
+
+
+#: the api phase: the train phase's HIGGS shape at 255 leaves, binned once
+#: on the card and kept raw for continued training
+API_BASE = {**TRAIN_BASE, "num_leaves": 255}
+API_ROUNDS = 5
+API_SCHEDULE = [0.1 * 0.9 ** i for i in range(10)]
+API_VALID_ROWS = 500_000
+#: fused chunks of ROUNDS trees timed under each stage plan (median)
+API_PLAN_CHUNKS = 3
+
+
+def tree_blocks(text: str) -> list:
+    """The ``Tree=`` blocks of a model text."""
+    return ["Tree=" + b for b in
+            text.split("end of trees")[0].split("Tree=")[1:]]
+
+
+def shrinkages(text: str) -> list:
+    return [float(line.split("=", 1)[1]) for line in text.splitlines()
+            if line.startswith("shrinkage=")]
+
+
+def refused(booster, reset: dict, name: str) -> str:
+    """The message of ``booster.reset_parameter(reset)``, which must
+    raise naming ``name``."""
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    try:
+        booster.reset_parameter(reset)
+    except LightGBMError as e:
+        if name not in str(e):
+            fail(f"api: a refused reset does not name {name}: {e}")
+        return str(e)
+    fail(f"api: reset_parameter({reset}) on the device grower was taken")
+
+
+def plan_chunks(booster, y, dev):
+    """(training AUC after a first fused chunk of ROUNDS trees, s a tree of
+    API_PLAN_CHUNKS more chunks on the host clock to a synchronize)."""
+    import torch
+    gb = booster._gbdt
+    gb.train_chunked(ROUNDS, chunk=ROUNDS)
+    auc = auc_of(y, gb.train_score[0].cpu().numpy())
+    times = []
+    for _ in range(API_PLAN_CHUNKS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        gb.train_chunked(ROUNDS, chunk=ROUNDS)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) / ROUNDS)
+    return auc, times
+
+
+def phase_api(dev, seed: int, x, y):
+    """The rest of the training API on the card (the module docstring's
+    phase 14)."""
+    import pickle
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import build, grow, hist_cuda
+    from lightgbm_tpu_torch.ops import stage_plan as sp
+    t_phase = time.perf_counter()
+    out = {}
+    wh0 = hist_cuda.wave_hist.launches.read()
+    fp0 = forest_counts()
+    xv, yv = higgs_shape(API_VALID_ROWS, seed + 1)
+    params = dict(API_BASE)
+    t0 = time.perf_counter()
+    xt = torch.from_numpy(x).to(dev)
+    ds = lt.Dataset(xt, y, params=dict(params),
+                    free_raw_data=False).construct()
+    torch.cuda.synchronize(dev)
+    out["binning_s"] = time.perf_counter() - t0
+    if ds.raw is not xt:
+        fail("api: the Dataset did not keep its raw rows")
+
+    OUT_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        tmp = Path(tmp)
+        # (1) continued training from a saved model
+        b1 = lt.train(params, ds, API_ROUNDS, verbose_eval=False)
+        first = tmp / "first.txt"
+        b1.save_model(str(first))
+        auc1 = auc_of(yv, b1.predict(xv))
+        del b1
+        before = forest_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        b2 = lt.train(params, ds, API_ROUNDS, init_model=str(first),
+                      verbose_eval=False)
+        torch.cuda.synchronize(dev)
+        cont_s = time.perf_counter() - t0
+        init_launches, init_routes = counts_since(before)
+        text2 = b2.model_to_string()
+        auc2 = auc_of(yv, b2.predict(xv))
+        head_equal = tree_blocks(text2)[:API_ROUNDS] \
+            == tree_blocks(first.read_text())
+        out["continued"] = dict(
+            iterations=b2.current_iteration(), auc_first=auc1,
+            auc_continued=auc2, head_equal=head_equal, train_s=cont_s,
+            init_score_launches=init_launches,
+            init_score_routes=init_routes)
+        print(f"api (1) continued training: {b2.current_iteration()} "
+              f"iterations, the first {API_ROUNDS} trees byte-equal to the "
+              f"saved model's: {head_equal}; held-out AUC {auc1:.4f} -> "
+              f"{auc2:.4f}; the init score's forest_predict launches "
+              f"{init_launches} {init_routes}; {cont_s:.2f} s", flush=True)
+        if b2.current_iteration() != 2 * API_ROUNDS or not head_equal \
+                or auc2 < auc1 or init_launches < 1:
+            fail(f"api: continued training {out['continued']}")
+        ds._handle.metadata.set_init_score(None)
+        del b2
+
+        # (2) a learning-rate schedule, a reset between fused chunks, a
+        # refused reset and the grower it leaves
+        t0 = time.perf_counter()
+        bs = lt.train(params, ds, len(API_SCHEDULE),
+                      learning_rates=lambda i: 0.1 * 0.9 ** i,
+                      verbose_eval=False)
+        torch.cuda.synchronize(dev)
+        sched_s = time.perf_counter() - t0
+        gb = bs._gbdt
+        shr = shrinkages(bs.model_to_string())
+        # tree 0 carries the boost-from-average bias, which sets its
+        # shrinkage to 1 (the reference's AddBias)
+        shr_ok = shr[1:] == API_SCHEDULE[1:] \
+            and shr[0] in (API_SCHEDULE[0], 1.0)
+        err = float(np.abs(gb.train_score[0].double().cpu().numpy()
+                           - gb.predict_raw(xt)[0]).max())
+        bs.reset_parameter({"learning_rate": 0.05})
+        bs.update_chunked(ROUNDS, chunk=ROUNDS)
+        shr2 = shrinkages(bs.model_to_string())[len(API_SCHEDULE):]
+        err2 = float(np.abs(gb.train_score[0].double().cpu().numpy()
+                            - gb.predict_raw(xt)[0]).max())
+        msg = refused(bs, {"min_data_in_leaf": 1000}, "min_data_in_leaf")
+        del bs, gb
+        clear_growers(dev)
+        a = lt.Booster(params, ds)
+        a.update_chunked(ROUNDS, chunk=ROUNDS)
+        refused(a, {"lambda_l2": 10.0}, "lambda_l2")
+        grower_a = a._gbdt._grower
+        del a
+        h0 = grow.GROWER_CACHE_COUNTS["hits"]
+        bb = lt.train(params, ds, ROUNDS, verbose_eval=False)
+        took = bb._gbdt._grower is grower_a \
+            and grow.GROWER_CACHE_COUNTS["hits"] == h0 + 1
+        sha_b = trees_sha256(bb.model_to_string())
+        del bb, grower_a
+        bc = lt.train({**params, "grower_cache": False}, ds, ROUNDS,
+                      verbose_eval=False)
+        sha_c = trees_sha256(bc.model_to_string())
+        del bc
+        out["schedule"] = dict(shrinkage=shr, score_err=err,
+                               fused_shrinkage=shr2, fused_score_err=err2,
+                               train_s=sched_s, refused=msg,
+                               cache_took_grower=took,
+                               cache_sha256=[sha_b, sha_c])
+        print(f"api (2) learning_rates: {len(API_SCHEDULE)} trees per "
+              f"iteration in {sched_s:.2f} s, shrinkage {shr} (as "
+              f"scheduled: {shr_ok}), |train score - predict_raw| "
+              f"{err:.3g}; after a reset to 0.05 a fused chunk's shrinkage "
+              f"{sorted(set(shr2))}, {err2:.3g}; refused: {msg!r}; a "
+              f"refused booster's grower taken by the next: {took}, trees "
+              f"sha256 cache on / off {sha_b[:16]} / {sha_c[:16]}",
+              flush=True)
+        if not shr_ok or shr2 != [0.05] * ROUNDS or err >= 1e-4 \
+                or err2 >= 1e-4 or not took or sha_b != sha_c:
+            fail(f"api: learning-rate schedule {out['schedule']}")
+        clear_growers(dev)
+
+        # (3) cv
+        t0 = time.perf_counter()
+        res = lt.cv({**params, "metric": "auc"}, ds,
+                    num_boost_round=API_ROUNDS, nfold=3, stratified=False)
+        torch.cuda.synchronize(dev)
+        out["cv"] = dict(res, seconds=time.perf_counter() - t0)
+        print(f"api (3) cv, 3 folds: auc-mean {res['auc-mean']}, auc-stdv "
+              f"{res['auc-stdv']} in {out['cv']['seconds']:.2f} s",
+              flush=True)
+        if len(res["auc-mean"]) != API_ROUNDS \
+                or res["auc-mean"][-1] < AUC_FLOOR:
+            fail(f"api: cv {res}")
+        clear_growers(dev)
+
+        # (4) the classifier against engine.train with its params
+        t0 = time.perf_counter()
+        clf = lt.LGBMClassifier(n_estimators=2 * ROUNDS, num_leaves=255,
+                                device=dev.type)
+        clf.fit(xt, y)
+        torch.cuda.synchronize(dev)
+        fit_s = time.perf_counter() - t0
+        y_enc = np.unique(y, return_inverse=True)[1]
+        ref = lt.train(clf._get_lgb_params(), lt.Dataset(xt, y_enc),
+                       2 * ROUNDS, verbose_eval=False)
+        sha_clf = trees_sha256(clf.booster_.model_to_string())
+        sha_ref = trees_sha256(ref.model_to_string())
+        t0 = time.perf_counter()
+        proba = clf.predict_proba(x)[:, 1]
+        proba_s = time.perf_counter() - t0
+        pred = ref.predict(x)
+        # (5) pickling
+        again = pickle.loads(pickle.dumps(ref))
+        pred_again = again.predict(x)
+        out["sklearn"] = dict(fit_s=fit_s, predict_proba_s=proba_s,
+                              sha256=[sha_clf, sha_ref],
+                              proba_equal=bool(np.array_equal(proba, pred)),
+                              auc=auc_of(y, pred))
+        out["pickle"] = dict(
+            equal=bool(np.array_equal(pred_again, pred)),
+            device=str(again._gbdt.config.device_type))
+        print(f"api (4) LGBMClassifier: fit {fit_s:.2f} s, trees sha256 "
+              f"{sha_clf[:16]} (engine.train {sha_ref[:16]}), "
+              f"predict_proba[:, 1] equal to Booster.predict: "
+              f"{out['sklearn']['proba_equal']} ({proba_s:.2f} s); (5) a "
+              f"pickled booster predicts byte-equal: "
+              f"{out['pickle']['equal']}", flush=True)
+        if sha_clf != sha_ref or not out["sklearn"]["proba_equal"] \
+                or not out["pickle"]["equal"]:
+            fail(f"api: estimator / pickle {out['sklearn']} "
+                 f"{out['pickle']}")
+        del clf, ref, again
+        clear_growers(dev)
+
+        # (6) the profiled stage plan, kept beside a warm kernel directory
+        store = tmp / "plans"
+        store.mkdir()
+        for lib in build.BUILD_DIR.glob("lib*.so"):
+            shutil.copy(lib, store)
+        build_dir = build.BUILD_DIR
+        pp = {**params, "wave_plan": "profiled",
+              "compile_cache_dir": str(store)}
+        prof0 = grow.PLAN_COUNTS["profiles"]
+        wh = hist_cuda.wave_hist.launches.read()
+        bp = lt.Booster(pp, ds)
+        probes = hist_cuda.wave_hist.launches.read() - wh
+        prof = bp._gbdt.plan_profile
+        g = bp._gbdt._grower
+        sig, plan = g.signature, list(g.stage_plan)
+        kept = sp.load_plan(sig, sp.store_dir(bp._gbdt.config)) == plan
+        auc_p, t_plan = plan_chunks(bp, y, dev)
+        bl = lt.Booster({**params, "wave_plan": "fixed"}, ds)
+        legacy = list(bl._gbdt._grower.stage_plan)
+        auc_l, t_legacy = plan_chunks(bl, y, dev)
+        del bp, bl, g
+        p1 = grow.PLAN_COUNTS["profiles"]
+        bq = lt.Booster(pp, ds)
+        second = dict(profiles=grow.PLAN_COUNTS["profiles"] - p1,
+                      source=bq._gbdt._grower.plan_source,
+                      plan=list(bq._gbdt._grower.stage_plan))
+        del bq
+        code = (
+            "import json, sys\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import torch, chip_smoke, lightgbm_tpu_torch as lt\n"
+            "from lightgbm_tpu_torch.ops import grow\n"
+            f"x, y = chip_smoke.higgs_shape({len(y)}, {seed})\n"
+            f"ds = lt.Dataset(torch.from_numpy(x).to({str(dev)!r}), y, "
+            f"params={params!r})\n"
+            f"b = lt.Booster({pp!r}, ds)\n"
+            "b.update()\n"
+            "g = b._gbdt._grower\n"
+            "print('ADOPT ' + json.dumps(dict(source=g.plan_source, "
+            "plan=g.stage_plan, counts=grow.PLAN_COUNTS, "
+            "trees=b.num_trees())))\n")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                             capture_output=True, text=True, timeout=600)
+        fresh_s = time.perf_counter() - t0
+        line = [ln for ln in res.stdout.splitlines()
+                if ln.startswith("ADOPT ")]
+        if res.returncode != 0 or not line:
+            print(res.stdout[-3000:], res.stderr[-3000:], flush=True)
+            fail("api: the fresh process did not adopt the stored plan")
+        fresh = json.loads(line[0].split(" ", 1)[1])
+        fresh["seconds"] = fresh_s
+        # wave_plan=auto with a fresh store: measure once, keep the verdict
+        store2 = tmp / "plans2"
+        store2.mkdir()
+        sp.forget_plan(sig, sp.store_dir(lt.Config(pp)))
+        clear_growers(dev)
+        p2 = grow.PLAN_COUNTS["profiles"]
+        ba = lt.Booster({**params, "wave_plan": "auto",
+                         "compile_cache_dir": str(store2)}, ds)
+        auto = ba._gbdt.plan_profile
+        if auto is None:
+            fail("api: wave_plan=auto with a store measured nothing")
+        auto_plan = list(ba._gbdt._grower.stage_plan)
+        auto_kept = sp.load_plan(sig, str(store2 / "stage_plans")) \
+            == auto_plan
+        auto_profiles = grow.PLAN_COUNTS["profiles"] - p2
+        del ba
+        build.BUILD_DIR = build_dir
+        sp.forget_plan(sig)
+        clear_growers(dev)
+    med = lambda v: sorted(v)[len(v) // 2]
+    out["plan"] = dict(
+        stage_ms=prof["stage_ms"], spread_ms=prof["spread_ms"],
+        fixed_ms=prof["fixed_ms"],
+        col_ms=prof["col_ms"], residual_ms=prof["residual_ms"],
+        plan=plan, legacy=legacy, digest=sp.plan_digest(plan),
+        installed=prof["installed"], probe_launches=probes, kept=kept,
+        s_per_tree=t_plan, legacy_s_per_tree=t_legacy, auc=auc_p,
+        legacy_auc=auc_l, second_booster=second, fresh_process=fresh,
+        auto=dict(profiles=auto_profiles, installed=auto["installed"],
+                  plan=auto_plan, digest=sp.plan_digest(auto_plan),
+                  stage_ms=auto["stage_ms"], spread_ms=auto["spread_ms"],
+                  kept=auto_kept))
+    widths = sorted(prof["stage_ms"])
+    print(f"api (6) wave_plan=profiled: kernel 1 ms by width "
+          f"{prof['stage_ms']}, spread {prof['spread_ms']} ({probes} "
+          f"launches); fit fixed "
+          f"{prof['fixed_ms']} ms + {prof['col_ms']} ms a column, "
+          f"residuals {prof['residual_ms']}; plan {plan} (digest "
+          f"{sp.plan_digest(plan)}, installed {prof['installed']}, kept "
+          f"{kept}; legacy {legacy}); s/tree fused median "
+          f"{med(t_plan):.5f} {t_plan} against the legacy ladder's "
+          f"{med(t_legacy):.5f} {t_legacy}; training AUC {auc_p:.4f} "
+          f"(legacy {auc_l:.4f}); a second booster: {second}; a fresh "
+          f"process: {fresh}; auto with a fresh store: "
+          f"{auto_profiles} profile (ms {auto['stage_ms']}, spread "
+          f"{auto['spread_ms']}), installed {auto['installed']}, plan "
+          f"{auto_plan}, kept {auto_kept}", flush=True)
+    fresh_counts = fresh["counts"]
+    if (not prof["profiled"] or widths != [4, 8, 16, 32, 64, 128]
+            or probes != (grow.PROBE_REPS + 1) * len(widths) or not kept
+            or auc_p < AUC_FLOOR or second["profiles"] != 0
+            or second["plan"] != plan or fresh["source"] != "persisted"
+            or fresh_counts["profiles"] != 0
+            or [tuple(p) for p in fresh["plan"]] != plan
+            or auto_profiles != 1 or not auto_kept
+            or auto["installed"] != (auto_plan != legacy)):
+        fail(f"api: stage plan {out['plan']}")
+    out["launches"] = hist_cuda.wave_hist.launches.read() - wh0
+    out["predict_launches"], out["predict_routes"] = counts_since(fp0)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase api: ok in {out['seconds']:.1f} s (binning on the card "
+          f"{out['binning_s']:.2f} s; wave_hist launches "
+          f"{out['launches']}, forest_predict {out['predict_launches']} "
+          f"{out['predict_routes']})", flush=True)
+    return out
 
 
 #: the serve phase's synthetic forest: 500 trees of up to 63 leaves over
@@ -4754,11 +5159,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         host = phase_host_learner(dev, args.seed, dense, x, y, tmp)
     clear_growers(dev)
-    del dense, y
+    del dense
     pipeline = phase_pipeline(dev, args.seed)
     clear_growers(dev)
     capi = phase_capi(dev, args.seed)
     clear_growers(dev)
+    api = phase_api(dev, args.seed, x, y)
+    clear_growers(dev)
+    del y
     serve = phase_serve(dev, models, x, args.seed)
     del x
     multiclass = phase_multiclass(dev, args.seed, args.profile)
@@ -4766,14 +5174,16 @@ def main() -> int:
     # wave_hist's path is training: its launches are those of every run
     # at K=3 (the data phase's two, the boosting phase's six, the
     # pipeline phase's windows and the capi phase's, in its native
-    # subprocesses too, included; window20m's layouts are counted
+    # subprocesses too, and the api phase's trees and stage-plan probes
+    # included; window20m's layouts are counted
     # in their own wave_hist:<mode> rows); wave_hist_v2's path is the ubench
     # entry point; forest_predict's is prediction: Booster.predict after
     # each training run and of the validation rows, the fleet's entry
     # point, the two PredictionServers, the pipeline's server (its
     # evaluations, swaps' warm-up and prober; not the comparison launches)
     # and the capi phase's (its native drivers' servers, fleet and
-    # Booster predictions, and the in-process Booster.predict), and both of
+    # Booster predictions, and the in-process Booster.predict), the api
+    # phase's (init scores and predictions), and both of
     # its routes must have run there
     obj_runs = objectives["runs"].values()
     v1_launches = (sum(r["launches"] for r in train["runs"].values())
@@ -4781,7 +5191,7 @@ def main() -> int:
                    + data["launches"] + data["engine_launches"]
                    + boosting["launches"] + pipeline["launches"]
                    + capi["launches"]["wave_hist"]
-                   + multiclass["launches"])
+                   + api["launches"] + multiclass["launches"])
     fp_launches = (sum(r["predict_launches"] for r in train["runs"].values())
                    + sum(r["predict_launches"] for r in obj_runs)
                    + data["predict_launches"]
@@ -4790,6 +5200,7 @@ def main() -> int:
                    + host["predict_launches"]
                    + pipeline["predict_launches"]
                    + capi["launches"]["forest_predict"]
+                   + api["predict_launches"]
                    + serve["fleet_entry_launches"]
                    + serve["server"]["launches"]
                    + serve["server_syn"]["launches"]
@@ -4803,6 +5214,7 @@ def main() -> int:
                      + host["predict_routes"][k]
                      + pipeline["predict_routes"][k]
                      + capi["launches"]["routes"][k]
+                     + api["predict_routes"][k]
                      + serve["fleet_entry_routes"][k]
                      + serve["server"]["routes"][k]
                      + serve["server_syn"]["routes"][k]
@@ -4855,7 +5267,7 @@ def main() -> int:
                        objectives=objectives, data=data,
                        boosting=boosting, window20m=window,
                        host_learner=host, pipeline=pipeline,
-                       capi=capi, serve=serve,
+                       capi=capi, api=api, serve=serve,
                        multiclass=multiclass,
                        torch=torch.__version__, cuda=torch.version.cuda),
                   fh, indent=1)

@@ -6,7 +6,9 @@ set's mappers (``reference``); the model-output surface: sliced model
 text, ``save_model``, ``Booster(model_file=)``, ``dump_model``,
 ``feature_importance``; ``refit`` on new labels; TreeSHAP ``pred_contrib``;
 the Dataset's row subsets, binary files, text files (``data/parser.py``)
-and field getters and setters; ``rollback_one_iter``)."""
+and field getters and setters; ``rollback_one_iter``; the raw rows kept
+for continued training (``free_raw_data=False``); ``reset_parameter``,
+copies and pickling through the model text)."""
 
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ import torch
 
 from .boosting import create_boosting
 from .boosting.gbdt import GBDT
-from .config import Config
+from .config import Config, normalize_params
 from .data.dataset import BinnedDataset
+from .ops.grow import reset_refusals
 from .utils.log import LightGBMError
 
 
@@ -36,6 +39,8 @@ def _resolve_categorical(categorical_feature, feature_names,
     or by name (``lightgbm_tpu/basic.py::_resolve_categorical``)."""
     if categorical_feature in (None, "auto"):
         return []
+    if feature_names == "auto":
+        feature_names = None
     out = []
     for c in categorical_feature:
         if isinstance(c, str):
@@ -77,26 +82,44 @@ class Dataset:
     (or boundaries from 0) of a ranking set, in the JAX package's
     positional place (``lightgbm_tpu/basic.py:71``).  ``data`` may also be
     a path: a binary dataset file (``save_binary``) or a text file
-    (CSV, TSV or LibSVM, ``data/parser.py``)."""
+    (CSV, TSV or LibSVM, ``data/parser.py``).  With ``free_raw_data``
+    False the rows stay as ``raw`` after binning (the dense float64
+    matrix, the CSR matrix or the tensor), as continued training needs
+    them (``engine.train(init_model=...)``); else ``data`` is dropped
+    once the set is built."""
 
     def __init__(self, data, label=None, reference=None, weight=None,
-                 group=None, init_score=None, feature_name=None,
-                 categorical_feature=(), params=None):
+                 group=None, init_score=None, feature_name="auto",
+                 categorical_feature="auto", params=None,
+                 free_raw_data=True):
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
         self.group = group
         self.init_score = init_score
-        self.feature_name = feature_name
+        self.feature_name = None if isinstance(feature_name, str) \
+            and feature_name == "auto" else feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params or {})
+        self.free_raw_data = free_raw_data
         self.used_indices = None
+        self.raw = None
         self._handle: Optional[BinnedDataset] = None
 
     def construct(self) -> "Dataset":
         if self._handle is not None:
             return self
+        raw = self._construct()
+        if not self.free_raw_data:
+            self.raw = raw
+        elif not isinstance(self.data, str):
+            self.data = None
+        return self
+
+    def _construct(self):
+        """Bin the set; returns the raw rows it was binned from (None for
+        a subset or a binary file)."""
         params = dict(self.params)
         ref = None
         if self.reference is not None:
@@ -107,46 +130,48 @@ class Dataset:
             # a subset slices the parent's codes; it never re-bins
             self._handle = ref.copy_subset(self.used_indices)
             self._set_fields()
-            return self
+            return None
         if isinstance(self.data, str):
             if BinnedDataset.is_binary_file(self.data):
                 self._handle = BinnedDataset.load_binary(self.data)
                 self._set_fields()
-                return self
+                return None
             from .data.parser import load_text_file
-            arr, label, names = load_text_file(self.data, config)
+            raw, label, names = load_text_file(self.data, config)
             if self.label is None:
                 self.label = label
             if self.feature_name is None:
                 self.feature_name = names
             self._handle = BinnedDataset.construct_from_matrix(
-                arr, config, _resolve_categorical(
+                raw, config, _resolve_categorical(
                     self.categorical_feature, self.feature_name,
-                    arr.shape[1]),
+                    raw.shape[1]),
                 feature_names=self.feature_name, reference=ref)
         elif isinstance(self.data, torch.Tensor):
-            if len(self.categorical_feature):
+            raw = self.data
+            if _resolve_categorical(self.categorical_feature,
+                                    self.feature_name, raw.shape[1]):
                 raise LightGBMError(
                     "a tensor Dataset supports numerical features only")
             self._handle = BinnedDataset.construct_from_device_matrix(
-                self.data, config, feature_names=self.feature_name,
+                raw, config, feature_names=self.feature_name,
                 reference=ref)
         elif _is_sparse(self.data):
-            csr = self.data.tocsr()
+            raw = self.data.tocsr()
             self._handle = BinnedDataset.construct_from_csr(
-                csr.indptr, csr.indices, csr.data, csr.shape[1], config,
+                raw.indptr, raw.indices, raw.data, raw.shape[1], config,
                 _resolve_categorical(self.categorical_feature,
-                                     self.feature_name, csr.shape[1]),
+                                     self.feature_name, raw.shape[1]),
                 feature_names=self.feature_name, reference=ref)
         else:
-            data = _to_2d_float(self.data)
+            raw = _to_2d_float(self.data)
             self._handle = BinnedDataset.construct_from_matrix(
-                data, config, _resolve_categorical(
+                raw, config, _resolve_categorical(
                     self.categorical_feature, self.feature_name,
-                    data.shape[1]),
+                    raw.shape[1]),
                 feature_names=self.feature_name, reference=ref)
         self._set_fields()
-        return self
+        return raw
 
     def _set_fields(self) -> None:
         """The labels, weights, queries and init scores given to this
@@ -193,6 +218,26 @@ class Dataset:
             self._handle.metadata.set_init_score(
                 None if init_score is None else np.asarray(init_score))
         return self
+
+    def set_reference(self, reference) -> "Dataset":
+        """Bin with ``reference``'s mappers (before the set is built)."""
+        if self._handle is not None:
+            raise LightGBMError("cannot set reference after constructed")
+        self.reference = reference
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """The categorical columns, by index or name (before the set is
+        built, unless unchanged)."""
+        if self._handle is not None and \
+                categorical_feature != self.categorical_feature:
+            raise LightGBMError(
+                "cannot set categorical feature after constructed")
+        self.categorical_feature = categorical_feature
+        return self
+
+    def get_feature_name(self) -> list:
+        return list(self.construct()._handle.feature_names)
 
     def set_feature_name(self, feature_name) -> "Dataset":
         self.feature_name = feature_name
@@ -488,6 +533,56 @@ class Booster:
 
     def feature_name(self):
         return list(self._gbdt.feature_names)
+
+    def reset_parameter(self, params) -> "Booster":
+        """Change parameters for the iterations to come
+        (``lightgbm_tpu/basic.py::reset_parameter``).  The host learner
+        takes every parameter it reads.  A booster on the device grower
+        takes the learning rate and what only the host reads; any other
+        change raises ``LightGBMError`` naming the parameters
+        (``ops/grow.reset_refusals``): its captured tree holds their old
+        values, which the JAX device grower would keep without a word."""
+        new = {**self.params, **normalize_params(params)}
+        cfg = Config(new)
+        gb = self._gbdt
+        if gb._grower is not None:
+            refused = reset_refusals(gb.config, cfg)
+            if refused:
+                raise LightGBMError(
+                    f"reset_parameter({', '.join(refused)}) on the device "
+                    f"grower: its captured tree holds the old value; train "
+                    f"a new booster, or use device_growth=off")
+        self.params = new
+        gb.config = cfg
+        gb.shrinkage_rate = cfg.learning_rate
+        if gb.learner is not None:
+            from .ops.split import SplitHyper
+            gb.learner.config = cfg
+            gb.learner.hyper = SplitHyper.from_config(cfg)
+        return self
+
+    def __copy__(self) -> "Booster":
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, memo) -> "Booster":
+        """A new booster of this model's text and params (not trainable:
+        it has no training set)."""
+        return Booster(model_str=self.model_to_string(), params=self.params)
+
+    def __getstate__(self) -> dict:
+        return {"params": self.params, "model_str": self.model_to_string(),
+                "best_iteration": self.best_iteration,
+                "best_score": self.best_score}
+
+    def __setstate__(self, state) -> None:
+        """An unpickled booster loads the model text; it predicts on
+        ``params['device']`` (default ``cuda``)."""
+        self.params = state["params"]
+        self.best_iteration = state["best_iteration"]
+        self.best_score = state["best_score"]
+        self._train_set = None
+        self._gbdt = GBDT.load_model_from_string(state["model_str"],
+                                                 Config(self.params))
 
 
 def _feval_records(dataset_name, res):

@@ -47,12 +47,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import obs
+from .. import compile_cache, obs
 from ..config import Config, resolve_device
 from ..data.dataset import BinnedDataset, Metadata
 from ..metrics import create_metrics
 from ..objectives import create_objective
 from ..ops.bagging import bagging_row_mask
+from ..ops import stage_plan as stage_plan_mod
 from ..ops.grow import (DeviceGrower, acquire_grower, check_slice_config,
                         host_learner_reason, release_grower)
 from ..ops.histogram import bucket_size
@@ -190,6 +191,8 @@ class GBDT:
         self.config = config
         self.models: List = []
         self.iter = 0
+        # iterations of a loaded model this booster continues from
+        self.num_init_iteration = 0
         self.train_set: Optional[BinnedDataset] = None
         self.objective = None
         self.num_model = 1
@@ -218,6 +221,10 @@ class GBDT:
         # pipeline this runs once per window, so both stay additive
         obs.configure_from_config(cfg)
         faults.configure_from_config(cfg)
+        # the kernel libraries' directory, process-wide as in the JAX
+        # package (lightgbm_tpu/boosting/gbdt.py:223); the stage-plan store
+        # follows this config alone (stage_plan.store_dir)
+        compile_cache.configure_from_config(cfg)
         obs.inc("train.init_train")
         obs.instant("init_train", cat="boost", rows=int(train_set.num_data),
                     features=int(train_set.num_features))
@@ -254,6 +261,7 @@ class GBDT:
             # a cached grower of equal shapes when grower_cache is on
             self._grower = acquire_grower(train_set, cfg, self.device,
                                           self.objective, self)
+            self._resolve_wave_plan()
         else:
             log_info(f"Using the host tree learner: {why}")
             self._host_learner()
@@ -273,6 +281,30 @@ class GBDT:
         self.bag_count = n
         log_info(f"Training on {self.device} ({n} rows, "
                  f"{train_set.num_groups} feature groups)")
+
+    def _resolve_wave_plan(self) -> None:
+        """The stage plan's route (``lightgbm_tpu/boosting/gbdt.py:
+        324-372``): ``profiled`` measures kernel 1 at each candidate
+        width and grows under the derived plan (a plan already measured
+        for this signature, in the process or in the store, is adopted
+        without measuring); ``auto`` measures once, on first use, from
+        ``stage_plan.AUTO_PROFILE_MIN_ROWS`` rows and only with a store
+        (a compile cache directory this config names), and takes the
+        derived plan only when it beats the legacy ladder by the 2% bar
+        at the probes' worst case, keeping the verdict either way (probe times are noisy: without a store two processes of one
+        config could grow different trees); otherwise the legacy
+        ladder.  ``plan_profile`` keeps the measurement
+        (``DeviceGrower.profile_stage_plan``'s result), or None."""
+        grower = self._grower
+        wp = str(self.config.wave_plan).lower()
+        self.plan_profile = None
+        if wp == "profiled":
+            self.plan_profile = grower.profile_stage_plan()
+        elif (wp == "auto" and grower.plan_source == "default"
+              and grower.num_data >= stage_plan_mod.AUTO_PROFILE_MIN_ROWS
+              and stage_plan_mod.store_dir(self.config) is not None):
+            self.plan_profile = grower.profile_stage_plan(
+                require_beat_legacy=True)
 
     def release_grower(self) -> None:
         """Hand the device grower back to the grower cache, idle, for a
@@ -944,16 +976,24 @@ class GBDT:
             self._packed_cache = cached = (key, pe)
         return predict_scores(cached[1], data)
 
-    def _device_predict_wanted(self, n: int, early) -> bool:
+    def _device_predict_wanted(self, n: int, early,
+                               on_card: bool = False) -> bool:
         """``device_predict`` force/off override the
-        ``device_predict_min_rows`` threshold of auto; row-wise early
-        stopping is host-only (the kernel runs every tree)."""
-        if early is not None:
-            return False
+        ``device_predict_min_rows`` threshold of auto; rows already on the
+        card (``on_card``) take the kernel at any count.  Row-wise early
+        stopping is host-only (the kernel runs every tree): it refuses
+        rows on the card rather than copy them off it."""
         mode = str(self.config.device_predict).lower()
         if mode == "off":
             return False
-        if mode == "force":
+        if early is not None:
+            if on_card:
+                raise LightGBMError(
+                    "pred_early_stop walks the trees on the host; predict "
+                    "rows on the card without it, or pass them as a host "
+                    "array")
+            return False
+        if mode == "force" or on_card:
             return True
         return n >= int(self.config.device_predict_min_rows)
 
@@ -964,22 +1004,33 @@ class GBDT:
         ``[start_iteration, start_iteration + num_iteration)``: through
         the packed-forest kernel (:meth:`_device_predict_wanted`) or by the
         host tree walk in float64.  ``data`` is a float32 or float64
-        matrix; the kernel reads either as it is.  ``batch_rows``: the rows
-        of the whole batch when ``data`` is one chunk of it (the route is
-        chosen on it, so every chunk takes the same one)."""
+        matrix, or a tensor (the raw rows of a tensor Dataset, read where
+        they lie by the kernel: a tensor on the card always goes through
+        it, unless ``device_predict=off``); the kernel reads either type as
+        it is.
+        ``batch_rows``: the rows of the whole batch when ``data`` is one
+        chunk of it (the route is chosen on it, so every chunk takes the
+        same one)."""
         self._flush_pending()
-        data = np.asarray(data)
+        if not isinstance(data, torch.Tensor):
+            data = np.asarray(data)
         n = data.shape[0]
         total_iter = self.num_iterations()
         start_iteration = max(0, min(int(start_iteration), total_iter))
         end_iter = total_iter if num_iteration <= 0 \
             else min(start_iteration + num_iteration, total_iter)
         early = self._early_stop_instance()
+        on_card = (isinstance(data, torch.Tensor) and data.is_cuda
+                   and resolve_device(self.config.device_type).type
+                   == "cuda")
         if (n > 0 and end_iter > start_iteration
                 and self._device_predict_wanted(
-                    n if batch_rows is None else int(batch_rows), early)):
+                    n if batch_rows is None else int(batch_rows), early,
+                    on_card)):
             out = self._predict_raw_packed(data, end_iter, start_iteration)
         else:
+            if isinstance(data, torch.Tensor):
+                data = data.cpu().numpy()
             out = self._predict_raw_host(
                 np.ascontiguousarray(data, np.float64), start_iteration,
                 end_iter, early)
@@ -1306,6 +1357,7 @@ class GBDT:
             for block in blocks.split("Tree=")[1:]:
                 booster.models.append(Tree.from_string(block))
         booster.iter = len(booster.models) // max(booster.num_model, 1)
+        booster.num_init_iteration = booster.iter
         return booster
 
     @classmethod

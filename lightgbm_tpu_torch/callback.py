@@ -1,13 +1,13 @@
 """Training callbacks (counterpart of ``lightgbm_tpu/callback.py``, after
 the reference's ``python-package/lightgbm/callback.py``): evaluation
-printing and recording, and early stopping.  ``reset_parameter`` waits for
-``learning_rates`` and is refused by name."""
+printing and recording, parameter schedules (``reset_parameter``) and
+early stopping."""
 
 from __future__ import annotations
 
 import collections
 
-from .utils.log import LightGBMError, log_info, log_warning
+from .utils.log import log_info, log_warning
 
 
 class EarlyStopException(Exception):
@@ -64,8 +64,31 @@ def record_evaluation(eval_result):
 
 
 def reset_parameter(**kwargs):
-    raise LightGBMError("reset_parameter (learning_rates) is not ported to "
-                        "lightgbm_tpu_torch yet")
+    """Before each iteration, set every parameter of ``kwargs`` to its
+    value for the iteration: a list holds one value an iteration
+    (``num_boost_round`` of them), a function maps the iteration (from
+    0 at the first of this ``train`` call) to the value
+    (``Booster.reset_parameter``, which refuses on the device grower what
+    its captured tree holds).  A before-iteration callback: ``train``
+    drives iteration by iteration while it is present."""
+    def _callback(env):
+        new_parameters = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError(
+                        f"Length of list {key!r} has to equal to "
+                        f"'num_boost_round'.")
+                new_param = value[env.iteration - env.begin_iteration]
+            else:
+                new_param = value(env.iteration - env.begin_iteration)
+            new_parameters[key] = new_param
+        if new_parameters:
+            env.model.reset_parameter(new_parameters)
+            env.params.update(new_parameters)
+    _callback.before_iteration = True
+    _callback.order = 10
+    return _callback
 
 
 def early_stopping(stopping_rounds, first_metric_only=False, verbose=True):

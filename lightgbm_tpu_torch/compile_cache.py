@@ -7,7 +7,10 @@ what persists across processes is the kernel libraries ``ops/build.py``
 builds with ``nvcc``, one per source, named by the source's digest.
 ``compile_cache_dir`` (or ``LGBM_TPU_COMPILE_CACHE``) names the directory
 where they are built and found, so a restarted harness that points at the
-same directory builds nothing.  Within a process the captured CUDA graphs
+same directory builds nothing.  Beside them, in ``stage_plans/``, lie the
+wave-stage plans ``wave_plan=profiled`` (or ``auto``) measured
+(``ops/stage_plan.py``, :func:`artifact_dir`), so a fresh process adopts a
+plan without measuring.  Within a process the captured CUDA graphs
 persist across boosters in the grower cache (``ops/grow.py``,
 ``grower_cache``); :func:`clear` drops it.
 
@@ -36,6 +39,28 @@ def cache_dir() -> Optional[str]:
     return str(build.BUILD_DIR)
 
 
+def config_dir(cfg) -> Optional[str]:
+    """The directory ``cfg`` names: ``compile_cache_dir``, else
+    ``LGBM_TPU_COMPILE_CACHE``; None when neither names one (falsy values
+    as in :func:`configure`)."""
+    d = str(getattr(cfg, "compile_cache_dir", "") or "") \
+        or os.environ.get(ENV_VAR, "")
+    if not d or d.lower() in build._FALSY:
+        return None
+    return os.path.expanduser(d)
+
+
+def artifact_dir(name: str, cfg) -> Optional[str]:
+    """``<the compile cache directory cfg names>/<name>``, where small
+    artifacts that share the kernel libraries' life lie (``stage_plans``:
+    profiled wave-stage plans); not created here.  None when ``cfg``
+    names no directory.  It follows the booster's own config, never the
+    process-wide kernel directory an earlier booster may have moved
+    (:func:`configure`)."""
+    d = config_dir(cfg)
+    return None if d is None else os.path.join(d, name)
+
+
 def configure(cache_dir: Optional[str]) -> Optional[str]:
     """Build and find the kernel libraries in ``cache_dir`` (created if
     missing).  Falsy values ("", "0", "false", "off") leave the directory
@@ -55,11 +80,11 @@ def configure_from_env() -> Optional[str]:
 
 
 def configure_from_config(cfg) -> Optional[str]:
-    """``compile_cache_dir`` of ``cfg``, else ``LGBM_TPU_COMPILE_CACHE``."""
-    d = str(getattr(cfg, "compile_cache_dir", "") or "")
-    if d:
-        return configure(d)
-    return configure_from_env()
+    """Build and find the kernel libraries in the directory ``cfg`` names
+    (:func:`config_dir`).  The kernel directory is process-wide, as the
+    JAX package's cache is: it stays where the last config that named one
+    put it."""
+    return configure(config_dir(cfg))
 
 
 def counters() -> dict:

@@ -20,7 +20,11 @@ formulation is the JAX package's:
 * every new leaf's best split comes from one batched scan
   (``ops/split.find_best_split``), and the wave applies up to W of
   the best-gain splits at once, within the ``num_leaves`` budget;
-* wave widths follow the legacy stage plan (``ops/stage_plan.py``);
+* wave widths follow a stage plan (``ops/stage_plan.py``): the legacy
+  doubling plan, or one derived from kernel 1's times at each candidate
+  width on the grower's own codes (:meth:`DeviceGrower.profile_stage_plan`,
+  ``wave_plan=profiled``, or ``auto`` on first use at scale with a plan
+  store), kept in the process and beside the compile cache;
 * a categorical split sends a row left iff the bit of its decoded bin is
   set in the winner's bin set, kept per leaf as a (256,) membership row
   (``bestc``) and recorded as eight int32 words (``rec_c``).  Every
@@ -57,7 +61,8 @@ With ``grower_cache`` (on by default, as in the JAX package) a grower
 outlives its booster: :func:`acquire_grower` hands a new booster an idle
 grower of equal key (:func:`grower_key`: rows, groups, slot pitch,
 features, categorical, the layout bounds, the config but its seeds and
-learning rate, the gradient function's shapes, the device), which
+learning rate, the gradient function's shapes, the device, the stage
+plan's digest), which
 takes the booster's codes, feature metadata, gradient arguments and seeds
 into its static buffers (:meth:`DeviceGrower.adopt`) and replays its
 captured graphs without a new capture.
@@ -96,6 +101,7 @@ from .split import (F_DEFAULT_LEFT, F_FEATURE, F_GAIN, F_LEFT_C, F_LEFT_G,
                     F_LEFT_H, F_LEFT_OUT, F_RIGHT_C, F_RIGHT_G, F_RIGHT_H,
                     F_IS_CAT, F_RIGHT_OUT, F_THRESHOLD, NEG_INF,
                     FeatureMeta, SplitHyper, find_best_split)
+from . import stage_plan as stage_plan_mod
 from .stage_plan import legacy_stage_plan
 
 REC_I_FIELDS = 5    # leaf, right, feature, threshold, default_left
@@ -264,9 +270,8 @@ def unported_options(config) -> list:
     """The options set in ``config`` that select code the port does not
     have, whatever the data: the distributed learners and sharding
     (ROADMAP item 7), the multi-host pod checkpoints, the streaming
-    telemetry exporter, SLOs and XLA cost attribution, the profiled
-    wave plan (ROADMAP item 6), the streaming two-round text loader and
-    the CLI's chaos soak."""
+    telemetry exporter, SLOs and XLA cost attribution, the streaming
+    two-round text loader and the CLI's chaos soak."""
     todo = []
     learner = str(config.tree_learner)
     if learner in ("feature", "data", "voting") \
@@ -290,8 +295,6 @@ def unported_options(config) -> list:
                     "exporter)")
     if bool(getattr(config, "profile_attribution", False)):
         todo.append("profile_attribution (XLA cost attribution)")
-    if str(config.wave_plan) == "profiled":
-        todo.append("wave_plan=profiled (the profiled stage plan)")
     if bool(getattr(config, "two_round", False)):
         todo.append("two_round=true (the streaming two-round text loader)")
     if str(getattr(config, "task", "train")) == "soak":
@@ -340,19 +343,39 @@ _GROWER_CACHE_LOCK = threading.Lock()
 #: cache hits and misses of this process (always counted; with telemetry
 #: on also ``grow.cache_hits`` / ``grow.cache_misses``)
 GROWER_CACHE_COUNTS = {"hits": 0, "misses": 0}
-#: parameters no capture reads: the seeds (a grower takes its booster's,
-#: :meth:`DeviceGrower.adopt`; the binning's and DART's are the
-#: booster's), the learning rate (a buffer written every launch) and the
-#: caching and logging knobs
-_NON_CAPTURE_PARAMS = frozenset({
-    "seed", "bagging_seed", "feature_fraction_seed", "data_random_seed",
-    "drop_seed", "learning_rate", "grower_cache", "compile_cache_dir",
-    "verbosity", "num_iterations"})
+#: the seeds: a grower takes its booster's (:meth:`DeviceGrower.adopt`;
+#: the binning's and DART's are the booster's)
+SEED_PARAMS = frozenset({"seed", "bagging_seed", "feature_fraction_seed",
+                         "data_random_seed", "drop_seed"})
+#: parameters no capture reads: the seeds, the learning rate (a buffer
+#: written every launch) and the caching and logging knobs
+_NON_CAPTURE_PARAMS = SEED_PARAMS | {
+    "learning_rate", "grower_cache", "compile_cache_dir", "verbosity",
+    "num_iterations"}
+#: the parameters ``Booster.reset_parameter`` may change on a booster that
+#: trains on the device grower: what no capture reads but the seeds a
+#: grower copied.  A change of any other parameter is refused by name
+#: (:func:`reset_refusals`)
+RESET_ON_DEVICE = _NON_CAPTURE_PARAMS - SEED_PARAMS
 
 
-def _config_digest(config) -> str:
+def reset_refusals(old, new) -> list:
+    """The parameters whose values differ between configs ``old`` and
+    ``new`` that a device grower holds: those of its key's config digest
+    and the seeds it copied.  The captured tree keeps what it was built
+    with, and the JAX device grower silently keeps the old value of every
+    such parameter (ROADMAP §3), so the port refuses the reset instead;
+    a grower's key then never goes stale."""
+    a, b = old.to_dict(), new.to_dict()
+    return sorted(k for k in b
+                  if k not in RESET_ON_DEVICE and a.get(k) != b[k])
+
+
+def _config_digest(config, exclude=_NON_CAPTURE_PARAMS) -> str:
+    """sha1 of the config's sorted (name, repr(value)) items but
+    ``exclude``."""
     items = sorted((k, repr(v)) for k, v in config.to_dict().items()
-                   if k not in _NON_CAPTURE_PARAMS)
+                   if k not in exclude)
     return hashlib.sha1(repr(items).encode()).hexdigest()
 
 
@@ -376,28 +399,90 @@ def _copy_args(dst, src) -> None:
             _copy_args(d, s)
 
 
-def grower_key(dataset, config, device, objective) -> tuple:
-    """What shapes a grower's captures (the JAX package's
-    ``programs_signature`` plus the row count, which sizes the port's
-    buffers, and the gradient function the fused tree captures)."""
+#: stage-plan profiles, and plans adopted from the store, of this process
+#: (always counted; with telemetry on also ``grow.plan_profiles`` /
+#: ``grow.plan_persisted_loads``)
+PLAN_COUNTS = {"profiles": 0, "persisted_loads": 0}
+#: timed launches of kernel 1 at each width of a stage profile, after one
+#: warm launch (:meth:`DeviceGrower.profile_stage_plan`)
+PROBE_REPS = 5
+#: what a stage plan's signature leaves out of the config: what no capture
+#: reads, and the plan choice itself (a plan profiled under
+#: ``wave_plan=profiled`` serves ``auto`` too, as in the JAX package)
+_NON_PLAN_PARAMS = _NON_CAPTURE_PARAMS | {"wave_plan"}
+
+
+def plan_signature(dataset, config, device) -> tuple:
+    """What a stage plan is measured for: the device type, the grower's
+    padded rows, groups, slot pitch, features, categorical flag, the
+    layout bounds and the config digest (the JAX package's
+    ``programs_signature``; its plans are a TPU's, so none is shared)."""
+    _, n_pad = grower_rows(dataset.num_data, config)
+    return (torch.device(device).type, int(n_pad), int(dataset.num_groups),
+            int(slot_pitch(dataset)), len(dataset.used_features),
+            bool(np.asarray(dataset.f_is_categorical).any()),
+            COUNT_SPLIT_ROWS, INT32_SCAN_ROWS,
+            _config_digest(config, _NON_PLAN_PARAMS))
+
+
+def grower_key(dataset, config, device, objective,
+               plan_digest: str = "") -> tuple:
+    """What shapes a grower's captures: its :func:`plan_signature` with
+    the device itself and the row count, which sizes the port's buffers,
+    the gradient function the fused tree captures, and the digest of the
+    stage plan its waves follow (two boosters of equal config, one built
+    before a plan was installed and one after, never share a grower)."""
     grad = None if objective is None else objective.device_grad()
     gsig = None if grad is None else (
         f"{grad[0].__module__}.{grad[0].__qualname__}",
         _args_signature(grad[1]))
-    return (str(device), int(dataset.num_data), int(dataset.num_groups),
-            int(slot_pitch(dataset)), len(dataset.used_features),
-            bool(np.asarray(dataset.f_is_categorical).any()),
-            COUNT_SPLIT_ROWS, INT32_SCAN_ROWS, _config_digest(config), gsig)
+    return ((str(device), int(dataset.num_data))
+            + plan_signature(dataset, config, device)[1:]
+            + (gsig, plan_digest))
+
+
+def default_stage_plan(num_data: int, config) -> list:
+    """The legacy doubling plan of a grower of ``num_data`` rows."""
+    layout_rows, _ = grower_rows(num_data, config)
+    _, _, hist_cols = _hist_layout(layout_rows, config)
+    num_leaves = int(config.num_leaves)
+    return legacy_stage_plan(num_leaves, _wave_width(num_leaves, hist_cols),
+                             hist_cols)
+
+
+def resolve_stage_plan(signature: tuple, config, num_data: int):
+    """(plan, source) a new grower starts with
+    (``lightgbm_tpu/ops/grow.py::get_grower_programs``): under
+    ``wave_plan`` auto or profiled, a plan profiled for ``signature`` in
+    this process ("profiled") or read from the store ``config`` names
+    ("persisted"); else the legacy plan ("default")."""
+    if str(config.wave_plan).lower() in ("auto", "profiled"):
+        cached = stage_plan_mod.cached_plan(signature)
+        if cached is not None:
+            return cached, "profiled"
+        persisted = stage_plan_mod.load_plan(
+            signature, stage_plan_mod.store_dir(config))
+        if persisted is not None:
+            stage_plan_mod.cache_plan(signature, persisted)
+            PLAN_COUNTS["persisted_loads"] += 1
+            obs.inc("grow.plan_persisted_loads")
+            return persisted, "persisted"
+    return default_stage_plan(num_data, config), "default"
 
 
 def acquire_grower(dataset, config, device, objective, owner
                    ) -> "DeviceGrower":
     """A grower for ``owner`` (a booster): an idle cached grower of equal
     :func:`grower_key`, adopted (:meth:`DeviceGrower.adopt`), or a new
-    one, cached.  Without ``grower_cache`` always a new, uncached one."""
+    one, cached.  Without ``grower_cache`` always a new, uncached one.
+    Either way its stage plan is :func:`resolve_stage_plan`'s."""
+    sig = plan_signature(dataset, config, device)
+    plan, source = resolve_stage_plan(sig, config, dataset.num_data)
     if not bool(getattr(config, "grower_cache", True)):
-        return DeviceGrower(dataset, config, device)
-    key = grower_key(dataset, config, device, objective)
+        return DeviceGrower(dataset, config, device, plan=plan,
+                            plan_source=source)
+    key = grower_key(dataset, config, device, objective,
+                     stage_plan_mod.plan_digest(plan))
     with _GROWER_CACHE_LOCK:
         hit = None
         for gid, entry in _GROWER_CACHE.items():
@@ -411,11 +496,12 @@ def acquire_grower(dataset, config, device, objective, owner
     if hit is not None:
         GROWER_CACHE_COUNTS["hits"] += 1
         obs.inc("grow.cache_hits")
-        hit[1].adopt(dataset, config, objective)
+        hit[1].adopt(dataset, config, objective, plan_source=source)
         return hit[1]
     GROWER_CACHE_COUNTS["misses"] += 1
     obs.inc("grow.cache_misses")
-    grower = DeviceGrower(dataset, config, device)
+    grower = DeviceGrower(dataset, config, device, plan=plan,
+                          plan_source=source)
     with _GROWER_CACHE_LOCK:
         _GROWER_CACHE[id(grower)] = [key, grower, weakref.ref(owner)]
         while len(_GROWER_CACHE) > GROWER_CACHE_MAX:
@@ -429,6 +515,16 @@ def _patched(grower) -> bool:
     booster's and is never handed to another."""
     return any(callable(v) and not isinstance(v, torch.Tensor)
                for v in vars(grower).values())
+
+
+def _rekey_grower(grower: "DeviceGrower") -> None:
+    """Put a cached grower's new plan digest into its key (a plan was
+    installed on it)."""
+    digest = stage_plan_mod.plan_digest(grower.stage_plan)
+    with _GROWER_CACHE_LOCK:
+        entry = _GROWER_CACHE.get(id(grower))
+        if entry is not None and entry[1] is grower:
+            entry[0] = entry[0][:-1] + (digest,)
 
 
 def release_grower(grower: "DeviceGrower") -> None:
@@ -458,7 +554,8 @@ class DeviceGrower:
     the histogram kernel and the split application both read it per
     group) and the per-feature metadata."""
 
-    def __init__(self, dataset, config, device: torch.device):
+    def __init__(self, dataset, config, device: torch.device,
+                 plan=None, plan_source: str = "default"):
         check_slice_config(config, dataset)
         if dataset.num_groups == 0:
             raise LightGBMError("no usable features: every feature is "
@@ -507,8 +604,9 @@ class DeviceGrower:
         self.int_scan = bool(self.quant_bits) \
             and self.n_pad <= INT32_SCAN_ROWS
         self.wave_width = _wave_width(self.num_leaves, self.hist_cols)
-        self.stage_plan = legacy_stage_plan(self.num_leaves, self.wave_width,
-                                            self.hist_cols)
+        self.signature = plan_signature(dataset, config, device)
+        self._set_plan(plan if plan is not None else legacy_stage_plan(
+            self.num_leaves, self.wave_width, self.hist_cols), plan_source)
         self._valid = torch.arange(self.n_pad, device=device) < self.num_data
         self._set_seeds(config)
         nf = int(self.meta.num_bin.shape[0])
@@ -541,9 +639,6 @@ class DeviceGrower:
                           ("record", [F_GAIN, F_LEFT_G, F_LEFT_H, F_LEFT_C,
                                       F_RIGHT_G, F_RIGHT_H, F_RIGHT_C,
                                       F_LEFT_OUT, F_RIGHT_OUT]))}
-        self._stages = [(ws, self.num_leaves if cap is None
-                         else min(cap, self.num_leaves))
-                        for ws, cap in self.stage_plan]
         self._st = None
         self._graphs = None
         self._composed = {}
@@ -556,6 +651,30 @@ class DeviceGrower:
                                   warmup_waves=0)
         self._ensure_state(max(int(getattr(config, "fused_chunk", 1)), 1))
 
+    def _set_plan(self, plan, source: str) -> None:
+        """Follow ``plan`` (source: default, profiled or persisted): its
+        stages as (width, leaf limit) pairs.  A plan's widths are at most
+        :attr:`wave_width`, so the state buffers stay as they are."""
+        self.stage_plan = [(int(w), None if c is None else int(c))
+                           for w, c in plan]
+        if self.stage_plan[-1][1] is not None \
+                or max(w for w, _ in self.stage_plan) > self.wave_width:
+            raise LightGBMError(f"stage plan {self.stage_plan} does not end "
+                                f"in an open stage of width at most "
+                                f"{self.wave_width}")
+        self.plan_source = source
+        self._stages = [(ws, self.num_leaves if cap is None
+                         else min(cap, self.num_leaves))
+                        for ws, cap in self.stage_plan]
+
+    def install_plan(self, plan, source: str = "profiled") -> None:
+        """Grow the next trees under ``plan``: the captured graphs are
+        dropped (the next tree captures the new stages) and a cached
+        grower's key takes the plan's digest."""
+        self._set_plan(plan, source)
+        self._drop_graphs()
+        _rekey_grower(self)
+
     def _set_seeds(self, config) -> None:
         """Sampling seeds (lightgbm_tpu/ops/grow.py:364-379): host values
         the key tables are derived from, never captured."""
@@ -566,13 +685,16 @@ class DeviceGrower:
         self._quant_seed = (int(config.seed) + 5) & 0x7FFFFFFF
         self._bag_seed = int(config.bagging_seed)
 
-    def adopt(self, dataset, config, objective) -> None:
+    def adopt(self, dataset, config, objective,
+              plan_source: str = "") -> None:
         """Take a new booster's data into this (idle, cached) grower: its
         codes, feature metadata and seeds, and its gradient arguments into
         the tensors the captured fused tree reads (the booster's objective
         then reads those tensors too), so the captured graphs replay for it
         as they were.  Everything else a capture reads is equal by
-        :func:`grower_key`."""
+        :func:`grower_key`, the stage plan included; ``plan_source`` is
+        where the new booster's plan resolution found it (a plan this
+        grower profiled is then already measured)."""
         dev = self.device
         binned = dataset.binned
         if not isinstance(binned, torch.Tensor):
@@ -590,6 +712,8 @@ class DeviceGrower:
             dst.copy_(torch.as_tensor(np.asarray(src, np.int64)))
         self.config = config
         self._set_seeds(config)
+        if plan_source in ("profiled", "persisted"):
+            self.plan_source = plan_source
         if self._grad is not None and objective is not None:
             fn, args = objective.device_grad()
             _copy_args(self._grad[1], args)
@@ -1253,6 +1377,131 @@ class DeviceGrower:
                            st.out_rec_f[:length], st.out_rec_c[:length],
                            st.out_nl[:length],
                            st.out_waves[:length], st.out_qscales[:length])
+
+    def profile_stage_plan(self, require_beat_legacy: bool = False) -> dict:
+        """Time kernel 1 (the wave histogram, ``_wave_hist``) at every
+        candidate stage width (the plan's widths, the doubling ladder
+        below :attr:`wave_width`, and :attr:`wave_width`) on this grower's
+        codes and its stat columns (int8 included) made from seeded
+        gradients, every row in a pending leaf; fit the fixed and
+        per-column wave cost, derive the cheapest plan
+        (``ops/stage_plan.py``), keep it for this grower's signature in
+        the process and in the store its config names, and grow under it
+        (``lightgbm_tpu/ops/grow.py::profile_stage_plan``).  Each width is
+        launched once to warm up, then :data:`PROBE_REPS` times, each
+        between two CUDA events (on the CPU: the host clock around the
+        plain version); its time is the median.
+        ``require_beat_legacy`` (``wave_plan=auto``) keeps the legacy
+        ladder unless the derived plan beats it by
+        ``stage_plan.MIN_IMPROVEMENT`` with its waves at their slowest
+        probes and the ladder's at their fastest
+        (``stage_plan.plan_beats_spread``); the verdict is kept either
+        way.  A grower whose plan is already measured (source
+        profiled or persisted) measures nothing.  With telemetry on each
+        width is a ``grow.stage_probe`` span and a ``grow.stage.w<W>``
+        timing and ``_ms`` gauge, the full width also ``grow.hist.<tag>``.
+
+        Returns ``{"stage_ms", "spread_ms", "fixed_ms", "col_ms",
+        "residual_ms", "plan", "plan_digest", "installed", "profiled"}``
+        (``spread_ms``: each width's slowest less fastest probe)."""
+        if self.plan_source in ("profiled", "persisted"):
+            return {"stage_ms": {}, "spread_ms": {}, "fixed_ms": None,
+                    "col_ms": None, "residual_ms": {},
+                    "plan": list(self.stage_plan),
+                    "plan_digest": stage_plan_mod.plan_digest(
+                        self.stage_plan),
+                    "installed": False, "profiled": False}
+        reps = PROBE_REPS
+        PLAN_COUNTS["profiles"] += 1
+        obs.inc("grow.plan_profiles")
+        self._ensure_state(1)
+        st, dev, k = self._st, self.device, self.hist_cols
+        n, N = self.n_pad, self.num_data
+        rng = np.random.default_rng(0)
+        grad = rng.standard_normal(N, dtype=np.float32)
+        st.grad.copy_(torch.from_numpy(grad))
+        st.hess.copy_(torch.from_numpy(np.abs(grad) + np.float32(0.1)))
+        st.row_mask.fill_(1.0)
+        # the stat columns as a tree's start piece makes them (int8: the
+        # quantization draws under the key table's first row)
+        st.ctl[3:4].zero_()
+        self._piece_start()
+        widths = sorted({w for w, _ in self.stage_plan}
+                        | set(stage_plan_mod._ladder(self.wave_width))
+                        | {self.wave_width})
+        scale_exp = None if self.quant_bits else st.scale_exp
+        cuda = dev.type == "cuda"
+        stage_ms, lo_ms, hi_ms = {}, {}, {}
+        for w in widths:
+            leaf = rng.integers(0, w, n).astype(np.int32)
+            leaf[N:] = -1
+            leaf = torch.from_numpy(leaf).to(dev)
+            pend = torch.arange(w, dtype=torch.int32, device=dev)
+            probe = functools.partial(self._wave_hist, leaf, st.gh, pend,
+                                      scale_exp, st.qscales)
+            before = wave_hist.launches.read() if cuda else 0
+            probe()
+            with obs.span("grow.stage_probe", cat="grow", width=w,
+                          hist_cols=k):
+                if cuda:
+                    evs = [torch.cuda.Event(enable_timing=True)
+                           for _ in range(reps + 1)]
+                    evs[0].record()
+                    for ev in evs[1:]:
+                        probe()
+                        ev.record()
+                    evs[-1].synchronize()
+                    times = [a.elapsed_time(b)
+                             for a, b in zip(evs, evs[1:])]
+                else:
+                    times = []
+                    for _ in range(reps):
+                        t0 = time.perf_counter()
+                        probe()
+                        times.append((time.perf_counter() - t0) * 1e3)
+            if cuda and wave_hist.launches.read() - before != reps + 1:
+                raise LightGBMError(f"stage probe at width {w}: kernel 1 "
+                                    f"did not launch {reps + 1} times")
+            ms = float(np.median(times))
+            stage_ms[w] = round(ms, 4)
+            lo_ms[w], hi_ms[w] = min(times), max(times)
+            obs.observe(f"grow.stage.w{w}", ms / 1e3)
+            obs.set_gauge(f"grow.stage.w{w}_ms", round(ms, 4))
+            if w == self.wave_width:
+                # the kernel variant the full-width stage launches
+                dtype = "int8" if self.quant_bits else "bf16"
+                tag = f"wave_hist_k{k}_{dtype}"
+                obs.observe(f"grow.hist.{tag}", ms / 1e3)
+                obs.set_gauge(f"grow.hist.{tag}_ms", round(ms, 4))
+        fixed, col = stage_plan_mod.fit_wave_costs(
+            widths, [stage_ms[w] for w in widths], k, num_data=n)
+        residual = {w: round(stage_ms[w] - (fixed + col * w * k), 4)
+                    for w in widths}
+        plan = stage_plan_mod.derive_stage_plan(
+            self.num_leaves, self.wave_width, k, fixed, col,
+            measured_ms=stage_ms)
+        if require_beat_legacy:
+            legacy = legacy_stage_plan(self.num_leaves, self.wave_width, k)
+            if not stage_plan_mod.plan_beats_spread(
+                    plan, legacy, self.num_leaves, lo_ms, hi_ms):
+                plan = legacy
+        obs.set_gauge("grow.stage.fixed_ms", round(fixed, 4))
+        obs.set_gauge("grow.stage.col_ms", round(col, 6))
+        stage_plan_mod.cache_plan(self.signature, plan,
+                                  stage_plan_mod.store_dir(self.config))
+        installed = plan != self.stage_plan
+        if installed:
+            self.install_plan(plan, "profiled")
+        else:
+            # the plan stands, now measured
+            self.plan_source = "profiled"
+        return {"stage_ms": stage_ms,
+                "spread_ms": {w: round(hi_ms[w] - lo_ms[w], 4)
+                              for w in widths},
+                "fixed_ms": round(fixed, 4), "col_ms": round(col, 6),
+                "residual_ms": residual, "plan": plan,
+                "plan_digest": stage_plan_mod.plan_digest(plan),
+                "installed": installed, "profiled": True}
 
     def bag_mask_at(self, it: int) -> torch.Tensor:
         """(num_data,) f32 in-bag mask of the bagging round drawn at

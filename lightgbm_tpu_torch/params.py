@@ -637,20 +637,21 @@ PARAM_SCHEMA: Sequence[Param] = (
     _p("wave_plan", str, "auto", (),
        check="auto/fixed/profiled",
        desc="wave-stage plan for the device grower (ops/stage_plan.py): "
-            "fixed = the byte-stable doubling plan; profiled = time every "
-            "candidate stage width on the real binned matrix at init, fit "
-            "the fixed-vs-per-column wave cost model and install the "
-            "cheapest plan; auto = adopt a plan already cached for this "
-            "(shape, config) signature (in process or persisted beside "
-            "the compile cache), else profile ON FIRST USE at production "
-            "scale (>= 2^19 training rows AND a persistent compile cache "
-            "active, so the verdict persists — probe timings are noisy, "
-            "and an unpersistable plan would let same-config processes "
-            "grow different trees) and install the derived plan only "
-            "when it beats the byte-stable ladder by the 2% bar. "
-            "Profiled plans persist to <compile_cache_dir>/stage_plans "
-            "so retrain windows AND fresh processes measure once "
-            "(zero re-profiles; docs/ColdStart.md)",
+            "fixed = the byte-stable doubling plan; profiled = time the "
+            "wave histogram kernel (csrc/wave_hist.cu) at every candidate "
+            "stage width on the real codes at init, fit the fixed-vs-per-"
+            "column wave cost and grow under the cheapest plan; auto = "
+            "adopt a plan already measured for this (shape, config) "
+            "signature (in process or in the store), else measure ON "
+            "FIRST USE from 2^19 training rows when this config names a "
+            "compile cache directory (the verdict is kept there: probe "
+            "times are noisy, and an unkept plan would let same-config "
+            "processes grow different trees), taking the derived plan "
+            "only when it beats the doubling plan by 2% with its waves at "
+            "their slowest probes and the doubling plan's at their "
+            "fastest. Measured plans are kept in "
+            "<compile_cache_dir>/stage_plans, so later boosters and "
+            "fresh processes measure nothing",
        section="device"),
     _p("find_best_fusion", str, "auto", (),
        check="auto/fused/two_pass",
@@ -775,15 +776,15 @@ PARAM_SCHEMA: Sequence[Param] = (
             "first N local devices form the one-axis mesh; 0 (default) "
             "= all local devices", section="device"),
     _p("compile_cache_dir", str, "", ("xla_cache_dir",),
-       desc="directory for JAX's persistent XLA compilation cache "
-            "(lightgbm_tpu.compile_cache): compiled executables are "
-            "written to an on-disk LRU store so a FRESH process training "
-            "the same (bucketed shape, config) pays zero XLA recompiles "
-            "— the cross-process completion of the in-process "
-            "grower_cache. Empty = use the LGBM_TPU_COMPILE_CACHE env "
-            "var if set, else no persistent cache. Precompile a "
-            "deployment's declared shapes with the warmup entry points "
-            "(task=warmup / LGBM_WarmupTrain). See docs/ColdStart.md",
+       desc="directory where the CUDA kernel libraries are built and "
+            "found (lightgbm_tpu_torch.compile_cache), so a FRESH process "
+            "builds nothing, and where profiled wave-stage plans are kept "
+            "(stage_plans/) — the cross-process completion of the "
+            "in-process grower_cache. Empty = use the "
+            "LGBM_TPU_COMPILE_CACHE env var if set, else the package's "
+            "build directory and no plan store. Warm a deployment's "
+            "shapes with the warmup entry points (task=warmup / "
+            "LGBM_WarmupTrain)",
        section="device"),
     _p("compile_cache_min_entry_bytes", int, 0, (),
        check=">= 0",

@@ -874,7 +874,18 @@ _COUNT_LOCK = threading.Lock()
 def query_tensor(data, num_features: int, device) -> torch.Tensor:
     """A raw query matrix as the (R, num_features) f32 or f64 tensor the
     kernel reads, on ``device``: validated, cut to the pack's columns and
-    uploaded as it is (f32 stays f32: the kernel widens it exactly)."""
+    uploaded as it is (f32 stays f32: the kernel widens it exactly).  A
+    tensor is read where it lies when that is ``device``."""
+    if isinstance(data, torch.Tensor):
+        x = data if data.dtype in (torch.float32, torch.float64) \
+            else data.double()
+        if x.dim() != 2:
+            raise LightGBMError("query data must be 2-dimensional")
+        if x.shape[1] < num_features:
+            raise LightGBMError(
+                f"query data has {x.shape[1]} features but the packed "
+                f"ensemble needs {num_features}")
+        return x[:, :num_features].contiguous().to(device)
     x = np.asarray(data)
     if x.dtype not in (np.float32, np.float64):
         x = x.astype(np.float64)

@@ -1406,3 +1406,103 @@ def test_fleet_server_on_the_forest_kernel(cuda_device):
         fut = fs.submit(tids[:100], xq[:100])
         np.testing.assert_array_equal(fut.result(timeout=60),
                                       fs.predict(tids[:100], xq[:100]))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_kernel_at_every_ladder_width_matches_plain(cuda_device, quant):
+    """Kernel 1 at each width a stage plan may take for 255 leaves (the
+    doubling ladder 4-64 and the full 128), as the stage probes launch
+    it: int8 byte-equal to the plain version, bf16 within 1e-4 of each
+    cell's sum of |stats|."""
+    from lightgbm_tpu_torch.ops import stage_plan
+    for w in stage_plan._ladder(128) + [128]:
+        bins, leaf, ghk, pending = _inputs(cuda_device, 60_001, 7, 256, 3,
+                                           w, quant, seed=w)
+        kw = dict(g=7, nb=256, k=3, w=w)
+        got = hist_cuda.wave_hist(bins, leaf, ghk, pending, **kw)
+        ref = hist_cuda.wave_hist_reference(bins, leaf, ghk, pending, **kw)
+        if quant:
+            assert torch.equal(got, ref), w
+        else:
+            mag = hist_cuda.wave_hist_reference(bins, leaf, ghk.abs(),
+                                                pending, **kw)
+            assert ((got - ref).abs() <= 1e-4 * mag + 1e-6).all(), w
+
+
+def test_learning_rate_reaches_the_captured_tree(cuda_device):
+    """The learning rate is a buffer the captured tree reads, written each
+    launch: a schedule per iteration and a reset between fused chunks
+    give each tree its own rate, and the training score equals the
+    model's predictions of the training rows."""
+    x, y = _cache_window(30, n=30_000)
+    params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+              "device_predict": "force"}
+    ds = lt.Dataset(x, label=y)
+    b = lt.train(params, ds, 4, learning_rates=[0.3, 0.2, 0.1, 0.05],
+                 keep_training_booster=True)
+    b.reset_parameter({"learning_rate": 0.02})
+    b.update_chunked(4, chunk=4)
+    gb = b._gbdt
+    gb._flush_pending()
+    assert [t.shrinkage for t in gb.models[1:]] == [0.2, 0.1, 0.05] + \
+        [0.02] * 4
+    score = gb.train_score[0].double().cpu().numpy()
+    np.testing.assert_allclose(score, gb.predict_raw(x)[0], atol=1e-5)
+
+
+def test_profile_stage_plan_on_card(cuda_device, tmp_path):
+    """wave_plan=profiled on the card: kernel 1 launched once to warm up
+    and ``PROBE_REPS`` times at each candidate width, the plan kept for
+    the signature and adopted by a second booster without a profile."""
+    from lightgbm_tpu_torch.ops import grow, stage_plan
+    x, y = _cache_window(31, n=50_000)
+    params = {"objective": "binary", "num_leaves": 63, "verbosity": -1,
+              "wave_plan": "profiled"}
+    before = hist_cuda.wave_hist.launches.read()
+    b = lt.Booster(params, lt.Dataset(x, label=y))
+    prof = b._gbdt.plan_profile
+    try:
+        widths = sorted(prof["stage_ms"])
+        assert widths == [4, 8, 16, 32, 62]
+        assert hist_cuda.wave_hist.launches.read() - before == \
+            (grow.PROBE_REPS + 1) * len(widths)
+        assert all(v >= 0 for v in prof["spread_ms"].values())
+        assert b._gbdt._grower.stage_plan == prof["plan"]
+        p0 = grow.PLAN_COUNTS["profiles"]
+        b2 = lt.Booster(params, lt.Dataset(x, label=y))
+        assert grow.PLAN_COUNTS["profiles"] == p0
+        assert b2._gbdt._grower.stage_plan == prof["plan"]
+        for _ in range(2):
+            b2.update()
+        assert b2.num_trees() == 2
+    finally:
+        stage_plan.forget_plan(b._gbdt._grower.signature)
+
+
+def test_tensor_on_the_card_predicts_through_the_kernel(cuda_device):
+    """Rows already on the card take the forest kernel below
+    ``device_predict_min_rows`` (the init score of a small tensor Dataset
+    is not copied to the host); ``device_predict=off`` walks them on the
+    host, and row-wise early stopping refuses them."""
+    from lightgbm_tpu_torch.basic import LightGBMError
+    from lightgbm_tpu_torch.serve import packed
+    x, y = _cache_window(32, n=5_000)
+    b = lt.train({"objective": "binary", "num_leaves": 15, "verbosity": -1},
+                 lt.Dataset(x, label=y), 3)
+    gb = b._gbdt
+    assert len(x) < int(gb.config.device_predict_min_rows)
+    xd = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        cuda_device)
+    before = packed.forest_predict.launches
+    got = gb.predict_raw(xd)
+    assert packed.forest_predict.launches == before + 1
+    walk = gb.predict_raw(x)             # host rows below the threshold
+    assert packed.forest_predict.launches == before + 1
+    np.testing.assert_allclose(got, walk, atol=1e-5)
+    gb.config.device_predict = "off"
+    np.testing.assert_array_equal(gb.predict_raw(xd), walk)
+    assert packed.forest_predict.launches == before + 1
+    gb.config.device_predict = "auto"
+    gb.config.pred_early_stop = True
+    with pytest.raises(LightGBMError, match="pred_early_stop"):
+        gb.predict_raw(xd)

@@ -214,7 +214,7 @@ def test_first_trees_equal_from_device_and_host_binning():
     params = {**BASE, "num_leaves": 15, "max_bin": 63, "device": "cpu"}
     boosters = [tlgb.train(params, tlgb.Dataset(data, y), 3)
                 for data in (torch.from_numpy(x), x)]
-    assert boosters[0]._train_set._handle.device_binned
+    assert boosters[0]._gbdt.train_set.device_binned
     trees = []
     for b in boosters:
         b._gbdt._flush_pending()

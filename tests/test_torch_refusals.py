@@ -7,8 +7,8 @@ trained them serially with no error and no log, byte-equal to its serial
 run, while the JAX package built its parallel learner.  They now raise
 ``LightGBMError`` naming the option, from ``engine.train`` and from
 ``RetrainPipeline``; so do the options that select the unported telemetry
-exporter, the XLA cost attribution, multi-host training and the profiled
-wave plan, on the device grower and on the host learner; so does a leaf
+exporter, the XLA cost attribution and multi-host training, on the
+device grower and on the host learner; so does a leaf
 budget past the histogram kernel's leaf table.  A parallel
 ``tree_learner`` with one machine degrades to serial, as the reference
 does.
@@ -43,9 +43,6 @@ REFUSED = [
     ({"obs_http_port": 9100}, "obs_http_port"),
     ({"obs_export_interval": 0.5}, "obs_export_interval"),
     ({"profile_attribution": True}, "profile_attribution"),
-    ({"wave_plan": "profiled"}, "wave_plan=profiled"),
-    ({"wave_plan": "profiled", "device_growth": "off"},
-     "wave_plan=profiled"),
 ]
 
 

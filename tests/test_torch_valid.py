@@ -266,19 +266,25 @@ def test_add_valid_checks_and_stump_constant():
         score, b1._gbdt.models[0].leaf_value[0]))
 
 
-def test_refused_by_name():
+def test_refused_by_name(tmp_path):
     x = pd.make_features()[:300]
     y, _, _ = pd.make_labels(pd.make_features())
     train = tlgb.Dataset(x, y[:300])
     params = {**BASE, "device": "cpu"}
-    for kw in ({"init_model": "m.txt"}, {"learning_rates": [0.1] * 3}):
-        name = next(iter(kw))
-        with pytest.raises(LightGBMError, match=f"train\\({name}="):
-            tlgb.train(params, train, 3, **kw)
-    with pytest.raises(LightGBMError, match="cv is not ported"):
-        tlgb.cv(params, train)
+    # continued training needs the raw rows; a schedule one rate a round;
+    # a reset the device grower's captured tree would not see
+    path = str(tmp_path / "m.txt")
+    tlgb.train(params, tlgb.Dataset(x, y[:300]), 2,
+               verbose_eval=False).save_model(path)
+    with pytest.raises(LightGBMError, match="free_raw_data=False"):
+        tlgb.train(params, train, 3, init_model=path)
+    with pytest.raises(ValueError, match="num_boost_round"):
+        tlgb.train(params, tlgb.Dataset(x, y[:300]), 3,
+                   callbacks=[tcallback.reset_parameter(
+                       learning_rate=[0.1] * 2)])
+    booster = tlgb.Booster(params, tlgb.Dataset(x, y[:300]))
     with pytest.raises(LightGBMError, match="reset_parameter"):
-        tcallback.reset_parameter(learning_rate=[0.1] * 3)
+        booster.reset_parameter({"lambda_l1": 1.0})
     with pytest.raises(ValueError, match="at least one dataset"):
         tlgb.train(params, train, 3, early_stopping_rounds=2,
                    verbose_eval=False)
