@@ -307,9 +307,42 @@ Phases, one line each:
               wave_plan=auto with a fresh store measuring once and
               keeping its verdict (the derived plan only past the 2%
               bar at the probes' worst case).
+15. soak   -- the fleet chaos soak (after api; soak/): (1) the main soak,
+              the fork's model (53 CSR columns, 31 leaves, max_bin 255, 50
+              iterations, no bagging) on 4 tenants and 2 replicas, 3
+              windows a tenant of 500,000 requests (the pipeline
+              phase's trace, halved: 200,000 objects, 250,000 sampled
+              rows, a 2^30-byte cache), the JAX default's chaos (1 kill, 1 poison
+              batch, 1 dead peer, 1 clock skew, 0 device deaths), the
+              exporter on (stream and prom files, the scrape endpoint on
+              a free port read once): the verdict ok with chip_pending
+              false and every gate passing (throughput included: 1.5 x
+              the fork's 125.4 s per 20M rows), 0 fallback requests, the
+              exporter dropping and failing nothing, every stream line
+              and the exposition schema-valid, the killed tenant's final
+              model text equal to its unfaulted replay's; prints each
+              gate, train_s_per_1M_sampled_rows, request p50/p95, the
+              kernels' launches, peak card memory and seconds; (2) the
+              forced-fail soak (2 tenants, 2 windows, 250,000 sampled
+              rows, a persistent device death): the verdict fails exactly
+              availability and slo, fallback requests > 0, their answers
+              within 1e-12 of the host walk of the tenants' final texts;
+              (3) a PredictionServer over the higgs model with
+              serve.dispatch:n=3 and a 0.2 s re-probe: three host answers
+              (within rtol 1e-5, atol 1e-6 of the kernel's), degraded,
+              then the re-probe launches forest_predict, observes
+              serve.degraded_time and sets serve.degraded back to 0; (4)
+              DeviceGrower.profile_phases on a higgs grower (2M x 28, 255
+              leaves): each phase's CUDA-event ms, its counted cost,
+              achieved bytes/s and roofline shares, and the attribution
+              report against the train phase's per-iteration s/tree: the
+              uncapped ratio of phase ms x waves to the measured tree
+              (printed, not gated; every probe runs at the full width).
 
 Between phases the grower cache (ops/grow.py) is emptied, so each phase
-holds only its own growers' card memory.
+holds only its own growers' card memory.  After every phase the script
+fails if a server answered a request from the host walk, except the soak
+phase's two injected-fault runs.
 
 Prints the card's name and power limit, a JSON line of kernel
 measurements, and last {"ok": true, "device": {...}}.  Full results go to
@@ -3271,123 +3304,6 @@ PIPE_HOST_ROWS = 100_000
 PIPE_FAULT = "pipeline.prep:at=2"
 
 
-def synth_trace(n_requests: int, n_objects: int, seed: int):
-    """Zipf-popularity request stream with per-object lognormal sizes
-    (a copy of examples/cache_admission.py::synth_trace)."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    ranks = np.arange(1, n_objects + 1, dtype=np.float64)
-    probs = ranks ** -0.8
-    probs /= probs.sum()
-    ids = rng.choice(n_objects, size=n_requests, p=probs).astype(np.int64)
-    obj_size = np.clip(rng.lognormal(9.0, 1.5, n_objects), 64,
-                       1 << 26).astype(np.int64)
-    sizes = obj_size[ids]
-    costs = np.ones(n_requests, np.float64)
-    return ids, sizes, costs
-
-
-def calculate_opt(ids, sizes, cache_size, window_size):
-    """OPT admission labels (src/test.cpp:97-122; a copy of
-    examples/cache_admission.py::calculate_opt)."""
-    import numpy as np
-    n = len(ids)
-    order = np.lexsort((np.arange(n), ids))
-    sid = ids[order]
-    spos = np.arange(n)[order]
-    same = sid[:-1] == sid[1:]
-    has_next = np.zeros(n, bool)
-    volume = np.full(n, np.iinfo(np.int64).max, np.int64)
-    prev_idx = spos[:-1][same]
-    next_idx = spos[1:][same]
-    has_next[prev_idx] = True
-    volume[prev_idx] = (next_idx - prev_idx) * sizes[prev_idx]
-    to_cache = np.zeros(n, bool)
-    cache_volume = cache_size * window_size
-    by_vol = np.argsort(volume, kind="stable")
-    vol_cum = np.cumsum(volume[by_vol].astype(np.float64))
-    admit = np.concatenate([[True], vol_cum[:-1] <= cache_volume])
-    sel = by_vol[admit & has_next[by_vol]]
-    to_cache[sel] = True
-    return to_cache, float(to_cache.sum()) / n
-
-
-def derive_features(ids, sizes, costs, to_cache, cache_size):
-    """Gap features + log2 size, cacheAvailBytes and cost of every request
-    of a window, as CSR (src/test.cpp:125-209; a copy of
-    examples/cache_admission.py::derive_features with sampling=0: the
-    training rows are carved out of these by csr_row_subset)."""
-    import numpy as np
-    n = len(ids)
-    order = np.lexsort((np.arange(n), ids))
-    sid = ids[order]
-    spos = np.arange(n)[order].astype(np.int64)
-    gaps = np.zeros((n, HISTFEATURES), np.float64)
-    gap_count = np.zeros(n, np.int32)
-    prev = spos.copy()
-    prev_valid = np.ones(n, bool)
-    for k in range(HISTFEATURES):
-        shifted = np.empty(n, np.int64)
-        shifted[1 + k:] = spos[:n - 1 - k]
-        shifted[:1 + k] = -1
-        valid = np.zeros(n, bool)
-        valid[1 + k:] = sid[1 + k:] == sid[:n - 1 - k]
-        valid &= prev_valid
-        g = np.where(valid, prev - shifted, 0)
-        gaps[spos[valid], k] = g[valid]
-        gap_count[spos[valid]] += 1
-        prev = np.where(valid, shifted, prev)
-        prev_valid = valid
-    cache_avail = np.empty(n, np.float64)
-    avail = float(cache_size)
-    cached = {}
-    for i in range(n):
-        cache_avail[i] = 0.0 if avail <= 0 else np.round(
-            100.0 * np.log2(avail))
-        oid = int(ids[i])
-        adm = bool(to_cache[i])
-        if oid not in cached:
-            if adm:
-                avail -= float(sizes[i])
-                cached[oid] = float(sizes[i])
-        elif not adm:
-            avail += cached.pop(oid)
-    gc = gap_count
-    indptr = np.zeros(n + 1, np.int32)
-    np.cumsum(gc + 3, out=indptr[1:])
-    nnz = int(indptr[-1])
-    indices = np.zeros(nnz, np.int32)
-    data = np.zeros(nnz, np.float64)
-    rows = np.repeat(np.arange(n), gc)
-    col_in_row = np.arange(int(gc.sum()), dtype=np.int64) \
-        - np.repeat(np.cumsum(gc, dtype=np.int64) - gc, gc)
-    flat = indptr[:-1][rows] + col_in_row
-    indices[flat] = col_in_row
-    data[flat] = gaps[rows, col_in_row]
-    tail = indptr[1:] - 3
-    indices[tail] = HISTFEATURES
-    data[tail] = np.round(100.0 * np.log2(sizes))
-    indices[tail + 1] = HISTFEATURES + 1
-    data[tail + 1] = cache_avail
-    indices[tail + 2] = HISTFEATURES + 2
-    data[tail + 2] = costs
-    return to_cache.astype(np.float32), indptr, indices, data
-
-
-def csr_row_subset(indptr, indices, data, keep):
-    """CSR rows selected by boolean mask ``keep`` (one gather; a copy of
-    examples/cache_admission.py::_csr_row_subset)."""
-    import numpy as np
-    rows = np.flatnonzero(keep)
-    counts = (indptr[rows + 1] - indptr[rows]).astype(np.int64)
-    out_indptr = np.zeros(len(rows) + 1, np.int32)
-    out_indptr[1:] = np.cumsum(counts)
-    flat = np.repeat(indptr[rows].astype(np.int64)
-                     - out_indptr[:-1], counts) \
-        + np.arange(int(out_indptr[-1]), dtype=np.int64)
-    return out_indptr, indices[flat], data[flat]
-
-
 class _Prober:
     """A thread that asks the server for 1 to 1,000 rows at a time until
     stopped, recording each request's host interval and outcome.
@@ -3486,6 +3402,10 @@ def phase_pipeline(dev, seed: int):
                                              RetrainPipeline,
                                              densify_csr_rows)
     from lightgbm_tpu_torch.robust import faults
+    from lightgbm_tpu_torch.soak.workload import (calculate_opt,
+                                                  csr_row_subset,
+                                                  derive_features,
+                                                  synth_trace)
     params = {**PIPE_BASE, "device": dev.type}
     cfg = Config(params)
     t0 = time.perf_counter()
@@ -3499,9 +3419,10 @@ def phase_pipeline(dev, seed: int):
         lo, hi = w * PIPE_WINDOW, (w + 1) * PIPE_WINDOW
         to_cache, _ = calculate_opt(ids[lo:hi], sizes[lo:hi],
                                     PIPE_CACHE_SIZE, PIPE_WINDOW)
+        # sampling 0: every request of the window is a row
         label, indptr, indices, data = derive_features(
             ids[lo:hi], sizes[lo:hi], costs[lo:hi], to_cache,
-            PIPE_CACHE_SIZE)
+            PIPE_CACHE_SIZE, PIPE_WINDOW, 0, None)
         keep = np.arange(PIPE_WINDOW) >= PIPE_WINDOW - PIPE_SAMPLE
         tr = csr_row_subset(indptr, indices, data, keep)
         windows[w] = PreppedWindow(
@@ -5120,6 +5041,448 @@ def profile_tree(gb, per_tree_s):
     return res
 
 
+#: the soak phase (15): the fork's model (53 CSR columns, 31 leaves,
+#: max_bin 255, 50 iterations: examples/cache_admission.py's TRAIN_PARAMS
+#: without bagging, which the byte-identical resume forbids), four tenants
+#: on two replicas, three windows a tenant of the pipeline phase's trace,
+#: its requests and sampled rows both halved to keep the script within
+#: its time (the tenants' host prep sets the soak's length)
+SOAK_TENANTS = 4
+SOAK_REPLICAS = 2
+SOAK_WINDOWS = 3
+SOAK_REQUESTS = PIPE_WINDOW // 2
+SOAK_SAMPLE = PIPE_SAMPLE // 2
+#: the forced-fail soak's depth (its chaos adds a persistent device death)
+SOAK_FAIL_TENANTS = 2
+SOAK_FAIL_WINDOWS = 2
+SOAK_FAIL_SAMPLE = 250_000
+#: the degrade cycle's re-probe interval and request rows
+DEGRADE_REPROBE_S = 0.2
+DEGRADE_ROWS = 10_000
+#: profile_phases' launches a phase
+PROFILE_REPS = 20
+#: process-wide host-walk answers already accounted for (the two
+#: injected-fault runs of the soak phase); any other is a failure
+_FALLBACK_SEEN = [0]
+
+
+def fallback_total() -> int:
+    from lightgbm_tpu_torch.serve import engine
+    return sum(engine.FALLBACK_COUNTS.values())
+
+
+def check_no_fallback(phase: str) -> None:
+    """Fail when a request since the last check was answered by the host
+    walk (a server degraded) outside the soak phase's injected faults."""
+    now = fallback_total()
+    if now != _FALLBACK_SEEN[0]:
+        fail(f"phase {phase}: {now - _FALLBACK_SEEN[0]} requests answered "
+             f"by the host walk (a server degraded)")
+
+
+def _validator():
+    """scripts/validate_metrics.py (standard library only), the schema
+    checks of the stream lines, the exposition text and the verdict."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_validate_metrics",
+        ROOT / "scripts" / "validate_metrics.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _soak_scenario(seed: int, **kw):
+    from lightgbm_tpu_torch.soak import SoakScenario
+    base = dict(tenants=SOAK_TENANTS, replicas=SOAK_REPLICAS,
+                windows=SOAK_WINDOWS, requests_per_window=SOAK_REQUESTS,
+                objects=PIPE_OBJECTS, sample_rows=SOAK_SAMPLE,
+                cache_size=PIPE_CACHE_SIZE, num_leaves=31, max_bin=255,
+                num_iterations=50, seed=7 + seed)
+    base.update(kw)
+    return SoakScenario(**base).validate()
+
+
+def soak_windows(drv) -> list:
+    """Each tenant window's training: its seconds and captures, and what
+    ran beside it on the host, as the mean number over its wall span of
+    the other tenants' trainings and of prep walks (the feature
+    derivation, pure Python) of any tenant."""
+    trains = [(int(m), r) for m, rs in drv._window_log.items() for r in rs]
+    out = []
+    for i, (m, r) in enumerate(trains):
+        a, b = r["train_span"]
+        span = max(b - a, 1e-9)
+
+        def beside(lo, hi):
+            return max(0.0, min(b, hi) - max(a, lo))
+        other = sum(beside(*r2["train_span"])
+                    for j, (_, r2) in enumerate(trains) if j != i) / span
+        preps = sum(beside(lo, hi) for _, _, lo, hi in drv.prep_spans) \
+            / span
+        out.append(dict(tenant=m, window=r["window"], train_s=r["train_s"],
+                        captures=r["captures"], capture_s=r["capture_s"],
+                        rows=r["rows_trained"], other_trainings=round(other, 2),
+                        prep_walks=round(preps, 2)))
+    return out
+
+
+def _run_soak(name, sc, dev, tmp, vm):
+    """One soak on the card with the exporter on (stream and prom files,
+    the scrape endpoint on a free port, read once): the driver, its
+    verdict and what the run counted, kernels' launches from 0."""
+    import urllib.request
+    import torch
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs.state import STATE
+    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.serve import packed
+    from lightgbm_tpu_torch.soak import SoakDriver, build_verdict
+    work = Path(tmp) / name
+    prom = Path(tmp) / f"{name}.prom"
+    obs.reset()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist_cuda.wave_hist.launches.reset()
+    packed.forest_predict.launches = 0
+    for k in packed.forest_predict.routes:
+        packed.forest_predict.routes[k] = 0
+    import gc
+    gc_s = [0.0, 0, 0.0]     # seconds, collections, the last start
+
+    def gc_clock(phase, info):
+        if phase == "start":
+            gc_s[2] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_s[2]
+            gc_s[1] += 1
+    gc.callbacks.append(gc_clock)
+    t0 = time.perf_counter()
+    try:
+        drv = SoakDriver(sc, workdir=str(work), device=dev.type,
+                         prom_path=str(prom), http_port=0)
+        outcome = drv.run()
+    finally:
+        gc.callbacks.remove(gc_clock)
+    secs = time.perf_counter() - t0
+    wave_launches = hist_cuda.wave_hist.launches.read()
+    fp_launches, fp_routes = forest_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    timings = obs.registry().snapshot()["timings"]
+    exp = STATE.exporter
+    body = urllib.request.urlopen(
+        f"http://127.0.0.1:{exp.http_port}/metrics",
+        timeout=10).read().decode()
+    exp.stop()
+    STATE.exporter = None
+    verdict = build_verdict(outcome)
+    lines = [json.loads(ln) for ln in open(outcome["stream_path"])]
+    bad = [e for doc in lines for e in vm.validate_stream_line(doc)]
+    bad += vm.validate_prometheus(body) + vm.validate_prometheus(
+        prom.read_text())
+    if not lines or bad:
+        fail(f"soak {name}: {len(lines)} stream lines, schema errors "
+             f"{bad[:5]}")
+    lat = {k: timings.get(k) for k in ("serve.fleet.request_latency",
+                                       "serve.fleet.predict")}
+    return dict(driver=drv, verdict=verdict, seconds=secs,
+                wave_hist_launches=wave_launches,
+                forest_launches=fp_launches, forest_routes=fp_routes,
+                peak_gb=peak_gb, stream_lines=len(lines),
+                scrape_bytes=len(body), latency=lat,
+                windows=soak_windows(drv), gc_s=gc_s[0], gc_runs=gc_s[1])
+
+
+def _gate_line(name, g, slo) -> str:
+    """One gate's value; the slo gate with each objective's observation."""
+    keep = {k: v for k, v in g.items()
+            if k not in ("per_tenant", "tenants", "windows_trained",
+                         "windows_expected", "tenant_errors")}
+    if name == "slo":
+        keep["objectives"] = {o["name"]: [o["observed"], o["comparator"],
+                                          o["target"], o["ok"]]
+                              for o in slo.get("objectives", [])}
+    return f"{name}={json.dumps(keep, sort_keys=True, default=str)}"
+
+
+def phase_soak(dev, seed: int, train, models, x, y):
+    """The fleet chaos soak on the card (the module docstring's phase
+    15)."""
+    import tempfile
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.obs import profile as obs_profile
+    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.robust import faults
+    from lightgbm_tpu_torch.robust.retry import CircuitBreaker
+    from lightgbm_tpu_torch.serve import PredictionServer, engine
+    t_phase = time.perf_counter()
+    vm = _validator()
+    out = {}
+    OUT_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        # (1) the main soak
+        sc = _soak_scenario(seed)
+        fb0 = fallback_total()
+        run = _run_soak("main", sc, dev, tmp, vm)
+        v = run["verdict"]
+        drv = run["driver"]
+        gates = v["gates"]
+        counters = v["counters"]
+        tp = gates["throughput"]
+        ident = gates["resume_byte_identity"]
+        killed = [r["tenant"] for r in ident["tenants"]]
+        for name, g in gates.items():
+            print(f"soak (1) gate {_gate_line(name, g, v['slo'])}",
+                  flush=True)
+        fails = [n for n, g in gates.items() if not g["ok"]]
+        # chip_pending is false exactly when the soak trained on the card
+        if not v["ok"] or fails or v["chip_pending"] != (dev.type != "cuda"):
+            fail(f"soak (1): verdict ok={v['ok']} chip_pending="
+                 f"{v['chip_pending']}, failing gates {fails}")
+        if counters.get("serve.fleet.fallback_requests", 0) \
+                or fallback_total() != fb0:
+            fail("soak (1): requests answered by the host walk")
+        export = gates["export"]["stats"]
+        if export.get("dropped", 0) or export.get("write_errors", 0):
+            fail(f"soak (1): exporter {export}")
+        if not killed or not all(r["byte_identical"]
+                                 for r in ident["tenants"]):
+            fail(f"soak (1): resume byte identity {ident}")
+        if run["wave_hist_launches"] <= 0 or run["forest_launches"] <= 0:
+            fail(f"soak (1): kernel launches wave_hist "
+                 f"{run['wave_hist_launches']}, forest_predict "
+                 f"{run['forest_launches']}")
+        texts = {m: hashlib.sha256(drv._final_models[m].encode())
+                 .hexdigest() for m in killed}
+        req = run["latency"]["serve.fleet.request_latency"] or {}
+        pred = run["latency"]["serve.fleet.predict"] or {}
+        out["main"] = dict(
+            scenario=sc.to_json(), gates=gates, ok=v["ok"],
+            chip_pending=v["chip_pending"], load=v["load"],
+            kills=v["kills"], counters=counters,
+            seconds=run["seconds"], peak_gb=run["peak_gb"],
+            wave_hist_launches=run["wave_hist_launches"],
+            forest_launches=run["forest_launches"],
+            forest_routes=run["forest_routes"],
+            stream_lines=run["stream_lines"],
+            scrape_bytes=run["scrape_bytes"], latency=run["latency"],
+            killed_final_sha256=texts,
+            timeline_digest=v["timeline_digest"],
+            windows=run["windows"], gc_s=run["gc_s"])
+        for w in run["windows"]:
+            print(f"soak (1) window {json.dumps(w, sort_keys=True)}",
+                  flush=True)
+        print(f"soak (1) main: {sc.tenants} tenants x {sc.windows} windows "
+              f"of {sc.requests_per_window} requests ({sc.sample_rows} "
+              f"sampled rows, 53 columns, {sc.num_leaves} leaves, max_bin "
+              f"{sc.max_bin}, {sc.num_iterations} iterations), "
+              f"{sc.replicas} replicas: verdict ok, chip_pending "
+              f"{str(v['chip_pending']).lower()}, "
+              f"train_s_per_1M_sampled_rows "
+              f"{tp['train_s_per_1M_sampled_rows']} (gate "
+              f"{tp['reference_s_per_1M'] * 1.5:.3f}); requests p50 "
+              f"{req.get('p50_s', 0) * 1e3:.3f} ms p95 "
+              f"{req.get('p95_s', 0) * 1e3:.3f} ms ({req.get('count')} "
+              f"requests), fleet predict p50 "
+              f"{pred.get('p50_s', 0) * 1e3:.3f} ms p95 "
+              f"{pred.get('p95_s', 0) * 1e3:.3f} ms; launches wave_hist "
+              f"{run['wave_hist_launches']}, forest_predict "
+              f"{run['forest_launches']} {run['forest_routes']}; 0 "
+              f"fallback requests, exporter {export}, "
+              f"{run['stream_lines']} stream lines schema-valid, scrape "
+              f"{run['scrape_bytes']} bytes; killed tenant(s) {killed} "
+              f"final text == the unfaulted replay's (sha256 {texts}); "
+              f"peak card memory {run['peak_gb']:.2f} GB; garbage "
+              f"collection {run['gc_s']:.3f} s in {run['gc_runs']} runs; "
+              f"{run['seconds']:.1f} s", flush=True)
+        del drv, run
+
+        # (2) the forced-fail soak: a persistent device death
+        sc2 = _soak_scenario(
+            seed, tenants=SOAK_FAIL_TENANTS, windows=SOAK_FAIL_WINDOWS,
+            sample_rows=SOAK_FAIL_SAMPLE,
+            requests_per_window=2 * SOAK_FAIL_SAMPLE, device_deaths=1,
+            device_death_burst=3, device_death_persist=True)
+        fb0 = engine.FALLBACK_COUNTS["fleet"]
+        run2 = _run_soak("fail", sc2, dev, tmp, vm)
+        v2, drv2 = run2["verdict"], run2["driver"]
+        fails2 = sorted(n for n, g in v2["gates"].items() if not g["ok"])
+        fb2 = v2["counters"].get("serve.fleet.fallback_requests", 0)
+        for name in fails2:
+            print(f"soak (2) gate "
+                  f"{_gate_line(name, v2['gates'][name], v2['slo'])}",
+                  flush=True)
+        if v2["ok"] or fails2 != ["availability", "slo"] or fb2 <= 0 \
+                or engine.FALLBACK_COUNTS["fleet"] - fb0 != fb2:
+            fail(f"soak (2): verdict ok={v2['ok']}, failing gates "
+                 f"{fails2} (want availability, slo), fallback requests "
+                 f"{fb2}")
+        # the fallback answers against the host walk of the same trees,
+        # loaded from the tenants' final model texts
+        faults.configure("serve.fleet.dispatch:persist")
+        worst = 0.0
+        try:
+            for m in range(sc2.tenants):
+                q = sc2.query_block(m)
+                got = drv2.fleet.predict(m, q, raw_score=True)
+                ref = np.zeros(len(q))
+                for t in GBDT.load_model_from_string(
+                        drv2._final_models[m]).models:
+                    ref += t.predict(q)
+                worst = max(worst, float(np.abs(got - ref).max()))
+        finally:
+            faults.clear()
+        if worst > 1e-12:
+            fail(f"soak (2): fallback answers differ from the host walk "
+                 f"by {worst:.3g}")
+        avail = v2["gates"]["availability"]
+        out["fail"] = dict(
+            scenario=sc2.to_json(), failing_gates=fails2,
+            fallback_requests=fb2, availability=avail,
+            fallback_vs_host_max_abs=worst, seconds=run2["seconds"],
+            wave_hist_launches=run2["wave_hist_launches"],
+            forest_launches=run2["forest_launches"],
+            forest_routes=run2["forest_routes"], counters=v2["counters"])
+        print(f"soak (2) forced fail ({sc2.tenants} tenants x "
+              f"{sc2.windows} windows, {sc2.sample_rows} sampled rows, a "
+              f"persistent device death after {sc2.device_death_burst}"
+              f"-failure bursts): verdict failed exactly {fails2}, "
+              f"availability {avail['observed']} (dark fraction "
+              f"{avail['dark_fraction']}), {fb2} fallback requests, their "
+              f"answers within {worst:.2g} of the host walk of the final "
+              f"texts (bar 1e-12); launches wave_hist "
+              f"{run2['wave_hist_launches']}, forest_predict "
+              f"{run2['forest_launches']}; {run2['seconds']:.1f} s",
+              flush=True)
+        del drv2, run2
+    obs.configure(enabled=False)
+    obs.reset()
+
+    # (3) one degrade cycle on PredictionServer, the higgs model
+    srv = PredictionServer(lt.Booster(model_str=models["higgs"]),
+                           device=dev, breaker=CircuitBreaker(
+                               failure_threshold=3,
+                               reprobe_interval_s=DEGRADE_REPROBE_S))
+    srv.warmup()
+    q = x[:DEGRADE_ROWS]
+    obs.configure(enabled=True)
+    obs.reset()
+    fb0 = engine.FALLBACK_COUNTS["server"]
+    faults.configure("serve.dispatch:n=3")
+    try:
+        before = forest_counts()
+        host = [srv.predict(q, raw_score=True) for _ in range(3)]
+        dark_launches, _ = counts_since(before)
+        degraded = srv.degraded
+        time.sleep(DEGRADE_REPROBE_S * 1.25)
+        before = forest_counts()
+        dev_ans = srv.predict(q, raw_score=True)
+        cyc_launches, cyc_routes = counts_since(before)
+    finally:
+        faults.clear()
+    reg = obs.registry()
+    dtime = reg.timing("serve.degraded_time")
+    gauge = reg.gauge("serve.degraded")
+    fb = engine.FALLBACK_COUNTS["server"] - fb0
+    host_err = max(float(np.abs(h - dev_ans).max()) for h in host)
+    host_ok = all(np.allclose(h, dev_ans, rtol=1e-5, atol=1e-6)
+                  for h in host)
+    obs.configure(enabled=False)
+    obs.reset()
+    if not (degraded and fb == 3 and dark_launches == 0 and host_ok
+            and cyc_launches == 1 and dtime is not None
+            and dtime.count == 1 and gauge == 0 and not srv.degraded):
+        fail(f"soak (3) degrade cycle: degraded after 3 failures "
+             f"{degraded}, fallback answers {fb}, launches while dark "
+             f"{dark_launches}, host within rtol 1e-5 atol 1e-6 {host_ok} "
+             f"({host_err:.3g}), launches after the re-probe "
+             f"{cyc_launches}, degraded_time {dtime}, gauge {gauge}")
+    out["degrade"] = dict(fallback_answers=fb, host_vs_kernel_max_abs=host_err,
+                          probe_launches=cyc_launches,
+                          probe_routes=cyc_routes,
+                          degraded_time_s=dtime.to_dict()["total_s"])
+    print(f"soak (3) degrade cycle: serve.dispatch:n=3 -> 3 host answers "
+          f"(0 launches), degraded; host vs kernel {host_err:.2g} (rtol "
+          f"1e-5, atol 1e-6); after {DEGRADE_REPROBE_S} s the re-probe "
+          f"launched forest_predict once {cyc_routes}, serve.degraded_time "
+          f"{dtime.to_dict()['total_s']:.3f} s, serve.degraded gauge 0",
+          flush=True)
+    del srv
+    _FALLBACK_SEEN[0] = fallback_total()
+
+    # (4) profile_phases on the higgs grower, against the train phase's
+    # per-iteration s/tree
+    params = {**TRAIN_BASE, **TRAIN_RUNS["higgs"], "device": dev.type}
+    xt = torch.from_numpy(x).to(dev)
+    ds = lt.Dataset(xt, y, params=dict(params)).construct()
+    hist_cuda.wave_hist.launches.reset()
+    bst = lt.train(params, ds, 1, verbose_eval=False)
+    grower = bst._gbdt._grower
+    obs.configure(enabled=True, profile_attribution=True)
+    rng = np.random.default_rng(seed)
+    grad = rng.standard_normal(N_ROWS).astype(np.float32)
+    hess = np.abs(grad) + np.float32(0.1)
+    res = grower.profile_phases(grad, hess, reps=PROFILE_REPS)
+    prof_launches = hist_cuda.wave_hist.launches.read()
+    obs.configure(enabled=False, profile_attribution=False)
+    obs.reset()
+    hi = train["runs"]["higgs"]["per_iteration"]
+    s_tree = float(np.median(hi["dispatch_s"][1:]))
+    waves = float(hi["waves_per_tree"])
+    phases = {k: res[k] for k in obs_profile.PHASES}
+    report = obs_profile.attribution_report(
+        s_tree * 1e3, {k: v * waves for k, v in phases.items()},
+        res["costs"])
+    roof = {}
+    for k, ms in phases.items():
+        c = res["costs"][k]
+        bps = c["bytes_accessed"] / (ms * 1e-3) if ms > 0 else None
+        ops = c["flops"] / (ms * 1e-3) if ms > 0 else None
+        roof[k] = dict(ms=ms, cost=c, bytes_per_s=bps,
+                       bytes_share=None if bps is None
+                       else bps / HBM_BYTES_PER_S,
+                       ops_share=None if ops is None
+                       else ops / F32_OPS_PER_S)
+        print(f"soak (4) profile_phases {k}: {ms:.4f} ms (CUDA events, "
+              f"mean of {PROFILE_REPS}, dispatch floor "
+              f"{res['dispatch_floor']:.4f} ms off), "
+              f"{c['bytes_accessed'] / 1e6:.2f} MB and "
+              f"{c['flops'] / 1e6:.2f} M ops counted: "
+              + ("not timed" if bps is None else
+                 f"{bps / 1e9:.1f} GB/s = {bps / HBM_BYTES_PER_S:.2%} of "
+                 f"3.35 TB/s, {ops / F32_OPS_PER_S:.3%} of 67 TFLOP/s"),
+              flush=True)
+    print(f"soak (4) attribution: phase ms x waves / measured tree = "
+          f"{report['attributed_ratio']} (uncapped; printed, not gated): "
+          f"{report['attributed_ms']} ms attributed against "
+          f"{s_tree * 1e3:.3f} ms a tree per iteration (train phase, "
+          f"higgs) at {waves:.2f} waves a tree, every probe at the full "
+          f"width; wave_hist launches {prof_launches} (1 round + the "
+          f"probes)", flush=True)
+    out["profile"] = dict(phases_ms=phases,
+                          dispatch_floor_ms=res["dispatch_floor"],
+                          report=report, roofline=roof,
+                          s_per_tree=s_tree, waves_per_tree=waves,
+                          wave_hist_launches=prof_launches)
+    del bst, grower, ds, xt
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = (out["main"]["wave_hist_launches"]
+                       + out["fail"]["wave_hist_launches"] + prof_launches)
+    out["predict_launches"] = (out["main"]["forest_launches"]
+                               + out["fail"]["forest_launches"]
+                               + out["degrade"]["probe_launches"])
+    out["predict_routes"] = {
+        k: (out["main"]["forest_routes"][k] + out["fail"]["forest_routes"][k]
+            + out["degrade"]["probe_routes"][k])
+        for k in out["main"]["forest_routes"]}
+    print(f"phase soak: ok in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5145,37 +5508,52 @@ def main() -> int:
     kernels = phase_kernels(dev)
     ubench = phase_ubench()
     train, models, x, y, dense = phase_train(dev, args.seed, args.profile)
+    check_no_fallback("train")
     clear_growers(dev)
     objectives = phase_objectives(dev, args.seed, x, dense, args.profile)
+    check_no_fallback("objectives")
     clear_growers(dev)
     data = phase_data(dev, args.seed, dense, x, y, train, args.profile)
+    check_no_fallback("data")
     clear_growers(dev)
     boosting = phase_boosting(dev, args.seed, dense, x, y)
+    check_no_fallback("boosting")
     clear_growers(dev)
     window = phase_window20m(dev, args.seed, dense)
+    check_no_fallback("window20m")
     clear_growers(dev)
     import tempfile
     OUT_DIR.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         host = phase_host_learner(dev, args.seed, dense, x, y, tmp)
+    check_no_fallback("host_learner")
     clear_growers(dev)
     del dense
     pipeline = phase_pipeline(dev, args.seed)
+    check_no_fallback("pipeline")
     clear_growers(dev)
     capi = phase_capi(dev, args.seed)
+    check_no_fallback("capi")
     clear_growers(dev)
     api = phase_api(dev, args.seed, x, y)
+    check_no_fallback("api")
+    clear_growers(dev)
+    soak = phase_soak(dev, args.seed, train, models, x, y)
+    check_no_fallback("soak")
     clear_growers(dev)
     del y
     serve = phase_serve(dev, models, x, args.seed)
+    check_no_fallback("serve")
     del x
     multiclass = phase_multiclass(dev, args.seed, args.profile)
+    check_no_fallback("multiclass")
 
     # wave_hist's path is training: its launches are those of every run
     # at K=3 (the data phase's two, the boosting phase's six, the
     # pipeline phase's windows and the capi phase's, in its native
-    # subprocesses too, and the api phase's trees and stage-plan probes
-    # included; window20m's layouts are counted
+    # subprocesses too, the api phase's trees and stage-plan probes and
+    # the soak phase's windows, replays and probes included; window20m's
+    # layouts are counted
     # in their own wave_hist:<mode> rows); wave_hist_v2's path is the ubench
     # entry point; forest_predict's is prediction: Booster.predict after
     # each training run and of the validation rows, the fleet's entry
@@ -5183,7 +5561,8 @@ def main() -> int:
     # evaluations, swaps' warm-up and prober; not the comparison launches)
     # and the capi phase's (its native drivers' servers, fleet and
     # Booster predictions, and the in-process Booster.predict), the api
-    # phase's (init scores and predictions), and both of
+    # phase's (init scores and predictions), the soak phase's (its fleets'
+    # tenant route and the degrade cycle's re-probe), and both of
     # its routes must have run there
     obj_runs = objectives["runs"].values()
     v1_launches = (sum(r["launches"] for r in train["runs"].values())
@@ -5191,7 +5570,8 @@ def main() -> int:
                    + data["launches"] + data["engine_launches"]
                    + boosting["launches"] + pipeline["launches"]
                    + capi["launches"]["wave_hist"]
-                   + api["launches"] + multiclass["launches"])
+                   + api["launches"] + soak["launches"]
+                   + multiclass["launches"])
     fp_launches = (sum(r["predict_launches"] for r in train["runs"].values())
                    + sum(r["predict_launches"] for r in obj_runs)
                    + data["predict_launches"]
@@ -5201,6 +5581,7 @@ def main() -> int:
                    + pipeline["predict_launches"]
                    + capi["launches"]["forest_predict"]
                    + api["predict_launches"]
+                   + soak["predict_launches"]
                    + serve["fleet_entry_launches"]
                    + serve["server"]["launches"]
                    + serve["server_syn"]["launches"]
@@ -5215,6 +5596,7 @@ def main() -> int:
                      + pipeline["predict_routes"][k]
                      + capi["launches"]["routes"][k]
                      + api["predict_routes"][k]
+                     + soak["predict_routes"][k]
                      + serve["fleet_entry_routes"][k]
                      + serve["server"]["routes"][k]
                      + serve["server_syn"]["routes"][k]
@@ -5267,7 +5649,7 @@ def main() -> int:
                        objectives=objectives, data=data,
                        boosting=boosting, window20m=window,
                        host_learner=host, pipeline=pipeline,
-                       capi=capi, api=api, serve=serve,
+                       capi=capi, api=api, soak=soak, serve=serve,
                        multiclass=multiclass,
                        torch=torch.__version__, cuda=torch.version.cuda),
                   fh, indent=1)

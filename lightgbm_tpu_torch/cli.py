@@ -1,13 +1,16 @@
-"""Command line: train, predict, convert_model, refit, pipeline, warmup.
+"""Command line: train, predict, convert_model, refit, pipeline, warmup,
+soak.
 
 Counterpart of ``lightgbm_tpu/cli.py`` (the reference ``Application``,
 ``src/application/application.cpp``): ``key=value`` arguments and a
 ``config=`` file, the side files ``<data>.weight``/``.query``/``.init``,
 snapshots, and metrics every ``metric_freq`` iterations.  Run it as
 ``python -m lightgbm_tpu_torch config=train.conf [key=value ...]``;
-training and prediction run on ``device`` (default ``cuda``).  The
-streaming two-round loader (``two_round=true``), the multi-controller
-ingest and ``task=soak`` are refused by name
+training, prediction and the soak run on ``device`` (default ``cuda``).
+``python -m lightgbm_tpu_torch soak [key=value ...]`` (``task=soak``) runs
+the fleet chaos soak, prints its verdict and exits non-zero when a gate
+fails.  The streaming two-round loader (``two_round=true``) and the
+multi-controller ingest are refused by name
 (``ops/grow.py::unported_options``).
 """
 
@@ -263,6 +266,27 @@ def run_pipeline(cfg: Config) -> None:
     log_info(f"Finished pipeline ({len(results)} windows)")
 
 
+def run_soak(cfg: Config) -> None:
+    """The composed fleet chaos soak (``soak/``): the scenario's M-tenant
+    fleet, mixed-tenant load and per-tenant retrains under the seed-keyed
+    fault timeline, on ``device``; prints the SLO-gated verdict and raises
+    when any gate fails.  The scenario comes from ``LGBM_TPU_SOAK``,
+    ``soak_scenario`` or the ``soak_*`` params; ``soak_out`` also writes
+    the verdict to a file."""
+    from .soak import SoakScenario, run_and_report
+    sc = SoakScenario.from_config(cfg)
+    verdict = run_and_report(sc, device=cfg.device_type)
+    print(json.dumps(verdict, sort_keys=True, default=str))
+    if sc.out:
+        log_info(f"soak verdict written to {sc.out}")
+    if not verdict["ok"]:
+        raise LightGBMError(
+            "soak verdict FAILED: "
+            + ", ".join(name for name, g in verdict["gates"].items()
+                        if not g["ok"]))
+    log_info("Finished soak (verdict ok)")
+
+
 def run_warmup(cfg: Config) -> None:
     """Build the kernels and capture the graphs of a declared deployment
     (``warmup.run_warmup``)."""
@@ -275,7 +299,7 @@ TASKS = {"train": run_train, "predict": run_predict,
          "prediction": run_predict, "test": run_predict,
          "convert_model": run_convert_model, "refit": run_refit,
          "refit_tree": run_refit, "warmup": run_warmup,
-         "pipeline": run_pipeline}
+         "pipeline": run_pipeline, "soak": run_soak}
 
 
 def main(argv=None) -> int:

@@ -3,8 +3,7 @@
 One module-level singleton keeps the enabled flag, the registry and the
 trace buffer, so every instrumentation site shares the same fast-path
 check: ``if not STATE.enabled: return`` (counterpart of
-``lightgbm_tpu/obs/state.py``, without the streaming exporter, the rolling
-windows and the SLO state, which the port does not have).
+``lightgbm_tpu/obs/state.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +15,10 @@ from .registry import MetricsRegistry
 
 
 class ObsState:
-    __slots__ = ("enabled", "sync", "trace_context", "registry", "trace",
+    __slots__ = ("enabled", "sync", "trace_context",
+                 "profile_attribution", "registry", "trace", "rolling",
+                 "rolling_opt_out", "exporter", "last_slo",
+                 "pending_slo_spec",
                  "metrics_path", "trace_path", "events_path",
                  "_atexit_registered", "_mem_unavailable", "_trace_flushed")
 
@@ -29,8 +31,26 @@ class ObsState:
         # causal trace-context propagation (obs/tracing.py): spans gain
         # trace_id/span_id/parent_id; off = zero context objects
         self.trace_context = False
+        # attach counted FLOPs / bytes to the profile probes
+        # (obs/profile.py::cost_of)
+        self.profile_attribution = False
         self.registry = MetricsRegistry()
         self.trace = TraceBuffer()
+        # rolling-window mirror of the registry (obs/rolling.py): made when
+        # telemetry is enabled, None while disabled so the hot path stays a
+        # single flag check; rolling_opt_out keeps an explicit
+        # configure(rolling=False) across the per-window
+        # configure_from_config calls
+        self.rolling = None
+        self.rolling_opt_out = False
+        # background StreamExporter (obs/export.py), None until a stream or
+        # prom path or a scrape port is configured
+        self.exporter = None
+        # the latest SloReport (obs/slo.py), in summary() and stream lines
+        self.last_slo = None
+        # a parsed SloSpec configured before any exporter exists, adopted
+        # by the next exporter
+        self.pending_slo_spec = None
         self.metrics_path: Optional[str] = None
         self.trace_path: Optional[str] = None
         self.events_path: Optional[str] = None

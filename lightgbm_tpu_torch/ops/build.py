@@ -33,6 +33,13 @@ COUNTS = {"built": 0, "found": 0}
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel library could not be built or loaded.  The servers raise
+    it where they are built or warmed and never answer it from the host
+    walk: a kernel that does not build is a broken install, not a device
+    fault."""
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -40,8 +47,8 @@ def nvcc_path() -> str:
     cand = Path("/usr/local/cuda/bin/nvcc")
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the package's kernels")
+    raise KernelBuildError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the package's kernels")
 
 
 def library_path(name: str) -> Path:
@@ -80,8 +87,8 @@ def finish_build(proc, out: Path) -> str:
         return ""
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {out.name}:"
-                           f"\n{log}")
+        raise KernelBuildError(f"nvcc failed ({proc.returncode}) for "
+                               f"{out.name}:\n{log}")
     os.replace(proc.lgbm_tmp, out)
     return log
 
@@ -91,4 +98,7 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
     proc, out = start_build(name)
     finish_build(proc, out)
-    return ctypes.CDLL(str(out))
+    try:
+        return ctypes.CDLL(str(out))
+    except OSError as e:
+        raise KernelBuildError(f"cannot load {out}: {e}") from e

@@ -15,16 +15,28 @@ All pieces of a :class:`GraphSet` share one memory pool: they replay in
 one order, one at a time, and hand each other data only through tensors
 allocated outside any capture.  Capture or launch failures raise; there
 is no eager fallback on the card.
+
+Captures run in ``thread_local`` mode, so other threads may upload,
+launch and read back while one captures.  Builds themselves are
+serialized behind :data:`BUILD_LOCK` (a grower holds it from its eager
+warm-up, which synchronizes the device, to its composed graphs): two
+threads never capture at once, nor synchronize the device during another
+thread's capture.  Concurrent captures from several threads have not been
+tried on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from .build import load_library
+
+#: held by a grower while it builds its graphs (``ops/grow.py::_graph``)
+BUILD_LOCK = threading.RLock()
 
 
 def _lib():

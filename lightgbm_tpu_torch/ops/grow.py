@@ -91,7 +91,6 @@ import torch.nn.functional as F
 
 from .. import obs
 from ..obs import capture_track
-from ..params import PARAM_BY_NAME
 from ..utils import random as trandom
 from ..utils.log import LightGBMError, log_info
 from .bagging import bag_mask
@@ -269,9 +268,8 @@ def feature_mask_from_key(key, nf: int, k: int,
 def unported_options(config) -> list:
     """The options set in ``config`` that select code the port does not
     have, whatever the data: the distributed learners and sharding
-    (ROADMAP item 7), the multi-host pod checkpoints, the streaming
-    telemetry exporter, SLOs and XLA cost attribution, the streaming
-    two-round text loader and the CLI's chaos soak."""
+    (ROADMAP item 7), the multi-host pod checkpoints and the streaming
+    two-round text loader."""
     todo = []
     learner = str(config.tree_learner)
     if learner in ("feature", "data", "voting") \
@@ -283,22 +281,8 @@ def unported_options(config) -> list:
     if int(getattr(config, "num_hosts", 0) or 0) > 1:
         todo.append(f"num_hosts={int(config.num_hosts)} (multi-host "
                     f"training and its pod checkpoints)")
-    for name in ("stream_path", "prom_path"):
-        if str(getattr(config, name, "") or ""):
-            todo.append(f"{name} (the streaming telemetry exporter)")
-    if int(getattr(config, "obs_http_port", 0) or 0):
-        todo.append("obs_http_port (the telemetry scrape endpoint)")
-    # only the exporter reads it: any value but the default selects it
-    if float(config.obs_export_interval) \
-            != PARAM_BY_NAME["obs_export_interval"].default:
-        todo.append("obs_export_interval (the streaming telemetry "
-                    "exporter)")
-    if bool(getattr(config, "profile_attribution", False)):
-        todo.append("profile_attribution (XLA cost attribution)")
     if bool(getattr(config, "two_round", False)):
         todo.append("two_round=true (the streaming two-round text loader)")
-    if str(getattr(config, "task", "train")) == "soak":
-        todo.append("task=soak (the fleet chaos soak)")
     return todo
 
 
@@ -1088,44 +1072,14 @@ class DeviceGrower:
         thr = vecs[:, F_THRESHOLD].long()
         dl = vecs[:, F_DEFAULT_LEFT] > 0.5
 
-        # 5. apply the selected splits to leaf_id: each row looks up its
-        # leaf's lane (a row belongs to at most one selected leaf), reads
-        # that split's feature group and decides left or right as
-        # lightgbm_tpu/ops/grow.py:869-916 does
-        lane_of = st.lane_of
-        lane_of.fill_(-1)
-        lane_of[torch.where(sel, lsel, L)] = lanes
-        lane_of[L:].fill_(-1)
-        leaf_id = st.leaf_id
-        row_lane = lane_of[torch.where(leaf_id >= 0, leaf_id, L).long()]
-        lane = row_lane.clamp(min=0)
-        fl = f[lane]
-        cols = self.binned_t.gather(0, self.f_group[fl][None, :])[0].long()
-        off, wid = self.f_offset[fl], self.f_width[fl]
-        db = self.meta.default_bin[fl].long()
-        nbin = self.meta.num_bin[fl].long()
-        miss = self.meta.missing[fl]
-        dl_r, thr_r = dl[lane], thr[lane]
-        def_left = torch.where(miss == 1, dl_r, db <= thr_r)
-        shift = (db == 0).long()
-        in_range = (cols >= off) & (cols < off + wid)
-        bin_ = torch.where(in_range, cols - off + shift, db)
-        is_na = (miss == 2) & (bin_ == nbin - 1)
-        goes_left = torch.where(bin_ == db, def_left,
-                                torch.where(is_na, dl_r, bin_ <= thr_r))
+        # 5. apply the selected splits to leaf_id
+        words = is_cat = None
         if self.has_cat:
-            # categorical routing (lightgbm_tpu/ops/grow.py:892-911): left
-            # iff the decoded bin's bit is set in the lane's 8-word set;
-            # the word is gathered where the JAX package selects it
             bits = st.bestc[lsel].view(ws, REC_C_WORDS, 32).to(torch.int32)
             words = (bits << self._bit_pos).sum(dim=2, dtype=torch.int32)
-            word = words.view(-1)[lane * REC_C_WORDS + (bin_ >> 5)]
-            left_cat = ((word >> (bin_ & 31)) & 1) == 1
             is_cat = vecs[:, F_IS_CAT] > 0.5
-            goes_left = torch.where(is_cat[lane], left_cat, goes_left)
-        move = (row_lane >= 0) & ~goes_left
-        leaf_id.copy_(torch.where(move, r_ids[lane].to(torch.int32),
-                                  leaf_id))
+        st.leaf_id.copy_(self._split_rows(st.leaf_id, sel, lsel, lanes,
+                                          r_ids, f, thr, dl, words, is_cat))
 
         # 6. bookkeeping: scatter into the L-padded state
         safe_l = torch.where(sel, lsel, L)
@@ -1173,6 +1127,59 @@ class DeviceGrower:
         st.ctl[1:2].copy_((napply == 0).to(torch.int32).view(1))
         st.ctl[0:1].add_(napply.to(torch.int32).view(1))
 
+    def _split_rows(self, leaf_id, sel, lsel, lanes, r_ids, f, thr, dl,
+                    words=None, is_cat=None) -> torch.Tensor:
+        """A wave's step 5: the (n_pad,) int32 leaf ids after the selected
+        splits.  Each row looks up its leaf's lane (``sel``/``lsel``: the
+        Ws lanes and their leaves, ``lanes`` 0..Ws-1; a row belongs to at
+        most one selected
+        leaf), reads that split's feature group and decides left or right
+        as lightgbm_tpu/ops/grow.py:869-916 does; a row that goes right
+        moves to its lane's ``r_ids``.  ``words``/``is_cat``: the lanes'
+        categorical bitsets, with a categorical feature in the model."""
+        L = self.num_leaves
+        lane_of = self._st.lane_of
+        lane_of.fill_(-1)
+        lane_of[torch.where(sel, lsel, L)] = lanes
+        lane_of[L:].fill_(-1)
+        row_lane = lane_of[torch.where(leaf_id >= 0, leaf_id, L).long()]
+        lane = row_lane.clamp(min=0)
+        fl = f[lane]
+        cols = self.binned_t.gather(0, self.f_group[fl][None, :])[0].long()
+        off, wid = self.f_offset[fl], self.f_width[fl]
+        db = self.meta.default_bin[fl].long()
+        nbin = self.meta.num_bin[fl].long()
+        miss = self.meta.missing[fl]
+        dl_r, thr_r = dl[lane], thr[lane]
+        def_left = torch.where(miss == 1, dl_r, db <= thr_r)
+        shift = (db == 0).long()
+        in_range = (cols >= off) & (cols < off + wid)
+        bin_ = torch.where(in_range, cols - off + shift, db)
+        is_na = (miss == 2) & (bin_ == nbin - 1)
+        goes_left = torch.where(bin_ == db, def_left,
+                                torch.where(is_na, dl_r, bin_ <= thr_r))
+        if words is not None:
+            # categorical routing (lightgbm_tpu/ops/grow.py:892-911): left
+            # iff the decoded bin's bit is set in the lane's 8-word set;
+            # the word is gathered where the JAX package selects it
+            word = words.view(-1)[lane * REC_C_WORDS + (bin_ >> 5)]
+            left_cat = ((word >> (bin_ & 31)) & 1) == 1
+            goes_left = torch.where(is_cat[lane], left_cat, goes_left)
+        move = (row_lane >= 0) & ~goes_left
+        return torch.where(move, r_ids[lane].to(torch.int32), leaf_id)
+
+    def _add_leaf_scores(self, score, leaf_vals, leaf_id) -> None:
+        """The score update: ``score += leaf_vals[leaf_id]`` over the real
+        rows.  Trouble spot (lightgbm_tpu/ops/grow.py:1109-1116): the JAX
+        package adds float32(bf16(v)) + float32(bf16(v - hi)) per row
+        through a one-hot einsum with one nonzero per row, which is
+        exactly this gather; a direct add of the f32 value is more
+        accurate but diverges from the JAX package from tree 2 on."""
+        vhi = leaf_vals.to(torch.bfloat16)
+        vlo = (leaf_vals - vhi.float()).to(torch.bfloat16)
+        lid = leaf_id[:self.num_data].long()
+        score.add_(vhi.float()[lid] + vlo.float()[lid])
+
     def _piece_finish(self) -> None:
         """The int8 refit, the score update, and the tree's records into
         chunk slot t (then t + 1)."""
@@ -1187,17 +1194,9 @@ class DeviceGrower:
                                      st.leaf_id)
             leaf_vals = self._refit_into_records(refit, st.rec_i, st.rec_f,
                                                  nl, st.value)
-        # score update.  Trouble spot (lightgbm_tpu/ops/grow.py:1109-1116):
-        # the JAX package adds float32(bf16(v)) + float32(bf16(v - hi)) per
-        # row through a one-hot einsum with one nonzero per row, which is
-        # exactly this gather; a direct score += lr * value[leaf_id] is
-        # more accurate but diverges from the JAX package from tree 2 on.
-        # A stump (root never split) applies nothing.
+        # the score update; a stump (root never split) applies nothing
         scaled = leaf_vals * st.lr * (nl > 1).to(torch.float32)
-        vhi = scaled.to(torch.bfloat16)
-        vlo = (scaled - vhi.float()).to(torch.bfloat16)
-        lid = st.leaf_id[:self.num_data].long()
-        st.score.add_(vhi.float()[lid] + vlo.float()[lid])
+        self._add_leaf_scores(st.score, scaled, st.leaf_id)
         t = st.ctl[3:4].long()
         keep = max(L - 1, 1)
         st.out_rec_i.index_copy_(0, t, st.rec_i[None, :keep])
@@ -1245,6 +1244,14 @@ class DeviceGrower:
         g = self._composed.get(sample)
         if g is not None:
             return g
+        from . import graphs
+        # one build at a time in the process: its device-wide syncs and
+        # captures never overlap another grower's capture (several tenants
+        # train on one card in the fleet soak)
+        with graphs.BUILD_LOCK:
+            return self._build_graph(sample)
+
+    def _build_graph(self, sample):
         from . import graphs
         stats = self.capture_stats
         t0 = t_start = time.perf_counter()
@@ -1401,11 +1408,18 @@ class DeviceGrower:
         width is a ``grow.stage_probe`` span and a ``grow.stage.w<W>``
         timing and ``_ms`` gauge, the full width also ``grow.hist.<tag>``.
 
-        Returns ``{"stage_ms", "spread_ms", "fixed_ms", "col_ms",
-        "residual_ms", "plan", "plan_digest", "installed", "profiled"}``
-        (``spread_ms``: each width's slowest less fastest probe)."""
+        Under ``profile_attribution`` each width's probe also gets its
+        counted cost (``obs.profile.cost_of``; ``stage_cost``) and a
+        ``grow.stage.w<W>_gbytes`` gauge, as the JAX probes attach XLA's
+        cost analysis.
+
+        Returns ``{"stage_ms", "spread_ms", "stage_cost", "fixed_ms",
+        "col_ms", "residual_ms", "plan", "plan_digest", "installed",
+        "profiled"}`` (``spread_ms``: each width's slowest less fastest
+        probe)."""
         if self.plan_source in ("profiled", "persisted"):
-            return {"stage_ms": {}, "spread_ms": {}, "fixed_ms": None,
+            return {"stage_ms": {}, "spread_ms": {}, "stage_cost": {},
+                    "fixed_ms": None,
                     "col_ms": None, "residual_ms": {},
                     "plan": list(self.stage_plan),
                     "plan_digest": stage_plan_mod.plan_digest(
@@ -1416,7 +1430,7 @@ class DeviceGrower:
         obs.inc("grow.plan_profiles")
         self._ensure_state(1)
         st, dev, k = self._st, self.device, self.hist_cols
-        n, N = self.n_pad, self.num_data
+        n, N, nb_ = self.n_pad, self.num_data, self.nb
         rng = np.random.default_rng(0)
         grad = rng.standard_normal(N, dtype=np.float32)
         st.grad.copy_(torch.from_numpy(grad))
@@ -1431,7 +1445,7 @@ class DeviceGrower:
                         | {self.wave_width})
         scale_exp = None if self.quant_bits else st.scale_exp
         cuda = dev.type == "cuda"
-        stage_ms, lo_ms, hi_ms = {}, {}, {}
+        stage_ms, lo_ms, hi_ms, stage_cost = {}, {}, {}, {}
         for w in widths:
             leaf = rng.integers(0, w, n).astype(np.int32)
             leaf[N:] = -1
@@ -1465,6 +1479,15 @@ class DeviceGrower:
             ms = float(np.median(times))
             stage_ms[w] = round(ms, 4)
             lo_ms[w], hi_ms[w] = min(times), max(times)
+            if obs.profile.enabled():
+                # every real row lies in a pending leaf of the probe
+                cost = obs.profile.cost_of(
+                    "wave_hist", rows=n, groups=self.num_groups, bins=nb_,
+                    k=k, w=w, rows_in_wave=N,
+                    stat_bytes=st.gh.element_size())
+                stage_cost[w] = cost
+                obs.set_gauge(f"grow.stage.w{w}_gbytes",
+                              round(cost["bytes_accessed"] / 1e9, 4))
             obs.observe(f"grow.stage.w{w}", ms / 1e3)
             obs.set_gauge(f"grow.stage.w{w}_ms", round(ms, 4))
             if w == self.wave_width:
@@ -1498,10 +1521,146 @@ class DeviceGrower:
         return {"stage_ms": stage_ms,
                 "spread_ms": {w: round(hi_ms[w] - lo_ms[w], 4)
                               for w in widths},
+                "stage_cost": stage_cost,
                 "fixed_ms": round(fixed, 4), "col_ms": round(col, 6),
                 "residual_ms": residual, "plan": plan,
                 "plan_digest": stage_plan_mod.plan_digest(plan),
                 "installed": installed, "profiled": True}
+
+    def profile_phases(self, grad, hess, reps: int = 20) -> dict:
+        """Per-phase attribution of one wave (``lightgbm_tpu/ops/grow.py::
+        profile_phases``).  A tree runs as one composed graph, so its
+        phases are invisible from the host; this times the wave's phases
+        one at a time on this grower's codes and a representative leaf
+        state (the rows spread over :attr:`wave_width` leaves, all
+        pending), the stat columns made from ``grad``/``hess`` ((N,) f32)
+        as a tree's start piece makes them:
+
+        * ``wave_hist``: kernel 1 at the full width (``_wave_hist``);
+        * ``find_best``: the split scan over the wave's (2W, S, 3) stack
+          of both siblings' histograms, as the wave's step 3 runs it;
+        * ``split_apply``: the rows' routing to their children, every
+          leaf split (``_split_rows``, the wave's step 5);
+        * ``score_update``: the score's hi/lo gather of the leaf values
+          (``_add_leaf_scores``, as ``_piece_finish`` runs it);
+        * the null-dispatch floor, an 8-element add, subtracted from
+          every phase and reported as ``dispatch_floor``.
+
+        Each phase runs once to warm up, then ``reps`` times between two
+        CUDA events on the card (the host clock on the CPU); its ms is
+        the mean.  Sets the ``profile.<phase>_ms`` gauges; under
+        ``profile_attribution`` adds ``costs`` (``obs.profile.cost_of``
+        per phase) and ``profile.<phase>_gbytes`` gauges.  Returns
+        ``{phase: ms, "dispatch_floor": ms[, "costs": {...}]}``."""
+        from ..obs import profile as obs_profile
+        reps = max(1, int(reps))
+        self._ensure_state(1)
+        st, dev = self._st, self.device
+        n, N, L, nb = self.n_pad, self.num_data, self.num_leaves, self.nb
+        w = self.wave_width
+        st.grad.copy_(torch.as_tensor(grad, dtype=torch.float32,
+                                      device=dev)[:N])
+        st.hess.copy_(torch.as_tensor(hess, dtype=torch.float32,
+                                      device=dev)[:N])
+        st.row_mask.fill_(1.0)
+        st.ctl[3:4].zero_()
+        self._piece_start()
+        rng = np.random.default_rng(0)
+        leaf = rng.integers(0, w, n).astype(np.int32)
+        leaf[N:] = -1
+        leaf = torch.from_numpy(leaf).to(dev)
+        pend = torch.arange(w, dtype=torch.int32, device=dev)
+        scale_exp = None if self.quant_bits else st.scale_exp
+        quant = self.int_scan
+        f = torch.from_numpy(rng.integers(
+            0, self._ff_nf, w).astype(np.int64)).to(dev)
+        thr = torch.from_numpy(rng.integers(0, nb, w).astype(np.int64)) \
+            .to(dev)
+        dl = torch.from_numpy(rng.integers(0, 2, w).astype(bool)).to(dev)
+        r_ids = torch.arange(w, 2 * w, dtype=torch.int32, device=dev)
+        lanes = torch.arange(w, device=dev)
+        sel = torch.ones(w, dtype=torch.bool, device=dev)
+        words = is_cat = None
+        if self.has_cat:
+            words = torch.zeros((w, REC_C_WORDS), dtype=torch.int32,
+                                device=dev)
+            is_cat = torch.zeros(w, dtype=torch.bool, device=dev)
+        vals = torch.from_numpy(rng.standard_normal(L).astype(np.float32)) \
+            .to(dev)
+        score = torch.zeros(N, dtype=torch.float32, device=dev)
+        tiny = torch.zeros(8, dtype=torch.float32, device=dev)
+
+        def p_hist():
+            return self._wave_hist(leaf, st.gh, pend, scale_exp, st.qscales)
+
+        hists = p_hist()
+        # the wave scans both siblings of every split: the fresh smaller
+        # children and their larger siblings (parent - fresh)
+        stack = torch.cat([hists, hists.flip(0)])
+        totals = stack[:, :nb, :].sum(1)
+
+        def p_find():
+            return find_best_split(stack, totals, st.fmask, self.meta,
+                                   self.hyper, has_cat=self.has_cat,
+                                   scales=st.qscales if quant else None)[0]
+
+        def p_apply():
+            # every leaf a lane (all W leaves split)
+            return self._split_rows(leaf, sel, lanes, lanes, r_ids, f, thr,
+                                    dl, words, is_cat)
+
+        def p_score():
+            self._add_leaf_scores(score, vals, leaf)
+
+        def p_null():
+            return tiny + 1.0
+
+        cases = {"null_dispatch": p_null, "wave_hist": p_hist,
+                 "find_best": p_find, "split_apply": p_apply,
+                 "score_update": p_score}
+        cuda = dev.type == "cuda"
+        out = {}
+        for name, fn in cases.items():
+            fn()
+            if cuda:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(reps):
+                    fn()
+                b.record()
+                b.synchronize()
+                ms = a.elapsed_time(b) / reps
+            else:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                ms = (time.perf_counter() - t0) / reps * 1e3
+            out[name] = ms
+        floor = out.pop("null_dispatch")
+        out = {k: round(max(v - floor, 0.0), 4) for k, v in out.items()}
+        out["dispatch_floor"] = round(floor, 4)
+        for name, ms in out.items():
+            obs.set_gauge(f"profile.{name}_ms", ms)
+        if obs_profile.enabled():
+            gh_bytes = st.gh.element_size()
+            costs = {
+                "wave_hist": obs_profile.cost_of(
+                    "wave_hist", rows=n, groups=self.num_groups, bins=nb,
+                    k=self.hist_cols, w=w, rows_in_wave=N,
+                    stat_bytes=gh_bytes),
+                "find_best": obs_profile.cost_of(
+                    "find_best", leaves=2 * w, slots=self.num_slots,
+                    hist_bytes=stack.element_size()),
+                "split_apply": obs_profile.cost_of("split_apply", rows=n,
+                                                   w=w),
+                "score_update": obs_profile.cost_of("score_update", rows=N,
+                                                    leaves=L)}
+            for name, cost in costs.items():
+                obs.set_gauge(f"profile.{name}_gbytes",
+                              round(cost["bytes_accessed"] / 1e9, 4))
+            out["costs"] = costs
+        return out
 
     def bag_mask_at(self, it: int) -> torch.Tensor:
         """(num_data,) f32 in-bag mask of the bagging round drawn at

@@ -189,7 +189,9 @@ class RetrainPipeline:
                  pipelined: bool = True,
                  serve: bool = True,
                  server=None,
+                 tenant_id: Optional[int] = None,
                  eval_chunk_rows: int = 65536,
+                 warmup_rows="auto",
                  keep_boosters: bool = True,
                  checkpoint_dir: Optional[str] = None):
         if isinstance(params, Config):
@@ -238,6 +240,23 @@ class RetrainPipeline:
         if serve and self.server is None:
             from ..serve.engine import PredictionServer
             self.server = PredictionServer(device=cfg.device_type)
+        if tenant_id is not None:
+            # the pipeline retrains ONE tenant of a FleetServer: every swap
+            # and evaluation lands on that tenant while the others keep
+            # serving
+            if self.server is None:
+                raise LightGBMError(
+                    "tenant_id= needs a serving target; pass server= (a "
+                    "FleetServer) and keep serve=True")
+            if not hasattr(self.server, "tenant"):
+                raise LightGBMError(
+                    "tenant_id= needs a multi-tenant server (a FleetServer "
+                    "or anything exposing .tenant())")
+            self.server = self.server.tenant(int(tenant_id))
+        # the server's warm-up at this pipeline's first swap: "auto" builds
+        # the kernel's library and launches both routes, a list of row
+        # counts also scores those buckets, an empty list skips it
+        self.warmup_rows = warmup_rows
         # False = drop each WindowResult's booster reference after
         # on_window fires (long service loops would otherwise pin every
         # window's device scores + binned matrix for the life of run();
@@ -558,12 +577,21 @@ class RetrainPipeline:
         same = self.server.swap(bst)
         swap_s = time.perf_counter() - t0
         obs.observe("pipeline.swap", swap_s)
+        # the model-freshness anchor of the SLO engine (obs/slo.py
+        # ``freshness_s<=D``)
         obs.set_gauge("pipeline.last_swap_unix", time.time())
+        # a fleet tenant always has a model (the fleet seeds every tenant),
+        # so this warms at the pipeline's first swap, not only when the
+        # server was empty
         if not self._warmed:
             # build the forest kernel and launch both routes while window
             # 1's prep is still running
             self._warmed = True
-            self.server.warmup()
+            rows = self.warmup_rows
+            if rows == "auto":
+                self.server.warmup()
+            elif rows:
+                self.server.warmup(list(rows))
         return swap_s, (None if first else same)
 
     def _eval_window(self, pw: PreppedWindow, eval_fn):

@@ -12,13 +12,19 @@ read.
 Named sites wired in the port::
 
     grow.dispatch    a tree or a fused chunk on the grower (GBDT)
+    serve.dispatch   the forest kernel's launch in PredictionServer
+    serve.fleet.dispatch  a replica's forest kernel launch in FleetServer
     pipeline.prep    RetrainPipeline host prep (runs on the prep thread)
     pipeline.train   RetrainPipeline device-training stage
     io.write         atomic checkpoint writes (robust/checkpoint.py)
+    obs.export       telemetry snapshot/write path (obs/export.py)
+    soak.kill        kill-and-resume at a scheduled soak retrain window
+    soak.load        the soak's query-load feed (a dead ingest peer)
+    soak.clock       the soak's SLO clock stamps (clock skew)
 
-The JAX package's other sites (serving, network, streaming loader,
-exporter, soak) belong to modules the port does not have yet; a spec
-naming one is armed with a warning, as any custom site is.
+The JAX package's network, streaming-loader and pod-checkpoint sites
+belong to modules the port does not have yet; a spec naming one is armed
+with a warning, as any custom site is.
 
 Spec grammar — comma-separated entries, each ``site[:key=value|flag]*``::
 
@@ -56,8 +62,9 @@ from ..utils.log import LightGBMError, log_warning
 ENV_VAR = "LGBM_TPU_FAULTS"
 
 #: sites the port's code is instrumented with (typo guard at configure)
-KNOWN_SITES = ("grow.dispatch", "pipeline.prep", "pipeline.train",
-               "io.write")
+KNOWN_SITES = ("grow.dispatch", "serve.dispatch", "serve.fleet.dispatch",
+               "pipeline.prep", "pipeline.train", "io.write", "obs.export",
+               "soak.kill", "soak.load", "soak.clock")
 
 
 def known_sites() -> tuple:

@@ -112,9 +112,10 @@ def transient_dispatch_errors() -> Tuple:
 
 
 class CircuitBreaker:
-    """Consecutive-failure circuit breaker with timed re-probe (the JAX
-    package's serving fallback sits behind one; the port's server has no
-    fallback yet, so nothing in the port trips it so far).
+    """Consecutive-failure circuit breaker with timed re-probe: the
+    servers' degrade-to-host path sits behind one (``PredictionServer``'s
+    own, one a replica in ``FleetServer``), and their device failures
+    trip it.
 
     States: **closed** (normal — every call may attempt the guarded
     operation), **open** (``failure_threshold`` consecutive failures

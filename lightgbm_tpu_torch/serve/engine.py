@@ -17,12 +17,41 @@ against the current model.  :class:`PredictionServer` owns that read side:
   row buckets (:func:`warmup_bucket_ladder`, ``default_warmup_buckets``)
   it also scores a batch of zeros at each.  The JAX package compiles one
   program per padded batch size and warms each; the kernel compiles
-  nothing per shape and pads no rows.
+  nothing per shape and pads no rows;
+* **graceful degradation** (``host_fallback``, on by default as in the
+  JAX package): when the ``serve.dispatch`` injected fault fires (the
+  chaos harness's simulated device death, ``robust/faults.py``), the
+  batch is answered by the host ``Tree.predict`` walk over the same
+  served tree slice (``packed.tree_slice``), a circuit breaker (3
+  consecutive failures, re-probe every 2 s) trips so later requests skip
+  the card, and a timed re-probe goes back to the kernel once it
+  answers.
 
-Not ported: the degrade-to-host path (circuit breaker, host-walk
-fallback, injected faults; ``host_fallback=True`` is refused by name) and
-the serving telemetry beyond the swap span and counters.  A failure on
-the card raises to the caller.
+The degrade path never hides a card that does not work.  Only an
+injected dispatch fault degrades: a real error from the kernel's launch
+(a CUDA error, a kernel library that does not build or load, a fault in
+the wrapper) is counted as ``serve.failed`` and raised to the caller,
+whatever ``host_fallback`` says, and never touches the breaker.  Unlike
+the JAX package, which answers any dispatch error from the host, the
+port thus never serves a faulty card's requests from the CPU; a real
+CUDA error is sticky in PyTorch (the context stays poisoned), so every
+later request raises too and counts against availability.  The injected
+degradation stays loud: every fallback answer is counted
+(``serve.fallback_requests``), the trip is logged and sets the
+``serve.degraded`` gauge, the dark time lands in ``serve.degraded_time``
+and the SLO engine charges it against availability (``obs/slo.py``).  A
+kernel library that does not build or load
+(:class:`~lightgbm_tpu_torch.ops.build.KernelBuildError`) raises where
+the server is built (on the card the library is loaded then) or warmed.
+
+Telemetry (``serve.`` prefix): ``serve.predict`` / ``serve.queue_wait`` /
+``serve.request_latency`` timings, the ``serve.batch_rows`` gauge,
+``serve.swaps`` / ``serve.requests`` / ``serve.rows`` counters, the
+request outcomes ``serve.ok`` / ``serve.fallback_requests`` /
+``serve.failed`` / ``serve.input_errors`` (input errors never count
+against the card or availability), ``serve.device_failures``,
+``serve.poisoned_batches``, the ``serve.degraded`` gauge and the
+``serve.degraded_time`` timing.
 """
 
 from __future__ import annotations
@@ -37,12 +66,27 @@ import numpy as np
 
 from .. import obs
 from ..boosting.gbdt import GBDT, _convert_by_name, resolve_device
-from ..utils.log import LightGBMError
-from .packed import (PackedEnsemble, _pow2_at_least, _sm_count,
-                     forest_geometry, launch_forest, pack_gbdt,
-                     predict_scores, query_tensor)
+from ..obs import tracing
+from ..robust import faults
+from ..robust.retry import CircuitBreaker
+from ..utils.log import LightGBMError, log_warning
+from .packed import (PackedEnsemble, _kernel_lib, _pow2_at_least,
+                     _sm_count, forest_geometry, launch_forest, pack_gbdt,
+                     predict_scores, query_tensor, tree_slice)
 
-__all__ = ["PredictionServer", "warmup_bucket_ladder", "row_bucket"]
+__all__ = ["PredictionServer", "warmup_bucket_ladder", "row_bucket",
+           "FALLBACK_COUNTS"]
+
+#: requests the host walk answered in this process, by server kind
+#: ("server": PredictionServer, "fleet": FleetServer), whether or not
+#: telemetry is on: a run that must never degrade reads them
+FALLBACK_COUNTS = {"server": 0, "fleet": 0}
+_FALLBACK_LOCK = threading.Lock()
+
+
+def count_fallback(kind: str) -> None:
+    with _FALLBACK_LOCK:
+        FALLBACK_COUNTS[kind] += 1
 
 
 def row_bucket(n: int, lo: int = 128) -> int:
@@ -68,13 +112,13 @@ def warmup_bucket_ladder(min_rows: Optional[int] = None,
     return out
 
 
-def refuse_host_fallback(host_fallback: bool) -> None:
-    """The degrade-to-host path is not ported (ROADMAP item 4.4): on the
-    card it would hide a failing kernel."""
-    if host_fallback:
-        raise LightGBMError("host_fallback=True is not ported to "
-                            "lightgbm_tpu_torch yet (the degrade-to-host "
-                            "path): a device error raises")
+def require_kernel(device) -> None:
+    """Build and load the forest kernel's library now when ``device`` is
+    the card (a server is built there): a library that does not build
+    raises :class:`KernelBuildError` here, never on a request, so it can
+    never be answered from the host walk."""
+    if device.type == "cuda":
+        _kernel_lib()
 
 
 def _as_gbdt(booster) -> GBDT:
@@ -87,16 +131,35 @@ def _as_gbdt(booster) -> GBDT:
 
 class ModelMeta:
     """The booster-level facts of one served model that do not depend on
-    where its packed tables live: the output conversion ``Booster.predict``
-    applies."""
+    where its packed tables live (a solo pack or one tenant row of a
+    fleet): the output conversion ``Booster.predict`` applies, and for
+    the degrade path the host ``Tree`` objects of the same served slice,
+    so a failing card never drops a request."""
 
-    __slots__ = ("objective", "objective_str", "average_output", "n_iters")
+    __slots__ = ("objective", "objective_str", "average_output", "n_iters",
+                 "host_trees", "num_model", "train_ctx")
 
-    def __init__(self, gbdt, n_iters: int):
+    def __init__(self, gbdt, n_iters: int, host_trees=None,
+                 num_model: int = 1):
         self.objective = gbdt.objective
         self.objective_str = gbdt.loaded_objective_str
         self.average_output = bool(gbdt.average_output)
         self.n_iters = int(n_iters)
+        self.host_trees = host_trees
+        self.num_model = max(int(num_model), 1)
+        # the trace context of the swap (obs/tracing.py): a request this
+        # generation answers links back to the window that trained it
+        self.train_ctx = None
+
+    def host_raw(self, data: np.ndarray) -> np.ndarray:
+        """(K, rows) float64 raw scores by the host tree walk over this
+        slice, trees interleaved iteration-major (``out[i % K]``) as the
+        pack lays them out: the accumulation ``Booster.predict``'s host
+        path does."""
+        out = np.zeros((self.num_model, data.shape[0]), np.float64)
+        for i, tree in enumerate(self.host_trees):
+            out[i % self.num_model] += tree.predict(data)
+        return out
 
     def convert(self, raw: np.ndarray, raw_score: bool) -> np.ndarray:
         """(K, R) raw scores -> what ``GBDT.predict`` returns."""
@@ -113,14 +176,23 @@ class ModelMeta:
         return raw.T
 
 
+def host_slice(gbdt, start_iteration: int, num_iteration: int):
+    """The host trees of the slice ``pack_gbdt`` packs (the same clamping,
+    ``packed.tree_slice``): the degrade path answers from exactly the
+    served trees."""
+    return list(tree_slice(gbdt.models, gbdt.num_model, start_iteration,
+                           num_iteration))
+
+
 class _Model(ModelMeta):
     """One immutable generation of the server's model: the pack and its
     :class:`ModelMeta`."""
 
     __slots__ = ("packed",)
 
-    def __init__(self, packed: PackedEnsemble, gbdt):
-        super().__init__(gbdt, packed.num_iterations)
+    def __init__(self, packed: PackedEnsemble, gbdt, host_trees=None):
+        super().__init__(gbdt, packed.num_iterations, host_trees,
+                         packed.num_model)
         self.packed = packed
 
 
@@ -134,16 +206,25 @@ class PredictionServer:
     every swap; ``max_batch``/``max_wait_ms`` configure the micro-batching
     queue (``start()``/``submit()``); ``min_bucket`` and
     ``device_predict_min_rows`` (``None``: the swapped booster's) set the
-    warm-up ladder (:meth:`default_warmup_buckets`)."""
+    warm-up ladder (:meth:`default_warmup_buckets`).
+
+    ``host_fallback`` (default on) keeps the served slice's host trees so
+    a failing launch degrades to the host walk instead of failing the
+    request; ``breaker`` replaces the default circuit breaker (3
+    consecutive failures trip it, re-probe every 2 s)."""
 
     def __init__(self, booster=None, *, device="cuda",
                  num_iteration: int = -1, start_iteration: int = 0,
                  max_batch: int = 8192, max_wait_ms: float = 2.0,
                  min_bucket: int = 128,
                  device_predict_min_rows: Optional[int] = None,
-                 host_fallback: bool = False):
-        refuse_host_fallback(host_fallback)
+                 host_fallback: bool = True,
+                 breaker: Optional[CircuitBreaker] = None):
         self.device = resolve_device(str(device))
+        require_kernel(self.device)
+        self.host_fallback = bool(host_fallback)
+        self._breaker = breaker if breaker is not None else \
+            CircuitBreaker(failure_threshold=3, reprobe_interval_s=2.0)
         self.min_bucket = int(min_bucket)
         self.device_predict_min_rows = (
             None if device_predict_min_rows is None
@@ -159,6 +240,17 @@ class PredictionServer:
         self._stopping = threading.Event()
         if booster is not None:
             self.swap(booster)
+
+    @property
+    def degraded(self) -> bool:
+        """True while the circuit breaker is open (the card's path dark,
+        requests answered by the host walk)."""
+        return self._breaker.state == "open"
+
+    @property
+    def dark_seconds(self) -> float:
+        """Total breaker-open seconds, a still-open period included."""
+        return self._breaker.dark_seconds()
 
     # -- model lifecycle ------------------------------------------------
     def swap(self, booster) -> bool:
@@ -178,7 +270,11 @@ class PredictionServer:
             packed = pack_gbdt(gbdt, self.start_iteration,
                                self.num_iteration, device=self.device)
             packed.records      # the kernel's node records, built here too
-            model = _Model(packed, gbdt)
+            host_trees = (host_slice(gbdt, self.start_iteration,
+                                     self.num_iteration)
+                          if self.host_fallback else None)
+            model = _Model(packed, gbdt, host_trees)
+            model.train_ctx = tracing.capture()
             with self._lock:
                 prev = self._model
                 self._model = model
@@ -241,17 +337,83 @@ class PredictionServer:
         return done
 
     # -- direct prediction ----------------------------------------------
-    def predict(self, data, raw_score: bool = False) -> np.ndarray:
-        """Score a raw feature matrix against the current model in one
-        kernel launch.  Output matches ``Booster.predict``: (rows,) for
-        one model per iteration, (rows, num_model) for multiclass."""
-        data = np.atleast_2d(np.asarray(data))
-        model = self._snapshot()
+    def _score_batch(self, model: _Model, data: np.ndarray) -> np.ndarray:
+        """(K, rows) raw scores with graceful degradation: the kernel when
+        the breaker allows it, the host walk when the injected dispatch
+        fault fires or the breaker is open.  Input errors (too few
+        features) raise at once and never count against the card; a real
+        launch error (a CUDA error, a kernel that does not build) raises
+        and never degrades."""
         if data.shape[1] < model.packed.num_features:
+            obs.inc("serve.input_errors")
             raise LightGBMError(
                 f"query data has {data.shape[1]} features but the served "
                 f"model needs {model.packed.num_features}")
-        return model.convert(predict_scores(model.packed, data), raw_score)
+        err: Optional[BaseException] = None
+        if self._breaker.allow():
+            try:
+                faults.check("serve.dispatch")
+                raw = predict_scores(model.packed, data)
+            except faults.InjectedFault as e:
+                err = e
+            except Exception:
+                # a real launch error is the card's or the code's: raised,
+                # never answered from the host
+                obs.inc("serve.failed")
+                raise
+            else:
+                dark = self._breaker.record_success()
+                if dark is not None:
+                    obs.observe("serve.degraded_time", dark)
+                    log_warning(f"serve: device path recovered after "
+                                f"{dark:.3f} s degraded")
+                # on every success, not only at recovery: the rolling gauge
+                # integrates from its first transition, so the healthy
+                # prefix must be on record (a same-value write is free)
+                obs.set_gauge("serve.degraded", 0)
+                obs.inc("serve.ok")
+                return raw
+        if not self.host_fallback or model.host_trees is None:
+            # the request goes unanswered: the availability SLO's hard
+            # failures
+            obs.inc("serve.failed")
+            if err is not None:
+                raise err
+            raise LightGBMError("serve: device path unavailable (circuit "
+                                "open) and host fallback is disabled")
+        out = model.host_raw(data)
+        if err is not None:
+            # the host walk answered the injected device failure
+            obs.inc("serve.device_failures")
+            if self._breaker.record_failure():
+                obs.set_gauge("serve.degraded", 1)
+                log_warning(f"serve: device dispatch failing ({err!r}); "
+                            f"circuit open, serving the host walk, "
+                            f"re-probing every "
+                            f"{self._breaker.reprobe_interval_s:g} s")
+        obs.inc("serve.fallback_requests")
+        count_fallback("server")
+        return out
+
+    def predict(self, data, raw_score: bool = False) -> np.ndarray:
+        """Score a raw feature matrix against the current model in one
+        kernel launch (the host walk under a failing card, see
+        :meth:`_score_batch`).  Output matches ``Booster.predict``:
+        (rows,) for one model per iteration, (rows, num_model) for
+        multiclass."""
+        data = np.atleast_2d(np.asarray(data))
+        model = self._snapshot()
+        with obs.span("serve.predict", cat="serve",
+                      rows=int(data.shape[0])) as sp:
+            ctx = model.train_ctx
+            if ctx is not None:
+                sp.set(model_trace_id=ctx.trace_id,
+                       model_span_id=ctx.span_id)
+            obs.set_gauge("serve.batch_rows", int(data.shape[0]))
+            out = model.convert(self._score_batch(model, data), raw_score)
+        obs.inc("serve.requests")
+        obs.inc("serve.rows", int(data.shape[0]))
+        return out
 
     # -- micro-batching queue -------------------------------------------
     def start(self) -> "PredictionServer":
@@ -294,7 +456,8 @@ class PredictionServer:
                     or not self._worker.is_alive()):
                 raise LightGBMError("micro-batching worker not running; "
                                     "call start() (or use predict())")
-            self._queue.put((data, bool(raw_score), fut))
+            self._queue.put((data, bool(raw_score), fut,
+                             time.perf_counter()))
         return fut
 
     def _drain_loop(self) -> None:
@@ -324,16 +487,21 @@ class PredictionServer:
         """One launch per raw_score flavour in the batch; a batch that
         fails is retried request by request, so one bad request fails only
         its own Future."""
-        for flavor in sorted({rs for _, rs, _ in batch}):
+        now = time.perf_counter()
+        for item in batch:
+            obs.observe("serve.queue_wait", now - item[3])
+        for flavor in sorted({b[1] for b in batch}):
             group = [b for b in batch if b[1] == flavor]
             try:
                 data = np.concatenate([g[0] for g in group], axis=0) \
                     if len(group) > 1 else group[0][0]
                 out = self.predict(data, raw_score=flavor)
             except Exception:   # noqa: BLE001 -- isolate the bad request
-                for data, _, fut in group:
+                obs.inc("serve.poisoned_batches")
+                for g in group:
+                    fut = g[2]
                     try:
-                        res = self.predict(data, raw_score=flavor)
+                        res = self.predict(g[0], raw_score=flavor)
                     except Exception as e:   # noqa: BLE001 -- per future
                         if not fut.done():
                             fut.set_exception(e)
@@ -342,9 +510,14 @@ class PredictionServer:
                             fut.set_result(res)
                 continue
             lo = 0
-            for data, _, fut in group:
-                hi = lo + data.shape[0]
+            for g in group:
+                hi = lo + g[0].shape[0]
                 # a caller may have cancelled its Future
-                if not fut.done():
-                    fut.set_result(out[lo:hi])
+                if not g[2].done():
+                    g[2].set_result(out[lo:hi])
                 lo = hi
+        done = time.perf_counter()
+        for _, _, fut, t0 in batch:
+            if (fut.done() and not fut.cancelled()
+                    and fut.exception() is None):
+                obs.observe("serve.request_latency", done - t0)

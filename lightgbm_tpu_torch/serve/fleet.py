@@ -16,15 +16,28 @@ tenant hot swaps that other tenants never wait on (an index copy, no
 recapture: the kernel compiles nothing per shape), micro-batching queues
 with one worker a replica, and warm-up.  Replicas wrap round onto the
 one card, as the JAX package wraps them onto its devices: each has its
-own queue and worker over the one fleet.  :class:`TenantHandle` is one
-tenant behind the ``PredictionServer`` surface.  Not ported: the
-per-replica circuit breaker and the degrade-to-host path
-(``host_fallback=True`` is refused by name); a device error raises to the
-caller.
+own queue, worker and circuit breaker over the one fleet, so a replica
+degrades on its own.  On the card every replica launches, and every swap
+writes, on one high-priority serving stream apart from the default
+stream that training uses, so a request never queues behind a retrain's
+kernels; one launch lock orders the launches against a swap's in-place
+write (the uploads and read-backs run outside it: the one stream keeps
+them in order).  Under ``host_fallback`` (on by
+default) the ``serve.fleet.dispatch`` injected fault is answered by each
+tenant's host walk over its served slice, loudly as in
+``serve/engine.py``: ``serve.fleet.fallback_requests`` counts every such
+answer, a trip is logged and sets ``serve.fleet.replica_degraded.<r>``
+and ``serve.fleet.degraded_replicas`` (anchored at 0 when the fleet is
+built, so the SLO's dark fraction integrates from a healthy start), and
+``serve.fleet.degraded_time`` takes each dark period.  A real launch
+error (a CUDA error, a kernel library that does not build) raises as
+``serve.fleet.failed`` and never degrades.  :class:`TenantHandle` is one
+tenant behind the ``PredictionServer`` surface.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -38,9 +51,12 @@ import torch
 
 from .. import obs
 from ..config import resolve_device
-from ..utils.log import LightGBMError
-from .engine import (ModelMeta, _as_gbdt, refuse_host_fallback,
-                     row_bucket)
+from ..obs import tracing
+from ..robust import faults
+from ..robust.retry import CircuitBreaker
+from ..utils.log import LightGBMError, log_warning
+from .engine import (ModelMeta, _as_gbdt, count_fallback, host_slice,
+                     require_kernel, row_bucket)
 from .packed import (ARRAY_FIELDS, ForestRecords, ForestTables,
                      PackedEnsemble, forest_predict, forest_records,
                      pack_ensemble, query_tensor)
@@ -271,16 +287,21 @@ def _tenant_tensor(fl: PackedFleet, tenant_ids, rows: int) -> torch.Tensor:
     return torch.from_numpy(np.array(tid, np.int32)).to(fl.device)
 
 
-def fleet_predict_scores(fl: PackedFleet, tenant_ids, data) -> np.ndarray:
+def fleet_predict_scores(fl: PackedFleet, tenant_ids, data,
+                         lock=None) -> np.ndarray:
     """Raw scores (num_model, rows) float64 for a mixed-tenant batch: one
-    kernel launch however many tenants the batch touches."""
+    kernel launch however many tenants the batch touches.  ``lock`` (a
+    context manager) is held around the launch alone, not the uploads or
+    the read-back: a server orders launches against its swaps' writes
+    with it."""
     n = int(data.shape[0])
     if n == 0:
         return np.zeros((fl.num_model, 0), np.float64)
     tid = _tenant_tensor(fl, tenant_ids, n)
     x = query_tensor(data, fl.num_features, fl.device)
-    out = forest_predict(fl.tables(), x, tid, num_model=fl.num_model,
-                         max_depth=fl.max_depth, records=fl.records)
+    with lock if lock is not None else contextlib.nullcontext():
+        out = forest_predict(fl.tables(), x, tid, num_model=fl.num_model,
+                             max_depth=fl.max_depth, records=fl.records)
     return out.cpu().numpy().astype(np.float64)
 
 
@@ -308,12 +329,16 @@ class _FleetGen:
 
 
 class _Replica:
-    __slots__ = ("index", "queue", "worker")
+    """One serving replica on the card: a micro-batch queue, its worker
+    and its own circuit breaker (degradation is per replica)."""
 
-    def __init__(self, index: int):
+    __slots__ = ("index", "queue", "worker", "breaker")
+
+    def __init__(self, index: int, breaker: CircuitBreaker):
         self.index = index
         self.queue: Queue = Queue()
         self.worker: Optional[threading.Thread] = None
+        self.breaker = breaker
 
 
 class FleetServer:
@@ -326,18 +351,23 @@ class FleetServer:
     ``replicas`` request queues with a worker each (0: one), round-robin,
     all on the one card.  ``value_dtype="bf16"``: the quantized leaf
     values.  ``num_iteration``/``start_iteration`` select the served
-    slice on every swap."""
+    slice on every swap.  ``host_fallback`` (default on) answers a failing
+    launch from the tenants' host walks; ``breaker_factory(replica)``
+    makes each replica's breaker (default: 3 consecutive failures trip
+    it, re-probe every 2 s)."""
 
     def __init__(self, boosters: Sequence, *, num_iteration: int = -1,
                  start_iteration: int = 0, min_bucket: int = 128,
                  replicas: int = 1, max_batch: int = 8192,
-                 max_wait_ms: float = 2.0, host_fallback: bool = False,
+                 max_wait_ms: float = 2.0, host_fallback: bool = True,
                  value_dtype: str = "f32",
-                 num_features: Optional[int] = None, device="cuda"):
-        refuse_host_fallback(host_fallback)
+                 num_features: Optional[int] = None, device="cuda",
+                 breaker_factory=None):
         if not boosters:
             raise LightGBMError("FleetServer needs at least one tenant")
         self.device = resolve_device(str(device))
+        require_kernel(self.device)
+        self.host_fallback = bool(host_fallback)
         self.num_iteration = int(num_iteration)
         self.start_iteration = int(start_iteration)
         self.min_bucket = int(min_bucket)
@@ -348,9 +378,21 @@ class FleetServer:
         n_rep = int(replicas) or 1
         if n_rep < 1:
             raise LightGBMError(f"replicas must be >= 1, got {replicas}")
-        self._replicas = [_Replica(i) for i in range(n_rep)]
+        if breaker_factory is None:
+            breaker_factory = lambda i: CircuitBreaker(  # noqa: E731
+                failure_threshold=3, reprobe_interval_s=2.0)
+        # on the card the replicas' launches and the swaps' writes go on
+        # one high-priority stream, so a request never queues behind the
+        # training work of the threads that retrain the tenants (on the
+        # default stream) and its blocks go first; the launch lock orders
+        # the launches against a swap's in-place write
+        self._replicas = [_Replica(i, breaker_factory(i))
+                          for i in range(n_rep)]
+        self._stream = (torch.cuda.Stream(self.device, priority=-1)
+                        if self.device.type == "cuda" else None)
         self._lock = threading.Lock()        # the generation pointer
         self._swap_lock = threading.Lock()   # one swap at a time
+        self._launch_lock = threading.Lock()  # launches against writes
         self._stopping = threading.Event()
         self._rr = 0
         gbdts = [_as_gbdt(b) for b in boosters]
@@ -359,10 +401,20 @@ class FleetServer:
             start_iteration=self.start_iteration,
             num_iteration=self.num_iteration,
             value_dtype=self.value_dtype, device=self.device)
-        self._gen = _FleetGen(fleet, [ModelMeta(g, pe.num_iterations)
+        self._gen = _FleetGen(fleet, [self._meta_for(g, pe)
                                       for g, pe in zip(gbdts, packs)], packs)
         obs.set_gauge("serve.fleet.tenants", fleet.num_tenants)
         obs.set_gauge("serve.fleet.replicas", n_rep)
+        # the rolling timeline starts at 0 dark replicas: without it a
+        # first trip mid-window would integrate as a whole-window outage
+        # in the SLO's dark fraction (obs/slo.py)
+        obs.set_gauge("serve.fleet.degraded_replicas", 0)
+
+    def _meta_for(self, gbdt, pe: PackedEnsemble) -> ModelMeta:
+        host_trees = (host_slice(gbdt, self.start_iteration,
+                                 self.num_iteration)
+                      if self.host_fallback else None)
+        return ModelMeta(gbdt, pe.num_iterations, host_trees, pe.num_model)
 
     def _snapshot(self) -> _FleetGen:
         with self._lock:
@@ -380,6 +432,11 @@ class FleetServer:
     def num_replicas(self) -> int:
         return len(self._replicas)
 
+    def degraded_replicas(self) -> List[int]:
+        """Indices of the replicas whose breaker is open."""
+        return [r.index for r in self._replicas
+                if r.breaker.state == "open"]
+
     def tenant(self, tenant_id: int) -> "TenantHandle":
         """One tenant behind the ``PredictionServer`` surface."""
         return TenantHandle(self, tenant_id)
@@ -393,7 +450,7 @@ class FleetServer:
         m = int(tenant_id)
         gbdt = _as_gbdt(booster)
         with obs.span("serve.fleet.swap", cat="serve", tenant=m), \
-                self._swap_lock:
+                self._swap_lock, torch.cuda.stream(self._stream):
             gen = self._snapshot()
             fl = gen.fleet
             if not 0 <= m < fl.num_tenants:
@@ -412,19 +469,31 @@ class FleetServer:
             packs = list(gen.packs)
             packs[m] = pe
             fits = fl.fits(pe)
-            if fits:
-                write_tenant(fl, m, pe)
-            else:
-                fl = stack_packs(packs, self.value_dtype)
             metas = list(gen.metas)
-            metas[m] = ModelMeta(gbdt, pe.num_iterations)
-            new_gen = _FleetGen(fl, metas, packs)
-            with self._lock:
-                self._gen = new_gen
+            metas[m] = self._meta_for(gbdt, pe)
+            # inside the swap span: this tenant's requests link back to
+            # the training window above it (obs/tracing.py)
+            metas[m].train_ctx = tracing.capture()
+            if not fits:
+                fl = stack_packs(packs, self.value_dtype)
+                self._sync_swap()
+            with self._launch_lock:
+                if fits:
+                    # in place: no launch reads the fleet while it is
+                    # written, and the write is done before the next one
+                    write_tenant(fl, m, pe)
+                    self._sync_swap()
+                with self._lock:
+                    self._gen = _FleetGen(fl, metas, packs)
         obs.inc("serve.fleet.swaps")
+        obs.inc(f"serve.fleet.tenant.{m}.swaps")
         if not fits:
             obs.inc("serve.fleet.swap_shape_changes")
         return fits
+
+    def _sync_swap(self) -> None:
+        if self._stream is not None:
+            self._stream.synchronize()
 
     # -- warm-up --------------------------------------------------------
     def warmup(self, row_buckets: Optional[Sequence[int]] = None
@@ -452,6 +521,77 @@ class FleetServer:
             self._rr = (i + 1) % len(self._replicas)
         return self._replicas[i]
 
+    def _host_raw(self, gen: _FleetGen, tid: np.ndarray,
+                  data: np.ndarray) -> np.ndarray:
+        """(K, rows) float64 by each tenant's host walk (the per-replica
+        degrade path)."""
+        out = np.zeros((gen.fleet.num_model, data.shape[0]), np.float64)
+        for m in np.unique(tid):
+            rows = np.nonzero(tid == m)[0]
+            out[:, rows] = gen.metas[int(m)].host_raw(data[rows])
+        return out
+
+    def _score_batch(self, rep: _Replica, gen: _FleetGen, tid: np.ndarray,
+                     data: np.ndarray) -> np.ndarray:
+        """(K, rows) raw scores on one replica with per-replica
+        degradation: the kernel when the replica's breaker allows it, the
+        host walk when the injected dispatch fault fires or the breaker is
+        open.  Input errors are refused by :meth:`predict` before this; a
+        real launch error (a CUDA error, a kernel that does not build)
+        raises and never degrades."""
+        err: Optional[BaseException] = None
+        if rep.breaker.allow():
+            try:
+                faults.check("serve.fleet.dispatch")
+                # the current generation's tables: the launch is queued
+                # under the launch lock, so it reads them before or after a
+                # swap's in-place write, never between its copies (one
+                # serving stream orders the rest)
+                with torch.cuda.stream(self._stream):
+                    raw = fleet_predict_scores(self._snapshot().fleet, tid,
+                                               data, lock=self._launch_lock)
+            except faults.InjectedFault as e:
+                err = e
+            except Exception:
+                # a real launch error is the card's or the code's: raised,
+                # never answered from the host
+                obs.inc("serve.fleet.failed")
+                raise
+            else:
+                dark = rep.breaker.record_success()
+                if dark is not None:
+                    obs.observe("serve.fleet.degraded_time", dark)
+                    self._record_degraded(rep, 0)
+                    log_warning(f"fleet replica {rep.index}: device path "
+                                f"recovered after {dark:.3f} s degraded")
+                obs.inc("serve.fleet.ok")
+                return raw
+        if not self.host_fallback:
+            obs.inc("serve.fleet.failed")
+            if err is not None:
+                raise err
+            raise LightGBMError(
+                f"fleet replica {rep.index}: device path unavailable "
+                f"(circuit open) and host fallback is disabled")
+        out = self._host_raw(gen, tid, data)
+        if err is not None:
+            obs.inc("serve.fleet.device_failures")
+            if rep.breaker.record_failure():
+                self._record_degraded(rep, 1)
+                log_warning(
+                    f"fleet replica {rep.index}: device dispatch failing "
+                    f"({err!r}); circuit open, serving the host walk, "
+                    f"re-probing every {rep.breaker.reprobe_interval_s:g} "
+                    f"s")
+        obs.inc("serve.fleet.fallback_requests")
+        count_fallback("fleet")
+        return out
+
+    def _record_degraded(self, rep: _Replica, value: int) -> None:
+        obs.set_gauge(f"serve.fleet.replica_degraded.{rep.index}", value)
+        obs.set_gauge("serve.fleet.degraded_replicas",
+                      len(self.degraded_replicas()))
+
     def _convert(self, gen: _FleetGen, tid: np.ndarray, raw: np.ndarray,
                  raw_score: bool) -> np.ndarray:
         """Each tenant's rows converted as its solo server converts
@@ -469,9 +609,11 @@ class FleetServer:
 
     def predict(self, tenant_ids, data, raw_score: bool = False,
                 replica: Optional[int] = None) -> np.ndarray:
-        """Score a mixed-tenant batch in one kernel launch, each row
-        answered as its tenant's solo server would: (rows,), or (rows,
-        num_model) for multiclass.  A device error raises."""
+        """Score a mixed-tenant batch in one kernel launch on one replica
+        (round-robin unless ``replica`` pins it), each row answered as its
+        tenant's solo server would: (rows,), or (rows, num_model) for
+        multiclass.  A failing launch degrades to the host walk under
+        ``host_fallback`` (:meth:`_score_batch`), else raises."""
         data = np.atleast_2d(np.asarray(data))
         n = int(data.shape[0])
         gen = self._snapshot()
@@ -496,11 +638,20 @@ class FleetServer:
         rep = (self._replicas[int(replica)] if replica is not None
                else self._pick_replica())
         with obs.span("serve.fleet.predict", cat="serve", rows=n,
-                      replica=rep.index):
-            raw = fleet_predict_scores(fl, tid, data)
+                      replica=rep.index) as sp:
+            if n and tracing.enabled() and int(tid.min()) == int(tid.max()):
+                # one tenant: link to the window that trained its model
+                ctx = gen.metas[int(tid[0])].train_ctx
+                if ctx is not None:
+                    sp.set(tenant=int(tid[0]), model_trace_id=ctx.trace_id,
+                           model_span_id=ctx.span_id)
+            raw = self._score_batch(rep, gen, tid, data)
             out = self._convert(gen, tid, raw, raw_score)
         obs.inc("serve.fleet.requests")
         obs.inc("serve.fleet.rows", n)
+        if obs.enabled():
+            for m, c in zip(*np.unique(tid, return_counts=True)):
+                obs.inc(f"serve.fleet.tenant.{int(m)}.rows", int(c))
         return out
 
     # -- micro-batching, a queue and a worker a replica -------------------
@@ -552,7 +703,10 @@ class FleetServer:
                 raise LightGBMError("fleet micro-batching workers not "
                                     "running; call start() (or "
                                     "predict())")
-            rep.queue.put((tid, data, bool(raw_score), fut))
+            rep.queue.put((tid, data, bool(raw_score), fut,
+                           time.perf_counter()))
+        obs.set_gauge(f"serve.fleet.replica_queue_depth.{rep.index}",
+                      rep.queue.qsize())
         return fut
 
     def _drain_loop(self, rep: _Replica) -> None:
@@ -576,12 +730,17 @@ class FleetServer:
                     break
                 batch.append(item)
                 rows += item[1].shape[0]
+            obs.set_gauge(f"serve.fleet.replica_queue_depth.{rep.index}",
+                          rep.queue.qsize())
             self._run_batch(rep, batch)
 
     def _run_batch(self, rep: _Replica, batch: List[Tuple]) -> None:
         """One launch per raw_score flavour; a failing batch is retried
         request by request, so a bad request fails only its own Future."""
-        for flavor in sorted({rs for _, _, rs, _ in batch}):
+        now = time.perf_counter()
+        for item in batch:
+            obs.observe("serve.fleet.queue_wait", now - item[4])
+        for flavor in sorted({b[2] for b in batch}):
             group = [b for b in batch if b[2] == flavor]
             try:
                 if len(group) > 1:
@@ -592,6 +751,7 @@ class FleetServer:
                 out = self.predict(tid, data, raw_score=flavor,
                                    replica=rep.index)
             except Exception:   # noqa: BLE001 -- isolate the bad request
+                obs.inc("serve.fleet.poisoned_batches")
                 for g in group:
                     try:
                         res = self.predict(g[0], g[1], raw_score=flavor,
@@ -609,6 +769,11 @@ class FleetServer:
                 if not g[3].done():
                     g[3].set_result(out[lo:hi])
                 lo = hi
+        done = time.perf_counter()
+        for _, _, _, fut, t0 in batch:
+            if (fut.done() and not fut.cancelled()
+                    and fut.exception() is None):
+                obs.observe("serve.fleet.request_latency", done - t0)
 
 
 class TenantHandle:

@@ -53,7 +53,7 @@ from ..ops.split import (F_DEFAULT_LEFT, F_FEATURE, F_GAIN, F_IS_CAT,
                          F_THRESHOLD, FeatureMeta, SplitHyper,
                          find_best_split)
 from ..utils import random as trandom
-from ..utils.log import log_warning
+from ..utils.log import TRAIN_TIMER, log_warning
 from .tree import Tree, categorical_bitsets
 
 
@@ -187,8 +187,10 @@ class SerialTreeLearner:
         return self.buffer[info.begin:info.begin + info.count]
 
     def _leaf_histogram(self, grad, hess, info: _LeafInfo):
-        return build_histogram(self.binned_t, self._ghk, self._rows(info),
-                               self.nb, self._amax)
+        TRAIN_TIMER.start("hist")
+        out = build_histogram(self.binned_t, self._ghk, self._rows(info),
+                              self.nb, self._amax)
+        return TRAIN_TIMER.stop_sync("hist", out)
 
     def _leaf_totals(self, hist) -> np.ndarray:
         """Leaf totals from group 0's slots (every row lands in one)."""
@@ -202,10 +204,12 @@ class SerialTreeLearner:
     def _find_best(self, info: _LeafInfo, feature_mask):
         total = torch.as_tensor(np.asarray(info.total, np.float32),
                                 device=self.device)
+        TRAIN_TIMER.start("find_split")
         packed, member, _ = find_best_split(
             info.hist[None], total[None], feature_mask, self.meta,
             self.hyper, has_cat=self.has_cat,
             constraint=(info.cmin, info.cmax))
+        TRAIN_TIMER.stop_sync("find_split", packed)
         return packed[0], None if member is None else member[0]
 
     def _partition(self, info: _LeafInfo, sp: SplitParams) -> int:
@@ -213,6 +217,7 @@ class SerialTreeLearner:
         id and the window's head); returns the left count."""
         member = torch.as_tensor(sp.cat_member, device=self.device) \
             if sp.is_cat else None
+        TRAIN_TIMER.start("partition")
         rows, left = partition_leaf(
             self.binned_t, self._rows(info), group=sp.group,
             offset=sp.offset, width=sp.width, default_bin=sp.default_bin,
@@ -220,6 +225,7 @@ class SerialTreeLearner:
             default_left=sp.default_left, is_cat=sp.is_cat,
             cat_member=member)
         self.buffer[info.begin:info.begin + info.count] = rows
+        TRAIN_TIMER.stop_sync("partition", self.buffer)
         return left
 
     # ------------------------------------------------------------------

@@ -9,6 +9,8 @@ dataset's codes and fields against the JAX CLI's ``_load_dataset``;
 
 import gzip
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -151,8 +153,6 @@ def test_convert_model_refit_and_warmup_tasks(tmp_path, data):
 
 @pytest.mark.parametrize("argv, name", [
     (["two_round=true", "objective=binary"], "two_round"),
-    (["soak"], "task=soak"),
-    (["task=soak"], "task=soak"),
 ])
 def test_unported_tasks_refused_by_name(tmp_path, data, argv, name):
     x, y, _, _ = data
@@ -160,6 +160,39 @@ def test_unported_tasks_refused_by_name(tmp_path, data, argv, name):
     np.savetxt(train_file, np.column_stack([y, x])[:100], delimiter=",")
     with pytest.raises(LightGBMError, match=name):
         main(argv + [f"data={train_file}", "device=cpu", "verbosity=-1"])
+
+
+SOAK = {"tenants": 1, "windows": 2, "requests_per_window": 2048,
+        "sample_rows": 512, "num_iterations": 4, "poison_batches": 0,
+        "dead_peers": 0}
+
+
+@pytest.mark.parametrize("argv", [["soak"], ["task=soak"]],
+                         ids=["subcommand", "task"])
+def test_soak_writes_its_verdict(tmp_path, monkeypatch, capsys, argv):
+    """``soak`` (and ``task=soak``) runs the fleet chaos soak on ``device``,
+    prints the verdict and writes it to ``soak_out``; a failing gate
+    raises (the process exits non-zero)."""
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs.state import STATE
+    monkeypatch.setattr(STATE, "exporter", None)
+    monkeypatch.setattr(STATE, "rolling", None)
+    monkeypatch.setattr(STATE, "enabled", STATE.enabled)
+    monkeypatch.setenv("LGBM_TPU_SOAK", json.dumps(
+        dict(SOAK, out=str(tmp_path / "verdict.json"),
+             checkpoint_dir=str(tmp_path / "ok"))))
+    assert main(argv + ["device=cpu", "verbosity=-1"]) == 0
+    verdict = json.loads((tmp_path / "verdict.json").read_text())
+    assert verdict["ok"] and verdict["chip_pending"]
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == verdict
+    monkeypatch.setenv("LGBM_TPU_SOAK", json.dumps(
+        dict(SOAK, kills=0, device_deaths=1, device_death_persist=True,
+             checkpoint_dir=str(tmp_path / "fail"))))
+    with pytest.raises(LightGBMError, match="availability"):
+        main(argv + ["device=cpu", "verbosity=-1"])
+    STATE.exporter.stop()
+    obs.reset()
 
 
 def test_unknown_task_and_usage():

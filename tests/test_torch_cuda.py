@@ -1506,3 +1506,79 @@ def test_tensor_on_the_card_predicts_through_the_kernel(cuda_device):
     gb.config.pred_early_stop = True
     with pytest.raises(LightGBMError, match="pred_early_stop"):
         gb.predict_raw(xd)
+
+
+def test_fleet_swaps_under_load_on_the_replica_streams(cuda_device):
+    """Replicas launch, and a swap writes, on the fleet's serving stream
+    while a thread trains on the default stream: every answer equals one
+    of the tenant's two models' solo answers (never a mix), none comes
+    from the host walk, and the last ones are the swapped model's."""
+    import threading
+    from lightgbm_tpu_torch.serve import (FleetServer, PredictionServer,
+                                          engine)
+    models = []
+    for w in range(3):
+        x, y = _cache_window(30 + w, n=20_000)
+        models.append(lt.train(
+            {"objective": "binary", "num_leaves": 31, "verbosity": -1},
+            lt.Dataset(x, label=y), num_boost_round=8))
+    xq, _ = _cache_window(40, n=256)
+    solo = [PredictionServer(b).predict(xq) for b in models]
+    fs = FleetServer(models[:2], replicas=2)
+    fb0 = dict(engine.FALLBACK_COUNTS)
+    stop = threading.Event()
+    xt, yt = _cache_window(50, n=60_000)
+
+    def train():
+        while not stop.is_set():
+            lt.train({"objective": "binary", "num_leaves": 31,
+                      "verbosity": -1}, lt.Dataset(xt, label=yt),
+                     num_boost_round=5)
+    trainer = threading.Thread(target=train, daemon=True)
+    trainer.start()
+    seen = []
+    try:
+        with fs:
+            for i in range(40):
+                if i == 20:
+                    assert fs.swap_tenant(0, models[2]) is True
+                seen.append(fs.submit(0, xq).result(timeout=60))
+    finally:
+        stop.set()
+        trainer.join(timeout=120)
+    for got in seen:
+        assert any(np.array_equal(got, s) for s in (solo[0], solo[2]))
+    np.testing.assert_array_equal(seen[-1], solo[2])
+    assert engine.FALLBACK_COUNTS == fb0
+
+
+def test_server_degrades_and_recovers_on_the_card(cuda_device):
+    """serve.dispatch fails three launches: the host walk answers (within
+    1e-5 of the kernel), the breaker opens, and after its re-probe
+    interval the kernel answers again, bit-equal to before."""
+    from lightgbm_tpu_torch.robust import faults
+    from lightgbm_tpu_torch.robust.retry import CircuitBreaker
+    from lightgbm_tpu_torch.serve import PredictionServer, packed
+    x, y = _cache_window(60, n=20_000)
+    b = lt.train({"objective": "binary", "num_leaves": 31, "verbosity": -1},
+                 lt.Dataset(x, label=y), num_boost_round=8)
+    srv = PredictionServer(b, breaker=CircuitBreaker(3, 0.1))
+    srv.warmup()
+    xq, _ = _cache_window(61, n=2_000)
+    want = srv.predict(xq)
+    faults.configure("serve.dispatch:n=3")
+    try:
+        before = packed.forest_predict.launches
+        host = [srv.predict(xq) for _ in range(3)]
+        assert packed.forest_predict.launches == before
+        assert srv.degraded
+        import time
+        time.sleep(0.15)
+        again = srv.predict(xq)
+    finally:
+        faults.clear()
+    assert packed.forest_predict.launches == before + 1
+    assert not srv.degraded
+    np.testing.assert_array_equal(again, want)
+    for h in host:
+        np.testing.assert_allclose(h, want, rtol=1e-5, atol=1e-6)

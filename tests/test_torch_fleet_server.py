@@ -1,7 +1,9 @@
 """The port's ``FleetServer`` and ``TenantHandle`` (``serve/fleet.py``) on
-the CPU: ``tests/test_fleet.py``'s cases re-pointed at the port, except
-the degrade-to-host ones (not ported: ``host_fallback=True`` is refused by
-name, and a device error raises to the caller).  Every tenant answers
+the CPU: ``tests/test_fleet.py``'s cases re-pointed at the port (the
+degrade-to-host ones in ``tests/test_torch_degrade.py``; here a fleet
+with ``host_fallback=True``, the default, answers the injected dispatch
+fault from the host walk, and a real device error raises with it and
+without it).  Every tenant answers
 byte-identically to its solo pack and server (missing modes, categorical
 bitsets, a model loaded from text, mixed-tenant batches), a tenant swap
 that fits is an index copy with no capture while the other tenants keep
@@ -296,19 +298,39 @@ def test_fleet_input_errors(trio):
         FleetServer(boosters, value_dtype="fp8", device="cpu")
 
 
-def test_host_fallback_refused_and_device_error_raises(trio, monkeypatch):
+def test_host_fallback_degrades_and_device_error_raises_without_it(
+        trio, monkeypatch):
+    """``host_fallback=True`` (the default, as in the JAX package) answers
+    the injected dispatch fault from each tenant's host walk and counts
+    it; a real device error raises to the caller, with the fallback on
+    (where the JAX package would degrade) and without it."""
+    from lightgbm_tpu_torch.robust import faults
+    from lightgbm_tpu_torch.serve import engine
     boosters, _, _ = trio
-    with pytest.raises(LightGBMError, match="host_fallback"):
-        FleetServer(boosters, host_fallback=True, device="cpu")
-    with pytest.raises(LightGBMError, match="host_fallback"):
-        PredictionServer(boosters[0], host_fallback=True, device="cpu")
-    fs = FleetServer(boosters, device="cpu")
 
     def device_error(*a, **k):
         raise RuntimeError("CUDA error: an illegal memory access")
+    xq = _query(16)
+    want = np.stack([fleet_mod.fleet_predict_scores(
+        pack_fleet([b], device="cpu")[0], 0, xq)[0] for b in boosters])
+    fs = FleetServer(boosters, device="cpu")
+    assert fs.host_fallback
+    before = engine.FALLBACK_COUNTS["fleet"]
+    tid = np.arange(len(xq)) % 3
+    faults.configure("serve.fleet.dispatch:n=1")
+    try:
+        got = fs.predict(tid, xq, raw_score=True)
+    finally:
+        faults.clear()
+    np.testing.assert_allclose(got, want[tid, np.arange(len(xq))],
+                               rtol=1e-5, atol=1e-6)
+    assert engine.FALLBACK_COUNTS["fleet"] == before + 1
     monkeypatch.setattr(fleet_mod, "fleet_predict_scores", device_error)
-    with pytest.raises(RuntimeError, match="illegal memory access"):
-        fs.predict(0, _query(16))
+    off = FleetServer(boosters, host_fallback=False, device="cpu")
+    for server in (fs, off):
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            server.predict(0, xq)
+    assert engine.FALLBACK_COUNTS["fleet"] == before + 1
 
 
 def test_fleet_answers_as_the_jax_fleet_server():

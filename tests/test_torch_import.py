@@ -114,17 +114,41 @@ def test_ubench_runs_without_jax_on_the_cpu():
 
 
 def test_operations_modules_pull_in_no_jax():
-    """obs, robust and the pipeline, in a fresh interpreter."""
+    """obs (the rolling windows, SLOs, the exporter and the attribution
+    included), robust, the pipeline and the soak, in a fresh
+    interpreter."""
     code = (
         "import sys\n"
         "import lightgbm_tpu_torch.obs, lightgbm_tpu_torch.robust\n"
-        "import lightgbm_tpu_torch.pipeline\n"
+        "import lightgbm_tpu_torch.obs.rolling, lightgbm_tpu_torch.obs.slo\n"
+        "import lightgbm_tpu_torch.obs.export\n"
+        "import lightgbm_tpu_torch.obs.profile\n"
+        "import lightgbm_tpu_torch.pipeline, lightgbm_tpu_torch.soak\n"
+        "import lightgbm_tpu_torch.soak.workload\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'lightgbm_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     out = _python(code)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_soak_defaults_to_the_card_and_raises_without_one():
+    code = (
+        "import torch, lightgbm_tpu_torch as lt\n"
+        "from lightgbm_tpu_torch.soak import SoakDriver, SoakScenario\n"
+        "assert not torch.cuda.is_available()\n"
+        "sc = SoakScenario(tenants=1, windows=1, kills=0)\n"
+        "try:\n"
+        "    SoakDriver(sc).run()\n"
+        "except lt.LightGBMError as e:\n"
+        "    print('raised:', e)\n"
+        "else:\n"
+        "    raise SystemExit('a soak without a card')\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = _python(code, env=env)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "device_type=cuda" in out.stdout
 
 
 def test_pipeline_defaults_to_the_card_and_raises_without_one():

@@ -337,16 +337,3 @@ def test_capture_track_counts_by_signature():
     assert obs.summary()["captures_total"] == 3
     assert any(e.name == "capture:grow.tree" for e in STATE.trace._copy())
 
-
-def test_exporter_options_are_refused_by_name():
-    x, y = _data()
-    for extra, word in (({"stream_path": "s.jsonl"}, "stream_path"),
-                        ({"prom_path": "p.prom"}, "prom_path"),
-                        ({"obs_http_port": 9}, "obs_http_port"),
-                        ({"obs_export_interval": 1.0},
-                         "obs_export_interval"),
-                        ({"profile_attribution": True},
-                         "profile_attribution")):
-        with pytest.raises(tlgb.LightGBMError, match=word):
-            tlgb.train({**TRAIN, **extra}, tlgb.Dataset(x, label=y), 1,
-                       verbose_eval=False)

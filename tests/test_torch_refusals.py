@@ -6,9 +6,10 @@ leaves, max_bin 63, 4 rounds on the CPU): before the repair the port
 trained them serially with no error and no log, byte-equal to its serial
 run, while the JAX package built its parallel learner.  They now raise
 ``LightGBMError`` naming the option, from ``engine.train`` and from
-``RetrainPipeline``; so do the options that select the unported telemetry
-exporter, the XLA cost attribution and multi-host training, on the
-device grower and on the host learner; so does a leaf
+``RetrainPipeline``; so do the options that select data sharding and
+multi-host training, on the device grower and on the host learner (the
+telemetry exporter's and the cost attribution's options work since the
+fleet soak slice: ``tests/test_torch_obs_stream.py``); so does a leaf
 budget past the histogram kernel's leaf table.  A parallel
 ``tree_learner`` with one machine degrades to serial, as the reference
 does.
@@ -38,11 +39,6 @@ REFUSED = [
     ({"data_sharding": "multi_controller"},
      "data_sharding=multi_controller"),
     ({"num_hosts": 2}, "num_hosts=2"),
-    ({"stream_path": "s.jsonl"}, "stream_path"),
-    ({"prom_path": "p.prom"}, "prom_path"),
-    ({"obs_http_port": 9100}, "obs_http_port"),
-    ({"obs_export_interval": 0.5}, "obs_export_interval"),
-    ({"profile_attribution": True}, "profile_attribution"),
 ]
 
 
