@@ -253,7 +253,7 @@ Phases, one line each:
               twice with one LGBM_TPU_COMPILE_CACHE directory, the second
               run's LGBM_WarmupTrain building 0 libraries; then
               window_harness (src/capi_cuda/window_harness.cpp) over
-              CAPI_WINDOWS windows of 2,000,000 rows of the harness's 53
+              CAPI_WINDOWS windows of 1,000,000 rows of the harness's 53
               columns (window_shape, zeros dropped, written as raw CSR
               arrays to a temporary directory): warm-up, then per training
               window DatasetCreateFromCSR (window 0 the reference of the
@@ -338,6 +338,34 @@ Phases, one line each:
               report against the train phase's per-iteration s/tree: the
               uncapped ratio of phase ms x waves to the measured tree
               (printed, not gated; every probe runs at the full width).
+
+16. stream -- (after host_learner) a HIGGS-shaped CSV of 500,000 rows
+              from --seed: load_text_two_round with the whole file
+              sampled (codes and mappers byte-equal to the matrix in
+              memory binned by construct_from_matrix), round one and two
+              timed at the default sample, task=train two_round=true
+              through the CLI's entry point on the card (10 rounds, 255
+              leaves, kernel 1's launches counted, training AUC >=
+              AUC_FLOOR), task=predict through the CLI's chunked
+              run_predict on the card (the file equal to Booster.predict
+              of the rows written with %g).
+17. shard  -- the device grower over four shards of the card (GBDT.mesh,
+              data_sharding=single_controller) on the train phase's codes,
+              the higgs, int8 and harness configurations, 10 fused trees
+              each: the model text sha256 equal to the unsharded run's,
+              kernel 1 four launches a wave, one wave's reduced
+              histograms bit-equal to the unsharded launch (the grower's
+              regime and f32), fused s/tree sharded and unsharded;
+              wave_hist_sharded at the shard's shape bit-equal and timed.
+18. parallel -- the data-, feature- and voting-parallel learners over four
+              workers of the card through create_tree_learner and the
+              boosting loop (5 rounds, 31 leaves, 2M x 28 binned by
+              construct_pre_partitioned over four row blocks): feature
+              and data trees byte-equal to the serial learner's, voting
+              (top_k 28) equal or its first parting split named, voting
+              top_k 5 training AUC >= AUC_FLOOR, allreduce bytes a tree
+              and s/tree of each; wave_hist_rows_sharded at the data
+              learner's shape bit-equal and timed.
 
 Between phases the grower cache (ops/grow.py) is emptied, so each phase
 holds only its own growers' card memory.  After every phase the script
@@ -1090,6 +1118,9 @@ EAGER_SHA256 = {
 }
 #: repeated fused chunks of the higgs configuration timed after its run
 FUSED_REPEATS = 5
+#: rows of the higgs run's prediction also walked on the host (cut from
+#: the 2M to keep the script under 900 s)
+HOST_PREDICT_ROWS = 500_000
 
 
 def _per_iteration(env):
@@ -1344,14 +1375,14 @@ def train_run(name, ds, x, y, dev, seed, profile=False):
     pred_err = pred["predict_vs_score_max_abs"]
     host_predict_s = None
     if name == "higgs":
-        # the host walk, the only route before the kernel, on the same
-        # rows in the same run
+        # the host walk, the only route before the kernel, in the same
+        # run, on the first HOST_PREDICT_ROWS rows (the script's time)
         gb.config.device_predict = "off"
         t0 = time.perf_counter()
-        host_raw = booster.predict(x, raw_score=True)
+        host_raw = booster.predict(x[:HOST_PREDICT_ROWS], raw_score=True)
         host_predict_s = time.perf_counter() - t0
         gb.config.device_predict = "auto"
-        host_err = float(np.abs(host_raw - score).max())
+        host_err = float(np.abs(host_raw - score[:HOST_PREDICT_ROWS]).max())
         if host_err > 1e-5:
             fail(f"{name}: host predict vs device training score: "
                  f"{host_err:.3g}")
@@ -3685,7 +3716,9 @@ def phase_pipeline(dev, seed: int):
 
 
 
-CAPI_ROWS = 2_000_000
+#: cut from 2M (and the fork's 20M) to keep the script under 900 s: the
+#: ABI bins CSR on the host, ~10 s a 2M-row window
+CAPI_ROWS = 1_000_000
 CAPI_WINDOWS = 4            # three trained windows and the next one scored
 #: the fork's training parameters (examples/cache_admission.py:57), in
 #: chunks of 25 (:66) as window_harness.cpp trains them
@@ -5483,6 +5516,502 @@ def phase_soak(dev, seed: int, train, models, x, y):
     return out
 
 
+#: the stream phase's CSV: HIGGS's shape, 500,000 rows
+STREAM_ROWS = 500_000
+STREAM_BASE = {**TRAIN_BASE, "num_leaves": 255}
+#: the shard and parallel phases' mesh: four shards of the one card
+SHARDS = 4
+SHARD_RUNS = ("higgs", "int8", "harness")
+#: learning rate 0.3: five rounds of 31 leaves at 0.1 leave even the serial
+#: learner below AUC_FLOOR on this data (0.7917 on 300,000 rows)
+PAR_BASE = {"objective": "binary", "max_bin": 255, "learning_rate": 0.3,
+            "num_leaves": 31, "verbose": -1, "device_growth": "off"}
+PAR_ROUNDS = 5
+PAR_SAMPLE = 200_000        # construct_pre_partitioned's sample a shard
+PAR_KINDS = ("data", "feature", "voting")
+
+
+def stream_sha(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def phase_stream(dev, seed: int, tmp):
+    """Phase stream: the two-round load and the CLI on a HIGGS-shaped CSV
+    of STREAM_ROWS rows (written here, the values rounded to 4 decimals
+    and printed with 4, so the file holds the matrix exactly): (1) load_text_two_round with the whole
+    file sampled, codes and mappers byte-equal to Dataset on the matrix
+    in memory; (2) at the default 200,000-row sample, round one, round
+    two; (3) task=train two_round=true through the CLI's entry point
+    (cli.main, in this process) on the card, 10 rounds, kernel 1's
+    launches counted; (4) task=predict through the CLI's chunked
+    run_predict, the file equal to Booster.predict of the same rows
+    written with %g."""
+    import io
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data import stream_loader
+    from lightgbm_tpu_torch.data.dataset import BinnedDataset
+    from lightgbm_tpu_torch.ops import hist_cuda
+    t0 = time.perf_counter()
+    x, y = higgs_shape(STREAM_ROWS, seed + 2)
+    x64 = np.round(x.astype(np.float64), 4)
+    path = os.path.join(tmp, "higgs_stream.csv")
+    np.savetxt(path, np.column_stack([y, x64]), delimiter=",", fmt="%.4f")
+    write_s = time.perf_counter() - t0
+    del x
+    params = {**STREAM_BASE, "device": dev.type}
+
+    # (1) the whole file sampled: the in-memory construction's codes
+    full = Config({**params, "bin_construct_sample_cnt": STREAM_ROWS})
+    t0 = time.perf_counter()
+    sds, label = stream_loader.load_text_two_round(path, full)
+    load_full_s = time.perf_counter() - t0
+    mem = BinnedDataset.construct_from_matrix(x64, full)
+    state = lambda ds: [repr(sorted(m.to_state().items()))
+                        for m in ds.bin_mappers]
+    if not np.array_equal(sds.binned, mem.binned) \
+            or state(sds) != state(mem):
+        fail("stream: two-round codes or mappers differ from the "
+             "in-memory Dataset's")
+    if not np.array_equal(label, y.astype(np.float64)):
+        fail("stream: two-round labels differ from the file's")
+    del mem, sds
+
+    # (2) the default sample, each round timed
+    cfg = Config(params)
+    fmt = stream_loader._Format(path, cfg)
+    t0 = time.perf_counter()
+    sample, n_total, num_cols = stream_loader._round_one(path, fmt, cfg)
+    t1 = time.perf_counter()
+    ds = BinnedDataset.construct_streaming_begin(sample, n_total, num_cols,
+                                                 cfg)
+    t2 = time.perf_counter()
+    stream_loader._round_two(path, fmt, ds, num_cols, n_total)
+    t3 = time.perf_counter()
+    rounds = dict(round_one_s=t1 - t0, bins_s=t2 - t1, round_two_s=t3 - t2)
+    if n_total != STREAM_ROWS or len(sample) != min(
+            STREAM_ROWS, cfg.bin_construct_sample_cnt):
+        fail(f"stream: round one counted {n_total} rows, sampled "
+             f"{len(sample)}")
+    del ds, sample
+
+    # (3) the CLI trains on the card from the streamed file
+    model = os.path.join(tmp, "stream_model.txt")
+    argv = ["task=train", f"data={path}", "two_round=true",
+            f"device={dev.type}", f"output_model={model}",
+            f"num_iterations={ROUNDS}", "verbosity=-1"] + \
+        [f"{k}={v}" for k, v in STREAM_BASE.items() if k != "verbose"]
+    hist_cuda.wave_hist.launches.reset()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+        fail("stream: the CLI's two_round training exited non-zero")
+    torch.cuda.synchronize(dev)
+    train_s = time.perf_counter() - t0
+    launches = hist_cuda.wave_hist.launches.read()
+    if launches <= 0:
+        fail("stream: the CLI's training launched kernel 1 no time")
+    text = Path(model).read_text()
+    auc = auc_of(y, lt.Booster(model_str=text).predict(x64))
+    if auc < AUC_FLOOR:
+        fail(f"stream: training AUC {auc:.4f} < {AUC_FLOOR}")
+
+    # (4) the chunked prediction, against Booster.predict of the rows
+    out = os.path.join(tmp, "stream_pred.txt")
+    before = forest_counts()
+    t0 = time.perf_counter()
+    if cli.main(["task=predict", f"data={path}", f"input_model={model}",
+                 f"output_result={out}", f"device={dev.type}",
+                 "device_predict_min_rows=1", "verbosity=-1"]) != 0:
+        fail("stream: the CLI's prediction exited non-zero")
+    predict_s = time.perf_counter() - t0
+    fp_launches, fp_routes = counts_since(before)
+    booster = lt.Booster(model_str=text,
+                         params={"device": dev.type,
+                                 "device_predict_min_rows": 1})
+    want = io.StringIO()
+    np.savetxt(want, np.asarray(booster.predict(x64)).reshape(-1, 1),
+               delimiter="\t", fmt="%g")
+    if Path(out).read_text() != want.getvalue():
+        fail("stream: the CLI's chunked predictions differ from "
+             "Booster.predict's")
+    r = dict(rows=STREAM_ROWS, write_s=write_s,
+             load_full_sample_s=load_full_s, **rounds, cli_train_s=train_s,
+             s_per_tree=train_s / ROUNDS, predict_s=predict_s, auc=auc,
+             launches=launches, predict_launches=fp_launches,
+             predict_routes=fp_routes, model_sha256=trees_sha256(text))
+    print(f"phase stream: ok {STREAM_ROWS} rows (file written in "
+          f"{write_s:.1f} s; the whole file sampled: codes and mappers "
+          f"equal to the in-memory Dataset's, {load_full_s:.1f} s); "
+          f"round one {r['round_one_s']:.2f} s, bins {r['bins_s']:.2f} s, "
+          f"round two {r['round_two_s']:.2f} s; CLI train {train_s:.2f} s "
+          f"({r['s_per_tree']:.4f} s/tree with both rounds, {launches} "
+          f"wave_hist launches), AUC {auc:.4f}; CLI predict "
+          f"{predict_s:.2f} s, equal to Booster.predict at %g", flush=True)
+    return r
+
+
+def shard_wave_check(grower, dev):
+    """One wave of a trained sharded grower's state: the shards' reduced
+    histograms against the unsharded kernel-1 launch over the same
+    leaves, in the grower's regime and in f32: bit-equal."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_cuda
+    st = grower._st
+    w = grower.wave_width
+    pending = torch.arange(w, dtype=torch.int32, device=dev)
+    kw = dict(g=grower.num_groups, nb=grower.nb, k=grower.hist_cols, w=w,
+              leaf_bound=grower.num_leaves)
+    regimes = [(st.gh, None if grower.quant_bits else st.scale_exp)]
+    gh32 = st.gh.float().contiguous()
+    regimes.append((gh32, hist_cuda.hist_scale_exponents(
+        gh32, grower.exp_rows)))
+    for gh, scale in regimes:
+        a = hist_cuda.wave_hist_sharded(grower._shard_codes, st.leaf_id, gh,
+                                        pending, scale_exp=scale, **kw)
+        b = hist_cuda.wave_hist(grower.binned_t, st.leaf_id, gh, pending,
+                                scale_exp=scale, **kw)
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail(f"shard: a wave's reduced histogram ({gh.dtype}) differs "
+                 f"from the unsharded launch")
+    return [str(gh.dtype) for gh, _ in regimes]
+
+
+def measure_sharded_case(dev, seed):
+    """wave_hist_sharded at the shard phase's shape: 2M x 28 rows in
+    SHARDS row blocks of shard_local_rows, NB=256, K=3 bf16, W=128: bit-
+    equal to the unsharded launch and to wave_hist_fixed_reference;
+    kernel, plain version and one index_put_ timed."""
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops import hist_cuda, shard
+    g, nb, k, w = N_FEATURES, 256, 3, 128
+    bins, leaf, ghk, pending = kernel_case(dev, nb=nb, k=k, w=w, quant=False,
+                                           seed=seed)
+    n = bins.shape[1]
+    local = shard.shard_local_rows(n, SHARDS, Config({}))
+    codes = [bins[:, a:a + local].contiguous() for a in range(0, n, local)]
+    kw = dict(g=g, nb=nb, k=k, w=w, leaf_bound=2 * w + 1)
+    scale = hist_cuda.hist_scale_exponents(ghk, n)
+    run = lambda: hist_cuda.wave_hist_sharded(codes, leaf, ghk, pending,
+                                              scale_exp=scale, **kw)
+    a = run()
+    whole = hist_cuda.wave_hist(bins, leaf, ghk, pending, scale_exp=scale,
+                                **kw)
+    exact = bool(torch.equal(a.view(torch.int32), whole.view(torch.int32))
+                 and torch.equal(a.view(torch.int32),
+                                 hist_cuda.wave_hist_fixed_reference(
+                                     bins, leaf, ghk, pending, scale, g=g,
+                                     nb=nb, k=k, w=w).view(torch.int32)))
+    kw_p = dict(g=g, nb=nb, k=k, w=w)
+    ref = hist_cuda.wave_hist_reference(bins, leaf, ghk, pending, **kw_p)
+    err = float((a.double() - ref.double()).abs().max())
+    ms = time_ms(run, reps=20)
+    plain_ms = time_ms(lambda: hist_cuda.wave_hist_reference(
+        bins, leaf, ghk, pending, **kw_p), reps=2, warmup=1)
+    lib_run, _, m, lib_call = library_hist(bins, leaf, ghk, pending, **kw_p)
+    library_ms = time_ms(lib_run, reps=3, warmup=1)
+    bytes_ = n * (g + 4) + m * ghk.element_size() * k + g * nb * k * w * 4
+    bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = m * g * k / F32_OPS_PER_S * 1e3
+    r = dict(kernel="wave_hist", mode="sharded", shards=len(codes),
+             rows=n, local_rows=local, rows_in_wave=m, exact=exact, ok=exact,
+             tolerance="bit-equal to the unsharded launch and to "
+             "wave_hist_fixed_reference", max_abs_err=err, ms=ms,
+             plain_ms=plain_ms, library_ms=library_ms,
+             library_call=lib_call, bytes_bound_ms=bound_bytes_ms,
+             ops_bound_ms=ops_ms, bound_ms=max(bound_bytes_ms, ops_ms),
+             bound_by="bytes" if bound_bytes_ms >= ops_ms else "operations",
+             tc_ms=None)
+    print(f"  kernel wave_hist sharded bf16 n={n} in {len(codes)} shards of "
+          f"{local} G={g} NB={nb} K={k} W={w}: exact={exact} max_abs_err="
+          f"{err:.3g} kernel {ms:.3f} ms, bound {r['bound_ms'] * 1e3:.1f} "
+          f"us ({r['bound_by']}), plain {plain_ms:.2f} ms, library "
+          f"{library_ms:.2f} ms", flush=True)
+    del bins, leaf, ghk, pending, codes, a, whole, ref, lib_run
+    torch.cuda.empty_cache()
+    if not exact:
+        fail("wave_hist_sharded differs from the unsharded kernel 1")
+    return r
+
+
+def phase_shard(dev, seed: int, dense):
+    """Phase shard: the device grower over SHARDS shards of the card
+    (``GBDT.mesh``, data_sharding=single_controller) on the train phase's
+    2M x 28 codes, the higgs, int8 and harness configurations, ROUNDS
+    fused trees each, sharded and unsharded: the model texts' sha256
+    must be equal; then one more fused chunk of each timed (s/tree), the
+    shard launches (SHARDS a wave, the warm-up waves included) and one
+    wave's reduced histograms bit-equal to the unsharded launch."""
+    import torch
+    from lightgbm_tpu_torch.boosting import create_boosting
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops import hist_cuda
+    mesh = [dev] * SHARDS
+    runs, launches_all, sharded_launches = {}, 0, 0
+    case = measure_sharded_case(dev, seed=400)
+    for name in SHARD_RUNS:
+        out = {}
+        for label, m in (("unsharded", None), ("sharded", mesh)):
+            clear_growers(dev)
+            cfg = Config({**TRAIN_BASE, **TRAIN_RUNS[name],
+                          "data_sharding": "single_controller",
+                          "device": dev.type})
+            gb = create_boosting(cfg)
+            gb.mesh = m
+            hist_cuda.wave_hist.launches.reset()
+            hist_cuda.wave_hist_sharded.launches.reset()
+            gb.init_train(dense)
+            if (gb._grower.mesh is not None) != (m is not None):
+                fail(f"shard: {name} {label} grower mesh "
+                     f"{gb._grower.mesh}")
+            gb.train_chunked(ROUNDS, chunk=ROUNDS)
+            torch.cuda.synchronize(dev)
+            text = gb.model_to_string()
+            waves = sum(int(s[2]) for s in gb.tree_stats)
+            warm = gb._grower.capture_stats["warmup_waves"]
+            t0 = time.perf_counter()
+            gb.train_chunked(ROUNDS, chunk=ROUNDS)
+            torch.cuda.synchronize(dev)
+            s_tree = (time.perf_counter() - t0) / ROUNDS
+            waves_all = sum(int(s[2]) for s in gb.tree_stats)
+            v1 = hist_cuda.wave_hist.launches.read()
+            sh = hist_cuda.wave_hist_sharded.launches.read()
+            launches_all += v1
+            res = dict(sha256=trees_sha256(text), s_per_tree=s_tree,
+                       waves_first_chunk=waves, waves=waves_all,
+                       warmup_waves=warm, wave_hist_launches=v1,
+                       shard_launches=sh)
+            if m is not None:
+                if sh != SHARDS * (waves_all + warm) or v1 != sh:
+                    fail(f"shard: {name}: {sh} shard launches, {v1} kernel "
+                         f"1 launches for {waves_all} waves + {warm} "
+                         f"warm-up ({SHARDS} shards)")
+                sharded_launches += sh
+                res["launches_per_wave"] = sh / (waves_all + warm)
+                res["wave_check"] = shard_wave_check(gb._grower, dev)
+            out[label] = res
+            del gb
+        if out["sharded"]["sha256"] != out["unsharded"]["sha256"]:
+            fail(f"shard: {name}: sharded model text "
+                 f"{out['sharded']['sha256'][:12]} != unsharded "
+                 f"{out['unsharded']['sha256'][:12]}")
+        runs[name] = out
+        print(f"  shard {name}: model text sha256 "
+              f"{out['sharded']['sha256'][:16]} sharded == unsharded; "
+              f"fused s/tree sharded {out['sharded']['s_per_tree']:.4f} "
+              f"against unsharded {out['unsharded']['s_per_tree']:.4f}; "
+              f"kernel 1 {out['sharded']['launches_per_wave']:.0f} "
+              f"launches a wave; a wave's reduced histograms bit-equal "
+              f"({', '.join(out['sharded']['wave_check'])})", flush=True)
+    clear_growers(dev)
+    print(f"phase shard: ok {len(runs)} configurations over {SHARDS} "
+          f"shards of {dev}, every sha256 equal to the unsharded run's",
+          flush=True)
+    return dict(runs=runs, case=case, launches=launches_all,
+                sharded_launches=sharded_launches)
+
+
+def measure_parallel_rows_case(dev, seed, n=N_ROWS, m=1_234_567):
+    """wave_hist_rows_sharded at the parallel phase's shape: a ragged leaf
+    window of m permuted rows of 2M x 28, f32 stats, split over SHARDS
+    row shards as the data-parallel learner splits them: bit-equal to one
+    launch over the window and to wave_hist_rows_fixed_reference;
+    kernel, plain version and one index_add_ timed."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops.histogram import bucket_size
+    g, nb, k = N_FEATURES, 256, 3
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, nb, (g, n), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    ghk = torch.stack([torch.randn(n, generator=gen, device=dev) * 0.5,
+                       torch.rand(n, generator=gen, device=dev) * 0.25,
+                       torch.ones(n, device=dev)], 1)
+    rows = torch.randperm(n, generator=gen, device=dev).to(
+        torch.int32)[(n - m) // 3:(n - m) // 3 + m]
+    local = bucket_size(-(-n // SHARDS))
+    shards = []
+    for lo in range(0, n, local):
+        hi = min(n, lo + local)
+        mine = rows[(rows >= lo) & (rows < hi)] - lo
+        shards.append((bins[:, lo:hi].contiguous(), ghk[lo:hi], mine))
+    scale = hist_cuda.exponents_for_rows(ghk.abs().amax(0), m)
+    kw = dict(g=g, nb=nb, k=k)
+    run = lambda: hist_cuda.wave_hist_rows_sharded(shards, nb=nb, k=k,
+                                                   scale_exp=scale)
+    a = run()
+    whole = hist_cuda.wave_hist_rows(bins, ghk, rows, scale_exp=scale, **kw)
+    exact = bool(torch.equal(a.view(torch.int32), whole.view(torch.int32))
+                 and torch.equal(a.view(torch.int32),
+                                 hist_cuda.wave_hist_rows_fixed_reference(
+                                     bins, ghk, rows, scale, **kw)
+                                 .view(torch.int32)))
+    ref = hist_cuda.wave_hist_rows_reference(bins, ghk, rows, **kw)
+    err = float((a.double() - ref.double()).abs().max())
+    ms = time_ms(run, reps=20)
+    plain_ms = time_ms(lambda: hist_cuda.wave_hist_rows_reference(
+        bins, ghk, rows, **kw), reps=2, warmup=1)
+    r64 = rows.long()
+    idx = bins[:, r64].long()
+    idx += (torch.arange(g, device=dev) * nb)[:, None]
+    idx = idx.reshape(-1)
+    src = ghk[r64][None].expand(g, -1, -1).reshape(-1, k)
+    table = torch.zeros((g * nb, k), device=dev)
+
+    def lib():
+        table.zero_()
+        table.index_add_(0, idx, src)
+    library_ms = time_ms(lib, reps=3, warmup=1)
+    bytes_ = m * (4 + g + k * 4) + g * nb * k * 4
+    bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = m * g * k / F32_OPS_PER_S * 1e3
+    r = dict(kernel="wave_hist_rows", mode="parallel", shards=len(shards),
+             rows=n, rows_in_wave=m, exact=exact, ok=exact,
+             tolerance="bit-equal to one launch over the window and to "
+             "wave_hist_rows_fixed_reference", max_abs_err=err, ms=ms,
+             plain_ms=plain_ms, library_ms=library_ms,
+             library_call="index_add_", bytes_bound_ms=bound_bytes_ms,
+             ops_bound_ms=ops_ms, bound_ms=max(bound_bytes_ms, ops_ms),
+             bound_by="bytes" if bound_bytes_ms >= ops_ms else "operations",
+             tc_ms=None)
+    print(f"  kernel wave_hist_rows parallel f32 n={n} m={m} in "
+          f"{len(shards)} row shards G={g} NB={nb} K={k}: exact={exact} "
+          f"max_abs_err={err:.3g} kernel {ms:.3f} ms, bound "
+          f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), plain "
+          f"{plain_ms:.2f} ms, library {library_ms:.2f} ms", flush=True)
+    del bins, ghk, rows, shards, a, whole, ref, idx, src, table, r64
+    torch.cuda.empty_cache()
+    if not exact:
+        fail("wave_hist_rows_sharded differs from one list-mode launch")
+    return r
+
+
+def first_parting(a: str, b: str):
+    """(tree, node, gain in a) of the first split where two model texts
+    part (node and gain None: the same splits, other values), or None when
+    their trees are equal."""
+    ta = a.split("\nparameters:\n")[0].split("Tree=")[1:]
+    tb = b.split("\nparameters:\n")[0].split("Tree=")[1:]
+    field = lambda t, k: t.split(f"\n{k}=")[1].split("\n")[0].split()
+    for i, (x, y) in enumerate(zip(ta, tb)):
+        if x == y:
+            continue
+        for key in ("split_feature", "threshold", "left_child",
+                    "right_child"):
+            fx, fy = field(x, key), field(y, key)
+            for j, (u, v) in enumerate(zip(fx, fy)):
+                if u != v:
+                    return i, j, float(field(x, "split_gain")[j])
+        return i, None, None
+    return None
+
+
+def phase_parallel(dev, seed: int, x, y):
+    """Phase parallel: the data-, feature- and voting-parallel learners
+    over SHARDS workers of the card (``GBDT.mesh``, through
+    create_tree_learner and the boosting loop), PAR_ROUNDS rounds of 31
+    leaves on 2M x 28 binned by construct_pre_partitioned over SHARDS row
+    blocks, against the serial host learner on the same dataset: the
+    feature- and data-parallel trees byte-equal (the data-parallel
+    histograms reduce in fixed point), voting with top_k covering every
+    feature equal or its first parting split named; voting with top_k 5
+    at training AUC >= AUC_FLOOR; the comm log's bytes a tree and s/tree
+    of each."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.boosting import create_boosting
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.distributed import construct_pre_partitioned
+    from lightgbm_tpu_torch.ops import hist_cuda
+    case = measure_parallel_rows_case(dev, seed=500)
+    t0 = time.perf_counter()
+    ds, offsets = construct_pre_partitioned(
+        np.array_split(x, SHARDS), Config(PAR_BASE),
+        sample_per_shard=PAR_SAMPLE)
+    ds.metadata.set_label(y)
+    bin_s = time.perf_counter() - t0
+    mesh = [dev] * SHARDS
+
+    def run(kind, extra=None):
+        clear_growers(dev)
+        cfg = Config({**PAR_BASE, "tree_learner": kind, "device": dev.type,
+                      "num_machines": 1 if kind == "serial" else SHARDS,
+                      **(extra or {})})
+        gb = create_boosting(cfg)
+        gb.mesh = None if kind == "serial" else mesh
+        gb.init_train(ds)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        for _ in range(PAR_ROUNDS):
+            gb.train_one_iter()
+        torch.cuda.synchronize(dev)
+        s_tree = (time.perf_counter() - t) / PAR_ROUNDS
+        net = getattr(gb.learner, "net", None)
+        comm = 0 if net is None else sum(b for v, b in net.comm_log
+                                        if v == "allreduce")
+        return gb, dict(s_per_tree=s_tree, learner=type(gb.learner).__name__,
+                        allreduce_bytes_per_tree=comm / PAR_ROUNDS)
+
+    serial, sres = run("serial")
+    sres["auc"] = auc_of(y, serial.train_score[0].cpu().numpy())
+    stext = serial.model_to_string().split("\nparameters:\n")[0]
+    runs = {"serial": sres}
+    del serial
+    hist_cuda.wave_hist_rows_sharded.launches.reset()
+    for kind in PAR_KINDS:
+        extra = {"top_k": N_FEATURES} if kind == "voting" else None
+        gb, res = run(kind, extra)
+        text = gb.model_to_string().split("\nparameters:\n")[0]
+        part = first_parting(stext, text)
+        res["equal_to_serial"] = part is None
+        if part is not None:
+            res["first_parting"] = dict(tree=part[0], node=part[1],
+                                        gain=part[2])
+            if kind != "voting":
+                fail(f"parallel: {kind}-parallel trees part from the "
+                     f"serial learner's at tree {part[0]} node {part[1]} "
+                     f"(gain {part[2]})")
+        runs[kind] = res
+        del gb
+    launches = hist_cuda.wave_hist_rows_sharded.launches.read()
+    gb, res = run("voting", {"top_k": 5})
+    res["auc"] = auc_of(y, gb.train_score[0].cpu().numpy())
+    if res["auc"] < AUC_FLOOR:
+        fail(f"parallel: voting top_k 5 training AUC {res['auc']:.4f} < "
+             f"{AUC_FLOOR}")
+    runs["voting_top5"] = res
+    del gb
+    clear_growers(dev)
+    if launches <= 0:
+        fail("parallel: the list mode's sharded wrapper never launched")
+    vt = runs["voting"]
+    fp = vt.get("first_parting")
+    parting = ("byte-equal" if fp is None else
+               f"the same splits, values part in tree {fp['tree']}"
+               if fp["node"] is None else
+               f"part at tree {fp['tree']} split {fp['node']} (gain "
+               f"{fp['gain']})")
+    print(f"phase parallel: ok {SHARDS} workers on {dev}, "
+          f"construct_pre_partitioned {bin_s:.1f} s; trees against the "
+          f"serial learner: feature and data byte-equal, voting (top_k "
+          f"{N_FEATURES}) {parting}; allreduce bytes a tree data "
+          f"{runs['data']['allreduce_bytes_per_tree']:.0f} against voting "
+          f"{runs['voting']['allreduce_bytes_per_tree']:.0f} (top_k 5: "
+          f"{res['allreduce_bytes_per_tree']:.0f}); s/tree serial "
+          f"{sres['s_per_tree']:.3f}, data {runs['data']['s_per_tree']:.3f}"
+          f", feature {runs['feature']['s_per_tree']:.3f}, voting "
+          f"{runs['voting']['s_per_tree']:.3f}; training AUC voting top_k "
+          f"5 {res['auc']:.4f}, serial {sres['auc']:.4f}; {launches} "
+          f"sharded list-mode launches",
+          flush=True)
+    return dict(runs=runs, case=case, binning_s=bin_s, launches=launches,
+                offsets=[int(o) for o in offsets])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5528,6 +6057,14 @@ def main() -> int:
         host = phase_host_learner(dev, args.seed, dense, x, y, tmp)
     check_no_fallback("host_learner")
     clear_growers(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        stream = phase_stream(dev, args.seed, tmp)
+    check_no_fallback("stream")
+    clear_growers(dev)
+    shard = phase_shard(dev, args.seed, dense)
+    check_no_fallback("shard")
+    parallel = phase_parallel(dev, args.seed, x, y)
+    check_no_fallback("parallel")
     del dense
     pipeline = phase_pipeline(dev, args.seed)
     check_no_fallback("pipeline")
@@ -5571,7 +6108,8 @@ def main() -> int:
                    + boosting["launches"] + pipeline["launches"]
                    + capi["launches"]["wave_hist"]
                    + api["launches"] + soak["launches"]
-                   + multiclass["launches"])
+                   + multiclass["launches"] + stream["launches"]
+                   + shard["launches"])
     fp_launches = (sum(r["predict_launches"] for r in train["runs"].values())
                    + sum(r["predict_launches"] for r in obj_runs)
                    + data["predict_launches"]
@@ -5585,7 +6123,8 @@ def main() -> int:
                    + serve["fleet_entry_launches"]
                    + serve["server"]["launches"]
                    + serve["server_syn"]["launches"]
-                   + multiclass["predict_launches"])
+                   + multiclass["predict_launches"]
+                   + stream["predict_launches"])
     fp_routes = {k: (sum(r["predict_routes"][k]
                          for r in train["runs"].values())
                      + sum(r["predict_routes"][k] for r in obj_runs)
@@ -5600,7 +6139,8 @@ def main() -> int:
                      + serve["fleet_entry_routes"][k]
                      + serve["server"]["routes"][k]
                      + serve["server_syn"]["routes"][k]
-                     + multiclass["predict_routes"][k])
+                     + multiclass["predict_routes"][k]
+                     + stream["predict_routes"][k])
                  for k in serve["fleet_entry_routes"]}
     if min(fp_routes.values()) <= 0:
         fail(f"a forest_predict route never ran on the main path: "
@@ -5630,6 +6170,12 @@ def main() -> int:
     for key, n_launch in host["launches_by_case"].items():
         picks.append((f"wave_hist_rows:{key}", rows_cases[key], n_launch,
                       wave_src, wave_tpu))
+    # the shard phase's per-shard launches and the parallel learners'
+    # list-mode launches, each beside its case at the shard's shape
+    picks.append(("wave_hist:sharded", shard["case"],
+                  shard["sharded_launches"], wave_src, wave_tpu))
+    picks.append(("wave_hist_rows:parallel", parallel["case"],
+                  parallel["launches"], wave_src, wave_tpu))
     for name, _, n_launch, _, _ in picks:
         if n_launch <= 0:
             fail(f"{name} never launched on the main path")
@@ -5650,7 +6196,8 @@ def main() -> int:
                        boosting=boosting, window20m=window,
                        host_learner=host, pipeline=pipeline,
                        capi=capi, api=api, soak=soak, serve=serve,
-                       multiclass=multiclass,
+                       multiclass=multiclass, stream=stream, shard=shard,
+                       parallel=parallel,
                        torch=torch.__version__, cuda=torch.version.cuda),
                   fh, indent=1)
     print(card)

@@ -309,7 +309,6 @@ class Booster:
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("Training data should be Dataset instance")
-            train_set.params = {**self.params, **train_set.params}
             train_set.construct()
             self._gbdt = create_boosting(Config(self.params))
             self._gbdt.init_train(train_set._handle)

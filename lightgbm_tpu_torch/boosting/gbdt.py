@@ -57,6 +57,7 @@ from ..ops import stage_plan as stage_plan_mod
 from ..ops.grow import (DeviceGrower, acquire_grower, check_slice_config,
                         host_learner_reason, release_grower)
 from ..ops.histogram import bucket_size
+from ..ops.shard import resolve_shard_mesh, sharding_mode
 from ..parallel import create_tree_learner
 from ..ops.traverse import add_constant_score, add_tree_score, device_tree
 from ..params import PARAM_BY_NAME
@@ -206,6 +207,12 @@ class GBDT:
         self.feature_infos: List[str] = []
         self._grower: Optional[DeviceGrower] = None
         self.learner = None
+        #: an explicit shard mesh (a list of devices, several may name one
+        #: card), set before ``init_train``: the device grower's rows under
+        #: ``data_sharding=single_controller`` (``ops/shard.py``) and the
+        #: workers of a parallel ``tree_learner`` (``parallel/``) -- the
+        #: ``LGBM_NetworkInitWithFunctions`` analog
+        self.mesh = None
         self._device_stop = False
         # [seconds, trees, waves (int, device tensor or _RecStack), host
         # syncs] per dispatch: a tree of the per-iteration path, a chunk
@@ -260,7 +267,8 @@ class GBDT:
         if why is None:
             # a cached grower of equal shapes when grower_cache is on
             self._grower = acquire_grower(train_set, cfg, self.device,
-                                          self.objective, self)
+                                          self.objective, self,
+                                          mesh=self._shard_mesh())
             self._resolve_wave_plan()
         else:
             log_info(f"Using the host tree learner: {why}")
@@ -320,15 +328,37 @@ class GBDT:
         the device grower does (``device_growth`` on or auto and
         ``ops/grow.host_learner_reason`` None; the JAX package's route,
         ``lightgbm_tpu/boosting/gbdt.py:291-320``)."""
-        mode = str(self.config.device_growth).lower()
+        cfg = self.config
+        mode = str(cfg.device_growth).lower()
+        if cfg.tree_learner != "serial" and (int(cfg.num_machines) > 1
+                                             or self.mesh is not None):
+            # the machine-parallel learners drive the host loop
+            # (lightgbm_tpu/boosting/gbdt.py:304-305)
+            return f"tree_learner={cfg.tree_learner}"
         if mode == "off":
-            return "device_growth=off"
-        why = host_learner_reason(self.config, train_set, self.objective)
+            why = "device_growth=off"
+        else:
+            why = host_learner_reason(cfg, train_set, self.objective)
+        if why is not None and sharding_mode(cfg) == "single_controller":
+            log_warning(f"data_sharding=single_controller shards the device "
+                        f"grower only; the host learner trains unsharded "
+                        f"({why})")
         if why is not None and mode == "on":
             log_warning(f"device_growth=on requested but the configuration "
                         f"is not eligible ({why}); falling back to the host "
                         f"learner")
         return why
+
+    def _shard_mesh(self):
+        """The device grower's shard mesh under
+        ``data_sharding=single_controller``: :attr:`mesh`, else the
+        process's cards (``ops/shard.resolve_shard_mesh``: None, logged,
+        below two)."""
+        if sharding_mode(self.config) != "single_controller":
+            return None
+        if self.mesh is not None:
+            return self.mesh
+        return resolve_shard_mesh(self.config)
 
     def _host_learner(self):
         """The host learner, made at first use (custom gradients on a
@@ -339,7 +369,8 @@ class GBDT:
             codes = (None if self._grower is None
                      else self._grower.binned_t[:, :self.num_data])
             self.learner = create_tree_learner(cfg, self.train_set,
-                                               self.device, codes)
+                                               self.device, mesh=self.mesh,
+                                               binned_t=codes)
             if getattr(cfg, "forcedsplits_filename", ""):
                 import json
                 with open(cfg.forcedsplits_filename) as fh:

@@ -9,8 +9,9 @@ snapshots, and metrics every ``metric_freq`` iterations.  Run it as
 training, prediction and the soak run on ``device`` (default ``cuda``).
 ``python -m lightgbm_tpu_torch soak [key=value ...]`` (``task=soak``) runs
 the fleet chaos soak, prints its verdict and exits non-zero when a gate
-fails.  The streaming two-round loader (``two_round=true``) and the
-multi-controller ingest are refused by name
+fails.  ``two_round=true`` loads a text file in two streamed passes
+(``data/stream_loader.py``); prediction streams its file in chunks.  The
+multi-controller ingest is refused by name
 (``ops/grow.py::unported_options``).
 """
 
@@ -57,13 +58,22 @@ def _load_dataset(path: str, cfg: Config, reference=None) -> BinnedDataset:
     its side files."""
     if BinnedDataset.is_binary_file(path):
         return BinnedDataset.load_binary(path)
-    arr, label, names = load_text_file(path, cfg)
-    cats = _parse_categorical(cfg, arr.shape[1])
-    ds = BinnedDataset.construct_from_matrix(
-        arr, cfg, cats, feature_names=names, reference=reference)
+    if cfg.two_round:
+        # two streamed passes, never the float64 matrix
+        # (dataset_loader.cpp:161-264)
+        from .data.stream_loader import load_text_two_round
+        ds, _ = load_text_two_round(path, cfg,
+                                    categorical=_parse_categorical(
+                                        cfg, 1 << 30),
+                                    reference=reference)
+    else:
+        arr, label, names = load_text_file(path, cfg)
+        ds = BinnedDataset.construct_from_matrix(
+            arr, cfg, _parse_categorical(cfg, arr.shape[1]),
+            feature_names=names, reference=reference)
+        if label is not None:
+            ds.metadata.set_label(label)
     md = ds.metadata
-    if label is not None:
-        md.set_label(label)
     w = load_weight_file(path + ".weight")
     if w is not None:
         md.set_weights(w)
@@ -154,28 +164,35 @@ def run_train(cfg: Config) -> None:
 
 
 def run_predict(cfg: Config) -> None:
-    """Predict a data file into ``output_result``, one row a line."""
+    """Predict a data file into ``output_result``, one row a line, in
+    chunks behind the double-buffered reader (``predictor.hpp:170-259``):
+    host memory holds one chunk, not the file."""
+    from .data.stream_loader import iter_parsed_chunks
     booster = GBDT.load_model_from_file(cfg.input_model
                                         or "LightGBM_model.txt", cfg)
     out = cfg.output_result or "LightGBM_predict_result.txt"
+    # checked before the output file is truncated: the chunks are lazy
     if not exists(cfg.data):
         raise LightGBMError(f"could not open data file {cfg.data}")
     nf = booster.max_feature_idx + 1
-    x, _, _ = load_text_file(cfg.data, cfg)
-    if x.shape[1] < nf:
-        x = np.pad(x, ((0, 0), (0, nf - x.shape[1])),
-                   constant_values=np.nan)
-    pred = np.asarray(booster.predict(
-        x[:, :nf], num_iteration=int(getattr(cfg, "num_iteration_predict",
-                                             -1) or -1),
-        raw_score=bool(cfg.predict_raw_score),
-        pred_leaf=bool(cfg.predict_leaf_index),
-        pred_contrib=bool(cfg.predict_contrib)))
-    pred2 = pred.reshape(-1, 1) if pred.ndim == 1 else pred
+    kw = dict(num_iteration=int(getattr(cfg, "num_iteration_predict", -1)
+                                or -1),
+              raw_score=bool(cfg.predict_raw_score),
+              pred_leaf=bool(cfg.predict_leaf_index),
+              pred_contrib=bool(cfg.predict_contrib))
+    n_rows = 0
     with open(out, "w") as fh:
-        np.savetxt(fh, pred2, delimiter="\t", fmt="%g")
-    log_info(f"Finished prediction of {pred2.shape[0]} rows, saved to "
-             f"{out}")
+        for x, _ in iter_parsed_chunks(cfg.data, cfg, nf):
+            if x.shape[0] == 0:
+                continue
+            if x.shape[1] < nf:
+                x = np.pad(x, ((0, 0), (0, nf - x.shape[1])),
+                           constant_values=np.nan)
+            pred = np.asarray(booster.predict(x[:, :nf], **kw))
+            pred2 = pred.reshape(-1, 1) if pred.ndim == 1 else pred
+            np.savetxt(fh, pred2, delimiter="\t", fmt="%g")
+            n_rows += pred2.shape[0]
+    log_info(f"Finished prediction of {n_rows} rows, saved to {out}")
 
 
 def run_convert_model(cfg: Config) -> None:

@@ -422,8 +422,9 @@ cudaError_t to_f32(const void* acc, void* out, const void* scale_exp,
 // `slots` is int16 scratch of n entries; for w > 1 the rows are sorted,
 // and `counts` is int32 scratch of pre_blocks * tiles entries, `list` of
 // n, `tile_range` int64 of 2 * tiles (all three unused at w = 1).  For bf16
-// and f32 input `out_f32` receives the converted histogram; for int8 input
-// the int32 accumulator is the output.  The launch shape comes from
+// and f32 input `out_f32` receives the converted histogram (null: the
+// launch only adds into `acc`); for int8 input the int32 accumulator is the
+// output.  The launch shape comes from
 // ops/hist_cuda.py `_geometry`.  Returns the CUDA error code of the
 // launches (0 on success).
 extern "C" int wave_hist_launch(const void* bins_t, const void* leaf_id,
@@ -464,7 +465,7 @@ extern "C" int wave_hist_launch(const void* bins_t, const void* leaf_id,
                     sorted ? (const int*)list : nullptr,
                     (const long long*)tile_range, acc};
   e = launch_any(k, mode, grid, (size_t)smem, st, buf, geo);
-  if (e != cudaSuccess || mode == INT8) return (int)e;
+  if (e != cudaSuccess || mode == INT8 || out_f32 == nullptr) return (int)e;
   return (int)to_f32(acc, out_f32, scale_exp, (long long)g * nb * k * w, k,
                      w, st);
 }
@@ -487,7 +488,19 @@ extern "C" int wave_hist_rows_launch(const void* bins_t, const void* ghk,
                     (const int32_t*)scale_exp, (const int*)rows, nullptr,
                     acc};
   cudaError_t e = launch_any(k, mode, grid, (size_t)smem, st, buf, geo);
-  if (e != cudaSuccess || mode == INT8) return (int)e;
+  if (e != cudaSuccess || mode == INT8 || out_f32 == nullptr) return (int)e;
   return (int)to_f32(acc, out_f32, scale_exp, (long long)g * nb * k, k, 1,
                      st);
+}
+
+// The conversion alone: `total` int64 fixed-point cells of a (rows, k, w)
+// accumulator to f32 with the columns' scales 2^-scale_exp[k].  The sharded
+// wrappers launch every shard into one accumulator with a null `out_f32`,
+// then convert once.
+extern "C" int wave_hist_to_f32(const void* acc, void* out_f32,
+                                const void* scale_exp, long long total,
+                                int k, int w, void* stream) {
+  if (k < 1 || w < 1 || total < 0) return (int)cudaErrorInvalidValue;
+  return (int)to_f32(acc, out_f32, scale_exp, total, k, w,
+                     reinterpret_cast<cudaStream_t>(stream));
 }

@@ -159,16 +159,26 @@ class BinnedDataset:
     def num_features(self) -> int:
         return len(self.used_features)
 
+    def group_bin_boundaries(self) -> np.ndarray:
+        """(G + 1,) int64 cumulative bin counts of the feature groups."""
+        out = [0]
+        for g in self.groups:
+            out.append(out[-1] + g.num_total_bin)
+        return np.asarray(out, dtype=np.int64)
+
     @classmethod
     def construct_from_matrix(
             cls, data: np.ndarray, config: Config,
             categorical: Sequence[int] = (),
             feature_names: Optional[Sequence[str]] = None,
             reference: Optional["BinnedDataset"] = None,
+            predefined_mappers: Optional[List[Optional[BinMapper]]] = None,
     ) -> "BinnedDataset":
         """Build from a dense float matrix (rows, features).  With
         ``reference``, a validation set: its mappers and groups, no bin
-        finding (reference ``Dataset::CreateValid``)."""
+        finding (reference ``Dataset::CreateValid``).
+        ``predefined_mappers`` are mappers found elsewhere (the distributed
+        find-bin, ``data/distributed.py``), taken where not None."""
         data = np.asarray(data)
         if data.ndim != 2:
             raise LightGBMError("data must be 2-dimensional")
@@ -182,7 +192,8 @@ class BinnedDataset:
         if reference is not None:
             ds._align_with_reference(data, reference)
             return ds
-        ds._find_bins(data, config, set(int(c) for c in categorical))
+        ds._find_bins(data, config, set(int(c) for c in categorical),
+                      predefined=predefined_mappers)
         ds._bundle_features(data, config)
         ds._build_group_matrix(data)
         ds._build_feature_lookups(config)
@@ -407,7 +418,8 @@ class BinnedDataset:
         return np.arange(n)
 
     def _find_bins(self, data: np.ndarray, config: Config,
-                   categorical: set, presampled: bool = False) -> None:
+                   categorical: set, presampled: bool = False,
+                   predefined=None) -> None:
         """``presampled``: ``data`` is the sample already (device
         construction gathers it); the filter count still scales by the
         whole ``num_data``."""
@@ -423,6 +435,9 @@ class BinnedDataset:
                          * sample_cnt)
         self.bin_mappers = []
         for f in range(self.num_total_features):
+            if predefined is not None and predefined[f] is not None:
+                self.bin_mappers.append(predefined[f])
+                continue
             col = sampled[:, f]
             bin_type = BIN_CATEGORICAL if f in categorical else BIN_NUMERICAL
             m = BinMapper()
@@ -450,6 +465,87 @@ class BinnedDataset:
         else:
             feature_groups = self._fast_feature_bundling(data, config)
         self._set_groups(feature_groups)
+
+    # -- streaming (two-round) construction --------------------------------
+    @classmethod
+    def construct_streaming_begin(
+            cls, sample: np.ndarray, n_total: int, num_cols: int, config,
+            categorical: Sequence[int] = (),
+            feature_names: Optional[Sequence[str]] = None,
+            reference: Optional["BinnedDataset"] = None,
+    ) -> "BinnedDataset":
+        """Start a two-round construction (``data/stream_loader.py``):
+        bins and bundles from ``sample`` (the round-one reservoir) scaled
+        to ``n_total`` rows, and the ``(N, G)`` uint8 matrix allocated;
+        chunks arrive through :meth:`construct_streaming_push` (reference
+        ``dataset_loader.cpp:161-264``)."""
+        ds = cls()
+        ds.num_data = int(n_total)
+        ds.num_total_features = int(num_cols)
+        ds.metadata = Metadata(ds.num_data)
+        ds.feature_names = ([f"Column_{i}" for i in range(num_cols)]
+                            if feature_names is None
+                            else list(feature_names))
+        if reference is not None:
+            ds._check_reference_width(num_cols, reference)
+            ds._align_with_reference_shared(reference)
+            ds.binned = np.zeros((ds.num_data, len(ds.groups)), np.uint8)
+            return ds
+        sample = np.asarray(sample, np.float64)
+        sample_cnt = sample.shape[0]
+        filter_cnt = int(0.95 * config.min_data_in_leaf
+                         / max(n_total, 1) * sample_cnt)
+        cat = set(int(c) for c in categorical)
+        ds.bin_mappers = []
+        nz_masks, nz_counts = {}, {}
+        for f in range(num_cols):
+            col = sample[:, f]
+            mask = (col != 0.0) | np.isnan(col)
+            m = BinMapper()
+            m.find_bin(col[mask], sample_cnt, config.max_bin,
+                       config.min_data_in_bin, filter_cnt,
+                       BIN_CATEGORICAL if f in cat else BIN_NUMERICAL,
+                       config.use_missing, config.zero_as_missing)
+            ds.bin_mappers.append(m)
+            nz_masks[f] = mask
+            nz_counts[f] = int(mask.sum())
+        ds.used_features = [f for f in range(num_cols)
+                            if not ds.bin_mappers[f].is_trivial]
+        if not ds.used_features:
+            log_warning("There are no meaningful features, as all feature "
+                        "values are constant.")
+            ds.groups = []
+        elif not config.enable_bundle or len(ds.used_features) == 1:
+            ds._set_groups([[f] for f in ds.used_features])
+        else:
+            ds._set_groups(ds._bundle_from_masks(config, nz_masks,
+                                                 nz_counts, sample_cnt))
+        ds._build_feature_lookups(config)
+        ds.binned = np.zeros((ds.num_data, len(ds.groups)), np.uint8)
+        return ds
+
+    def construct_streaming_push(self, chunk: np.ndarray,
+                                 start_row: int) -> None:
+        """Bin ``chunk``'s rows into ``binned[start_row:...]`` (the
+        chunked ``Dataset::PushOneRow``, dataset.h:318-341)."""
+        chunk = np.asarray(chunk, np.float64)
+        end = start_row + chunk.shape[0]
+        if end > self.num_data:
+            raise LightGBMError("streaming push beyond declared num_data")
+        out = self.binned[start_row:end]
+        for gid, group in enumerate(self.groups):
+            col_out = out[:, gid]
+            for sub, f in enumerate(group.feature_indices):
+                m = self.bin_mappers[f]
+                bins = m.values_to_bins(chunk[:, f])
+                slot = bins + group.bin_offsets[sub] \
+                    - (1 if m.default_bin == 0 else 0)
+                non_default = bins != m.default_bin
+                col_out[non_default] = slot[non_default].astype(np.uint8)
+
+    def construct_streaming_finish(self) -> None:
+        """The end of the stream (nothing left to do: every row was
+        binned as it was pushed)."""
 
     def _set_groups(self, feature_groups) -> None:
         self.groups = [FeatureGroupInfo(g, [self.bin_mappers[f] for f in g])

@@ -84,6 +84,9 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
     if not (isinstance(categorical_feature, str)
             and categorical_feature == "auto"):
         train_set.set_categorical_feature(categorical_feature)
+    # the booster's parameters bin the set only while it is unbinned
+    # (lightgbm_tpu/engine.py:59-60); a Booster bins with the set's own
+    _merge_params(train_set, params)
     init_iter = 0
     if init_model is not None:
         booster = _continue_from(init_model, params, train_set)
@@ -211,6 +214,13 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
     return booster
 
 
+def _merge_params(train_set: Dataset, params) -> None:
+    """Give an unconstructed ``train_set`` the training parameters under
+    its own (``lightgbm_tpu/engine.py:59-60``)."""
+    if train_set._handle is None:
+        train_set.params = {**params, **train_set.params}
+
+
 def _continue_from(init_model, params, train_set: Dataset) -> Booster:
     """A booster that continues ``init_model`` on ``train_set``
     (``lightgbm_tpu/engine.py:200-229``; reference boosting.cpp:15-28):
@@ -225,7 +235,7 @@ def _continue_from(init_model, params, train_set: Dataset) -> Booster:
         prev = Booster(model_str=init_model.model_to_string(), params=params)
     else:
         raise TypeError("init_model should be a Booster or a model file path")
-    train_set.params = {**params, **train_set.params}
+    _merge_params(train_set, params)
     train_set.construct()
     raw = train_set.raw
     if raw is None:

@@ -1,7 +1,9 @@
 """Leaf-wise tree growth on the device, in synchronized waves.
 
 Counterpart of ``lightgbm_tpu/ops/grow.py`` (``GrowerPrograms._grow_impl``
-and ``DeviceGrower``), unsharded, with bf16 stat columns or, under
+and ``DeviceGrower``), unsharded or row-sharded over a mesh of devices
+(``ops/shard.py``: kernel 1 once a shard a wave, the shards' fixed-point
+sums reduced before one conversion), with bf16 stat columns or, under
 ``grad_quant_bits=8``, int8 quantized ones, with the per-tree bagging row
 mask and feature_fraction mask, and with categorical splits.  The stat
 columns take the JAX package's layouts (``_hist_layout``): K=3 ``[g, h,
@@ -61,8 +63,8 @@ With ``grower_cache`` (on by default, as in the JAX package) a grower
 outlives its booster: :func:`acquire_grower` hands a new booster an idle
 grower of equal key (:func:`grower_key`: rows, groups, slot pitch,
 features, categorical, the layout bounds, the config but its seeds and
-learning rate, the gradient function's shapes, the device, the stage
-plan's digest), which
+learning rate, the gradient function's shapes, the device, the shard
+mesh, the stage plan's digest), which
 takes the booster's codes, feature metadata, gradient arguments and seeds
 into its static buffers (:meth:`DeviceGrower.adopt`) and replays its
 captured graphs without a new capture.
@@ -94,13 +96,15 @@ from ..obs import capture_track
 from ..utils import random as trandom
 from ..utils.log import LightGBMError, log_info
 from .bagging import bag_mask
-from .hist_cuda import MAX_LEAF_BOUND, hist_scale_exponents, wave_hist
+from .hist_cuda import (MAX_LEAF_BOUND, hist_scale_exponents, wave_hist,
+                        wave_hist_sharded)
 from .histogram import QUANT_MAX, bucket_size, quantize_gh_keys, slot_pitch
 from .split import (F_DEFAULT_LEFT, F_FEATURE, F_GAIN, F_LEFT_C, F_LEFT_G,
                     F_LEFT_H, F_LEFT_OUT, F_RIGHT_C, F_RIGHT_G, F_RIGHT_H,
                     F_IS_CAT, F_RIGHT_OUT, F_THRESHOLD, NEG_INF,
                     FeatureMeta, SplitHyper, find_best_split)
 from . import stage_plan as stage_plan_mod
+from .shard import canonical, shard_spec
 from .stage_plan import legacy_stage_plan
 
 REC_I_FIELDS = 5    # leaf, right, feature, threshold, default_left
@@ -267,22 +271,15 @@ def feature_mask_from_key(key, nf: int, k: int,
 
 def unported_options(config) -> list:
     """The options set in ``config`` that select code the port does not
-    have, whatever the data: the distributed learners and sharding
-    (ROADMAP item 7), the multi-host pod checkpoints and the streaming
-    two-round text loader."""
+    have, whatever the data: the multi-controller plane (one process a
+    host over ``torch.distributed``) and multi-host training with its pod
+    checkpoints."""
     todo = []
-    learner = str(config.tree_learner)
-    if learner in ("feature", "data", "voting") \
-            and int(config.num_machines) > 1:
-        todo.append(f"tree_learner={learner} with num_machines="
-                    f"{int(config.num_machines)} (distributed learners)")
-    if str(config.data_sharding) != "off":
-        todo.append(f"data_sharding={config.data_sharding}")
+    if str(config.data_sharding) == "multi_controller":
+        todo.append("data_sharding=multi_controller (one process a host)")
     if int(getattr(config, "num_hosts", 0) or 0) > 1:
         todo.append(f"num_hosts={int(config.num_hosts)} (multi-host "
                     f"training and its pod checkpoints)")
-    if bool(getattr(config, "two_round", False)):
-        todo.append("two_round=true (the streaming two-round text loader)")
     return todo
 
 
@@ -410,19 +407,22 @@ def plan_signature(dataset, config, device) -> tuple:
 
 
 def grower_key(dataset, config, device, objective,
-               plan_digest: str = "") -> tuple:
+               plan_digest: str = "", mesh=None) -> tuple:
     """What shapes a grower's captures: its :func:`plan_signature` with
     the device itself and the row count, which sizes the port's buffers,
-    the gradient function the fused tree captures, and the digest of the
+    the gradient function the fused tree captures, the digest of the
     stage plan its waves follow (two boosters of equal config, one built
-    before a plan was installed and one after, never share a grower)."""
+    before a plan was installed and one after, never share a grower) and
+    the shard mesh (an unsharded booster never adopts a sharded grower)."""
     grad = None if objective is None else objective.device_grad()
     gsig = None if grad is None else (
         f"{grad[0].__module__}.{grad[0].__qualname__}",
         _args_signature(grad[1]))
+    shards = None if mesh is None or len(mesh) < 2 else \
+        tuple(str(torch.device(d)) for d in mesh)
     return ((str(device), int(dataset.num_data))
             + plan_signature(dataset, config, device)[1:]
-            + (gsig, plan_digest))
+            + (gsig, shards, plan_digest))
 
 
 def default_stage_plan(num_data: int, config) -> list:
@@ -454,19 +454,20 @@ def resolve_stage_plan(signature: tuple, config, num_data: int):
     return default_stage_plan(num_data, config), "default"
 
 
-def acquire_grower(dataset, config, device, objective, owner
-                   ) -> "DeviceGrower":
+def acquire_grower(dataset, config, device, objective, owner,
+                   mesh=None) -> "DeviceGrower":
     """A grower for ``owner`` (a booster): an idle cached grower of equal
     :func:`grower_key`, adopted (:meth:`DeviceGrower.adopt`), or a new
     one, cached.  Without ``grower_cache`` always a new, uncached one.
-    Either way its stage plan is :func:`resolve_stage_plan`'s."""
+    Either way its stage plan is :func:`resolve_stage_plan`'s; ``mesh``
+    shards its rows (``ops/shard.py``)."""
     sig = plan_signature(dataset, config, device)
     plan, source = resolve_stage_plan(sig, config, dataset.num_data)
     if not bool(getattr(config, "grower_cache", True)):
         return DeviceGrower(dataset, config, device, plan=plan,
-                            plan_source=source)
+                            plan_source=source, mesh=mesh)
     key = grower_key(dataset, config, device, objective,
-                     stage_plan_mod.plan_digest(plan))
+                     stage_plan_mod.plan_digest(plan), mesh)
     with _GROWER_CACHE_LOCK:
         hit = None
         for gid, entry in _GROWER_CACHE.items():
@@ -485,7 +486,7 @@ def acquire_grower(dataset, config, device, objective, owner
     GROWER_CACHE_COUNTS["misses"] += 1
     obs.inc("grow.cache_misses")
     grower = DeviceGrower(dataset, config, device, plan=plan,
-                          plan_source=source)
+                          plan_source=source, mesh=mesh)
     with _GROWER_CACHE_LOCK:
         _GROWER_CACHE[id(grower)] = [key, grower, weakref.ref(owner)]
         while len(_GROWER_CACHE) > GROWER_CACHE_MAX:
@@ -539,7 +540,7 @@ class DeviceGrower:
     group) and the per-feature metadata."""
 
     def __init__(self, dataset, config, device: torch.device,
-                 plan=None, plan_source: str = "default"):
+                 plan=None, plan_source: str = "default", mesh=None):
         check_slice_config(config, dataset)
         if dataset.num_groups == 0:
             raise LightGBMError("no usable features: every feature is "
@@ -559,6 +560,23 @@ class DeviceGrower:
         # shapes per bucket (the shapes a CUDA-graph capture keys on); pad
         # rows carry leaf id -1 and zero stats
         layout_rows, self.n_pad = grower_rows(self.num_data, config)
+        # the fixed-point exponents' row count: the unsharded grower's, so
+        # a sharded grower's histograms are bit-equal to it
+        self.exp_rows = self.n_pad
+        # single-controller row sharding (ops/shard.py): shard d owns the
+        # global rows [d * local_rows, (d + 1) * local_rows) and its block
+        # of the codes; the per-row state stays in the global layout here
+        self.mesh = None if mesh is None or len(mesh) < 2 else \
+            [torch.device(d) for d in mesh]
+        self.shard_spec = None
+        if self.mesh is not None:
+            self.shard_spec = shard_spec(self.num_data, self.mesh, config)
+            self.n_pad = self.shard_spec.n_shards \
+                * self.shard_spec.local_rows
+        # one composed CUDA graph a tree needs every shard on this card
+        self._captures = device.type == "cuda" and (
+            self.mesh is None or all(canonical(d) == canonical(device)
+                                     for d in self.mesh))
         # a device-binned dataset's codes are transposed where they lie
         binned = dataset.binned
         if not isinstance(binned, torch.Tensor):
@@ -566,6 +584,8 @@ class DeviceGrower:
         self.binned_t = torch.zeros((self.num_groups, self.n_pad),
                                     dtype=torch.uint8, device=device)
         self.binned_t[:, :self.num_data] = binned.to(device).t()
+        self._shard_codes = None
+        self._split_codes()
         self.meta = FeatureMeta.from_dataset(dataset, slot_stride=nb,
                                              device=device)
         self.hyper = SplitHyper.from_config(config)
@@ -581,12 +601,12 @@ class DeviceGrower:
             layout_rows, config)
         # the stripes split the rows at half the JAX grower's rows
         self.stripe_at = layout_rows // 2
-        self.col_rows = max(self.stripe_at, self.n_pad - self.stripe_at) \
-            if self.striped else self.n_pad
+        self.col_rows = max(self.stripe_at, self.exp_rows - self.stripe_at) \
+            if self.striped else self.exp_rows
         # the int32 scan, exact while |sum q| <= 127 * rows fits int32;
         # past it the f32 fallback (lightgbm_tpu/ops/grow.py:281)
         self.int_scan = bool(self.quant_bits) \
-            and self.n_pad <= INT32_SCAN_ROWS
+            and self.exp_rows <= INT32_SCAN_ROWS
         self.wave_width = _wave_width(self.num_leaves, self.hist_cols)
         self.signature = plan_signature(dataset, config, device)
         self._set_plan(plan if plan is not None else legacy_stage_plan(
@@ -634,6 +654,21 @@ class DeviceGrower:
                                   instantiate_s=0.0, graphs=0,
                                   warmup_waves=0)
         self._ensure_state(max(int(getattr(config, "fused_chunk", 1)), 1))
+
+    def _split_codes(self) -> None:
+        """Each shard's contiguous ``(G, local_rows)`` block of the codes,
+        on its device (a sharded grower only)."""
+        if self.mesh is None:
+            return
+        m = self.shard_spec.local_rows
+        blocks = [self.binned_t[:, d * m:(d + 1) * m] for d in
+                  range(len(self.mesh))]
+        if self._shard_codes is None:
+            self._shard_codes = [b.to(dev, copy=True).contiguous()
+                                 for b, dev in zip(blocks, self.mesh)]
+        else:
+            for dst, b in zip(self._shard_codes, blocks):
+                dst.copy_(b)
 
     def _set_plan(self, plan, source: str) -> None:
         """Follow ``plan`` (source: default, profiled or persisted): its
@@ -684,6 +719,7 @@ class DeviceGrower:
         if not isinstance(binned, torch.Tensor):
             binned = torch.from_numpy(binned)
         self.binned_t[:, :self.num_data].copy_(binned.to(dev).t())
+        self._split_codes()
         meta = FeatureMeta.from_dataset(dataset, slot_stride=self.nb,
                                         device=dev)
         for dst, src in zip(self.meta, meta):
@@ -745,10 +781,19 @@ class DeviceGrower:
         before the stripes are summed (an int32 sum of two stripes can
         wrap; counts sum exactly in int32)."""
         w, k = pending.shape[0], self.hist_cols
-        out = wave_hist(self.binned_t, leaf_id, gh, pending,
-                        g=self.num_groups, nb=self.nb, k=k, w=w,
-                        scale_exp=scale_exp, leaf_bound=self.num_leaves,
-                        col_rows=self.col_rows)
+        if self.mesh is not None:
+            # kernel 1 once a shard, the shards' fixed-point sums reduced
+            # before the one conversion
+            out = wave_hist_sharded(self._shard_codes, leaf_id, gh, pending,
+                                    g=self.num_groups, nb=self.nb, k=k, w=w,
+                                    scale_exp=scale_exp,
+                                    leaf_bound=self.num_leaves,
+                                    col_rows=self.col_rows)
+        else:
+            out = wave_hist(self.binned_t, leaf_id, gh, pending,
+                            g=self.num_groups, nb=self.nb, k=k, w=w,
+                            scale_exp=scale_exp, leaf_bound=self.num_leaves,
+                            col_rows=self.col_rows)
         acc = out.permute(2, 0, 1)              # (G*NB, K, W) -> (W, S, K)
         if not self.quant_bits or self.int_scan:
             return _combine_hist_cols(acc, k)
@@ -802,7 +847,7 @@ class DeviceGrower:
         L = self.num_leaves
         cols = torch.stack(_hi_lo_cols(grad, hess, one_f.to(torch.bfloat16)),
                            1)
-        e = hist_scale_exponents(cols, self.n_pad)
+        e = hist_scale_exponents(cols, self.exp_rows)
         q = torch.round(cols.float() * torch.exp2(e.float())).to(torch.int64)
         idx = torch.where(leaf_id >= 0, leaf_id, L).long()
         sums = torch.zeros((L + 1, 4), dtype=torch.int64,
@@ -972,7 +1017,7 @@ class DeviceGrower:
             else:
                 cols += [one]
             st.gh.copy_(torch.stack(cols, 1))
-            st.scale_exp.copy_(hist_scale_exponents(st.gh, self.n_pad))
+            st.scale_exp.copy_(hist_scale_exponents(st.gh, self.exp_rows))
         st.leaf_id.copy_(self._leaf0)
         st.hist.zero_()
         st.total.zero_()
@@ -1215,8 +1260,9 @@ class DeviceGrower:
         wrote the gradients and masks; False / True: a fused tree, without
         or with the bagging redraw.  On the CPU the pieces run in a Python
         loop that reads the control words (the plain version); on the card
-        the composed graph runs, or the call raises."""
-        if self.device.type == "cuda":
+        the composed graph runs, or the call raises; a mesh over several
+        cards runs the loop."""
+        if self._captures:
             self._graph(sample).launch()
             return
         self._run_pieces(sample)
@@ -1259,6 +1305,8 @@ class DeviceGrower:
             # the launch counter and every lazy initialization must exist
             # before the captures: run each piece once, eagerly
             wave_hist.launches.counter(self.device)
+            if self.mesh is not None:
+                wave_hist_sharded.launches.counter(self.device)
             self._st.ctl[3:4].zero_()
             self._piece_start()
             for ws, _ in self._stages:
@@ -1321,7 +1369,7 @@ class DeviceGrower:
         noise.  On the card this is one launch of the captured tree; no
         value is read back."""
         self._ensure_state(1)
-        if self.device.type == "cuda":
+        if self._captures:
             self._graph(None)
         st = self._st
         st.score.copy_(score)
@@ -1363,7 +1411,7 @@ class DeviceGrower:
                              "once per grower and cannot change")
         redraw = [self._bag_on and (it0 + j) % self._bag_freq == 0
                   for j in range(length)]
-        if self.device.type == "cuda":
+        if self._captures:
             for r in sorted(set(redraw)):
                 self._graph(r)
         st = self._st

@@ -34,6 +34,15 @@ buffer) in place of the wave's sorted list, with full-f32 stat columns
 (``lightgbm_tpu/tree/learner.py::_window_histogram``).  Its plain
 version is :func:`wave_hist_rows_reference`.
 
+Both take ``acc=``, an accumulator the launch adds into without the
+conversion to f32: :func:`wave_hist_sharded` (the row-sharded device
+grower, ``ops/shard.py``) and :func:`wave_hist_rows_sharded` (the
+parallel learners) launch kernel 1 once a shard into one accumulator and
+convert once (:func:`fixed_to_f32`, the kernel's own conversion launched
+alone) with the exponents of the global row count, so the reduced
+histogram is the unsharded one bit for bit.  On the CPU they sum each
+shard's plain version in shard order.
+
 :func:`wave_hist_v2` launches ``csrc/wave_hist_v2.cu``, the TPU v2 kernel's
 formulation: the histogram as the one-hot matrix product on the tensor
 cores, bf16 only, any W, duplicate pending ids allowed (each slot its own
@@ -349,7 +358,7 @@ def _inputs_on_card(name: str, **tensors) -> None:
 
 def wave_hist(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
               w: int, scale_exp=None, leaf_bound=None,
-              col_rows=None) -> torch.Tensor:
+              col_rows=None, acc=None) -> torch.Tensor:
     """Wave histogram ``(G*NB, K, W)``; see the module docstring.
 
     CUDA tensors launch the kernel (and raise if it cannot launch); CPU
@@ -359,10 +368,16 @@ def wave_hist(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
     ``num_leaves``; at most :data:`MAX_LEAF_BOUND`).  Both are computed
     here when omitted, the bound with one host sync.  ``col_rows`` is the
     most rows any one stat column holds (a striped int8 layout: the
-    larger stripe; default every row), which the int8 guard counts."""
+    larger stripe; default every row), which the int8 guard counts.
+    ``acc`` (cards only) is an accumulator the launch adds into, int64
+    for bf16 or f32 stats (int32 for int8), with no conversion: it is
+    returned as it is (:func:`wave_hist_sharded`)."""
     n = _check(binned_t, leaf_id, ghk, pending, g, nb, k, w, col_rows)
     dev = binned_t.device
     if dev.type == "cpu":
+        if acc is not None:
+            raise ValueError("acc is a card accumulator; CPU tensors take "
+                             "the plain version")
         return wave_hist_reference(binned_t, leaf_id, ghk, pending, g=g,
                                    nb=nb, k=k, w=w)
     _inputs_on_card("wave_hist", binned_t=binned_t, leaf_id=leaf_id, ghk=ghk,
@@ -394,21 +409,116 @@ def wave_hist(binned_t, leaf_id, ghk, pending, *, g: int, nb: int, k: int,
         tile_range = scratch.data_ptr()
         counts = tile_range + 16 * geo.tiles
         list_ = counts + 4 * geo.pre_blocks * geo.tiles
-    acc = torch.zeros(size, dtype=torch.int32 if quant else torch.int64,
-                      device=dev)
-    out = acc if quant else torch.empty(size, dtype=torch.float32,
-                                        device=dev)
+    keep = quant or acc is not None
+    acc = _accumulator(acc, size, quant, dev)
+    out = acc if keep else torch.empty(size, dtype=torch.float32,
+                                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(binned_t.data_ptr(), leaf_id.data_ptr(), ghk.data_ptr(),
             pending.data_ptr(), None if quant else scale_exp.data_ptr(),
             slots.data_ptr(), counts, list_, tile_range, acc.data_ptr(),
-            None if quant else out.data_ptr(), n, g, nb, k, w, geo.wt,
+            None if keep else out.data_ptr(), n, g, nb, k, w, geo.wt,
             geo.gb, geo.tiles, geo.splits, geo.pre_blocks, geo.pre_rows,
             leaf_bound, _MODE[ghk.dtype], geo.smem, stream)
     if rc != 0:
         raise RuntimeError(f"wave_hist kernel launch failed: CUDA error {rc}")
     wave_hist.launches.bump(dev)
     return out
+
+
+def _accumulator(acc, size, quant, dev):
+    """A zeroed accumulator of ``size`` (int32 for int8 stats, else
+    int64), or the caller's ``acc`` checked against it."""
+    dtype = torch.int32 if quant else torch.int64
+    if acc is None:
+        return torch.zeros(size, dtype=dtype, device=dev)
+    if (tuple(acc.shape) != tuple(size) or acc.dtype != dtype
+            or acc.device != dev or not acc.is_contiguous()):
+        raise ValueError(f"acc must be a contiguous {tuple(size)} {dtype} "
+                         f"tensor on {dev}")
+    return acc
+
+
+def fixed_to_f32(acc: torch.Tensor, scale_exp: torch.Tensor, *, k: int,
+                 w: int) -> torch.Tensor:
+    """The int64 fixed-point accumulator ``acc`` of kernel 1 (``(rows, K,
+    W)``, or ``(rows, K)`` with ``w`` 1) as f32 with the columns' scales
+    ``2**-scale_exp[k]``: the kernel's own conversion, launched alone.
+    On CPU tensors its plain version, ``(acc * 2**-e).float()`` in f64."""
+    if acc.dtype != torch.int64:
+        raise ValueError(f"acc must be int64, got {acc.dtype}")
+    if acc.device.type == "cpu":
+        e = scale_exp.to(torch.float64)
+        shape = (1, k, 1) if acc.dim() == 3 else (1, k)
+        return (acc.double() * torch.exp2(-e).reshape(shape)).float()
+    _inputs_on_card("fixed_to_f32", acc=acc, scale_exp=scale_exp)
+    out = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
+    fn = load_library("wave_hist").wave_hist_to_f32
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    rc = fn(acc.data_ptr(), out.data_ptr(), scale_exp.data_ptr(),
+            acc.numel(), k, w,
+            torch.cuda.current_stream(acc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wave_hist_to_f32 launch failed: CUDA error "
+                           f"{rc}")
+    return out
+
+
+def _shard_blocks(codes):
+    """(offset, rows) of each shard's block of the global rows."""
+    out, off = [], 0
+    for c in codes:
+        out.append((off, int(c.shape[1])))
+        off += int(c.shape[1])
+    return out
+
+
+def wave_hist_sharded(codes, leaf_id, ghk, pending, *, g: int, nb: int,
+                      k: int, w: int, scale_exp=None, leaf_bound=None,
+                      col_rows=None) -> torch.Tensor:
+    """:func:`wave_hist` of a row-sharded grower (``ops/shard.py``):
+    ``codes`` are the shards' ``(G, L_d)`` code blocks, each on its
+    shard's device, and ``leaf_id`` (N,) / ``ghk`` (N, K) the global rows
+    (shard ``d``'s block starts where the blocks before it end) on the
+    reduction device.  Kernel 1 runs once a shard over the shard's rows,
+    every launch adding into one accumulator (a shard on another card
+    into its own, added onto the reduction device in int64), and bf16 /
+    f32 sums are converted once, with the global ``scale_exp``: the result
+    is bit-equal to the unsharded launch.  CPU tensors sum each shard's
+    plain version in f32 (int32 for int8) in shard order."""
+    dev = leaf_id.device
+    blocks = _shard_blocks(codes)
+    quant = ghk.dtype == torch.int8
+    if dev.type == "cpu":
+        out = None
+        for c, (o, m) in zip(codes, blocks):
+            part = wave_hist_reference(
+                c, leaf_id[o:o + m].to(c.device), ghk[o:o + m].to(c.device),
+                pending.to(c.device), g=g, nb=nb, k=k, w=w).to(dev)
+            out = part if out is None else out + part
+        return out
+    if not quant:
+        scale_exp = _scale_exp_on_card(scale_exp, ghk, ghk.shape[0], k, dev)
+    if leaf_bound is None:
+        leaf_bound = max(int(pending.max().item()) + 1, 1)
+    acc = _accumulator(None, (g * nb, k, w), quant, dev)
+    for c, (o, m) in zip(codes, blocks):
+        sd = c.device
+        tgt = acc if sd == dev else _accumulator(None, acc.shape, quant, sd)
+        wave_hist(c, leaf_id[o:o + m].to(sd), ghk[o:o + m].to(sd),
+                  pending.to(sd), g=g, nb=nb, k=k, w=w,
+                  scale_exp=None if quant else scale_exp.to(sd),
+                  leaf_bound=leaf_bound,
+                  col_rows=m if col_rows is None else min(col_rows, m),
+                  acc=tgt)
+        wave_hist_sharded.launches.bump(sd)
+        if tgt is not acc:
+            acc += tgt.to(dev)
+    return acc if quant else fixed_to_f32(acc, scale_exp, k=k, w=w)
 
 
 def _scale_exp_on_card(scale_exp, ghk, n, k, dev):
@@ -446,7 +556,7 @@ def _rows_lib():
 
 
 def wave_hist_rows(binned_t, ghk, rows, *, g: int, nb: int, k: int,
-                   scale_exp=None) -> torch.Tensor:
+                   scale_exp=None, acc=None) -> torch.Tensor:
     """One slot's histogram ``(G*NB, K)`` over the rows listed in ``rows``
     (1-D int32 indices into the ``n`` columns of ``binned_t`` (G, n) and
     the ``n`` rows of ``ghk`` (n, K)): the host learner's leaf window
@@ -457,11 +567,14 @@ def wave_hist_rows(binned_t, ghk, rows, *, g: int, nb: int, k: int,
     ``csrc/wave_hist.cu`` in its list mode (or raise); CPU tensors take
     :func:`wave_hist_rows_reference`.  ``scale_exp`` as for
     :func:`wave_hist`, for ``len(rows)`` rows (computed here, over every
-    row of ``ghk``, when omitted)."""
+    row of ``ghk``, when omitted).  ``acc`` as for :func:`wave_hist`."""
     n = _check_rows(binned_t, ghk, rows, g, nb, k)
     m = int(rows.shape[0])
     dev = binned_t.device
     if dev.type == "cpu":
+        if acc is not None:
+            raise ValueError("acc is a card accumulator; CPU tensors take "
+                             "the plain version")
         return wave_hist_rows_reference(binned_t, ghk, rows, g=g, nb=nb, k=k)
     _inputs_on_card("wave_hist_rows", ghk=ghk, rows=rows)
     if binned_t.stride(1) != 1:
@@ -470,14 +583,14 @@ def wave_hist_rows(binned_t, ghk, rows, *, g: int, nb: int, k: int,
     if not quant:
         scale_exp = _scale_exp_on_card(scale_exp, ghk, m, k, dev)
     gb, splits, smem = _rows_geometry(m, g, nb, k, quant, _sm_count(dev))
-    acc = torch.zeros((g * nb, k), dtype=torch.int32 if quant
-                      else torch.int64, device=dev)
-    out = acc if quant else torch.empty((g * nb, k), dtype=torch.float32,
-                                        device=dev)
+    keep = quant or acc is not None
+    acc = _accumulator(acc, (g * nb, k), quant, dev)
+    out = acc if keep else torch.empty((g * nb, k), dtype=torch.float32,
+                                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _rows_lib()(binned_t.data_ptr(), ghk.data_ptr(), rows.data_ptr(),
                      None if quant else scale_exp.data_ptr(), acc.data_ptr(),
-                     None if quant else out.data_ptr(), binned_t.stride(0),
+                     None if keep else out.data_ptr(), binned_t.stride(0),
                      m, g, nb, k, gb,
                      splits, _MODE[ghk.dtype], smem, stream)
     if rc != 0:
@@ -485,6 +598,55 @@ def wave_hist_rows(binned_t, ghk, rows, *, g: int, nb: int, k: int,
                            f"error {rc}")
     wave_hist_rows.launches.bump(dev)
     return out
+
+
+def wave_hist_rows_sharded(shards, *, nb: int, k: int, scale_exp=None,
+                           device=None, reduce: bool = True):
+    """Kernel 1's list mode over row- or group-sharded data (the parallel
+    learners): ``shards`` are ``(binned_t, ghk, rows)`` triples as
+    :func:`wave_hist_rows` takes them (``g`` is each ``binned_t``'s row
+    count), each on its shard's device; one launch a shard with rows.
+
+    ``reduce`` (row shards of the data- and voting-parallel learners'
+    global histogram): every launch adds into one accumulator (another
+    card's into its own, added in int64), converted once with
+    ``scale_exp`` (the exponents of the leaf's global row count), on
+    ``device`` (default the first shard's): bit-equal to
+    :func:`wave_hist_rows` over the concatenated rows.  Otherwise the
+    list of each shard's own histogram, each converted with
+    ``scale_exp`` (the voting learner's local histograms; the
+    feature-parallel learner's group blocks).  CPU tensors take the plain
+    version, the reduction summing in shard order."""
+    dev = torch.device(device) if device is not None \
+        else shards[0][0].device
+    quant = shards[0][1].dtype == torch.int8
+    on_card = dev.type == "cuda"
+    if on_card and not quant and scale_exp is None:
+        raise ValueError("the sharded list mode needs the global scale_exp")
+    parts, acc = [], None
+    for b, gh, r in shards:
+        g, sd = int(b.shape[0]), b.device
+        if not on_card:
+            part = wave_hist_rows_reference(b, gh, r, g=g, nb=nb, k=k)
+        else:
+            part = acc if reduce and acc is not None and sd == dev \
+                else _accumulator(None, (g * nb, k), quant, sd)
+            if r.shape[0] and g:
+                wave_hist_rows(b, gh, r, g=g, nb=nb, k=k,
+                               scale_exp=None if quant else scale_exp.to(sd),
+                               acc=part)
+                wave_hist_rows_sharded.launches.bump(sd)
+        if not reduce:
+            parts.append(part if quant or not on_card else fixed_to_f32(
+                part, scale_exp.to(sd), k=k, w=1))
+        elif acc is None:
+            acc = part.to(dev)
+        elif part is not acc:
+            acc += part.to(dev)
+    if not reduce:
+        return parts
+    return acc if quant or not on_card else fixed_to_f32(acc, scale_exp,
+                                                         k=k, w=1)
 
 
 class DeviceLaunchCount:
@@ -523,6 +685,10 @@ class DeviceLaunchCount:
 #: :func:`wave_hist_rows`, counted on the device (read by chip_smoke.py)
 wave_hist.launches = DeviceLaunchCount()
 wave_hist_rows.launches = DeviceLaunchCount()
+#: the shard launches of the sharded wrappers (each is also one launch of
+#: :func:`wave_hist` or :func:`wave_hist_rows`)
+wave_hist_sharded.launches = DeviceLaunchCount()
+wave_hist_rows_sharded.launches = DeviceLaunchCount()
 
 #: csrc/wave_hist_v2.cu: output rows per CTA (three warpgroups of 64) and
 #: the column tile widths it is compiled for (wgmma N, multiples of 16 up

@@ -64,7 +64,8 @@ ENV_VAR = "LGBM_TPU_FAULTS"
 #: sites the port's code is instrumented with (typo guard at configure)
 KNOWN_SITES = ("grow.dispatch", "serve.dispatch", "serve.fleet.dispatch",
                "pipeline.prep", "pipeline.train", "io.write", "obs.export",
-               "soak.kill", "soak.load", "soak.clock")
+               "soak.kill", "soak.load", "soak.clock", "io.read",
+               "stream.parse")
 
 
 def known_sites() -> tuple:

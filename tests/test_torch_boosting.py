@@ -216,12 +216,11 @@ def dart(request, data):
     uniform, xgb = DART_MODES[request.param]
     params = {**DART, "uniform_drop": uniform, "xgboost_dart_mode": xgb}
     xt, yt, xv, yv = x[:N_TRAIN], y[:N_TRAIN], x[N_TRAIN:], y[N_TRAIN:]
-    # the JAX package's Booster bins its Dataset with the Dataset's own
-    # params (the port's merges the Booster's in)
+    # a Booster bins its Dataset with the Dataset's own params
     jd = jlgb.Dataset(xt, yt, params=params)
     jb = jlgb.Booster({**params, "device_growth": "on"}, jd)
     jb.add_valid(jd.create_valid(xv, yv), "v")
-    td = tlgb.Dataset(xt, yt)
+    td = tlgb.Dataset(xt, yt, params=params)
     tb = tlgb.Booster({**params, "device": "cpu"}, td)
     tb.add_valid(td.create_valid(xv, yv), "v")
     drops = ([], [])

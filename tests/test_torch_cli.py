@@ -4,8 +4,9 @@ test_cli_train_and_predict`` re-pointed at the port; the parser on TSV,
 CSV (with a header) and LibSVM files and the ``.weight``/``.query``/
 ``.init`` side files against ``lightgbm_tpu.data.parser``; the loaded
 dataset's codes and fields against the JAX CLI's ``_load_dataset``;
-``convert_model``, ``refit`` and ``warmup``; and the refusals by name of
-``two_round`` and ``task=soak``."""
+``convert_model``, ``refit`` and ``warmup``; ``task=soak``; and the
+refusal by name of ``data_sharding=multi_controller`` (``two_round`` and
+the chunked prediction: ``tests/test_torch_stream_loader.py``)."""
 
 import gzip
 
@@ -152,7 +153,8 @@ def test_convert_model_refit_and_warmup_tasks(tmp_path, data):
 
 
 @pytest.mark.parametrize("argv, name", [
-    (["two_round=true", "objective=binary"], "two_round"),
+    (["data_sharding=multi_controller", "objective=binary"],
+     "multi_controller"),
 ])
 def test_unported_tasks_refused_by_name(tmp_path, data, argv, name):
     x, y, _, _ = data

@@ -1582,3 +1582,101 @@ def test_server_degrades_and_recovers_on_the_card(cuda_device):
     np.testing.assert_array_equal(again, want)
     for h in host:
         np.testing.assert_allclose(h, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8], ids=["bf16", "f32", "int8"])
+def test_sharded_wave_hist_bit_equal_to_unsharded(cuda_device, dtype):
+    """Kernel 1 once a shard over four uneven row blocks of the codes,
+    the shards' fixed-point sums reduced before the one conversion with
+    the global exponents: bit-equal to the unsharded launch in every
+    regime; one launch a shard counted."""
+    n, g, nb, k, w = 60_001, 6, 256, 3, 37
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    bins = torch.randint(0, nb, (g, n), device=cuda_device,
+                         dtype=torch.uint8, generator=gen)
+    leaf = torch.randint(-1, w + 1, (n,), device=cuda_device,
+                         dtype=torch.int32, generator=gen)
+    if dtype == torch.int8:
+        ghk = torch.randint(-127, 128, (n, k), device=cuda_device,
+                            dtype=torch.int8, generator=gen)
+    else:
+        ghk = (torch.randn((n, k), device=cuda_device, generator=gen)
+               * 3.0).to(dtype)
+    pending = torch.arange(w, dtype=torch.int32, device=cuda_device)
+    kw = dict(g=g, nb=nb, k=k, w=w, leaf_bound=w + 1)
+    scale = None if dtype == torch.int8 else \
+        hist_cuda.hist_scale_exponents(ghk, n)
+    whole = hist_cuda.wave_hist(bins, leaf, ghk, pending, scale_exp=scale,
+                                **kw)
+    cuts = [0, 9_000, 30_000, 30_001, n]
+    codes = [bins[:, a:b].contiguous() for a, b in zip(cuts, cuts[1:])]
+    before = hist_cuda.wave_hist_sharded.launches.read()
+    got = hist_cuda.wave_hist_sharded(codes, leaf, ghk, pending,
+                                      scale_exp=scale, **kw)
+    assert hist_cuda.wave_hist_sharded.launches.read() == before + 4
+    assert got.dtype == whole.dtype
+    assert torch.equal(got.view(torch.int32), whole.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8], ids=["bf16", "f32", "int8"])
+def test_sharded_rows_bit_equal_to_unsharded(cuda_device, dtype):
+    """The list mode over row shards (the data-parallel learner's leaf
+    window, a shard of it empty): bit-equal to one launch over the
+    concatenated rows with the exponents of the global row count."""
+    n, g, nb, k = 80_000, 5, 256, 3
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    bins = torch.randint(0, nb, (g, n), device=cuda_device,
+                         dtype=torch.uint8, generator=gen)
+    if dtype == torch.int8:
+        ghk = torch.randint(-127, 128, (n, k), device=cuda_device,
+                            dtype=torch.int8, generator=gen)
+    else:
+        ghk = (torch.randn((n, k), device=cuda_device, generator=gen)
+               * 2.0).to(dtype)
+    rows = torch.randperm(n, device=cuda_device, generator=gen).to(
+        torch.int32)[:50_000]
+    kw = dict(g=g, nb=nb, k=k)
+    scale = None if dtype == torch.int8 else hist_cuda.exponents_for_rows(
+        ghk.abs().amax(0).float(), rows.shape[0])
+    whole = hist_cuda.wave_hist_rows(bins, ghk, rows, scale_exp=scale, **kw)
+    cuts = [0, 20_000, 20_000, 55_000, n]
+    shards = []
+    for a, b in zip(cuts, cuts[1:]):
+        mine = rows[(rows >= a) & (rows < b)] - a
+        shards.append((bins[:, a:b].contiguous(), ghk[a:b], mine))
+    got = hist_cuda.wave_hist_rows_sharded(shards, nb=nb, k=k,
+                                           scale_exp=scale)
+    assert torch.equal(got.view(torch.int32), whole.view(torch.int32))
+    parts = hist_cuda.wave_hist_rows_sharded(shards, nb=nb, k=k,
+                                             scale_exp=scale, reduce=False)
+    assert len(parts) == 4 and not parts[1].any()
+
+
+def test_sharded_grower_text_equals_unsharded_on_card(cuda_device):
+    """Four shards of one card through the boosting loop, bf16 and int8:
+    the same model text as the unsharded grower (a tree one captured
+    graph either way)."""
+    from lightgbm_tpu_torch.boosting import create_boosting
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data.dataset import BinnedDataset
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((30_000, 8))
+    y = (x[:, 0] + rng.standard_normal(30_000) > 0).astype(float)
+    for extra in ({}, {"grad_quant_bits": 8}):
+        texts = []
+        for mesh in (None, [cuda_device] * 4):
+            cfg = Config({"objective": "binary", "num_leaves": 31,
+                          "verbose": -1, "data_sharding": "single_controller",
+                          **extra})
+            ds = BinnedDataset.construct_from_matrix(x, cfg)
+            ds.metadata.set_label(y)
+            b = create_boosting(cfg)
+            b.mesh = mesh
+            b.init_train(ds)
+            assert (b._grower.mesh is None) == (mesh is None)
+            for _ in range(5):
+                b.train_one_iter()
+            texts.append(b.model_to_string().split("\nparameters:\n")[0])
+        assert texts[0] == texts[1]

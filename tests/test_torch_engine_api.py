@@ -360,13 +360,34 @@ def test_cv_with_a_schedule_resets_every_fold(data):
 # reset_parameter
 
 def _two_updates(pkg, params, x, y, reset):
-    ds = pkg.Dataset(x, y, params=params) if pkg is jlgb \
-        else pkg.Dataset(x, y)
-    b = pkg.Booster(params, ds)
+    b = pkg.Booster(params, pkg.Dataset(x, y, params=params))
     b.update()
     b.reset_parameter(reset)
     b.update()
     return b
+
+
+@pytest.mark.parametrize("growth", ["on", "off"])
+def test_booster_bins_a_dataset_with_its_own_params(data, growth):
+    """``Booster(params, Dataset(x, y))`` with ``max_bin`` 63 in the
+    booster's params only: both packages bin with the Dataset's own
+    params (255 bins), and their trees are the same.  Only
+    ``engine.train`` gives an unbinned Dataset the training params."""
+    x, y, _ = data
+    jb = jlgb.Booster(_jparams(BASE, growth), jlgb.Dataset(x, y))
+    tb = tlgb.Booster(_tparams(BASE, growth), tlgb.Dataset(x, y))
+    jmap = jb._train_set._handle.bin_mappers
+    tmap = tb._train_set._handle.bin_mappers
+    assert max(m.num_bin for m in tmap) > 64
+    state = lambda ms: [repr(sorted(m.to_state().items())) for m in ms]
+    assert state(tmap) == state(jmap)
+    for b in (jb, tb):
+        b.update()
+        b.update()
+    _assert_same_trees(jb, tb, x)
+    ds = tlgb.Dataset(x, y)
+    tlgb.train(_tparams(BASE, growth), ds, 1, verbose_eval=False)
+    assert max(m.num_bin for m in ds._handle.bin_mappers) <= 64
 
 
 @pytest.mark.parametrize("growth,reset", [
@@ -411,7 +432,8 @@ def test_refused_reset_keeps_the_grower_key(data):
     grows the trees of a run without the cache."""
     x, y, _ = data
     tgrow.clear_grower_cache()
-    a = tlgb.Booster(_tparams(BASE), tlgb.Dataset(x, y))
+    a = tlgb.Booster(_tparams(BASE), tlgb.Dataset(x, y,
+                                                  params=_tparams(BASE)))
     a.update_chunked(3, chunk=3)
     with pytest.raises(LightGBMError, match="min_data_in_leaf"):
         a.reset_parameter({"min_data_in_leaf": 300})

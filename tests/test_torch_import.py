@@ -29,6 +29,13 @@ def test_import_pulls_in_no_jax():
         "import lightgbm_tpu_torch.ops.bagging, lightgbm_tpu_torch.ops.split\n"
         "import lightgbm_tpu_torch.ops.histogram, lightgbm_tpu_torch.ops.traverse\n"
         "import lightgbm_tpu_torch.callback\n"
+        "import lightgbm_tpu_torch.data.stream_loader\n"
+        "import lightgbm_tpu_torch.data.distributed\n"
+        "import lightgbm_tpu_torch.ops.shard, lightgbm_tpu_torch.parallel\n"
+        "import lightgbm_tpu_torch.parallel.network\n"
+        "import lightgbm_tpu_torch.parallel.data_parallel\n"
+        "import lightgbm_tpu_torch.parallel.feature_parallel\n"
+        "import lightgbm_tpu_torch.parallel.voting_parallel\n"
         "import lightgbm_tpu_torch.utils.random, runpy\n"
         "import lightgbm_tpu_torch.serve, synthetic_forests\n"
         "runpy.run_path('scripts/ubench_hist_cuda.py')\n"

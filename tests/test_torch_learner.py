@@ -390,10 +390,11 @@ def test_custom_gradients_on_a_device_grown_booster(data):
         p = 1.0 / (1.0 + np.exp(-preds))
         return p - y, p * (1.0 - p)
     params = {**BASE, "objective": "binary"}
-    tb = tlgb.Booster(params={**params, "device": "cpu"},
-                      train_set=tlgb.Dataset(x, y))
+    tparams = {**params, "device": "cpu"}
+    # a Booster bins a Dataset with the Dataset's own params
+    tb = tlgb.Booster(params=tparams,
+                      train_set=tlgb.Dataset(x, y, params=tparams))
     jparams = {**params, "device_growth": "on"}
-    # the JAX Booster bins a Dataset with the Dataset's own params
     jb = jlgb.Booster(params=jparams,
                       train_set=jlgb.Dataset(x, y, params=jparams))
     for b in (tb, jb):

@@ -1,18 +1,18 @@
 """Options the port does not have yet are refused by name, never accepted
-and ignored (ROADMAP §3, fault 1, repaired here).
+and ignored (ROADMAP §3, repaired fault 2).
 
-The four distributed cases of the fault (the parity features, binary, 15
-leaves, max_bin 63, 4 rounds on the CPU): before the repair the port
-trained them serially with no error and no log, byte-equal to its serial
-run, while the JAX package built its parallel learner.  They now raise
-``LightGBMError`` naming the option, from ``engine.train`` and from
-``RetrainPipeline``; so do the options that select data sharding and
-multi-host training, on the device grower and on the host learner (the
-telemetry exporter's and the cost attribution's options work since the
-fleet soak slice: ``tests/test_torch_obs_stream.py``); so does a leaf
-budget past the histogram kernel's leaf table.  A parallel
-``tree_learner`` with one machine degrades to serial, as the reference
-does.
+What stays refused: ``data_sharding=multi_controller`` and
+``num_hosts > 1`` (one process a host, the pod slice), from
+``engine.train`` and from ``RetrainPipeline``, on the device grower and on
+the host learner; the socket network's blob broadcast and the mapper
+broadcast; a leaf budget past the histogram kernel's leaf table.  The
+options the single-host distributed plane lifted (the data-, feature- and
+voting-parallel learners, ``data_sharding=single_controller``) now do
+what the JAX package does with the devices this process has: more
+machines than devices raise as its ``make_mesh`` does, and
+single-controller sharding with one device trains unsharded and logs it.
+A parallel ``tree_learner`` with one machine degrades to serial, as the
+reference does.
 """
 
 import numpy as np
@@ -29,6 +29,13 @@ BASE = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
         "verbose": -1, "device": "cpu"}
 
 REFUSED = [
+    ({"data_sharding": "multi_controller"},
+     "data_sharding=multi_controller"),
+    ({"num_hosts": 2}, "num_hosts=2"),
+]
+
+#: options refused before the single-host distributed plane was ported
+LIFTED = [
     ({"tree_learner": "voting", "num_machines": 2, "top_k": 1},
      "tree_learner=voting"),
     ({"tree_learner": "feature", "num_machines": 2},
@@ -36,9 +43,6 @@ REFUSED = [
     ({"tree_learner": "data", "num_machines": 8}, "tree_learner=data"),
     ({"data_sharding": "single_controller"},
      "data_sharding=single_controller"),
-    ({"data_sharding": "multi_controller"},
-     "data_sharding=multi_controller"),
-    ({"num_hosts": 2}, "num_hosts=2"),
 ]
 
 
@@ -69,6 +73,36 @@ def test_unported_options_are_refused_by_name(data, extra, name):
     assert name in str(ei.value)
     with pytest.raises(LightGBMError, match=name.split("=")[0]):
         RetrainPipeline({**BASE, **extra}, serve=False)
+
+
+@pytest.mark.parametrize("extra,name", LIFTED, ids=[n for _, n in LIFTED])
+def test_lifted_options_do_what_the_jax_package_does(data, extra, name,
+                                                     caplog):
+    """More machines than this process's cards raise as the JAX
+    ``make_mesh`` does (not as an unported option); single-controller
+    sharding with no second device trains unsharded, logged."""
+    x, y = data
+    params = {**BASE, **extra}
+    if "num_machines" in extra:
+        with pytest.raises(LightGBMError, match="exceeds available "
+                                                "devices") as ei:
+            tlgb.train(params, tlgb.Dataset(x, y), 4, verbose_eval=False)
+        assert "not ported" not in str(ei.value)
+        return
+    serial = tlgb.train(BASE, tlgb.Dataset(x, y), 4, verbose_eval=False)
+    with caplog.at_level("INFO"):
+        sharded = tlgb.train(params, tlgb.Dataset(x, y), 4,
+                             verbose_eval=False)
+    assert "training unsharded" in caplog.text
+    assert sharded._gbdt._grower.mesh is None
+    np.testing.assert_array_equal(sharded.predict(x, raw_score=True),
+                                  serial.predict(x, raw_score=True))
+
+
+def test_socket_network_is_refused_by_name():
+    from lightgbm_tpu_torch.parallel.network import broadcast_blob
+    with pytest.raises(LightGBMError, match="not ported.*broadcast_blob"):
+        broadcast_blob(b"", address="localhost:1", num_hosts=2, rank=0)
 
 
 @pytest.mark.parametrize("learner", ["voting", "feature", "data"])

@@ -303,7 +303,8 @@ def test_pure_functions_equal_jax(num_leaves, hist_cols):
 # the grower: resolution, keys, profiles
 
 def _booster(x, y, extra=None):
-    return tlgb.Booster(_tparams(extra), tlgb.Dataset(x, y))
+    return tlgb.Booster(_tparams(extra),
+                        tlgb.Dataset(x, y, params=_tparams(extra)))
 
 
 def test_auto_grower_adopts_persisted_plan(data, tmp_path):
