@@ -240,8 +240,9 @@ Phases, one line each:
               and mape on regression_target (the training metric falls),
               and a custom fobj (binary logloss); each through
               forest_predict (bit-equal to its plain version) and within
-              1e-5 of the host walk; then 34,603,008 x 28 HIGGS-shaped
-              rows binned on the card, 3 trees of 31 leaves: the route
+              1e-5 of the host walk; then 34,603,008 x 28 rows (the train
+              phase's 2M repeated on the card) binned on the card, 3
+              trees of 31 leaves: the route
               logs why the host learner trains, every tree's leaf counts
               sum to the rows.
 
@@ -367,6 +368,25 @@ Phases, one line each:
               and s/tree of each; wave_hist_rows_sharded at the data
               learner's shape bit-equal and timed.
 
+19. pod    -- (after stream, on its CSV) the multi-controller pod: one
+              process a host (scripts/pod_cuda.py, gloo over localhost),
+              every leg over four shards of the card (shard_devices =
+              4 // hosts): a single-controller baseline in this process;
+              (its first POD_ROWS = 50,000 rows, cut for time: every host
+              parses the whole file in each of the run's five loads)
+              (a) 4 processes through load_text_multihost and the API,
+              higgs, int8 and harness, 10 rounds each; (b) 2 processes
+              through the CLI (task=train two_round=true
+              data_sharding=multi_controller), higgs; (c) 2 processes,
+              int8 at 31 leaves, the last host killed before it acks the
+              iteration-4 snapshot, then a fresh pod that refuses it,
+              resumes iteration 2 and trains to 6: every rank's model
+              text sha256 the baseline's, kernel 1 one launch a wave a
+              shard, the reduction one a wave; one JSON line a leg with
+              s/tree, launches, the reduction's bytes and ms a wave, the
+              bring-up and load seconds and the card; wave_hist_sharded
+              at the pod's shape bit-equal and timed.
+
 Between phases the grower cache (ops/grow.py) is emptied, so each phase
 holds only its own growers' card memory.  After every phase the script
 fails if a server answered a request from the host walk, except the soak
@@ -442,7 +462,10 @@ FOREST_BEFORE_MS = {"higgs": 1.106, "synthetic": 12.11,
 
 
 def fail(msg: str) -> None:
+    # on both streams: a caller that keeps only the end of one still sees
+    # which check failed
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -1947,12 +1970,16 @@ def phase_host_learner(dev, seed: int, dense, x, y, tmp):
         runs[name] = res
         del booster
     # the route at 2^25 + 2^20 rows: the device grower's row bound passed,
-    # the host learner trains, and says why
+    # the host learner trains, and says why.  The rows are the train
+    # phase's, repeated on the card (a fresh sample of this size took ~50 s
+    # of host time a run; what the route checks holds on any rows)
     t0 = time.perf_counter()
-    xr, yr = higgs_shape(HOST_ROUTE_ROWS, seed + 7)
+    reps = -(-HOST_ROUTE_ROWS // len(x))
+    yr = np.tile(y, reps)[:HOST_ROUTE_ROWS]
+    x_dev = torch.from_numpy(x).to(dev).repeat(reps, 1)[:HOST_ROUTE_ROWS]
+    torch.cuda.synchronize(dev)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    x_dev = torch.from_numpy(xr).to(dev)
     handle = BinnedDataset.construct_from_device_matrix(
         x_dev, Config({**TRAIN_BASE, "device": dev.type}))
     torch.cuda.synchronize(dev)
@@ -2003,13 +2030,14 @@ def phase_host_learner(dev, seed: int, dense, x, y, tmp):
                                        score[:2_000_000].double().cpu()
                                        .numpy()))
     runs["route"] = res
-    print(f"  host_learner route: {HOST_ROUTE_ROWS} x {N_FEATURES} made in "
+    print(f"  host_learner route: {HOST_ROUTE_ROWS} x {N_FEATURES} repeated "
+          f"on the card in "
           f"{gen_s:.1f} s, binned on the card in {bin_s:.1f} s; "
           f"'{why[0]}'; s/tree {res['s_per_tree']:.3f}, leaves "
           f"{res['leaves']}, window-kernel launches {res['launches']}, "
           f"leaf counts sum to the rows, peak {res['peak_mem_gb']:.2f} GB",
           flush=True)
-    del booster, handle, xr, yr
+    del booster, handle, yr
     torch.cuda.empty_cache()
     print(f"phase host_learner: ok {len(runs)} runs on the host learner "
           f"(monotone, forced, L1, quantile, mape, fobj, "
@@ -5097,6 +5125,8 @@ PROFILE_REPS = 20
 #: process-wide host-walk answers already accounted for (the two
 #: injected-fault runs of the soak phase); any other is a failure
 _FALLBACK_SEEN = [0]
+#: the wall clock at the script's start and at the last phase's check
+_PHASE_CLOCK = [time.perf_counter()] * 2
 
 
 def fallback_total() -> int:
@@ -5111,6 +5141,10 @@ def check_no_fallback(phase: str) -> None:
     if now != _FALLBACK_SEEN[0]:
         fail(f"phase {phase}: {now - _FALLBACK_SEEN[0]} requests answered "
              f"by the host walk (a server degraded)")
+    now_s = time.perf_counter()
+    print(f"  wall {phase}: {now_s - _PHASE_CLOCK[1]:.1f} s since the last "
+          f"check, {now_s - _PHASE_CLOCK[0]:.1f} s in all", flush=True)
+    _PHASE_CLOCK[1] = now_s
 
 
 def _validator():
@@ -5680,17 +5714,18 @@ def shard_wave_check(grower, dev):
     return [str(gh.dtype) for gh, _ in regimes]
 
 
-def measure_sharded_case(dev, seed):
-    """wave_hist_sharded at the shard phase's shape: 2M x 28 rows in
-    SHARDS row blocks of shard_local_rows, NB=256, K=3 bf16, W=128: bit-
-    equal to the unsharded launch and to wave_hist_fixed_reference;
-    kernel, plain version and one index_put_ timed."""
+def measure_sharded_case(dev, seed, n=N_ROWS, mode="sharded"):
+    """wave_hist_sharded at the shard phase's shape (the pod phase's:
+    ``n`` rows, ``mode`` "pod"): n x 28 rows in SHARDS row blocks of
+    shard_local_rows, NB=256, K=3 bf16, W=128: bit-equal to the unsharded
+    launch and to wave_hist_fixed_reference; kernel, plain version and one
+    index_put_ timed."""
     import torch
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.ops import hist_cuda, shard
     g, nb, k, w = N_FEATURES, 256, 3, 128
     bins, leaf, ghk, pending = kernel_case(dev, nb=nb, k=k, w=w, quant=False,
-                                           seed=seed)
+                                           seed=seed, n=n)
     n = bins.shape[1]
     local = shard.shard_local_rows(n, SHARDS, Config({}))
     codes = [bins[:, a:a + local].contiguous() for a in range(0, n, local)]
@@ -5717,7 +5752,7 @@ def measure_sharded_case(dev, seed):
     bytes_ = n * (g + 4) + m * ghk.element_size() * k + g * nb * k * w * 4
     bound_bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     ops_ms = m * g * k / F32_OPS_PER_S * 1e3
-    r = dict(kernel="wave_hist", mode="sharded", shards=len(codes),
+    r = dict(kernel="wave_hist", mode=mode, shards=len(codes),
              rows=n, local_rows=local, rows_in_wave=m, exact=exact, ok=exact,
              tolerance="bit-equal to the unsharded launch and to "
              "wave_hist_fixed_reference", max_abs_err=err, ms=ms,
@@ -5726,7 +5761,7 @@ def measure_sharded_case(dev, seed):
              ops_bound_ms=ops_ms, bound_ms=max(bound_bytes_ms, ops_ms),
              bound_by="bytes" if bound_bytes_ms >= ops_ms else "operations",
              tc_ms=None)
-    print(f"  kernel wave_hist sharded bf16 n={n} in {len(codes)} shards of "
+    print(f"  kernel wave_hist {mode} bf16 n={n} in {len(codes)} shards of "
           f"{local} G={g} NB={nb} K={k} W={w}: exact={exact} max_abs_err="
           f"{err:.3g} kernel {ms:.3f} ms, bound {r['bound_ms'] * 1e3:.1f} "
           f"us ({r['bound_by']}), plain {plain_ms:.2f} ms, library "
@@ -6012,6 +6047,236 @@ def phase_parallel(dev, seed: int, x, y):
                 offsets=[int(o) for o in offsets])
 
 
+#: the pod phase: scripts/pod_cuda.py as every host, the stream phase's CSV
+#: (its first POD_ROWS rows: each host parses every row of it, five loads a
+#: run, ~12 s each at 500,000, ~4 at 100,000), the configurations of the
+#: shard phase and the kill leg's (int8, 31 leaves, POD_KILL_ROUNDS rounds)
+POD_ROWS = 50_000
+POD_ROUNDS = ROUNDS
+POD_KILL_ROUNDS = 6
+POD_RUNS = {**{n: TRAIN_RUNS[n] for n in SHARD_RUNS},
+            "kill": {"num_leaves": 31, "grad_quant_bits": 8}}
+#: the hosts' socket policy: peers retry for round one's ~5 s on host 0;
+#: the kill leg's short one bounds host 0's wait for the dead host's ack
+#: (10 s)
+POD_NET = {"network_timeout": 30, "network_retries": 20}
+POD_NET_KILL = {"network_timeout": 1, "network_retries": 10}
+POD_LEG_TIMEOUT = 300
+POD_SCRIPT = ROOT / "scripts" / "pod_cuda.py"
+
+
+def run_pod_leg(leg, hosts, csv, outdir, expected_exits=None,
+                device="cuda"):
+    """Launch scripts/pod_cuda.py ``hosts`` times (ranks 0..hosts-1, a free
+    localhost port) and return each rank's report (None for the kill
+    leg's victim); any other exit, or a leg past POD_LEG_TIMEOUT, fails
+    the run (every process is stopped first)."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = []
+    for rank in range(hosts):
+        log = open(os.path.join(outdir, f"{leg}_r{rank}.log"), "w")
+        procs.append((rank, log, subprocess.Popen(
+            [sys.executable, str(POD_SCRIPT), "--leg", leg, "--rank",
+             str(rank), "--hosts", str(hosts), "--port", str(port),
+             "--csv", csv, "--outdir", outdir, "--device", device],
+            stdout=log,
+            stderr=subprocess.STDOUT, cwd=str(ROOT))))
+    deadline = time.monotonic() + POD_LEG_TIMEOUT
+    exits = {}
+    try:
+        for rank, _, proc in procs:
+            try:
+                exits[rank] = proc.wait(timeout=max(
+                    deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                exits[rank] = None
+    finally:
+        for _, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    expected = expected_exits or {}
+    for rank, code in exits.items():
+        if code != expected.get(rank, 0):
+            tail = Path(outdir, f"{leg}_r{rank}.log").read_text()[-3000:]
+            fail(f"pod: leg {leg} rank {rank} of {hosts} exited {code} "
+                 f"(timeout {POD_LEG_TIMEOUT} s if None):\n{tail}")
+    out = []
+    for rank in range(hosts):
+        path = Path(outdir, f"{leg}_r{rank}.json")
+        out.append(json.loads(path.read_text()) if path.exists() else None)
+    return out
+
+
+def phase_pod(dev, seed: int, tmp, csv):
+    """Phase pod: the multi-controller pod on the card, one process a host
+    (scripts/pod_cuda.py), every leg over the same four shards of the
+    card (``shard_devices = 4 // hosts``), on the stream phase's CSV (its
+    first POD_ROWS rows).
+    Baseline: single-controller over four shards in this process, from
+    load_text_two_round, each configuration's model text sha256.  Legs:
+    (a) 4 processes, load_text_multihost once, 10 rounds each of higgs,
+    int8 and harness: every rank's sha256 the baseline's; (b) 2
+    processes through the CLI (task=train two_round=true
+    data_sharding=multi_controller), higgs: the baseline's sha256; (c) 2
+    processes, int8 at 31 leaves, snapshots at iterations 2 and 4, the
+    last rank dying before it acks 4: iteration 2 committed, 4 not, host
+    0's error naming host 1; a fresh pod refuses the uncommitted
+    snapshot, resumes the committed one and ends on its own straight
+    run's sha256, the baseline's.  Prints one line a leg: s/tree, kernel 1
+    launches, the reduction's bytes and ms a wave (CUDA events around the
+    host copies, the host clock around the gloo all-reduce), bring-up and
+    load seconds, the card."""
+    import torch
+    from lightgbm_tpu_torch.boosting import create_boosting
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.data import stream_loader
+    from lightgbm_tpu_torch.ops import hist_cuda
+    t_phase = time.perf_counter()
+    if POD_ROWS < STREAM_ROWS:
+        head = os.path.join(tmp, "higgs_pod.csv")
+        with open(csv) as src, open(head, "w") as dst:
+            for _ in range(POD_ROWS):
+                dst.write(src.readline())
+        csv = head
+    case = measure_sharded_case(dev, seed=401, n=POD_ROWS, mode="pod")
+    # the baseline: single-controller, four shards of the card
+    clear_growers(dev)
+    t0 = time.perf_counter()
+    ds, _ = stream_loader.load_text_two_round(csv, Config(
+        {**TRAIN_BASE, "device": dev.type}))
+    base_load_s = time.perf_counter() - t0
+    base, base_launches = {}, 0
+    for name, rounds in [(n, POD_ROUNDS) for n in SHARD_RUNS] + [
+            ("kill", POD_KILL_ROUNDS)]:
+        hist_cuda.wave_hist.launches.reset()
+        gb = create_boosting(Config({**TRAIN_BASE, **POD_RUNS[name],
+                                     "data_sharding": "single_controller",
+                                     "device": dev.type}))
+        gb.mesh = [dev] * SHARDS
+        gb.init_train(ds)
+        gb.train_chunked(rounds, chunk=rounds)
+        base[name] = dict(sha256=trees_sha256(gb.model_to_string()))
+        if name != "kill":
+            # a second chunk timed (the first captures the tree's graph)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            gb.train_chunked(rounds, chunk=rounds)
+            torch.cuda.synchronize(dev)
+            base[name]["s_per_tree"] = (time.perf_counter() - t0) / rounds
+        base_launches += hist_cuda.wave_hist.launches.read()
+        gb.release_grower()
+        del gb
+    del ds
+    clear_growers(dev)
+    legs, worker_launches = {}, 0
+    outdir = os.path.join(tmp, "pod")
+    os.makedirs(outdir, exist_ok=True)
+
+    # (a) 4 processes through the Python API
+    t0 = time.perf_counter()
+    reps = run_pod_leg("api", 4, csv, outdir, device=dev.type)
+    legs["api"] = dict(seconds=time.perf_counter() - t0, ranks=reps)
+    for rep in reps:
+        for name in SHARD_RUNS:
+            r = rep["runs"][name]
+            if r["sha256"] != base[name]["sha256"]:
+                fail(f"pod: leg a rank {rep['rank']} {name} sha256 "
+                     f"{r['sha256'][:12]} != single-controller "
+                     f"{base[name]['sha256'][:12]}")
+            # (a CPU rehearsal's plain version counts no launch)
+            if dev.type == "cuda" and (r["launches"] != r["waves"]
+                                       or r["reductions"] != r["waves"]):
+                fail(f"pod: leg a rank {rep['rank']} {name}: "
+                     f"{r['launches']} kernel 1 launches, "
+                     f"{r['reductions']} reductions for {r['waves']} waves "
+                     f"(one shard a host)")
+            worker_launches += r["launches"]
+    r0 = reps[0]
+    for name in SHARD_RUNS:
+        r = r0["runs"][name]
+        print("  pod " + json.dumps(dict(
+            leg="a", hosts=4, config=name, s_per_tree=r["s_per_tree"],
+            single_controller_s_per_tree=base[name]["s_per_tree"],
+            kernel1_launches_rank0=r["launches"],
+            reduce_bytes_per_wave=r["reduce_bytes_per_wave"],
+            reduce_copy_ms_per_wave=r["reduce_copy_ms_per_wave"],
+            reduce_allreduce_ms_per_wave=r["reduce_allreduce_ms_per_wave"],
+            gather_ms_per_tree=r["gather_ms_per_tree"],
+            setup_s=r0["setup_s"], load_s=r0["load_s"],
+            card=r0["card"])), flush=True)
+
+    # (b) 2 processes through the CLI
+    t0 = time.perf_counter()
+    reps = run_pod_leg("cli", 2, csv, outdir, device=dev.type)
+    legs["cli"] = dict(seconds=time.perf_counter() - t0, ranks=reps)
+    for rep in reps:
+        if rep["sha256"] != base["higgs"]["sha256"]:
+            fail(f"pod: leg b (CLI) rank {rep['rank']} sha256 "
+                 f"{rep['sha256'][:12]} != single-controller "
+                 f"{base['higgs']['sha256'][:12]}")
+        if dev.type == "cuda" and rep["launches"] != 2 * rep["reductions"]:
+            fail(f"pod: leg b rank {rep['rank']}: {rep['launches']} kernel "
+                 f"1 launches for {rep['reductions']} reductions (two "
+                 f"shards a host)")
+        worker_launches += rep["launches"]
+    r0 = reps[0]
+    print("  pod " + json.dumps(dict(
+        leg="b", hosts=2, config="higgs (CLI)", s_per_tree=r0["s_per_tree"],
+        cli_train_s=r0["train_s"], kernel1_launches_rank0=r0["launches"],
+        reduce_bytes_per_wave=r0["reduce_bytes_per_wave"],
+        reduce_copy_ms_per_wave=r0["reduce_copy_ms_per_wave"],
+        reduce_allreduce_ms_per_wave=r0["reduce_allreduce_ms_per_wave"],
+        gather_ms_per_tree=r0["gather_ms_per_tree"], load_s=r0["load_s"],
+        card=r0["card"])), flush=True)
+
+    # (c) kill the last host before it acks iteration 4, then resume
+    kill_dir = os.path.join(outdir, "kill")
+    os.makedirs(kill_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    reps_a = run_pod_leg("killA", 2, csv, kill_dir,
+                         expected_exits={1: 17}, device=dev.type)
+    a0 = reps_a[0]
+    if not a0["commit2"] or a0["commit4"]:
+        fail(f"pod: leg c commit markers: iteration 2 {a0['commit2']}, "
+             f"iteration 4 {a0['commit4']} (want True, False)")
+    if "no ack from host(s) [1]" not in (a0["ack_timeout_error"] or ""):
+        fail(f"pod: leg c host 0's error does not name host 1: "
+             f"{a0['ack_timeout_error']!r}")
+    reps_b = run_pod_leg("killB", 2, csv, kill_dir, device=dev.type)
+    legs["kill"] = dict(seconds=time.perf_counter() - t0, ranks_a=reps_a,
+                        ranks_b=reps_b)
+    for rep in reps_b:
+        if "no pod commit marker" not in (rep["uncommitted_refused"] or ""):
+            fail(f"pod: leg c rank {rep['rank']} resumed the uncommitted "
+                 f"iteration-4 snapshot")
+        if not rep["resumed_sha256"] == rep["straight_sha256"] == \
+                base["kill"]["sha256"]:
+            fail(f"pod: leg c rank {rep['rank']}: resumed "
+                 f"{rep['resumed_sha256'][:12]}, straight "
+                 f"{rep['straight_sha256'][:12]}, single-controller "
+                 f"{base['kill']['sha256'][:12]}")
+    print("  pod " + json.dumps(dict(
+        leg="c", hosts=2, config="int8, 31 leaves",
+        ack_wait_s=a0["ack_wait_s"], error=a0["ack_timeout_error"][:90],
+        setup_s=reps_b[0]["setup_s"], load_s=reps_b[0]["load_s"],
+        card=reps_b[0]["card"])), flush=True)
+    out = dict(rows=POD_ROWS, base=base, base_load_s=base_load_s, legs=legs,
+               case=case, worker_launches=worker_launches,
+               launches=base_launches + worker_launches,
+               seconds=time.perf_counter() - t_phase)
+    print(f"phase pod: ok legs a (4 processes, API), b (2, CLI) and c (2, "
+          f"kill and resume) equal to single-controller over {SHARDS} "
+          f"shards of {dev} on {POD_ROWS} rows; kernel 1 launches in the "
+          f"hosts {worker_launches}; {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6059,7 +6324,11 @@ def main() -> int:
     clear_growers(dev)
     with tempfile.TemporaryDirectory() as tmp:
         stream = phase_stream(dev, args.seed, tmp)
-    check_no_fallback("stream")
+        check_no_fallback("stream")
+        clear_growers(dev)
+        pod = phase_pod(dev, args.seed, tmp,
+                        os.path.join(tmp, "higgs_stream.csv"))
+    check_no_fallback("pod")
     clear_growers(dev)
     shard = phase_shard(dev, args.seed, dense)
     check_no_fallback("shard")
@@ -6086,7 +6355,8 @@ def main() -> int:
     check_no_fallback("multiclass")
 
     # wave_hist's path is training: its launches are those of every run
-    # at K=3 (the data phase's two, the boosting phase's six, the
+    # at K=3 (the pod phase's baseline and its hosts' processes too; the
+    # data phase's two, the boosting phase's six, the
     # pipeline phase's windows and the capi phase's, in its native
     # subprocesses too, the api phase's trees and stage-plan probes and
     # the soak phase's windows, replays and probes included; window20m's
@@ -6109,7 +6379,7 @@ def main() -> int:
                    + capi["launches"]["wave_hist"]
                    + api["launches"] + soak["launches"]
                    + multiclass["launches"] + stream["launches"]
-                   + shard["launches"])
+                   + shard["launches"] + pod["launches"])
     fp_launches = (sum(r["predict_launches"] for r in train["runs"].values())
                    + sum(r["predict_launches"] for r in obj_runs)
                    + data["predict_launches"]
@@ -6176,6 +6446,10 @@ def main() -> int:
                   shard["sharded_launches"], wave_src, wave_tpu))
     picks.append(("wave_hist_rows:parallel", parallel["case"],
                   parallel["launches"], wave_src, wave_tpu))
+    # the pod phase's hosts' own launches (2 and 4 processes over four
+    # shards of the card), beside the sharded case at the pod's shape
+    picks.append(("wave_hist:pod", pod["case"], pod["worker_launches"],
+                  wave_src, wave_tpu))
     for name, _, n_launch, _, _ in picks:
         if n_launch <= 0:
             fail(f"{name} never launched on the main path")
@@ -6197,7 +6471,7 @@ def main() -> int:
                        host_learner=host, pipeline=pipeline,
                        capi=capi, api=api, soak=soak, serve=serve,
                        multiclass=multiclass, stream=stream, shard=shard,
-                       parallel=parallel,
+                       parallel=parallel, pod=pod,
                        torch=torch.__version__, cuda=torch.version.cuda),
                   fh, indent=1)
     print(card)

@@ -350,7 +350,7 @@ class Booster:
         (``lightgbm_tpu/basic.py:300-330``)."""
         if train_set is not None:
             raise LightGBMError("resetting training data mid-training is "
-                                "not ported to lightgbm_tpu_torch yet")
+                                "not supported (nor in the JAX package)")
         if fobj is None:
             return self._gbdt.train_chunked(1)
         grad, hess = fobj(self._curr_pred_for_fobj(), self._train_set)

@@ -57,7 +57,7 @@ from ..ops import stage_plan as stage_plan_mod
 from ..ops.grow import (DeviceGrower, acquire_grower, check_slice_config,
                         host_learner_reason, release_grower)
 from ..ops.histogram import bucket_size
-from ..ops.shard import resolve_shard_mesh, sharding_mode
+from ..ops.shard import PodMesh, resolve_shard_mesh, sharding_mode
 from ..parallel import create_tree_learner
 from ..ops.traverse import add_constant_score, add_tree_score, device_tree
 from ..params import PARAM_BY_NAME
@@ -264,6 +264,16 @@ class GBDT:
                               train_set.bin_mappers]
         self._grower = self.learner = None
         why = self._host_learner_reason(train_set)
+        if why is not None and sharding_mode(cfg) == "multi_controller":
+            # a pod host cannot fall back to the host learner: its dataset
+            # may hold its own rows only, and its peers would wedge in the
+            # reduction (lightgbm_tpu/boosting/gbdt.py:369-389)
+            raise LightGBMError(
+                "data_sharding=multi_controller requires the device grower "
+                "(tree_learner=serial and an eligible configuration: no "
+                "monotone constraints/renew objective/forced splits, "
+                f"dataset under the striped-count bound; here: {why}) — "
+                "refusing to fall back on a pod slice")
         if why is None:
             # a cached grower of equal shapes when grower_cache is on
             self._grower = acquire_grower(train_set, cfg, self.device,
@@ -306,6 +316,17 @@ class GBDT:
         grower = self._grower
         wp = str(self.config.wave_plan).lower()
         self.plan_profile = None
+        if grower.pod is not None:
+            # a probe's verdict is timing: two pod hosts measuring apart
+            # could adopt different plans, and a host waiting in a
+            # reduction its peers never reach wedges the pod; every host
+            # keeps the ladder (lightgbm_tpu/boosting/gbdt.py:326-342)
+            if wp == "profiled":
+                log_warning("wave_plan=profiled is disabled under "
+                            "data_sharding=multi_controller (per-host "
+                            "timing verdicts may diverge); using the "
+                            "fixed ladder")
+            return
         if wp == "profiled":
             self.plan_profile = grower.profile_stage_plan()
         elif (wp == "auto" and grower.plan_source == "default"
@@ -353,12 +374,35 @@ class GBDT:
         """The device grower's shard mesh under
         ``data_sharding=single_controller``: :attr:`mesh`, else the
         process's cards (``ops/shard.resolve_shard_mesh``: None, logged,
-        below two)."""
-        if sharding_mode(self.config) != "single_controller":
+        below two).  Under ``multi_controller`` the pod's mesh
+        (:class:`~lightgbm_tpu_torch.ops.shard.PodMesh`), over
+        :attr:`mesh` as this process's shards when it is set."""
+        mode = sharding_mode(self.config)
+        if mode == "multi_controller":
+            if isinstance(self.mesh, PodMesh):
+                return self.mesh
+            return resolve_shard_mesh(self.config, devices=self.mesh)
+        if mode != "single_controller":
             return None
         if self.mesh is not None:
             return self.mesh
         return resolve_shard_mesh(self.config)
+
+    def _pod(self):
+        """The grower's pod mesh, or None."""
+        return None if self._grower is None else self._grower.pod
+
+    def _forbid_host_path(self, what: str) -> None:
+        """The host learner and the whole-data traversals index every
+        row's codes; a pod host holds its own row block only, so reaching
+        them under ``data_sharding=multi_controller`` fails loudly
+        (``lightgbm_tpu/boosting/gbdt.py::_forbid_host_path``)."""
+        if self._pod() is not None:
+            raise LightGBMError(
+                f"{what} is not supported under data_sharding="
+                f"multi_controller: it needs the host learner's full "
+                f"binned matrix, and a pod-slice host holds only its "
+                f"own row block")
 
     def _host_learner(self):
         """The host learner, made at first use (custom gradients on a
@@ -382,6 +426,7 @@ class GBDT:
     def _train_codes_t(self) -> torch.Tensor:
         """The training rows' ``(G, num_data)`` codes on the device, for
         whole-data traversals."""
+        self._forbid_host_path("a traversal of the training rows")
         if self._grower is not None:
             return self._grower.binned_t[:, :self.num_data]
         return self._host_learner().traverse_binned
@@ -568,6 +613,8 @@ class GBDT:
         binned traversal of every row).  The validation sets take the
         trees at evaluation time.  Returns True when every class's tree
         is a stump."""
+        self._forbid_host_path("host-path training (custom gradients "
+                               "or device_growth fallback)")
         learner = self._host_learner()
         if self._grower is not None:
             # a device-grown booster taking custom gradients
@@ -934,6 +981,7 @@ class GBDT:
         package."""
         if not self.models:
             return
+        self._forbid_host_path("rollback_one_iter")
         self._flush_pending()
         K = self.num_model
         base = len(self.models) - K
@@ -1230,14 +1278,54 @@ class GBDT:
         a ``.state.npz`` sidecar with the exact float32 training scores,
         the iteration counter and the host learner's feature_fraction RNG
         state (when it trains), both written temp-then-rename.  Reads the
-        scores off the card (one host sync)."""
+        scores off the card (one host sync).  Under
+        ``data_sharding=multi_controller`` this is the pod commit protocol
+        (``robust/checkpoint.py``): every host acks its state digest, host
+        0 writes the files and the commit marker only once every ack has
+        landed, and peers wait for the marker; a host killed mid-window
+        leaves the snapshot uncommitted."""
         self._flush_pending()
+        if self._pod() is not None:
+            self._save_checkpoint_pod(path)
+            return
         _checkpoint.atomic_write_text(path, self.model_to_string())
         rng = getattr(self.learner, "_rng", None)
         _checkpoint.save_train_state(
             path + ".state.npz", self.train_score.cpu().numpy(), self.iter,
             rng_state=rng.get_state() if rng is not None else None)
         log_info(f"Saved training checkpoint to {path}")
+
+    def _save_checkpoint_pod(self, path: str) -> None:
+        """The pod commit protocol of :meth:`save_checkpoint`
+        (``lightgbm_tpu/boosting/gbdt.py::_save_checkpoint_pod``)."""
+        from ..parallel.network import network_policy_from_config
+        pod = self._pod()
+        rank, hosts = pod.rank, pod.hosts
+        model_str = self.model_to_string()
+        score = self.train_score.cpu().numpy()
+        # the digest covers the trees only: the parameters echo differs
+        # per host (host_rank), the trees must not
+        digest = _checkpoint.pod_state_digest(
+            model_str.split("\nparameters:", 1)[0], score, self.iter)
+        attempts, timeout_s = network_policy_from_config(self.config)
+        deadline = max(10.0, float(attempts) * float(timeout_s))
+        _checkpoint.write_pod_ack(path, rank, digest)
+        if rank == 0:
+            _checkpoint.await_pod_acks(path, hosts, digest,
+                                       timeout_s=deadline)
+            # clear before the commit marker: a peer starts its next ack
+            # only after it saw this commit, so clearing after it could
+            # delete a peer's fresh ack
+            _checkpoint.clear_pod_acks(path, hosts)
+            _checkpoint.atomic_write_text(path, model_str)
+            rng = getattr(self.learner, "_rng", None)
+            _checkpoint.save_train_state(
+                path + ".state.npz", score, self.iter,
+                rng_state=rng.get_state() if rng is not None else None)
+            _checkpoint.commit_pod(path, digest)
+            log_info(f"Committed pod checkpoint {path} ({hosts} host acks)")
+        else:
+            _checkpoint.await_pod_commit(path, digest, timeout_s=deadline)
 
     def resume_from_checkpoint(self, path: str) -> "GBDT":
         """Adopt a :meth:`save_checkpoint` snapshot after ``init_train`` on
@@ -1253,6 +1341,13 @@ class GBDT:
             raise LightGBMError(
                 "resume_from_checkpoint requires init_train first "
                 "(the training scores are sized by the dataset)")
+        if self._pod() is not None and not _checkpoint.has_pod_commit(path):
+            # a snapshot some host never acked may be mid-write or differ
+            # across the pod; resuming from it would diverge the pod
+            raise LightGBMError(
+                f"snapshot {path} has no pod commit marker "
+                f"({_checkpoint.pod_commit_path(path)}); refusing to "
+                f"resume a pod slice from an uncommitted snapshot")
         state = _checkpoint.load_train_state(path + ".state.npz")
         if state is None:
             raise LightGBMError(

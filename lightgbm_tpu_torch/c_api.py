@@ -812,9 +812,10 @@ _NETWORK_LOCK = threading.Lock()
 def LGBM_NetworkInit(machines, local_listen_port, listen_time_out,
                      num_machines):
     """Records the topology request, as the JAX package does, so ported
-    clients keep working; training with ``num_machines > 1`` stays refused
-    by name (``ops/grow.py::unported_options``) until the distributed
-    learners are ported."""
+    clients keep working.  ``num_machines > 1`` in the training parameters
+    selects the parallel learners over this process's devices
+    (``parallel/``); several processes train one model under
+    ``data_sharding=multi_controller`` (``ops/shard.py``)."""
     with _NETWORK_LOCK:
         _network_conf["num_machines"] = int(num_machines)
         _network_conf["rank"] = 0

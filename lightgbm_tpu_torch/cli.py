@@ -10,9 +10,12 @@ training, prediction and the soak run on ``device`` (default ``cuda``).
 ``python -m lightgbm_tpu_torch soak [key=value ...]`` (``task=soak``) runs
 the fleet chaos soak, prints its verdict and exits non-zero when a gate
 fails.  ``two_round=true`` loads a text file in two streamed passes
-(``data/stream_loader.py``); prediction streams its file in chunks.  The
-multi-controller ingest is refused by name
-(``ops/grow.py::unported_options``).
+(``data/stream_loader.py``); prediction streams its file in chunks.
+``data_sharding=multi_controller`` with ``coordinator_address=host:port
+num_hosts=N host_rank=r`` (or the ``LGBM_TPU_*`` env triple) makes N
+processes, one a host, train one model: host 0 finds the bins, every host
+streams and bins its own row block (``load_text_multihost``), and every
+host writes the same model text.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from .data.dataset import BinnedDataset
 from .data.parser import (load_init_score_file, load_query_file,
                           load_text_file, load_weight_file)
 from .engine import steps_to_boundary
-from .ops.grow import check_config_options
+from .ops.shard import multihost_shutdown, sharding_mode
 from .utils.file_io import exists, open_text
 from .utils.log import LightGBMError, log_info, log_warning
 
@@ -58,7 +61,14 @@ def _load_dataset(path: str, cfg: Config, reference=None) -> BinnedDataset:
     its side files."""
     if BinnedDataset.is_binary_file(path):
         return BinnedDataset.load_binary(path)
-    if cfg.two_round:
+    if sharding_mode(cfg) == "multi_controller" and reference is None:
+        # the pod's load: host 0 finds the bins, every host streams and
+        # bins its own row block
+        from .data.stream_loader import load_text_multihost
+        ds, _ = load_text_multihost(path, cfg,
+                                    categorical=_parse_categorical(
+                                        cfg, 1 << 30))
+    elif cfg.two_round:
         # two streamed passes, never the float64 matrix
         # (dataset_loader.cpp:161-264)
         from .data.stream_loader import load_text_two_round
@@ -333,7 +343,6 @@ def main(argv=None) -> int:
               "warmup_features=F [key=value...]")
         return 1
     cfg = Config(params)
-    check_config_options(cfg)
     from . import compile_cache
     compile_cache.configure_from_config(cfg)
     from .robust import faults
@@ -342,6 +351,8 @@ def main(argv=None) -> int:
     if run is None:
         raise LightGBMError(f"unknown task: {cfg.task}")
     run(cfg)
+    if sharding_mode(cfg) == "multi_controller":
+        multihost_shutdown()
     return 0
 
 

@@ -10,12 +10,12 @@ shares identical mappers; rows are pre-partitioned, one shard a machine
 
 The pieces are plain functions.  In one process (the single-controller
 plane, the tests) every shard's sample is at hand and
-``allgather_mappers`` is a concatenation.  The multi-controller gather
-(the JAX package's ``jax_process_gather``, one process a host exchanging
-its serialized mapper states) becomes a ``torch.distributed`` gather in
-the multi-controller slice; this package does not have it yet.  The
-exactness contract holds either way: mapper states round-trip bit for
-bit (``BinMapper.to_state``/``from_state``).
+``allgather_mappers`` is a concatenation.  Across processes (one a host,
+a ``torch.distributed`` process group up) each process passes
+:func:`torch_process_gather` as the gather hook, the counterpart of the
+JAX package's ``jax_process_gather``.  The exactness contract holds
+either way: mapper states round-trip bit for bit
+(``BinMapper.to_state``/``from_state``).
 
 Bins for feature ``f`` come from the owning shard's sample only (the
 reference's accepted approximation), and the final mapper list is the
@@ -110,6 +110,40 @@ def allgather_mappers(shard_states, gather_fn=None,
             f"distributed find-bin gathered {expect} features, expected "
             f"{num_total_features} (partial gather?)")
     return mappers
+
+
+def torch_process_gather(pair, max_bytes: int = 1 << 22, group=None):
+    """The multi-controller gather hook of :func:`allgather_mappers`:
+    exchanges this process's ``(start, states)`` pair for every process's
+    pair over ``torch.distributed`` (the reference's ``Network::
+    Allgather`` of serialized BinMappers, dataset_loader.cpp:900-917).
+    Each pair is pickled into a fixed-size, length-prefixed uint8 buffer
+    (the JAX package's ``jax_process_gather`` layout) and the buffers are
+    all-gathered over ``group`` (default the whole process group, which
+    must be up)."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    blob = pickle.dumps(pair)
+    if len(blob) + 8 > max_bytes:
+        raise LightGBMError(
+            f"serialized mapper shard ({len(blob)} bytes) exceeds the "
+            f"{max_bytes}-byte gather buffer; raise max_bytes")
+    buf = np.zeros(max_bytes, np.uint8)
+    buf[:8] = np.frombuffer(len(blob).to_bytes(8, "little"), np.uint8)
+    buf[8:8 + len(blob)] = np.frombuffer(blob, np.uint8)
+    mine = torch.from_numpy(buf)
+    world = dist.get_world_size(group)
+    outs = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(outs, mine, group=group)
+    out = []
+    for row in outs:
+        row = row.numpy()
+        ln = int.from_bytes(bytes(row[:8]), "little")
+        out.append(pickle.loads(bytes(row[8:8 + ln])))
+    return out
 
 
 def construct_pre_partitioned(row_shards: Sequence[np.ndarray], config,

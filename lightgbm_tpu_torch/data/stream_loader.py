@@ -1,6 +1,5 @@
 """Two-round streaming text loading with a double-buffered reader
-(counterpart of ``lightgbm_tpu/data/stream_loader.py``, without
-``load_text_multihost``).
+(counterpart of ``lightgbm_tpu/data/stream_loader.py``).
 
 ``two_round`` loading never holds the file's float64 matrix: round one
 streams the file in chunks behind a background reader thread, counts its
@@ -10,10 +9,10 @@ preallocated ``(N, G)`` uint8 matrix (reference
 ``dataset_loader.cpp:161-264``, ``utils/pipeline_reader.h:19-66``).  Peak
 host memory is the sample, two chunks and the codes.
 
-The pod-slice load (``load_text_multihost``: round one on host 0, the
-mapper reference broadcast over sockets, each host binning its own row
-block) needs the multi-process plane, which this package does not have
-yet.
+The pod's load (:func:`load_text_multihost`, one process a host): round
+one on host 0, the mapper reference broadcast over the socket plane, and
+each host streaming round two with every label parsed but only its own
+row block of the pod layout binned.
 """
 
 from __future__ import annotations
@@ -22,10 +21,12 @@ import itertools
 import os
 import queue
 import threading
+import time
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..robust import faults
 from ..utils.file_io import open_text
 from ..utils.log import LightGBMError, log_info
@@ -335,16 +336,27 @@ def _round_one(path: str, fmt: "_Format", config
 
 
 def _round_two(path: str, fmt: "_Format", ds, num_cols: int,
-               n_total: int) -> np.ndarray:
+               n_total: int,
+               row_span: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """Round two: re-stream the file and bin chunk-wise into the
-    preallocated ``(N, G)`` matrix; returns the full label vector."""
+    preallocated ``(N, G)`` matrix; returns the full label vector.
+
+    ``row_span=(lo, hi)`` bins only the global rows ``[lo, hi)``, pushed
+    at local coordinates ``row - lo`` (the pod's load, where ``ds`` holds
+    this host's padded block).  Labels are parsed for every row either
+    way: every pod host computes the global gradients from the global
+    scores."""
     start = 0
     label = np.zeros(n_total, np.float64)
+    lo, hi = row_span if row_span is not None else (0, n_total)
     for line_no, lines in _chunk_reader(path, fmt.header):
         x, y = _parse_chunk_checked(fmt, path, line_no, lines, num_cols)
+        m = x.shape[0]
         label[start:start + len(y)] = y
-        ds.construct_streaming_push(x, start)
-        start += x.shape[0]
+        a, b = max(start, lo), min(start + m, hi)
+        if a < b:
+            ds.construct_streaming_push(x[a - start:b - start], a - lo)
+        start += m
     ds.construct_streaming_finish()
     return label
 
@@ -371,4 +383,120 @@ def load_text_two_round(path: str, config, categorical=(),
     # ---- round two: bin chunk-wise into the (N, G) matrix --------------
     label = _round_two(path, fmt, ds, num_cols, n_total)
     ds.metadata.set_label(label)
+    return ds, label
+
+
+def load_text_multihost(path: str, config, categorical=()):
+    """The pod's two-round streamed load (``lightgbm_tpu/data/
+    stream_loader.py::load_text_multihost``).
+
+    Bins and bundles are found ONCE for the whole pod (per-host bin
+    finding would give the hosts different mappers and diverge the
+    models): host 0 runs round one over the whole file and broadcasts the
+    serialized mapper reference on the coordinator's port plus one.  Every
+    host (host 0 too, for the same mapper state) rebuilds the skeleton
+    from the same bytes, allocates only its contiguous padded row block
+    ``[lo, hi)`` of the pod layout (``ops/shard.process_row_span``) and
+    streams round two: labels parsed globally, binning filtered to the
+    span.
+
+    Returns ``(dataset, label)``: ``dataset.num_data`` is the global row
+    count, ``dataset.binned`` this host's padded block, and
+    ``dataset.host_shard`` / ``dataset.host_row_span`` mark the layout for
+    ``DeviceGrower``, which checks the span.  A peer that dies during the
+    load surfaces as a :class:`LightGBMError` naming the host and the
+    file: the reference broadcast and the layout handshake after it ride
+    the deadline-bound blob plane, and parse errors keep their file and
+    line, prefixed with this host's rank.  Sets the ``ingest.rows_per_s``
+    gauge (this host's binned rows over its round two).
+    """
+    from .dataset import BinnedDataset
+    from ..ops.shard import (make_pod_mesh, multihost_params,
+                             multihost_setup, pod_local_shards,
+                             process_row_span, shard_local_rows)
+    from ..parallel.network import broadcast_blob, pod_broadcast_address
+    from ..pipeline.bins import (reference_from_bytes,
+                                 reference_layout_digest,
+                                 reference_to_bytes)
+
+    resolved = multihost_params(config)
+    if resolved is None:
+        raise LightGBMError(
+            "load_text_multihost: no coordinator configured — set "
+            "coordinator_address/num_hosts/host_rank (or the "
+            "LGBM_TPU_COORDINATOR/LGBM_TPU_NUM_HOSTS/"
+            "LGBM_TPU_HOST_RANK env vars)")
+    coord = resolved[0]
+    rank, hosts = multihost_setup(config)
+    mesh = make_pod_mesh(pod_local_shards(config))
+    addr = pod_broadcast_address(coord)
+
+    def _blob_round(payload, what):
+        try:
+            return broadcast_blob(payload, address=addr, num_hosts=hosts,
+                                  rank=rank, config=config)
+        except LightGBMError as e:
+            raise LightGBMError(
+                f"sharded ingest of {path} failed on host {rank} "
+                f"during {what}: {e}") from e
+
+    if not os.path.exists(path):
+        raise LightGBMError(
+            f"could not open data file {path} (host {rank})")
+    fmt = _Format(path, config)
+
+    # ---- round one on host 0 only, the reference over the blob plane ----
+    blob = None
+    if rank == 0:
+        sample, n_total, num_cols = _round_one(path, fmt, config)
+        ref = BinnedDataset.construct_streaming_begin(
+            sample, n_total, num_cols, config, categorical,
+            feature_names=fmt.names)
+        ref.binned = None     # mappers and bundles only
+        blob = reference_to_bytes(
+            ref, extra={"n_total": n_total, "num_cols": num_cols})
+    blob = _blob_round(blob, "mapper-reference broadcast")
+    skeleton, extra = reference_from_bytes(blob)
+    n_total = int(extra["n_total"])
+    num_cols = int(extra["num_cols"])
+    if fmt.kind == "libsvm":
+        fmt.num_cols = num_cols   # host 0's global column bound
+
+    # ---- this host's contiguous padded block of the pod's rows ----------
+    n_loc = shard_local_rows(n_total, len(mesh), config)
+    lo, hi = process_row_span(mesh, n_loc)
+    ds = BinnedDataset.construct_streaming_begin(
+        np.zeros((0, num_cols)), hi - lo, num_cols, config, categorical,
+        feature_names=fmt.names, reference=skeleton)
+
+    # ---- round two: every label, this host's span binned ----------------
+    t0 = time.perf_counter()
+    try:
+        label = _round_two(path, fmt, ds, num_cols, n_total,
+                           row_span=(lo, hi))
+    except LightGBMError as e:
+        raise LightGBMError(f"[host {rank}] {e}") from e
+    binned_rows = max(0, min(hi, n_total) - min(lo, n_total))
+    obs.set_gauge("ingest.rows_per_s",
+                  binned_rows / max(time.perf_counter() - t0, 1e-9))
+
+    # ---- the global-row contract the grower checks ----------------------
+    ds.num_data = n_total
+    ds.metadata = type(ds.metadata)(n_total)
+    ds.host_shard = True
+    ds.host_row_span = (lo, hi)
+    ds.metadata.set_label(label)
+
+    # ---- the layout handshake: a liveness barrier and a cross-check -----
+    my_digest = reference_layout_digest(ds).encode()
+    echoed = _blob_round(my_digest if rank == 0 else None,
+                         "post-ingest layout handshake")
+    if echoed != my_digest:
+        raise LightGBMError(
+            f"host {rank} binned {path} with a different feature "
+            f"layout than host 0 (digest {my_digest.decode()[:12]} vs "
+            f"{echoed.decode()[:12]}); pod ingest diverged")
+    log_info(f"multihost load: host {rank}/{hosts} holds rows "
+             f"[{lo}, {hi}) of {n_total} ({binned_rows} real, "
+             f"{fmt.kind})")
     return ds, label

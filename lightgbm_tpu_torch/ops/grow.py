@@ -3,8 +3,10 @@
 Counterpart of ``lightgbm_tpu/ops/grow.py`` (``GrowerPrograms._grow_impl``
 and ``DeviceGrower``), unsharded or row-sharded over a mesh of devices
 (``ops/shard.py``: kernel 1 once a shard a wave, the shards' fixed-point
-sums reduced before one conversion), with bf16 stat columns or, under
-``grad_quant_bits=8``, int8 quantized ones, with the per-tree bagging row
+sums reduced before one conversion; over a pod of processes, each holding
+its block of the rows, the sums all-reduced across them), with bf16 stat
+columns or, under ``grad_quant_bits`` (any nonzero value, as in the JAX
+package), int8 quantized ones, with the per-tree bagging row
 mask and feature_fraction mask, and with categorical splits.  The stat
 columns take the JAX package's layouts (``_hist_layout``): K=3 ``[g, h,
 1]``; from :data:`COUNT_SPLIT_ROWS` rows the striped K=4 (two count
@@ -104,7 +106,7 @@ from .split import (F_DEFAULT_LEFT, F_FEATURE, F_GAIN, F_LEFT_C, F_LEFT_G,
                     F_IS_CAT, F_RIGHT_OUT, F_THRESHOLD, NEG_INF,
                     FeatureMeta, SplitHyper, find_best_split)
 from . import stage_plan as stage_plan_mod
-from .shard import canonical, shard_spec
+from .shard import PodMesh, canonical, process_row_span, shard_spec
 from .stage_plan import legacy_stage_plan
 
 REC_I_FIELDS = 5    # leaf, right, feature, threshold, default_left
@@ -269,29 +271,6 @@ def feature_mask_from_key(key, nf: int, k: int,
     return u <= thr
 
 
-def unported_options(config) -> list:
-    """The options set in ``config`` that select code the port does not
-    have, whatever the data: the multi-controller plane (one process a
-    host over ``torch.distributed``) and multi-host training with its pod
-    checkpoints."""
-    todo = []
-    if str(config.data_sharding) == "multi_controller":
-        todo.append("data_sharding=multi_controller (one process a host)")
-    if int(getattr(config, "num_hosts", 0) or 0) > 1:
-        todo.append(f"num_hosts={int(config.num_hosts)} (multi-host "
-                    f"training and its pod checkpoints)")
-    return todo
-
-
-def check_config_options(config) -> None:
-    """Raise on :func:`unported_options` (the checks that need no data:
-    the pipeline runs them before its first window)."""
-    todo = unported_options(config)
-    if todo:
-        raise LightGBMError("not ported to lightgbm_tpu_torch yet: "
-                            + ", ".join(todo))
-
-
 #: the host learner's int32 row indices and the kernel's row lists hold
 #: fewer rows than this
 MAX_ROWS = 1 << 31
@@ -300,12 +279,9 @@ MAX_ROWS = 1 << 31
 def check_slice_config(config, dataset) -> None:
     """Refuse, by name, the options whose code paths the port does not
     have yet, whichever learner would train them: more leaves than the
-    histogram kernel's leaf table holds, more rows than a row index
-    holds, and :func:`unported_options`."""
-    todo = unported_options(config)
-    quant_bits = int(getattr(config, "grad_quant_bits", 0) or 0)
-    if quant_bits not in (0, 8):
-        todo.append(f"grad_quant_bits={quant_bits}")
+    histogram kernel's leaf table holds, and more rows than a row index
+    holds."""
+    todo = []
     if int(config.num_leaves) > MAX_LEAF_BOUND:
         todo.append(f"num_leaves > {MAX_LEAF_BOUND}")
     if int(dataset.num_data) >= MAX_ROWS:
@@ -418,8 +394,11 @@ def grower_key(dataset, config, device, objective,
     gsig = None if grad is None else (
         f"{grad[0].__module__}.{grad[0].__qualname__}",
         _args_signature(grad[1]))
-    shards = None if mesh is None or len(mesh) < 2 else \
-        tuple(str(torch.device(d)) for d in mesh)
+    if isinstance(mesh, PodMesh):
+        shards = mesh.key()
+    else:
+        shards = None if mesh is None or len(mesh) < 2 else \
+            tuple(str(torch.device(d)) for d in mesh)
     return ((str(device), int(dataset.num_data))
             + plan_signature(dataset, config, device)[1:]
             + (gsig, shards, plan_digest))
@@ -563,27 +542,37 @@ class DeviceGrower:
         # the fixed-point exponents' row count: the unsharded grower's, so
         # a sharded grower's histograms are bit-equal to it
         self.exp_rows = self.n_pad
-        # single-controller row sharding (ops/shard.py): shard d owns the
-        # global rows [d * local_rows, (d + 1) * local_rows) and its block
-        # of the codes; the per-row state stays in the global layout here
-        self.mesh = None if mesh is None or len(mesh) < 2 else \
-            [torch.device(d) for d in mesh]
+        # row sharding (ops/shard.py): shard d owns the global rows
+        # [d * local_rows, (d + 1) * local_rows) and its block of the
+        # codes; single-controller keeps the per-row state in the global
+        # layout here.  A pod process (PodMesh over several processes)
+        # holds the codes and leaf ids of its rows [row_lo, row_hi) only;
+        # scores, gradients and stat columns stay global
+        if isinstance(mesh, PodMesh) and mesh.hosts == 1:
+            mesh = mesh.local
+        self.pod = mesh if isinstance(mesh, PodMesh) else None
+        if self.pod is not None:
+            self.mesh = list(self.pod.local)
+        else:
+            self.mesh = None if mesh is None or len(mesh) < 2 else \
+                [torch.device(d) for d in mesh]
         self.shard_spec = None
         if self.mesh is not None:
-            self.shard_spec = shard_spec(self.num_data, self.mesh, config)
+            self.shard_spec = shard_spec(self.num_data, self.pod
+                                         or self.mesh, config)
             self.n_pad = self.shard_spec.n_shards \
                 * self.shard_spec.local_rows
+        self.row_lo, self.row_hi = (0, self.n_pad) if self.pod is None \
+            else process_row_span(self.pod, self.shard_spec.local_rows)
         # one composed CUDA graph a tree needs every shard on this card
-        self._captures = device.type == "cuda" and (
+        # and no collective of another process
+        self._captures = device.type == "cuda" and self.pod is None and (
             self.mesh is None or all(canonical(d) == canonical(device)
                                      for d in self.mesh))
-        # a device-binned dataset's codes are transposed where they lie
-        binned = dataset.binned
-        if not isinstance(binned, torch.Tensor):
-            binned = torch.from_numpy(binned)
-        self.binned_t = torch.zeros((self.num_groups, self.n_pad),
+        self.binned_t = torch.zeros((self.num_groups,
+                                     self.row_hi - self.row_lo),
                                     dtype=torch.uint8, device=device)
-        self.binned_t[:, :self.num_data] = binned.to(device).t()
+        self._upload_codes(dataset)
         self._shard_codes = None
         self._split_codes()
         self.meta = FeatureMeta.from_dataset(dataset, slot_stride=nb,
@@ -612,6 +601,8 @@ class DeviceGrower:
         self._set_plan(plan if plan is not None else legacy_stage_plan(
             self.num_leaves, self.wave_width, self.hist_cols), plan_source)
         self._valid = torch.arange(self.n_pad, device=device) < self.num_data
+        if self.pod is not None:
+            obs.set_gauge("shard.hosts", self.pod.hosts)
         self._set_seeds(config)
         nf = int(self.meta.num_bin.shape[0])
         self._ff_frac = float(config.feature_fraction)
@@ -628,7 +619,8 @@ class DeviceGrower:
         if self.striped:
             self._stripe = torch.arange(self.n_pad, device=device) \
                 < self.stripe_at
-        self._leaf0 = torch.where(self._valid, 0, -1).to(torch.int32)
+        self._leaf0 = torch.where(self._valid[self.row_lo:self.row_hi], 0,
+                                  -1).to(torch.int32)
         self._ctl0 = torch.tensor([1, 0, 0], dtype=torch.int32,
                                   device=device)
         self._neg_row = torch.full((13,), NEG_INF, dtype=torch.float32,
@@ -654,6 +646,39 @@ class DeviceGrower:
                                   instantiate_s=0.0, graphs=0,
                                   warmup_waves=0)
         self._ensure_state(max(int(getattr(config, "fused_chunk", 1)), 1))
+
+    def _upload_codes(self, dataset) -> None:
+        """The dataset's codes into :attr:`binned_t`, transposed on the
+        grower's device (a device-binned dataset's where they lie).  A pod
+        process takes its padded row block [row_lo, row_hi): the dataset's
+        own block when it is host-sharded (``load_text_multihost``: its
+        span checked against the mesh's), else its rows of the whole
+        matrix (``lightgbm_tpu/ops/grow.py::_upload_binned_multihost``)."""
+        binned = dataset.binned
+        if not isinstance(binned, torch.Tensor):
+            binned = torch.from_numpy(np.ascontiguousarray(binned))
+        if self.pod is None:
+            self.binned_t[:, :self.num_data].copy_(
+                binned.to(self.device).t())
+            return
+        lo, hi = self.row_lo, self.row_hi
+        if getattr(dataset, "host_shard", False):
+            span = getattr(dataset, "host_row_span", None)
+            if span is not None and tuple(span) != (lo, hi):
+                raise LightGBMError(
+                    f"host-sharded dataset covers padded rows {span} "
+                    f"but this process's mesh block is ({lo}, {hi}) — "
+                    f"the loader and the grower disagree on the pod "
+                    f"layout (num_hosts/devices or bucket drift)")
+            if binned.shape[0] != hi - lo:
+                raise LightGBMError(
+                    f"host-sharded binned block has {binned.shape[0]} "
+                    f"rows, mesh block needs {hi - lo}")
+            local = binned
+        else:
+            local = binned[lo:min(hi, self.num_data)]
+        self.binned_t.zero_()
+        self.binned_t[:, :local.shape[0]].copy_(local.to(self.device).t())
 
     def _split_codes(self) -> None:
         """Each shard's contiguous ``(G, local_rows)`` block of the codes,
@@ -715,10 +740,7 @@ class DeviceGrower:
         where the new booster's plan resolution found it (a plan this
         grower profiled is then already measured)."""
         dev = self.device
-        binned = dataset.binned
-        if not isinstance(binned, torch.Tensor):
-            binned = torch.from_numpy(binned)
-        self.binned_t[:, :self.num_data].copy_(binned.to(dev).t())
+        self._upload_codes(dataset)
         self._split_codes()
         meta = FeatureMeta.from_dataset(dataset, slot_stride=self.nb,
                                         device=dev)
@@ -783,12 +805,14 @@ class DeviceGrower:
         w, k = pending.shape[0], self.hist_cols
         if self.mesh is not None:
             # kernel 1 once a shard, the shards' fixed-point sums reduced
-            # before the one conversion
-            out = wave_hist_sharded(self._shard_codes, leaf_id, gh, pending,
+            # (over a pod: across the processes too) before the one
+            # conversion; a pod process passes its row block
+            out = wave_hist_sharded(self._shard_codes, leaf_id,
+                                    gh[self.row_lo:self.row_hi], pending,
                                     g=self.num_groups, nb=self.nb, k=k, w=w,
                                     scale_exp=scale_exp,
                                     leaf_bound=self.num_leaves,
-                                    col_rows=self.col_rows)
+                                    col_rows=self.col_rows, pod=self.pod)
         else:
             out = wave_hist(self.binned_t, leaf_id, gh, pending,
                             g=self.num_groups, nb=self.nb, k=k, w=w,
@@ -825,11 +849,14 @@ class DeviceGrower:
                 sd = sd / 128.0
             return cols
 
-        dcols = torch.stack(digits(grad * one_f, scales[0])
-                            + digits(hess * one_f, scales[1]), 1)
+        rows = slice(self.row_lo, self.row_hi)
+        dcols = torch.stack(digits((grad * one_f)[rows], scales[0])
+                            + digits((hess * one_f)[rows], scales[1]), 1)
         idx = torch.where(leaf_id >= 0, leaf_id, L).long()
         sums6 = torch.zeros((L + 1, 6), dtype=torch.int32,
                             device=self.device).index_add_(0, idx, dcols)
+        if self.pod is not None:
+            self.pod.allreduce_(sums6, "refit")
         s = sums6[:L].float()
         gsum = (s[:, 0] + s[:, 1] * (1 / 128.0)
                 + s[:, 2] * (1 / 16384.0)) * scales[0]
@@ -848,10 +875,13 @@ class DeviceGrower:
         cols = torch.stack(_hi_lo_cols(grad, hess, one_f.to(torch.bfloat16)),
                            1)
         e = hist_scale_exponents(cols, self.exp_rows)
-        q = torch.round(cols.float() * torch.exp2(e.float())).to(torch.int64)
+        q = torch.round(cols[self.row_lo:self.row_hi].float()
+                        * torch.exp2(e.float())).to(torch.int64)
         idx = torch.where(leaf_id >= 0, leaf_id, L).long()
         sums = torch.zeros((L + 1, 4), dtype=torch.int64,
                            device=self.device).index_add_(0, idx, q)
+        if self.pod is not None:
+            self.pod.allreduce_(sums, "refit")
         s = (sums[:L].double() * torch.exp2(-e.double())).float()
         return self._leaf_output(s[:, 0] + s[:, 1], s[:, 2] + s[:, 3])
 
@@ -895,7 +925,8 @@ class DeviceGrower:
                            else torch.bfloat16, device=dev),
             scale_exp=torch.zeros(self.hist_cols, **i32),
             qscales=torch.ones(2, **f32),
-            leaf_id=torch.zeros(n, **i32),
+            # a pod process's leaf ids are its row block's
+            leaf_id=torch.zeros(self.row_hi - self.row_lo, **i32),
             hist=torch.zeros((L + 1, S, 3), dtype=hdtype, device=dev),
             total=torch.zeros((L + 1, 3), dtype=hdtype, device=dev),
             # the winner's exact int32 left totals (int32 scan only)
@@ -1222,8 +1253,19 @@ class DeviceGrower:
         accurate but diverges from the JAX package from tree 2 on."""
         vhi = leaf_vals.to(torch.bfloat16)
         vlo = (leaf_vals - vhi.float()).to(torch.bfloat16)
-        lid = leaf_id[:self.num_data].long()
-        score.add_(vhi.float()[lid] + vlo.float()[lid])
+        if self.pod is None:
+            lid = leaf_id[:self.num_data].long()
+            score.add_(vhi.float()[lid] + vlo.float()[lid])
+            return
+        # a pod process adds its block, then the blocks are all-gathered
+        # (the JAX package's replicate-to-all of the row-sharded score)
+        lo, n = self.row_lo, self.num_data
+        real = max(0, min(n - lo, self.row_hi - lo))
+        block = F.pad(score, (0, self.n_pad - n))[lo:self.row_hi].clone()
+        lid = leaf_id[:real].long()
+        block[:real].add_(vhi.float()[lid] + vlo.float()[lid])
+        score.copy_(self.pod.gather_rows(
+            block, self.shard_spec.local_rows)[:n])
 
     def _piece_finish(self) -> None:
         """The int8 refit, the score update, and the tree's records into
@@ -1465,6 +1507,7 @@ class DeviceGrower:
         "col_ms", "residual_ms", "plan", "plan_digest", "installed",
         "profiled"}`` (``spread_ms``: each width's slowest less fastest
         probe)."""
+        self._refuse_on_pod("profile_stage_plan")
         if self.plan_source in ("profiled", "persisted"):
             return {"stage_ms": {}, "spread_ms": {}, "stage_cost": {},
                     "fixed_ms": None,
@@ -1601,6 +1644,7 @@ class DeviceGrower:
         per phase) and ``profile.<phase>_gbytes`` gauges.  Returns
         ``{phase: ms, "dispatch_floor": ms[, "costs": {...}]}``."""
         from ..obs import profile as obs_profile
+        self._refuse_on_pod("profile_phases")
         reps = max(1, int(reps))
         self._ensure_state(1)
         st, dev = self._st, self.device
@@ -1709,6 +1753,14 @@ class DeviceGrower:
                               round(cost["bytes_accessed"] / 1e9, 4))
             out["costs"] = costs
         return out
+
+    def _refuse_on_pod(self, what: str) -> None:
+        """The probes time kernel 1 on one process's view of the rows; a
+        pod's processes would measure apart and could adopt different
+        plans (``lightgbm_tpu/boosting/gbdt.py:326-342``)."""
+        if self.pod is not None:
+            raise LightGBMError(f"{what} is not supported under "
+                                f"data_sharding=multi_controller")
 
     def bag_mask_at(self, it: int) -> torch.Tensor:
         """(num_data,) f32 in-bag mask of the bagging round drawn at

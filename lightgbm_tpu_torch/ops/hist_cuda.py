@@ -479,7 +479,7 @@ def _shard_blocks(codes):
 
 def wave_hist_sharded(codes, leaf_id, ghk, pending, *, g: int, nb: int,
                       k: int, w: int, scale_exp=None, leaf_bound=None,
-                      col_rows=None) -> torch.Tensor:
+                      col_rows=None, pod=None) -> torch.Tensor:
     """:func:`wave_hist` of a row-sharded grower (``ops/shard.py``):
     ``codes`` are the shards' ``(G, L_d)`` code blocks, each on its
     shard's device, and ``leaf_id`` (N,) / ``ghk`` (N, K) the global rows
@@ -489,18 +489,33 @@ def wave_hist_sharded(codes, leaf_id, ghk, pending, *, g: int, nb: int,
     into its own, added onto the reduction device in int64), and bf16 /
     f32 sums are converted once, with the global ``scale_exp``: the result
     is bit-equal to the unsharded launch.  CPU tensors sum each shard's
-    plain version in f32 (int32 for int8) in shard order."""
+    plain version in f32 (int32 for int8) in shard order.
+
+    ``pod`` (an ``ops/shard.PodMesh``): ``codes`` are this process's
+    local shards and ``leaf_id`` / ``ghk`` its row block.  On the card
+    the process's accumulator is summed over the processes (integers:
+    staged through pinned host memory, all-reduced by gloo) before the
+    one conversion, so the result is bit-equal to single-controller over
+    the pod's shards; a pod needs ``scale_exp`` for bf16 / f32 stats (the
+    global exponents).  CPU tensors gather every shard's plain partial
+    and sum them in global shard order."""
     dev = leaf_id.device
     blocks = _shard_blocks(codes)
     quant = ghk.dtype == torch.int8
     if dev.type == "cpu":
-        out = None
-        for c, (o, m) in zip(codes, blocks):
-            part = wave_hist_reference(
-                c, leaf_id[o:o + m].to(c.device), ghk[o:o + m].to(c.device),
-                pending.to(c.device), g=g, nb=nb, k=k, w=w).to(dev)
-            out = part if out is None else out + part
+        parts = [wave_hist_reference(
+            c, leaf_id[o:o + m].to(c.device), ghk[o:o + m].to(c.device),
+            pending.to(c.device), g=g, nb=nb, k=k, w=w).to(dev)
+            for c, (o, m) in zip(codes, blocks)]
+        if pod is not None:
+            parts = pod.gather_shards(parts)
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
         return out
+    if pod is not None and not quant and scale_exp is None:
+        raise ValueError("wave_hist_sharded over a pod needs the global "
+                         "scale_exp")
     if not quant:
         scale_exp = _scale_exp_on_card(scale_exp, ghk, ghk.shape[0], k, dev)
     if leaf_bound is None:
@@ -518,6 +533,8 @@ def wave_hist_sharded(codes, leaf_id, ghk, pending, *, g: int, nb: int,
         wave_hist_sharded.launches.bump(sd)
         if tgt is not acc:
             acc += tgt.to(dev)
+    if pod is not None:
+        pod.allreduce_(acc, "wave_hist")
     return acc if quant else fixed_to_f32(acc, scale_exp, k=k, w=w)
 
 

@@ -9,7 +9,8 @@ name one card), make the network of the data-, feature- and
 voting-parallel learners (``parallel/network.py``).  With one machine and
 no mesh every mode runs the serial learner, with a warning, as the
 reference does.  These learners run in one process; with
-``data_sharding=multi_controller`` (one process a host) they are refused.
+``data_sharding=multi_controller`` (one process a host) they are refused
+with the JAX package's error: the pod is the data-parallel plane.
 """
 
 from ..tree.learner import SerialTreeLearner
@@ -29,7 +30,7 @@ def create_tree_learner(config, dataset, device, mesh=None,
             and sharding_mode(config) == "multi_controller"):
         raise LightGBMError(
             f"tree_learner={kind} cannot be combined with "
-            f"data_sharding=multi_controller (the pod slice is the "
+            f"data_sharding=multi_controller (the pod slice IS the "
             f"data-parallel plane); use tree_learner=serial")
     if int(config.num_machines) <= 1 and mesh is None:
         if kind != "serial":

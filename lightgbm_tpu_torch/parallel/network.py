@@ -19,20 +19,32 @@ Each verb logs its payload's bytes in ``comm_log`` as the JAX verb does at
 trace time, one entry a collective: the learners' communication volumes
 compare one for one with the JAX package's.
 
-The socket half of the JAX module (``connect_with_retries``,
-``send_bytes``/``recv_bytes``, ``broadcast_blob``,
-``network_policy_from_config``) is the multi-controller plane, one process
-a host over ``torch.distributed``; this package does not have it yet, and
-:func:`broadcast_blob` refuses it by name.
+The socket half (the JAX module's, ported as written) is the host-blob
+plane of the multi-controller pod, one process a host: a TCP connect with
+bounded retries (:func:`connect_with_retries`, :func:`wait_for_peer`, the
+probe of the ``torch.distributed`` coordinator before bring-up),
+length-prefixed sends and receives with a per-operation timeout, and
+:func:`broadcast_blob`, rank 0's payload to every peer on the
+coordinator's port plus one (the mapper reference and the layout
+handshake of the pod's streamed load).  Every operation is bounded by
+``network_timeout`` / ``network_retries`` and fails with its peer named,
+never hangs; the fault sites are ``net.connect``, ``net.send``,
+``net.recv`` and ``net.broadcast``.
 """
 
 from __future__ import annotations
 
 import functools
+import socket
+import struct
+import time
 from typing import List, Optional, Sequence
 
 import torch
 
+from .. import obs
+from ..robust import faults
+from ..robust.retry import RetryError, RetryPolicy, with_retries
 from ..utils.log import LightGBMError, log_info
 
 
@@ -207,13 +219,291 @@ class Network:
         return run
 
 
-def broadcast_blob(payload, *, address: str, num_hosts: int, rank: int,
-                   config=None) -> bytes:
-    """The pod slice's rank-0 blob broadcast over sockets: refused by name
-    (the multi-controller plane is not ported yet)."""
-    raise LightGBMError("not ported to lightgbm_tpu_torch yet: "
-                        "broadcast_blob (the socket network of the "
-                        "multi-controller plane)")
+# ---------------------------------------------------------------------------
+# fault-tolerant point-to-point helpers (the host-blob plane)
+# ---------------------------------------------------------------------------
+# The collectives of a pod are torch.distributed's (gloo), but the bring-up
+# and the ingest handshake ride plain TCP: the coordinator probe, and the
+# serialized mapper reference a host needs before it can bin its rows.
+# The reference blocks forever on a dead peer (linkers_socket.cpp
+# Construct/Recv); these helpers bound every operation with a timeout and
+# give connects capped-backoff retries, so a missing worker fails the pod
+# fast and with context.
+
+DEFAULT_NETWORK_TIMEOUT_S = 30.0
+DEFAULT_NETWORK_RETRIES = 5
+#: recv_bytes length-prefix bound: a corrupt peer gets a bounded protocol
+#: error, never a giant allocation
+MAX_MESSAGE_BYTES = 1 << 30
+
+_LEN_PREFIX = struct.Struct("<Q")
+
+
+def connect_with_retries(host: str, port: int, *,
+                         attempts: Optional[int] = None,
+                         timeout_s: Optional[float] = None,
+                         base_delay_s: float = 0.1,
+                         config=None, sleep=time.sleep) -> socket.socket:
+    """TCP connect with ``attempts`` bounded tries and capped exponential
+    backoff; raises "peer unreachable after N attempts"
+    (:class:`LightGBMError`) instead of hanging.  The returned socket keeps
+    ``timeout_s`` as its per-operation timeout.  Explicit arguments win,
+    then ``config``'s ``network_retries`` / ``network_timeout``, then the
+    defaults."""
+    cfg_attempts, cfg_timeout = network_policy_from_config(config)
+    if attempts is None:
+        attempts = cfg_attempts
+    if timeout_s is None:
+        timeout_s = cfg_timeout
+    attempts = max(int(attempts), 1)
+
+    def attempt():
+        faults.check("net.connect")
+        return socket.create_connection((host, int(port)),
+                                        timeout=float(timeout_s))
+
+    policy = RetryPolicy(max_attempts=attempts,
+                         base_delay_s=float(base_delay_s),
+                         max_delay_s=2.0,
+                         retry_on=(OSError, faults.InjectedFault))
+    try:
+        sock = with_retries(attempt, policy, site="net.connect",
+                            sleep=sleep)
+    except RetryError as e:
+        raise LightGBMError(
+            f"peer {host}:{port} unreachable after {attempts} "
+            f"attempt{'s' if attempts != 1 else ''} (last error: "
+            f"{e.__cause__!r}); check the machine list / coordinator "
+            f"address and that the peer process is up") from e
+    sock.settimeout(float(timeout_s))
+    return sock
+
+
+def wait_for_peer(address: str, *, attempts: Optional[int] = None,
+                  timeout_s: Optional[float] = None,
+                  base_delay_s: float = 0.1, config=None,
+                  sleep=time.sleep) -> None:
+    """Probe a ``host:port`` peer (the ``torch.distributed`` coordinator)
+    until it accepts a connection, then close it: called before
+    ``init_process_group`` so a dead or mistyped coordinator fails fast
+    with this error instead of stalling inside the rendezvous."""
+    host, _, port = str(address).rpartition(":")
+    if not host or not port.isdigit():
+        raise LightGBMError(
+            f"bad peer address {address!r} (expected host:port)")
+    sock = connect_with_retries(host, int(port), attempts=attempts,
+                                timeout_s=timeout_s,
+                                base_delay_s=base_delay_s,
+                                config=config, sleep=sleep)
+    sock.close()
+
+
+def _netop(sock: socket.socket, site: str, timeout_s: Optional[float],
+           fn, what: str):
+    """Shared wrapper of send/recv: the fault site, an optional per-op
+    timeout, timeout and OS errors re-raised with the peer named."""
+    faults.check(site)
+    if timeout_s is not None:
+        sock.settimeout(float(timeout_s))
+    try:
+        return fn()
+    except socket.timeout as e:
+        peer = _peer_name(sock)
+        raise LightGBMError(
+            f"network timeout {what} {peer} (after "
+            f"{sock.gettimeout():g} s); peer dead or partitioned — "
+            f"the mesh should be rebuilt") from e
+    except OSError as e:
+        peer = _peer_name(sock)
+        raise LightGBMError(f"network error {what} {peer}: {e}") from e
+
+
+def _peer_name(sock: socket.socket) -> str:
+    try:
+        addr = sock.getpeername()
+    except OSError:
+        return "peer <unknown>"
+    if isinstance(addr, tuple) and len(addr) >= 2:
+        return f"peer {addr[0]}:{addr[1]}"
+    return f"peer {addr!r}"     # AF_UNIX etc.
+
+
+class _ClosedUnanswered(LightGBMError):
+    """The peer closed (or reset) the connection before it took a message
+    or before the first byte of its reply."""
+
+
+def send_bytes(sock: socket.socket, payload: bytes,
+               timeout_s: Optional[float] = None) -> None:
+    """Length-prefixed blocking send with a bounded timeout (the
+    reference's ``Linkers::Send`` had none)."""
+    def run():
+        try:
+            sock.sendall(_LEN_PREFIX.pack(len(payload)))
+            sock.sendall(payload)
+        except (BrokenPipeError, ConnectionResetError) as e:
+            raise _ClosedUnanswered(
+                f"connection closed by {_peer_name(sock)} before the "
+                f"message was sent: {e}") from e
+    _netop(sock, "net.send", timeout_s, run, "sending to")
+
+
+def recv_bytes(sock: socket.socket,
+               timeout_s: Optional[float] = None) -> bytes:
+    """Length-prefixed blocking receive with a bounded timeout; a peer
+    closing mid-message raises instead of returning a short read."""
+    first = [True]
+
+    def read_exact(n: int) -> bytes:
+        buf = bytearray()
+        while len(buf) < n:
+            # cap each request so a large n never asks for one giant
+            # buffer
+            try:
+                chunk = sock.recv(min(n - len(buf), 1 << 20))
+            except ConnectionResetError as e:
+                if first[0] and not buf:
+                    raise _ClosedUnanswered(
+                        f"connection reset by {_peer_name(sock)} before "
+                        f"a reply") from e
+                raise
+            if not chunk:
+                kind = _ClosedUnanswered if first[0] and not buf \
+                    else LightGBMError
+                raise kind(
+                    f"connection closed by {_peer_name(sock)} "
+                    f"mid-message ({len(buf)}/{n} bytes)")
+            first[0] = False
+            buf.extend(chunk)
+        return bytes(buf)
+
+    def run():
+        (length,) = _LEN_PREFIX.unpack(read_exact(_LEN_PREFIX.size))
+        if length > MAX_MESSAGE_BYTES:
+            raise LightGBMError(
+                f"{_peer_name(sock)} announced a {length}-byte message "
+                f"(limit {MAX_MESSAGE_BYTES}); corrupt length prefix "
+                f"or protocol mismatch")
+        return read_exact(length)
+    return _netop(sock, "net.recv", timeout_s, run, "receiving from")
+
+
+def network_policy_from_config(config):
+    """(attempts, timeout_s) from a Config's ``network_retries`` /
+    ``network_timeout`` (the defaults otherwise)."""
+    return (int(getattr(config, "network_retries",
+                        DEFAULT_NETWORK_RETRIES)),
+            float(getattr(config, "network_timeout",
+                          DEFAULT_NETWORK_TIMEOUT_S)))
+
+
+# ---------------------------------------------------------------------------
+# the pod's blob broadcast (rank 0 -> every peer)
+# ---------------------------------------------------------------------------
+# The mapper reference a pod host needs before it can bin its rows cannot
+# ride a collective of the training mesh (it does not exist yet), so the
+# ingest handshake rides the length-prefixed plane above: rank 0 serves the
+# payload on the coordinator's port + 1, every peer dials it with the
+# coordinator probe's retry and timeout policy.  Rounds are sequenced:
+# every process calls broadcast_blob the same number of times in the same
+# order, so one port serves any number of rounds.  A peer already served
+# that dials for the next round while rank 0 still serves this one (the
+# JAX package answers it this round's payload again) is closed unanswered,
+# or reset when it waits in the backlog of a round's closing endpoint,
+# and redials until the round's deadline.
+
+#: offset from the coordinator's port to the blob broadcast port (rank 0's
+#: torch.distributed store owns the coordinator's port)
+BROADCAST_PORT_OFFSET = 1
+
+
+def pod_broadcast_address(coordinator_address: str) -> str:
+    """``host:port`` of the blob broadcast endpoint derived from the
+    coordinator address."""
+    host, _, port = str(coordinator_address).rpartition(":")
+    if not host or not port.isdigit():
+        raise LightGBMError(
+            f"bad coordinator address {coordinator_address!r} "
+            f"(expected host:port)")
+    return f"{host}:{int(port) + BROADCAST_PORT_OFFSET}"
+
+
+def broadcast_blob(payload: Optional[bytes], *, address: str,
+                   num_hosts: int, rank: int, config=None) -> bytes:
+    """One broadcast round: rank 0 sends ``payload`` to every peer and
+    returns it; peers pass ``payload=None`` and return the received bytes.
+    Fail-fast on both sides: rank 0 bounds its accept loop by the
+    ``network_timeout``-derived deadline and names the ranks that never
+    dialed in; peers ride :func:`connect_with_retries`, so a dead rank 0
+    surfaces as "peer unreachable after N attempts"."""
+    faults.check("net.broadcast")
+    attempts, timeout_s = network_policy_from_config(config)
+    host, _, port = str(address).rpartition(":")
+    if not host or not port.isdigit():
+        raise LightGBMError(
+            f"bad broadcast address {address!r} (expected host:port)")
+    port = int(port)
+    num_hosts = int(num_hosts)
+    if int(rank) != 0:
+        deadline = time.monotonic() + max(10.0, attempts * timeout_s)
+        while True:
+            sock = connect_with_retries(host, port, config=config)
+            try:
+                send_bytes(sock, struct.pack("<i", int(rank)),
+                           timeout_s=timeout_s)
+                blob = recv_bytes(sock, timeout_s=timeout_s)
+                break
+            except _ClosedUnanswered:
+                # rank 0 still serves the previous round
+                if time.monotonic() >= deadline:
+                    raise
+            finally:
+                sock.close()
+            time.sleep(0.05)
+        obs.inc("net.broadcast_bytes", len(blob))
+        return blob
+    if payload is None:
+        raise LightGBMError("broadcast_blob: rank 0 must supply the "
+                            "payload")
+    deadline = time.monotonic() + max(10.0, attempts * timeout_s)
+    server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    pending = set(range(1, num_hosts))
+    try:
+        try:
+            # peers dial the coordinator's host name; rank 0 accepts on
+            # every interface, so "localhost" and the public name both land
+            server.bind(("", port))
+        except OSError as e:
+            raise LightGBMError(
+                f"broadcast endpoint {address} unavailable on host 0: "
+                f"{e}") from e
+        server.listen(max(num_hosts, 1))
+        while pending:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise LightGBMError(
+                    f"pod broadcast on {address}: host(s) "
+                    f"{sorted(pending)} never connected within the "
+                    f"network_timeout budget — peer dead at ingest "
+                    f"bring-up")
+            server.settimeout(min(remaining, 1.0))
+            try:
+                conn, _addr = server.accept()
+            except socket.timeout:
+                continue
+            try:
+                (peer_rank,) = struct.unpack(
+                    "<i", recv_bytes(conn, timeout_s=timeout_s))
+                if peer_rank in pending:
+                    send_bytes(conn, payload, timeout_s=timeout_s)
+            finally:
+                conn.close()
+            pending.discard(peer_rank)
+    finally:
+        server.close()
+    obs.inc("net.broadcast_bytes", len(payload))
+    return payload
 
 
 @functools.lru_cache(maxsize=8)

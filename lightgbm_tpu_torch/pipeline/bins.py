@@ -37,8 +37,9 @@ counted.  The statistic costs one ``np.bincount`` per group over the
 
 The cache file and :func:`reference_to_bytes` blobs are the JAX package's
 format (the same magic and pickled state), so either package reads the
-other's.  The multi-host mapper broadcast (``broadcast_reference``) is not
-ported: it is refused by name.
+other's.  :func:`broadcast_reference` sends host 0's layout to every host
+of a pod over the socket plane (``parallel/network.broadcast_blob``), so
+every host bins its rows against the same mappers.
 """
 
 from __future__ import annotations
@@ -195,11 +196,15 @@ class BinMapperCache:
 
 
 # ---------------------------------------------------------------------------
-# reference serialization
+# reference serialization and the pod's mapper broadcast
 # ---------------------------------------------------------------------------
-# The layout travels as a self-contained blob (the state dict the cache
-# persists, minus the drift bookkeeping); a data-free skeleton rebuilt
-# from it is adopted ``reference=``-style.
+# A multi-controller pod host must bin its rows against EXACTLY the layout
+# host 0's find-bin produced: a peer running its own find-bin over another
+# sample would disagree on bin boundaries and on feature bundling, and the
+# trees would part.  So the layout travels as a self-contained blob (the
+# state dict the cache persists, minus the drift bookkeeping) over the
+# network.py broadcast plane, and peers rebuild a data-free skeleton that
+# construct_streaming_begin adopts ``reference=``-style.
 
 def _reference_state(ref: BinnedDataset) -> dict:
     """The picklable mapper/group/constraint layout of a dataset (no
@@ -259,7 +264,9 @@ def reference_from_bytes(blob: bytes
 
 def reference_layout_digest(ref: BinnedDataset) -> str:
     """Digest of the mapper/group layout: equal for two references iff
-    they bin rows identically into the same groups."""
+    they bin rows identically into the same groups (equal across pod hosts
+    iff they grow the same trees; the JAX package's digest, byte for
+    byte)."""
     import hashlib
     state = _reference_state(ref)
     state.pop("penalty", None)
@@ -272,8 +279,22 @@ def reference_layout_digest(ref: BinnedDataset) -> str:
     return h.hexdigest()
 
 
-def broadcast_reference(*args, **kwargs):
-    """The JAX package's multi-host mapper broadcast: not ported (the port
-    trains on one card; ``num_hosts > 1`` is refused)."""
-    raise LightGBMError("broadcast_reference (the multi-host mapper "
-                        "broadcast) is not ported to lightgbm_tpu_torch yet")
+def broadcast_reference(reference: Optional[BinnedDataset], *,
+                        address: str, num_hosts: int, rank: int,
+                        config=None, extra: Optional[dict] = None
+                        ) -> Tuple[BinnedDataset, dict]:
+    """The pod ingest handshake: host 0 broadcasts its reference layout
+    (and ``extra`` handshake facts), peers return the rebuilt skeleton
+    and the facts.  Every host comes back with an equal layout digest."""
+    from ..parallel.network import broadcast_blob
+    payload = None
+    if int(rank) == 0:
+        if reference is None:
+            raise LightGBMError(
+                "broadcast_reference: host 0 must supply the reference")
+        payload = reference_to_bytes(reference, extra)
+    blob = broadcast_blob(payload, address=address,
+                          num_hosts=num_hosts, rank=rank, config=config)
+    if int(rank) == 0:
+        return reference, dict(extra or {})
+    return reference_from_bytes(blob)

@@ -57,7 +57,6 @@ from ..boosting import create_boosting
 from ..boosting.gbdt import GBDT, scores_from_leaves
 from ..config import Config, normalize_params
 from ..obs import capture_track, tracing
-from ..ops.grow import check_config_options
 from ..robust import checkpoint as _checkpoint
 from ..robust import faults
 from ..utils.log import LightGBMError, log_info, log_warning
@@ -205,7 +204,6 @@ class RetrainPipeline:
                 {k.strip(): v.strip() for k, v in kv.items()}))
         else:
             cfg = Config(params or {})
-        check_config_options(cfg)
         self.config = cfg
         self.num_iterations = int(num_iterations
                                   if num_iterations is not None
@@ -261,7 +259,8 @@ class RetrainPipeline:
         # on_window fires (long service loops would otherwise pin every
         # window's device scores + binned matrix for the life of run();
         # only the last model — final_booster() — and the served packed
-        # copy are needed at steady state)
+        # copy are needed at steady state); the previous window's booster
+        # also hands its grower back before the next window trains
         self.keep_boosters = bool(keep_boosters)
         # fault tolerance (docs/Robustness.md): after every completed
         # window the model + bin mappers + a manifest land atomically in
@@ -532,6 +531,13 @@ class RetrainPipeline:
 
     def _train_window(self, ds, policy: str) -> GBDT:
         faults.check("pipeline.train")
+        if not self.keep_boosters and self._prev is not None:
+            # nothing trains the previous window's booster again (its
+            # trees were flushed when it finished; the warm policies read
+            # only them): its grower goes back to the cache, idle, for this
+            # window's booster to adopt, instead of a second grower built
+            # and captured while the first sits pinned by _prev
+            self._prev.release_grower()
         if policy == "fresh":
             bst = self._train_fresh(ds)
         else:

@@ -1,8 +1,7 @@
 """Atomic checkpoints: training snapshots and pipeline window state.
 
-Counterpart of ``lightgbm_tpu/robust/checkpoint.py`` (without the pod-slice
-commit protocol: the port trains on one card, and ``num_hosts > 1`` is
-refused).  Both checkpoint families have the same crash contract — **a
+Counterpart of ``lightgbm_tpu/robust/checkpoint.py``.  Both checkpoint
+families have the same crash contract — **a
 reader never observes a partial file**: every write lands in a
 same-directory temp file first and is moved into place with
 ``os.replace`` (atomic on POSIX), so a process killed mid-write leaves
@@ -24,6 +23,11 @@ either the previous checkpoint or the new one, never a torn mix.
   ``checkpoint.json`` — the manifest, written LAST, which is the commit
   point.  The files are the JAX package's formats, so a checkpoint
   written by either package resumes in the other.
+
+Under ``data_sharding=multi_controller`` a training snapshot commits by
+the pod protocol below (every host acks a digest of its state, host 0
+writes the files and then a commit marker): a snapshot some host never
+reached is never resumed.
 
 The ``io.write`` fault site sits between temp-write and rename so chaos
 tests can simulate a crash at the worst moment and assert the previous
@@ -139,6 +143,147 @@ def latest_snapshot(output_model: str) -> Optional[str]:
         if it > best_iter:
             best, best_iter = cand, it
     return best
+
+
+# ---------------------------------------------------------------------------
+# the pod commit protocol (data_sharding=multi_controller)
+# ---------------------------------------------------------------------------
+#
+# A pod checkpoint is real only once EVERY host has reached its state:
+# host 0 must not publish a snapshot a dead peer never reached, or a resume
+# would diverge.  The protocol:
+#
+#   1. every host writes an atomic ack file ``<path>.ack.h<rank>`` with a
+#      digest of its view of the snapshot (model trees, scores, iteration:
+#      the same on every host, so the digest is also a divergence check);
+#   2. host 0 polls for every ack (a network_timeout-derived deadline) and
+#      checks each digest against its own;
+#   3. host 0 writes the payload (model text, .state.npz sidecar) and THEN
+#      the ``<path>.commit`` marker, the commit point;
+#   4. peers poll for a marker with the matching digest before returning,
+#      so no host goes past an uncommitted snapshot.
+#
+# A host killed mid-window never acks, host 0 times out, no marker lands,
+# and the pod resumes from the previous committed snapshot.  The
+# ``ckpt.ack`` fault site arms step 1.
+
+_POLL_INTERVAL_S = 0.05
+
+
+def _pod_ack_path(path: str, rank: int) -> str:
+    return f"{path}.ack.h{int(rank)}"
+
+
+def pod_commit_path(path: str) -> str:
+    return f"{path}.commit"
+
+
+def pod_state_digest(model_trees: str, score: np.ndarray,
+                     iteration: int) -> str:
+    """Digest of one host's snapshot view.  Callers pass the model text
+    WITHOUT the parameters echo (``host_rank`` differs per host); the
+    scores and the iteration are the same on every host."""
+    import hashlib
+    h = hashlib.sha256()
+    h.update(model_trees.encode())
+    h.update(np.ascontiguousarray(score, np.float32).tobytes())
+    h.update(str(int(iteration)).encode())
+    return h.hexdigest()
+
+
+def write_pod_ack(path: str, rank: int, digest: str) -> None:
+    """Atomically publish this host's readiness for the snapshot at
+    ``path`` (step 1)."""
+    faults.check("ckpt.ack")
+    atomic_write_text(_pod_ack_path(path, rank),
+                      json.dumps({"rank": int(rank), "digest": digest}))
+
+
+def await_pod_acks(path: str, num_hosts: int, digest: str,
+                   timeout_s: float, sleep=None) -> None:
+    """Host 0: block until every host's ack lands with a matching digest;
+    raises :class:`LightGBMError` naming the missing ranks on timeout and
+    the diverging rank on a digest mismatch."""
+    import time
+    sleep = sleep or time.sleep
+    deadline = time.monotonic() + float(timeout_s)
+    missing = list(range(int(num_hosts)))
+    while True:
+        still = []
+        for rank in missing:
+            ack = _pod_ack_path(path, rank)
+            if not os.path.exists(ack):
+                still.append(rank)
+                continue
+            try:
+                with open(ack) as fh:
+                    got = json.load(fh)
+            except (OSError, ValueError):
+                still.append(rank)   # read mid-replace; retry
+                continue
+            if str(got.get("digest")) != digest:
+                raise LightGBMError(
+                    f"pod checkpoint {path}: host {rank} acked digest "
+                    f"{got.get('digest')!r} but host 0 computed "
+                    f"{digest!r} — pod state diverged, refusing to "
+                    f"commit")
+        missing = still
+        if not missing:
+            return
+        if time.monotonic() >= deadline:
+            raise LightGBMError(
+                f"pod checkpoint {path}: no ack from host(s) "
+                f"{missing} within {timeout_s:.1f}s — a peer died "
+                f"mid-window; snapshot NOT committed")
+        sleep(_POLL_INTERVAL_S)
+
+
+def commit_pod(path: str, digest: str) -> None:
+    """Step 3's commit point: the marker is written LAST, after every
+    payload file, so its presence certifies a complete snapshot."""
+    atomic_write_text(pod_commit_path(path),
+                      json.dumps({"digest": digest}))
+
+
+def await_pod_commit(path: str, digest: str, timeout_s: float,
+                     sleep=None) -> None:
+    """Peers: block until host 0's commit marker lands with the matching
+    digest (a stale marker of an earlier snapshot at the same path keeps
+    the poll going until the fresh one replaces it)."""
+    import time
+    sleep = sleep or time.sleep
+    deadline = time.monotonic() + float(timeout_s)
+    while True:
+        marker = pod_commit_path(path)
+        if os.path.exists(marker):
+            try:
+                with open(marker) as fh:
+                    got = json.load(fh)
+            except (OSError, ValueError):
+                got = {}
+            if str(got.get("digest")) == digest:
+                return
+        if time.monotonic() >= deadline:
+            raise LightGBMError(
+                f"pod checkpoint {path}: host 0 never committed "
+                f"within {timeout_s:.1f}s — snapshot abandoned")
+        sleep(_POLL_INTERVAL_S)
+
+
+def has_pod_commit(path: str) -> bool:
+    """Whether the snapshot at ``path`` was pod-committed (a pod resumes
+    only committed snapshots)."""
+    return os.path.exists(pod_commit_path(path))
+
+
+def clear_pod_acks(path: str, num_hosts: int) -> None:
+    """Best-effort ack cleanup before a commit (stale acks of an earlier
+    snapshot at the same path would short-circuit step 2)."""
+    for rank in range(int(num_hosts)):
+        try:
+            os.remove(_pod_ack_path(path, rank))
+        except OSError:
+            pass
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,8 @@ ENV_VAR = "LGBM_TPU_FAULTS"
 KNOWN_SITES = ("grow.dispatch", "serve.dispatch", "serve.fleet.dispatch",
                "pipeline.prep", "pipeline.train", "io.write", "obs.export",
                "soak.kill", "soak.load", "soak.clock", "io.read",
-               "stream.parse")
+               "stream.parse", "net.connect", "net.send", "net.recv",
+               "net.broadcast", "ckpt.ack")
 
 
 def known_sites() -> tuple:

@@ -1680,3 +1680,76 @@ def test_sharded_grower_text_equals_unsharded_on_card(cuda_device):
                 b.train_one_iter()
             texts.append(b.model_to_string().split("\nparameters:\n")[0])
         assert texts[0] == texts[1]
+
+
+@pytest.fixture(scope="module")
+def pod_hist(tmp_path_factory):
+    """Two pod processes on the card (tests/_torch_multihost_worker.py
+    ``cudahist``), each launching kernel 1 over its two shards of seeded
+    inputs and all-reducing the accumulators over gloo."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    import _torch_multihost_worker as mhw
+    out = tmp_path_factory.mktemp("pod_hist")
+    mhw.run_pod("cudahist", 2, out, timeout=300, device="cuda")
+    return mhw, [torch.load(out / f"cudahist_r{r}.pt") for r in range(2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8], ids=["bf16", "f32", "int8"])
+def test_pod_wave_hist_bit_equal_to_single_process(cuda_device, pod_hist,
+                                                   dtype):
+    """The process-group reduction of ``wave_hist_sharded`` (two
+    processes, two shards each, int64 / int32 accumulators staged through
+    pinned host memory): every rank's histogram is bit-equal to the
+    single-process four-shard launch and to the unsharded one."""
+    mhw, ranks = pod_hist
+    bins, leaf, ghk, pending = mhw.hist_inputs(cuda_device, dtype)
+    sh = mhw.HIST_SHAPE
+    kw = dict(g=sh["g"], nb=sh["nb"], k=sh["k"], w=sh["w"],
+              leaf_bound=sh["w"] + 1)
+    n = bins.shape[1]
+    scale = None if dtype == torch.int8 else \
+        hist_cuda.hist_scale_exponents(ghk, n)
+    m = -(-n // 4)
+    codes = [bins[:, a:min(a + m, n)].contiguous() for a in range(0, n, m)]
+    single = hist_cuda.wave_hist_sharded(codes, leaf, ghk, pending,
+                                         scale_exp=scale, **kw).cpu()
+    whole = hist_cuda.wave_hist(bins, leaf, ghk, pending, scale_exp=scale,
+                                **kw).cpu()
+    for rank in ranks:
+        got = rank[str(dtype)]
+        assert got["launches"] == 2
+        assert torch.equal(got["hist"].view(torch.int32),
+                           single.view(torch.int32))
+        assert torch.equal(got["hist"].view(torch.int32),
+                           whole.view(torch.int32))
+
+
+@pytest.mark.parametrize("scenario", ["train", "bf16"])
+def test_pod_tree_text_equals_single_controller_on_card(cuda_device,
+                                                        tmp_path, scenario):
+    """Two pod processes on the card (gloo, two shards of the card each,
+    the per-piece loop) train the model text of single-controller over
+    four shards of the card (one captured graph a tree)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    import _torch_multihost_worker as mhw
+    mhw.write_csv(str(tmp_path))
+    mhw.DEVICE[0] = "cuda"
+    try:
+        extra = mhw.SCENARIO_EXTRA[scenario]
+        cfg, ds = mhw.load(mhw.params(0, 1, 0, extra),
+                           mhw.data_path(str(tmp_path)))
+        bst = mhw.train(cfg, ds, mesh=[cuda_device] * mhw.TOTAL_SHARDS)
+        want = mhw.trees_of(bst.model_to_string())
+    finally:
+        mhw.DEVICE[0] = "cpu"
+    reps = mhw.run_pod(scenario, 2, tmp_path, timeout=300, device="cuda")
+    for rep in reps:
+        assert rep["trees"] == want
+        assert rep["comm"]["gather_rows"]["calls"] == mhw.ITERS

@@ -156,7 +156,8 @@ def test_make_mesh_and_factory_refusals(data):
     assert type(create_tree_learner(cfg, ds, CPU)) is SerialTreeLearner
     bad = Config({"tree_learner": "data", "num_machines": 2,
                   "data_sharding": "multi_controller"})
-    with pytest.raises(LightGBMError, match="multi_controller"):
+    with pytest.raises(LightGBMError, match="cannot be combined with "
+                                            "data_sharding=multi_controller"):
         create_tree_learner(bad, ds, CPU, mesh=MESH[:2])
 
 

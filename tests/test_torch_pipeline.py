@@ -406,6 +406,29 @@ def test_overlap_accounting():
     assert piped.overlap_fraction > 0.2
 
 
+@pytest.mark.parametrize("policy", ["fresh", "warm"])
+def test_dropped_boosters_hand_their_grower_on(policy):
+    """Under ``keep_boosters=False`` the previous window's booster hands
+    its grower back before the next window trains: one grower serves
+    every window (one cache miss, then hits), and each window's model is
+    that of a run that keeps its boosters."""
+    from lightgbm_tpu_torch.ops import grow
+    kw = dict(window_policy=policy, warm_iterations=2,
+              rebin_on_drift=False, serve=False)
+    want = _model_strings(RetrainPipeline(PARAMS, **kw).run(
+        range(3), _dense_prep(200)))
+    grow.clear_grower_cache()
+    before = dict(grow.GROWER_CACHE_COUNTS)
+    texts = []
+    pipe = RetrainPipeline(PARAMS, keep_boosters=False, **kw)
+    res = pipe.run(range(3), _dense_prep(200), on_window=lambda r:
+                   texts.append(r.booster.model_to_string()))
+    assert [r.booster for r in res] == [None] * 3
+    assert texts == want
+    assert grow.GROWER_CACHE_COUNTS["misses"] - before["misses"] == 1
+    assert grow.GROWER_CACHE_COUNTS["hits"] - before["hits"] == 2
+
+
 # ----------------------------------------------------------------------
 # the port's window models against the JAX package's pipeline
 
