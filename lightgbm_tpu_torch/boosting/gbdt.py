@@ -962,6 +962,7 @@ class GBDT:
         self._catch_up_valid_scores()
         out = []
         for v in self.valid_sets:
+            # torchlint: disable-next=TL001 -- metrics run on the host in f64
             score = v.score.double().cpu().numpy()
             out.extend((v.name, name, value, m.bigger_is_better)
                        for m in v.metrics

@@ -25,6 +25,9 @@ code ports mechanically:
 Functions intentionally keep the reference's argument order, including
 the ``parameters`` string argument, so a port is a transliteration.
 """
+# torchlint: abi-header=../include/lightgbm_tpu/c_api.h
+# (TL151 checks every declaration below against these defs' arities)
+
 from __future__ import annotations
 
 import functools

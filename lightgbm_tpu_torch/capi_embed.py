@@ -24,6 +24,11 @@ and its routes), and the metrics file is written after every
 ``booster_update_chunked`` and ``*_free`` and by :func:`flush`, which the library calls at process exit (the embedded
 interpreter is never finalized, so Python's own exit hooks never run).
 """
+# torchlint: abi-header=../include/lightgbm_tpu/c_api.h
+# torchlint: abi-impl=../src/capi_cuda/lgbm_capi.cpp
+# (TL151 cross-checks header<->cpp parity, every call_adapter name and
+# Py_BuildValue format against the adapters below, and each forwarded
+# _call(C.LGBM_*, ...) against the header's arity and parameter order)
 
 from __future__ import annotations
 

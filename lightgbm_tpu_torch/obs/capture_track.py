@@ -9,6 +9,10 @@ a tree's pieces and the instantiation of the composed graph
 ``DeviceGrower`` captures anew, so each retrain window pays its captures;
 :func:`record` counts them by name and signature and times them, the way
 ``track_jit`` counts traces, and the pipeline reports captures per window.
+The first load of each kernel library in a process (its ``nvcc`` build,
+or the library found built) is recorded too, as ``build.<name>``
+(``ops/build.py::load_library``): the counterpart of the kernel compiles
+inside the JAX package's tracked XLA compiles.
 
 When observability is disabled :func:`record` only adds to
 :data:`COUNTS`, the process's always-on capture count (the warm-up report
@@ -17,12 +21,15 @@ reads it).
 
 from __future__ import annotations
 
+import threading
 from typing import Iterable
 
 from .state import STATE
 
-#: captures of this process, counted whether telemetry is on or off
+#: captures of this process, counted whether telemetry is on or off (under
+#: :data:`_COUNTS_LOCK`: several threads may build growers at once)
 COUNTS = {"captures": 0}
+_COUNTS_LOCK = threading.Lock()
 
 
 def signature_of(parts: Iterable) -> str:
@@ -37,7 +44,8 @@ def record(name: str, signature: str, t0: float, seconds: float) -> None:
     eager warm-up, the captures and the instantiation): a
     ``capture.<name>`` timing, the ``capture.total`` counter, the
     per-signature count and a ``capture:<name>`` trace span."""
-    COUNTS["captures"] += 1
+    with _COUNTS_LOCK:
+        COUNTS["captures"] += 1
     st = STATE
     if not st.enabled:
         return

@@ -25,8 +25,10 @@ empty contextvars context:
   checks of their own).
 
 The port's propagation edges: pipeline prep thread -> train -> swap,
-and checkpoint/resume (the resumed pipeline reuses the originating
-``trace_id`` from the manifest).
+micro-batch ``submit`` -> worker flush (``PredictionServer`` and each
+``FleetServer`` replica: a ``serve.request`` / ``serve.fleet.request``
+span a request), and checkpoint/resume (the resumed pipeline reuses the
+originating ``trace_id`` from the manifest).
 """
 
 from __future__ import annotations

@@ -18,7 +18,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
+
+from ..obs import capture_track
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 DEFAULT_BUILD_DIR = CSRC.parent.parent / "build" / "lightgbm_tpu_torch"
@@ -28,8 +32,9 @@ BUILD_DIR = (Path(os.environ[ENV_VAR]).expanduser()
              if os.environ.get(ENV_VAR, "").lower() not in _FALSY
              else DEFAULT_BUILD_DIR)
 #: libraries built by this process ("built") and found already built
-#: ("found")
+#: ("found"), counted under :data:`_COUNTS_LOCK`
 COUNTS = {"built": 0, "found": 0}
+_COUNTS_LOCK = threading.Lock()
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 
@@ -69,9 +74,11 @@ def start_build(name: str):
     several sources at once."""
     out = library_path(name)
     if out.exists():
-        COUNTS["found"] += 1
+        with _COUNTS_LOCK:
+            COUNTS["found"] += 1
         return None, out
-    COUNTS["built"] += 1
+    with _COUNTS_LOCK:
+        COUNTS["built"] += 1
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(nvcc_command(name, tmp), stdout=subprocess.PIPE,
@@ -95,10 +102,19 @@ def finish_build(proc, out: Path) -> str:
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
+    """Build (if needed) and load ``csrc/<name>.cu``.  The first load in
+    a process is recorded in the capture telemetry as ``build.<name>``
+    (``obs/capture_track.py``), keyed by the library's file name and
+    whether this call built it: the port's counterpart of the kernel
+    compiles inside the JAX package's tracked XLA compiles."""
+    t0 = time.perf_counter()
     proc, out = start_build(name)
     finish_build(proc, out)
     try:
-        return ctypes.CDLL(str(out))
+        lib = ctypes.CDLL(str(out))
     except OSError as e:
         raise KernelBuildError(f"cannot load {out}: {e}") from e
+    capture_track.record(f"build.{name}", capture_track.signature_of(
+        (out.name, "found" if proc is None else "built")), t0,
+        time.perf_counter() - t0)
+    return lib

@@ -456,8 +456,11 @@ class PredictionServer:
                     or not self._worker.is_alive()):
                 raise LightGBMError("micro-batching worker not running; "
                                     "call start() (or use predict())")
+            # the submitter's trace context rides the queue item (None
+            # while tracing is off): the worker emits a serve.request span
+            # parented under the submit site
             self._queue.put((data, bool(raw_score), fut,
-                             time.perf_counter()))
+                             time.perf_counter(), tracing.capture()))
         return fut
 
     def _drain_loop(self) -> None:
@@ -517,7 +520,18 @@ class PredictionServer:
                     g[2].set_result(out[lo:hi])
                 lo = hi
         done = time.perf_counter()
-        for _, _, fut, t0 in batch:
+        for data, _, fut, t0, ctx in batch:
             if (fut.done() and not fut.cancelled()
                     and fut.exception() is None):
                 obs.observe("serve.request_latency", done - t0)
+                if ctx is not None:
+                    # submit -> flush causal edge: one span a request from
+                    # submit time to its future's resolution, parented
+                    # under the submitter's active span
+                    obs.span_event(
+                        "serve.request", t0, done - t0, cat="serve",
+                        rows=int(data.shape[0]),
+                        span_id=tracing.new_id(),
+                        trace_id=ctx.trace_id,
+                        **({"parent_id": ctx.span_id}
+                           if ctx.span_id else {}))

@@ -703,8 +703,10 @@ class FleetServer:
                 raise LightGBMError("fleet micro-batching workers not "
                                     "running; call start() (or "
                                     "predict())")
+            # the submitter's trace context rides the queue item to the
+            # replica worker (None while tracing is off)
             rep.queue.put((tid, data, bool(raw_score), fut,
-                           time.perf_counter()))
+                           time.perf_counter(), tracing.capture()))
         obs.set_gauge(f"serve.fleet.replica_queue_depth.{rep.index}",
                       rep.queue.qsize())
         return fut
@@ -770,10 +772,21 @@ class FleetServer:
                     g[3].set_result(out[lo:hi])
                 lo = hi
         done = time.perf_counter()
-        for _, _, _, fut, t0 in batch:
+        for _, data, _, fut, t0, ctx in batch:
             if (fut.done() and not fut.cancelled()
                     and fut.exception() is None):
                 obs.observe("serve.fleet.request_latency", done - t0)
+                if ctx is not None:
+                    # submit -> replica flush causal edge, parented under
+                    # the submitter's active span
+                    obs.span_event(
+                        "serve.fleet.request", t0, done - t0,
+                        cat="serve", rows=int(data.shape[0]),
+                        replica=rep.index,
+                        span_id=tracing.new_id(),
+                        trace_id=ctx.trace_id,
+                        **({"parent_id": ctx.span_id}
+                           if ctx.span_id else {}))
 
 
 class TenantHandle:
