@@ -40,6 +40,13 @@ Phases, one line each:
               cases at its default 10.5M rows: the entry point of the
               tensor-core kernel wave_hist_v2, whose launches are counted
               here;
+   clock   -- the device clock's stamp kernel (csrc/obs_clock.cu) on card
+              tensors, each mode against the plain stamp on the same
+              table (the same cells change; other rows and slots outside
+              the table untouched; OPEN_TREE zeroes hist_ns), an
+              OPEN/CLOSE pair against CUDA events around one kernel, and
+              a stamp's time in a CUDA graph; its launches on the main
+              path (every phase after it) are counted on the device;
 4. train   -- the HIGGS shape (28 features, max_bin 255, learning rate
               0.1) on 2,000,000 synthetic rows made from --seed, binned
               once from the dense matrix and once from a scipy CSR matrix
@@ -58,7 +65,8 @@ Phases, one line each:
               (nothing captured), and its records, leaves, waves, int8
               scales, scores and model text must equal the fused run's
               bit for bit; wave_hist's launches, counted on the device,
-              must equal the trees' waves plus the warm-up waves.
+              must equal the trees' waves plus the warm-up waves, and
+              the device clock's stamps four a tree and two a wave.
               Prints s/tree three ways, the capture, warm-up and
               instantiate seconds, peak memory after capture, 5 more
               fused chunks (s/tree median and spread, host syncs a
@@ -1009,6 +1017,188 @@ def measure_rows_case(dev, n, m, seed, g=N_FEATURES, nb=256, permuted=True):
     return r
 
 
+def card_stamps(dev) -> int:
+    """The device clock's stamps made on the card ``dev`` so far (its
+    device counter; the plain stamps on the CPU are counted apart)."""
+    from lightgbm_tpu_torch.ops import clock
+    return int(clock.stamp.launches.counter(dev))
+
+
+#: how far the growth of an OPEN/CLOSE stamp pair's interval, from a short
+#: kernel between them to a long one, may read from the growth of the
+#: CUDA-event interval around the same launches (medians), microseconds
+CLOCK_TOL_US = 1.0
+#: the most the event interval may exceed the stamped one (the two stamp
+#: launches' own edges, eager launches queued on a busy card),
+#: microseconds
+CLOCK_EDGE_US = 8.0
+
+
+def phase_clock(dev):
+    """The device clock's stamp kernel (csrc/obs_clock.cu,
+    ``ops/clock.stamp``) on card tensors.  Each mode (SET of every field,
+    OPEN_TREE, OPEN and CLOSE of the kernel-1 sum) is held against the
+    plain stamp (the CPU path of ``ops/clock.stamp``) on the same table
+    and control words, at slots inside and outside the table: the same
+    cells change, other rows and out-of-range slots are left alone, and
+    OPEN_TREE zeroes ``hist_ns``.  Stamps in order read in order.  An
+    OPEN/CLOSE pair around a sleep kernel queued on a busy card: its
+    interval grows from a short kernel to a long one as the CUDA-event
+    interval around the same launches does, within CLOCK_TOL_US, and
+    reads at most CLOCK_EDGE_US below it (the stamps' own launch edges).
+    An empty pair inside a CUDA graph (what the stamps add to a wave's
+    ``hist_ns``), and the stamp's time in a CUDA graph (1000 stamps a
+    replay) beside the plain stamp's and its bytes' bound; the device
+    counter must count every stamp, the graphs' replays too."""
+    import torch
+    from lightgbm_tpu_torch.ops import clock
+    t_phase = time.perf_counter()
+    counted0 = card_stamps(dev)
+    stamps = 0
+    cap = 4
+    gen = torch.Generator().manual_seed(21)
+    base = torch.randint(1, 1 << 40, (cap, len(clock.FIELDS)),
+                         generator=gen, dtype=torch.int64)
+    modes = [(f, clock.SET) for f in range(len(clock.FIELDS))] + [
+        (clock.START, clock.OPEN_TREE), (clock.HIST, clock.OPEN),
+        (clock.HIST, clock.CLOSE)]
+    cases = 0
+    for slot in (-1, 0, 2, cap - 1, cap, 1 << 20):
+        for field, mode in modes:
+            ctl = torch.tensor([3, 1, 2, slot], dtype=torch.int32)
+            plain = base.clone()
+            clock.stamp(plain, ctl, field, mode)
+            card = base.to(dev)
+            clock.stamp(card, ctl.to(dev), field, mode)
+            stamps += 1
+            got = card.cpu()
+            if not torch.equal(got != base, plain != base):
+                fail(f"obs_clock_stamp slot {slot} field {field} mode "
+                     f"{mode}: cells changed on the card "
+                     f"{(got != base).nonzero().tolist()}, by the plain "
+                     f"stamp {(plain != base).nonzero().tolist()}")
+            if mode == clock.OPEN_TREE and 0 <= slot < cap \
+                    and int(got[slot, clock.HIST]) != 0:
+                fail(f"obs_clock_stamp OPEN_TREE left hist_ns "
+                     f"{int(got[slot, clock.HIST])} at slot {slot}")
+            cases += 1
+    table = torch.zeros((1, len(clock.FIELDS)), dtype=torch.int64,
+                        device=dev)
+    ctl = torch.zeros(4, dtype=torch.int32, device=dev)
+    for f in (clock.START, clock.WAVES_START, clock.WAVES_END, clock.END):
+        clock.stamp(table, ctl, f)
+        stamps += 1
+    row = table[0].tolist()
+    if not 0 < row[0] <= row[1] <= row[2] <= row[3]:
+        fail(f"obs_clock_stamp: stamps in order read {row[:4]}")
+    # an OPEN/CLOSE pair around a kernel against CUDA events around the
+    # same three launches, queued behind a sleep so no host gap lies
+    # between them: the event interval exceeds the stamped one by the
+    # stamps' launch edges, the same for a short and a long kernel
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    diffs_us, pairs = {}, {}
+    for cycles in (200_000, 2_000_000):
+        for _ in range(8):
+            table.zero_()
+            torch.cuda._sleep(20_000_000)
+            e0.record()
+            clock.stamp(table, ctl, clock.HIST, clock.OPEN)
+            torch.cuda._sleep(cycles)
+            clock.stamp(table, ctl, clock.HIST, clock.CLOSE)
+            e1.record()
+            torch.cuda.synchronize(dev)
+            stamps += 2
+            ev_us = e0.elapsed_time(e1) * 1e3
+            st_us = int(table[0, clock.HIST]) * 1e-3
+            pairs.setdefault(cycles, []).append((ev_us, st_us))
+            diffs_us.setdefault(cycles, []).append(ev_us - st_us)
+
+    def med(v):
+        return sorted(v)[len(v) // 2]
+    short, long_ = (med(diffs_us[c]) for c in sorted(diffs_us))
+    grow_ev = med([e for e, _ in pairs[2_000_000]]) \
+        - med([e for e, _ in pairs[200_000]])
+    grow_st = med([t for _, t in pairs[2_000_000]]) \
+        - med([t for _, t in pairs[200_000]])
+    if not (abs(grow_ev - grow_st) <= CLOCK_TOL_US
+            and 0.0 <= short <= CLOCK_EDGE_US
+            and 0.0 <= long_ <= CLOCK_EDGE_US):
+        fail(f"obs_clock_stamp: from a short kernel to a long one the "
+             f"stamped interval grew {grow_st:.2f} us, the events' "
+             f"{grow_ev:.2f} us; the events exceed the stamps by "
+             f"{short:.2f} / {long_:.2f} us (medians; all {diffs_us})")
+    # an empty OPEN/CLOSE pair inside a CUDA graph: what the stamps add to
+    # hist_ns a wave
+    table.zero_()
+    pair = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(pair, stream=side):
+            clock.stamp(table, ctl, clock.HIST, clock.OPEN)
+            clock.stamp(table, ctl, clock.HIST, clock.CLOSE)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    table.zero_()
+    n_pair = 20
+    for _ in range(n_pair):
+        pair.replay()
+    torch.cuda.synchronize(dev)
+    stamps += 2 * n_pair
+    empty_us = int(table[0, clock.HIST]) * 1e-3 / n_pair
+    del pair
+    # the stamp's time inside a CUDA graph, as the grower's pieces run it
+    n_graph = 1000
+    g = torch.cuda.CUDAGraph()
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(g, stream=side):
+            for _ in range(n_graph):
+                clock.stamp(table, ctl, clock.END)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    reps = 10
+    ms = time_ms(g.replay, reps=reps, warmup=2) / n_graph
+    stamps += n_graph * (reps + 2)
+    del g
+    cpu_table = table.cpu()
+    cpu_ctl = ctl.cpu()
+    t0 = time.perf_counter()
+    for _ in range(10_000):
+        clock.stamp(cpu_table, cpu_ctl, clock.END)
+    plain_ms = (time.perf_counter() - t0) / 10_000 * 1e3
+    counted = card_stamps(dev) - counted0
+    if counted != stamps:
+        fail(f"obs_clock_stamp: the device counter counted {counted} "
+             f"stamps, {stamps} were launched")
+    # bytes: the slot word, a read-modify-write of up to two int64 fields
+    # and of the counter
+    bytes_ = 4 + 2 * 16 + 16
+    bound_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    err_us = abs(grow_ev - grow_st)
+    r = dict(kernel="obs_clock_stamp", ok=True, cases=cases,
+             interval_diff_us={str(c): v for c, v in diffs_us.items()},
+             edge_us=[short, long_], growth_us=[grow_st, grow_ev],
+             empty_pair_in_graph_us=empty_us,
+             tolerance=f"the same cells as the plain stamp; a stamped "
+             f"interval grows with the kernel between its stamps as the "
+             f"CUDA-event interval does, within {CLOCK_TOL_US} us, and "
+             f"reads at most {CLOCK_EDGE_US} us below it",
+             max_abs_err=err_us * 1e-3,
+             max_abs_err_unit="ms: the stamped interval's growth against "
+             "the CUDA events'", ms=ms, plain_ms=plain_ms,
+             bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+             tc_ms=None, stamps_counted=counted,
+             seconds=time.perf_counter() - t_phase)
+    print(f"phase clock: ok {cases} mode cases against the plain stamp; "
+          f"a stamped interval grew {grow_st:.2f} us with the kernel "
+          f"between, the CUDA events' {grow_ev:.2f} us; events exceed the "
+          f"stamps by {short:.2f} / {long_:.2f} us (eager launch edges); an "
+          f"empty pair in a graph {empty_us:.3f} us; a stamp in a graph "
+          f"{ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us; {counted} "
+          f"stamps counted", flush=True)
+    return r
+
+
 def phase_ubench():
     """scripts/ubench_hist_cuda.py's cases that launch wave_hist_v2, at
     the script's default size, through its own entry point."""
@@ -1163,11 +1353,12 @@ def train_path(name, ds, dev, path, seed, valid=None):
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lt
-    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops import clock, hist_cuda
     params = {**TRAIN_BASE, **TRAIN_RUNS[name], "device": dev.type}
     torch.cuda.reset_peak_memory_stats(dev)
     hist_cuda.wave_hist.launches.reset()          # count this run only
     torch.cuda.synchronize(dev)
+    stamps0 = card_stamps(dev)
     evals = {}
     t0 = time.perf_counter()
     booster = lt.train(params, ds, num_boost_round=ROUNDS,
@@ -1188,6 +1379,15 @@ def train_path(name, ds, dev, path, seed, valid=None):
         fail(f"{name} {path}: wave_hist launches {launches} (device "
              f"counter) != tree waves {waves} + warm-up "
              f"{cap['warmup_waves']}")
+    # the device clock: four stamps a tree and two a wave (kernel 1's
+    # call), the warm-up's tree before the captures too
+    stamps = card_stamps(dev) - stamps0
+    warmups = cap["warmup_waves"] // len(grower._stages)
+    want_stamps = 4 * (len(gb.models) + warmups) + 2 * launches
+    if stamps != want_stamps:
+        fail(f"{name} {path}: {stamps} device-clock stamps (device "
+             f"counter) != 4 x ({len(gb.models)} trees + {warmups} "
+             f"warm-ups) + 2 x {launches} waves")
     chunks = [s[1] for s in stats]
     want = [ROUNDS] if path == "fused" else [1] * ROUNDS
     if chunks != want:
@@ -1206,6 +1406,7 @@ def train_path(name, ds, dev, path, seed, valid=None):
         fail(f"{name} {path}: non-finite training scores")
     res = dict(path=path, train_s=train_s, s_per_tree=train_s / ROUNDS,
                model_text_sha256=sha, launches=launches, waves=waves,
+               clock_stamps=stamps,
                waves_per_tree=waves / ROUNDS, host_syncs=syncs,
                dispatch_s=[s[0] for s in stats], capture=cap,
                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
@@ -6301,6 +6502,9 @@ def main() -> int:
     build_s = phase_build()
     kernels = phase_kernels(dev)
     ubench = phase_ubench()
+    clock_case = phase_clock(dev)
+    from lightgbm_tpu_torch.ops import clock
+    clock.stamp.launches.reset()                  # the main path's stamps
     train, models, x, y, dense = phase_train(dev, args.seed, args.profile)
     check_no_fallback("train")
     clear_growers(dev)
@@ -6450,6 +6654,10 @@ def main() -> int:
     # shards of the card), beside the sharded case at the pod's shape
     picks.append(("wave_hist:pod", pod["case"], pod["worker_launches"],
                   wave_src, wave_tpu))
+    # the device clock's stamps on the main path (this process's growers:
+    # every tree and wave of its training phases)
+    picks.append(("obs_clock_stamp", clock_case, card_stamps(dev),
+                  "lightgbm_tpu_torch/csrc/obs_clock.cu", None))
     for name, _, n_launch, _, _ in picks:
         if n_launch <= 0:
             fail(f"{name} never launched on the main path")
@@ -6465,7 +6673,8 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke.json", "w") as fh:
         json.dump(dict(card=card, kind=kind, build_s=build_s,
-                       kernels=kernels, ubench=ubench, train=train,
+                       kernels=kernels, ubench=ubench, clock=clock_case,
+                       train=train,
                        objectives=objectives, data=data,
                        boosting=boosting, window20m=window,
                        host_learner=host, pipeline=pipeline,

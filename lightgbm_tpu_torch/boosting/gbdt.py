@@ -53,6 +53,7 @@ from ..data.dataset import BinnedDataset, Metadata
 from ..metrics import create_metrics
 from ..objectives import create_objective
 from ..ops.bagging import bagging_row_mask
+from ..ops.clock import DeviceClock
 from ..ops import stage_plan as stage_plan_mod
 from ..ops.grow import (DeviceGrower, acquire_grower, check_slice_config,
                         host_learner_reason, release_grower)
@@ -107,32 +108,56 @@ def _replay_records(rec_i, rec_f, rec_c, nl, shrinkage, bias, dataset,
     return tree
 
 
+def _host_arrays(*tensors) -> list:
+    """numpy copies of ``tensors`` through ONE device-to-host copy: their
+    bytes concatenated on the device, cut apart again on the host."""
+    flat = torch.cat([t.reshape(-1).view(torch.uint8)
+                      for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        out.append(flat[at:at + n].view(dtype).reshape(tuple(t.shape)))
+        at += n
+    return out
+
+
 class _PendingTree:
-    """Device-side split records of a grown tree, replayed lazily."""
+    """Device-side split records of a grown tree and its device clock
+    (``ops/clock.py``), replayed lazily."""
 
-    __slots__ = ("rec_i", "rec_f", "rec_c", "nl", "shrinkage", "bias")
+    __slots__ = ("rec_i", "rec_f", "rec_c", "nl", "shrinkage", "bias",
+                 "clock")
 
-    def __init__(self, rec_i, rec_f, rec_c, nl, shrinkage, bias):
+    def __init__(self, rec_i, rec_f, rec_c, nl, shrinkage, bias, clock):
         self.rec_i, self.rec_f, self.rec_c = rec_i, rec_f, rec_c
         self.nl, self.shrinkage, self.bias = nl, shrinkage, bias
+        self.clock = clock
 
     def materialize(self, dataset, config) -> Tree:
-        return _replay_records(self.rec_i.cpu().numpy(),
-                               self.rec_f.cpu().numpy(),
-                               self.rec_c.cpu().numpy(), int(self.nl),
+        clock, rec_i, rec_f, rec_c = _host_arrays(
+            self.clock, self.rec_i, self.rec_f, self.rec_c)
+        tree = _replay_records(rec_i, rec_f, rec_c, int(self.nl),
                                self.shrinkage, self.bias, dataset, config)
+        tree.device_clock = DeviceClock.from_row(clock)
+        return tree
 
 
 class _RecStack:
     """The stacked records of a fused chunk (``DeviceGrower.fused_train``:
-    rec_i, rec_f, nl, waves, qscales, rec_c): ONE asynchronous device-to-host
-    copy into pinned memory serves every tree of the chunk; :meth:`host`
-    waits for it (a host sync, counted by the caller)."""
+    rec_i, rec_f, nl, waves, qscales, rec_c) and its trees' device clocks
+    (``clock``, ``ops/clock.py``): ONE asynchronous device-to-host copy
+    into pinned memory serves every tree of the chunk; the first read
+    waits for it (a host sync, counted by the caller, and a
+    ``train.wait`` span)."""
 
-    __slots__ = ("_host", "_event")
+    __slots__ = ("_host", "_event", "_clock")
 
-    def __init__(self, arrays, device: torch.device):
+    def __init__(self, arrays, device: torch.device, clock=None):
         self._event = None
+        self._clock = clock is not None
+        if self._clock:
+            arrays = (*arrays, clock)
         if device.type == "cuda":
             self._host = tuple(torch.empty(a.shape, dtype=a.dtype,
                                            pin_memory=True) for a in arrays)
@@ -143,12 +168,22 @@ class _RecStack:
         else:
             self._host = tuple(a.clone() for a in arrays)
 
+    def _wait(self) -> None:
+        if self._event is not None:
+            with obs.span("train.wait", cat="boost"):
+                self._event.synchronize()
+            self._event = None
+
     def host(self):
         """(rec_i, rec_f, nl, waves, qscales, rec_c) numpy arrays."""
-        if self._event is not None:
-            self._event.synchronize()
-            self._event = None
-        return tuple(h.numpy() for h in self._host)
+        self._wait()
+        arrays = self._host[:-1] if self._clock else self._host
+        return tuple(h.numpy() for h in arrays)
+
+    def clock(self) -> Optional[np.ndarray]:
+        """(trees, 5) int64 device clock rows, or None."""
+        self._wait()
+        return self._host[-1].numpy() if self._clock else None
 
 
 class _PendingChunkTree:
@@ -162,9 +197,13 @@ class _PendingChunkTree:
 
     def materialize(self, dataset, config) -> Tree:
         rec_i, rec_f, nl, _, _, rec_c = self.stack.host()
-        return _replay_records(rec_i[self.idx], rec_f[self.idx],
+        tree = _replay_records(rec_i[self.idx], rec_f[self.idx],
                                rec_c[self.idx], int(nl[self.idx]),
                                self.shrinkage, self.bias, dataset, config)
+        clock = self.stack.clock()
+        if clock is not None:
+            tree.device_clock = DeviceClock.from_row(clock[self.idx])
+        return tree
 
 
 _PENDING = (_PendingTree, _PendingChunkTree)
@@ -232,73 +271,80 @@ class GBDT:
         # package (lightgbm_tpu/boosting/gbdt.py:223); the stage-plan store
         # follows this config alone (stage_plan.store_dir)
         compile_cache.configure_from_config(cfg)
-        obs.inc("train.init_train")
-        obs.instant("init_train", cat="boost", rows=int(train_set.num_data),
-                    features=int(train_set.num_features))
-        self._last_chunk_stack = None
-        self.release_grower()
-        self.train_set = train_set
-        check_slice_config(cfg, train_set)
-        # objective "none" (custom gradients, fobj): None, as in the JAX
-        # package
-        self.objective = create_objective(cfg)
-        n = train_set.num_data
-        md = train_set.metadata
-        if self.objective is not None:
-            self.objective.init(md, n, self.device)
-            self.num_model = self.objective.num_model_per_iteration
-            self.class_need_train = [self.objective.class_need_train(k)
-                                     for k in range(self.num_model)]
-        else:
-            self.num_model = max(int(cfg.num_class), 1)
-            self.class_need_train = [True] * self.num_model
-        self.num_data = n
-        self.has_init_score = md.init_score is not None
-        self.train_score = self._initial_scores(md, n)
-        self.train_metrics = create_metrics(cfg)
-        for m in self.train_metrics:
-            m.init(md, n)
-        self.feature_names = list(train_set.feature_names)
-        self.max_feature_idx = train_set.num_total_features - 1
-        self.feature_infos = [m.feature_info_str() for m in
-                              train_set.bin_mappers]
-        self._grower = self.learner = None
-        why = self._host_learner_reason(train_set)
-        if why is not None and sharding_mode(cfg) == "multi_controller":
-            # a pod host cannot fall back to the host learner: its dataset
-            # may hold its own rows only, and its peers would wedge in the
-            # reduction (lightgbm_tpu/boosting/gbdt.py:369-389)
-            raise LightGBMError(
-                "data_sharding=multi_controller requires the device grower "
-                "(tree_learner=serial and an eligible configuration: no "
-                "monotone constraints/renew objective/forced splits, "
-                f"dataset under the striped-count bound; here: {why}) — "
-                "refusing to fall back on a pod slice")
-        if why is None:
-            # a cached grower of equal shapes when grower_cache is on
-            self._grower = acquire_grower(train_set, cfg, self.device,
-                                          self.objective, self,
-                                          mesh=self._shard_mesh())
-            self._resolve_wave_plan()
-        else:
-            log_info(f"Using the host tree learner: {why}")
-            self._host_learner()
-        self.bag_fraction = float(cfg.bagging_fraction)
-        self.bag_freq = int(cfg.bagging_freq)
-        self.need_bagging = self.bag_fraction < 1.0 and self.bag_freq > 0
-        # carried as the JAX package carries it (gbdt.py:288-289); the
-        # device grower always reads the hessian column
-        self.is_constant_hessian = bool(
-            self.objective is not None
-            and self.objective.is_constant_hessian and not self.need_bagging)
-        # (num_data,) f32 in-bag mask of the current bagging round (device
-        # grower); the host learner's bag: an index buffer whose first
-        # bag_count rows are in the bag
-        self.row_mask: Optional[torch.Tensor] = None
-        self.bag_buffer: Optional[torch.Tensor] = None
-        self.bag_count = n
-        log_info(f"Training on {self.device} ({n} rows, "
-                 f"{train_set.num_groups} feature groups)")
+        # the objective, the scores and the metrics, the grower (acquired
+        # from the cache or built, with the codes' upload) or the host
+        # learner
+        with obs.span("train.init", cat="boost",
+                      rows=int(train_set.num_data)):
+            obs.inc("train.init_train")
+            obs.instant("init_train", cat="boost",
+                        rows=int(train_set.num_data),
+                        features=int(train_set.num_features))
+            self._last_chunk_stack = None
+            self.release_grower()
+            self.train_set = train_set
+            check_slice_config(cfg, train_set)
+            # objective "none" (custom gradients, fobj): None, as in the JAX
+            # package
+            self.objective = create_objective(cfg)
+            n = train_set.num_data
+            md = train_set.metadata
+            if self.objective is not None:
+                self.objective.init(md, n, self.device)
+                self.num_model = self.objective.num_model_per_iteration
+                self.class_need_train = [self.objective.class_need_train(k)
+                                         for k in range(self.num_model)]
+            else:
+                self.num_model = max(int(cfg.num_class), 1)
+                self.class_need_train = [True] * self.num_model
+            self.num_data = n
+            self.has_init_score = md.init_score is not None
+            self.train_score = self._initial_scores(md, n)
+            self.train_metrics = create_metrics(cfg)
+            for m in self.train_metrics:
+                m.init(md, n)
+            self.feature_names = list(train_set.feature_names)
+            self.max_feature_idx = train_set.num_total_features - 1
+            self.feature_infos = [m.feature_info_str() for m in
+                                  train_set.bin_mappers]
+            self._grower = self.learner = None
+            why = self._host_learner_reason(train_set)
+            if why is not None and sharding_mode(cfg) == "multi_controller":
+                # a pod host cannot fall back to the host learner: its dataset
+                # may hold its own rows only, and its peers would wedge in the
+                # reduction (lightgbm_tpu/boosting/gbdt.py:369-389)
+                raise LightGBMError(
+                    "data_sharding=multi_controller requires the device "
+                    "grower (tree_learner=serial and an eligible configuration: no "
+                    "monotone constraints/renew objective/forced splits, "
+                    f"dataset under the striped-count bound; here: {why}) — "
+                    "refusing to fall back on a pod slice")
+            if why is None:
+                # a cached grower of equal shapes when grower_cache is on
+                self._grower = acquire_grower(train_set, cfg, self.device,
+                                              self.objective, self,
+                                              mesh=self._shard_mesh())
+                self._resolve_wave_plan()
+            else:
+                log_info(f"Using the host tree learner: {why}")
+                self._host_learner()
+            self.bag_fraction = float(cfg.bagging_fraction)
+            self.bag_freq = int(cfg.bagging_freq)
+            self.need_bagging = self.bag_fraction < 1.0 and self.bag_freq > 0
+            # carried as the JAX package carries it (gbdt.py:288-289); the
+            # device grower always reads the hessian column
+            self.is_constant_hessian = bool(
+                self.objective is not None
+                and self.objective.is_constant_hessian
+                and not self.need_bagging)
+            # (num_data,) f32 in-bag mask of the current bagging round (device
+            # grower); the host learner's bag: an index buffer whose first
+            # bag_count rows are in the bag
+            self.row_mask: Optional[torch.Tensor] = None
+            self.bag_buffer: Optional[torch.Tensor] = None
+            self.bag_count = n
+            log_info(f"Training on {self.device} ({n} rows, "
+                     f"{train_set.num_groups} feature groups)")
 
     def _resolve_wave_plan(self) -> None:
         """The stage plan's route (``lightgbm_tpu/boosting/gbdt.py:
@@ -593,7 +639,8 @@ class GBDT:
         nls, waves = self._grow_trees(grad, hess, biases, shrink)
         self.iter += 1
         # the iteration's host sync: every trained class's leaf count
-        stump = bool((torch.stack(nls) <= 1).all())
+        with obs.span("train.wait", cat="boost"):
+            stump = bool((torch.stack(nls) <= 1).all())
         self._stats.append([time.perf_counter() - t0, len(nls),
                             torch.stack(waves).sum(), 1])
         if stump:
@@ -728,7 +775,7 @@ class GBDT:
             self.train_score[k] = res.score
             self.models.append(_PendingTree(res.rec_i, res.rec_f, res.rec_c,
                                             res.num_leaves, shrink,
-                                            biases[k]))
+                                            biases[k], res.clock))
             nls.append(res.num_leaves)
             waves.append(res.waves)
         return nls, waves
@@ -838,25 +885,29 @@ class GBDT:
                     if self.train_one_iter():
                         return True
                 return False
-            t0 = time.perf_counter()
-            bias = self.boost_from_average(0) if not self.models else 0.0
-            shrink = self.shrinkage_rate
-            out = self._dispatch_guard(lambda: self._grower.fused_train(
-                chunk, self.train_score[0], shrink, self.iter, fg))
-            self.train_score[0].copy_(out.score)
-            stack = _RecStack((out.rec_i, out.rec_f, out.nl, out.waves,
-                               out.qscales, out.rec_c), self.device)
-            for i in range(chunk):
-                self.models.append(_PendingChunkTree(
-                    stack, i, shrink, bias if i == 0 else 0.0))
-            self.iter += chunk
-            done += chunk
-            fused_ran = True
-            # lagged stall check: the previous chunk's records
-            prev, self._last_chunk_stack = self._last_chunk_stack, stack
-            stall = prev is not None and (prev.host()[2] <= 1).all()
-            self._stats.append([time.perf_counter() - t0, chunk, stack,
-                                int(prev is not None)])
+            with obs.span("train.chunk", cat="boost", chunk=chunk) as sp:
+                t0 = time.perf_counter()
+                bias = self.boost_from_average(0) if not self.models else 0.0
+                shrink = self.shrinkage_rate
+                out = self._dispatch_guard(lambda: self._grower.fused_train(
+                    chunk, self.train_score[0], shrink, self.iter, fg))
+                self.train_score[0].copy_(out.score)
+                stack = _RecStack((out.rec_i, out.rec_f, out.nl, out.waves,
+                                   out.qscales, out.rec_c), self.device,
+                                  clock=out.clock)
+                for i in range(chunk):
+                    self.models.append(_PendingChunkTree(
+                        stack, i, shrink, bias if i == 0 else 0.0))
+                self.iter += chunk
+                done += chunk
+                fused_ran = True
+                # lagged stall check: the previous chunk's records
+                prev, self._last_chunk_stack = self._last_chunk_stack, stack
+                stall = prev is not None and (prev.host()[2] <= 1).all()
+                self._stats.append([time.perf_counter() - t0, chunk, stack,
+                                    int(prev is not None)])
+                sp.set(iteration=self.iter)
+                sp.sync_value = self.train_score
             if obs.enabled():
                 self._obs_chunk(t0, chunk)
             if stall:
@@ -867,20 +918,16 @@ class GBDT:
         return False
 
     def _obs_chunk(self, t0: float, chunk: int) -> None:
-        """Record one fused chunk: a ``train.chunk`` span and ``chunk``
-        ``train.iter`` observations of the chunk's mean, so iteration
-        counts and percentiles compare with the per-iteration path.
-        Without sync profiling this times the host's dispatch, not the
-        card (the chunk is not waited for)."""
-        if obs.STATE.sync:
-            obs._wait_for(self.train_score)
+        """Count one fused chunk (its ``train.chunk`` span is written by
+        the span itself) and record ``chunk`` ``train.iter`` observations
+        of the chunk's mean, so iteration counts and percentiles compare
+        with the per-iteration path.  Without sync profiling this times
+        the host's dispatch, not the card (the chunk is not waited
+        for)."""
         dt = time.perf_counter() - t0
         reg = obs.registry()
-        reg.observe("train.chunk", dt)
         reg.inc("train.fused_chunks")
         reg.set_gauge("train.fused_chunk_len", chunk)
-        obs.STATE.trace.add("train.chunk", cat="boost", t0=t0, dur=dt,
-                            args={"iteration": self.iter, "chunk": chunk})
         for _ in range(chunk):
             reg.observe("train.iter", dt / chunk)
         obs.sample_device_memory()

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import Config, resolve_device
 from ..utils.log import LightGBMError, log_info, log_warning
 from ..utils.random import make_rng
@@ -189,14 +190,19 @@ class BinnedDataset:
         ds.metadata = Metadata(n)
         ds.feature_names = ([f"Column_{i}" for i in range(num_feat)]
                             if feature_names is None else list(feature_names))
-        if reference is not None:
-            ds._align_with_reference(data, reference)
-            return ds
-        ds._find_bins(data, config, set(int(c) for c in categorical),
-                      predefined=predefined_mappers)
-        ds._bundle_features(data, config)
-        ds._build_group_matrix(data)
-        ds._build_feature_lookups(config)
+        with obs.span("data.construct", cat="data"):
+            if reference is not None:
+                ds._align_with_reference(data, reference)
+                return ds
+            with obs.span("data.find_bins", cat="data"):
+                ds._find_bins(data, config,
+                              set(int(c) for c in categorical),
+                              predefined=predefined_mappers)
+            with obs.span("data.bundle", cat="data"):
+                ds._bundle_features(data, config)
+            with obs.span("data.codes", cat="data"):
+                ds._build_group_matrix(data)
+            ds._build_feature_lookups(config)
         return ds
 
     @classmethod
@@ -310,42 +316,53 @@ class BinnedDataset:
         float32 gives the host's codes for float32 data byte for byte.
 
         Numerical features only; ``reference`` adopts a training set's
-        mappers and groups and computes codes only."""
-        if not isinstance(data, torch.Tensor):
-            data = torch.from_numpy(np.ascontiguousarray(data)).to(
-                resolve_device(str(device)))
-        if data.ndim != 2:
-            raise LightGBMError("data must be 2-dimensional")
-        if data.dtype != torch.float32:
-            raise LightGBMError(
-                f"construct_from_device_matrix needs float32 data (got "
-                f"{data.dtype}); use construct_from_matrix")
-        n, num_feat = (int(s) for s in data.shape)
-        ds = cls()
-        ds.num_data = n
-        ds.num_total_features = num_feat
-        ds.metadata = Metadata(n)
-        ds.feature_names = ([f"Column_{i}" for i in range(num_feat)]
-                            if feature_names is None
-                            else list(feature_names))
-        if reference is not None:
-            ds._check_reference_width(num_feat, reference)
-            ds._align_with_reference_shared(reference)
-        else:
-            idx = ds._draw_sample(config)
-            sample = data[torch.from_numpy(idx).to(data.device)].cpu() \
-                .numpy().astype(np.float64)
-            ds._find_bins(sample, config, set(), presampled=True)
-            ds._bundle_features(sample, config)
-            ds._build_feature_lookups(config)
-        if any(m.bin_type == BIN_CATEGORICAL for m in ds.bin_mappers
-               if m is not None):
-            raise LightGBMError(
-                "construct_from_device_matrix supports numerical "
-                "features only; use construct_from_matrix")
-        ds.binned = ds._bin_on_device(data)
-        ds.device_binned = True
-        return ds
+        mappers and groups and computes codes only.
+
+        Spans (``obs.span``): ``data.construct`` around the build,
+        ``data.sample`` (the draw, the gather and the sample's copy to
+        the host), ``data.find_bins``, ``data.bundle`` (with the feature
+        lookups) and ``data.codes`` (the host's enqueue of the codes'
+        launches, not their device time)."""
+        with obs.span("data.construct", cat="data"):
+            if not isinstance(data, torch.Tensor):
+                data = torch.from_numpy(np.ascontiguousarray(data)).to(
+                    resolve_device(str(device)))
+            if data.ndim != 2:
+                raise LightGBMError("data must be 2-dimensional")
+            if data.dtype != torch.float32:
+                raise LightGBMError(
+                    f"construct_from_device_matrix needs float32 data (got "
+                    f"{data.dtype}); use construct_from_matrix")
+            n, num_feat = (int(s) for s in data.shape)
+            ds = cls()
+            ds.num_data = n
+            ds.num_total_features = num_feat
+            ds.metadata = Metadata(n)
+            ds.feature_names = ([f"Column_{i}" for i in range(num_feat)]
+                                if feature_names is None
+                                else list(feature_names))
+            if reference is not None:
+                ds._check_reference_width(num_feat, reference)
+                ds._align_with_reference_shared(reference)
+            else:
+                with obs.span("data.sample", cat="data"):
+                    idx = ds._draw_sample(config)
+                    rows = torch.from_numpy(idx).to(data.device)
+                    sample = data[rows].cpu().numpy().astype(np.float64)
+                with obs.span("data.find_bins", cat="data"):
+                    ds._find_bins(sample, config, set(), presampled=True)
+                with obs.span("data.bundle", cat="data"):
+                    ds._bundle_features(sample, config)
+                    ds._build_feature_lookups(config)
+            if any(m.bin_type == BIN_CATEGORICAL for m in ds.bin_mappers
+                   if m is not None):
+                raise LightGBMError(
+                    "construct_from_device_matrix supports numerical "
+                    "features only; use construct_from_matrix")
+            with obs.span("data.codes", cat="data"):
+                ds.binned = ds._bin_on_device(data)
+            ds.device_binned = True
+            return ds
 
     def _bin_on_device(self, data: torch.Tensor) -> torch.Tensor:
         """(N, F) float32 tensor -> (N, G) uint8 codes on its device, with

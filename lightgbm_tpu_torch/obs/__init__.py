@@ -32,6 +32,12 @@ A span never synchronizes with the card unless sync profiling is on
 (``configure(sync=True)`` / ``LGBM_TPU_OBS_SYNC=1``); then a span whose
 ``sync_value`` is set waits once for that tensor's device work, where the
 JAX span blocks on its device value.
+
+Whenever a ``torch.profiler`` records (torch's own flag), every span also
+opens a ``record_function`` range of its name, so the program's spans lie
+in the profiler's trace on the kernels' clock (``user_annotation``
+events).  With telemetry off that range is all a span does: it writes no
+registry entry and no buffer event.
 """
 
 from __future__ import annotations
@@ -40,6 +46,9 @@ import json
 import os
 import time
 from typing import Dict, Optional, Tuple
+
+from torch.autograd import _profiler_enabled as _profiling
+from torch.autograd.profiler import record_function as _record_function
 
 from . import capture_track  # noqa: F401  (re-export)
 from . import profile  # noqa: F401  (re-export)
@@ -305,9 +314,27 @@ def _wait_for(value) -> None:
         torch.cuda.synchronize(device)
 
 
+class _ProfilerRange(_NullSpan):
+    """A span while a ``torch.profiler`` records and telemetry is off: a
+    ``record_function`` range of the span's name, and nothing else."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, name):
+        self._rf = _record_function(name)
+
+    def __enter__(self):
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        return False
+
+
 class _Span:
     __slots__ = ("name", "cat", "args", "t0", "sync_value",
-                 "trace_id", "span_id", "parent_id", "_ctx_token")
+                 "trace_id", "span_id", "parent_id", "_ctx_token", "_rf")
 
     def __init__(self, name, cat, args):
         self.name = name
@@ -329,6 +356,7 @@ class _Span:
         else:
             self.trace_id = self.span_id = self.parent_id = None
             self._ctx_token = None
+        self._rf = None
         self.t0 = time.perf_counter()
 
     def set(self, **args):
@@ -336,6 +364,9 @@ class _Span:
         self.args.update(args)
 
     def __enter__(self):
+        if _profiling():
+            self._rf = _record_function(self.name)
+            self._rf.__enter__()
         return self
 
     def __exit__(self, *exc):
@@ -356,6 +387,9 @@ class _Span:
                 self.args["parent_id"] = self.parent_id
         STATE.trace.add(self.name, cat=self.cat, t0=self.t0, dur=dur,
                         args=self.args or None)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
         return False
 
 
@@ -365,9 +399,11 @@ def span(name: str, cat: str = "train", **args):
     Records a timing observation under ``name`` and a trace event.  Set
     ``span.sync_value = tensor`` inside the block to make the exit wait for
     the card when sync profiling is on (honest device attribution; never
-    in production runs)."""
+    in production runs).  While a ``torch.profiler`` records, the span is
+    also a ``record_function`` range (the range alone when telemetry is
+    off)."""
     if not STATE.enabled:
-        return _NULL_SPAN
+        return _ProfilerRange(name) if _profiling() else _NULL_SPAN
     return _Span(name, cat, dict(args) if args else {})
 
 

@@ -1,9 +1,7 @@
-"""Device-time attribution: counted costs, profiler traces, and the
-phase-attribution report.
+"""Device-time attribution: counted costs and the phase-attribution
+report.
 
-Counterpart of ``lightgbm_tpu/obs/profile.py``.  Three layers, each
-failure-tolerant (a missing profiler degrades to ``False``, never to an
-exception):
+Counterpart of ``lightgbm_tpu/obs/profile.py``.  Two layers:
 
 * :func:`cost_of` is the counterpart of XLA's cost analysis: the
   ``{flops, bytes_accessed, transcendentals}`` of one probe phase,
@@ -13,9 +11,6 @@ exception):
   measured time is the phase's achieved bandwidth and its share of the
   card's.  ``torch.utils.flop_counter`` is not a counterpart: it does not
   see a hand-written kernel;
-* :func:`device_trace` wraps ``torch.profiler`` (CPU and CUDA activities)
-  as a context manager that exports a Chrome trace to ``path`` at exit,
-  and yields False when the profiler cannot trace here;
 * :func:`attribution_report` folds measured wall time and per-phase
   estimates into the report the JAX package's ``bench.py --explain``
   emits: named phases, their share of the measured training time, and the
@@ -24,17 +19,19 @@ exception):
 The per-phase *measurements* live with the probes themselves
 (``DeviceGrower.profile_stage_plan`` / ``profile_phases`` in
 ``ops/grow.py``); with ``profile_attribution`` on they attach
-:func:`cost_of` counts to each probe.
+:func:`cost_of` counts to each probe.  The probes time phases apart from
+a real tree; what a tree's own waves spend in kernel 1 and around it is
+its device clock (``ops/clock.py``).  The program's spans reach a
+``torch.profiler`` trace by themselves (``obs.span``).
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional
 
 from .state import STATE
 
-__all__ = ["enabled", "cost_of", "device_trace", "attribution_report",
+__all__ = ["enabled", "cost_of", "attribution_report",
            "PHASES", "FIND_OPS_PER_SLOT"]
 
 #: the probe phases :func:`cost_of` counts
@@ -106,36 +103,6 @@ def cost_of(phase: str, **shapes) -> Dict[str, float]:
     nbytes, ops = fn(**{k: int(v) for k, v in shapes.items()})
     return {"flops": float(ops), "bytes_accessed": float(nbytes),
             "transcendentals": 0.0}
-
-
-@contextlib.contextmanager
-def device_trace(path: Optional[str]):
-    """``torch.profiler`` over CPU and CUDA activities as a tolerant
-    context manager: exports a Chrome trace to ``path`` at exit when the
-    profiler works here, yields False and does nothing when ``path`` is
-    falsy or the profiler cannot start."""
-    if not path:
-        yield False
-        return
-    try:
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
-        prof.__enter__()
-    except Exception:   # noqa: BLE001 -- profiler optional by design
-        yield False
-        return
-    try:
-        yield True
-    finally:
-        try:
-            prof.__exit__(None, None, None)
-            prof.export_chrome_trace(str(path))
-        except Exception:   # noqa: BLE001
-            pass
 
 
 def attribution_report(measured_ms: float, phases_ms: Dict[str, float],

@@ -49,10 +49,13 @@ point.
 
 The JAX package runs the wave loop inside ``lax.while_loop``s, one per
 stage, with no host sync.  Here a tree is cut into pieces that work in
-place on tensors allocated once per grower (``_ensure_state``): a sample
+place on tensors allocated once per grower (``_ensure_state``): a clock
+piece (the tree's first device-clock stamp, ``ops/clock.py``), a sample
 piece (fused trees: gradients, the bagging redraw, the feature mask), a
 start piece (stat columns, a fresh root), one wave piece per stage width
 and a finish piece (refit, score update, the records into a chunk slot).
+The start and finish pieces and each wave's kernel-1 call stamp the
+tree's device clock too, into the chunk slot's row beside its records.
 The leaf count, the done flag, the wave count and the chunk slot live in
 device control words (``ctl``), so no piece reads anything back.  On the
 card the pieces are captured once as CUDA graphs and composed into one
@@ -97,6 +100,7 @@ from .. import obs
 from ..obs import capture_track
 from ..utils import random as trandom
 from ..utils.log import LightGBMError, log_info
+from . import clock
 from .bagging import bag_mask
 from .hist_cuda import (MAX_LEAF_BOUND, hist_scale_exponents, wave_hist,
                         wave_hist_sharded)
@@ -138,6 +142,7 @@ class GrowResult(NamedTuple):
     num_leaves: torch.Tensor  # () int32, on the device
     root_value: torch.Tensor  # () f32 root leaf output
     waves: torch.Tensor       # () int32 waves run, on the device
+    clock: torch.Tensor       # (5,) int64 device clock (ops/clock.py)
 
 
 class FusedResult(NamedTuple):
@@ -149,6 +154,7 @@ class FusedResult(NamedTuple):
     nl: torch.Tensor          # (K,) int32 leaves
     waves: torch.Tensor       # (K,) int32 waves
     qscales: torch.Tensor     # (K, 2) f32 int8 scales (ones without)
+    clock: torch.Tensor       # (K, 5) int64 device clocks (ops/clock.py)
 
 
 def _wave_width(num_leaves: int, hist_cols: int) -> int:
@@ -800,13 +806,17 @@ class DeviceGrower:
             ok = ok & (depth < cfg.max_depth)
         return ok
 
-    def _wave_hist(self, leaf_id, gh, pending, scale_exp, qscales):
+    def _wave_hist(self, leaf_id, gh, pending, scale_exp, qscales,
+                   stamp: bool = False):
         """(W, S, 3) histograms of the pending leaves: f32, or int32 in
         quantized units under the int32 scan.  Past the int32 bound the
         quantized histograms are dequantized once, each stripe cast to f32
         before the stripes are summed (an int32 sum of two stripes can
-        wrap; counts sum exactly in int32)."""
+        wrap; counts sum exactly in int32).  ``stamp`` (a tree's waves)
+        adds the kernel-1 call's time to the tree's ``hist_ns``."""
         w, k = pending.shape[0], self.hist_cols
+        if stamp:
+            self._stamp(clock.HIST, clock.OPEN)
         if self.mesh is not None:
             # kernel 1 once a shard, the shards' fixed-point sums reduced
             # (over a pod: across the processes too) before the one
@@ -822,6 +832,8 @@ class DeviceGrower:
                             g=self.num_groups, nb=self.nb, k=k, w=w,
                             scale_exp=scale_exp, leaf_bound=self.num_leaves,
                             col_rows=self.col_rows)
+        if stamp:
+            self._stamp(clock.HIST, clock.CLOSE)
         acc = out.permute(2, 0, 1)              # (G*NB, K, W) -> (W, S, K)
         if not self.quant_bits or self.int_scan:
             return _combine_hist_cols(acc, k)
@@ -953,7 +965,9 @@ class DeviceGrower:
             out_nl=torch.zeros(capacity, **i32),
             out_waves=torch.zeros(capacity, **i32),
             out_root=torch.zeros(capacity, **f32),
-            out_qscales=torch.ones((capacity, 2), **f32))
+            out_qscales=torch.ones((capacity, 2), **f32),
+            out_clock=torch.zeros((capacity, len(clock.FIELDS)),
+                                  dtype=torch.int64, device=dev))
 
     def _tree_keys(self, tree_idx: int, it: int) -> list:
         """The :data:`KEY_WORDS` key words of a tree, derived on the host
@@ -986,6 +1000,15 @@ class DeviceGrower:
         (read on the device: an index tensor, never a host int)."""
         st = self._st
         return st.keys.index_select(0, st.ctl[3:4].long())[0]
+
+    def _stamp(self, field: int, mode: int = clock.SET) -> None:
+        """A device-clock stamp into the current tree slot's row."""
+        clock.stamp(self._st.out_clock, self._st.ctl, field, mode)
+
+    def _piece_clock(self) -> None:
+        """A tree's first piece: its ``start`` stamp (and a zero kernel-1
+        sum)."""
+        self._stamp(clock.START, clock.OPEN_TREE)
 
     def _piece_sample(self, redraw: bool) -> None:
         """Fused trees only: gradients from the current score, the
@@ -1070,6 +1093,7 @@ class DeviceGrower:
             p.fill_(-1)
         st.p_small[:1].fill_(0)
         st.ctl[:3].copy_(self._ctl0)
+        self._stamp(clock.WAVES_START)
 
     def _piece_wave(self, ws: int) -> None:
         """One wave of width ``ws`` on the tree state (the JAX ``make_wave``
@@ -1089,7 +1113,7 @@ class DeviceGrower:
         # 1. fresh histograms of the pending smaller children
         fresh = self._wave_hist(st.leaf_id, st.gh, p_small,
                                 None if self.quant_bits else st.scale_exp,
-                                st.qscales)
+                                st.qscales, stamp=True)
         # root (first wave only): totals from group 0's slots (every row
         # hits one)
         first = st.ctl[2] == 0
@@ -1273,8 +1297,10 @@ class DeviceGrower:
 
     def _piece_finish(self) -> None:
         """The int8 refit, the score update, and the tree's records into
-        chunk slot t (then t + 1)."""
+        chunk slot t (then t + 1), between the tree's ``waves_end`` and
+        ``end`` stamps."""
         st = self._st
+        self._stamp(clock.WAVES_END)
         L = self.num_leaves
         nl = st.ctl[0]
         leaf_vals = st.value[:L]
@@ -1297,6 +1323,7 @@ class DeviceGrower:
         st.out_waves.index_copy_(0, t, st.ctl[2:3])
         st.out_root.index_copy_(0, t, st.value[0:1])
         st.out_qscales.index_copy_(0, t, st.qscales[None])
+        self._stamp(clock.END)
         st.ctl[3:4].add_(1)
 
     # ------------------------------------------------------------------
@@ -1318,6 +1345,7 @@ class DeviceGrower:
         reads the control words (a host read a wave).  The CPU path; the
         card tests and chip_smoke.py run it on CUDA tensors to hold the
         captured tree against it."""
+        self._piece_clock()
         if sample is not None:
             self._piece_sample(sample)
         self._piece_start()
@@ -1341,7 +1369,7 @@ class DeviceGrower:
         # one build at a time in the process: its device-wide syncs and
         # captures never overlap another grower's capture (several tenants
         # train on one card in the fleet soak)
-        with graphs.BUILD_LOCK:
+        with graphs.BUILD_LOCK, obs.span("grow.build", cat="grow"):
             return self._build_graph(sample)
 
     def _build_graph(self, sample):
@@ -1352,9 +1380,11 @@ class DeviceGrower:
             # the launch counter and every lazy initialization must exist
             # before the captures: run each piece once, eagerly
             wave_hist.launches.counter(self.device)
+            clock.stamp.launches.counter(self._st.out_clock.device)
             if self.mesh is not None:
                 wave_hist_sharded.launches.counter(self.device)
             self._st.ctl[3:4].zero_()
+            self._piece_clock()
             self._piece_start()
             for ws, _ in self._stages:
                 self._piece_wave(ws)
@@ -1365,14 +1395,15 @@ class DeviceGrower:
             stats["warmup_s"] += t1 - t0
             gs = graphs.GraphSet(self.device)
             self._graphs = dict(
-                set=gs, start=gs.capture(self._piece_start),
+                set=gs, clock=gs.capture(self._piece_clock),
+                start=gs.capture(self._piece_start),
                 waves=[gs.capture(functools.partial(self._piece_wave, ws))
                        for ws, _ in self._stages],
                 finish=gs.capture(self._piece_finish))
             t0 = time.perf_counter()
             stats["capture_s"] += t0 - t1
         pieces = self._graphs
-        steps = []
+        steps = [(pieces["clock"], None)]
         if sample is not None:
             key = ("sample", bool(sample))
             if key not in pieces:
@@ -1437,7 +1468,8 @@ class DeviceGrower:
         return GrowResult(st.score.clone(), st.out_rec_i[0].clone(),
                           st.out_rec_f[0].clone(), st.out_rec_c[0].clone(),
                           st.out_nl[0].clone(),
-                          st.out_root[0].clone(), st.out_waves[0].clone())
+                          st.out_root[0].clone(), st.out_waves[0].clone(),
+                          st.out_clock[0].clone())
 
     def fused_train(self, length: int, score, lr: float, it0: int,
                     grad_fn) -> FusedResult:
@@ -1478,7 +1510,8 @@ class DeviceGrower:
         return FusedResult(st.score, st.out_rec_i[:length],
                            st.out_rec_f[:length], st.out_rec_c[:length],
                            st.out_nl[:length],
-                           st.out_waves[:length], st.out_qscales[:length])
+                           st.out_waves[:length], st.out_qscales[:length],
+                           st.out_clock[:length])
 
     def profile_stage_plan(self, require_beat_legacy: bool = False) -> dict:
         """Time kernel 1 (the wave histogram, ``_wave_hist``) at every

@@ -680,7 +680,8 @@ class DeviceLaunchCount:
     def counter(self, device: torch.device) -> torch.Tensor:
         c = self._counters.get(device)
         if c is None:
-            if torch.cuda.is_current_stream_capturing():
+            if device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
                 raise RuntimeError("the launch counter of a device must "
                                    "exist before a capture on it")
             c = self._counters[device] = torch.zeros(

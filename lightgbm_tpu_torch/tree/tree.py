@@ -60,6 +60,11 @@ class Tree:
     """One decision tree.  Leaves are referenced as ``~leaf`` in child arrays
     (matching the reference encoding: child >= 0 internal node, < 0 leaf)."""
 
+    #: the device grower's stamps of this tree (``ops/clock.py``
+    #: ``DeviceClock``); None for a tree grown elsewhere or loaded.  Not
+    #: part of the model: no text, comparison or prediction reads it
+    device_clock = None
+
     def __init__(self, max_leaves: int):
         self.max_leaves = max_leaves
         n = max_leaves

@@ -6,13 +6,9 @@ costs in ``ops/grow.py``) on the CPU:
 * ``cost_of`` against counts made by hand (kernel 1 at the train phase's
   2M x 28, K=3, W=128 shape is PERF.md's 24.2 us bytes bound at
   3.35 TB/s);
-* ``device_trace`` yields False without a path and writes a Chrome trace
-  with one;
 * ``profile_phases``' keys, gauges and (under ``profile_attribution``)
   costs on a CPU grower; the stage probes' ``stage_cost``.
 """
-
-import json
 
 import numpy as np
 import pytest
@@ -80,16 +76,6 @@ def test_cost_of_against_hand_counts():
     assert (c["bytes_accessed"], c["flops"]) == (12124.0, 2000.0)
     with pytest.raises(ValueError, match="no cost model"):
         profile.cost_of("nope", rows=1)
-
-
-def test_device_trace(tmp_path):
-    with profile.device_trace(None) as on:
-        assert on is False
-    path = tmp_path / "trace.json"
-    with profile.device_trace(str(path)) as on:
-        torch.ones(64).sum()
-    if on:
-        assert "traceEvents" in json.loads(path.read_text())
 
 
 @pytest.fixture(scope="module")
