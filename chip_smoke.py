@@ -47,6 +47,16 @@ Phases, one line each:
               OPEN/CLOSE pair against CUDA events around one kernel, and
               a stamp's time in a CUDA graph; its launches on the main
               path (every phase after it) are counted on the device;
+   routing -- the wave's row routing (csrc/split_rows.cu) through one
+              tree's waves at each benchmark cell's shape (higgs: 2^24
+              padded rows, 10.5M real, 28 groups, 255 leaves, W=96;
+              fork: 20M rows, 53 groups, 31 leaves, W=30), the legacy
+              stage plan's widths, random leaves, features and
+              thresholds: bit-equal to the plain version at every wave,
+              each wave timed beside its bytes' bound and the plain
+              version's time; its launches counted on the device, on the
+              main path too, where every run of the train, boosting,
+              window20m and multiclass phases must launch it once a wave;
 4. train   -- the HIGGS shape (28 features, max_bin 255, learning rate
               0.1) on 2,000,000 synthetic rows made from --seed, binned
               once from the dense matrix and once from a scipy CSR matrix
@@ -65,8 +75,9 @@ Phases, one line each:
               (nothing captured), and its records, leaves, waves, int8
               scales, scores and model text must equal the fused run's
               bit for bit; wave_hist's launches, counted on the device,
-              must equal the trees' waves plus the warm-up waves, and
-              the device clock's stamps four a tree and two a wave.
+              must equal the trees' waves plus the warm-up waves, as
+              must split_rows's, and the device clock's stamps four a
+              tree and two a wave.
               Prints s/tree three ways, the capture, warm-up and
               instantiate seconds, peak memory after capture, 5 more
               fused chunks (s/tree median and spread, host syncs a
@@ -1199,6 +1210,130 @@ def phase_clock(dev):
     return r
 
 
+#: csrc/split_rows.cu's cases at the benchmark's shapes: (name, padded
+#: rows, real rows, groups, leaves, widest wave): higgs.train's 2^24-row
+#: bucket over 10.5M rows at 255 leaves (K=4: W=96) and fork_window's
+#: 20M exact rows of 53 groups at 31 leaves (W=30)
+ROUTING_CASES = (("higgs", 1 << 24, 10_500_000, 28, 255, 96),
+                 ("fork", 20_000_000, 20_000_000, 53, 31, 30))
+
+
+def routing_tree(dev, name, n, real, g, leaves, width, seed):
+    """One tree's waves of the row routing at one shape: the rows start in
+    leaf 0 (pad rows -1) and each wave of the legacy stage plan's widths
+    (K=4) splits min(width, leaves, budget) random leaves on random
+    features of a one-feature-a-group table (default bin 0 or not, every
+    missing type).  At each wave the kernel routes exactly as the plain
+    version (bit-equal); it is timed with every right child equal to its
+    parent (the same reads and writes, the state unchanged), the plain
+    version likewise.  The bound: each row's leaf id read, a code byte a
+    routed row and a leaf id written a moved row, at 3.35 TB/s."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.ops import routing
+    from lightgbm_tpu_torch.ops.stage_plan import legacy_stage_plan
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.randint(0, 256, (g, n), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    db = rng.choice([0, 0, 3, 40], g)
+    nb = np.full(g, 256)
+    feat = torch.tensor(np.stack([np.arange(g), np.zeros(g, int),
+                                  nb - (db == 0), db, nb, np.arange(g) % 3],
+                                 1), dtype=torch.int32, device=dev)
+    leaf = torch.where(torch.arange(n, device=dev) < real, 0, -1) \
+        .to(torch.int32)
+    stages = legacy_stage_plan(leaves, width, 4)
+    nl, waves = 1, []
+    for ws, cap in stages:
+        limit = leaves if cap is None else cap
+        while nl < limit:
+            k = min(ws, nl, leaves - nl)
+            lsel = np.zeros(ws, np.int64)
+            lsel[:k] = rng.permutation(nl)[:k]
+            sel = np.arange(ws) < k
+            f = rng.integers(0, g, ws).astype(np.int64)
+            thr = rng.integers(0, 255, ws).astype(np.int64)
+            dl = rng.random(ws) < 0.5
+            r_ids = np.where(sel, nl + np.arange(ws), 0).astype(np.int64)
+            t = lambda a: torch.from_numpy(a).to(dev)
+            args = [codes, feat, t(sel), t(lsel), t(r_ids), t(f), t(thr),
+                    t(dl)]
+            same = list(args)
+            same[4] = t(lsel)
+            want = routing.split_rows_reference(leaf, *args,
+                                                num_leaves=leaves)
+            routed = int(torch.isin(leaf, t(lsel[:k]).to(torch.int32))
+                         .sum())
+            moved = int((want != leaf).sum())
+            ms = time_ms(lambda: routing.split_rows(
+                leaf, *same, num_leaves=leaves), reps=20)
+            plain_ms = time_ms(lambda: routing.split_rows_reference(
+                leaf, *same, num_leaves=leaves), reps=3, warmup=1)
+            routing.split_rows(leaf, *args, num_leaves=leaves)
+            torch.cuda.synchronize(dev)
+            if not torch.equal(leaf, want):
+                fail(f"split_rows {name} wave {len(waves)}: "
+                     f"{int((leaf != want).sum())} rows differ from the "
+                     f"plain version")
+            bound_ms = (4 * n + routed + 4 * moved) / HBM_BYTES_PER_S * 1e3
+            waves.append(dict(width=ws, lanes=k, routed=routed, moved=moved,
+                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms))
+            nl += k
+    del codes, leaf, want
+    torch.cuda.empty_cache()
+    return waves
+
+
+def phase_routing(dev):
+    """The wave's row routing (csrc/split_rows.cu, ``ops/routing.py``) at
+    the benchmark cells' shapes, a tree's waves each (ROUTING_CASES):
+    bit-equal to the plain version at every wave, timed beside its bound
+    and the plain version's time; the kernel's launches counted on the
+    device."""
+    from lightgbm_tpu_torch.ops import routing
+    t_phase = time.perf_counter()
+    before = routing.split_rows.launches.read()
+    cases = {}
+    for i, (name, n, real, g, leaves, width) in enumerate(ROUTING_CASES):
+        waves = routing_tree(dev, name, n, real, g, leaves, width, 300 + i)
+        k = len(waves)
+        c = dict(rows=n, real_rows=real, groups=g, leaves=leaves,
+                 width=width, waves=waves,
+                 ms=sum(w["ms"] for w in waves) / k,
+                 plain_ms=sum(w["plain_ms"] for w in waves) / k,
+                 bound_ms=sum(w["bound_ms"] for w in waves) / k,
+                 bound_by="bytes", max_abs_err=0.0, library_ms=None,
+                 tc_ms=None)
+        cases[name] = c
+        print(f"  kernel split_rows {name} n={n} ({real} real) G={g} "
+              f"L={leaves} W={width}: {k} waves bit-equal to the plain "
+              f"version; a wave {c['ms'] * 1e3:.1f} us (by wave "
+              f"{[round(w['ms'] * 1e3, 1) for w in waves]}), bound "
+              f"{c['bound_ms'] * 1e3:.1f} us (bytes), plain "
+              f"{c['plain_ms']:.3f} ms", flush=True)
+    launches = routing.split_rows.launches.read() - before
+    # a wave: 22 launches timed (two of them warm-up), one routing
+    want = 23 * sum(len(c["waves"]) for c in cases.values())
+    if launches != want:
+        fail(f"split_rows: the device counter counted {launches} "
+             f"launches, {want} were made")
+    print(f"phase routing: ok {len(cases)} shapes, {launches} launches "
+          f"counted, {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return cases
+
+
+def routing_launches_ok(name, before, waves) -> int:
+    """split_rows launches since ``before`` (its device counter) == the
+    waves the run's growers ran (one launch a wave, warm-up included)."""
+    from lightgbm_tpu_torch.ops import routing
+    got = routing.split_rows.launches.read() - before
+    if got != waves:
+        fail(f"{name}: split_rows launches {got} (device counter) != "
+             f"waves {waves}")
+    return got
+
+
 def phase_ubench():
     """scripts/ubench_hist_cuda.py's cases that launch wave_hist_v2, at
     the script's default size, through its own entry point."""
@@ -1353,12 +1488,13 @@ def train_path(name, ds, dev, path, seed, valid=None):
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lt
-    from lightgbm_tpu_torch.ops import clock, hist_cuda
+    from lightgbm_tpu_torch.ops import clock, hist_cuda, routing
     params = {**TRAIN_BASE, **TRAIN_RUNS[name], "device": dev.type}
     torch.cuda.reset_peak_memory_stats(dev)
     hist_cuda.wave_hist.launches.reset()          # count this run only
     torch.cuda.synchronize(dev)
     stamps0 = card_stamps(dev)
+    routing0 = routing.split_rows.launches.read()
     evals = {}
     t0 = time.perf_counter()
     booster = lt.train(params, ds, num_boost_round=ROUNDS,
@@ -1379,6 +1515,7 @@ def train_path(name, ds, dev, path, seed, valid=None):
         fail(f"{name} {path}: wave_hist launches {launches} (device "
              f"counter) != tree waves {waves} + warm-up "
              f"{cap['warmup_waves']}")
+    routing_launches_ok(f"{name} {path}", routing0, launches)
     # the device clock: four stamps a tree and two a wave (kernel 1's
     # call), the warm-up's tree before the captures too
     stamps = card_stamps(dev) - stamps0
@@ -1816,10 +1953,11 @@ def window_run(name, ds, dev, params, path, rounds):
     waves plus the warm-up's."""
     import torch
     import lightgbm_tpu_torch as lt
-    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops import hist_cuda, routing
     torch.cuda.reset_peak_memory_stats(dev)
     hist_cuda.wave_hist.launches.reset()          # this run only
     torch.cuda.synchronize(dev)
+    routing0 = routing.split_rows.launches.read()
     params = {k: v for k, v in params.items() if k != "num_iterations"}
     t0 = time.perf_counter()
     booster = lt.train({**params, "device": dev.type}, ds,
@@ -1838,6 +1976,7 @@ def window_run(name, ds, dev, params, path, rounds):
     if launches <= 0 or launches != waves + cap["warmup_waves"]:
         fail(f"window {name} {path}: wave_hist launches {launches} != "
              f"tree waves {waves} + warm-up {cap['warmup_waves']}")
+    routing_launches_ok(f"window {name} {path}", routing0, launches)
     chunk = int(params["fused_chunk"])
     want = [chunk] * (rounds // chunk) if path == "fused" \
         else [1] * rounds
@@ -2677,11 +2816,12 @@ def multiclass_run(ds, valid, xv, yv, dev, seed, profile):
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.metrics import create_metrics
     from lightgbm_tpu_torch.config import Config
-    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops import hist_cuda, routing
     k = EXPEDIA_CLASSES
     torch.cuda.reset_peak_memory_stats(dev)
     hist_cuda.wave_hist.launches.reset()          # this run only
     torch.cuda.synchronize(dev)
+    routing0 = routing.split_rows.launches.read()
     evals = {}
     t0 = time.perf_counter()
     booster = lt.train({**MC_BASE, "device": dev.type}, ds, MC_ROUNDS,
@@ -2698,6 +2838,7 @@ def multiclass_run(ds, valid, xv, yv, dev, seed, profile):
     if launches <= 0 or launches != waves + cap["warmup_waves"]:
         fail(f"multiclass: wave_hist launches {launches} (device counter) "
              f"!= tree waves {waves} + warm-up {cap['warmup_waves']}")
+    routing_launches_ok("multiclass", routing0, launches)
     if [s[1] for s in stats] != [k] * MC_ROUNDS:
         fail(f"multiclass: trees an iteration {[s[1] for s in stats]}, "
              f"expected {k} each")
@@ -3176,12 +3317,13 @@ def boost_run(name, train, dev, valid=None):
     fuse)."""
     import torch
     import lightgbm_tpu_torch as lt
-    from lightgbm_tpu_torch.ops import hist_cuda
+    from lightgbm_tpu_torch.ops import hist_cuda, routing
     params = {**BOOST_BASE, **BOOST_RUNS[name], "device": dev.type}
     rounds = BOOST_ROUNDS[name]
     evals = {}
     hist_cuda.wave_hist.launches.reset()      # this run only
     torch.cuda.synchronize(dev)
+    routing0 = routing.split_rows.launches.read()
     t0 = time.perf_counter()
     booster = lt.train(params, train, num_boost_round=rounds,
                        valid_sets=None if valid is None else [valid],
@@ -3194,6 +3336,7 @@ def boost_run(name, train, dev, valid=None):
              f"eligible {gb.fused_eligible()}")
     launches = hist_cuda.wave_hist.launches.read()
     waves = boost_launches_ok(name, gb, launches, rounds)
+    routing_launches_ok(f"boosting {name}", routing0, launches)
     return booster, text, dict(
         params={**BOOST_BASE, **BOOST_RUNS[name]}, rounds=rounds,
         train_s=train_s, launches=launches, waves=waves,
@@ -6503,8 +6646,10 @@ def main() -> int:
     kernels = phase_kernels(dev)
     ubench = phase_ubench()
     clock_case = phase_clock(dev)
-    from lightgbm_tpu_torch.ops import clock
+    routing_cases = phase_routing(dev)
+    from lightgbm_tpu_torch.ops import clock, routing
     clock.stamp.launches.reset()                  # the main path's stamps
+    routing.split_rows.launches.reset()           # and row routings
     train, models, x, y, dense = phase_train(dev, args.seed, args.profile)
     check_no_fallback("train")
     clear_growers(dev)
@@ -6517,7 +6662,9 @@ def main() -> int:
     boosting = phase_boosting(dev, args.seed, dense, x, y)
     check_no_fallback("boosting")
     clear_growers(dev)
+    routing0 = routing.split_rows.launches.read()
     window = phase_window20m(dev, args.seed, dense)
+    window_routing = routing.split_rows.launches.read() - routing0
     check_no_fallback("window20m")
     clear_growers(dev)
     import tempfile
@@ -6658,6 +6805,15 @@ def main() -> int:
     # every tree and wave of its training phases)
     picks.append(("obs_clock_stamp", clock_case, card_stamps(dev),
                   "lightgbm_tpu_torch/csrc/obs_clock.cu", None))
+    # the wave's row routing: the main path's launches (this process's
+    # growers, one a wave) beside the higgs case, the window20m phase's
+    # beside the fork's
+    route_src = "lightgbm_tpu_torch/csrc/split_rows.cu"
+    route_xla = "lightgbm_tpu/ops/grow.py:869"
+    picks.append(("split_rows", routing_cases["higgs"],
+                  routing.split_rows.launches.read(), route_src, route_xla))
+    picks.append(("split_rows:fork", routing_cases["fork"], window_routing,
+                  route_src, route_xla))
     for name, _, n_launch, _, _ in picks:
         if n_launch <= 0:
             fail(f"{name} never launched on the main path")
@@ -6674,6 +6830,7 @@ def main() -> int:
     with open(OUT_DIR / "chip_smoke.json", "w") as fh:
         json.dump(dict(card=card, kind=kind, build_s=build_s,
                        kernels=kernels, ubench=ubench, clock=clock_case,
+                       routing=routing_cases,
                        train=train,
                        objectives=objectives, data=data,
                        boosting=boosting, window20m=window,

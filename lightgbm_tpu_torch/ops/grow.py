@@ -15,8 +15,10 @@ and count each striped); under ``gpu_use_dp`` K=5 (hi/lo bf16 g and h)
 or K=6 (and striped counts).  The wave width scales with 3/K.  The
 formulation is the JAX package's:
 
-* a per-row ``leaf_id`` vector stands in for a row permutation; a split
-  rewrites it with one elementwise pass over the ``(G, N)`` binned matrix;
+* a per-row ``leaf_id`` vector stands in for a row permutation; a wave's
+  splits rewrite it in place in one pass over the ``(G, N)`` binned matrix
+  (``ops/routing.split_rows``: on the card one launch of a hand-written
+  kernel);
 * each *wave* builds, in one pass over all rows, the histograms of up to W
   pending leaves (the smaller child of each new split) with the
   hand-written kernel (``ops/hist_cuda.wave_hist``); the larger sibling is
@@ -105,6 +107,7 @@ from .bagging import bag_mask
 from .hist_cuda import (MAX_LEAF_BOUND, hist_scale_exponents, wave_hist,
                         wave_hist_sharded)
 from .histogram import QUANT_MAX, bucket_size, quantize_gh_keys, slot_pitch
+from .routing import feature_table, split_rows
 from .split import (F_DEFAULT_LEFT, F_FEATURE, F_GAIN, F_LEFT_C, F_LEFT_G,
                     F_LEFT_H, F_LEFT_OUT, F_RIGHT_C, F_RIGHT_G, F_RIGHT_H,
                     F_IS_CAT, F_RIGHT_OUT, F_THRESHOLD, NEG_INF,
@@ -589,13 +592,9 @@ class DeviceGrower:
                                              device=device)
         self.hyper = SplitHyper.from_config(config)
         self.has_cat = bool(np.asarray(dataset.f_is_categorical).any())
-        i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64),
-                                        device=device)
-        nbins = np.asarray(dataset.f_num_bin, np.int64)
-        dbins = np.asarray(dataset.f_default_bin, np.int64)
-        self.f_group = i64(dataset.f_group)
-        self.f_offset = i64(dataset.f_offset)
-        self.f_width = i64(nbins - (dbins == 0))
+        # each feature's group, slot range, default bin, bins and missing
+        # type: what the wave's row routing reads (ops/routing.py)
+        self.route_feat = feature_table(dataset, device)
         self.quant_bits, self.striped, self.hist_cols = _hist_layout(
             layout_rows, config)
         # the stripes split the rows at half the JAX grower's rows
@@ -756,12 +755,7 @@ class DeviceGrower:
                                         device=dev)
         for dst, src in zip(self.meta, meta):
             dst.copy_(src)
-        nbins = np.asarray(dataset.f_num_bin, np.int64)
-        dbins = np.asarray(dataset.f_default_bin, np.int64)
-        for dst, src in ((self.f_group, dataset.f_group),
-                         (self.f_offset, dataset.f_offset),
-                         (self.f_width, nbins - (dbins == 0))):
-            dst.copy_(torch.as_tensor(np.asarray(src, np.int64)))
+        self.route_feat.copy_(feature_table(dataset, dev))
         self.config = config
         self._set_seeds(config)
         if plan_source in ("profiled", "persisted"):
@@ -955,7 +949,6 @@ class DeviceGrower:
             rec_i=torch.zeros((L, REC_I_FIELDS), **i32),
             rec_f=torch.zeros((L, REC_F_FIELDS), **f32),
             rec_c=torch.zeros((L, REC_C_WORDS), **i32),
-            lane_of=torch.zeros(L + 1, dtype=torch.int64, device=dev),
             p_parent=torch.zeros(W, **i32), p_small=torch.zeros(W, **i32),
             p_large=torch.zeros(W, **i32),
             # chunk outputs, slot t per tree
@@ -1176,14 +1169,15 @@ class DeviceGrower:
         thr = vecs[:, F_THRESHOLD].long()
         dl = vecs[:, F_DEFAULT_LEFT] > 0.5
 
-        # 5. apply the selected splits to leaf_id
+        # 5. apply the selected splits to leaf_id, in place (on the card
+        # one launch of csrc/split_rows.cu)
         words = is_cat = None
         if self.has_cat:
             bits = st.bestc[lsel].view(ws, REC_C_WORDS, 32).to(torch.int32)
             words = (bits << self._bit_pos).sum(dim=2, dtype=torch.int32)
             is_cat = vecs[:, F_IS_CAT] > 0.5
-        st.leaf_id.copy_(self._split_rows(st.leaf_id, sel, lsel, lanes,
-                                          r_ids, f, thr, dl, words, is_cat))
+        split_rows(st.leaf_id, self.binned_t, self.route_feat, sel, lsel,
+                   r_ids, f, thr, dl, words, is_cat, num_leaves=L)
 
         # 6. bookkeeping: scatter into the L-padded state
         safe_l = torch.where(sel, lsel, L)
@@ -1230,47 +1224,6 @@ class DeviceGrower:
         st.ctl[2:3].add_(1)
         st.ctl[1:2].copy_((napply == 0).to(torch.int32).view(1))
         st.ctl[0:1].add_(napply.to(torch.int32).view(1))
-
-    def _split_rows(self, leaf_id, sel, lsel, lanes, r_ids, f, thr, dl,
-                    words=None, is_cat=None) -> torch.Tensor:
-        """A wave's step 5: the (n_pad,) int32 leaf ids after the selected
-        splits.  Each row looks up its leaf's lane (``sel``/``lsel``: the
-        Ws lanes and their leaves, ``lanes`` 0..Ws-1; a row belongs to at
-        most one selected
-        leaf), reads that split's feature group and decides left or right
-        as lightgbm_tpu/ops/grow.py:869-916 does; a row that goes right
-        moves to its lane's ``r_ids``.  ``words``/``is_cat``: the lanes'
-        categorical bitsets, with a categorical feature in the model."""
-        L = self.num_leaves
-        lane_of = self._st.lane_of
-        lane_of.fill_(-1)
-        lane_of[torch.where(sel, lsel, L)] = lanes
-        lane_of[L:].fill_(-1)
-        row_lane = lane_of[torch.where(leaf_id >= 0, leaf_id, L).long()]
-        lane = row_lane.clamp(min=0)
-        fl = f[lane]
-        cols = self.binned_t.gather(0, self.f_group[fl][None, :])[0].long()
-        off, wid = self.f_offset[fl], self.f_width[fl]
-        db = self.meta.default_bin[fl].long()
-        nbin = self.meta.num_bin[fl].long()
-        miss = self.meta.missing[fl]
-        dl_r, thr_r = dl[lane], thr[lane]
-        def_left = torch.where(miss == 1, dl_r, db <= thr_r)
-        shift = (db == 0).long()
-        in_range = (cols >= off) & (cols < off + wid)
-        bin_ = torch.where(in_range, cols - off + shift, db)
-        is_na = (miss == 2) & (bin_ == nbin - 1)
-        goes_left = torch.where(bin_ == db, def_left,
-                                torch.where(is_na, dl_r, bin_ <= thr_r))
-        if words is not None:
-            # categorical routing (lightgbm_tpu/ops/grow.py:892-911): left
-            # iff the decoded bin's bit is set in the lane's 8-word set;
-            # the word is gathered where the JAX package selects it
-            word = words.view(-1)[lane * REC_C_WORDS + (bin_ >> 5)]
-            left_cat = ((word >> (bin_ & 31)) & 1) == 1
-            goes_left = torch.where(is_cat[lane], left_cat, goes_left)
-        move = (row_lane >= 0) & ~goes_left
-        return torch.where(move, r_ids[lane].to(torch.int32), leaf_id)
 
     def _add_leaf_scores(self, score, leaf_vals, leaf_id) -> None:
         """The score update: ``score += leaf_vals[leaf_id]`` over the real
@@ -1380,6 +1333,7 @@ class DeviceGrower:
             # the launch counter and every lazy initialization must exist
             # before the captures: run each piece once, eagerly
             wave_hist.launches.counter(self.device)
+            split_rows.launches.counter(self.device)
             clock.stamp.launches.counter(self._st.out_clock.device)
             if self.mesh is not None:
                 wave_hist_sharded.launches.counter(self.device)
@@ -1671,7 +1625,7 @@ class DeviceGrower:
         * ``find_best``: the split scan over the wave's (2W, S, 3) stack
           of both siblings' histograms, as the wave's step 3 runs it;
         * ``split_apply``: the rows' routing to their children, every
-          leaf split (``_split_rows``, the wave's step 5);
+          leaf split (``ops/routing.split_rows``, the wave's step 5);
         * ``score_update``: the score's hi/lo gather of the leaf values
           (``_add_leaf_scores``, as ``_piece_finish`` runs it);
         * the null-dispatch floor, an 8-element add, subtracted from
@@ -1709,7 +1663,6 @@ class DeviceGrower:
         thr = torch.from_numpy(rng.integers(0, nb, w).astype(np.int64)) \
             .to(dev)
         dl = torch.from_numpy(rng.integers(0, 2, w).astype(bool)).to(dev)
-        r_ids = torch.arange(w, 2 * w, dtype=torch.int32, device=dev)
         lanes = torch.arange(w, device=dev)
         sel = torch.ones(w, dtype=torch.bool, device=dev)
         words = is_cat = None
@@ -1737,9 +1690,11 @@ class DeviceGrower:
                                    scales=st.qscales if quant else None)[0]
 
         def p_apply():
-            # every leaf a lane (all W leaves split)
-            return self._split_rows(leaf, sel, lanes, lanes, r_ids, f, thr,
-                                    dl, words, is_cat)
+            # every leaf a lane (all W leaves split); a row that goes right
+            # is written back into its own leaf, so every rep routes alike
+            return split_rows(leaf, self.binned_t, self.route_feat, sel,
+                              lanes, lanes, f, thr, dl, words, is_cat,
+                              num_leaves=L)
 
         def p_score():
             self._add_leaf_scores(score, vals, leaf)

@@ -62,7 +62,7 @@ def main() -> int:
     import lightgbm_tpu_torch as lt
     import lightgbm_tpu_torch.ops.grow as grow
     from lightgbm_tpu_torch.ops import hist_cuda
-    from lightgbm_tpu_torch.ops import histogram
+    from lightgbm_tpu_torch.ops import histogram, routing
 
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         setattr(torch.cuda, name, lambda *a, **k: None)
@@ -80,6 +80,9 @@ def main() -> int:
     histogram.wave_hist_rows = _counted(rows, windows)
     hist_cuda.wave_hist.launches = waves
     hist_cuda.wave_hist_rows.launches = windows
+    routes = _Counter()
+    grow.split_rows = _counted(routing.split_rows, routes)
+    routing.split_rows.launches = routes
     dev = torch.device("cpu")
 
     # the kernel cases, each kernel simulated by its exact plain version

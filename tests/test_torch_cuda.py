@@ -1753,3 +1753,117 @@ def test_pod_tree_text_equals_single_controller_on_card(cuda_device,
     for rep in reps:
         assert rep["trees"] == want
         assert rep["comm"]["gather_rows"]["calls"] == mhw.ITERS
+
+
+# -- a wave's row routing (csrc/split_rows.cu, ops/routing.py) ------------
+
+#: (rows, leaves, lanes, selected, categorical, padded row blocks): odd row
+#: counts take the kernel's scalar tail
+ROUTING_CASES = {
+    "bundled_w96": (1_000_003, 255, 96, 60, False, 0),
+    "one_lane_two_leaves": (40_001, 2, 1, 1, False, 0),
+    "full_width": (200_002, 255, 128, 128, False, 0),
+    "categorical": (99_998, 63, 30, 30, True, 0),
+    "none_selected": (50_000, 31, 16, 0, False, 0),
+    "sharded_blocks": (4 * 65_536, 255, 64, 40, False, 4),
+    "max_leaves": (300_001, 1 << 15, 128, 100, True, 0),
+}
+
+
+def _routing_case(dev, name, seed=0):
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    import _routing_cases
+    n, L, ws, nsel, cat, blocks = ROUTING_CASES[name]
+    return L, _routing_cases, _routing_cases.make_case(
+        n, L, ws, nsel=nsel, cat=cat, pad_blocks=blocks, seed=seed + len(name),
+        dev=dev)
+
+
+@pytest.mark.parametrize("name", sorted(ROUTING_CASES))
+def test_split_rows_kernel_equals_plain_on_card(cuda_device, name):
+    """One launch routes the leaf ids in place exactly as the plain
+    version and the lane-by-lane oracle (ops/partition.goes_left) route
+    them; the launch is counted on the device."""
+    from lightgbm_tpu_torch.ops import routing
+    L, rc, args = _routing_case(cuda_device, name)
+    leaf = args[0]
+    want = routing.split_rows_reference(*args, num_leaves=L)
+    oracle = rc.oracle(*[None if a is None else a.cpu() for a in args])
+    before = routing.split_rows.launches.read()
+    assert routing.split_rows(*args, num_leaves=L) is leaf
+    torch.cuda.synchronize()
+    assert routing.split_rows.launches.read() == before + 1
+    assert torch.equal(leaf, want)
+    assert torch.equal(leaf.cpu(), oracle)
+
+
+def test_split_rows_kernel_takes_unaligned_leaf_ids(cuda_device):
+    """Leaf ids that do not start on 16 bytes (the scalar path)."""
+    from lightgbm_tpu_torch.ops import routing
+    L, _, args = _routing_case(cuda_device, "bundled_w96", seed=7)
+    leaf = args[0][1:]
+    codes = args[1][:, 1:].contiguous()
+    rest = args[2:]
+    want = routing.split_rows_reference(leaf, codes, *rest, num_leaves=L)
+    routing.split_rows(leaf, codes, *rest, num_leaves=L)
+    assert torch.equal(leaf, want)
+
+
+def test_split_rows_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    from lightgbm_tpu_torch.ops import routing
+    L, _, args = _routing_case(cuda_device, "max_leaves")
+    with pytest.raises(ValueError, match="num_leaves must be at most"):
+        routing.split_rows(*args, num_leaves=routing.MAX_LEAVES + 1)
+    _, _, args = _routing_case(cuda_device, "full_width")
+    wide = [torch.cat([a, a[:1]]) for a in args[3:9]]
+    with pytest.raises(ValueError, match="Ws must be at most"):
+        routing.split_rows(*args[:3], *wide, num_leaves=255)
+    with pytest.raises(ValueError, match="contiguous"):
+        routing.split_rows(args[0], args[1].t().contiguous().t(), *args[2:],
+                           num_leaves=255)
+
+
+@pytest.mark.parametrize("quant", [0, 8])
+def test_tree_with_split_rows_kernel_equals_plain_routing(cuda_device,
+                                                          monkeypatch,
+                                                          quant):
+    """A bf16 and an int8 tree grown on the card with the kernel, and
+    again with the plain routing patched into the grower: the same model
+    text and leaf ids; the kernel launched once a wave (warm-up
+    included), the plain run not at all."""
+    from lightgbm_tpu_torch.ops import grow, routing
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal((30_000, 8))
+    x[:, 3] = np.where(rng.random(len(x)) < 0.6, 0.0, x[:, 3])
+    x[rng.random(x.shape) < 0.05] = np.nan
+    y = (np.nan_to_num(x[:, 0]) + np.nan_to_num(x[:, 3])
+         + 0.5 * rng.standard_normal(len(x)) > 0).astype(float)
+    params = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
+              "min_data_in_leaf": 5, "grad_quant_bits": quant,
+              "grower_cache": False, "verbose": -1}
+
+    def grow_one():
+        b = lt.Booster(params, lt.Dataset(x, y))
+        b.update()
+        gb = b._gbdt
+        return (b.model_to_string(), gb._grower._st.leaf_id.clone(),
+                sum(s[2] for s in gb.tree_stats)
+                + gb._grower.capture_stats["warmup_waves"])
+
+    before = routing.split_rows.launches.read()
+    text, leaf, waves = grow_one()
+    assert routing.split_rows.launches.read() - before == waves
+    assert waves > 2
+
+    def plain(leaf_id, *a, **k):
+        return leaf_id.copy_(routing.split_rows_reference(leaf_id, *a, **k))
+    plain.launches = routing.split_rows.launches
+    monkeypatch.setattr(grow, "split_rows", plain)
+    before = routing.split_rows.launches.read()
+    text_p, leaf_p, _ = grow_one()
+    assert routing.split_rows.launches.read() == before
+    assert text_p == text
+    assert torch.equal(leaf_p, leaf)

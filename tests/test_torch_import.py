@@ -28,6 +28,7 @@ def test_import_pulls_in_no_jax():
         "import lightgbm_tpu_torch.ops.grow, lightgbm_tpu_torch.ops.hist_cuda\n"
         "import lightgbm_tpu_torch.ops.bagging, lightgbm_tpu_torch.ops.split\n"
         "import lightgbm_tpu_torch.ops.histogram, lightgbm_tpu_torch.ops.traverse\n"
+        "import lightgbm_tpu_torch.ops.routing\n"
         "import lightgbm_tpu_torch.callback\n"
         "import lightgbm_tpu_torch.data.stream_loader\n"
         "import lightgbm_tpu_torch.data.distributed\n"
