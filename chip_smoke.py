@@ -43,10 +43,11 @@ Phases, one line each:
    clock   -- the device clock's stamp kernel (csrc/obs_clock.cu) on card
               tensors, each mode against the plain stamp on the same
               table (the same cells change; other rows and slots outside
-              the table untouched; OPEN_TREE zeroes hist_ns), an
-              OPEN/CLOSE pair against CUDA events around one kernel, and
-              a stamp's time in a CUDA graph; its launches on the main
-              path (every phase after it) are counted on the device;
+              the table untouched; OPEN_TREE zeroes hist_ns and
+              grad_ns), an OPEN/CLOSE pair against CUDA events around
+              one kernel, and a stamp's time in a CUDA graph; its
+              launches on the main path (every phase after it) are
+              counted on the device;
    routing -- the wave's row routing (csrc/split_rows.cu) through one
               tree's waves at each benchmark cell's shape (higgs: 2^24
               padded rows, 10.5M real, 28 groups, 255 leaves, W=96;
@@ -77,7 +78,7 @@ Phases, one line each:
               bit for bit; wave_hist's launches, counted on the device,
               must equal the trees' waves plus the warm-up waves, as
               must split_rows's, and the device clock's stamps four a
-              tree and two a wave.
+              tree, two a wave and two a fused tree's gradient.
               Prints s/tree three ways, the capture, warm-up and
               instantiate seconds, peak memory after capture, 5 more
               fused chunks (s/tree median and spread, host syncs a
@@ -1048,13 +1049,13 @@ CLOCK_EDGE_US = 8.0
 def phase_clock(dev):
     """The device clock's stamp kernel (csrc/obs_clock.cu,
     ``ops/clock.stamp``) on card tensors.  Each mode (SET of every field,
-    OPEN_TREE, OPEN and CLOSE of the kernel-1 sum) is held against the
-    plain stamp (the CPU path of ``ops/clock.stamp``) on the same table
-    and control words, at slots inside and outside the table: the same
-    cells change, other rows and out-of-range slots are left alone, and
-    OPEN_TREE zeroes ``hist_ns``.  Stamps in order read in order.  An
-    OPEN/CLOSE pair around a sleep kernel queued on a busy card: its
-    interval grows from a short kernel to a long one as the CUDA-event
+    OPEN_TREE, OPEN and CLOSE of the kernel-1 and gradient sums) is held
+    against the plain stamp (the CPU path of ``ops/clock.stamp``) on the
+    same table and control words, at slots inside and outside the table:
+    the same cells change, other rows and out-of-range slots are left
+    alone, and OPEN_TREE zeroes ``hist_ns`` and ``grad_ns``.  Stamps in
+    order read in order.  An OPEN/CLOSE pair around a sleep kernel queued
+    on a busy card: its interval grows from a short kernel to a long one as the CUDA-event
     interval around the same launches does, within CLOCK_TOL_US, and
     reads at most CLOCK_EDGE_US below it (the stamps' own launch edges).
     An empty pair inside a CUDA graph (what the stamps add to a wave's
@@ -1072,7 +1073,8 @@ def phase_clock(dev):
                          generator=gen, dtype=torch.int64)
     modes = [(f, clock.SET) for f in range(len(clock.FIELDS))] + [
         (clock.START, clock.OPEN_TREE), (clock.HIST, clock.OPEN),
-        (clock.HIST, clock.CLOSE)]
+        (clock.HIST, clock.CLOSE), (clock.GRAD, clock.OPEN),
+        (clock.GRAD, clock.CLOSE)]
     cases = 0
     for slot in (-1, 0, 2, cap - 1, cap, 1 << 20):
         for field, mode in modes:
@@ -1089,9 +1091,11 @@ def phase_clock(dev):
                      f"{(got != base).nonzero().tolist()}, by the plain "
                      f"stamp {(plain != base).nonzero().tolist()}")
             if mode == clock.OPEN_TREE and 0 <= slot < cap \
-                    and int(got[slot, clock.HIST]) != 0:
+                    and (int(got[slot, clock.HIST]) != 0
+                         or int(got[slot, clock.GRAD]) != 0):
                 fail(f"obs_clock_stamp OPEN_TREE left hist_ns "
-                     f"{int(got[slot, clock.HIST])} at slot {slot}")
+                     f"{int(got[slot, clock.HIST])} or grad_ns "
+                     f"{int(got[slot, clock.GRAD])} at slot {slot}")
             cases += 1
     table = torch.zeros((1, len(clock.FIELDS)), dtype=torch.int64,
                         device=dev)
@@ -1517,14 +1521,20 @@ def train_path(name, ds, dev, path, seed, valid=None):
              f"{cap['warmup_waves']}")
     routing_launches_ok(f"{name} {path}", routing0, launches)
     # the device clock: four stamps a tree and two a wave (kernel 1's
-    # call), the warm-up's tree before the captures too
+    # call), the warm-up's tree before the captures too, and two a fused
+    # tree's gradient (and a sample piece's warm-up before its capture)
     stamps = card_stamps(dev) - stamps0
     warmups = cap["warmup_waves"] // len(grower._stages)
-    want_stamps = 4 * (len(gb.models) + warmups) + 2 * launches
+    grads = 0
+    if path == "fused":
+        grads = len(gb.models) + sum(
+            1 for k in (grower._graphs or {})
+            if isinstance(k, tuple) and k[0] == "sample")
+    want_stamps = 4 * (len(gb.models) + warmups) + 2 * launches + 2 * grads
     if stamps != want_stamps:
         fail(f"{name} {path}: {stamps} device-clock stamps (device "
              f"counter) != 4 x ({len(gb.models)} trees + {warmups} "
-             f"warm-ups) + 2 x {launches} waves")
+             f"warm-ups) + 2 x {launches} waves + 2 x {grads} gradients")
     chunks = [s[1] for s in stats]
     want = [ROUNDS] if path == "fused" else [1] * ROUNDS
     if chunks != want:

@@ -29,6 +29,14 @@ def _is_sparse(data) -> bool:
     return hasattr(data, "tocsr") and hasattr(data, "nnz")
 
 
+def _host_array(v) -> np.ndarray:
+    """A label, weight, query or init-score vector as a host array: a
+    tensor, on the card or the host, is copied off its device."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
 #: rows of a sparse prediction batch densified at a time
 PREDICT_CHUNK_ROWS = 1 << 16
 
@@ -80,7 +88,9 @@ class Dataset:
     host.  With ``reference`` (another ``Dataset``) it is binned with that
     set's mappers and inherits its params.  ``group``: the query sizes
     (or boundaries from 0) of a ranking set, in the JAX package's
-    positional place (``lightgbm_tpu/basic.py:71``).  ``data`` may also be
+    positional place (``lightgbm_tpu/basic.py:71``).  ``label``,
+    ``weight``, ``group`` and ``init_score`` may be tensors on any device
+    (copied to the host's metadata).  ``data`` may also be
     a path: a binary dataset file (``save_binary``) or a text file
     (CSV, TSV or LibSVM, ``data/parser.py``).  With ``free_raw_data``
     False the rows stay as ``raw`` after binning (the dense float64
@@ -178,13 +188,13 @@ class Dataset:
         Dataset, over the built set's own."""
         md = self._handle.metadata
         if self.label is not None:
-            md.set_label(np.asarray(self.label))
+            md.set_label(_host_array(self.label))
         if self.weight is not None:
-            md.set_weights(self.weight)
+            md.set_weights(_host_array(self.weight))
         if self.group is not None:
-            md.set_query(np.asarray(self.group))
+            md.set_query(_host_array(self.group))
         if self.init_score is not None:
-            md.set_init_score(self.init_score)
+            md.set_init_score(_host_array(self.init_score))
 
     def subset(self, used_indices, params=None) -> "Dataset":
         """The rows ``used_indices`` (sorted) of this set, binned with its
@@ -203,20 +213,20 @@ class Dataset:
     def set_label(self, label) -> "Dataset":
         self.label = label
         if self._handle is not None and label is not None:
-            self._handle.metadata.set_label(np.asarray(label))
+            self._handle.metadata.set_label(_host_array(label))
         return self
 
     def set_weight(self, weight) -> "Dataset":
         self.weight = weight
         if self._handle is not None and weight is not None:
-            self._handle.metadata.set_weights(np.asarray(weight))
+            self._handle.metadata.set_weights(_host_array(weight))
         return self
 
     def set_init_score(self, init_score) -> "Dataset":
         self.init_score = init_score
         if self._handle is not None:
             self._handle.metadata.set_init_score(
-                None if init_score is None else np.asarray(init_score))
+                None if init_score is None else _host_array(init_score))
         return self
 
     def set_reference(self, reference) -> "Dataset":
@@ -252,7 +262,7 @@ class Dataset:
         if self._handle is not None and \
                 self._handle.metadata.label is not None:
             return np.asarray(self._handle.metadata.label)
-        return None if self.label is None else np.asarray(self.label)
+        return None if self.label is None else _host_array(self.label)
 
     def get_weight(self):
         if self._handle is not None:
@@ -283,7 +293,7 @@ class Dataset:
     def set_group(self, group) -> "Dataset":
         self.group = group
         if self._handle is not None and group is not None:
-            self._handle.metadata.set_query(np.asarray(group))
+            self._handle.metadata.set_query(_host_array(group))
         return self
 
     def get_group(self):

@@ -181,7 +181,7 @@ class _RecStack:
         return tuple(h.numpy() for h in arrays)
 
     def clock(self) -> Optional[np.ndarray]:
-        """(trees, 5) int64 device clock rows, or None."""
+        """(trees, 6) int64 device clock rows, or None."""
         self._wait()
         return self._host[-1].numpy() if self._clock else None
 

@@ -6,20 +6,25 @@
 // launches inside its WHILE nodes (ops/graphs.py), so the trace cannot
 // say how long a tree, or kernel 1 within it, ran on the card.  This
 // kernel reads the card's nanosecond clock (%globaltimer) and writes it,
-// or adds it, into the row of tree slot `ctl[3]` of a (capacity, 5)
-// int64 table: start, waves_start, waves_end, end, and hist_ns (a sum
-// that one stamp opens with -now and the next closes with +now).  It is
-// launched on the current stream like any other launch, so it is
-// captured into the pieces and runs inside the WHILE nodes too.  Each
-// launch also adds one to a device counter (`count`), so a replayed
-// graph's stamps are counted as they run.
+// or adds it, into the row of tree slot `ctl[3]` of a (capacity, 6)
+// int64 table: start, waves_start, waves_end, end, and the sums hist_ns
+// and grad_ns (each interval opened by one stamp with -now and closed by
+// the next with +now).  It is launched on the current stream like any
+// other launch, so it is captured into the pieces and runs inside the
+// WHILE nodes too.  Each launch also adds one to a device counter
+// (`count`), so a replayed graph's stamps are counted as they run.
 //
 // What bounds it: one launch of one thread, a read of a control word, a
 // store of 8 bytes and an add to the counter, about a microsecond a
-// stamp.  A tree takes 4 stamps
-// and a wave 2.
+// stamp.  A tree takes 4 stamps, a fused tree's gradient 2 and a wave 2.
 
 #include <cuda_runtime.h>
+
+// the table's fields a row (ops/clock.py FIELDS), and the sums a tree's
+// first stamp zeroes
+constexpr int kFields = 6;
+constexpr int kHist = 4;
+constexpr int kGrad = 5;
 
 extern "C" __global__ void obs_clock_stamp(long long* clock, const int* ctl,
                                            int capacity, int field,
@@ -30,15 +35,16 @@ extern "C" __global__ void obs_clock_stamp(long long* clock, const int* ctl,
   atomicAdd(count, 1ULL);
   const int t = ctl[3];
   if (t < 0 || t >= capacity) return;
-  long long* row = clock + static_cast<long long>(t) * 5;
+  long long* row = clock + static_cast<long long>(t) * kFields;
   const long long v = static_cast<long long>(now);
   switch (mode) {
     case 0:  // set the field
       row[field] = v;
       break;
-    case 1:  // open a tree: set the field, zero the kernel-1 sum
+    case 1:  // open a tree: set the field, zero the sums
       row[field] = v;
-      row[4] = 0;
+      row[kHist] = 0;
+      row[kGrad] = 0;
       break;
     case 2:  // open an interval of a sum
       row[field] -= v;

@@ -9,11 +9,14 @@ bucket runs in batches of at most ``_PAIR_BUDGET // P**2`` queries to bound
 the (B, P, P) working set.
 
 The host part (``init``: inverse max DCG, the buckets, the inverse
-permutation) is numpy; the gradient is torch ops on the scores' device
-with its loop over buckets and batches fixed at ``init``: no host read, no
-data-dependent branch, so a captured CUDA graph can replay it
-(``ops/graphs.py``).  As in the JAX package the sigmoid is exact,
-``2 / (1 + exp(2 sigma delta))``, not the reference's lookup table.
+permutation) is numpy, under the span ``rank.init``, and sets the gauges
+``rank.queries``, ``rank.batches`` (pair-matrix batches a gradient) and
+``rank.padded_pairs`` (their cells, the sum of B * P**2); the gradient
+is torch ops on the scores' device with its loop over buckets and
+batches fixed at ``init``: no host read, no data-dependent branch, so a
+captured CUDA graph can replay it (``ops/graphs.py``).  As in the JAX
+package the sigmoid is exact, ``2 / (1 + exp(2 sigma delta))``, not the
+reference's lookup table.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..utils.log import LightGBMError
 from .base import ObjectiveFunction
 
@@ -105,6 +109,10 @@ class LambdarankNDCG(ObjectiveFunction):
             raise LightGBMError("sigmoid param must be greater than zero")
 
     def init(self, metadata, num_data, device):
+        with obs.span("rank.init", cat="train"):
+            self._init(metadata, num_data, device)
+
+    def _init(self, metadata, num_data, device):
         super().init(metadata, num_data, device)
         qb = metadata.query_boundaries
         if qb is None:
@@ -153,6 +161,11 @@ class LambdarankNDCG(ObjectiveFunction):
                             batch))
             self.bucket_sizes[p] = (len(qs), batch)
             flat_rows.append(rows.reshape(-1))
+        obs.set_gauge("rank.queries", num_queries)
+        obs.set_gauge("rank.batches", sum(-(-q // b) for q, b in
+                                          self.bucket_sizes.values()))
+        obs.set_gauge("rank.padded_pairs", sum(
+            -(-q // b) * b * p * p for p, (q, b) in self.bucket_sizes.items()))
         # position of each data row in the concatenated bucket layout:
         # the gradients assemble with one gather
         concat = np.concatenate(flat_rows)

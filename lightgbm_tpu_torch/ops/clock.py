@@ -1,8 +1,8 @@
 """The device clock of the grower's trees.
 
-Every tree the device grower grows records five int64 values in
+Every tree the device grower grows records six int64 values in
 nanoseconds into the row of its chunk slot (``ctl[3]``) of a
-``(capacity, 5)`` table beside the chunk's records
+``(capacity, 6)`` table beside the chunk's records
 (``DeviceGrower._ensure_state``: ``out_clock``):
 
 * ``start``: before the tree's first piece;
@@ -11,7 +11,10 @@ nanoseconds into the row of its chunk slot (``ctl[3]``) of a
 * ``end``: at the end of the finish piece;
 * ``hist_ns``: the sum over the tree's waves of the time of the
   grower's kernel-1 call (``DeviceGrower._wave_hist``), stamped just
-  before and just after it.
+  before and just after it;
+* ``grad_ns``: the objective's gradient in a fused tree's sample piece
+  (``DeviceGrower._piece_sample``), stamped just before and just after
+  it; 0 on a tree that is not fused (its gradients come from the host).
 
 On the card one one-thread kernel (``csrc/obs_clock.cu``,
 ``obs_clock_stamp``) reads ``%globaltimer``; it is captured into the
@@ -33,10 +36,10 @@ import torch
 from .build import load_library
 from .hist_cuda import DeviceLaunchCount
 
-FIELDS = ("start", "waves_start", "waves_end", "end", "hist_ns")
-START, WAVES_START, WAVES_END, END, HIST = range(len(FIELDS))
-#: stamp modes: set the field; set it and zero the kernel-1 sum (a tree's
-#: first stamp); open an interval of a sum (field -= now); close it
+FIELDS = ("start", "waves_start", "waves_end", "end", "hist_ns", "grad_ns")
+START, WAVES_START, WAVES_END, END, HIST, GRAD = range(len(FIELDS))
+#: stamp modes: set the field; set it and zero the sums (a tree's first
+#: stamp); open an interval of a sum (field -= now); close it
 #: (field += now)
 SET, OPEN_TREE, OPEN, CLOSE = range(4)
 
@@ -49,6 +52,7 @@ class DeviceClock(NamedTuple):
     waves_end: int
     end: int
     hist_ns: int
+    grad_ns: int
 
     @classmethod
     def from_row(cls, row) -> "DeviceClock":
@@ -67,7 +71,7 @@ def _launcher():
 def stamp(clock: torch.Tensor, ctl: torch.Tensor, field: int,
           mode: int = SET) -> None:
     """Stamp ``field`` of the row ``ctl[3]`` of ``clock`` (a contiguous
-    ``(capacity, 5)`` int64 table) by ``mode``; a slot outside the table
+    ``(capacity, 6)`` int64 table) by ``mode``; a slot outside the table
     is left alone.  On the card: one kernel launch on the current stream
     (captured when a capture is running), which also counts itself in
     :attr:`stamp.launches`; on the CPU: the host clock, counted there."""
@@ -86,6 +90,7 @@ def stamp(clock: torch.Tensor, ctl: torch.Tensor, field: int,
             clock[t, field] = now
             if mode == OPEN_TREE:
                 clock[t, HIST] = 0
+                clock[t, GRAD] = 0
         return
     rc = _launcher()(clock.data_ptr(), ctl.data_ptr(), int(clock.shape[0]),
                      int(field), int(mode), count.data_ptr(),

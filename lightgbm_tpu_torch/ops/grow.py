@@ -56,8 +56,9 @@ piece (the tree's first device-clock stamp, ``ops/clock.py``), a sample
 piece (fused trees: gradients, the bagging redraw, the feature mask), a
 start piece (stat columns, a fresh root), one wave piece per stage width
 and a finish piece (refit, score update, the records into a chunk slot).
-The start and finish pieces and each wave's kernel-1 call stamp the
-tree's device clock too, into the chunk slot's row beside its records.
+The start and finish pieces, the sample piece's gradient and each wave's
+kernel-1 call stamp the tree's device clock too, into the chunk slot's
+row beside its records.
 The leaf count, the done flag, the wave count and the chunk slot live in
 device control words (``ctl``), so no piece reads anything back.  On the
 card the pieces are captured once as CUDA graphs and composed into one
@@ -145,7 +146,7 @@ class GrowResult(NamedTuple):
     num_leaves: torch.Tensor  # () int32, on the device
     root_value: torch.Tensor  # () f32 root leaf output
     waves: torch.Tensor       # () int32 waves run, on the device
-    clock: torch.Tensor       # (5,) int64 device clock (ops/clock.py)
+    clock: torch.Tensor       # (6,) int64 device clock (ops/clock.py)
 
 
 class FusedResult(NamedTuple):
@@ -157,7 +158,7 @@ class FusedResult(NamedTuple):
     nl: torch.Tensor          # (K,) int32 leaves
     waves: torch.Tensor       # (K,) int32 waves
     qscales: torch.Tensor     # (K, 2) f32 int8 scales (ones without)
-    clock: torch.Tensor       # (K, 5) int64 device clocks (ops/clock.py)
+    clock: torch.Tensor       # (K, 6) int64 device clocks (ops/clock.py)
 
 
 def _wave_width(num_leaves: int, hist_cols: int) -> int:
@@ -1006,13 +1007,16 @@ class DeviceGrower:
     def _piece_sample(self, redraw: bool) -> None:
         """Fused trees only: gradients from the current score, the
         bagging redraw (``redraw``: the host knows which trees start a
-        round) and the feature_fraction mask, into the input buffers."""
+        round) and the feature_fraction mask, into the input buffers.  The
+        gradient's time goes to the tree's ``grad_ns``."""
         st = self._st
         key = self._tree_key()
         grad_fn, gargs = self._grad
+        self._stamp(clock.GRAD, clock.OPEN)
         g, h = grad_fn(st.score, gargs)
         st.grad.copy_(g)
         st.hess.copy_(h)
+        self._stamp(clock.GRAD, clock.CLOSE)
         if redraw:
             st.row_mask.copy_(bag_mask(key[6:8], self._bag_npad,
                                        self.num_data, self._bag_fraction))

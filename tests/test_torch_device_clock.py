@@ -5,11 +5,13 @@ program's spans on the profiler's clock (``obs.span`` while a
 * trees of a fused chunk and of the per-iteration path carry a
   ``device_clock`` after ``_flush_pending``, with ``start <= waves_start
   <= waves_end <= end`` and ``0 < hist_ns <= waves_end - waves_start``;
+  a fused tree's gradient ``0 < grad_ns <= waves_start - start``, a
+  per-iteration tree's (gradients from the host) 0;
 * the clock changes no result: model text is the same with the clocks
   read or dropped, and the chunk's records equal the per-iteration
   trees';
 * a stamp outside the slot table is left alone, and every stamp is
-  counted: four a tree and two a wave;
+  counted: four a tree, two a wave and two a fused tree's gradient;
 * under ``torch.profiler`` with telemetry off, a tensor ``Dataset`` build
   and a chunked train emit ``user_annotation`` events of the data and
   boosting spans; with no profiler and telemetry off ``obs.span`` is the
@@ -132,15 +134,33 @@ def test_stamp_outside_the_table_is_left_alone():
     assert int(table[0].abs().sum()) == 0
     assert table[1, clock.START] > 0
     assert table[1, clock.HIST] >= 1_000_000
+    # a tree's first stamp zeroes both sums
+    table[1, clock.GRAD] = 5
+    clock.stamp(table, ctl, clock.START, clock.OPEN_TREE)
+    assert table[1, clock.HIST] == table[1, clock.GRAD] == 0
+
+
+@pytest.mark.parametrize("path", ["fused", "per_iteration"])
+def test_gradient_clock_on_fused_trees_only(path):
+    for t in _trained(path)._gbdt.models:
+        c = t.device_clock
+        if path == "fused":
+            assert 0 < c.grad_ns <= c.waves_start - c.start
+        else:
+            assert c.grad_ns == 0
 
 
 @pytest.mark.parametrize("path", ["fused", "per_iteration"])
 def test_stamps_are_counted_four_a_tree_and_two_a_wave(path):
+    """Four a tree and two a wave, and two more a fused tree (its
+    gradient)."""
     clock.stamp.launches.reset()
     gb = _trained(path)._gbdt
     waves = sum(int(s[2]) for s in gb.tree_stats)
     assert waves > 0
-    assert clock.stamp.launches.read() == 4 * len(gb.models) + 2 * waves
+    grads = len(gb.models) if path == "fused" else 0
+    assert clock.stamp.launches.read() \
+        == 4 * len(gb.models) + 2 * waves + 2 * grads
 
 
 def test_host_arrays_cut_one_copy_back_into_its_tensors():
@@ -244,6 +264,7 @@ def test_captured_tree_clock_on_the_card():
         c = t.device_clock
         assert c.start <= c.waves_start <= c.waves_end <= c.end
         assert 0 < c.hist_ns <= c.waves_end - c.waves_start
+        assert 0 < c.grad_ns <= c.waves_start - c.start
     assert sum(t.device_clock.end - t.device_clock.start
                for t in trees) <= wall_ns
     per = lt.Booster(params, lt.Dataset(x, y, params=params))
